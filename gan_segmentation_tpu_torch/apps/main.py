@@ -1,0 +1,193 @@
+"""CLI entry point of the PyTorch port:
+
+    python -m gan_segmentation_tpu_torch.apps.main generate --config config.yml
+
+reads ``config.yml`` (keys at reference `main.py:33-43`) and runs
+``generate``, the synthetic-dataset emitter, on one CUDA device: z -> image
+and mask in one device pass, only uint8 crossing to the host.  ``train``,
+``evaluate`` and ``annotation`` are not ported yet.
+"""
+
+import argparse
+import logging
+import os
+import sys
+from os import makedirs
+from os.path import isdir, isfile, join
+from typing import Optional
+
+import numpy as np
+
+from ..core.config import load_config_file
+from ..train.generator import FusedPipeline, ImageGenerator
+from ..train.solver import SegSolver
+
+log = logging.getLogger(__name__)
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("action", nargs="?",
+                        choices=("annotation", "train", "evaluate", "generate"),
+                        default="annotation")
+    parser.add_argument("--config", default="config.yml")
+    parser.add_argument(
+        "--spatial", type=int, default=1, metavar="N",
+        help="generate: spatial parallelism over N devices (not ported; "
+             "only 1 is accepted)")
+    parser.add_argument(
+        "--dp", type=int, default=1, metavar="D",
+        help="generate: data parallelism over D devices (not ported; only 1 "
+             "is accepted)")
+    parser.add_argument(
+        "--resume", action="store_true", default=False,
+        help="generate: continue an interrupted emission — keep the "
+             "contiguous (image, mask) pairs already on disk, fast-forward "
+             "the seeded z stream past them, and write only the remainder "
+             "(the pairs produced are identical to an uninterrupted run)")
+    parser.add_argument(
+        "--quant", choices=("none", "int8", "int8-full"), default="none",
+        help="generate: post-training quantization (not ported; only "
+             "'none' is accepted)")
+    parser.add_argument(
+        "--writer", choices=("auto", "native", "cv2"), default="auto",
+        help="generate: host-side pair writer. 'native' is the C++ threaded "
+             "JPEG/PNG encoder (gan_segmentation_tpu.native); 'cv2' the "
+             "sequential loop; 'auto' picks native when it builds.")
+    return parser.parse_args(argv)
+
+
+def build_solver(cfg):
+    return SegSolver(cfg.max_res_log2, join(cfg.BASE_DIR, "data"),
+                     join(cfg.BASE_DIR, "checkpoints"),
+                     cfg=cfg.solver_config())
+
+
+def _write_pairs_native(pipeline, n_local: int, dst_dir: str, start: int,
+                        progress) -> None:
+    """The C++ threaded writer: masks stay bit-packed into the PNG encoder,
+    images are encoded as RGB, and encoding overlaps device compute."""
+    from gan_segmentation_tpu.native import PairWriter
+    with PairWriter() as writer:
+        index = start
+        for imgs, masks, packed in pipeline.generate_batches(n_local):
+            width = imgs.shape[2]
+            for i in range(imgs.shape[0]):
+                writer.submit(join(dst_dir, f"img_{index:06d}.jpg"),
+                              join(dst_dir, f"mask_{index:06d}.png"),
+                              img=imgs[i], mask=masks[i], mask_packed=packed,
+                              mask_width=width)
+                index += 1
+                if progress is not None:
+                    progress.update()
+
+
+def _write_pairs_cv2(pipeline, n_local: int, dst_dir: str, start: int,
+                     progress) -> None:
+    """Sequential writer loop (reference `main.py:96-104`).  Writes are
+    atomic (tmp + rename), the invariant `resume_offset` relies on."""
+    import cv2
+
+    def atomic_write(name: str, arr) -> None:
+        tmp = join(dst_dir, ".tmp_" + name)
+        if not cv2.imwrite(tmp, arr):
+            raise RuntimeError(f"cv2.imwrite failed for {name}")
+        os.replace(tmp, join(dst_dir, name))
+
+    for index, (img, mask) in enumerate(pipeline.generate_pairs(n_local)):
+        atomic_write(f"img_{start + index:06d}.jpg", img[:, :, ::-1])
+        atomic_write(f"mask_{start + index:06d}.png", mask)
+        if progress is not None:
+            progress.update()
+
+
+def resume_offset(dst_dir: str, start: int, n_local: int,
+                  batch_size: int) -> int:
+    """How many of this process's pairs an interrupted `generate` already
+    wrote, rounded DOWN to a batch boundary.
+
+    A copy of ``gan_segmentation_tpu/apps/main.py::resume_offset`` (that
+    module imports jax); ``tests/test_torch_app.py`` pins the two together.
+    Counts the contiguous run of complete (img, mask) pairs from ``start``
+    (both writers are atomic), backs off one pair for files written by other
+    tools, and rounds down to a multiple of ``batch_size`` so the resumed z
+    stream stays batch-aligned."""
+    done = 0
+    while done < n_local:
+        idx = start + done
+        if not (isfile(join(dst_dir, f"img_{idx:06d}.jpg"))
+                and isfile(join(dst_dir, f"mask_{idx:06d}.png"))):
+            break
+        done += 1
+    return (max(0, done - 1) // batch_size) * batch_size
+
+
+def run_generate(cfg, spatial: int = 1, writer: str = "auto",
+                 resume: bool = False, quant: Optional[str] = None,
+                 dp: int = 1):
+    if spatial != 1 or dp != 1:
+        raise SystemExit("--spatial and --dp are not ported yet: the PyTorch "
+                         "port generates on one device (ROADMAP Queue 1 #12)")
+    if quant is not None:
+        raise SystemExit("--quant is not ported yet (ROADMAP Queue 1 #14)")
+    solver = build_solver(cfg)
+    if not solver.is_trained:
+        print("train Decoder first!")
+        sys.exit(-1)
+
+    n_local = cfg.GENERATE_NUM
+    batch_size = cfg.GAN_BATCH_SIZE_PER_GPU * max(1, len(cfg.GAN_GPU_IDS))
+    netG = ImageGenerator(gan=cfg.GAN, gan_dir=cfg.GAN_DIR,
+                          batch_size=batch_size,
+                          max_res_log2=cfg.MAX_RES_LOG2, seed=0)
+    pipeline = FusedPipeline(netG, solver)
+
+    dst_dir = join(cfg.BASE_DIR, "dataset", "train_generated")
+    if not isdir(dst_dir):
+        makedirs(dst_dir)
+
+    skip = 0
+    if resume:
+        skip = resume_offset(dst_dir, 0, n_local, batch_size)
+        if skip:
+            netG.skip_batches(skip // batch_size)
+            log.info("resume: %d pairs already on disk, fast-forwarded the "
+                     "z stream %d batches; writing indices %d..%d",
+                     skip, skip // batch_size, skip, n_local - 1)
+    n_todo = n_local - skip
+
+    progress = None
+    try:
+        from tqdm import tqdm
+        progress = tqdm(total=n_todo)
+    except ImportError:
+        pass
+    if writer == "auto":
+        from gan_segmentation_tpu.native import native_available
+        writer = "native" if native_available() else "cv2"
+    log.info("pair writer: %s", writer)
+    write = _write_pairs_native if writer == "native" else _write_pairs_cv2
+    write(pipeline, n_todo, dst_dir, skip, progress)
+    if progress is not None:
+        progress.close()
+    log.info("wrote %d (image, mask) pairs to %s (indices %d..%d)",
+             n_todo, dst_dir, skip, n_local - 1)
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO,
+                        format="%(levelname)s:%(name)s:%(message)s")
+    args = parse_args(argv)
+    if args.action != "generate":
+        raise SystemExit(f"'{args.action}' is not ported to PyTorch yet; "
+                         "use the JAX package (main.py) for it")
+    np.random.seed(0)  # `main.py:29-31`
+    cfg = load_config_file(args.config)
+    run_generate(cfg, spatial=args.spatial, writer=args.writer,
+                 resume=args.resume,
+                 quant=None if args.quant == "none" else args.quant,
+                 dp=args.dp)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,90 @@
+"""JAX-package parameter trees -> the port's ``state_dict``s.
+
+Input is the JAX package's tree as nested mappings of numpy arrays
+(``jax.device_get(params)``, and the decoder's ``batch_stats``); nothing of
+jax is imported.  The map is layout only: both packages keep the wscale
+multipliers at run time (`gan_segmentation_tpu/models/layers.py:79-90,
+119-127,182-186`), so no value is rescaled.
+
+- conv HWIO -> OIHW;
+- transposed conv: the JAX package stores the flipped, conv-equivalent
+  kernel (`gan_segmentation_tpu/ops/conv.py:286-290`), so PyTorch's
+  ``F.conv_transpose2d`` weight is ``torch_w[ci,co,ky,kx] =
+  jax_w[k-1-ky, k-1-kx, ci, co]``;
+- dense (in, out) -> (out, in);
+- the JAX package's BatchNorm ``scale``/``bias`` and batch stats
+  ``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``.
+"""
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def conv_weight(hwio) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(hwio, np.float32).transpose(3, 2, 0, 1)))
+
+
+def deconv_weight(hwio_flipped) -> torch.Tensor:
+    w = np.asarray(hwio_flipped, np.float32)[::-1, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(w.transpose(2, 3, 0, 1)))
+
+
+def dense_weight(in_out) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(in_out, np.float32).T))
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def generator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``StyleGanGenerator`` params -> ``models.stylegan`` state_dict.
+    Module paths map one to one (``block_3/adain_1/affine/weight`` ->
+    ``block_3.adain_1.affine.weight``)."""
+    out = {}
+    for key, v in _flatten(params).items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "weight" and v.ndim == 4:
+            out[key] = (deconv_weight(v) if ".deconv_" in f".{key}"
+                        else conv_weight(v))
+        elif leaf == "weight" and v.ndim == 2:
+            out[key] = dense_weight(v)
+        else:
+            out[key] = torch.from_numpy(np.array(v, np.float32))
+    return out
+
+
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def decoder_state_dict(params: Mapping,
+                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``Decoder`` params + batch_stats -> ``models.decoder``
+    state_dict.  Conv ``kernel`` and BatchNorm ``scale`` both become
+    ``weight``; ``bias`` keeps its name in both."""
+    out = {}
+    for key, v in _flatten(params).items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "kernel":
+            out[f"{module}.weight"] = conv_weight(v)
+        elif leaf == "scale":
+            out[f"{module}.weight"] = torch.from_numpy(np.array(v, np.float32))
+        else:
+            out[key] = torch.from_numpy(np.array(v, np.float32))
+    for key, v in _flatten(batch_stats).items():
+        module, leaf = key.rsplit(".", 1)
+        out[f"{module}.{_STAT_LEAVES[leaf]}"] = torch.from_numpy(
+            np.array(v, np.float32))
+        out[f"{module}.num_batches_tracked"] = torch.tensor(0)
+    return out

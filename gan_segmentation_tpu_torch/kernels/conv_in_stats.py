@@ -1,0 +1,74 @@
+"""Kernel 1: conv3x3 + noise + bias + leaky-relu with instance-norm statistics.
+
+CUDA source: ``csrc/conv_in_stats.cu``.  Replaces the TPU kernel
+``experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats``
+and keeps its contract: NHWC / HWIO, stride 1, pad 1, ``w`` the effective
+(wscaled) kernel, ``noise`` (N, H, W) f32, ``nscale`` and ``bias`` (Cout,) f32;
+``y`` in x's dtype; ``mean`` and ``var`` (N, Cout) f32 taken from the f32
+epilogue values, with ``var = E[y^2] - mean^2`` NOT clamped — the consumer
+(`ops.norm.instance_norm_apply`) clamps.  Unlike Pallas, any H and W run.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+
+def conv3x3_noise_bias_lrelu_instats_plain(x, w, noise, nscale, bias, *,
+                                           leaky: float = 0.2):
+    """The plain PyTorch version: the CPU path and the kernel's reference."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    y = y.permute(0, 2, 3, 1).float()
+    y = y + noise.float()[..., None] * nscale.float() + bias.float()
+    y = torch.where(y >= 0, y, leaky * y)
+    mean = y.mean(dim=(1, 2))
+    var = (y * y).mean(dim=(1, 2)) - mean * mean
+    return y.to(x.dtype), mean, var
+
+
+def conv3x3_noise_bias_lrelu_instats(x, w, noise, nscale, bias, *,
+                                     leaky: float = 0.2):
+    """-> (y, mean, var).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    n, h, wd, cin = x.shape
+    if w.dim() != 4:
+        raise ValueError(f"w must be HWIO, got shape {tuple(w.shape)}")
+    cout = w.shape[3]
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    dev = x.device
+    _build.check(x, "x", (n, h, wd, cin), x.dtype, dev)
+    _build.check(w, "w", (3, 3, cin, cout), x.dtype, dev)
+    _build.check(noise, "noise", (n, h, wd), torch.float32, dev)
+    _build.check(nscale, "nscale", (cout,), torch.float32, dev)
+    _build.check(bias, "bias", (cout,), torch.float32, dev)
+    if dev.type == "cpu":
+        return conv3x3_noise_bias_lrelu_instats_plain(x, w, noise, nscale,
+                                                      bias, leaky=leaky)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+    lib = _build.library()
+    tiles = lib.gst_conv3x3_num_tiles(h, wd)
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    partial = torch.empty((n, tiles, 2, cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gst_conv3x3_in_stats(
+            x.data_ptr(), w.data_ptr(), noise.data_ptr(), nscale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            n, h, wd, cin, cout, _build.DTYPE_CODES[x.dtype], float(leaky),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "conv3x3_noise_bias_lrelu_instats")
+    conv3x3_noise_bias_lrelu_instats.launches += 1
+    # second pass: the per-tile partial sums, reduced over the tile axis in a
+    # fixed order (no atomics, so the statistics are deterministic)
+    sums = partial.sum(dim=1)
+    mean = sums[:, 0] / (h * wd)
+    var = sums[:, 1] / (h * wd) - mean * mean
+    return y, mean, var
+
+
+conv3x3_noise_bias_lrelu_instats.launches = 0

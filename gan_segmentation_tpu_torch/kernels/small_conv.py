@@ -1,0 +1,76 @@
+"""Kernel 2: direct 3x3 conv with a fused bias and relu / leaky epilogue.
+
+CUDA source: ``csrc/small_conv.cu``.  Replaces the TPU kernel
+``experiments/pallas_archive/small_conv.py::conv3x3_small`` and keeps its
+contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's
+dtype, ``b`` optional (Cout,) f32.  Unlike Pallas, any H and W run.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+_ACT_CODES = {"none": 0, "relu": 1, "leaky": 2}
+
+
+def _act(relu: bool, leaky: Optional[float]) -> str:
+    if relu and leaky is not None:
+        raise ValueError("pass relu or leaky, not both")
+    return "relu" if relu else ("leaky" if leaky is not None else "none")
+
+
+def conv3x3_small_plain(x, w, b=None, *, relu: bool = False,
+                        leaky: Optional[float] = None):
+    """The plain PyTorch version: the CPU path and the kernel's reference."""
+    act = _act(relu, leaky)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
+    y = y.permute(0, 2, 3, 1).float()
+    if b is not None:
+        y = y + b.float()
+    if act == "relu":
+        y = torch.clamp_min(y, 0.0)
+    elif act == "leaky":
+        y = torch.where(y >= 0, y, leaky * y)
+    return y.to(x.dtype)
+
+
+def conv3x3_small(x, w, b=None, *, relu: bool = False,
+                  leaky: Optional[float] = None):
+    """y = conv3x3(x, w) [+ b] [relu | leaky].  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    act = _act(relu, leaky)
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    n, h, wd, cin = x.shape
+    if w.dim() != 4:
+        raise ValueError(f"w must be HWIO, got shape {tuple(w.shape)}")
+    cout = w.shape[3]
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    dev = x.device
+    _build.check(x, "x", (n, h, wd, cin), x.dtype, dev)
+    _build.check(w, "w", (3, 3, cin, cout), x.dtype, dev)
+    if b is not None:
+        _build.check(b, "b", (cout,), torch.float32, dev)
+    if dev.type == "cpu":
+        return conv3x3_small_plain(x, w, b, relu=relu, leaky=leaky)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+
+    lib = _build.library()
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gst_conv3x3_small(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), n, h, wd, cin, cout, _build.DTYPE_CODES[x.dtype],
+            _ACT_CODES[act], float(leaky or 0.0),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "conv3x3_small")
+    conv3x3_small.launches += 1
+    return y
+
+
+conv3x3_small.launches = 0

@@ -1,0 +1,190 @@
+"""Segmentation decoder over the GAN feature pyramid (PyTorch counterpart of
+``gan_segmentation_tpu/models/decoder.py``), eval mode.
+
+- per scale ``cvt_i``: conv3x3 (in_ch -> feat) + BN + LeakyReLU(0.2)
+  (+ dropout, identity in eval);
+- progressive fusion: concat ``[prev, cvt]``, nearest-2x upsample, then a
+  ``DecoderResBlock`` (2 x conv3x3-BN-LReLU, plus a 1x1 shortcut when the
+  width changes) — at the last scale a plain conv3x3 to the class logits.
+
+In eval mode batch norm folds into the conv before it (``fold_bn``), and
+every 3x3 conv runs through kernel 2 (`kernels/small_conv.py`) with the
+leaky epilogue fused (none for the final conv).  The 1x1 shortcut and the
+residual add stay plain.  Train mode (BN batch statistics, dropout) is not
+ported yet.  Parameters keep the JAX package's names (``cvt_0_conv``,
+``main_0.bn_0``, ...); BatchNorm2d's momentum 0.1 is its momentum 0.9.
+"""
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..core.config import SolverConfig
+from ..kernels.small_conv import conv3x3_small
+from ..ops.conv import conv2d
+from ..ops.resize import upsample_nearest_2x
+from .layers import hwio
+
+BN_EPS = 1e-5
+Folded = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def mx_xavier_in(t: torch.Tensor, gen: torch.Generator,
+                 magnitude: float = 2.34) -> None:
+    """mxnet ``Xavier(factor_type='in', magnitude=2.34)`` in place:
+    uniform(-sqrt(magnitude/fan_in), +sqrt(magnitude/fan_in)), fan_in =
+    Cin*kh*kw of an OIHW kernel (not ``nn.init.xavier_uniform_``)."""
+    fan_in = math.prod(t.shape[1:])
+    scale = math.sqrt(magnitude / fan_in)
+    with torch.no_grad():
+        t.uniform_(-scale, scale, generator=gen)
+
+
+class Conv(nn.Module):
+    """A conv's parameters: OIHW ``weight`` and ``bias``."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size: int):
+        super().__init__()
+        k = kernel_size
+        self.weight = nn.Parameter(torch.empty(features, in_ch, k, k))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, gen: torch.Generator):
+        mx_xavier_in(self.weight, gen)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x):
+        """Plain conv (the 1x1 shortcut), in x's dtype."""
+        return conv2d(x, hwio(self.weight).to(x.dtype),
+                      self.bias.to(x.dtype),
+                      padding=self.weight.shape[-1] // 2)
+
+
+def fold_conv_bn(conv: Conv, bn: Optional[nn.BatchNorm2d],
+                 dtype: torch.dtype):
+    """-> (HWIO kernel in ``dtype``, f32 bias) of conv followed by eval BN:
+    ``w * g/sqrt(var+eps)`` and ``(b - mean) * g/sqrt(var+eps) + beta``."""
+    w, b = conv.weight.float(), conv.bias.float()
+    if bn is not None:
+        s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
+        w = w * s[:, None, None, None]
+        b = (b - bn.running_mean.float()) * s + bn.bias.float()
+    return hwio(w).to(dtype).contiguous(), b.contiguous()
+
+
+class DecoderResBlock(nn.Module):
+    def __init__(self, in_ch: int, conv_size: int, use_bn: bool = True):
+        super().__init__()
+        self.conv_0 = Conv(in_ch, conv_size, 3)
+        self.conv_1 = Conv(conv_size, conv_size, 3)
+        if use_bn:
+            self.bn_0 = nn.BatchNorm2d(conv_size, eps=BN_EPS, momentum=0.1)
+            self.bn_1 = nn.BatchNorm2d(conv_size, eps=BN_EPS, momentum=0.1)
+        self.shortcut = (Conv(in_ch, conv_size, 1) if conv_size != in_ch
+                         else None)
+
+    def fold_bn(self, dtype: torch.dtype, prefix: str) -> Folded:
+        return {f"{prefix}.conv_{k}": fold_conv_bn(
+            getattr(self, f"conv_{k}"), getattr(self, f"bn_{k}", None), dtype)
+            for k in (0, 1)}
+
+    def forward(self, x, folded: Folded, prefix: str):
+        y = conv3x3_small(x, *folded[f"{prefix}.conv_0"], leaky=0.2)
+        y = conv3x3_small(y, *folded[f"{prefix}.conv_1"], leaky=0.2)
+        sc = x if self.shortcut is None else self.shortcut(x)
+        return sc + y
+
+
+class Decoder(nn.Module):
+    """``forward(features) -> logits (N, H, W, num_classes)`` f32;
+    ``features`` is the generator pyramid, NHWC, lowest resolution first."""
+
+    def __init__(self, features_cfg: Sequence[int], in_channels: Sequence[int],
+                 start_res: int = 0, use_bn: bool = True,
+                 use_dropout: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.features_cfg = tuple(features_cfg)
+        self.in_channels = tuple(in_channels)
+        self.start_res = start_res
+        self.use_bn = use_bn
+        self.use_dropout = use_dropout  # identity in eval mode
+        self.compute_dtype = compute_dtype
+        f = self.features_cfg
+        last = len(self.in_channels) - 1
+        for i in range(start_res, last + 1):
+            self.add_module(f"cvt_{i}_conv", Conv(self.in_channels[i], f[i], 3))
+            if use_bn:
+                self.add_module(f"cvt_{i}_bn", nn.BatchNorm2d(
+                    f[i], eps=BN_EPS, momentum=0.1))
+            # the running prediction (f[i] channels) joins the converted
+            # feature from the second scale on
+            c_in = f[i] * (2 if i > start_res else 1)
+            if i < last:
+                self.add_module(f"main_{i}",
+                                DecoderResBlock(c_in, f[i + 1], use_bn))
+            else:
+                self.add_module(f"main_{i}_conv", Conv(c_in, f[i + 1], 3))
+
+    def reset_parameters(self, gen: torch.Generator):
+        """The JAX init: every conv kernel Xavier(in, 2.34), biases 0, BN
+        scale 1, shift 0, running mean 0, var 1."""
+        for m in self.modules():
+            if isinstance(m, Conv):
+                m.reset_parameters(gen)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+    def fold_bn(self, dtype: Optional[torch.dtype] = None) -> Folded:
+        """Eval-mode (kernel, bias) of every 3x3 conv with its BN folded in,
+        kernels HWIO in ``dtype`` (default: the compute dtype)."""
+        dtype = dtype or self.compute_dtype
+        last = len(self.in_channels) - 1
+        out = {}
+        for i in range(self.start_res, last + 1):
+            out[f"cvt_{i}"] = fold_conv_bn(getattr(self, f"cvt_{i}_conv"),
+                                           getattr(self, f"cvt_{i}_bn", None),
+                                           dtype)
+            if i < last:
+                out.update(getattr(self, f"main_{i}").fold_bn(dtype,
+                                                              f"main_{i}"))
+            else:
+                out[f"main_{i}_conv"] = fold_conv_bn(
+                    getattr(self, f"main_{i}_conv"), None, dtype)
+        return out
+
+    def forward(self, inputs: List[torch.Tensor],
+                folded: Optional[Folded] = None,
+                dtype: Optional[torch.dtype] = None):
+        """``folded`` is ``fold_bn(dtype)``, computed here when not given;
+        activations run in ``dtype`` (default: the compute dtype)."""
+        if self.training:
+            raise NotImplementedError("Decoder train mode (BN batch "
+                                      "statistics, dropout) is not ported "
+                                      "yet; call .eval()")
+        dtype = dtype or self.compute_dtype
+        folded = folded if folded is not None else self.fold_bn(dtype)
+        last = len(self.in_channels) - 1
+        prev = pred = None
+        for i in range(self.start_res, last + 1):
+            x = inputs[i].to(dtype).contiguous()
+            x = conv3x3_small(x, *folded[f"cvt_{i}"], leaky=0.2)
+            if i > self.start_res:
+                x = torch.cat([prev, x], dim=-1)
+            if i < last:
+                x = upsample_nearest_2x(x)
+                pred = getattr(self, f"main_{i}")(x, folded, f"main_{i}")
+            else:
+                pred = conv3x3_small(x, *folded[f"main_{i}_conv"])
+            prev = pred
+        return pred.float()
+
+
+def decoder_from_config(cfg: SolverConfig,
+                        compute_dtype: torch.dtype = torch.float32) -> Decoder:
+    return Decoder(features_cfg=cfg.features, in_channels=cfg.in_channels,
+                   start_res=cfg.start_res, use_bn=cfg.use_bn,
+                   use_dropout=cfg.use_dropout, compute_dtype=compute_dtype)

@@ -1,0 +1,168 @@
+"""StyleGAN (v1) generator emitting the per-resolution feature pyramid
+(PyTorch counterpart of ``gan_segmentation_tpu/models/stylegan.py``).
+
+z -> 8-layer mapping MLP (PixelNorm front, lr_mult 0.01) -> per-layer
+truncation ``lerp(latent_avg, w, psi_i)`` -> one synthesis block per
+resolution 4^2 .. 2^max_res_log2 -> ``to_rgb`` 1x1 conv.  Each block:
+
+    [nearest-2x conv3x3 | deconv k4s2p1 (res >= 128)] -> blur -> noise ->
+    bias -> lrelu -> AdaIN -> conv3x3 -> noise -> bias -> lrelu -> AdaIN
+
+The second half (conv_2 .. lrelu plus the AdaIN statistics) is ONE launch
+of kernel 1 (`kernels/conv_in_stats.py`); AdaIN then applies those
+statistics.  The first half stays plain PyTorch, because the blur sits
+between conv_1 and noise_1.  Layout is NHWC.
+"""
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.config import GanConfig
+from ..kernels.conv_in_stats import conv3x3_noise_bias_lrelu_instats
+from ..ops.norm import pixel_norm
+from .layers import (AdaIN, AddNoise, Bias, Blur, Conv2DTransposeW, Conv2DW,
+                     DenseW, leaky_relu)
+
+
+class MappingNetwork(nn.Module):
+    """z -> w: PixelNorm + 8 x (DenseW lrelu 0.2), gain sqrt(2), lr_mult .01."""
+
+    def __init__(self, cfg: GanConfig,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        for i in range(8):
+            self.add_module(f"dense_{i}", DenseW(
+                cfg.latent_size, cfg.latent_size, use_wscale=cfg.use_wscale,
+                lr_mult=cfg.mapping_lr_mult, compute_dtype=compute_dtype))
+
+    def forward(self, z):
+        x = pixel_norm(z.to(self.compute_dtype))
+        for i in range(8):
+            x = leaky_relu(getattr(self, f"dense_{i}")(x))
+        return x
+
+
+class StyleBlock(nn.Module):
+    """One synthesis block at ``res_log2`` (`networks_stylegan.py:6-73`)."""
+
+    def __init__(self, cfg: GanConfig, res_log2: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        c = cfg.num_features(res_log2)
+        ws, cd = cfg.use_wscale, compute_dtype
+        self.first = res_log2 == 2
+        if not self.first:
+            c_in = cfg.num_features(res_log2 - 1)
+            if res_log2 >= 7:  # fused upscale, `networks_stylegan.py:154`
+                self.deconv_1 = Conv2DTransposeW(c_in, c, use_wscale=ws,
+                                                 compute_dtype=cd)
+            else:
+                self.conv_1 = Conv2DW(c_in, c, 3, use_bias=False,
+                                      use_wscale=ws, up2x=True,
+                                      compute_dtype=cd)
+            self.blur_1 = Blur()
+        self.noise_1 = AddNoise(c)
+        self.bias_1 = Bias(c)
+        self.adain_1 = AdaIN(c, cfg.latent_size, ws, cd)
+        self.conv_2 = Conv2DW(c, c, 3, use_bias=False, use_wscale=ws,
+                              compute_dtype=cd)
+        self.noise_2 = AddNoise(c)
+        self.bias_2 = Bias(c)
+        self.adain_2 = AdaIN(c, cfg.latent_size, ws, cd)
+
+    def forward(self, x, w1, w2, noise=(None, None),
+                generator: Optional[torch.Generator] = None):
+        """``noise``: explicit (N, H, W, 1) f32 noise for noise_1 and noise_2,
+        or None to draw it from ``generator``."""
+        y = x
+        if not self.first:
+            up = self.deconv_1 if hasattr(self, "deconv_1") else self.conv_1
+            y = self.blur_1(up(y))
+        y = self.noise_1(y, noise[0], generator)
+        y = leaky_relu(self.bias_1(y))
+        y = self.adain_1(y, w1)
+
+        n2 = noise[1] if noise[1] is not None else AddNoise.draw(y, generator)
+        y, mean, var = conv3x3_noise_bias_lrelu_instats(
+            y.contiguous(), self.conv_2.effective_weight().contiguous(),
+            n2[..., 0].contiguous(), self.noise_2.scale_factors,
+            self.bias_2.bias, leaky=0.2)
+        return self.adain_2.apply_stats(y, mean, var, w2)
+
+
+class StyleGanGenerator(nn.Module):
+    """``forward(z) -> (rgb, [features per resolution])``, NHWC."""
+
+    def __init__(self, cfg: GanConfig,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if cfg.fold_blur:
+            raise NotImplementedError("fold_blur is not ported (it is off by "
+                                      "default in the JAX package too)")
+        self.cfg = cfg
+        self.compute_dtype = compute_dtype
+        c0 = cfg.num_features(2)
+        self.constant_tensor = nn.Parameter(
+            torch.empty(1, cfg.base_scale_y, cfg.base_scale_x, c0))
+        self.latent_avg = nn.Parameter(torch.zeros(cfg.latent_size))
+        self.truncation_psi = nn.Parameter(torch.ones(cfg.num_style_layers))
+        self.mapping = MappingNetwork(cfg, compute_dtype)
+        for res in range(2, cfg.max_res_log2 + 1):
+            self.add_module(f"block_{res}", StyleBlock(cfg, res, compute_dtype))
+        self.add_module(f"to_rgb_{cfg.max_res_log2}", Conv2DW(
+            cfg.num_features(cfg.max_res_log2), cfg.channels, 1, padding=0,
+            use_bias=True, gain=1.0, use_wscale=cfg.use_wscale,
+            compute_dtype=compute_dtype))
+
+    def reset_parameters(self, gen: torch.Generator):
+        """The JAX init: constant N(0, 1), latent_avg 0, psi 1, and each
+        layer's own init, in module order."""
+        with torch.no_grad():
+            self.constant_tensor.normal_(0.0, 1.0, generator=gen)
+            self.latent_avg.zero_()
+            self.truncation_psi.fill_(1.0)
+        for m in self.modules():
+            if m is not self and hasattr(m, "reset_parameters"):
+                m.reset_parameters(gen)
+
+    @staticmethod
+    def lerp(psi, latent_avg, w):
+        # latent_avg*(1-psi) + w*psi (`networks_stylegan.py:158-163`)
+        return latent_avg[None, :] * (1.0 - psi) + w * psi
+
+    def forward(self, z, noise: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """``noise`` maps ``"block_{res}.noise_{1|2}"`` to (N, H, W, 1) f32
+        noise; any noise not given is drawn from ``generator``."""
+        cfg, cd = self.cfg, self.compute_dtype
+        noise = noise or {}
+        w = self.mapping(z).float()
+        y = self.constant_tensor.expand(
+            z.shape[0], *self.constant_tensor.shape[1:]).to(cd)
+        psi, avg = self.truncation_psi, self.latent_avg
+        features = []
+        for res in range(2, cfg.max_res_log2 + 1):
+            i = 2 * (res - 2)
+            w1 = self.lerp(psi[i], avg, w).to(cd)
+            w2 = self.lerp(psi[i + 1], avg, w).to(cd)
+            y = getattr(self, f"block_{res}")(
+                y, w1, w2,
+                (noise.get(f"block_{res}.noise_1"),
+                 noise.get(f"block_{res}.noise_2")), generator)
+            features.append(y)
+        rgb = getattr(self, f"to_rgb_{cfg.max_res_log2}")(y)
+        return rgb, features
+
+
+def init_generator(cfg: GanConfig, seed: int = 0,
+                   compute_dtype: torch.dtype = torch.float32
+                   ) -> StyleGanGenerator:
+    """A generator with seeded random init, on the CPU (the same weights
+    whatever device it moves to)."""
+    model = StyleGanGenerator(cfg, compute_dtype)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model

@@ -1,0 +1,63 @@
+"""Convolutions on NHWC activations with HWIO weights.
+
+The JAX package's layouts (``gan_segmentation_tpu/ops/conv.py``) are kept at
+these functions; inside, an NHWC tensor viewed as NCHW is PyTorch's
+``channels_last`` layout, so ``F.conv2d`` reads and writes it without copies.
+These ops were composed by XLA on the TPU (no Pallas kernel), so they run
+through ``F.conv2d`` / ``F.conv_transpose2d`` here.
+"""
+
+import torch.nn.functional as F
+
+from .resize import upsample_nearest_2x
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(y):
+    return y.permute(0, 2, 3, 1)
+
+
+def _oihw(w):
+    return w.permute(3, 2, 0, 1)
+
+
+def conv2d(x, w, b=None, *, stride: int = 1, padding: int = 0,
+           groups: int = 1):
+    """x: (N,H,W,C), w: (kh,kw,Cin/groups,Cout); cross-correlation with
+    symmetric zero padding, as mxnet ``Convolution``."""
+    y = _nhwc(F.conv2d(_nchw(x), _oihw(w), stride=stride, padding=padding,
+                       groups=groups))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def depthwise_conv2d(x, w, b=None, *, stride: int = 1, padding: int = 0):
+    """w is (kh, kw, 1, C): one filter per input channel."""
+    c = x.shape[-1]
+    if w.shape[2] != 1 or w.shape[3] != c:
+        raise ValueError(f"depthwise kernel {tuple(w.shape)} for {c} channels")
+    return conv2d(x, w, b, stride=stride, padding=padding, groups=c)
+
+
+def upsample2x_conv2d(x, w, b=None, *, padding: int = 1):
+    """``conv2d(upsample_nearest_2x(x), w, padding)`` — the composition the
+    JAX package runs as one input-dilated conv (exact up to reassociation,
+    `gan_segmentation_tpu/ops/conv.py::upsample2x_conv2d`)."""
+    return conv2d(upsample_nearest_2x(x), w, b, padding=padding)
+
+
+def conv_transpose2d(x, w, b=None, *, stride: int = 2, padding: int = 1):
+    """mxnet ``Deconvolution(kernel=k, stride, pad)``; ``w`` is (kh, kw, Cin,
+    Cout) in the JAX package's conv-equivalent, spatially FLIPPED
+    orientation, so PyTorch's weight is ``w[::-1, ::-1]`` as (Cin, Cout, kh,
+    kw)."""
+    wt = w.flip(0, 1).permute(2, 3, 0, 1)
+    y = _nhwc(F.conv_transpose2d(_nchw(x), wt, stride=stride,
+                                 padding=padding))
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y

@@ -1,0 +1,201 @@
+"""ImageGenerator and the fused z -> (image, mask) pipeline (PyTorch
+counterpart of ``gan_segmentation_tpu/train/generator.py``), on one device.
+
+The z and noise of batch i are drawn from a ``torch.Generator`` seeded with
+a pure function of ``(seed, i)``, so ``skip_batches(k)`` only moves a
+counter and ``generate --resume`` reproduces an interrupted run byte for
+byte (on the same device type; PyTorch's and JAX's random streams differ).
+"""
+
+import logging
+from os.path import isfile, join
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import dtypes
+from ..core.config import GanConfig, gan_config
+from ..models.stylegan import StyleGanGenerator, init_generator
+
+log = logging.getLogger(__name__)
+
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # MSB first == np.unpackbits
+
+
+def _to_uint8(rgb, imrange=(-1.0, 1.0)):
+    """(-1, 1) float NHWC -> uint8 on device; the cast truncates, as the JAX
+    package's ``astype(uint8)`` (`image_generator.py:76-84`)."""
+    lo, hi = imrange
+    x = (rgb.float() - lo) / (hi - lo)
+    x = torch.clamp(x, 0.0, 1.0) * 255.0
+    return x.to(torch.uint8)
+
+
+def class_mask(logits):
+    """Class index per pixel as uint8: a strict ``>`` for two classes (ties
+    go to class 0), the first maximum otherwise."""
+    if logits.shape[-1] == 2:
+        return (logits[..., 1] > logits[..., 0]).to(torch.uint8)
+    return torch.argmax(logits, dim=-1).to(torch.uint8)
+
+
+def pack_mask_bits(mask):
+    """(N, H, W) {0,1} uint8 -> (N, H, W/8), 8 pixels per byte, MSB first."""
+    n, h, w = mask.shape
+    bits = mask.reshape(n, h, w // 8, 8).to(torch.int32)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mask.device)
+    return (bits * weights).sum(dim=-1).to(torch.uint8)
+
+
+class ImageGenerator:
+    """Seeded StyleGAN sampler on one device.  ``params`` is a generator
+    ``state_dict``; without it the generator is randomly initialised from
+    ``seed``, as the JAX package does when no checkpoint is present."""
+
+    def __init__(self, gan: str = "ffhq", gan_dir: str = "stylegan-models",
+                 batch_size: int = 4, dtype: str = "bf16", seed: int = 0,
+                 params=None, max_res_log2: Optional[int] = None,
+                 device: Optional[torch.device] = None):
+        if seed < 0:
+            raise ValueError(f"seed must be >= 0, got {seed}")
+        if max_res_log2 is not None:
+            self.cfg = GanConfig(max_res_log2=max_res_log2, dtype=dtype)
+        else:
+            self.cfg = gan_config(gan, dtype)
+        self.batch_size = batch_size
+        self.seed = seed
+        self.device = device if device is not None else dtypes.cuda_device()
+        cd = dtypes.default_policy(dtype).compute_dtype
+        if params is not None:
+            model = StyleGanGenerator(self.cfg, cd)
+            model.load_state_dict(params)
+        else:
+            path = join(gan_dir, f"stylegan-{gan}.params")
+            if isfile(path):
+                raise NotImplementedError(
+                    f"{path}: loading mxnet StyleGAN weights is not ported "
+                    "yet (ROADMAP Queue 1 #11)")
+            log.warning("generator checkpoint %s not found; using random "
+                        "init (seed %d)", path, seed)
+            model = init_generator(self.cfg, seed=seed, compute_dtype=cd)
+        self.model = model.to(self.device).eval()
+        self._batch_index = 0
+
+    def skip_batches(self, k: int):
+        """Advance the z/noise stream past k batches without generating
+        them (`generate --resume`)."""
+        self._batch_index += k
+
+    def next_inputs(self, batch_size: int):
+        """(z, generator) of the next batch; the generator then draws the
+        batch's noise."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed * 2 ** 32 + self._batch_index)
+        self._batch_index += 1
+        z = torch.randn((batch_size, self.cfg.latent_size), generator=gen,
+                        device=self.device, dtype=torch.float32)
+        return z, gen
+
+    def sample_batch(self, batch_size: Optional[int] = None):
+        """One device batch: (uint8 images NHWC, features list, z)."""
+        z, gen = self.next_inputs(batch_size or self.batch_size)
+        with torch.inference_mode():
+            rgb, feats = self.model(z, generator=gen)
+            return _to_uint8(rgb, self.cfg.imrange), feats, z
+
+
+class FusedPipeline:
+    """z -> (image uint8, mask uint8) on one device: generator, decoder
+    (eval, BN folded, ``inference_dtype``), class mask, and bit-packing of
+    binary masks when the width divides by 8.  Only uint8 leaves the card.
+
+    The JAX package's mesh (``--spatial``/``--dp``), space-to-depth decoder
+    tail and int8 modes are not ported; asking for one raises.
+    """
+
+    def __init__(self, image_generator: ImageGenerator, solver,
+                 inference_dtype: Optional[torch.dtype] = torch.bfloat16,
+                 s2d: bool = False, mesh=None, quant: Optional[str] = None):
+        if mesh is not None:
+            raise NotImplementedError("multi-device generation is not ported "
+                                      "yet (ROADMAP Queue 1 #12)")
+        if s2d:
+            raise NotImplementedError("the space-to-depth decoder tail is a "
+                                      "TPU layout; the port does not use it")
+        if quant is not None:
+            raise NotImplementedError("int8 generation is not ported yet "
+                                      "(ROADMAP Queue 1 #14)")
+        self.gen = image_generator
+        self.solver = solver
+        self.dec_dtype = inference_dtype or solver.model.compute_dtype
+        nclass = solver.model.features_cfg[-1]
+        res = 2 ** image_generator.cfg.max_res_log2
+        self._pack_masks = nclass == 2 and res % 8 == 0
+        self._folded = None
+
+    def _prepared(self):
+        """The decoder's BN-folded kernels, folded once."""
+        if self._folded is None:
+            self._folded = self.solver.model.fold_bn(self.dec_dtype)
+        return self._folded
+
+    def _fused(self, z, generator: torch.Generator):
+        with torch.inference_mode():
+            rgb, feats = self.gen.model(z, generator=generator)
+            logits = self.solver.model(feats, self._prepared(), self.dec_dtype)
+            mask = class_mask(logits)
+            if self._pack_masks:
+                mask = pack_mask_bits(mask)
+            return _to_uint8(rgb, self.gen.cfg.imrange), mask
+
+    def sample_batch(self, batch_size: Optional[int] = None):
+        """Device batch: (uint8 images NHWC, uint8 masks), masks bit-packed
+        along W when ``self._pack_masks``."""
+        z, gen = self.gen.next_inputs(batch_size or self.gen.batch_size)
+        return self._fused(z, gen)
+
+    def _enqueue(self, batch_size: int):
+        """Enqueue one batch and its copy to host.  On a card the copy goes
+        into pinned buffers with ``non_blocking`` and an event marks its end,
+        so waiting for batch i does not wait for batch i+1 enqueued after
+        it on the same stream."""
+        imgs, masks = self.sample_batch(batch_size)
+        if imgs.device.type != "cuda":
+            return imgs, masks, None
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in (imgs, masks)]
+        for h, t in zip(host, (imgs, masks)):
+            h.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host[0], host[1], done
+
+    def generate_batches(self, n: int
+                         ) -> Iterator[Tuple[np.ndarray, np.ndarray, bool]]:
+        """Yield host batches ``(uint8 imgs (B,H,W,3), uint8 masks, packed)``
+        covering n samples (the last batch trimmed).  The device computes
+        batch i+1 while the caller consumes batch i."""
+        if n <= 0:
+            return
+        b = self.gen.batch_size
+        pending = self._enqueue(b)
+        produced = 0
+        while produced < n:
+            imgs, masks, done = pending
+            take = min(b, n - produced)
+            if produced + take < n:
+                pending = self._enqueue(b)
+            if done is not None:
+                done.synchronize()
+            yield (imgs.numpy()[:take], masks.numpy()[:take],
+                   self._pack_masks)
+            produced += take
+
+    def generate_pairs(self, n: int) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield n (uint8 image HWC, uint8 mask HW) pairs (unpacked masks)."""
+        for imgs, masks, packed in self.generate_batches(n):
+            if packed:
+                masks = np.unpackbits(masks, axis=-1)
+            for i in range(imgs.shape[0]):
+                yield imgs[i], masks[i]

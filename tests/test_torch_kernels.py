@@ -1,0 +1,209 @@
+"""The port's two kernel wrappers (gan_segmentation_tpu_torch/kernels).
+
+On the CPU each wrapper runs its plain PyTorch version; those are held here
+to the archived Pallas kernels run through the Pallas interpreter, as
+tests/test_pallas_conv.py runs them.  Tolerance rtol 1e-4, atol 1e-5, the
+same as that file's (f32 sums in different orders).  The CUDA kernels
+themselves are compared with the plain versions by the tests marked
+``cuda``, which skip without a card, and by chip_smoke.py.
+"""
+
+import functools
+import sys
+from os.path import dirname, join
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, join(dirname(__file__), "..", "experiments",
+                        "pallas_archive"))
+
+import conv_in_stats as pallas_in_stats  # noqa: E402
+import small_conv as pallas_small  # noqa: E402
+from gan_segmentation_tpu.ops.norm import instance_norm  # noqa: E402
+
+from gan_segmentation_tpu_torch.kernels import _build  # noqa: E402
+from gan_segmentation_tpu_torch.kernels.conv_in_stats import (  # noqa: E402
+    conv3x3_noise_bias_lrelu_instats, conv3x3_noise_bias_lrelu_instats_plain)
+from gan_segmentation_tpu_torch.kernels.small_conv import (  # noqa: E402
+    conv3x3_small, conv3x3_small_plain)
+from gan_segmentation_tpu_torch.ops.norm import instance_norm_apply  # noqa: E402
+
+torch.set_num_threads(2)  # the test workers share the host's cores
+
+RTOL, ATOL = 1e-4, 1e-5
+
+
+def _interp(module, fn_name, monkeypatch):
+    orig = module.pl.pallas_call
+    monkeypatch.setattr(module.pl, "pallas_call",
+                        functools.partial(orig, interpret=True))
+    return getattr(module, fn_name).__wrapped__
+
+
+@pytest.fixture
+def pallas_k1(monkeypatch):
+    return _interp(pallas_in_stats, "conv3x3_noise_bias_lrelu_instats",
+                   monkeypatch)
+
+
+@pytest.fixture
+def pallas_k2(monkeypatch):
+    return _interp(pallas_small, "conv3x3_small", monkeypatch)
+
+
+@pytest.fixture
+def cuda(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the port's kernels build with nvcc)")
+    # the plain side's f32 convs would otherwise run in TF32 on cuDNN
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    return torch.device("cuda")
+
+
+# (n, h, w, cin, cout, tile_h): the 4^2 block (H = 4), an odd width, a
+# ragged Cin / Cout that no tile divides
+SHAPES = [(2, 16, 16, 16, 16, 8), (2, 4, 4, 32, 32, 4), (1, 8, 12, 8, 4, 8),
+          (1, 16, 8, 20, 3, 8)]
+
+
+def _conv_inputs(rng, n, h, w, cin, cout):
+    x = rng.randn(n, h, w, cin).astype(np.float32)
+    wt = (rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)
+    return x, wt
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,tile_h", SHAPES)
+def test_in_stats_plain_matches_pallas(pallas_k1, rng, n, h, w, cin, cout,
+                                       tile_h):
+    x, wt = _conv_inputs(rng, n, h, w, cin, cout)
+    noise = rng.randn(n, h, w).astype(np.float32)
+    nscale = (0.1 * rng.randn(cout)).astype(np.float32)
+    bias = (0.1 * rng.randn(cout)).astype(np.float32)
+    want = pallas_k1(x, wt, noise, nscale, bias, tile_h=tile_h)
+    got = conv3x3_noise_bias_lrelu_instats(
+        *map(torch.from_numpy, (x, wt, noise, nscale, bias)))
+    for g, wnt, what in zip(got, want, ("y", "mean", "var")):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=RTOL,
+                                   atol=ATOL, err_msg=what)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,tile_h", SHAPES)
+@pytest.mark.parametrize("epilogue", ["none", "relu", "leaky"])
+def test_small_conv_plain_matches_pallas(pallas_k2, rng, n, h, w, cin, cout,
+                                         tile_h, epilogue):
+    x, wt = _conv_inputs(rng, n, h, w, cin, cout)
+    b = (0.1 * rng.randn(cout)).astype(np.float32)
+    kw = {"none": {}, "relu": dict(relu=True),
+          "leaky": dict(leaky=0.2)}[epilogue]
+    want = pallas_k2(x, wt, b, tile_h=tile_h, **kw)
+    got = conv3x3_small(torch.from_numpy(x), torch.from_numpy(wt),
+                        torch.from_numpy(b), **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_small_conv_without_bias(pallas_k2, rng):
+    x, wt = _conv_inputs(rng, 1, 8, 8, 8, 8)
+    want = pallas_k2(x, wt, tile_h=8, leaky=0.2)
+    got = conv3x3_small(torch.from_numpy(x), torch.from_numpy(wt), leaky=0.2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_in_stats_feed_instance_norm(rng):
+    """The statistics normalize like the JAX package's instance_norm of y,
+    after the consumer's clamp (the AdaIN contract)."""
+    x, wt = _conv_inputs(rng, 2, 8, 8, 8, 8)
+    noise = rng.randn(2, 8, 8).astype(np.float32)
+    zeros = np.zeros(8, np.float32)
+    y, mean, var = conv3x3_noise_bias_lrelu_instats(
+        *map(torch.from_numpy, (x, wt, noise, zeros, zeros)))
+    got = instance_norm_apply(y, mean, var)
+    want = np.asarray(instance_norm(y.numpy()))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+
+
+def test_cpu_wrappers_take_the_plain_path_and_count_nothing(rng):
+    x, wt = (torch.from_numpy(a) for a in _conv_inputs(rng, 1, 4, 4, 4, 4))
+    z = torch.zeros(4)
+    before = (conv3x3_noise_bias_lrelu_instats.launches,
+              conv3x3_small.launches)
+    y, _, _ = conv3x3_noise_bias_lrelu_instats(x, wt, torch.zeros(1, 4, 4),
+                                               z, z)
+    torch.testing.assert_close(y, conv3x3_noise_bias_lrelu_instats_plain(
+        x, wt, torch.zeros(1, 4, 4), z, z)[0], rtol=0, atol=0)
+    torch.testing.assert_close(conv3x3_small(x, wt, leaky=0.2),
+                               conv3x3_small_plain(x, wt, leaky=0.2),
+                               rtol=0, atol=0)
+    assert (conv3x3_noise_bias_lrelu_instats.launches,
+            conv3x3_small.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "w_shape", "layout", "bias_dtype",
+                                 "device", "both_acts"])
+def test_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    x = torch.zeros(1, 4, 4, 8)
+    w = torch.zeros(3, 3, 8, 4)
+    b = torch.zeros(4)
+    kw = {}
+    if bad == "dtype":
+        x, w = x.double(), w.double()
+    elif bad == "w_shape":
+        w = torch.zeros(3, 3, 4, 4)
+    elif bad == "layout":
+        x = torch.zeros(1, 8, 4, 4).permute(0, 2, 3, 1)  # NCHW storage
+    elif bad == "bias_dtype":
+        b = b.double()
+    elif bad == "device":
+        # neither CPU nor CUDA: no fallback, the wrapper raises
+        x, w, b = x.to("meta"), w.to("meta"), b.to("meta")
+    else:
+        kw = dict(relu=True, leaky=0.2)
+    with pytest.raises((TypeError, ValueError)):
+        conv3x3_small(x, w, b, **kw)
+    if bad != "both_acts":
+        noise = torch.zeros(1, 4, 4, device=x.device)
+        with pytest.raises((TypeError, ValueError)):
+            conv3x3_noise_bias_lrelu_instats(x, w, noise, b, b)
+
+
+def test_build_failure_raises(monkeypatch, tmp_path):
+    """A compiler error is raised, never swallowed into a fallback."""
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", lambda: "false")  # exits 1
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build_library()
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_build_cache_key_covers_every_source():
+    names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
+    assert names == ["conv3x3_core.cuh", "conv_in_stats.cu", "small_conv.cu"]
+    assert _build._source_tag() == _build._source_tag()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_kernels_match_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for (n, h, w, cin, cout, _) in SHAPES + [(2, 64, 64, 64, 2, 8)]:
+        x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
+        wt = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+              / (9 * cin) ** 0.5).to(dtype)
+        noise = torch.randn((n, h, w), generator=g, device=cuda)
+        b = 0.1 * torch.randn((cout,), generator=g, device=cuda)
+        launches = conv3x3_noise_bias_lrelu_instats.launches
+        got = conv3x3_noise_bias_lrelu_instats(x, wt, noise, b, b)
+        assert conv3x3_noise_bias_lrelu_instats.launches == launches + 1
+        want = conv3x3_noise_bias_lrelu_instats_plain(x, wt, noise, b, b)
+        for g_, w_ in zip(got, want):
+            torch.testing.assert_close(g_.float(), w_.float(), rtol=tol,
+                                       atol=tol)
+        torch.testing.assert_close(
+            conv3x3_small(x, wt, b, leaky=0.2).float(),
+            conv3x3_small_plain(x, wt, b, leaky=0.2).float(), rtol=tol,
+            atol=tol)
