@@ -8,30 +8,58 @@ Phases (any failure raises, so the exit code is non-zero):
 
 1. device  — requires CUDA; prints torch, the capability, the card's name and
    power limit (nvidia-smi).
-2. build   — compiles the CUDA kernels of ``gan_segmentation_tpu_torch/csrc``.
-3. kernels — each kernel against its plain PyTorch version at every shape
-   the ffhq 1024^2 generate path gives it at batch 8, in f32 (TF32 off on the
-   plain side) and in bf16, with the error, the tolerance and both times.
-4. slice   — ``run_generate`` at ffhq 1024^2, batch 8, 24 pairs, with a
-   seeded random generator and a seeded decoder checkpoint; the kernels'
-   launch counters must show that it went through both kernels; a repeated
+2. build   — compiles the CUDA kernels of ``gan_segmentation_tpu_torch/csrc``
+   (one nvcc per source, in parallel).
+3. kernels — each kernel against its plain PyTorch version, with the error,
+   the tolerance and both times: kernels 1 and 2 at every shape the ffhq
+   1024^2 generate path gives them at batch 8, in f32 (TF32 off on the
+   plain side) and bf16; kernel 2 in f32 at every decoder conv at batch 1
+   (evaluate); kernel 3 (bil_conv) in f32 at every shape of a train step at
+   batch 1 (forward and input gradient), and in f32 and bf16 at generate's
+   16 -> 16 convs at 1024^2, batch 8, both timed beside kernel 2; Conv3x3's
+   output, dX, dW and db against torch.autograd at every train shape.
+4. generate — ``run_generate`` at ffhq 1024^2, batch 8, 24 pairs, with a
+   seeded random generator and a seeded decoder checkpoint; the launch
+   counters must show that it went through kernels 1 and 2; a repeated
    batch must be bit-identical; a small slice on the card must agree with
    the same slice on the CPU (plain versions); samples/s.
+5. train   — three fit steps at res 32 on the card agree with the CPU; then
+   ``main train`` and ``main evaluate`` at ffhq 1024^2 with the defaults
+   (24 epochs, batch 1, Adam 1e-4, dropout on) on 20 + 4 samples of the
+   seeded generator: launch counts per step, falling loss, checkpoint,
+   metrics above the untrained decoder's; the fit loop's rate, the step
+   time by CUDA events, host vs device time, and the device time by
+   kernel family.
 
 The last lines are the kernels' JSON record, the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import logging
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+from os.path import join
 
 BATCH = 8
 GENERATE_NUM = 24
 REPS = 10
+TRAIN_BATCH = 1          # SolverConfig.train_batch_size
+TRAIN_SAMPLES = 20       # the reference protocol's ~20 annotations
+EVAL_SAMPLES = 4
+# kernel launches of one train step at ffhq width, batch 1 (counted from
+# models/decoder.py and kernels/conv3x3_grad.py): kernel 3 runs the 21
+# forward convs inside its contract (cvt_5..8, main_0..7 conv_0 / conv_1,
+# main_8_conv) and the input gradients of the 17 convs after the cvt_i;
+# kernel 2 runs the 5 forward convs with Cin 512 / 256 (cvt_0..4)
+BIL_PER_STEP = 21 + 17
+SMALL_PER_STEP = 5
+SMALL_PER_EVAL_SAMPLE = 26  # eval mode: every 3x3 conv, BN folded
 
 
 def log(*args):
@@ -94,22 +122,45 @@ def kernel1_shapes(gcfg):
     return out
 
 
-def kernel2_shapes(scfg):
+def kernel2_shapes(scfg, batch=BATCH):
     """(name, n, h, w, cin, cout, leaky) of every decoder 3x3 conv."""
     f, cin = scfg.features, scfg.in_channels
     last = len(cin) - 1
     out = []
     for i in range(last + 1):
         r = 2 ** (i + 2)
-        out.append((f"cvt_{i}", BATCH, r, r, cin[i], f[i], True))
+        out.append((f"cvt_{i}", batch, r, r, cin[i], f[i], True))
         c_in = f[i] * (2 if i > 0 else 1)
         if i < last:
-            out.append((f"main_{i}.conv_0", BATCH, 2 * r, 2 * r, c_in,
+            out.append((f"main_{i}.conv_0", batch, 2 * r, 2 * r, c_in,
                         f[i + 1], True))
-            out.append((f"main_{i}.conv_1", BATCH, 2 * r, 2 * r, f[i + 1],
+            out.append((f"main_{i}.conv_1", batch, 2 * r, 2 * r, f[i + 1],
                         f[i + 1], True))
         else:
-            out.append((f"main_{i}_conv", BATCH, r, r, c_in, f[i + 1], False))
+            out.append((f"main_{i}_conv", batch, r, r, c_in, f[i + 1], False))
+    return out
+
+
+def train_conv_shapes(scfg):
+    """The train path's 3x3 convs at batch 1: (name, n, h, w, cin, cout,
+    leaky, needs_dx).  Every conv after the cvt_i needs an input gradient
+    (the cvt_i read the feature pyramid)."""
+    return [(*shape, not shape[0].startswith("cvt_"))
+            for shape in kernel2_shapes(scfg, batch=TRAIN_BATCH)]
+
+
+def bil_shapes(scfg):
+    """(label, n, h, w, cin, cout, bias) of every kernel-3 call of a train
+    step, as the step makes it: the forward convs inside its contract (bias,
+    no epilogue: BN and leaky follow) and the input gradients (Cin and Cout
+    swapped, no bias)."""
+    from gan_segmentation_tpu_torch.kernels.bil_conv import fits
+    out = []
+    for (name, n, h, w, cin, cout, _, dx) in train_conv_shapes(scfg):
+        if fits(n, cin, cout):
+            out.append((f"{name} fwd", n, h, w, cin, cout, True))
+        if dx:
+            out.append((f"{name} dX", n, h, w, cout, cin, False))
     return out
 
 
@@ -181,16 +232,155 @@ def phase_kernels(torch, gcfg, scfg):
                 line += f"  kernel {t:.4f} ms  plain {tp:.4f} ms"
             log(line)
         del x32, w32, x, wt, y, yp
+    # evaluate runs every decoder conv through kernel 2 at batch 1 in f32
+    # (BN folded, leaky); train runs cvt_0..4 so (bias only, checked in
+    # phase_conv_grads through Conv3x3)
+    b1_err = b1_ms = b1_plain_ms = 0.0
+    for (cname, n, h, w, cin, cout, leaky) in kernel2_shapes(
+            scfg, batch=TRAIN_BATCH):
+        x, wt = inputs(n, h, w, cin, cout)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        kw = dict(leaky=0.2) if leaky else {}
+        y = k2m.conv3x3_small(x, wt, b, **kw)
+        yp = k2m.conv3x3_small_plain(x, wt, b, **kw)
+        torch.cuda.synchronize()
+        name = f"small_conv f32 {cname} {(n, h, w, cin, cout)}"
+        check_close(name, y, yp, **TOL["f32"])
+        b1_err = max(b1_err, max_err(y, yp))
+        t = cuda_ms(lambda: k2m.conv3x3_small(x, wt, b, **kw))
+        tp = cuda_ms(lambda: k2m.conv3x3_small_plain(x, wt, b, **kw))
+        b1_ms, b1_plain_ms = b1_ms + t, b1_plain_ms + tp
+        log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']})  "
+            f"kernel {t:.4f} ms  plain {tp:.4f} ms")
+        del x, wt, y, yp
+    errs["f32"] = max(errs["f32"], b1_err)
     # the relu epilogue is not on the path; check it once
     x, wt = inputs(2, 16, 16, 16, 16)
     check_close("small_conv relu", k2m.conv3x3_small(x, wt, relu=True),
                 k2m.conv3x3_small_plain(x, wt, relu=True), **TOL["f32"])
-    rec["small_conv"] = dict(errs=errs, ms=ms, plain_ms=plain_ms)
+    rec["small_conv"] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
+                             b1_ms=b1_ms, b1_plain_ms=b1_plain_ms)
     for k, r in rec.items():
         log(f"{k}: max abs err f32 {r['errs']['f32']:.3g}, bf16 "
             f"{r['errs']['bf16']:.3g}; bf16 per batch of 8 over the path's "
             f"shapes: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+    log(f"small_conv: f32 per evaluate sample (batch 1, its 26 convs): "
+        f"kernel {b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms; max abs err "
+        f"{b1_err:.3g}")
+    rec["bil_conv"] = phase_bil(torch, scfg, g, inputs)
+    phase_conv_grads(torch, scfg, g)
     return rec
+
+
+def phase_bil(torch, scfg, g, inputs):
+    """Kernel 3 against its plain version: f32 at every shape a train step
+    gives it (batch 1, forward and input gradient), then f32 and bf16 at
+    generate's 16 -> 16 convs at 1024^2, batch 8 (main_7.conv_1, cvt_8);
+    both timed beside kernel 2 (checked too) and the plain version."""
+    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+
+    dev = torch.device("cuda")
+    err = ms = plain_ms = small_ms = 0.0
+    for (label, n, h, w, cin, cout, bias) in bil_shapes(scfg):
+        x, wt = inputs(n, h, w, cin, cout)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        args = (x, wt, b) if bias else (x, wt)
+        y = k3m.conv3x3_bil(*args)
+        yp = k3m.conv3x3_bil_plain(*args)
+        ys = k2m.conv3x3_small(*args)
+        torch.cuda.synchronize()
+        name = f"bil_conv f32 {label} {(n, h, w, cin, cout)}"
+        check_close(name, y, yp, **TOL["f32"])
+        check_close(f"small_conv f32 {label}", ys, yp, **TOL["f32"])
+        err = max(err, max_err(y, yp))
+        t = cuda_ms(lambda: k3m.conv3x3_bil(*args))
+        ts = cuda_ms(lambda: k2m.conv3x3_small(*args))
+        tp = cuda_ms(lambda: k3m.conv3x3_bil_plain(*args))
+        ms, small_ms, plain_ms = ms + t, small_ms + ts, plain_ms + tp
+        log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']}), "
+            f"small_conv {max_err(ys, yp):.3g}; bil {t:.4f} ms, small_conv "
+            f"{ts:.4f} ms, plain {tp:.4f} ms")
+        del x, wt, y, yp, ys
+    log(f"bil_conv: f32 per train step over its {len(bil_shapes(scfg))} "
+        f"shapes: kernel {ms:.3f} ms, small_conv at the same calls "
+        f"{small_ms:.3f} ms, plain {plain_ms:.3f} ms; max abs err {err:.3g}")
+
+    # generate's design case: B * C = 8 * 16 = 128
+    x32, w32 = inputs(BATCH, 1024, 1024, 16, 16)
+    b = 0.1 * torch.randn((16,), generator=g, device=dev)
+    gen_err = {}
+    for tag, dt in {"f32": torch.float32, "bf16": torch.bfloat16}.items():
+        x, wt = x32.to(dt), w32.to(dt)
+        y = k3m.conv3x3_bil(x, wt, b, leaky=0.2)
+        yp = k3m.conv3x3_bil_plain(x, wt, b, leaky=0.2)
+        ys = k2m.conv3x3_small(x, wt, b, leaky=0.2)
+        torch.cuda.synchronize()
+        name = f"bil_conv {tag} main_7.conv_1 / cvt_8 {(BATCH, 1024, 1024, 16, 16)}"
+        check_close(name, y, yp, **TOL[tag])
+        gen_err[tag] = max_err(y, yp)
+        t = cuda_ms(lambda: k3m.conv3x3_bil(x, wt, b, leaky=0.2))
+        ts = cuda_ms(lambda: k2m.conv3x3_small(x, wt, b, leaky=0.2))
+        tp = cuda_ms(lambda: k3m.conv3x3_bil_plain(x, wt, b, leaky=0.2))
+        log(f"  {name}: max|err| {gen_err[tag]:.3g} (tol {TOL[tag]}), "
+            f"small_conv vs plain {max_err(ys, yp):.3g}; bil {t:.4f} ms, "
+            f"small_conv {ts:.4f} ms, plain {tp:.4f} ms")
+        del x, wt, y, yp, ys
+    # the relu epilogue and a ragged batch-8 tile are not on the path
+    x, wt = inputs(8, 13, 21, 16, 16)
+    check_close("bil_conv relu", k3m.conv3x3_bil(x, wt, relu=True),
+                k3m.conv3x3_bil_plain(x, wt, relu=True), **TOL["f32"])
+    return dict(errs={"f32": err, "bf16": gen_err["bf16"],
+                      "generate_f32": gen_err["f32"]},
+                ms=ms, plain_ms=plain_ms, small_conv_ms=small_ms)
+
+
+# Conv3x3's output and gradients against torch.autograd through the plain
+# conv, f32 with TF32 off.  y and dX: the kernels sum 9*Cin (9*Cout)
+# products per value in another order than cuDNN (values ~1).  dW and db
+# are the same cuDNN / torch reductions on both sides, over up to 1024^2
+# pixels (values ~1e3), so a relative 1e-4 covers their order.
+GRAD_TOL = {"y": TOL["f32"], "dX": TOL["f32"],
+            "dW": dict(atol=1e-3, rtol=1e-4),
+            "db": dict(atol=1e-3, rtol=1e-4)}
+
+
+def phase_conv_grads(torch, scfg, g):
+    from gan_segmentation_tpu_torch.kernels.conv3x3_grad import Conv3x3
+    from gan_segmentation_tpu_torch.kernels.small_conv import \
+        conv3x3_small_plain
+
+    dev = torch.device("cuda")
+    worst = {"y": 0.0, "dX": 0.0, "dW": 0.0, "db": 0.0}
+    for (name, n, h, w, cin, cout, _, dx) in train_conv_shapes(scfg):
+        x = torch.randn((n, h, w, cin), generator=g, device=dev)
+        wt = torch.randn((3, 3, cin, cout), generator=g, device=dev) / (
+            9 * cin) ** 0.5
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        dy = torch.randn((n, h, w, cout), generator=g, device=dev)
+        got = [x.clone().requires_grad_(dx), wt.clone().requires_grad_(),
+               b.clone().requires_grad_()]
+        y = Conv3x3.apply(*got)
+        y.backward(dy)
+        want = [x.clone().requires_grad_(dx), wt.clone().requires_grad_(),
+                b.clone().requires_grad_()]
+        yp = conv3x3_small_plain(*want)
+        yp.backward(dy)
+        torch.cuda.synchronize()
+        check_close(f"Conv3x3 y {name}", y, yp, **GRAD_TOL["y"])
+        worst["y"] = max(worst["y"], max_err(y, yp))
+        for tag, a, r in zip(("dX", "dW", "db"), got, want):
+            if tag == "dX" and not dx:
+                assert a.grad is None, f"{name}: dX computed for a cvt conv"
+                continue
+            check_close(f"Conv3x3 {tag} {name}", a.grad, r.grad,
+                        **GRAD_TOL[tag])
+            worst[tag] = max(worst[tag], max_err(a.grad, r.grad))
+        del x, wt, dy, got, want, y, yp
+    log(f"Conv3x3 output and gradients at the {len(train_conv_shapes(scfg))} "
+        f"train shapes vs torch.autograd through the plain conv: max |err| "
+        f"y {worst['y']:.3g}, dX {worst['dX']:.3g}, dW {worst['dW']:.3g}, "
+        f"db {worst['db']:.3g} (tol {GRAD_TOL})")
 
 
 def phase_small_reference(torch):
@@ -348,6 +538,285 @@ def phase_slice(torch):
                 end_to_end_sps=GENERATE_NUM / wall, pipeline_sps=rate)
 
 
+def make_collection(gen, dst, n):
+    """Write the next ``n`` samples of ``gen`` (the port's seeded random
+    generator) with ``save_annotation_sample``: the mask is the sign of
+    channel 0 of the last-scale feature, top two rows ignored
+    (tests/util_fixtures.py::mask_rule and make_annotation_dir)."""
+    import numpy as np
+
+    from gan_segmentation_tpu_torch.data.collection import \
+        save_annotation_sample
+
+    os.makedirs(dst, exist_ok=True)
+    done = 0
+    while done < n:
+        imgs, feats, _ = gen.sample_batch()
+        imgs = imgs.cpu().numpy()
+        for i in range(min(imgs.shape[0], n - done)):
+            fs = [f[i].float().cpu().numpy() for f in feats]
+            trimap = (fs[-1][..., 0] > 0).astype(np.int32)
+            trimap[:2] = -1
+            save_annotation_sample(dst, done, imgs[i], trimap, fs)
+            done += 1
+
+
+class LogLines(logging.Handler):
+    """Collects the messages of one logger (the solver's epoch lines)."""
+
+    def __init__(self, name):
+        super().__init__(logging.INFO)
+        self.lines = []
+        self.logger = logging.getLogger(name)
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
+
+    def floats(self, key):
+        pat = re.compile(re.escape(key) + r"=([-+0-9.eE]+|nan|inf)")
+        return [float(m.group(1)) for line in self.lines
+                if (m := pat.search(line))]
+
+
+def phase_small_train_reference(torch):
+    """Three fit steps at res 32, f32, dropout off: on the card through the
+    kernels and on the CPU through the plain versions, from the same seeded
+    init in the same batch order.  Per-step losses agree within rtol 1e-4:
+    both sides sum in f32 in different orders, and Adam's first updates
+    (about lr * sign(g)) flip only where |g| is at rounding level, the
+    pre-BN conv biases, which the batch norm cancels."""
+    from gan_segmentation_tpu_torch.core.config import SolverConfig
+    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
+    from gan_segmentation_tpu_torch.train.generator import ImageGenerator
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    losses = {}
+    with tempfile.TemporaryDirectory() as base:
+        gen = ImageGenerator(gan="bedrooms", batch_size=3, dtype="fp32",
+                             max_res_log2=5, gan_dir=join(base, "none"),
+                             seed=7, device=torch.device("cpu"))
+        make_collection(gen, join(base, "data"), 3)
+        for dev in (torch.device("cpu"), torch.device("cuda")):
+            cfg = SolverConfig(max_res_log2=5, use_dropout=False)
+            cfg.train_epochs = 1
+            solver = SegSolver(5, join(base, "data"),
+                               join(base, f"ckpt-{dev.type}"), cfg=cfg,
+                               device=dev)
+            before = k3m.conv3x3_bil.launches
+            solver.fit()
+            launched = k3m.conv3x3_bil.launches - before
+            assert (launched > 0) == (dev.type == "cuda"), launched
+            losses[dev.type] = solver.history[0]
+    cpu, card = losses["cpu"], losses["cuda"]
+    assert len(cpu) == len(card) == 3, (cpu, card)
+    for a, b in zip(card, cpu):
+        assert abs(a - b) <= 1e-4 * abs(b), (card, cpu)
+    log(f"small train reference (res 32, f32, 3 steps) card vs CPU losses: "
+        f"{[f'{v:.6f}' for v in card]} vs {[f'{v:.6f}' for v in cpu]} "
+        f"(rtol 1e-4)")
+
+
+def profile_train_step(torch, base, scfg, steps=5):
+    """A train step at ffhq 1024^2, batch 1: its time (CUDA events over 10
+    steps), whether the host or the device bounds it (three windows of 10
+    steps: wall time, the time the host took to enqueue them, and the
+    process's CPU time), and its device time by kernel family
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_segmentation_tpu_torch.data.collection import CollectionDataset
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    solver = SegSolver(scfg.max_res_log2, join(base, "data"),
+                       join(base, "checkpoints"), cfg=scfg)
+    _, mask, feats = CollectionDataset(join(base, "data"), scfg,
+                                       load_to_memory=False).get_item(0)
+    dev = torch.device("cuda")
+    feats = [torch.from_numpy(f[None]).to(dev) for f in feats]
+    mask = torch.from_numpy(mask[None]).to(dev).long()
+    opt, _ = solver._make_optimizer(TRAIN_SAMPLES)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    solver.model.train()
+
+    def step():
+        solver._train_step(opt, feats, mask, gen)
+
+    for _ in range(3):
+        step()
+    step_ms = cuda_ms(step)
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        for _ in range(10):
+            step()
+        enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        t1, c1 = time.perf_counter(), time.process_time()
+        windows.append(((t1 - t0) * 100, (enqueued - t0) * 100,
+                        (c1 - c0) * 100))  # ms per step
+    log("train step windows of 10 steps (ms per step: wall / host enqueue "
+        "/ process CPU): " + "; ".join(
+            f"{w:.3f} / {e:.3f} / {c:.3f}" for w, e, c in windows))
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_name = {}
+    for evt in prof.events():
+        # kernels only: user ranges such as "Optimizer.step#Adam.step" also
+        # sit on the device timeline and overlap the kernels they enclose
+        annotation = (getattr(evt, "is_user_annotation", False)
+                      or evt.name.startswith("Optimizer."))
+        if evt.device_type == DeviceType.CUDA and not annotation:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+
+    def family(name):
+        low = name.lower()
+        if "conv3x3_bil" in low:
+            return "bil_conv"
+        if "conv3x3_small" in low:
+            return "small_conv"
+        if "wgrad" in low:
+            return "cuDNN wgrad"
+        if any(k in low for k in ("conv", "gemm", "xmma", "cudnn",
+                                  "cutlass")):
+            return "cuDNN other"
+        return "elementwise + reductions (BN, leaky, dropout, loss, Adam)"
+
+    fam = {}
+    for name, t in by_name.items():
+        fam[family(name)] = fam.get(family(name), 0.0) + t / steps
+    busy = sum(fam.values())
+    log(f"train step (ffhq 1024^2, batch 1, f32): {step_ms:.3f} ms "
+        f"(CUDA events, 10 steps); kernel time {busy:.3f} ms per step "
+        f"(profiler), i.e. a device busy share of {busy / step_ms:.3f} of "
+        f"the unprofiled step (a profiled step took "
+        f"{window_ms / steps:.3f} ms); peak memory {peak_gb:.2f} GiB")
+    for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
+        log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        log(f"    {t / steps:8.3f} ms/step  {name[:110]}")
+    return dict(step_ms=step_ms, windows=windows, families=fam, busy_ms=busy)
+
+
+def phase_train(torch):
+    """``main train`` then ``main evaluate`` at ffhq 1024^2 with the
+    defaults (24 epochs, batch 1, Adam 1e-4, dropout on) on a collection
+    of the port's seeded generator; launch counts, falling loss,
+    checkpoint, metrics, and mean-iou above the untrained decoder's."""
+    import contextlib
+    import io
+    import math
+
+    from gan_segmentation_tpu_torch.apps.main import main as cli
+    from gan_segmentation_tpu_torch.core.config import load_config_file
+    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.train.generator import ImageGenerator
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    with tempfile.TemporaryDirectory() as base:
+        free = shutil.disk_usage(base).free / 2 ** 30
+        t0 = time.perf_counter()
+        gen = ImageGenerator(gan="ffhq", batch_size=BATCH, dtype="fp32",
+                             gan_dir=join(base, "no-models"), seed=0)
+        make_collection(gen, join(base, "data"), TRAIN_SAMPLES)
+        # eval: the same generator, the next z of its stream
+        make_collection(gen, join(base, "eval"), EVAL_SAMPLES)
+        del gen
+        torch.cuda.empty_cache()
+        log(f"train collection: {TRAIN_SAMPLES} + {EVAL_SAMPLES} ffhq 1024^2 "
+            f"samples (f32 pyramids) written in "
+            f"{time.perf_counter() - t0:.1f} s ({free:.1f} GiB free before)")
+        config = join(base, "config.yml")
+        with open(config, "w") as fh:
+            fh.write(f"BASE_DIR: {base}\nGAN: ffhq\n"
+                     f"GAN_DIR: {join(base, 'no-models')}\n")
+        scfg = load_config_file(config).solver_config()
+        steps = scfg.train_epochs * (TRAIN_SAMPLES // scfg.train_batch_size)
+
+        k3m.conv3x3_bil.launches = 0
+        k2m.conv3x3_small.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with LogLines("gan_segmentation_tpu_torch.train.solver") as lines:
+            cli(["train", "--config", config])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_bil, n_small = k3m.conv3x3_bil.launches, k2m.conv3x3_small.launches
+        log(f"train launches: bil_conv {n_bil}, small_conv {n_small} over "
+            f"{steps} steps (expected {BIL_PER_STEP} and {SMALL_PER_STEP} "
+            f"per step)")
+        assert n_bil == BIL_PER_STEP * steps, n_bil
+        assert n_small == SMALL_PER_STEP * steps, n_small
+        epoch_loss = lines.floats("Train-total-loss")
+        epoch_acc = lines.floats("Train-accuracy")
+        cost = lines.floats("Time cost")
+        assert len(epoch_loss) == scfg.train_epochs, epoch_loss
+        assert all(math.isfinite(v) for v in epoch_loss), epoch_loss
+        assert epoch_loss[-1] < epoch_loss[0], epoch_loss
+        ckpt = join(base, "checkpoints", "checkpoint_last.pt")
+        assert os.path.isfile(ckpt), "no checkpoint written"
+        # the fit loop's rate: every step after the first epoch over the
+        # wall time of those epochs (each epoch's log line follows a sync)
+        later = sorted(cost[1:])
+        fit_steps = len(later) * TRAIN_SAMPLES
+        fit_s = sum(later)
+        log(f"train: epoch loss {epoch_loss[0]:.4f} -> {epoch_loss[-1]:.4f}, "
+            f"accuracy {epoch_acc[0]:.4f} -> {epoch_acc[-1]:.4f}; "
+            f"{fit_steps / fit_s:.3f} train samples/s, "
+            f"{fit_s / fit_steps * 1e3:.3f} ms per step ({fit_steps} steps "
+            f"of epochs 2-{len(cost)} in {fit_s:.3f} s; epoch times min "
+            f"{later[0]:.3f} median {later[len(later) // 2]:.3f} max "
+            f"{later[-1]:.3f} s), first epoch {cost[0]:.2f} s, "
+            f"whole run {wall:.1f} s including the collection's load; "
+            f"checkpoint {os.path.basename(ckpt)}")
+        train_launches = {"bil_conv": n_bil, "small_conv": n_small}
+
+        k3m.conv3x3_bil.launches = 0
+        k2m.conv3x3_small.launches = 0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli(["evaluate", "--config", config])
+        n_eval = k2m.conv3x3_small.launches
+        line = out.getvalue().strip().splitlines()[-1]
+        log(f"evaluate prints: {line}")
+        metrics = dict(kv.split(": ") for kv in line.split(", "))
+        assert list(metrics) == ["accuracy", "mean-iou", "total-loss"], line
+        metrics = {k: float(v) for k, v in metrics.items()}
+        assert all(math.isfinite(v) for v in metrics.values()), metrics
+        assert n_eval == SMALL_PER_EVAL_SAMPLE * EVAL_SAMPLES, n_eval
+        assert k3m.conv3x3_bil.launches == 0
+
+        untrained = SegSolver(scfg.max_res_log2, "",
+                              join(base, "no-checkpoints"), cfg=scfg)
+        assert not untrained.is_trained
+        before = dict(untrained.evaluate(join(base, "eval")))
+        log(f"untrained decoder on the same eval set: mean-iou "
+            f"{before['mean-iou']:.4f}, accuracy {before['accuracy']:.4f}")
+        assert metrics["mean-iou"] > before["mean-iou"], (metrics, before)
+        prof = profile_train_step(torch, base, scfg)
+    return dict(launches=train_launches, eval_launches=n_eval,
+                steps=steps, step_ms=fit_s / fit_steps * 1e3,
+                sps=fit_steps / fit_s, metrics=metrics, prof=prof)
+
+
 def main():
     import torch
 
@@ -383,26 +852,56 @@ def main():
     gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
     rec = phase_kernels(torch, gcfg, scfg)
 
-    # 4. slice
+    # 4. generate
     phase_small_reference(torch)
     sl = phase_slice(torch)
     log(f"ffhq 1024^2 generate: {sl['pipeline_sps']:.3f} samples/s "
         f"(device pipeline), {sl['end_to_end_sps']:.3f} samples/s "
         f"(with the cv2 writer) on {smi}")
 
+    # 5. train and evaluate
+    phase_small_train_reference(torch)
+    tr = phase_train(torch)
+    log(f"ffhq 1024^2 train: {tr['sps']:.3f} samples/s, {tr['step_ms']:.3f} "
+        f"ms per step over the fit loop after its first epoch, "
+        f"{tr['prof']['step_ms']:.3f} ms per step by CUDA events; evaluate "
+        f"{tr['metrics']} on {smi}")
+
+    launches = {
+        "conv_in_stats": {"generate": sl["launches"]["conv_in_stats"]},
+        "small_conv": {"generate": sl["launches"]["small_conv"],
+                       "train": tr["launches"]["small_conv"],
+                       "evaluate": tr["eval_launches"]},
+        "bil_conv": {"train": tr["launches"]["bil_conv"]}}
     sources = {"conv_in_stats": (
         "gan_segmentation_tpu_torch/csrc/conv_in_stats.cu",
         "experiments/pallas_archive/conv_in_stats.py:118"),
         "small_conv": ("gan_segmentation_tpu_torch/csrc/small_conv.cu",
-                       "experiments/pallas_archive/small_conv.py:84")}
+                       "experiments/pallas_archive/small_conv.py:84"),
+        "bil_conv": ("gan_segmentation_tpu_torch/csrc/bil_conv.cu",
+                     "experiments/pallas_archive/bil_conv.py:115")}
     kernels = []
     for name, (src, replaces) in sources.items():
         r = rec[name]
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=sl["launches"][name], max_abs_err=r["errs"]["bf16"],
-            max_abs_err_f32=r["errs"]["f32"], ms=r["ms"],
-            plain_ms=r["plain_ms"]))
+            launches=sum(launches[name].values()),
+            launches_by_path=launches[name])
+        if name == "bil_conv":  # the train path runs f32
+            entry.update(max_abs_err=r["errs"]["f32"],
+                         max_abs_err_bf16=r["errs"]["bf16"],
+                         ms=r["ms"], plain_ms=r["plain_ms"],
+                         small_conv_ms=r["small_conv_ms"],
+                         timed="f32, per train step at batch 1")
+        else:
+            entry.update(max_abs_err=r["errs"]["bf16"],
+                         max_abs_err_f32=r["errs"]["f32"], ms=r["ms"],
+                         plain_ms=r["plain_ms"],
+                         timed="bf16, per generate batch of 8")
+            if name == "small_conv":
+                entry.update(eval_sample_ms_f32=r["b1_ms"],
+                             eval_sample_plain_ms_f32=r["b1_plain_ms"])
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,17 @@
 """CLI entry point of the PyTorch port:
 
-    python -m gan_segmentation_tpu_torch.apps.main generate --config config.yml
+    python -m gan_segmentation_tpu_torch.apps.main train|evaluate|generate \
+        --config config.yml
 
-reads ``config.yml`` (keys at reference `main.py:33-43`) and runs
-``generate``, the synthetic-dataset emitter, on one CUDA device: z -> image
-and mask in one device pass, only uint8 crossing to the host.  ``train``,
-``evaluate`` and ``annotation`` are not ported yet.
+reads ``config.yml`` (keys at reference `main.py:33-43`), seeds numpy with
+0, and runs on one CUDA device:
+- ``train``    decoder training on ``BASE_DIR/data`` (checkpoint to
+  ``BASE_DIR/checkpoints``);
+- ``evaluate`` the trained decoder on ``BASE_DIR/eval``: prints accuracy,
+  mean-iou and total-loss;
+- ``generate`` the synthetic-dataset emitter: z -> image and mask in one
+  device pass, only uint8 crossing to the host.
+``annotation`` is not ported yet.
 """
 
 import argparse
@@ -57,10 +63,24 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def build_solver(cfg):
+def build_solver(cfg, keep_weights=False):
     return SegSolver(cfg.max_res_log2, join(cfg.BASE_DIR, "data"),
                      join(cfg.BASE_DIR, "checkpoints"),
-                     cfg=cfg.solver_config())
+                     keep_weights=keep_weights, cfg=cfg.solver_config())
+
+
+def run_train(cfg):
+    solver = build_solver(cfg, keep_weights=False)
+    solver.fit()
+
+
+def run_evaluate(cfg):
+    solver = build_solver(cfg, keep_weights=False)
+    if not solver.is_trained:
+        print("train Decoder first!")
+        sys.exit(-1)
+    result = solver.evaluate(join(cfg.BASE_DIR, "eval"))
+    print(", ".join(f"{name}: {value:.4f}" for name, value in result))
 
 
 def _write_pairs_native(pipeline, n_local: int, dst_dir: str, start: int,
@@ -178,15 +198,20 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s:%(name)s:%(message)s")
     args = parse_args(argv)
-    if args.action != "generate":
-        raise SystemExit(f"'{args.action}' is not ported to PyTorch yet; "
-                         "use the JAX package (main.py) for it")
+    if args.action == "annotation":
+        raise SystemExit("'annotation' is not ported to PyTorch yet; use the "
+                         "JAX package (main.py) for it")
     np.random.seed(0)  # `main.py:29-31`
     cfg = load_config_file(args.config)
-    run_generate(cfg, spatial=args.spatial, writer=args.writer,
-                 resume=args.resume,
-                 quant=None if args.quant == "none" else args.quant,
-                 dp=args.dp)
+    if args.action == "train":
+        run_train(cfg)
+    elif args.action == "evaluate":
+        run_evaluate(cfg)
+    else:
+        run_generate(cfg, spatial=args.spatial, writer=args.writer,
+                     resume=args.resume,
+                     quant=None if args.quant == "none" else args.quant,
+                     dp=args.dp)
 
 
 if __name__ == "__main__":

@@ -46,8 +46,8 @@ __global__ void __launch_bounds__(Tile<CT>::THREADS)
   const BlockTile b = block_tile<CT>(wd);
   const ThreadSlot s = thread_slot<CT>();
   float acc[PX][CPT];
-  conv3x3_accumulate<T, CT>(x, w, b.n, h, wd, cin, cout, b.oy0, b.ox0, b.co0,
-                            s, acc, xs, ws);
+  conv3x3_accumulate<T, CT>(x, w, b.n, 1, TH, Tile<CT>::THREADS, h, wd, cin,
+                            cout, b.oy0, b.ox0, b.co0, s, acc, xs, ws);
 
   const int oy = b.oy0 + s.prow;
   float s1[CPT], s2[CPT], ns[CPT], bs[CPT];

@@ -25,8 +25,6 @@
 
 namespace gst {
 
-enum Act { NONE = 0, RELU = 1, LEAKY = 2 };
-
 template <typename T, int CT>
 __global__ void __launch_bounds__(Tile<CT>::THREADS)
     conv3x3_small_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -39,33 +37,10 @@ __global__ void __launch_bounds__(Tile<CT>::THREADS)
   const BlockTile b = block_tile<CT>(wd);
   const ThreadSlot s = thread_slot<CT>();
   float acc[PX][CPT];
-  conv3x3_accumulate<T, CT>(x, w, b.n, h, wd, cin, cout, b.oy0, b.ox0, b.co0,
-                            s, acc, xs, ws);
-
-  const int oy = b.oy0 + s.prow;
-  float bs[CPT];
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int co = b.co0 + s.cg * CPT + j;
-    bs[j] = (bias != nullptr && co < cout) ? bias[co] : 0.f;
-  }
-#pragma unroll
-  for (int p = 0; p < PX; ++p) {
-    const int ox = b.ox0 + s.pcol + p;
-    if (oy >= h || ox >= wd) continue;
-    const size_t pix = ((size_t)b.n * h + oy) * wd + ox;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int co = b.co0 + s.cg * CPT + j;
-      if (co >= cout) continue;
-      float v = acc[p][j] + bs[j];
-      if (act == RELU)
-        v = fmaxf(v, 0.f);
-      else if (act == LEAKY)
-        v = v >= 0.f ? v : slope * v;
-      y[pix * cout + co] = from_f32<T>(v);
-    }
-  }
+  conv3x3_accumulate<T, CT>(x, w, b.n, 1, TH, Tile<CT>::THREADS, h, wd, cin,
+                            cout, b.oy0, b.ox0, b.co0, s, acc, xs, ws);
+  store_bias_act<T>(acc, bias, y, b.n, b.oy0 + s.prow, b.ox0 + s.pcol,
+                    b.co0 + s.cg * CPT, h, wd, cout, act, slope);
 }
 
 template <typename T, int CT>

@@ -1,7 +1,8 @@
 """Build the hand-written CUDA kernels of ``csrc/`` and load them.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into ONE shared
-library with a plain C interface, loaded with ``ctypes``.  Pointers travel as
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects link into ONE shared library with a plain
+C interface, loaded with ``ctypes``.  Pointers travel as
 ``c_void_p`` and the stream is PyTorch's current stream.  The library is
 built at first use, never at import, into ``gan_segmentation_tpu_torch/_build/``
 under a name keyed by a hash of the sources, so an edit rebuilds and a stale
@@ -23,7 +24,7 @@ _PKG = dirname(dirname(os.path.abspath(__file__)))
 CSRC = join(_PKG, "csrc")
 BUILD_DIR = join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _LIB = None
 
@@ -55,26 +56,45 @@ def _nvcc() -> str:
 
 def build_library() -> str:
     """Compile the kernels (once per source hash); returns the .so path.
-    ptxas's register and shared-memory report lands beside it."""
+    One ``nvcc -c`` per source runs in parallel, then one link.  ptxas's
+    register and shared-memory report lands beside the library."""
     out = join(BUILD_DIR, f"libgst_kernels-{_source_tag()}.so")
     if isfile(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
     srcs = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-o", tmp, *srcs]
     try:
+        nvcc = _nvcc()
+        jobs = []
+        for src in srcs:
+            obj = join(work, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-c", src,
+                   "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        report, failed = [], []
+        for cmd, _obj, proc in jobs:
+            _, err = proc.communicate()
+            report.append(err)
+            if proc.returncode != 0:
+                failed.append("nvcc failed (rc=%d):\n%s\n%s" % (
+                    proc.returncode, " ".join(cmd), err[-8000:]))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        lib = join(work, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+               *(obj for _cmd, obj, _proc in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed (rc=%d):\n%s\n%s" % (
                 proc.returncode, " ".join(cmd), proc.stderr[-8000:]))
         with open(out + ".ptxas.txt", "w") as fh:
-            fh.write(proc.stderr)
-        os.replace(tmp, out)
+            fh.write("".join(report))
+        os.replace(lib, out)
     finally:
-        if isfile(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -97,6 +117,28 @@ def check(t, name: str, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous (NHWC / HWIO)")
 
 
+def check_conv3x3(x, w, b):
+    """Validate the arguments of a 3x3 conv kernel (x NHWC f32/bf16, w HWIO
+    in x's dtype, b (Cout,) f32 or None, one device, contiguous); returns
+    (n, h, w, cin, cout)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    n, h, wd, cin = x.shape
+    if w.dim() != 4:
+        raise ValueError(f"w must be HWIO, got shape {tuple(w.shape)}")
+    cout = w.shape[3]
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    dev = x.device
+    check(x, "x", (n, h, wd, cin), x.dtype, dev)
+    check(w, "w", (3, 3, cin, cout), x.dtype, dev)
+    if b is not None:
+        check(b, "b", (cout,), torch.float32, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return n, h, wd, cin, cout
+
+
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
@@ -117,5 +159,8 @@ def library():
     lib.gst_conv3x3_small.restype = i
     lib.gst_conv3x3_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f,
                                       vp]
+    lib.gst_conv3x3_bil.restype = i
+    lib.gst_conv3x3_bil.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f,
+                                    vp]
     _LIB = lib
     return lib

@@ -26,10 +26,11 @@ def conv3x3_small_plain(x, w, b=None, *, relu: bool = False,
                         leaky: Optional[float] = None):
     """The plain PyTorch version: the CPU path and the kernel's reference."""
     act = _act(relu, leaky)
+    acc = torch.promote_types(x.dtype, torch.float32)  # f32, or f64 as given
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
-    y = y.permute(0, 2, 3, 1).float()
+    y = y.permute(0, 2, 3, 1).to(acc)
     if b is not None:
-        y = y + b.float()
+        y = y + b.to(acc)
     if act == "relu":
         y = torch.clamp_min(y, 0.0)
     elif act == "leaky":
@@ -42,24 +43,10 @@ def conv3x3_small(x, w, b=None, *, relu: bool = False,
     """y = conv3x3(x, w) [+ b] [relu | leaky].  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel or raises."""
     act = _act(relu, leaky)
-    if x.dim() != 4:
-        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
-    n, h, wd, cin = x.shape
-    if w.dim() != 4:
-        raise ValueError(f"w must be HWIO, got shape {tuple(w.shape)}")
-    cout = w.shape[3]
-    if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
-    dev = x.device
-    _build.check(x, "x", (n, h, wd, cin), x.dtype, dev)
-    _build.check(w, "w", (3, 3, cin, cout), x.dtype, dev)
-    if b is not None:
-        _build.check(b, "b", (cout,), torch.float32, dev)
-    if dev.type == "cpu":
+    n, h, wd, cin, cout = _build.check_conv3x3(x, w, b)
+    if x.device.type == "cpu":
         return conv3x3_small_plain(x, w, b, relu=relu, leaky=leaky)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-
+    dev = x.device
     lib = _build.library()
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):

@@ -1,18 +1,26 @@
 """Segmentation decoder over the GAN feature pyramid (PyTorch counterpart of
-``gan_segmentation_tpu/models/decoder.py``), eval mode.
+``gan_segmentation_tpu/models/decoder.py``).
 
 - per scale ``cvt_i``: conv3x3 (in_ch -> feat) + BN + LeakyReLU(0.2)
-  (+ dropout, identity in eval);
+  + dropout 0.5;
 - progressive fusion: concat ``[prev, cvt]``, nearest-2x upsample, then a
   ``DecoderResBlock`` (2 x conv3x3-BN-LReLU, plus a 1x1 shortcut when the
   width changes) — at the last scale a plain conv3x3 to the class logits.
 
-In eval mode batch norm folds into the conv before it (``fold_bn``), and
-every 3x3 conv runs through kernel 2 (`kernels/small_conv.py`) with the
-leaky epilogue fused (none for the final conv).  The 1x1 shortcut and the
-residual add stay plain.  Train mode (BN batch statistics, dropout) is not
-ported yet.  Parameters keep the JAX package's names (``cvt_0_conv``,
-``main_0.bn_0``, ...); BatchNorm2d's momentum 0.1 is its momentum 0.9.
+Eval mode: batch norm folds into the conv before it (``fold_bn``), every
+3x3 conv runs through kernel 2 (`kernels/small_conv.py`) with the leaky
+epilogue fused (none for the final conv), dropout is the identity.
+
+Train mode (``.train()``): every 3x3 conv is ``kernels/conv3x3_grad.py::
+Conv3x3`` (kernel 3 where its contract holds, else kernel 2, with the
+input gradient through the same kernels), then batch norm over the batch
+statistics as the JAX package computes them (``batch_norm_train``), leaky
+0.2, and for ``cvt_i`` dropout drawn from the ``torch.Generator`` the caller
+passes.
+
+The 1x1 shortcut and the residual add stay plain.  Parameters keep the JAX
+package's names (``cvt_0_conv``, ``main_0.bn_0``, ...); BatchNorm2d's
+momentum 0.1 is the JAX package's momentum 0.9.
 """
 
 import math
@@ -22,12 +30,15 @@ import torch
 from torch import nn
 
 from ..core.config import SolverConfig
+from ..kernels.conv3x3_grad import Conv3x3
 from ..kernels.small_conv import conv3x3_small
 from ..ops.conv import conv2d
 from ..ops.resize import upsample_nearest_2x
 from .layers import hwio
 
 BN_EPS = 1e-5
+LEAKY_SLOPE = 0.2
+DROPOUT_RATE = 0.5
 Folded = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -38,8 +49,9 @@ def mx_xavier_in(t: torch.Tensor, gen: torch.Generator,
     Cin*kh*kw of an OIHW kernel (not ``nn.init.xavier_uniform_``)."""
     fan_in = math.prod(t.shape[1:])
     scale = math.sqrt(magnitude / fan_in)
-    with torch.no_grad():
-        t.uniform_(-scale, scale, generator=gen)
+    with torch.no_grad():  # drawn where ``gen`` lives: the same on any device
+        t.copy_(torch.empty(t.shape, device=gen.device).uniform_(
+            -scale, scale, generator=gen))
 
 
 class Conv(nn.Module):
@@ -61,6 +73,59 @@ class Conv(nn.Module):
         return conv2d(x, hwio(self.weight).to(x.dtype),
                       self.bias.to(x.dtype),
                       padding=self.weight.shape[-1] // 2)
+
+
+def leaky_relu(x, slope: float = LEAKY_SLOPE):
+    """``where(x >= 0, x, slope * x)``, as the JAX package (its gradient at
+    0 is 1)."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def batch_norm_train(x, bn: nn.BatchNorm2d):
+    """Train-mode batch norm of NHWC ``x`` as the JAX package's
+    ``BatchNorm`` computes it, updating ``bn``'s running statistics in
+    place.
+
+    Statistics in f32 over (N, H, W): ``mean = E[x]`` and the BIASED
+    variance ``max(E[x^2] - mean^2, 0)`` (the JAX side's fast variance).
+    The running update is ``ra = 0.9 ra + 0.1 stat`` with that biased variance;
+    ``nn.BatchNorm2d``'s train mode would fold in the unbiased variance
+    instead, which at batch 1 and 4x4 is 16/15 of it.  Output
+    ``(x - mean) * rsqrt(var + eps) * scale + shift`` in x's dtype."""
+    xf = x.float()
+    dims = (0, 1, 2)
+    mean = xf.mean(dim=dims)
+    var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+    with torch.no_grad():
+        keep = 1.0 - bn.momentum
+        bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(keep).add_(var, alpha=bn.momentum)
+        bn.num_batches_tracked.add_(1)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return ((xf - mean) * mul + bn.bias).to(x.dtype)
+
+
+def dropout(x, generator: torch.Generator, rate: float = DROPOUT_RATE):
+    """The JAX package's ``Dropout``: keep where uniform < 1 - rate, scaled
+    by 1 / (1 - rate).  The bits come from ``generator`` (PyTorch's stream,
+    not JAX's)."""
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def conv3x3_train(conv: "Conv", x):
+    """A 3x3 conv with its gradients through the kernels (``Conv3x3``)."""
+    return Conv3x3.apply(x, hwio(conv.weight).to(x.dtype), conv.bias)
+
+
+def conv_bn_lrelu_train(conv: "Conv", bn: Optional[nn.BatchNorm2d], x):
+    y = conv3x3_train(conv, x)
+    if bn is not None:
+        y = batch_norm_train(y, bn)
+    return leaky_relu(y)
 
 
 def fold_conv_bn(conv: Conv, bn: Optional[nn.BatchNorm2d],
@@ -92,8 +157,14 @@ class DecoderResBlock(nn.Module):
             for k in (0, 1)}
 
     def forward(self, x, folded: Folded, prefix: str):
-        y = conv3x3_small(x, *folded[f"{prefix}.conv_0"], leaky=0.2)
-        y = conv3x3_small(y, *folded[f"{prefix}.conv_1"], leaky=0.2)
+        y = conv3x3_small(x, *folded[f"{prefix}.conv_0"], leaky=LEAKY_SLOPE)
+        y = conv3x3_small(y, *folded[f"{prefix}.conv_1"], leaky=LEAKY_SLOPE)
+        sc = x if self.shortcut is None else self.shortcut(x)
+        return sc + y
+
+    def forward_train(self, x):
+        y = conv_bn_lrelu_train(self.conv_0, getattr(self, "bn_0", None), x)
+        y = conv_bn_lrelu_train(self.conv_1, getattr(self, "bn_1", None), y)
         sc = x if self.shortcut is None else self.shortcut(x)
         return sc + y
 
@@ -111,7 +182,7 @@ class Decoder(nn.Module):
         self.in_channels = tuple(in_channels)
         self.start_res = start_res
         self.use_bn = use_bn
-        self.use_dropout = use_dropout  # identity in eval mode
+        self.use_dropout = use_dropout  # the identity in eval mode
         self.compute_dtype = compute_dtype
         f = self.features_cfg
         last = len(self.in_channels) - 1
@@ -158,20 +229,21 @@ class Decoder(nn.Module):
 
     def forward(self, inputs: List[torch.Tensor],
                 folded: Optional[Folded] = None,
-                dtype: Optional[torch.dtype] = None):
-        """``folded`` is ``fold_bn(dtype)``, computed here when not given;
-        activations run in ``dtype`` (default: the compute dtype)."""
-        if self.training:
-            raise NotImplementedError("Decoder train mode (BN batch "
-                                      "statistics, dropout) is not ported "
-                                      "yet; call .eval()")
+                dtype: Optional[torch.dtype] = None,
+                generator: Optional[torch.Generator] = None):
+        """Eval mode: ``folded`` is ``fold_bn(dtype)``, computed here when
+        not given.  Train mode: ``generator`` draws the dropout bits (on
+        the features' device).  Activations run in ``dtype`` (default: the
+        compute dtype)."""
         dtype = dtype or self.compute_dtype
+        if self.training:
+            return self._forward_train(inputs, dtype, generator)
         folded = folded if folded is not None else self.fold_bn(dtype)
         last = len(self.in_channels) - 1
         prev = pred = None
         for i in range(self.start_res, last + 1):
             x = inputs[i].to(dtype).contiguous()
-            x = conv3x3_small(x, *folded[f"cvt_{i}"], leaky=0.2)
+            x = conv3x3_small(x, *folded[f"cvt_{i}"], leaky=LEAKY_SLOPE)
             if i > self.start_res:
                 x = torch.cat([prev, x], dim=-1)
             if i < last:
@@ -179,6 +251,28 @@ class Decoder(nn.Module):
                 pred = getattr(self, f"main_{i}")(x, folded, f"main_{i}")
             else:
                 pred = conv3x3_small(x, *folded[f"main_{i}_conv"])
+            prev = pred
+        return pred.float()
+
+    def _forward_train(self, inputs, dtype, generator):
+        if self.use_dropout and generator is None:
+            raise ValueError("train mode with dropout needs a "
+                             "torch.Generator for the dropout bits")
+        last = len(self.in_channels) - 1
+        prev = pred = None
+        for i in range(self.start_res, last + 1):
+            x = inputs[i].to(dtype).contiguous()
+            x = conv_bn_lrelu_train(getattr(self, f"cvt_{i}_conv"),
+                                    getattr(self, f"cvt_{i}_bn", None), x)
+            if self.use_dropout:
+                x = dropout(x, generator)
+            if i > self.start_res:
+                x = torch.cat([prev, x], dim=-1)
+            if i < last:
+                x = upsample_nearest_2x(x)
+                pred = getattr(self, f"main_{i}").forward_train(x)
+            else:
+                pred = conv3x3_train(getattr(self, f"main_{i}_conv"), x)
             prev = pred
         return pred.float()
 

@@ -1,6 +1,22 @@
-"""SegSolver — the decoder's construction, checkpoints and prediction
-(the subset of ``gan_segmentation_tpu/train/solver.py`` that ``generate``
-needs; ``fit`` and ``evaluate`` come later).
+"""SegSolver — the decoder's training, evaluation, prediction and checkpoints
+on one device (PyTorch counterpart of ``gan_segmentation_tpu/train/
+solver.py``).
+
+``fit``: Adam 1e-4 (or SGD with momentum; ``wd`` is added to the gradient
+as decayed weights), the ``None`` / ``steps`` / ``cos`` learning-rate
+schedules with optax's values, 24 epochs at batch 1 by default, the
+ignore-weighted softmax CE, epoch order ``RandomState(seed + epoch)``,
+speedometer lines every ``train_display_iters`` steps, per-epoch accuracy
+and loss logs, and a checkpoint at the end.  The decoder trains through the
+CUDA kernels (``models/decoder.py`` train mode).  When the annotated
+collection fits ``device_cache_gb`` it is uploaded to the card once and
+each step selects its batch there; otherwise each step uploads its batch.
+
+One dispatch per step: a step enqueues its forward, backward and update on
+the card, and the host waits only for the display lines and the epoch
+logs.  ``SolverConfig.scan_epochs`` (the JAX package's whole epoch as one
+program) is read as off until a CUDA-graph epoch is ported; the multi-host
+and data-parallel branches are not ported.
 
 The port's checkpoint is ``torch.save`` of the decoder's ``state_dict`` as
 ``checkpoints/*.pt``.  A checkpoint directory that holds only the JAX
@@ -9,39 +25,325 @@ Queue 1 #11, and ignoring them would silently serve a random decoder.
 """
 
 import logging
+import math
 import os
+import time
 from os import makedirs
 from os.path import isdir, isfile, join
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from ..core import dtypes
 from ..core.config import SolverConfig
+from ..data.collection import CollectionDataset
+from ..metrics.seg_metrics import SegmentationMetric
 from ..models.decoder import decoder_from_config
+from ..ops.losses import weighted_softmax_ce
+from .generator import class_mask
 
 log = logging.getLogger(__name__)
 
 FOREIGN_CHECKPOINTS = (".params", ".msgpack")
 
 
+def _mask_weights(mask):
+    """1.0 where annotated, 0.0 where ignore."""
+    return (mask > -1).float()
+
+
 class SegSolver:
     def __init__(self, max_res_log2: int, path_to_data: str,
-                 checkpoints_dir: str, cfg: Optional[SolverConfig] = None,
+                 checkpoints_dir: str, keep_weights: bool = True,
+                 cfg: Optional[SolverConfig] = None,
                  seed: Optional[int] = None,
                  device: Optional[torch.device] = None):
         self.path_to_data = path_to_data
         self.checkpoints_dir = checkpoints_dir
+        self.keep_weights = keep_weights
         self.cfg = cfg or SolverConfig(max_res_log2=max_res_log2)
         self.seed = self.cfg.seed if seed is None else seed
         self.device = device if device is not None else dtypes.cuda_device()
         compute_dtype = dtypes.default_policy(self.cfg.dtype).compute_dtype
         self.model = decoder_from_config(self.cfg, compute_dtype)
-        self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
         self.model.to(self.device).eval()
+        self.reinit()
         self.params_file = None
+        self.history: List[List[float]] = []  # per-step losses of each epoch
         self.is_trained = self.load()
+
+    def reinit(self):
+        """The seeded init: Xavier(in, 2.34) kernels, zero biases, BN 1/0."""
+        self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
+
+    # ------------------------------------------------------------------ data
+    def init_data(self):
+        ds = CollectionDataset(self.path_to_data, self.cfg, max_samples=None,
+                               load_to_memory=False)
+        if len(ds) <= 0:
+            raise ValueError("number of training samples should be > 0")
+        # hold the collection in host memory when it fits cache_max_size
+        # (GB): re-reading the pickles every epoch costs more than a step
+        sample = ds.load_sample(ds._feat_names[0])
+        sample_bytes = sum(f.nbytes for f in sample[2]) + sample[1].nbytes
+        if sample_bytes * len(ds) <= self.cfg.cache_max_size * 1024 ** 3:
+            ds = CollectionDataset(self.path_to_data, self.cfg,
+                                   max_samples=None, load_to_memory=True)
+        iters_per_epoch = len(ds) // self.cfg.train_batch_size
+        log.info("total train samples: %d, batch size: %d, epoch size: %d",
+                 len(ds), self.cfg.train_batch_size, iters_per_epoch)
+        return ds, iters_per_epoch
+
+    # ----------------------------------------------------------------- train
+    def _make_lr(self, iters_per_epoch: int) -> Callable[[int], float]:
+        """step -> learning rate, the values of the JAX package's optax
+        schedules: None (constant), 'steps' (x factor_d from each
+        ``epochs_steps`` boundary on), 'cos' (linear warm-up over one epoch
+        from base/10, then cosine to base/1000)."""
+        cfg = self.cfg
+        if cfg.scheduler is None:
+            return lambda step: cfg.base_lr
+        if cfg.scheduler == "steps":
+            bounds = sorted({int(s * iters_per_epoch): cfg.factor_d
+                             for s in getattr(cfg, "epochs_steps", [])}
+                            .items())
+
+            def steps_lr(step):
+                lr = cfg.base_lr
+                for boundary, factor in bounds:
+                    if step >= boundary:
+                        lr *= factor
+                return lr
+            return steps_lr
+        if cfg.scheduler == "cos":
+            warmup = iters_per_epoch
+            decay = cfg.train_epochs * iters_per_epoch - warmup
+            if decay <= 0:
+                raise ValueError("the cos schedule needs more than one "
+                                 "epoch of steps")
+            init, peak = cfg.base_lr / 10, cfg.base_lr
+            alpha = (cfg.base_lr / 1000) / peak
+
+            def cos_lr(step):
+                if step < warmup:
+                    return init + (peak - init) * step / warmup
+                t = min(step - warmup, decay)
+                cosine = 0.5 * (1 + math.cos(math.pi * t / decay))
+                return peak * ((1 - alpha) * cosine + alpha)
+            return cos_lr
+        raise ValueError(cfg.scheduler)
+
+    def _make_optimizer(self, iters_per_epoch: int = 1):
+        """-> (optimizer, lr schedule).  The caller sets each step's rate.
+        ``wd`` is torch's ``weight_decay``: ``wd * param`` added to the
+        gradient before the update, as optax's ``add_decayed_weights``."""
+        cfg = self.cfg
+        lr = self._make_lr(iters_per_epoch)
+        params = list(self.model.parameters())
+        if cfg.optimizer == "adam":
+            opt = torch.optim.Adam(params, lr=lr(0), betas=(0.9, 0.999),
+                                   eps=1e-8, weight_decay=cfg.wd)
+        elif cfg.optimizer == "sgd":
+            opt = torch.optim.SGD(params, lr=lr(0),
+                                  momentum=cfg.momentum or 0.0,
+                                  weight_decay=cfg.wd)
+        else:
+            raise ValueError(cfg.optimizer)
+        return opt, lr
+
+    def _try_device_cache(self, dataset):
+        """The whole collection on the card, once: ``(feats_all,
+        masks_all)`` with feats_all[i] (S, h_i, w_i, c_i) f32 and masks_all
+        (S, H, W) int8 where the labels allow, or None when switched off
+        or over the ``device_cache_gb`` budget (each step then uploads its
+        batch).  ~20 samples of ~130 MB f32 pyramids fit easily, and a
+        step then moves nothing over the host link."""
+        cfg = self.cfg
+        if not cfg.device_cache or dataset._output_idx:
+            return None
+        items = [dataset.get_item(i) for i in range(len(dataset))]
+        masks = np.stack([it[1] for it in items])
+        if masks.min() >= -128 and masks.max() <= 127:
+            masks = masks.astype(np.int8)
+        total = (sum(f.nbytes for f in items[0][2]) * len(items)
+                 + masks.nbytes)
+        budget = cfg.device_cache_gb * 1024 ** 3
+        if total > budget:
+            log.info("device cache skipped: %.2f GB > %.2f GB budget",
+                     total / 1024 ** 3, budget / 1024 ** 3)
+            return None
+        feats = []
+        for k, f0 in enumerate(items[0][2]):
+            dst = torch.empty((len(items), *f0.shape), dtype=torch.float32,
+                              device=self.device)
+            for s, it in enumerate(items):
+                dst[s].copy_(torch.from_numpy(it[2][k]))
+            feats.append(dst)
+        masks_dev = torch.from_numpy(masks).to(self.device)
+        log.info("device cache: %d samples, %.2f GB resident on %s",
+                 len(items), total / 1024 ** 3, self.device)
+        return feats, masks_dev
+
+    def _epoch_batches(self, dataset, epoch: int, cached):
+        """(features, int64 mask) of each step of ``epoch`` on the device,
+        in the order of ``dataset.batches(shuffle=True, seed=seed+epoch)``."""
+        b = self.cfg.train_batch_size
+        if cached is None:
+            for batch in dataset.batches(b, shuffle=True,
+                                         seed=self.seed + epoch):
+                yield ([torch.from_numpy(f).to(self.device)
+                        for f in batch["features"]],
+                       torch.from_numpy(batch["mask"]).to(self.device).long())
+            return
+        order = np.arange(len(dataset))
+        np.random.RandomState(self.seed + epoch).shuffle(order)
+        steps = [order[s:s + b] for s in range(0, len(order) - (b - 1), b)]
+        if not steps:
+            return
+        feats_all, masks_all = cached
+        idx_all = torch.as_tensor(np.stack(steps), device=self.device)
+        for idx in idx_all:
+            yield ([f.index_select(0, idx) for f in feats_all],
+                   masks_all.index_select(0, idx).long())
+
+    def _train_step(self, optimizer, features, mask, generator):
+        """One step; returns (loss, pixel accuracy over all pixels) as
+        device scalars (no host sync)."""
+        logits = self.model(features, generator=generator)
+        loss = weighted_softmax_ce(logits, mask, _mask_weights(mask)).mean()
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        # train metric: plain pixel accuracy over ALL pixels, ignore
+        # included, as the reference's mx.metric.Accuracy
+        acc = (logits.detach().argmax(-1) == mask).float().mean()
+        return loss.detach(), acc
+
+    def fit(self, epoch_end_callback: Optional[Callable] = None):
+        if not self.keep_weights:
+            self.reinit()
+        cfg = self.cfg
+        dataset, iters_per_epoch = self.init_data()
+        optimizer, lr = self._make_optimizer(iters_per_epoch)
+        cached = self._try_device_cache(dataset)
+        self.cache_active = cached is not None
+        dropout_gen = torch.Generator(device=self.device)
+        dropout_gen.manual_seed(self.seed)
+        display = cfg.train_display_iters
+        self.history = []
+        step = 0
+        self.model.train()
+        for epoch in range(cfg.train_epochs):
+            tic = speed_tic = time.time()
+            losses, accs = [], []
+            for feats, mask in self._epoch_batches(dataset, epoch, cached):
+                for group in optimizer.param_groups:
+                    group["lr"] = lr(step)
+                loss, acc = self._train_step(optimizer, feats, mask,
+                                             dropout_gen)
+                step += 1
+                losses.append(loss)
+                accs.append(acc)
+                if display and len(losses) % display == 0:
+                    loss_v = float(torch.stack(losses[-display:]).mean())
+                    acc_v = float(torch.stack(accs[-display:]).mean())
+                    speed = display * cfg.train_batch_size / (
+                        time.time() - speed_tic)
+                    log.info("Epoch[%03d] Batch[%04d] Speed: %9.2f "
+                             "samples/sec accuracy=%f total-loss=%f",
+                             epoch, len(losses), speed, acc_v, loss_v)
+                    speed_tic = time.time()
+            if losses:
+                self.history.append(torch.stack(losses).tolist())
+                log.info("Epoch[%d] Train-accuracy=%f", epoch + 1,
+                         float(torch.stack(accs).mean()))
+                log.info("Epoch[%d] Train-total-loss=%f", epoch + 1,
+                         float(np.mean(self.history[-1])))
+            log.info("Epoch[%d] Time cost=%.3f", epoch + 1, time.time() - tic)
+            if epoch_end_callback is not None:
+                self.model.eval()
+                epoch_end_callback()
+                self.model.train()
+        self.model.eval()
+        self.is_trained = True
+        self.save()
+        return []
+
+    # --------------------------------------------------------------- predict
+    def predict_logits(self, features: List) -> torch.Tensor:
+        """Eval-mode logits (N, H, W, num_classes) f32 for a feature pyramid
+        of (H, W, C) or (N, H, W, C) arrays or tensors."""
+        feats = []
+        for f in features:
+            f = torch.as_tensor(np.asarray(f, np.float32) if not
+                                isinstance(f, torch.Tensor) else f)
+            feats.append((f[None] if f.dim() == 3 else f).to(
+                self.device, torch.float32))
+        with torch.inference_mode():
+            return self.model(feats)
+
+    def predict(self, features: List) -> np.ndarray:
+        """-> (N, H, W, 1) int64 class masks (binary: strict compare)."""
+        logits = self.predict_logits(features)
+        return class_mask(logits).long()[..., None].cpu().numpy()
+
+    # -------------------------------------------------------------- evaluate
+    def evaluate(self, input_dir: str, output_dir: Optional[str] = None):
+        ds = CollectionDataset(input_dir, self.cfg, load_to_memory=False,
+                               output_idx=True)
+        if len(ds) <= 0:
+            raise ValueError("number of eval samples should be > 0")
+        metric = SegmentationMetric(self.cfg.num_classes, skip_bg=True)
+        return self.evaluate_for_data(ds, metric, output_dir=output_dir)
+
+    def evaluate_for_data(self, dataset: CollectionDataset, metric,
+                          output_dir: Optional[str] = None):
+        total_loss, total_cnt = 0.0, 0
+        for batch in dataset.batches(self.cfg.val_batch_size, shuffle=False,
+                                     drop_last=False):
+            logits = self.predict_logits(batch["features"])
+            mask = torch.from_numpy(batch["mask"]).to(self.device)
+            loss = weighted_softmax_ce(logits, mask, _mask_weights(mask))
+            total_loss += float(loss.mean())
+            total_cnt += 1
+            logits_np = logits.cpu().numpy()
+            metric.update([batch["mask"]], [logits_np])
+            if output_dir is not None:
+                self._dump_eval_images(dataset, batch, logits_np, output_dir)
+        total_loss = total_loss / total_cnt if total_cnt else 0.0
+        result = metric.get_name_value()
+        result.append(("total-loss", total_loss))
+        return result
+
+    def _dump_eval_images(self, dataset, batch, logits, output_dir):
+        """Per image: the image, the predicted and the annotated mask, and a
+        line of metrics."""
+        import cv2
+        if not isdir(output_dir):
+            makedirs(output_dir)
+        pred = np.argmax(logits, axis=-1)
+        for i in range(batch["image"].shape[0]):
+            imname = dataset.get_imname(int(batch["idx"][i]))
+            m = SegmentationMetric(self.cfg.num_classes, skip_bg=True)
+            m.update([batch["mask"][i:i + 1]], [logits[i:i + 1]])
+            metric_str = ", ".join(f"{n} {v:.3f}"
+                                   for n, v in m.get_name_value())
+            img = batch["image"][i].astype(np.uint8)
+            pm = pred[i].astype(np.int32)
+            gm = batch["mask"][i].astype(np.int32)
+            pm_vis = np.where(pm == 1, 255, 128).astype(np.uint8)
+            gm_vis = np.where(gm == 1, 255,
+                              np.where(gm == 0, 128, 0)).astype(np.uint8)
+            cv2.imwrite(join(output_dir, imname), img[:, :, ::-1])
+            cv2.imwrite(join(output_dir, imname.replace("img", "mask")
+                             .replace(".jpg", ".png")), pm_vis)
+            cv2.imwrite(join(output_dir, imname.replace("img", "gt_mask")
+                             .replace(".jpg", ".png")), gm_vis)
+            with open(join(output_dir, imname.replace("img", "metrics")
+                           .replace(".jpg", ".txt")), "w") as fp:
+                fp.write(f"{imname}, {img.shape}, {pm.shape}, {gm.shape}, "
+                         f"{metric_str}\n")
 
     # ------------------------------------------------------------ checkpoint
     def save(self, suffix: Optional[str] = None):
@@ -77,16 +379,3 @@ class SegSolver:
         self.model.load_state_dict(state)
         self.params_file = ours[0]
         return True
-
-    # --------------------------------------------------------------- predict
-    def predict_logits(self, features: List) -> torch.Tensor:
-        """Eval-mode logits (N, H, W, num_classes) f32 for a feature pyramid
-        of (H, W, C) or (N, H, W, C) arrays or tensors."""
-        feats = []
-        for f in features:
-            f = torch.as_tensor(np.asarray(f, np.float32) if not
-                                isinstance(f, torch.Tensor) else f)
-            feats.append((f[None] if f.dim() == 3 else f).to(
-                self.device, torch.float32))
-        with torch.inference_mode():
-            return self.model(feats)

@@ -115,6 +115,15 @@ def test_mx_xavier_init_and_defaults():
 
 
 def test_train_mode_is_not_ported():
+    """Train mode is ported now (tests/test_torch_train.py holds it to
+    JAX); what stays refused is dropout without an explicit generator, and
+    eval mode stays the folded path."""
     dec = decoder_from_config(SolverConfig(max_res_log2=3))
-    with pytest.raises(NotImplementedError, match="eval"):
-        dec([torch.zeros(1, 4, 4, 512), torch.zeros(1, 8, 8, 512)])
+    feats = [torch.randn(1, 4, 4, 512), torch.randn(1, 8, 8, 512)]
+    assert dec.training
+    with pytest.raises(ValueError, match="Generator"):
+        dec(feats)
+    logits = dec(feats, generator=torch.Generator().manual_seed(0))
+    assert tuple(logits.shape) == (1, 8, 8, 2) and logits.requires_grad
+    with torch.no_grad():
+        assert tuple(dec.eval()(feats).shape) == (1, 8, 8, 2)

@@ -1,11 +1,12 @@
-"""The port's two kernel wrappers (gan_segmentation_tpu_torch/kernels).
+"""The port's three kernel wrappers (gan_segmentation_tpu_torch/kernels).
 
 On the CPU each wrapper runs its plain PyTorch version; those are held here
 to the archived Pallas kernels run through the Pallas interpreter, as
 tests/test_pallas_conv.py runs them.  Tolerance rtol 1e-4, atol 1e-5, the
-same as that file's (f32 sums in different orders).  The CUDA kernels
-themselves are compared with the plain versions by the tests marked
-``cuda``, which skip without a card, and by chip_smoke.py.
+same as that file's (f32 sums in different orders).  The archived
+``bil_conv.py`` kernel, which had no test, is also held to ``lax.conv``.
+The CUDA kernels themselves are compared with the plain versions by the
+tests marked ``cuda``, which skip without a card, and by chip_smoke.py.
 """
 
 import functools
@@ -19,11 +20,17 @@ import torch
 sys.path.insert(0, join(dirname(__file__), "..", "experiments",
                         "pallas_archive"))
 
+import bil_conv as pallas_bil  # noqa: E402
 import conv_in_stats as pallas_in_stats  # noqa: E402
 import small_conv as pallas_small  # noqa: E402
+from jax import lax  # noqa: E402
 from gan_segmentation_tpu.ops.norm import instance_norm  # noqa: E402
 
 from gan_segmentation_tpu_torch.kernels import _build  # noqa: E402
+from gan_segmentation_tpu_torch.kernels.bil_conv import (  # noqa: E402
+    conv3x3_bil, conv3x3_bil_plain)
+from gan_segmentation_tpu_torch.kernels.conv3x3_grad import (  # noqa: E402
+    Conv3x3, conv3x3)
 from gan_segmentation_tpu_torch.kernels.conv_in_stats import (  # noqa: E402
     conv3x3_noise_bias_lrelu_instats, conv3x3_noise_bias_lrelu_instats_plain)
 from gan_segmentation_tpu_torch.kernels.small_conv import (  # noqa: E402
@@ -51,6 +58,11 @@ def pallas_k1(monkeypatch):
 @pytest.fixture
 def pallas_k2(monkeypatch):
     return _interp(pallas_small, "conv3x3_small", monkeypatch)
+
+
+@pytest.fixture
+def pallas_k3(monkeypatch):
+    return _interp(pallas_bil, "conv3x3_bil", monkeypatch)
 
 
 @pytest.fixture
@@ -181,7 +193,8 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 def test_build_cache_key_covers_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
-    assert names == ["conv3x3_core.cuh", "conv_in_stats.cu", "small_conv.cu"]
+    assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv_in_stats.cu",
+                     "small_conv.cu"]
     assert _build._source_tag() == _build._source_tag()
 
 
@@ -207,3 +220,140 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
             conv3x3_small(x, wt, b, leaky=0.2).float(),
             conv3x3_small_plain(x, wt, b, leaky=0.2).float(), rtol=tol,
             atol=tol)
+
+
+# (n, h, w, cin, cout, tile_h) of kernel 3: its design case B*C = 128, a
+# batch-1 layer with Cin 64, and the 4^2 shape with Cout = 2
+BIL_SHAPES = [(8, 8, 8, 16, 16, 4), (1, 8, 16, 64, 32, 4),
+              (1, 4, 4, 32, 2, 4)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,tile_h", BIL_SHAPES)
+@pytest.mark.parametrize("epilogue", ["none", "relu", "leaky"])
+@pytest.mark.parametrize("bias", [True, False])
+def test_bil_plain_matches_pallas(pallas_k3, rng, n, h, w, cin, cout, tile_h,
+                                  epilogue, bias):
+    x, wt = _conv_inputs(rng, n, h, w, cin, cout)
+    b = (0.1 * rng.randn(cout)).astype(np.float32) if bias else None
+    kw = {"none": {}, "relu": dict(relu=True),
+          "leaky": dict(leaky=0.2)}[epilogue]
+    want = pallas_k3(x, wt, b, tile_h=tile_h, **kw)
+    got = conv3x3_bil(torch.from_numpy(x), torch.from_numpy(wt),
+                      None if b is None else torch.from_numpy(b), **kw)
+    assert got.shape == (n, h, w, cout) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,tile_h", BIL_SHAPES)
+def test_bil_pallas_kernel_matches_lax_conv(pallas_k3, rng, n, h, w, cin,
+                                            cout, tile_h):
+    """The archived kernel itself (block-diagonal taps, batch in lanes)
+    computes the conv: max |err| <= 2e-6 against lax.conv at full f32
+    precision.  Outputs reach |y| ~ 4, where an f32 ulp is 4.8e-7, and the
+    two sum up to 9*64 products in different orders; measured here
+    1.67e-6, 1.01e-6 and 0.95e-6 at the three shapes."""
+    x, wt = _conv_inputs(rng, n, h, w, cin, cout)
+    want = lax.conv_general_dilated(
+        x, wt, (1, 1), ((1, 1), (1, 1)),
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        precision=lax.Precision.HIGHEST)
+    got = pallas_k3(x, wt, tile_h=tile_h)
+    assert float(np.abs(np.asarray(got) - np.asarray(want)).max()) <= 2e-6
+
+
+@pytest.mark.parametrize("n,cin,cout", [(9, 16, 16), (1, 129, 8),
+                                        (4, 8, 33)])
+def test_bil_refuses_what_breaks_its_contract(n, cin, cout):
+    """B*Cin or B*Cout above 128 raises on every device; the train conv's
+    dispatch takes kernel 2 for such a layer instead."""
+    x = torch.randn(n, 4, 4, cin)
+    w = torch.randn(3, 3, cin, cout)
+    with pytest.raises(ValueError, match="B\\*Cin"):
+        conv3x3_bil(x, w)
+    torch.testing.assert_close(conv3x3(x, w), conv3x3_small_plain(x, w))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "w_shape", "layout", "bias_dtype",
+                                 "device", "both_acts"])
+def test_bil_wrapper_refuses_what_the_kernel_does_not_take(bad):
+    x = torch.zeros(1, 4, 4, 8)
+    w = torch.zeros(3, 3, 8, 4)
+    b = torch.zeros(4)
+    kw = {}
+    if bad == "dtype":
+        x, w = x.double(), w.double()
+    elif bad == "w_shape":
+        w = torch.zeros(3, 3, 4, 4)
+    elif bad == "layout":
+        x = torch.zeros(1, 8, 4, 4).permute(0, 2, 3, 1)  # NCHW storage
+    elif bad == "bias_dtype":
+        b = b.double()
+    elif bad == "device":
+        x, w, b = x.to("meta"), w.to("meta"), b.to("meta")
+    else:
+        kw = dict(relu=True, leaky=0.2)
+    with pytest.raises((TypeError, ValueError)):
+        conv3x3_bil(x, w, b, **kw)
+
+
+def test_bil_cpu_wrapper_takes_the_plain_path_and_counts_nothing(rng):
+    x, wt = (torch.from_numpy(a) for a in _conv_inputs(rng, 2, 5, 7, 8, 8))
+    before = (conv3x3_bil.launches, conv3x3_small.launches)
+    torch.testing.assert_close(conv3x3_bil(x, wt, leaky=0.2),
+                               conv3x3_bil_plain(x, wt, leaky=0.2),
+                               rtol=0, atol=0)
+    y = Conv3x3.apply(x.requires_grad_(), wt, torch.zeros(8))
+    y.sum().backward()
+    assert (conv3x3_bil.launches, conv3x3_small.launches) == before
+
+
+# kernel 3 on the card: the design case, ragged tiles and widths, the
+# extremes of the contract (B = 128 with Cin = Cout = 1, B = 1 with 128
+# channels), and a large batch of 2-channel samples
+CUDA_BIL_SHAPES = [(8, 64, 64, 16, 16), (1, 33, 20, 128, 32),
+                   (128, 5, 7, 1, 1), (64, 9, 9, 2, 2), (2, 12, 40, 64, 64),
+                   (1, 16, 16, 128, 128), (1, 4, 4, 32, 2), (4, 10, 17, 12, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_bil_matches_plain(cuda, dtype, tol):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for (n, h, w, cin, cout) in CUDA_BIL_SHAPES:
+        x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
+        wt = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+              / (9 * cin) ** 0.5).to(dtype)
+        b = 0.1 * torch.randn((cout,), generator=g, device=cuda)
+        for kw in ({}, dict(leaky=0.2), dict(relu=True)):
+            launches = conv3x3_bil.launches
+            got = conv3x3_bil(x, wt, b, **kw)
+            assert conv3x3_bil.launches == launches + 1
+            torch.testing.assert_close(
+                got.float(), conv3x3_bil_plain(x, wt, b, **kw).float(),
+                rtol=tol, atol=tol)
+        torch.testing.assert_close(conv3x3_bil(x, wt).float(),
+                                   conv3x3_bil_plain(x, wt).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_conv3x3_grads_match_autograd(cuda):
+    """Conv3x3 through the kernels against torch.autograd through the plain
+    conv, f32 with TF32 off: dX, dW and db within 1e-4."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for (n, h, w, cin, cout) in [(1, 32, 32, 64, 16), (1, 16, 16, 512, 32),
+                                 (2, 9, 13, 32, 2), (8, 16, 16, 16, 16)]:
+        x = torch.randn((n, h, w, cin), generator=g, device=cuda)
+        wt = torch.randn((3, 3, cin, cout), generator=g, device=cuda) \
+            / (9 * cin) ** 0.5
+        b = torch.randn((cout,), generator=g, device=cuda)
+        dy = torch.randn((n, h, w, cout), generator=g, device=cuda)
+        leaves = [t.clone().requires_grad_() for t in (x, wt, b)]
+        Conv3x3.apply(*leaves).backward(dy)
+        ref = [t.clone().requires_grad_() for t in (x, wt, b)]
+        conv3x3_small_plain(*ref).backward(dy)
+        for got, want in zip(leaves, ref):
+            torch.testing.assert_close(got.grad, want.grad, rtol=1e-4,
+                                       atol=1e-4)
