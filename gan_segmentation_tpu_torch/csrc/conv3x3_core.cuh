@@ -13,8 +13,9 @@
 // tiles (H = 4, Cout = 2) need no special case in the loop; the epilogue
 // masks the stores.
 //
-// The products run on the CUDA cores (FFMA).  Tensor-core MMAs (wgmma),
-// TMA staging and a multi-stage smem ring are left for later work.
+// The products run on the CUDA cores (FFMA).  This core serves the f32
+// calls of kernels 1 and 2 and every call of kernel 3; the bf16 calls of
+// kernels 1 and 2 run the tensor-core implicit GEMM of conv3x3_tc.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

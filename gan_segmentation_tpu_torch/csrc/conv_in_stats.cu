@@ -18,16 +18,34 @@
 // no float atomics) and the wrapper reduces the tile axis in a second pass.
 // The whole kernel is deterministic.
 //
-// What bounds it on the H100: in bf16 the narrow layers at 512^2 and 1024^2
-// (16-32 channels, ~72-144 flop per byte moved) sit below the tensor cores'
-// ridge of ~295 flop/byte and would be bound by memory; the 512-channel
-// layers sit far above it and are bound by the multiply rate.  This simple
-// design multiplies on the CUDA cores (FFMA, 67 TFLOP/s, ridge ~20
-// flop/byte), so every layer is bound by the FFMA rate for now.  Left for
-// later: wgmma on bf16 tiles, TMA loads into a multi-stage ring, and fusing
-// the following AdaIN (which needs the statistics of the whole image, so it
-// runs as the next conv's prologue).
+// bf16 (generate, batch 8) runs the tensor-core implicit GEMM of
+// conv3x3_tc.cuh.  What bounds it: at 256^2-1024^2 (16-64 channels, 68-284
+// flop per byte) the layers sit below the bf16 ridge of ~295 flop/byte and
+// are bound by bytes, so the design reads each input pixel from HBM once
+// (N spans Cout up to 64), keeps the halo in bf16 and keeps two stages of
+// cp.async loads in flight behind the multiply; the noise rides in the same
+// ring.  The 512-channel layers at 4^2-32^2 (~2,300 flop/byte) are bound
+// by the multiply rate but small: 8-64 blocks of the FFMA tiling for 132
+// SMs, so the plan tiles 64 channels x 256 pixels where that still fills
+// the card (32^2-256^2), else x 128 pixels, packs several 4^2 / 8^2 images
+// into one tile, and splits K over Cin where the grid is still short,
+// reducing the splits in a fixed order.  Measured (device time, NVIDIA
+// H100 80GB HBM3, 700.00 W): 1024^2 x 16 takes 0.78 ms against an HBM
+// floor of 0.17 ms, and the same conv without noise and statistics
+// (kernel 2) 0.56 ms, so the bound at 256^2-1024^2 is the SM's work per
+// pixel (staging index math, ldmatrix re-reading the halo once per tap,
+// the epilogue and the statistics), not HBM: an L2 prefetch two items
+// ahead made these layers slower.  The statistics' partial extent is the
+// tensor-core plan's
+// tile count (kernels/tc_plan.py), one partial per image even where a tile
+// spans several images.  Left for later: fusing the following AdaIN (it
+// needs the statistics of the whole image, so it would run as the next
+// conv's prologue).
+//
+// f32 stays on the FFMA core of conv3x3_core.cuh: f32 on tensor cores
+// means TF32, which would break the f32 contract.
 #include "conv3x3_core.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace gst {
 
@@ -131,26 +149,46 @@ static void dispatch_ct(const void* x, const void* w, const float* noise,
 
 extern "C" {
 
-// Number of spatial tiles, i.e. the extent of the partial-sum axis the
-// caller allocates: partial is (n, gst_conv3x3_num_tiles(h, w), 2, cout) f32.
+// Number of spatial tiles of the f32 (FFMA) kernel, i.e. the extent of the
+// partial-sum axis the caller allocates for f32: partial is
+// (n, gst_conv3x3_num_tiles(h, w), 2, cout).  For bf16 the extent is the
+// plan's tile count (kernels/tc_plan.py: Plan.tiles).
 int gst_conv3x3_num_tiles(int h, int w) { return gst::num_tiles(h, w); }
 
+// f32 runs the FFMA core (ws and plan unused); bf16 runs the tensor-core
+// kernel with plan = int[9] from kernels/tc_plan.py and ws its split-K
+// workspace (null without a split).
 // Returns cudaGetLastError() after the launch (0 on success).
 int gst_conv3x3_in_stats(const void* x, const void* w, const float* noise,
                          const float* nscale, const float* bias, void* y,
-                         float* partial, int n, int h, int wd, int cin,
-                         int cout, int dtype, float slope, void* stream) {
+                         float* partial, float* ws, int n, int h, int wd,
+                         int cin, int cout, int dtype, float slope,
+                         const int* plan, void* stream) {
   if (!gst::valid_dims(n, h, wd, cin, cout)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == gst::F32)
+  if (dtype == gst::F32) {
     gst::dispatch_ct<float>(x, w, noise, nscale, bias, y, partial, n, h, wd,
                             cin, cout, slope, st);
-  else if (dtype == gst::BF16)
-    gst::dispatch_ct<__nv_bfloat16>(x, w, noise, nscale, bias, y, partial, n,
-                                    h, wd, cin, cout, slope, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  if (dtype != gst::BF16) return (int)cudaErrorInvalidValue;
+  gst::tc::Args a = {};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = bias;
+  a.noise = noise;
+  a.nscale = nscale;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.partial = partial;
+  a.ws = ws;
+  a.n = n;
+  a.h = h;
+  a.wd = wd;
+  a.cin = cin;
+  a.cout = cout;
+  a.act = gst::tc::LEAKY;
+  a.slope = slope;
+  return gst::tc::run(a, plan, st);
 }
 
 }  // extern "C"

@@ -13,15 +13,26 @@
 // accumulated in f32, stored once in x's dtype.  Pallas required
 // H % tile_h == 0; here ragged tiles are masked, so H = 4 and Cout = 2 run.
 //
-// What bounds it on the H100: the decoder's 1024^2 and 512^2 layers carry
-// 16-64 channels, ~72-290 flop per byte moved in bf16, at or below the
-// tensor cores' ridge of ~295 flop/byte, so on tensor cores they would be
-// bound by memory.  This simple design multiplies on the CUDA cores (FFMA,
-// ridge ~20 flop/byte) and is bound by the FFMA rate.  Left for later:
-// wgmma, TMA staging, reading the nearest-2x upsample and the concat
-// directly from their inputs, and the batch-in-channels tile mode of
-// experiments/pallas_archive/bil_conv.py.
+// bf16 (generate, batch 8) runs the tensor-core implicit GEMM of
+// conv3x3_tc.cuh.  What bounds it: from 256^2 up the decoder's layers carry
+// 16-64 channels at 17-192 flop per byte (main_8_conv 32 -> 2 at 17,
+// main_7.conv_0 64 -> 16 at 115), below the bf16 ridge of ~295, so they are
+// bound by bytes: the design reads each input pixel from HBM once (N spans
+// all of Cout, up to 64), keeps the halo in bf16, and keeps two stages of
+// cp.async loads in flight behind the multiply.  cvt_0..3 (Cin 512 at
+// 4^2-32^2) have few output pixels: there the bound is the block count,
+// and the plan splits K over Cin to fill the SMs.  Measured (device time,
+// NVIDIA H100 80GB HBM3, 700.00 W): the 1024^2 convs take 0.56-1.18 ms
+// against HBM floors of 0.16-0.40 ms; the bound is the SM's work per pixel
+// (staging index math, ldmatrix re-reading the halo once per tap, the
+// epilogue), not HBM latency: an L2 bulk prefetch two items ahead made them
+// 5-10% slower.
+//
+// f32 (evaluate at batch 1, train's cvt_0..4 forward) stays on the FFMA
+// core of conv3x3_core.cuh: f32 on tensor cores means TF32, which would
+// break the f32 contract (card = CPU to six decimals in the train checks).
 #include "conv3x3_core.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace gst {
 
@@ -73,23 +84,38 @@ static void dispatch_ct(const void* x, const void* w, const float* bias,
 
 extern "C" {
 
-// bias may be null.  act: 0 none, 1 relu, 2 leaky(slope).
+// bias may be null.  act: 0 none, 1 relu, 2 leaky(slope).  f32 runs the
+// FFMA core (ws and plan unused); bf16 runs the tensor-core kernel with
+// plan = int[9] from kernels/tc_plan.py and ws its split-K workspace
+// (null without a split).
 // Returns cudaGetLastError() after the launch (0 on success).
 int gst_conv3x3_small(const void* x, const void* w, const float* bias,
-                      void* y, int n, int h, int wd, int cin, int cout,
-                      int dtype, int act, float slope, void* stream) {
+                      void* y, float* ws, int n, int h, int wd, int cin,
+                      int cout, int dtype, int act, float slope,
+                      const int* plan, void* stream) {
   if (!gst::valid_dims(n, h, wd, cin, cout) || act < 0 || act > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == gst::F32)
+  if (dtype == gst::F32) {
     gst::dispatch_ct<float>(x, w, bias, y, n, h, wd, cin, cout, act, slope,
                             st);
-  else if (dtype == gst::BF16)
-    gst::dispatch_ct<__nv_bfloat16>(x, w, bias, y, n, h, wd, cin, cout, act,
-                                    slope, st);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return (int)cudaGetLastError();
+  }
+  if (dtype != gst::BF16) return (int)cudaErrorInvalidValue;
+  gst::tc::Args a = {};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = bias;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.ws = ws;
+  a.n = n;
+  a.h = h;
+  a.wd = wd;
+  a.cin = cin;
+  a.cout = cout;
+  a.act = act;
+  a.slope = slope;
+  return gst::tc::run(a, plan, st);
 }
 
 }  // extern "C"

@@ -10,6 +10,7 @@ build is never loaded.  A failed build raises.
 """
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -19,6 +20,8 @@ import tempfile
 from os.path import dirname, isfile, join
 
 import torch
+
+from . import tc_plan
 
 _PKG = dirname(dirname(os.path.abspath(__file__)))
 CSRC = join(_PKG, "csrc")
@@ -139,6 +142,28 @@ def check_conv3x3(x, w, b):
     return n, h, wd, cin, cout
 
 
+@functools.lru_cache(maxsize=None)
+def _tc_plan_c(n, h, w, cin, cout, noise):
+    p = tc_plan.plan(n, h, w, cin, cout, noise)
+    args = p.args()
+    return p, (ctypes.c_int * len(args))(*args)
+
+
+def tc_launch_args(x, n, h, w, cin, cout, noise=False):
+    """For a bf16 call of kernel 1 (``noise``) or 2: (plan, plan as a C
+    int[9] or None, split-K workspace or None).  f32 calls run the FFMA core
+    and take neither.  The plan is cached per shape: the host's time per launch is
+    what bounds the small layers."""
+    if x.dtype != torch.bfloat16:
+        return None, None, None
+    p, plan_c = _tc_plan_c(n, h, w, cin, cout, noise)
+    ws = None
+    if p.splits > 1:
+        ws = torch.empty(p.ws_elems(n, h, w, cout), dtype=torch.float32,
+                         device=x.device)
+    return p, plan_c, ws
+
+
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
@@ -154,11 +179,11 @@ def library():
     lib.gst_conv3x3_num_tiles.restype = i
     lib.gst_conv3x3_num_tiles.argtypes = [i, i]
     lib.gst_conv3x3_in_stats.restype = i
-    lib.gst_conv3x3_in_stats.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                         i, i, i, i, i, i, f, vp]
+    lib.gst_conv3x3_in_stats.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                         i, i, i, i, i, i, f, vp, vp]
     lib.gst_conv3x3_small.restype = i
-    lib.gst_conv3x3_small.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f,
-                                      vp]
+    lib.gst_conv3x3_small.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
+                                      f, vp, vp]
     lib.gst_conv3x3_bil.restype = i
     lib.gst_conv3x3_bil.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f,
                                     vp]

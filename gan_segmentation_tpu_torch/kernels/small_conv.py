@@ -1,6 +1,8 @@
 """Kernel 2: direct 3x3 conv with a fused bias and relu / leaky epilogue.
 
-CUDA source: ``csrc/small_conv.cu``.  Replaces the TPU kernel
+CUDA source: ``csrc/small_conv.cu``: bf16 runs the tensor-core implicit
+GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan: ``tc_plan.py``), f32 the FFMA
+core of ``csrc/conv3x3_core.cuh``.  Replaces the TPU kernel
 ``experiments/pallas_archive/small_conv.py::conv3x3_small`` and keeps its
 contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's
 dtype, ``b`` optional (Cout,) f32.  Unlike Pallas, any H and W run.
@@ -49,11 +51,13 @@ def conv3x3_small(x, w, b=None, *, relu: bool = False,
     dev = x.device
     lib = _build.library()
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
     with torch.cuda.device(dev):
         rc = lib.gst_conv3x3_small(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            y.data_ptr(), n, h, wd, cin, cout, _build.DTYPE_CODES[x.dtype],
-            _ACT_CODES[act], float(leaky or 0.0),
+            y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
+            cin, cout, _build.DTYPE_CODES[x.dtype], _ACT_CODES[act],
+            float(leaky or 0.0), plan,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "conv3x3_small")
     conv3x3_small.launches += 1

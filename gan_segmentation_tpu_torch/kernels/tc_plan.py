@@ -1,0 +1,140 @@
+"""Launch plan of the bf16 tensor-core 3x3 conv (``csrc/conv3x3_tc.cuh``).
+
+A pure function of the layer's shape, so the CPU tests can check every
+path shape's plan without a card.  The kernel validates the plan it is
+given and computes its shared memory by the same formula as ``smem_bytes``.
+
+- ``bn``: output channels per block, Cout rounded up to a power of two in
+  8..64, so a narrow layer (2-64 channels) reads each input pixel once; Cout
+  = 2 runs at N = 8 with zero taps and masked stores.
+- ``wm``: warps along M, 32 pixels each; 8 (256 pixels) where that grid
+  still fills the card (twice over for ``bn <= 32``, whose layers are
+  bound by bytes; once for ``bn == 64``, where a warp's 32 x 64 tile reads
+  half the shared memory per MMA of the 32 x 32 warps of a 128-pixel
+  block), else 4.  ``bn == 64`` at ``wm == 4`` runs 2 warps along N.
+- ``ck``: input channels per pipeline stage, 16 for Cin <= 16, else 32.
+- ``tw``, ``th``, ``g``: the block's pixels as g images x th rows x tw
+  columns at the same spatial tile (``tw * th * g == 32 * wm``).
+- ``splits``, ``cps``: split-K over Cin chunks (``cps`` chunks per split)
+  where the grid has fewer blocks than SMs; a second kernel reduces the
+  splits in a fixed order.
+- ``stages``: the cp.async ring's depth, 2 where an item has one or two
+  chunks (double buffering across the persistent block's items), else 3.
+
+Where a plan would exceed the shared memory, the ring drops to 2 stages,
+then the block to 4 warps.
+"""
+
+from dataclasses import dataclass
+
+MAX_SMEM = 232448        # a block's shared-memory limit on sm_90
+NUM_SMS = 132            # H100 SXM
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pow2ceil(v: int) -> int:
+    return 1 << max(0, (v - 1).bit_length())
+
+
+def pad_row(e: int) -> int:
+    """A row of ``e`` bf16 (a multiple of 8) padded to an odd number of
+    16-byte units (``pad_row`` in conv3x3_tc.cuh)."""
+    return e + 8 if (e // 8) % 2 == 0 else e
+
+
+@dataclass(frozen=True)
+class Plan:
+    bn: int
+    wm: int
+    ck: int
+    tw: int
+    th: int
+    g: int
+    splits: int
+    cps: int
+    stages: int
+    noise: bool   # kernel 1: each stage also holds the item's noise
+    tiles_x: int
+    tiles_y: int
+    groups: int
+    cout_blocks: int
+
+    @property
+    def bm(self) -> int:
+        return 32 * self.wm
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.wm * (2 if self.bn == 64 and self.wm == 4 else 1)
+
+    @property
+    def tiles(self) -> int:
+        """Spatial tiles per image: the extent of kernel 1's partial axis."""
+        return self.tiles_x * self.tiles_y
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.cout_blocks * self.groups * self.splits
+
+    @property
+    def smem_bytes(self) -> int:
+        halo = self.g * (self.th + 2) * (self.tw + 2) * pad_row(self.ck)
+        stage = (halo + 9 * self.ck * pad_row(self.bn)
+                 + (2 * self.bm if self.noise else 0))
+        epilogue = self.bm * (self.bn + 4) + 2 * max(self.threads,
+                                                     self.g * self.bn)
+        return self.stages * stage * 2 + epilogue * 4
+
+    def args(self):
+        """The int[9] the C entry points take."""
+        return (self.bn, self.wm, self.ck, self.tw, self.th, self.g,
+                self.splits, self.cps, self.stages)
+
+    def ws_elems(self, n: int, h: int, w: int, cout: int) -> int:
+        """f32 elements of the split-K workspace (0 without a split)."""
+        return self.splits * n * h * w * cout if self.splits > 1 else 0
+
+
+def _geometry(n, h, w, bm, tw):
+    th = min(bm // tw, _pow2ceil(h))
+    g = bm // (tw * th)
+    return th, g, _cdiv(w, tw), _cdiv(h, th), _cdiv(n, g)
+
+
+def _plan(n, h, w, cin, cout, wm, stages, noise=False):
+    bn = min(64, max(8, _pow2ceil(cout)))
+    ck = 16 if cin <= 16 else 32
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    cout_blocks = _cdiv(cout, bn)
+    th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 32 * wm, tw)
+    blocks = tiles_x * tiles_y * groups * cout_blocks
+    chunks = _cdiv(cin, ck)
+    splits = 1
+    if blocks < NUM_SMS:
+        splits = min(chunks, _cdiv(2 * NUM_SMS, blocks))
+    cps = _cdiv(chunks, splits)
+    splits = _cdiv(chunks, cps)
+    return Plan(bn=bn, wm=wm, ck=ck, tw=tw, th=th, g=g, splits=splits,
+                cps=cps, stages=stages or (2 if cps <= 2 else 3), noise=noise,
+                tiles_x=tiles_x, tiles_y=tiles_y, groups=groups,
+                cout_blocks=cout_blocks)
+
+
+def plan(n: int, h: int, w: int, cin: int, cout: int,
+         noise: bool = False) -> Plan:
+    """The plan of one call; ``noise`` for kernel 1 (its stages hold the
+    noise too)."""
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    bn = min(64, max(8, _pow2ceil(cout)))
+    _, _, tx, ty, gr = _geometry(n, h, w, 256, tw)
+    fill = NUM_SMS if bn == 64 else 2 * NUM_SMS
+    wms = [8, 4] if tx * ty * gr * _cdiv(cout, bn) >= fill else [4]
+    for wm in wms:
+        for stages in (None, 2):
+            p = _plan(n, h, w, cin, cout, wm, stages, noise)
+            if p.smem_bytes <= MAX_SMEM:
+                return p
+    return p

@@ -10,6 +10,7 @@ tests marked ``cuda``, which skip without a card, and by chip_smoke.py.
 """
 
 import functools
+import itertools
 import sys
 from os.path import dirname, join
 
@@ -26,7 +27,7 @@ import small_conv as pallas_small  # noqa: E402
 from jax import lax  # noqa: E402
 from gan_segmentation_tpu.ops.norm import instance_norm  # noqa: E402
 
-from gan_segmentation_tpu_torch.kernels import _build  # noqa: E402
+from gan_segmentation_tpu_torch.kernels import _build, tc_plan  # noqa: E402
 from gan_segmentation_tpu_torch.kernels.bil_conv import (  # noqa: E402
     conv3x3_bil, conv3x3_bil_plain)
 from gan_segmentation_tpu_torch.kernels.conv3x3_grad import (  # noqa: E402
@@ -193,9 +194,19 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 def test_build_cache_key_covers_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
-    assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv_in_stats.cu",
-                     "small_conv.cu"]
+    assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv3x3_tc.cuh",
+                     "conv_in_stats.cu", "small_conv.cu"]
     assert _build._source_tag() == _build._source_tag()
+
+
+# bf16 edge cases of the tensor-core kernel: 4^2 images with Cin 512 (a
+# tile spanning images, split-K), W = 20 / H = 12 (ragged tiles), Cout = 2
+# (N padded to 8), Cin = 3 (scalar staging), batch 1, Cout 24 (N = 32 with
+# masked channels), 256-pixel blocks of 64 channels with a ragged W
+TC_EDGE_SHAPES = [(8, 4, 4, 512, 512), (8, 4, 4, 512, 32), (3, 12, 20, 32, 16),
+                  (2, 33, 40, 32, 2), (2, 9, 7, 3, 16), (1, 64, 64, 64, 16),
+                  (1, 16, 16, 512, 512), (2, 5, 6, 40, 24),
+                  (8, 64, 72, 64, 64)]
 
 
 @pytest.mark.cuda
@@ -203,7 +214,10 @@ def test_build_cache_key_covers_every_source():
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_kernels_match_plain(cuda, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(0)
-    for (n, h, w, cin, cout, _) in SHAPES + [(2, 64, 64, 64, 2, 8)]:
+    shapes = [s[:5] for s in SHAPES] + [(2, 64, 64, 64, 2)]
+    if dtype == torch.bfloat16:
+        shapes += TC_EDGE_SHAPES
+    for (n, h, w, cin, cout) in shapes:
         x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
         wt = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
               / (9 * cin) ** 0.5).to(dtype)
@@ -216,10 +230,93 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
         for g_, w_ in zip(got, want):
             torch.testing.assert_close(g_.float(), w_.float(), rtol=tol,
                                        atol=tol)
-        torch.testing.assert_close(
-            conv3x3_small(x, wt, b, leaky=0.2).float(),
-            conv3x3_small_plain(x, wt, b, leaky=0.2).float(), rtol=tol,
-            atol=tol)
+        for kw in (dict(leaky=0.2), dict(relu=True), {}):
+            torch.testing.assert_close(
+                conv3x3_small(x, wt, b, **kw).float(),
+                conv3x3_small_plain(x, wt, b, **kw).float(), rtol=tol,
+                atol=tol)
+        # two launches on the same input are bit-identical (split-K and the
+        # statistics reduce in a fixed order)
+        again = conv3x3_noise_bias_lrelu_instats(x, wt, noise, b, b)
+        for a_, b_ in zip(got, again):
+            assert torch.equal(a_, b_)
+        assert torch.equal(conv3x3_small(x, wt, b, leaky=0.2),
+                           conv3x3_small(x, wt, b, leaky=0.2))
+
+
+def _path_shapes(batch):
+    """(n, h, w, cin, cout) of every kernel-1 and kernel-2 call of the ffhq
+    1024^2 generate path at this batch."""
+    from gan_segmentation_tpu_torch.core.config import (SolverConfig,
+                                                        gan_config)
+    gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
+    out = []
+    for res in range(2, gcfg.max_res_log2 + 1):
+        c = gcfg.num_features(res)
+        out.append((batch, 2 ** res, 2 ** res, c, c))
+    f, cin = scfg.features, scfg.in_channels
+    for i in range(len(cin)):
+        r = 2 ** (i + 2)
+        out.append((batch, r, r, cin[i], f[i]))
+        c_in = f[i] * (2 if i > 0 else 1)
+        if i < len(cin) - 1:
+            out.append((batch, 2 * r, 2 * r, c_in, f[i + 1]))
+            out.append((batch, 2 * r, 2 * r, f[i + 1], f[i + 1]))
+        else:
+            out.append((batch, r, r, c_in, f[i + 1]))
+    return out
+
+
+def _covered(p, n, h, w):
+    """Each output pixel under the kernel's index map (conv3x3_tc.cuh: an
+    item is (image group, spatial tile, Cout block); its tile pixel p is
+    (image, row, column) of g x th x tw), with the (image, tile) of the
+    statistics partial it lands in."""
+    hits = {}
+    for z in range(p.groups):
+        for tile in range(p.tiles):
+            ty0 = (tile // p.tiles_x) * p.th
+            tx0 = (tile % p.tiles_x) * p.tw
+            for q in range(p.bm):
+                gi, rem = divmod(q, p.th * p.tw)
+                nn, oy, ox = (z * p.g + gi, ty0 + rem // p.tw,
+                              tx0 + rem % p.tw)
+                if nn < n and oy < h and ox < w:
+                    hits.setdefault((nn, oy, ox), []).append((nn, tile))
+    return hits
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+def test_tc_plan_fits_every_path_shape(batch):
+    """The bf16 launch plan of every kernel-1 / kernel-2 call on the path
+    (and of the edge cases): within a block's 227 KB of shared memory, N a
+    multiple of 8 spanning Cout up to 64, whole warps of 32 pixels, the
+    split-K covering every Cin chunk once, a grid inside CUDA's limits, and
+    a partial extent (tiles) under which every output pixel of every image
+    lands in exactly one (image, tile) partial."""
+    shapes = _path_shapes(batch) + [(batch, *s[1:]) for s in TC_EDGE_SHAPES]
+    for (n, h, w, cin, cout), noise in itertools.product(shapes, (False,
+                                                                   True)):
+        p = tc_plan.plan(n, h, w, cin, cout, noise)
+        assert p.smem_bytes <= tc_plan.MAX_SMEM, (n, h, w, cin, cout, p)
+        assert p.bn % 8 == 0 and p.bn >= min(cout, 64), p
+        assert p.tw * p.th * p.g == p.bm == 32 * p.wm, p
+        chunks = -(-cin // p.ck)
+        assert (p.splits - 1) * p.cps < chunks <= p.splits * p.cps, p
+        assert p.blocks < 2 ** 31 and p.groups <= 65535  # CUDA's grid
+        assert p.ws_elems(n, h, w, cout) == (
+            p.splits * n * h * w * cout if p.splits > 1 else 0)
+        if n * h * w <= 4096:  # the index map, where it is cheap to walk
+            hits = _covered(p, n, h, w)
+            assert len(hits) == n * h * w
+            assert all(len(v) == 1 and v[0][1] < p.tiles
+                       for v in hits.values())
+    # the Cin-512 layers at 4^2-16^2 fill the card by splitting K, as far
+    # as their 16 Cin chunks allow
+    for res in (4, 8, 16):
+        p = tc_plan.plan(8, res, res, 512, 512)
+        assert p.splits > 1
+        assert p.blocks >= min(tc_plan.NUM_SMS, p.blocks // p.splits * 16)
 
 
 # (n, h, w, cin, cout, tile_h) of kernel 3: its design case B*C = 128, a
