@@ -10,14 +10,19 @@ Phases (any failure raises, so the exit code is non-zero):
    power limit (nvidia-smi).
 2. build   — compiles the CUDA kernels of ``gan_segmentation_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints ptxas's registers and
-   spills; every tensor-core kernel (``conv3x3_tc.cuh``) must spill 0 bytes.
-3. kernels — each kernel against its plain PyTorch version, with the error,
-   the tolerance and both times: kernels 1 and 2 at every shape the ffhq
-   1024^2 generate path gives them at batch 8, in f32 (TF32 off on the
-   plain side) and bf16; kernel 2 in f32 at every decoder conv at batch 1
-   (evaluate); kernel 3 (bil_conv) in f32 at every shape of a train step at
-   batch 1 (forward and input gradient), and in f32 and bf16 at generate's
-   16 -> 16 convs at 1024^2, batch 8, both timed beside kernel 2; Conv3x3's
+   spills; every tensor-core kernel (``conv3x3_tc.cuh``, bf16, and
+   ``conv3x3_tf32.cuh``, 3xTF32) must spill 0 bytes.
+3. kernels — each kernel against its plain PyTorch version, with the error
+   and the tolerance, and per call its device time by CUDA-graph replay
+   beside the plain version's, ``F.conv2d`` alone (the library call) and
+   the floor (bytes once over HBM or operations over the type's peak):
+   kernels 1 and 2 at every shape the ffhq 1024^2 generate path gives them
+   at batch 8, in f32 (TF32 off on the plain side) and bf16 (timed); kernel
+   2 in f32 at every decoder conv at batch 1 (evaluate, timed); kernel 3
+   (bil_conv) in f32 at every call of a train step at batch 1 (forward and
+   input gradient), timed beside kernel 2's FFMA body and ``F.conv2d``
+   with TF32 on too, and at its edge cases, with bit-identical repeats;
+   kernel 3's bf16 body at generate's 16 -> 16 convs at batch 8; Conv3x3's
    output, dX, dW and db against torch.autograd at every train shape.  The
    bf16 calls of kernels 1 and 2 run the tensor-core kernel; it is also
    checked at its edge cases (4^2 tiles spanning images with Cin 512,
@@ -37,7 +42,9 @@ Phases (any failure raises, so the exit code is non-zero):
    time by CUDA events, host vs device time, and the device time by
    kernel family.
 
-The last lines are the kernels' JSON record, the nvidia-smi line, and
+The last lines are the kernels' JSON record (per kernel: launches on the
+main path, max error, device ms of the kernel, its plain version and the
+library call, and its bound), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -110,6 +117,61 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in a CUDA graph,
+    replayed ``replays`` times between CUDA events, after a warm-up call
+    outside the graph.  The host's time per call (the wrappers' ctypes and
+    checks, 30-180 us) is not in it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s
+# and operations/s by type.  3xTF32 does three TF32 MMAs per f32 product.
+HBM_RATE = 3.35e12
+PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+
+
+def conv_floors(n, h, w, cin, cout, elem, extra_bytes=0):
+    """(bytes, FLOP) of one 3x3 conv: x, w and y each moved once (``elem``
+    bytes an element) plus ``extra_bytes`` (bias, noise, statistics)."""
+    nbytes = elem * (n * h * w * (cin + cout) + 9 * cin * cout) + extra_bytes
+    return nbytes, 18 * n * h * w * cin * cout
+
+
+def bound(nbytes, ops, rate):
+    """(least ms, what bounds it) for ``nbytes`` over HBM and ``ops`` at
+    ``rate`` operations/s."""
+    tb, to = nbytes / HBM_RATE * 1e3, ops / rate * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def summed_bound(parts):
+    """Sum of per-call bounds, and what bounds the larger share of it."""
+    total = sum(t for t, _ in parts)
+    by_bytes = sum(t for t, by in parts if by == "bytes")
+    return total, ("bytes" if by_bytes >= total - by_bytes else "operations")
 
 
 def max_err(a, b) -> float:
@@ -190,23 +252,57 @@ def bil_shapes(scfg):
     return out
 
 
+def library_ms(torch, x, wt, b=None):
+    """Device ms (graph replay) of F.conv2d alone on the same NHWC inputs
+    (cuDNN, channels-last): the library call beside a conv kernel."""
+    xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+    bc = None if b is None else b.to(x.dtype)
+    return graph_ms(lambda: torch.nn.functional.conv2d(xc, wc, bc, padding=1))
+
+
+def device_times(torch, kernel, plain, x, wt, b=None):
+    """Device ms (graph replay) of the kernel, its plain version and the
+    library call on the same inputs."""
+    return dict(kernel=graph_ms(kernel), plain=graph_ms(plain),
+                library=library_ms(torch, x, wt, b))
+
+
+def add_times(acc, times, floor):
+    for k, v in times.items():
+        acc[k] = acc.get(k, 0.0) + v
+    acc.setdefault("bounds", []).append(floor)
+
+
+def times_line(times, floor):
+    return (f"  device: kernel {times['kernel']:.4f} ms, plain "
+            f"{times['plain']:.4f}, F.conv2d {times['library']:.4f}; floor "
+            f"{floor[0]:.4f} ({floor[1]}), share "
+            f"{floor[0] / times['kernel']:.3f}")
+
+
+def conv_inputs(torch, g):
+    """inputs(n, h, w, cin, cout) -> x ~ N(0, 1) NHWC and w ~ N(0, 1) /
+    sqrt(9 Cin) HWIO on the card, from the seeded generator g."""
+    def inputs(n, h, w, cin, cout):
+        x = torch.randn((n, h, w, cin), generator=g, device="cuda")
+        wt = torch.randn((3, 3, cin, cout), generator=g, device="cuda")
+        return x, wt / (9 * cin) ** 0.5
+    return inputs
+
+
 def phase_kernels(torch, gcfg, scfg):
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
+    inputs = conv_inputs(torch, g)
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     rec = {}
 
-    def inputs(n, h, w, cin, cout):
-        x = torch.randn((n, h, w, cin), generator=g, device=dev)
-        wt = torch.randn((3, 3, cin, cout), generator=g, device=dev)
-        return x, wt / (9 * cin) ** 0.5
-
     # kernel 1
     errs = {"f32": 0.0, "bf16": 0.0}
-    ms = plain_ms = 0.0
+    dev_t = {}
     for (n, h, w, cin, cout) in kernel1_shapes(gcfg):
         x32, w32 = inputs(n, h, w, cin, cout)
         noise = torch.randn((n, h, w), generator=g, device=dev)
@@ -226,18 +322,24 @@ def phase_kernels(torch, gcfg, scfg):
             line = (f"  {name}: max|y err| {max_err(y, yp):.3g} (tol "
                     f"{TOL[tag]}, stats {STAT_TOL[tag]})")
             if tag == "bf16":
-                t = cuda_ms(lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args))
-                tp = cuda_ms(
-                    lambda: k1m.conv3x3_noise_bias_lrelu_instats_plain(*args))
-                ms, plain_ms = ms + t, plain_ms + tp
-                line += f"  kernel {t:.4f} ms  plain {tp:.4f} ms"
+                times = device_times(
+                    torch,
+                    lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args),
+                    lambda: k1m.conv3x3_noise_bias_lrelu_instats_plain(*args),
+                    x, wt)
+                # noise, nscale, bias in; mean, var out (f32)
+                floor = bound(*conv_floors(
+                    n, h, w, cin, cout, 2,
+                    4 * (n * h * w + 2 * cout + 2 * n * cout)), PEAK["bf16"])
+                add_times(dev_t, times, floor)
+                line += ";" + times_line(times, floor)
             log(line)
         del x32, w32, x, wt, y, yp
-    rec["conv_in_stats"] = dict(errs=errs, ms=ms, plain_ms=plain_ms)
+    rec["conv_in_stats"] = dict(errs=errs, dev=dev_t)
 
     # kernel 2
     errs = {"f32": 0.0, "bf16": 0.0}
-    ms = plain_ms = 0.0
+    dev_t = {}
     for (cname, n, h, w, cin, cout, leaky) in kernel2_shapes(scfg):
         x32, w32 = inputs(n, h, w, cin, cout)
         b = 0.1 * torch.randn((cout,), generator=g, device=dev)
@@ -252,16 +354,22 @@ def phase_kernels(torch, gcfg, scfg):
             errs[tag] = max(errs[tag], max_err(y, yp))
             line = f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL[tag]})"
             if tag == "bf16":
-                t = cuda_ms(lambda: k2m.conv3x3_small(x, wt, b, **kw))
-                tp = cuda_ms(lambda: k2m.conv3x3_small_plain(x, wt, b, **kw))
-                ms, plain_ms = ms + t, plain_ms + tp
-                line += f"  kernel {t:.4f} ms  plain {tp:.4f} ms"
+                times = device_times(
+                    torch, lambda: k2m.conv3x3_small(x, wt, b, **kw),
+                    lambda: k2m.conv3x3_small_plain(x, wt, b, **kw), x, wt, b)
+                floor = bound(*conv_floors(n, h, w, cin, cout, 2, 4 * cout),
+                              PEAK["bf16"])
+                add_times(dev_t, times, floor)
+                line += ";" + times_line(times, floor)
             log(line)
         del x32, w32, x, wt, y, yp
     # evaluate runs every decoder conv through kernel 2 at batch 1 in f32
-    # (BN folded, leaky); train runs cvt_0..4 so (bias only, checked in
-    # phase_conv_grads through Conv3x3)
-    b1_err = b1_ms = b1_plain_ms = 0.0
+    # (BN folded, leaky), on its FFMA body; train runs cvt_0..4 so (bias
+    # only, checked in phase_conv_grads through Conv3x3).  Its floor is
+    # kernel 3's for the same work: 3xTF32 on the tensor cores, the
+    # card's fastest f32-exact rate.
+    b1_err = 0.0
+    b1_dev = {}
     for (cname, n, h, w, cin, cout, leaky) in kernel2_shapes(
             scfg, batch=TRAIN_BATCH):
         x, wt = inputs(n, h, w, cin, cout)
@@ -273,26 +381,35 @@ def phase_kernels(torch, gcfg, scfg):
         name = f"small_conv f32 {cname} {(n, h, w, cin, cout)}"
         check_close(name, y, yp, **TOL["f32"])
         b1_err = max(b1_err, max_err(y, yp))
-        t = cuda_ms(lambda: k2m.conv3x3_small(x, wt, b, **kw))
-        tp = cuda_ms(lambda: k2m.conv3x3_small_plain(x, wt, b, **kw))
-        b1_ms, b1_plain_ms = b1_ms + t, b1_plain_ms + tp
-        log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']})  "
-            f"kernel {t:.4f} ms  plain {tp:.4f} ms")
+        times = device_times(
+            torch, lambda: k2m.conv3x3_small(x, wt, b, **kw),
+            lambda: k2m.conv3x3_small_plain(x, wt, b, **kw), x, wt, b)
+        nbytes, flop = conv_floors(n, h, w, cin, cout, 4, 4 * cout)
+        floor = bound(nbytes, 3 * flop, PEAK["tf32"])
+        add_times(b1_dev, times, floor)
+        log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']});"
+            + times_line(times, floor))
         del x, wt, y, yp
     errs["f32"] = max(errs["f32"], b1_err)
     # the relu epilogue is not on the path; check it once
     x, wt = inputs(2, 16, 16, 16, 16)
     check_close("small_conv relu", k2m.conv3x3_small(x, wt, relu=True),
                 k2m.conv3x3_small_plain(x, wt, relu=True), **TOL["f32"])
-    rec["small_conv"] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
-                             b1_ms=b1_ms, b1_plain_ms=b1_plain_ms)
+    rec["small_conv"] = dict(errs=errs, dev=dev_t, b1_dev=b1_dev)
     for k, r in rec.items():
+        fl = summed_bound(r["dev"]["bounds"])
         log(f"{k}: max abs err f32 {r['errs']['f32']:.3g}, bf16 "
             f"{r['errs']['bf16']:.3g}; bf16 per batch of 8 over the path's "
-            f"shapes: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
-    log(f"small_conv: f32 per evaluate sample (batch 1, its 26 convs): "
-        f"kernel {b1_ms:.3f} ms, plain {b1_plain_ms:.3f} ms; max abs err "
-        f"{b1_err:.3g}")
+            f"shapes, device time (graph replay): kernel "
+            f"{r['dev']['kernel']:.3f} ms, plain {r['dev']['plain']:.3f}, "
+            f"F.conv2d {r['dev']['library']:.3f}, floor {fl[0]:.3f} "
+            f"({fl[1]})")
+    fl = summed_bound(b1_dev["bounds"])
+    log(f"small_conv: f32 per evaluate sample (batch 1, its 26 convs), "
+        f"device time (graph replay): kernel {b1_dev['kernel']:.3f} ms, "
+        f"plain {b1_dev['plain']:.3f}, F.conv2d {b1_dev['library']:.3f}, "
+        f"floor {fl[0]:.3f} ({fl[1]}, 3xTF32), share "
+        f"{fl[0] / b1_dev['kernel']:.3f}; max abs err {b1_err:.3g}")
     phase_tc_edges(torch, g, inputs)
     rec["bil_conv"] = phase_bil(torch, scfg, g, inputs)
     phase_conv_grads(torch, scfg, g)
@@ -347,15 +464,20 @@ def phase_tc_edges(torch, g, inputs):
 
 
 def phase_bil(torch, scfg, g, inputs):
-    """Kernel 3 against its plain version: f32 at every shape a train step
-    gives it (batch 1, forward and input gradient), then f32 and bf16 at
-    generate's 16 -> 16 convs at 1024^2, batch 8 (main_7.conv_1, cvt_8);
-    both timed beside kernel 2 (checked too) and the plain version."""
+    """Kernel 3 in f32 (the 3xTF32 tensor-core body) at every call of a
+    train step (batch 1, forward and input gradient): against its plain
+    version, a repeat bit-identical, and device time by graph replay beside
+    kernel 2's FFMA body at the same call, F.conv2d with TF32 off (the
+    library call) and on, and plain, with the call's floors; then the edge
+    cases, and the bf16 body (FFMA, on no path) at generate's design case."""
     from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
 
     dev = torch.device("cuda")
-    err = ms = plain_ms = small_ms = 0.0
+    err = 0.0
+    tot = {}
+    floors = {"hbm": 0.0, "tf32x3": 0.0, "ffma": 0.0}
+    bounds, losses = [], []
     for (label, n, h, w, cin, cout, bias) in bil_shapes(scfg):
         x, wt = inputs(n, h, w, cin, cout)
         b = 0.1 * torch.randn((cout,), generator=g, device=dev)
@@ -363,50 +485,89 @@ def phase_bil(torch, scfg, g, inputs):
         y = k3m.conv3x3_bil(*args)
         yp = k3m.conv3x3_bil_plain(*args)
         ys = k2m.conv3x3_small(*args)
+        again = k3m.conv3x3_bil(*args)
         torch.cuda.synchronize()
         name = f"bil_conv f32 {label} {(n, h, w, cin, cout)}"
         check_close(name, y, yp, **TOL["f32"])
         check_close(f"small_conv f32 {label}", ys, yp, **TOL["f32"])
+        assert torch.equal(y, again), name + ": repeat differs"
         err = max(err, max_err(y, yp))
-        t = cuda_ms(lambda: k3m.conv3x3_bil(*args))
-        ts = cuda_ms(lambda: k2m.conv3x3_small(*args))
-        tp = cuda_ms(lambda: k3m.conv3x3_bil_plain(*args))
-        ms, small_ms, plain_ms = ms + t, small_ms + ts, plain_ms + tp
+        times = device_times(torch, lambda: k3m.conv3x3_bil(*args),
+                             lambda: k3m.conv3x3_bil_plain(*args), *args)
+        times["ffma"] = graph_ms(lambda: k2m.conv3x3_small(*args))
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            times["library_tf32"] = library_ms(torch, *args)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        nbytes, flop = conv_floors(n, h, w, cin, cout, 4,
+                                   4 * cout if bias else 0)
+        floor = bound(nbytes, 3 * flop, PEAK["tf32"])
+        bounds.append(floor)
+        floors["hbm"] += nbytes / HBM_RATE * 1e3
+        floors["tf32x3"] += floor[0]
+        floors["ffma"] += bound(nbytes, flop, PEAK["f32"])[0]
+        for k, v in times.items():
+            tot[k] = tot.get(k, 0.0) + v
+        if times["kernel"] > times["library"]:
+            losses.append(label)
         log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']}), "
-            f"small_conv {max_err(ys, yp):.3g}; bil {t:.4f} ms, small_conv "
-            f"{ts:.4f} ms, plain {tp:.4f} ms")
-        del x, wt, y, yp, ys
-    log(f"bil_conv: f32 per train step over its {len(bil_shapes(scfg))} "
-        f"shapes: kernel {ms:.3f} ms, small_conv at the same calls "
-        f"{small_ms:.3f} ms, plain {plain_ms:.3f} ms; max abs err {err:.3g}")
+            f"repeat bit-identical; device ms: kernel {times['kernel']:.4f}, "
+            f"kernel 2 FFMA {times['ffma']:.4f}, F.conv2d "
+            f"{times['library']:.4f} (TF32 on {times['library_tf32']:.4f}), "
+            f"plain {times['plain']:.4f}; floor {floor[0]:.4f} ({floor[1]}, "
+            f"3xTF32), share {floor[0] / times['kernel']:.3f}")
+        del x, wt, y, yp, ys, again
+    n_calls = len(bil_shapes(scfg))
+    log(f"bil_conv: f32 per train step over its {n_calls} calls, device "
+        f"time (graph replay): kernel {tot['kernel']:.3f} ms, kernel 2's "
+        f"FFMA body {tot['ffma']:.3f}, F.conv2d TF32 off "
+        f"{tot['library']:.3f}, TF32 on {tot['library_tf32']:.3f}, plain "
+        f"{tot['plain']:.3f}; floors: HBM {floors['hbm']:.3f}, 3xTF32 "
+        f"{floors['tf32x3']:.3f} (share "
+        f"{floors['tf32x3'] / tot['kernel']:.3f}), "
+        f"FFMA {floors['ffma']:.3f}; max abs err {err:.3g}; slower than "
+        f"F.conv2d TF32 off at: {', '.join(losses) or 'none'}")
+    assert tot["kernel"] < tot["ffma"], (
+        f"the 3xTF32 body ({tot['kernel']:.3f} ms) is not faster than kernel "
+        f"2's FFMA body ({tot['ffma']:.3f} ms) at the same calls")
 
-    # generate's design case: B * C = 8 * 16 = 128
-    x32, w32 = inputs(BATCH, 1024, 1024, 16, 16)
+    edge_err = 0.0
+    for (n, h, w, cin, cout) in k3m.EDGE_SHAPES:
+        x, wt = inputs(n, h, w, cin, cout)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        for kw in ({}, dict(leaky=0.2), dict(relu=True)):
+            got = k3m.conv3x3_bil(x, wt, b, **kw)
+            again = k3m.conv3x3_bil(x, wt, b, **kw)
+            want = k3m.conv3x3_bil_plain(x, wt, b, **kw)
+            torch.cuda.synchronize()
+            name = f"bil_conv f32 edge {(n, h, w, cin, cout)} {kw}"
+            check_close(name, got, want, **TOL["f32"])
+            assert torch.equal(got, again), name + ": repeat differs"
+            edge_err = max(edge_err, max_err(got, want))
+        del x, wt, got, again, want
+    log(f"bil_conv f32 edge cases: {len(k3m.EDGE_SHAPES)} shapes x 3 "
+        f"epilogues, "
+        f"max |err| {edge_err:.3g} (tol {TOL['f32']}), repeats bit-identical")
+
+    # bf16 stays on the FFMA core (on no path): generate's design case
+    x, wt = (t.to(torch.bfloat16) for t in inputs(BATCH, 1024, 1024, 16, 16))
     b = 0.1 * torch.randn((16,), generator=g, device=dev)
-    gen_err = {}
-    for tag, dt in {"f32": torch.float32, "bf16": torch.bfloat16}.items():
-        x, wt = x32.to(dt), w32.to(dt)
-        y = k3m.conv3x3_bil(x, wt, b, leaky=0.2)
-        yp = k3m.conv3x3_bil_plain(x, wt, b, leaky=0.2)
-        ys = k2m.conv3x3_small(x, wt, b, leaky=0.2)
-        torch.cuda.synchronize()
-        name = f"bil_conv {tag} main_7.conv_1 / cvt_8 {(BATCH, 1024, 1024, 16, 16)}"
-        check_close(name, y, yp, **TOL[tag])
-        gen_err[tag] = max_err(y, yp)
-        t = cuda_ms(lambda: k3m.conv3x3_bil(x, wt, b, leaky=0.2))
-        ts = cuda_ms(lambda: k2m.conv3x3_small(x, wt, b, leaky=0.2))
-        tp = cuda_ms(lambda: k3m.conv3x3_bil_plain(x, wt, b, leaky=0.2))
-        log(f"  {name}: max|err| {gen_err[tag]:.3g} (tol {TOL[tag]}), "
-            f"small_conv vs plain {max_err(ys, yp):.3g}; bil {t:.4f} ms, "
-            f"small_conv {ts:.4f} ms, plain {tp:.4f} ms")
-        del x, wt, y, yp, ys
-    # the relu epilogue and a ragged batch-8 tile are not on the path
-    x, wt = inputs(8, 13, 21, 16, 16)
-    check_close("bil_conv relu", k3m.conv3x3_bil(x, wt, relu=True),
-                k3m.conv3x3_bil_plain(x, wt, relu=True), **TOL["f32"])
-    return dict(errs={"f32": err, "bf16": gen_err["bf16"],
-                      "generate_f32": gen_err["f32"]},
-                ms=ms, plain_ms=plain_ms, small_conv_ms=small_ms)
+    y = k3m.conv3x3_bil(x, wt, b, leaky=0.2)
+    yp = k3m.conv3x3_bil_plain(x, wt, b, leaky=0.2)
+    torch.cuda.synchronize()
+    check_close("bil_conv bf16 (FFMA) main_7.conv_1 / cvt_8 at batch 8", y,
+                yp, **TOL["bf16"])
+    bf16_err = max_err(y, yp)
+    log(f"bil_conv bf16 (FFMA body) {(BATCH, 1024, 1024, 16, 16)}: max|err| "
+        f"{bf16_err:.3g} (tol {TOL['bf16']})")
+    del x, wt, y, yp
+    total, by = summed_bound(bounds)
+    return dict(errs={"f32": max(err, edge_err), "bf16": bf16_err},
+                ms=tot["kernel"], plain_ms=tot["plain"],
+                library_ms=tot["library"], ffma_ms=tot["ffma"],
+                library_tf32_ms=tot["library_tf32"], bound_ms=total,
+                bound_by=by)
 
 
 # Conv3x3's output and gradients against torch.autograd through the plain
@@ -781,7 +942,7 @@ def profile_train_step(torch, base, scfg, steps=5):
 
     def family(name):
         low = name.lower()
-        if "conv3x3_bil" in low:
+        if "conv3x3_bil" in low or "conv3x3_tf32" in low:
             return "bil_conv"
         if "conv3x3_small" in low:
             return "small_conv"
@@ -937,12 +1098,14 @@ def main():
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(so)}")
     spills = ptxas_report(so + ".ptxas.txt")
-    tc = {k: v for k, v in spills.items() if "conv3x3_tc" in k}
-    assert tc, "no tensor-core kernel in the ptxas report"
+    tc = {k: v for k, v in spills.items()
+          if "conv3x3_tc" in k or "conv3x3_tf32" in k}
+    assert any("conv3x3_tc" in k for k in tc), "no bf16 tensor-core kernel"
+    assert any("conv3x3_tf32" in k for k in tc), "no 3xTF32 kernel"
     bad = {k: v for k, v in tc.items() if v != (0, 0)}
     assert not bad, f"tensor-core kernels spill: {bad}"
-    log(f"ptxas: {len(tc)} tensor-core kernels, 0 bytes of spill in each; "
-        f"spills elsewhere: "
+    log(f"ptxas: {len(tc)} tensor-core kernels (bf16 and 3xTF32), 0 bytes "
+        f"of spill in each; spills elsewhere: "
         f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
 
     # 3. kernels
@@ -982,7 +1145,9 @@ def main():
                        tc_design),
         "bil_conv": ("gan_segmentation_tpu_torch/csrc/bil_conv.cu",
                      "experiments/pallas_archive/bil_conv.py:115",
-                     "f32 and bf16: FFMA (conv3x3_core.cuh)")}
+                     "f32: 3xTF32 mma.sync m16n8k8 implicit GEMM fed by a "
+                     "cp.async ring, taps resident (conv3x3_tf32.cuh); "
+                     "bf16 (on no path): FFMA (conv3x3_core.cuh)")}
     kernels = []
     for name, (src, replaces, design) in sources.items():
         r = rec[name]
@@ -995,16 +1160,28 @@ def main():
             entry.update(max_abs_err=r["errs"]["f32"],
                          max_abs_err_bf16=r["errs"]["bf16"],
                          ms=r["ms"], plain_ms=r["plain_ms"],
-                         small_conv_ms=r["small_conv_ms"],
-                         timed="f32, per train step at batch 1")
+                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         library_ms=r["library_ms"],
+                         library_tf32_ms=r["library_tf32_ms"],
+                         small_conv_ffma_ms=r["ffma_ms"],
+                         timed="f32, device time (graph replay) per train "
+                               "step at batch 1, 38 calls; bound 3xTF32")
         else:
+            dev = r["dev"]
+            total, by = summed_bound(dev["bounds"])
             entry.update(max_abs_err=r["errs"]["bf16"],
-                         max_abs_err_f32=r["errs"]["f32"], ms=r["ms"],
-                         plain_ms=r["plain_ms"],
-                         timed="bf16, per generate batch of 8")
+                         max_abs_err_f32=r["errs"]["f32"],
+                         ms=dev["kernel"], plain_ms=dev["plain"],
+                         bound_ms=total, bound_by=by,
+                         library_ms=dev["library"],
+                         timed="bf16, device time (graph replay) per "
+                               "generate batch of 8; library: F.conv2d "
+                               "alone, without the epilogue")
             if name == "small_conv":
-                entry.update(eval_sample_ms_f32=r["b1_ms"],
-                             eval_sample_plain_ms_f32=r["b1_plain_ms"])
+                b1 = r["b1_dev"]
+                entry.update(eval_sample_ms_f32=b1["kernel"],
+                             eval_sample_plain_ms_f32=b1["plain"],
+                             eval_sample_library_ms_f32=b1["library"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -58,7 +58,7 @@ def parse_args(argv=None):
     parser.add_argument(
         "--writer", choices=("auto", "native", "cv2"), default="auto",
         help="generate: host-side pair writer. 'native' is the C++ threaded "
-             "JPEG/PNG encoder (gan_segmentation_tpu.native); 'cv2' the "
+             "JPEG/PNG encoder (gan_segmentation_tpu_torch.native); 'cv2' the "
              "sequential loop; 'auto' picks native when it builds.")
     return parser.parse_args(argv)
 
@@ -87,7 +87,7 @@ def _write_pairs_native(pipeline, n_local: int, dst_dir: str, start: int,
                         progress) -> None:
     """The C++ threaded writer: masks stay bit-packed into the PNG encoder,
     images are encoded as RGB, and encoding overlaps device compute."""
-    from gan_segmentation_tpu.native import PairWriter
+    from ..native import PairWriter
     with PairWriter() as writer:
         index = start
         for imgs, masks, packed in pipeline.generate_batches(n_local):
@@ -183,7 +183,7 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
     except ImportError:
         pass
     if writer == "auto":
-        from gan_segmentation_tpu.native import native_available
+        from ..native import native_available
         writer = "native" if native_available() else "cv2"
     log.info("pair writer: %s", writer)
     write = _write_pairs_native if writer == "native" else _write_pairs_cv2

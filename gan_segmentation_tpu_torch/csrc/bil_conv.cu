@@ -1,5 +1,5 @@
-// Direct 3x3 convolution of a whole small batch per block, with a fused bias
-// and relu / leaky-relu epilogue.
+// 3x3 convolution of a small batch, with a fused bias and relu /
+// leaky-relu epilogue.
 //
 // Replaces the TPU kernel
 //   experiments/pallas_archive/bil_conv.py::conv3x3_bil
@@ -7,39 +7,36 @@
 // 3x3, stride 1, zero pad 1, x (B, H, W, Cin) NHWC f32 or bf16, w HWIO,
 // optional f32 bias, f32 accumulation, output in x's dtype, and
 // B * Cin <= 128, B * Cout <= 128.  Pallas also required H % tile_h == 0;
-// here ragged row tiles are masked.
+// here ragged tiles are masked.
 //
 // On the TPU the kernel packs the batch into the 128 lanes: it relayouts x
 // to (H, W, B*C) in HBM and multiplies each tap against a block-diagonal
 // (B*Cin, B*Cout) matrix, because the MXU multiplies a dense 128 x 128
-// anyway.  Neither carries over.  On CUDA cores the block-diagonal zeros
-// are B times the work, and the relayout is two more passes over x and y
-// through memory (the TPU measurement blames it for the kernel's loss).
-// What this kernel keeps is the idea: one block serves every sample.
-//
-// Design: one block owns a th x TW tile of output pixels of EVERY sample of
-// the batch, for CT output channels.  Per chunk of CK input channels it
-// stages the (th+2) x (TW+2) input halo of all B samples, read straight
-// from NHWC, and the 9 x CK x CT taps ONCE for the B samples (small_conv.cu
-// stages the taps again in every sample's block).  Each thread accumulates
-// PX output columns x CPT output channels of one sample in registers, on
-// the CUDA cores.  The main loop and the epilogue are conv3x3_core.cuh's,
-// shared with small_conv.cu; what differs is the tile: th halves from TH as
-// B grows so that the block stays within 512 threads, CK narrows to 8 or 4
-// for narrow inputs, and the shared memory is dynamic (up to ~150 KB at
-// B = 128, Cin = 1).  At B = 1 the block is small_conv.cu's.
+// anyway.  Neither carries over: the block-diagonal zeros are B times the
+// work, and the relayout is two more passes over x and y through memory.
+// What this kernel keeps is the idea that one block serves several
+// samples where they are small.
 //
 // In the port it runs the decoder's train-mode forward of every 3x3 conv
 // that fits the contract at batch 1 (cvt_5..cvt_8, every main_i conv_0 and
 // conv_1, main_8_conv) and the input gradient of the 17 convs that need one
-// (kernels/conv3x3_grad.py).  At batch 1 the packing is trivial; the design
-// case is generate's 16 -> 16 convs at 1024^2, batch 8 (B * C = 128).
+// (kernels/conv3x3_grad.py): 38 calls per train step, all f32, C 2-128 at
+// 8^2-1024^2, 102.7 GFLOP and 1.91 GB per step.
 //
-// What bounds it on the H100: like small_conv.cu, the 16-64 channel layers
-// do too few flop per byte for the tensor cores to pay off much, and this
-// design multiplies on the FFMA units, so it is bound by the FFMA rate.
-// Left for later: wgmma tiles, TMA staging, a double-buffered smem ring.
+// f32: the tensor-core implicit GEMM of conv3x3_tf32.cuh in the 3xTF32
+// split, which keeps the f32 contract (its header says why one TF32 pass
+// does not).  What bounds it on the H100: the three MMAs per product,
+// 3 x FLOP / 495 TFLOP/s = 0.725 ms per train step, above the 0.570 ms
+// that the bytes take at 3.35 TB/s and below the 1.581 ms that the same
+// FLOP take at the FFMA peak, which bounded the FFMA body before it.
+//
+// bf16 is on no path (generate's convs run kernel 2, train is f32) and
+// stays on the FFMA core of conv3x3_core.cuh: one block owns a th x TW
+// tile of output pixels of EVERY sample, stages their halos and the taps
+// once for the batch, and th halves as B grows so that the block stays
+// within 512 threads.
 #include "conv3x3_core.cuh"
+#include "conv3x3_tf32.cuh"
 
 namespace gst {
 namespace bil {
@@ -152,18 +149,32 @@ static int dispatch_ct(const void* x, const void* w, const float* bias,
 
 extern "C" {
 
-// bias may be null.  act: 0 none, 1 relu, 2 leaky(slope).
+// bias may be null.  act: 0 none, 1 relu, 2 leaky(slope).  f32 runs the
+// 3xTF32 tensor-core kernel with plan = int[9] from
+// kernels/tc_plan.py::plan_f32; bf16 the FFMA core (plan unused).
 // Returns cudaGetLastError() after the launch (0 on success).
 int gst_conv3x3_bil(const void* x, const void* w, const float* bias, void* y,
                     int n, int h, int wd, int cin, int cout, int dtype,
-                    int act, float slope, void* stream) {
+                    int act, float slope, const int* plan, void* stream) {
   if (!gst::valid_dims(n, h, wd, cin, cout) || act < 0 || act > 2 ||
       n * cin > gst::bil::MAX_LANES || n * cout > gst::bil::MAX_LANES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == gst::F32)
-    return gst::bil::dispatch_ct<float>(x, w, bias, y, n, h, wd, cin, cout,
-                                        act, slope, st);
+  if (dtype == gst::F32) {
+    gst::tf32::Args a = {};
+    a.x = static_cast<const float*>(x);
+    a.w = static_cast<const float*>(w);
+    a.bias = bias;
+    a.y = static_cast<float*>(y);
+    a.n = n;
+    a.h = h;
+    a.wd = wd;
+    a.cin = cin;
+    a.cout = cout;
+    a.act = act;
+    a.slope = slope;
+    return gst::tf32::run(a, plan, st);
+  }
   if (dtype == gst::BF16)
     return gst::bil::dispatch_ct<__nv_bfloat16>(x, w, bias, y, n, h, wd, cin,
                                                 cout, act, slope, st);

@@ -14,8 +14,9 @@
 // masks the stores.
 //
 // The products run on the CUDA cores (FFMA).  This core serves the f32
-// calls of kernels 1 and 2 and every call of kernel 3; the bf16 calls of
-// kernels 1 and 2 run the tensor-core implicit GEMM of conv3x3_tc.cuh.
+// calls of kernels 1 and 2 and the bf16 calls of kernel 3; the bf16 calls
+// of kernels 1 and 2 run the tensor-core implicit GEMM of conv3x3_tc.cuh,
+// the f32 calls of kernel 3 the 3xTF32 one of conv3x3_tf32.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

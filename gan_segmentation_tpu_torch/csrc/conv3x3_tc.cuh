@@ -67,6 +67,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_util.cuh"  // FastDiv, cp.async, ldmatrix, aligned
+
 namespace gst {
 namespace tc {
 // internal linkage: each including file gets its own copy of the kernels
@@ -117,19 +119,6 @@ __host__ __device__ inline Layout layout(int bn, int ck, int bm, int threads,
   return L;
 }
 
-// n / d by a multiply-high for the small numerators of the index maps
-// (exact while n * d < 2^32); m = ceil(2^32 / d).
-struct FastDiv {
-  uint32_t d, m;
-  __host__ __device__ void set(int dv) {
-    d = static_cast<uint32_t>(dv);
-    m = dv == 1 ? 0u : 0xFFFFFFFFu / d + 1u;
-  }
-  __device__ __forceinline__ int div(int n) const {
-    return d == 1 ? n : static_cast<int>(__umulhi(static_cast<uint32_t>(n), m));
-  }
-};
-
 // Everything a launch reads; passed by value.
 struct Args {
   const __nv_bfloat16* x;
@@ -152,38 +141,6 @@ struct Args {
 };
 
 // ---------------------------------------------------------------- PTX ----
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
 
 __device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1,
                                           uint32_t& r2, uint32_t& r3,
@@ -715,10 +672,6 @@ static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
   return ck == 16 ? launch<BN, WM, 16>(a, st) : launch<BN, WM, 32>(a, st);
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 // plan = {bn, wm, ck, tw, th, g, splits, cps, stages} from
 // kernels/tc_plan.py.  Fills the plan's fields of `a` after checking them;
 // returns a CUDA error code (cudaErrorInvalidValue for a plan this header
@@ -762,9 +715,9 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   // chunks: stage s always holds chunk s % chunks of the same taps
   a.b_resident = a.cout_blocks == 1 && a.splits == 1 && a.stages == 2 &&
                  a.chunks <= 2;
-  a.vec_x = a.cin % 8 == 0 && aligned16(a.x);
-  a.vec_w = a.cout % 8 == 0 && aligned16(a.w);
-  a.vec_y = a.cout % 8 == 0 && aligned16(a.y);
+  a.vec_x = a.cin % 8 == 0 && aligned(a.x, 16);
+  a.vec_w = a.cout % 8 == 0 && aligned(a.w, 16);
+  a.vec_y = a.cout % 8 == 0 && aligned(a.y, 16);
   switch (bn * 10 + wm) {
     case 84:
       return dispatch_ck<8, 4>(a, ck, st);

@@ -29,8 +29,9 @@
 // 5-10% slower.
 //
 // f32 (evaluate at batch 1, train's cvt_0..4 forward) stays on the FFMA
-// core of conv3x3_core.cuh: f32 on tensor cores means TF32, which would
-// break the f32 contract (card = CPU to six decimals in the train checks).
+// core of conv3x3_core.cuh: one TF32 pass would break the f32 contract
+// (card = CPU to six decimals in the train checks), and the 3xTF32 split
+// that keeps it (conv3x3_tf32.cuh, kernel 3) is not used here yet.
 #include "conv3x3_core.cuh"
 #include "conv3x3_tc.cuh"
 

@@ -164,6 +164,14 @@ def tc_launch_args(x, n, h, w, cin, cout, noise=False):
     return p, plan_c, ws
 
 
+@functools.lru_cache(maxsize=None)
+def tf32_plan_c(n, h, w, cin, cout):
+    """For an f32 call of kernel 3: its 3xTF32 plan as a C int[9], cached
+    per shape (the host's time per launch bounds the small layers)."""
+    args = tc_plan.plan_f32(n, h, w, cin, cout).args()
+    return (ctypes.c_int * len(args))(*args)
+
+
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
@@ -186,6 +194,6 @@ def library():
                                       f, vp, vp]
     lib.gst_conv3x3_bil.restype = i
     lib.gst_conv3x3_bil.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f,
-                                    vp]
+                                    vp, vp]
     _LIB = lib
     return lib

@@ -1,6 +1,9 @@
-"""Kernel 3: 3x3 conv of a small batch, one block serving every sample.
+"""Kernel 3: 3x3 conv of a small batch (the train step's 38 f32 convs).
 
-CUDA source: ``csrc/bil_conv.cu``.  Replaces the TPU kernel
+CUDA source: ``csrc/bil_conv.cu``: f32 runs the 3xTF32 tensor-core
+implicit GEMM of ``csrc/conv3x3_tf32.cuh`` (launch plan:
+``tc_plan.plan_f32``), bf16 the FFMA core of ``csrc/conv3x3_core.cuh``,
+one block serving every sample.  Replaces the TPU kernel
 ``experiments/pallas_archive/bil_conv.py::conv3x3_bil`` and keeps its
 contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's
 dtype, ``b`` optional (Cout,) f32, relu or leaky epilogue, and
@@ -18,6 +21,20 @@ from . import _build
 from .small_conv import _ACT_CODES, _act, conv3x3_small_plain
 
 MAX_LANES = 128
+
+# (n, h, w, cin, cout) at the edges of the contract and of the f32 plan, the
+# one list that the plan's CPU tests, the card's tests and chip_smoke.py
+# check: B*C = 128 with C 2 / 16 / 64, Cout 2 and Cin 2 at batch 1, ragged
+# 13 x 21, 17-wide and 20-wide tiles, B = 1 at 1024^2 with 128 channels
+# either side, 4^2 images packed into a tile, B = 128 with one channel, a
+# large batch of 2-channel 9^2 samples, B = 1 with 128 channels at 16^2
+EDGE_SHAPES = (
+    (64, 32, 32, 2, 2), (8, 1024, 1024, 16, 16), (2, 64, 64, 64, 64),
+    (1, 64, 64, 32, 2), (1, 64, 64, 2, 32), (8, 13, 21, 16, 16),
+    (1, 1024, 1024, 128, 128), (1, 1024, 1024, 2, 128), (8, 4, 4, 16, 16),
+    (128, 5, 7, 1, 1), (4, 10, 17, 12, 5), (1, 33, 20, 128, 32),
+    (1, 16, 16, 128, 128), (8, 64, 64, 16, 16), (64, 9, 9, 2, 2),
+    (2, 12, 40, 64, 64), (1, 4, 4, 32, 2), (1, 1024, 1024, 16, 64))
 
 
 def fits(n: int, cin: int, cout: int) -> bool:
@@ -48,11 +65,13 @@ def conv3x3_bil(x, w, b=None, *, relu: bool = False,
     dev = x.device
     lib = _build.library()
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    plan = (_build.tf32_plan_c(n, h, wd, cin, cout)
+            if x.dtype == torch.float32 else None)
     with torch.cuda.device(dev):
         rc = lib.gst_conv3x3_bil(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             y.data_ptr(), n, h, wd, cin, cout, _build.DTYPE_CODES[x.dtype],
-            _ACT_CODES[act], float(leaky or 0.0),
+            _ACT_CODES[act], float(leaky or 0.0), plan,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch(rc, "conv3x3_bil")
     conv3x3_bil.launches += 1

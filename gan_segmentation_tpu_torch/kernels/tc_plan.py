@@ -1,8 +1,13 @@
-"""Launch plan of the bf16 tensor-core 3x3 conv (``csrc/conv3x3_tc.cuh``).
+"""Launch plans of the tensor-core 3x3 convs: ``plan`` for the bf16 kernel
+(``csrc/conv3x3_tc.cuh``, kernels 1 and 2), ``plan_f32`` for the f32 3xTF32
+kernel (``csrc/conv3x3_tf32.cuh``, kernel 3).
 
-A pure function of the layer's shape, so the CPU tests can check every
-path shape's plan without a card.  The kernel validates the plan it is
-given and computes its shared memory by the same formula as ``smem_bytes``.
+Pure functions of the layer's shape, so the CPU tests can check every
+path shape's plan without a card.  The kernels validate the plan they are
+given and compute their shared memory by the same formulas as
+``smem_bytes``.
+
+``plan``:
 
 - ``bn``: output channels per block, Cout rounded up to a power of two in
   8..64, so a narrow layer (2-64 channels) reads each input pixel once; Cout
@@ -23,11 +28,24 @@ given and computes its shared memory by the same formula as ``smem_bytes``.
 
 Where a plan would exceed the shared memory, the ring drops to 2 stages,
 then the block to 4 warps.
+
+``plan_f32``: ``bn``, ``tw``, ``th``, ``g`` as above; ``wm`` warps of
+``16 * mi`` pixels each, all ``bn`` channels per warp: 256-pixel blocks
+where that grid fills the card twice over (8 warps of 32 pixels, or, for
+``bn <= 16``, 4 warps of 64 pixels, ``mi`` 4), else 4 warps of 32; ``ck``
+8 for Cin <= 8, else 16 (f32 stages twice the bytes of bf16); no split-K;
+``resident``: with one Cout block, every chunk's taps load once per block
+beside the ring instead of once per item; ``stages`` 2, or 3 where an item
+has more than two chunks.  It takes the first of (resident taps, then per
+stage) and (3 stages, then 2) whose shared memory lets the blocks per SM
+that the kernel's launch bounds ask for share one SM, else the first that
+fits in a block's limit.
 """
 
 from dataclasses import dataclass
 
 MAX_SMEM = 232448        # a block's shared-memory limit on sm_90
+SM_SMEM = 233472         # an SM's shared memory; each block reserves 1 KB
 NUM_SMS = 132            # H100 SXM
 
 
@@ -138,3 +156,95 @@ def plan(n: int, h: int, w: int, cin: int, cout: int,
             if p.smem_bytes <= MAX_SMEM:
                 return p
     return p
+
+
+def pad_px(ck: int) -> int:
+    """A pixel of ``ck`` f32 padded to an odd number of 16-byte units
+    (``pad_px`` in conv3x3_tf32.cuh)."""
+    return ck + 4 if (ck // 4) % 2 == 0 else ck
+
+
+def pad_n(bn: int) -> int:
+    """A tap row of ``bn`` f32 padded to 8 mod 16 floats (``pad_n`` in
+    conv3x3_tf32.cuh)."""
+    return bn + 8 if bn % 16 == 0 else bn
+
+
+@dataclass(frozen=True)
+class PlanF32:
+    bn: int
+    wm: int
+    ck: int
+    tw: int
+    th: int
+    g: int
+    stages: int
+    resident: bool
+    chunks: int
+    tiles_x: int
+    tiles_y: int
+    groups: int
+    cout_blocks: int
+    mi: int
+
+    @property
+    def bm(self) -> int:
+        return 16 * self.mi * self.wm
+
+    @property
+    def blocks(self) -> int:
+        """Items: (spatial tile, Cout block, image group)."""
+        return self.tiles_x * self.tiles_y * self.cout_blocks * self.groups
+
+    @property
+    def min_blocks(self) -> int:
+        """Blocks per SM that the kernel's launch bounds ask of ptxas
+        (``Cfg::MIN_BLOCKS`` in conv3x3_tf32.cuh)."""
+        return (1 if self.bn == 64 or self.mi == 4 else 2) * (8 // self.wm)
+
+    @property
+    def smem_bytes(self) -> int:
+        halo = self.g * (self.th + 2) * (self.tw + 2) * pad_px(self.ck)
+        taps = 9 * self.ck * pad_n(self.bn)
+        if self.resident:
+            return (self.stages * halo + self.chunks * taps) * 4
+        return self.stages * (halo + taps) * 4
+
+    def args(self):
+        """The int[9] the C entry point takes."""
+        return (self.bn, self.wm, self.mi, self.ck, self.tw, self.th, self.g,
+                self.stages, int(self.resident))
+
+
+def plan_f32(n: int, h: int, w: int, cin: int, cout: int) -> PlanF32:
+    """The plan of one f32 call of kernel 3."""
+    bn = min(64, max(8, _pow2ceil(cout)))
+    ck = 8 if cin <= 8 else 16
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    chunks = _cdiv(cin, ck)
+    cout_blocks = _cdiv(cout, bn)
+    _, _, tx, ty, gr = _geometry(n, h, w, 256, tw)
+    if tx * ty * gr * cout_blocks < 2 * NUM_SMS:
+        tiles = [(4, 2)]                      # (wm, mi): 128-pixel blocks
+    elif bn <= 16:
+        tiles = [(4, 4), (4, 2)]
+    else:
+        tiles = [(8, 2), (4, 2)]
+    plans = []
+    for wm, mi in tiles:
+        th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 16 * mi * wm, tw)
+        for resident in ((True, False) if cout_blocks == 1 else (False,)):
+            for stages in ((3, 2) if chunks > 2 else (2,)):
+                plans.append(PlanF32(
+                    bn=bn, wm=wm, ck=ck, tw=tw, th=th, g=g, stages=stages,
+                    resident=resident, chunks=chunks, tiles_x=tiles_x,
+                    tiles_y=tiles_y, groups=groups, cout_blocks=cout_blocks,
+                    mi=mi))
+    for p in plans:
+        if p.smem_bytes <= SM_SMEM // p.min_blocks - 1024:
+            return p
+    for p in plans:
+        if p.smem_bytes <= MAX_SMEM:
+            return p
+    raise ValueError(f"no f32 tensor-core plan fits ({n}, {h}, {w}, {cin}, "
+                     f"{cout})")

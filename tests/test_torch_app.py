@@ -11,9 +11,10 @@
 import dataclasses
 import importlib
 import pkgutil
+import re
 import subprocess
 import sys
-from os.path import dirname
+from os.path import dirname, join
 
 import numpy as np
 import pytest
@@ -192,11 +193,13 @@ def _modules():
 
 
 def test_no_jax_on_the_import_path():
-    """Every module of the port imports with jax, flax, yaml and cv2
-    blocked, and none of them is loaded afterwards."""
+    """Every module of the port imports with jax, flax, yaml, cv2 and the
+    JAX package itself blocked, and none of them is loaded afterwards (the
+    first dotted component tells ``gan_segmentation_tpu`` apart from
+    ``gan_segmentation_tpu_torch``)."""
     code = f"""
 import importlib, sys
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2")
+BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "gan_segmentation_tpu")
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -213,10 +216,17 @@ print("ok")
     assert out.stdout.strip() == "ok"
 
 
+# an import statement of the JAX package (not of gan_segmentation_tpu_torch),
+# also inside a function, where the import-path test above cannot see it
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from|import)\s+gan_segmentation_tpu(\.|\s|$)", re.M)
+
+
 def test_sources_name_no_jax():
-    for m in _modules():
-        path = importlib.util.find_spec(m).origin
+    paths = [importlib.util.find_spec(m).origin for m in _modules()]
+    for path in paths + [join(REPO, "chip_smoke.py")]:
         with open(path) as fh:
             src = fh.read()
         for bad in ("import jax", "from jax", "flax"):
             assert bad not in src, (path, bad)
+        assert not _JAX_PACKAGE_IMPORT.search(src), path

@@ -29,7 +29,7 @@ from gan_segmentation_tpu.ops.norm import instance_norm  # noqa: E402
 
 from gan_segmentation_tpu_torch.kernels import _build, tc_plan  # noqa: E402
 from gan_segmentation_tpu_torch.kernels.bil_conv import (  # noqa: E402
-    conv3x3_bil, conv3x3_bil_plain)
+    EDGE_SHAPES, conv3x3_bil, conv3x3_bil_plain)
 from gan_segmentation_tpu_torch.kernels.conv3x3_grad import (  # noqa: E402
     Conv3x3, conv3x3)
 from gan_segmentation_tpu_torch.kernels.conv_in_stats import (  # noqa: E402
@@ -195,7 +195,8 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 def test_build_cache_key_covers_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
     assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv3x3_tc.cuh",
-                     "conv_in_stats.cu", "small_conv.cu"]
+                     "conv3x3_tf32.cuh", "conv_in_stats.cu", "sm90_util.cuh",
+                     "small_conv.cu"]
     assert _build._source_tag() == _build._source_tag()
 
 
@@ -405,20 +406,14 @@ def test_bil_cpu_wrapper_takes_the_plain_path_and_counts_nothing(rng):
     assert (conv3x3_bil.launches, conv3x3_small.launches) == before
 
 
-# kernel 3 on the card: the design case, ragged tiles and widths, the
-# extremes of the contract (B = 128 with Cin = Cout = 1, B = 1 with 128
-# channels), and a large batch of 2-channel samples
-CUDA_BIL_SHAPES = [(8, 64, 64, 16, 16), (1, 33, 20, 128, 32),
-                   (128, 5, 7, 1, 1), (64, 9, 9, 2, 2), (2, 12, 40, 64, 64),
-                   (1, 16, 16, 128, 128), (1, 4, 4, 32, 2), (4, 10, 17, 12, 5)]
-
-
+# kernel 3 on the card at the edges of its contract and of its f32 plan
+# (kernels/bil_conv.py::EDGE_SHAPES)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_bil_matches_plain(cuda, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(0)
-    for (n, h, w, cin, cout) in CUDA_BIL_SHAPES:
+    for (n, h, w, cin, cout) in EDGE_SHAPES:
         x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
         wt = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
               / (9 * cin) ** 0.5).to(dtype)
@@ -433,6 +428,8 @@ def test_cuda_bil_matches_plain(cuda, dtype, tol):
         torch.testing.assert_close(conv3x3_bil(x, wt).float(),
                                    conv3x3_bil_plain(x, wt).float(),
                                    rtol=tol, atol=tol)
+        # no atomics, a fixed summation order: repeats are bit-identical
+        assert torch.equal(conv3x3_bil(x, wt, b), conv3x3_bil(x, wt, b))
 
 
 @pytest.mark.cuda
