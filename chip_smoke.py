@@ -15,19 +15,21 @@ Phases (any failure raises, so the exit code is non-zero):
 3. kernels — each kernel against its plain PyTorch version, with the error
    and the tolerance, and per call its device time by CUDA-graph replay
    beside the plain version's, ``F.conv2d`` alone (the library call) and
-   the floor (bytes once over HBM or operations over the type's peak):
-   kernels 1 and 2 at every shape the ffhq 1024^2 generate path gives them
-   at batch 8, in f32 (TF32 off on the plain side) and bf16 (timed); kernel
-   2 in f32 at every decoder conv at batch 1 (evaluate, timed); kernel 3
-   (bil_conv) in f32 at every call of a train step at batch 1 (forward and
-   input gradient), timed beside kernel 2's FFMA body and ``F.conv2d``
-   with TF32 on too, and at its edge cases, with bit-identical repeats;
-   kernel 3's bf16 body at generate's 16 -> 16 convs at batch 8; Conv3x3's
-   output, dX, dW and db against torch.autograd at every train shape.  The
-   bf16 calls of kernels 1 and 2 run the tensor-core kernel; it is also
-   checked at its edge cases (4^2 tiles spanning images with Cin 512,
-   ragged 12 x 20 tiles, Cout = 2, Cin = 3, batch 1) and for bit-identical
-   repeats.
+   the floor (bytes once over HBM or operations over the type's peak; f32
+   as 3xTF32): kernel 1 at every shape the ffhq 1024^2 generator gives it
+   at batch 8, in f32 (TF32 off on the plain side) and bf16, both timed;
+   kernel 2 at every decoder conv at batch 8 in f32 and bf16 (bf16 timed)
+   and at batch 1 in f32 (evaluate, timed); kernel 3 (bil_conv) in f32 at
+   every call of a train step at batch 1 (forward and input gradient),
+   timed beside ``F.conv2d`` with TF32 on too, and at its edge cases, with
+   bit-identical repeats; kernel 3's bf16 body at generate's 16 -> 16
+   convs at batch 8; Conv3x3's output, dX, dW and db against
+   torch.autograd at every train shape.  Kernels 1 and 2 run the bf16
+   tensor-core kernel in bf16 and the 3xTF32 one in f32; both are also
+   checked at their edge cases (4^2 tiles spanning images with Cin 512 and
+   split-K, ragged tiles, Cout = 2, Cin = 3, batch 1; kernel 2 with its
+   three epilogues, kernel 1 with its statistics) and for bit-identical
+   repeats; every f32 path shape that splits K is timed beside one split.
 4. generate — ``run_generate`` at ffhq 1024^2, batch 8, 24 pairs, with a
    seeded random generator and a seeded decoder checkpoint; the launch
    counters must show that it went through kernels 1 and 2; a repeated
@@ -37,7 +39,8 @@ Phases (any failure raises, so the exit code is non-zero):
 5. train   — three fit steps at res 32 on the card agree with the CPU; then
    ``main train`` and ``main evaluate`` at ffhq 1024^2 with the defaults
    (24 epochs, batch 1, Adam 1e-4, dropout on) on 20 + 4 samples of the
-   seeded generator: launch counts per step, falling loss, checkpoint,
+   seeded f32 generator (kernel 1 in f32, 9 launches per batch of 8):
+   launch counts per step, falling loss, checkpoint,
    metrics above the untrained decoder's; the fit loop's rate, the step
    time by CUDA events, host vs device time, and the device time by
    kernel family.
@@ -293,6 +296,7 @@ def conv_inputs(torch, g):
 def phase_kernels(torch, gcfg, scfg):
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.kernels.tc_plan import plan_f32
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -302,7 +306,7 @@ def phase_kernels(torch, gcfg, scfg):
 
     # kernel 1
     errs = {"f32": 0.0, "bf16": 0.0}
-    dev_t = {}
+    dev_t = {"f32": {}, "bf16": {}}
     for (n, h, w, cin, cout) in kernel1_shapes(gcfg):
         x32, w32 = inputs(n, h, w, cin, cout)
         noise = torch.randn((n, h, w), generator=g, device=dev)
@@ -321,21 +325,26 @@ def phase_kernels(torch, gcfg, scfg):
             errs[tag] = max(errs[tag], max_err(y, yp))
             line = (f"  {name}: max|y err| {max_err(y, yp):.3g} (tol "
                     f"{TOL[tag]}, stats {STAT_TOL[tag]})")
-            if tag == "bf16":
-                times = device_times(
-                    torch,
-                    lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args),
-                    lambda: k1m.conv3x3_noise_bias_lrelu_instats_plain(*args),
-                    x, wt)
-                # noise, nscale, bias in; mean, var out (f32)
-                floor = bound(*conv_floors(
-                    n, h, w, cin, cout, 2,
-                    4 * (n * h * w + 2 * cout + 2 * n * cout)), PEAK["bf16"])
-                add_times(dev_t, times, floor)
-                line += ";" + times_line(times, floor)
-            log(line)
+            times = device_times(
+                torch,
+                lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args),
+                lambda: k1m.conv3x3_noise_bias_lrelu_instats_plain(*args),
+                x, wt)
+            # noise, nscale, bias in; mean, var out (f32); the f32 floor is
+            # 3xTF32, the card's fastest f32-exact rate
+            nbytes, flop = conv_floors(
+                n, h, w, cin, cout, x.element_size(),
+                4 * (n * h * w + 2 * cout + 2 * n * cout))
+            floor = (bound(nbytes, flop, PEAK["bf16"]) if tag == "bf16"
+                     else bound(nbytes, 3 * flop, PEAK["tf32"]))
+            add_times(dev_t[tag], times, floor)
+            if tag == "f32":
+                line += (f" splits "
+                         f"{plan_f32(n, h, w, cin, cout, stats=True).splits}")
+            log(line + ";" + times_line(times, floor))
         del x32, w32, x, wt, y, yp
-    rec["conv_in_stats"] = dict(errs=errs, dev=dev_t)
+    rec["conv_in_stats"] = dict(errs=errs, dev=dev_t["bf16"],
+                                f32_dev=dev_t["f32"])
 
     # kernel 2
     errs = {"f32": 0.0, "bf16": 0.0}
@@ -364,7 +373,7 @@ def phase_kernels(torch, gcfg, scfg):
             log(line)
         del x32, w32, x, wt, y, yp
     # evaluate runs every decoder conv through kernel 2 at batch 1 in f32
-    # (BN folded, leaky), on its FFMA body; train runs cvt_0..4 so (bias
+    # (BN folded, leaky), on the 3xTF32 body; train runs cvt_0..4 so (bias
     # only, checked in phase_conv_grads through Conv3x3).  Its floor is
     # kernel 3's for the same work: 3xTF32 on the tensor cores, the
     # card's fastest f32-exact rate.
@@ -388,7 +397,8 @@ def phase_kernels(torch, gcfg, scfg):
         floor = bound(nbytes, 3 * flop, PEAK["tf32"])
         add_times(b1_dev, times, floor)
         log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']});"
-            + times_line(times, floor))
+            + times_line(times, floor)
+            + f"; splits {plan_f32(n, h, w, cin, cout).splits}")
         del x, wt, y, yp
     errs["f32"] = max(errs["f32"], b1_err)
     # the relu epilogue is not on the path; check it once
@@ -404,72 +414,138 @@ def phase_kernels(torch, gcfg, scfg):
             f"{r['dev']['kernel']:.3f} ms, plain {r['dev']['plain']:.3f}, "
             f"F.conv2d {r['dev']['library']:.3f}, floor {fl[0]:.3f} "
             f"({fl[1]})")
+    k1_f32 = rec["conv_in_stats"]["f32_dev"]
+    fl = summed_bound(k1_f32["bounds"])
+    log(f"conv_in_stats: f32 per batch of 8 over the path's 9 shapes, device "
+        f"time (graph replay): kernel {k1_f32['kernel']:.3f} ms, plain "
+        f"{k1_f32['plain']:.3f}, F.conv2d {k1_f32['library']:.3f}, floor "
+        f"{fl[0]:.3f} ({fl[1]}, 3xTF32), share "
+        f"{fl[0] / k1_f32['kernel']:.3f}")
     fl = summed_bound(b1_dev["bounds"])
     log(f"small_conv: f32 per evaluate sample (batch 1, its 26 convs), "
         f"device time (graph replay): kernel {b1_dev['kernel']:.3f} ms, "
         f"plain {b1_dev['plain']:.3f}, F.conv2d {b1_dev['library']:.3f}, "
         f"floor {fl[0]:.3f} ({fl[1]}, 3xTF32), share "
         f"{fl[0] / b1_dev['kernel']:.3f}; max abs err {b1_err:.3g}")
+    phase_split_sweep(torch, gcfg, scfg, g, inputs)
     phase_tc_edges(torch, g, inputs)
     rec["bil_conv"] = phase_bil(torch, scfg, g, inputs)
     phase_conv_grads(torch, scfg, g)
     return rec
 
 
-# bf16 edge cases of the tensor-core kernel (n, h, w, cin, cout): 4^2 tiles
-# spanning images with Cin 512 (split-K), ragged 12 x 20 tiles, Cout = 2,
-# Cin = 3 (scalar staging), batch 1, 256-pixel blocks of 64 channels with
-# a ragged W
-TC_EDGES = [(8, 4, 4, 512, 512), (8, 4, 4, 512, 32), (3, 12, 20, 32, 16),
-            (2, 12, 20, 64, 64), (4, 64, 64, 32, 2), (2, 9, 7, 3, 16),
-            (1, 64, 64, 64, 16), (1, 16, 16, 512, 512), (1, 4, 4, 512, 32),
-            (8, 64, 72, 64, 64)]
+def phase_split_sweep(torch, gcfg, scfg, g, inputs):
+    """Every f32 path shape of kernels 1 and 2 whose plan splits K: device
+    time (graph replay) with the plan's split beside the same body with one
+    split (the plan function swapped for that launch only), so that the
+    record shows where the split wins and what the chain cap costs."""
+    import functools
+    from unittest import mock
 
-
-def phase_tc_edges(torch, g, inputs):
-    """Kernels 1 and 2 in bf16 at the tensor-core kernel's edge cases,
-    against the plain versions, and a repeat of each call bit-identical."""
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
 
     dev = torch.device("cuda")
-    worst = 0.0
-    for (n, h, w, cin, cout) in TC_EDGES:
-        x, wt = (t.to(torch.bfloat16) for t in inputs(n, h, w, cin, cout))
-        noise = torch.randn((n, h, w), generator=g, device=dev)
+    cases = [("conv_in_stats", s) for s in kernel1_shapes(gcfg)]
+    cases += [("small_conv", tuple(s[1:6]))
+              for s in kernel2_shapes(scfg, batch=TRAIN_BATCH)]
+    for kernel, (n, h, w, cin, cout) in cases:
+        stats = kernel == "conv_in_stats"
+        p = tc_plan.plan_f32(n, h, w, cin, cout, stats=stats)
+        if p.splits == 1:
+            continue
+        x, wt = inputs(n, h, w, cin, cout)
         b = 0.1 * torch.randn((cout,), generator=g, device=dev)
-        args = (x, wt, noise, b, b)
-        got = k1m.conv3x3_noise_bias_lrelu_instats(*args)
-        want = k1m.conv3x3_noise_bias_lrelu_instats_plain(*args)
-        again = k1m.conv3x3_noise_bias_lrelu_instats(*args)
-        ys = k2m.conv3x3_small(x, wt, b, leaky=0.2)
-        ysp = k2m.conv3x3_small_plain(x, wt, b, leaky=0.2)
-        torch.cuda.synchronize()
-        name = f"tensor-core edge {(n, h, w, cin, cout)}"
-        check_close(name + " conv_in_stats y", got[0], want[0], **TOL["bf16"])
-        for what, a, r in zip(("mean", "var"), got[1:], want[1:]):
-            check_close(f"{name} conv_in_stats {what}", a, r,
-                        **STAT_TOL["bf16"])
-        check_close(name + " small_conv", ys, ysp, **TOL["bf16"])
-        assert all(torch.equal(a, r) for a, r in zip(got, again)), \
-            name + ": conv_in_stats repeat differs"
-        assert torch.equal(ys, k2m.conv3x3_small(x, wt, b, leaky=0.2)), \
-            name + ": small_conv repeat differs"
-        err = max(max_err(got[0], want[0]), max_err(ys, ysp))
-        worst = max(worst, err)
-        log(f"  {name}: max|y err| {err:.3g} (tol {TOL['bf16']}), repeats "
-            f"bit-identical")
-    log(f"tensor-core edge cases: {len(TC_EDGES)} shapes, max |err| "
-        f"{worst:.3g}")
+        noise = torch.randn((n, h, w), generator=g, device=dev)
+        if stats:
+            def call():
+                return k1m.conv3x3_noise_bias_lrelu_instats(x, wt, noise, b,
+                                                            b)
+        else:
+            def call():
+                return k2m.conv3x3_small(x, wt, b, leaky=0.2)
+        planned = graph_ms(call)
+        one = functools.partial(tc_plan.plan_f32, splits=1)
+        _build._tc_plan_c.cache_clear()
+        try:
+            with mock.patch.object(tc_plan, "plan_f32", one):
+                unsplit = graph_ms(call)
+        finally:
+            _build._tc_plan_c.cache_clear()
+        log(f"  split-K {kernel} f32 {(n, h, w, cin, cout)}: {p.splits} "
+            f"splits of {p.cps} chunks, {p.blocks} blocks: {planned:.4f} ms; "
+            f"one split, {p.blocks // p.splits} blocks: {unsplit:.4f} ms")
+        del x, wt
+
+
+# Edge cases of the tensor-core kernels (n, h, w, cin, cout), run in bf16
+# and f32: 4^2 tiles spanning images with Cin 512 (split-K), ragged 12 x 20
+# tiles, Cout = 2, Cin = 3 (scalar staging), batch 1, 256-pixel blocks of 64
+# channels with a ragged W; then the f32 split's own: a ragged 13 x 21 with
+# Cin 512, three 4^2 images in a tile of eight, Cin 40 -> Cout 24 (masked
+# channels), Cin 500 (a short last split); in f32 also 2^2 and 1^2 images
+# (the statistics keep 16 tile pixels per image)
+TC_EDGES = [(8, 4, 4, 512, 512), (8, 4, 4, 512, 32), (3, 12, 20, 32, 16),
+            (2, 12, 20, 64, 64), (4, 64, 64, 32, 2), (2, 9, 7, 3, 16),
+            (1, 64, 64, 64, 16), (1, 16, 16, 512, 512), (1, 4, 4, 512, 32),
+            (8, 64, 72, 64, 64), (1, 13, 21, 512, 32), (3, 4, 4, 64, 64),
+            (2, 5, 6, 40, 24), (1, 32, 32, 500, 32)]
+F32_EDGES = [(2, 2, 2, 8, 8), (1, 1, 1, 4, 4)]
+
+
+def phase_tc_edges(torch, g, inputs):
+    """Kernels 1 and 2 in bf16 and f32 at the tensor-core kernels' edge
+    cases, against the plain versions: kernel 1's y and statistics, kernel 2
+    with its three epilogues, and a repeat of each call bit-identical."""
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+
+    dev = torch.device("cuda")
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        worst = 0.0
+        shapes = TC_EDGES + (F32_EDGES if tag == "f32" else [])
+        for (n, h, w, cin, cout) in shapes:
+            x, wt = (t.to(dt) for t in inputs(n, h, w, cin, cout))
+            noise = torch.randn((n, h, w), generator=g, device=dev)
+            b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+            args = (x, wt, noise, b, b)
+            got = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+            want = k1m.conv3x3_noise_bias_lrelu_instats_plain(*args)
+            again = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+            torch.cuda.synchronize()
+            name = f"tensor-core edge {tag} {(n, h, w, cin, cout)}"
+            check_close(name + " conv_in_stats y", got[0], want[0],
+                        **TOL[tag])
+            for what, a, r in zip(("mean", "var"), got[1:], want[1:]):
+                check_close(f"{name} conv_in_stats {what}", a, r,
+                            **STAT_TOL[tag])
+            assert all(torch.equal(a, r) for a, r in zip(got, again)), \
+                name + ": conv_in_stats repeat differs"
+            err = max_err(got[0], want[0])
+            for kw in (dict(leaky=0.2), dict(relu=True), {}):
+                ys = k2m.conv3x3_small(x, wt, b, **kw)
+                ysp = k2m.conv3x3_small_plain(x, wt, b, **kw)
+                torch.cuda.synchronize()
+                check_close(f"{name} small_conv {kw}", ys, ysp, **TOL[tag])
+                assert torch.equal(ys, k2m.conv3x3_small(x, wt, b, **kw)), \
+                    name + ": small_conv repeat differs"
+                err = max(err, max_err(ys, ysp))
+            worst = max(worst, err)
+            log(f"  {name}: max|y err| {err:.3g} (tol {TOL[tag]}, stats "
+                f"{STAT_TOL[tag]}), repeats bit-identical")
+        log(f"tensor-core edge cases {tag}: {len(shapes)} shapes, kernel 1 "
+            f"with statistics and kernel 2 x 3 epilogues, max |err| "
+            f"{worst:.3g}")
 
 
 def phase_bil(torch, scfg, g, inputs):
     """Kernel 3 in f32 (the 3xTF32 tensor-core body) at every call of a
     train step (batch 1, forward and input gradient): against its plain
     version, a repeat bit-identical, and device time by graph replay beside
-    kernel 2's FFMA body at the same call, F.conv2d with TF32 off (the
-    library call) and on, and plain, with the call's floors; then the edge
-    cases, and the bf16 body (FFMA, on no path) at generate's design case."""
+    F.conv2d with TF32 off (the library call) and on, and plain, with the
+    call's floors; then the edge cases, and the bf16 body (FFMA, on no path)
+    at generate's design case."""
     from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
 
@@ -494,7 +570,6 @@ def phase_bil(torch, scfg, g, inputs):
         err = max(err, max_err(y, yp))
         times = device_times(torch, lambda: k3m.conv3x3_bil(*args),
                              lambda: k3m.conv3x3_bil_plain(*args), *args)
-        times["ffma"] = graph_ms(lambda: k2m.conv3x3_small(*args))
         torch.backends.cudnn.allow_tf32 = True
         try:
             times["library_tf32"] = library_ms(torch, *args)
@@ -513,24 +588,21 @@ def phase_bil(torch, scfg, g, inputs):
             losses.append(label)
         log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']}), "
             f"repeat bit-identical; device ms: kernel {times['kernel']:.4f}, "
-            f"kernel 2 FFMA {times['ffma']:.4f}, F.conv2d "
+            f"F.conv2d "
             f"{times['library']:.4f} (TF32 on {times['library_tf32']:.4f}), "
             f"plain {times['plain']:.4f}; floor {floor[0]:.4f} ({floor[1]}, "
             f"3xTF32), share {floor[0] / times['kernel']:.3f}")
         del x, wt, y, yp, ys, again
     n_calls = len(bil_shapes(scfg))
     log(f"bil_conv: f32 per train step over its {n_calls} calls, device "
-        f"time (graph replay): kernel {tot['kernel']:.3f} ms, kernel 2's "
-        f"FFMA body {tot['ffma']:.3f}, F.conv2d TF32 off "
+        f"time (graph replay): kernel {tot['kernel']:.3f} ms, F.conv2d "
+        f"TF32 off "
         f"{tot['library']:.3f}, TF32 on {tot['library_tf32']:.3f}, plain "
         f"{tot['plain']:.3f}; floors: HBM {floors['hbm']:.3f}, 3xTF32 "
         f"{floors['tf32x3']:.3f} (share "
         f"{floors['tf32x3'] / tot['kernel']:.3f}), "
         f"FFMA {floors['ffma']:.3f}; max abs err {err:.3g}; slower than "
         f"F.conv2d TF32 off at: {', '.join(losses) or 'none'}")
-    assert tot["kernel"] < tot["ffma"], (
-        f"the 3xTF32 body ({tot['kernel']:.3f} ms) is not faster than kernel "
-        f"2's FFMA body ({tot['ffma']:.3f} ms) at the same calls")
 
     edge_err = 0.0
     for (n, h, w, cin, cout) in k3m.EDGE_SHAPES:
@@ -565,7 +637,7 @@ def phase_bil(torch, scfg, g, inputs):
     total, by = summed_bound(bounds)
     return dict(errs={"f32": max(err, edge_err), "bf16": bf16_err},
                 ms=tot["kernel"], plain_ms=tot["plain"],
-                library_ms=tot["library"], ffma_ms=tot["ffma"],
+                library_ms=tot["library"],
                 library_tf32_ms=tot["library_tf32"], bound_ms=total,
                 bound_by=by)
 
@@ -942,10 +1014,16 @@ def profile_train_step(torch, base, scfg, steps=5):
 
     def family(name):
         low = name.lower()
-        if "conv3x3_bil" in low or "conv3x3_tf32" in low:
-            return "bil_conv"
-        if "conv3x3_small" in low:
+        # the 3xTF32 kernels carry their kernel's number as the last
+        # template argument; only kernels 1 and 2 split K (finish kernel)
+        tf32 = re.search(r"conv3x3_tf32_kernel<[^>]*,\s*(\d)>", name)
+        if tf32:
+            return {"1": "conv_in_stats", "2": "small_conv",
+                    "3": "bil_conv"}[tf32.group(1)]
+        if "conv3x3_tf32_finish" in low:
             return "small_conv"
+        if "conv3x3_bil" in low:
+            return "bil_conv"
         if "wgrad" in low:
             return "cuDNN wgrad"
         if any(k in low for k in ("conv", "gemm", "xmma", "cudnn",
@@ -981,12 +1059,14 @@ def phase_train(torch):
     from gan_segmentation_tpu_torch.apps.main import main as cli
     from gan_segmentation_tpu_torch.core.config import load_config_file
     from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
     from gan_segmentation_tpu_torch.train.generator import ImageGenerator
     from gan_segmentation_tpu_torch.train.solver import SegSolver
 
     with tempfile.TemporaryDirectory() as base:
         free = shutil.disk_usage(base).free / 2 ** 30
+        k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
         t0 = time.perf_counter()
         gen = ImageGenerator(gan="ffhq", batch_size=BATCH, dtype="fp32",
                              gan_dir=join(base, "no-models"), seed=0)
@@ -995,9 +1075,14 @@ def phase_train(torch):
         make_collection(gen, join(base, "eval"), EVAL_SAMPLES)
         del gen
         torch.cuda.empty_cache()
+        n_k1 = k1m.conv3x3_noise_bias_lrelu_instats.launches
+        batches = -(-TRAIN_SAMPLES // BATCH) + -(-EVAL_SAMPLES // BATCH)
         log(f"train collection: {TRAIN_SAMPLES} + {EVAL_SAMPLES} ffhq 1024^2 "
             f"samples (f32 pyramids) written in "
-            f"{time.perf_counter() - t0:.1f} s ({free:.1f} GiB free before)")
+            f"{time.perf_counter() - t0:.1f} s ({free:.1f} GiB free before); "
+            f"conv_in_stats (f32) launches {n_k1} over {batches} batches of "
+            f"{BATCH}")
+        assert n_k1 == 9 * batches, "conv_in_stats must run 9x per batch"
         config = join(base, "config.yml")
         with open(config, "w") as fh:
             fh.write(f"BASE_DIR: {base}\nGAN: ffhq\n"
@@ -1067,7 +1152,7 @@ def phase_train(torch):
         assert metrics["mean-iou"] > before["mean-iou"], (metrics, before)
         prof = profile_train_step(torch, base, scfg)
     return dict(launches=train_launches, eval_launches=n_eval,
-                steps=steps, step_ms=fit_s / fit_steps * 1e3,
+                collection_launches=n_k1, steps=steps, step_ms=fit_s / fit_steps * 1e3,
                 sps=fit_steps / fit_s, metrics=metrics, prof=prof)
 
 
@@ -1129,17 +1214,24 @@ def main():
         f"{tr['metrics']} on {smi}")
 
     launches = {
-        "conv_in_stats": {"generate": sl["launches"]["conv_in_stats"]},
+        "conv_in_stats": {"generate": sl["launches"]["conv_in_stats"],
+                          "collection": tr["collection_launches"]},
         "small_conv": {"generate": sl["launches"]["small_conv"],
                        "train": tr["launches"]["small_conv"],
                        "evaluate": tr["eval_launches"]},
         "bil_conv": {"train": tr["launches"]["bil_conv"]}}
     tc_design = ("bf16: mma.sync m16n8k16 implicit GEMM fed by a 2- or "
                  "3-stage cp.async ring, split-K for Cin 512 at 4^2-16^2 "
-                 "(conv3x3_tc.cuh); f32: FFMA (conv3x3_core.cuh)")
+                 "(conv3x3_tc.cuh); f32: 3xTF32 mma.sync m16n8k8 implicit "
+                 "GEMM fed by a cp.async ring, taps resident or per stage, "
+                 "split-K with a fixed-order finish kernel where the items "
+                 "are fewer than the SMs (conv3x3_tf32.cuh)")
+    k1_design = (tc_design + "; statistics from the accumulators by "
+                 "xor-shuffles and per-slot sums in a fixed order, one "
+                 "partial per (image, tile)")
     sources = {"conv_in_stats": (
         "gan_segmentation_tpu_torch/csrc/conv_in_stats.cu",
-        "experiments/pallas_archive/conv_in_stats.py:118", tc_design),
+        "experiments/pallas_archive/conv_in_stats.py:118", k1_design),
         "small_conv": ("gan_segmentation_tpu_torch/csrc/small_conv.cu",
                        "experiments/pallas_archive/small_conv.py:84",
                        tc_design),
@@ -1163,7 +1255,6 @@ def main():
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
                          library_tf32_ms=r["library_tf32_ms"],
-                         small_conv_ffma_ms=r["ffma_ms"],
                          timed="f32, device time (graph replay) per train "
                                "step at batch 1, 38 calls; bound 3xTF32")
         else:
@@ -1182,6 +1273,11 @@ def main():
                 entry.update(eval_sample_ms_f32=b1["kernel"],
                              eval_sample_plain_ms_f32=b1["plain"],
                              eval_sample_library_ms_f32=b1["library"])
+            else:  # the f32 generator's batch of 8 (the collection)
+                f32 = r["f32_dev"]
+                entry.update(batch_ms_f32=f32["kernel"],
+                             batch_plain_ms_f32=f32["plain"],
+                             batch_library_ms_f32=f32["library"])
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -150,8 +150,8 @@ static int dispatch_ct(const void* x, const void* w, const float* bias,
 extern "C" {
 
 // bias may be null.  act: 0 none, 1 relu, 2 leaky(slope).  f32 runs the
-// 3xTF32 tensor-core kernel with plan = int[9] from
-// kernels/tc_plan.py::plan_f32; bf16 the FFMA core (plan unused).
+// 3xTF32 tensor-core kernel with plan = int[11] from
+// kernels/tc_plan.py::plan_f32 (no split); bf16 the FFMA core (plan unused).
 // Returns cudaGetLastError() after the launch (0 on success).
 int gst_conv3x3_bil(const void* x, const void* w, const float* bias, void* y,
                     int n, int h, int wd, int cin, int cout, int dtype,
@@ -173,7 +173,7 @@ int gst_conv3x3_bil(const void* x, const void* w, const float* bias, void* y,
     a.cout = cout;
     a.act = act;
     a.slope = slope;
-    return gst::tf32::run(a, plan, st);
+    return gst::tf32::run<3>(a, plan, st);
   }
   if (dtype == gst::BF16)
     return gst::bil::dispatch_ct<__nv_bfloat16>(x, w, bias, y, n, h, wd, cin,

@@ -1,5 +1,6 @@
-// Shared main loop and epilogue of the direct 3x3 convolution kernels
-// (conv_in_stats.cu, small_conv.cu and bil_conv.cu).
+// Main loop and epilogue of the direct (FFMA) 3x3 convolution kernel of
+// bil_conv.cu's bf16 body, and the dtype codes, activation codes and
+// dimension check that all three kernels' entry points share.
 //
 // Layout: x is NHWC, w is HWIO (3, 3, Cin, Cout), stride 1, zero pad 1.
 // x and w are f32 or bf16; every product is accumulated in f32.
@@ -13,10 +14,10 @@
 // tiles (H = 4, Cout = 2) need no special case in the loop; the epilogue
 // masks the stores.
 //
-// The products run on the CUDA cores (FFMA).  This core serves the f32
-// calls of kernels 1 and 2 and the bf16 calls of kernel 3; the bf16 calls
-// of kernels 1 and 2 run the tensor-core implicit GEMM of conv3x3_tc.cuh,
-// the f32 calls of kernel 3 the 3xTF32 one of conv3x3_tf32.cuh.
+// The products run on the CUDA cores (FFMA).  This core serves the bf16
+// calls of kernel 3 alone (on no path); the bf16 calls of kernels 1 and 2
+// run the tensor-core implicit GEMM of conv3x3_tc.cuh, every f32 call the
+// 3xTF32 one of conv3x3_tf32.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -196,23 +197,6 @@ __device__ __forceinline__ void store_bias_act(
       y[pix * cout + co] = from_f32<T>(v);
     }
   }
-}
-
-// The block's tile from blockIdx: x = spatial tile, y = Cout tile, z = image.
-struct BlockTile {
-  int n, oy0, ox0, co0, tile;
-};
-
-template <int CT>
-__device__ __forceinline__ BlockTile block_tile(int wd) {
-  BlockTile b;
-  const int tiles_w = (wd + TW - 1) / TW;
-  b.tile = blockIdx.x;
-  b.oy0 = (blockIdx.x / tiles_w) * TH;
-  b.ox0 = (blockIdx.x % tiles_w) * TW;
-  b.co0 = blockIdx.y * CT;
-  b.n = blockIdx.z;
-  return b;
 }
 
 // Output-channel tile width for a layer: wide tiles reuse each staged input

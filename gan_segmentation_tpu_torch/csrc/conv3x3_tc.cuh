@@ -1,6 +1,6 @@
 // Tensor-core implicit GEMM for the bf16 3x3 convolutions of kernels 1 and 2
-// (conv_in_stats.cu, small_conv.cu).  bf16 only: the f32 calls stay on the
-// FFMA core of conv3x3_core.cuh.
+// (conv_in_stats.cu, small_conv.cu).  bf16 only: the f32 calls run the
+// 3xTF32 kernel of conv3x3_tf32.cuh.
 //
 // Layout: x is NHWC, w is HWIO (3, 3, Cin, Cout), stride 1, zero pad 1.
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x Cin.

@@ -1,6 +1,7 @@
-// Tensor-core implicit GEMM for the f32 3x3 convolutions of kernel 3
-// (bil_conv.cu), in the 3xTF32 split.  The bf16 calls of kernels 1 and 2
-// run conv3x3_tc.cuh; this header is its f32 counterpart.
+// Tensor-core implicit GEMM for the f32 3x3 convolutions of kernels 1, 2
+// and 3 (conv_in_stats.cu, small_conv.cu, bil_conv.cu), in the 3xTF32
+// split.  The bf16 calls of kernels 1 and 2 run conv3x3_tc.cuh; this header
+// is its f32 counterpart.
 //
 // Layout: x is NHWC, w is HWIO (3, 3, Cin, Cout), stride 1, zero pad 1.
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x Cin.
@@ -27,7 +28,7 @@
 // chains (measured on the card: 64-pixel warps took the 1024^2 16-channel
 // layers from 0.120 to 0.109 ms), else MI = 2.  Blocks are persistent and
 // walk the (tile, Cout block) items, Cout block fastest.  The plan (BN, WM,
-// MI, CK, TW, TH, G, stages, resident) is chosen on the host by
+// MI, CK, TW, TH, G, stages, resident, split-K) is chosen on the host by
 // kernels/tc_plan.py::plan_f32 and validated here.
 //
 // Staging.  The loop over Cin takes CK (8 or 16) f32 channels per stage: the
@@ -57,11 +58,28 @@
 // once per block into (hi, lo) pairs read by 64-bit loads measured slower
 // on the card (2.93 against 2.57 ms over a train step's calls).
 //
-// Epilogue.  v = acc [+ bias], then none / relu / leaky, stored straight
-// from the accumulators as float2 (two adjacent channels of one pixel),
-// masked at the ragged edge and beyond Cout (Cout = 2 keeps 2 of N = 8).
-// Summation order is fixed and there are no atomics: repeats are
-// bit-identical.
+// Split-K.  Where the grid has fewer items than SMs (Cin 512 / 256 at
+// 4^2-64^2 with one image, kernel 1's 512 -> 512 at 4^2 and 8^2) the plan
+// splits K over Cin chunks: one block per (item, split), taps per stage,
+// each split's f32 sums stored to a workspace, and a second kernel adds the
+// splits in a fixed order and runs the epilogue, in blocks of FINISH_BN
+// channels so that it too spreads over the SMs.  The plan also splits
+// wherever one chain would sum more than 8 chunks: the MMA rounds its f32
+// accumulator toward zero, so a chain's error grows with its length, one
+// way (measured 2.2e-4 at K = 9 x 512 in one chain, 5e-5 in chains of 8
+// chunks on an NVIDIA H100), and the finish kernel adds to nearest.
+//
+// Epilogue.  v = acc [+ noise * nscale] [+ bias], then none / relu / leaky,
+// stored straight from the accumulators as float2 (two adjacent channels of
+// one pixel), masked at the ragged edge and beyond Cout (Cout = 2 keeps 2 of
+// N = 8).  Kernel 1 (STATS) reads each pixel's noise here and also takes
+// the per-(image, tile) sums of v and v^2 from the accumulators: a thread
+// adds its rows of a warp's (or, where a warp spans images, of an m16
+// fragment's) pixels, three xor-shuffles add the 8 row lanes, the slot's
+// sums go to shared memory, and one thread per (image, channel) adds the
+// image's slots in order; a tile spanning G images writes one partial per
+// image.  Summation order is fixed everywhere and there are no atomics:
+// repeats are bit-identical.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -89,43 +107,65 @@ __host__ __device__ constexpr int pad_n(int bn) {
 }
 
 // Shared memory of one launch: the ring of `stages` stages (halo [+ taps]),
-// then, where resident, every chunk's taps.  Floats unless noted.
+// then, where resident, every chunk's taps, then kernel 1's statistics
+// slots (BN channels, sum and sum of squares): one per warp where a warp's
+// 16 * MI pixels lie in one image, else one per m16 fragment.  Floats
+// unless noted.
 struct Layout {
   int hp, wp;   // halo rows and columns per image
   int halo;     // one stage's halo
   int taps;     // one chunk's taps: 9 x CK x pad_n(BN)
   int stage;    // halo, plus taps unless resident
+  int per;      // tile pixels per image
+  int frag;     // pixels per warp
+  int slots;    // the statistics' slots
+  int red;      // their floats
   int smem;     // bytes
 };
 
 __host__ __device__ inline Layout layout(int bn, int ck, int g, int th,
                                          int tw, int stages, int resident,
-                                         int chunks) {
+                                         int chunks, int wm, int mi,
+                                         int stats) {
   Layout L;
   L.hp = th + 2;
   L.wp = tw + 2;
   L.halo = g * L.hp * L.wp * pad_px(ck);
   L.taps = 9 * ck * pad_n(bn);
   L.stage = L.halo + (resident ? 0 : L.taps);
-  L.smem = (stages * L.stage + (resident ? chunks * L.taps : 0)) * 4;
+  L.per = th * tw;
+  L.frag = 16 * mi;
+  L.slots = stats ? (L.per % L.frag == 0 ? wm : wm * mi) : 0;
+  L.red = L.slots * bn * 2;
+  L.smem = (stages * L.stage + (resident ? chunks * L.taps : 0) + L.red) * 4;
   return L;
 }
+
+constexpr int FINISH_THREADS = 256;
+constexpr int FINISH_BN = 8;  // output channels per split-K finish block
+constexpr int FINISH_VS = FINISH_BN + 1;  // row stride of its value tile
 
 // Everything a launch reads; passed by value.
 struct Args {
   const float* x;
   const float* w;
-  const float* bias;  // (Cout,) or null
+  const float* bias;    // (Cout,) or null
+  const float* noise;   // (N, H, W), kernel 1 only
+  const float* nscale;  // (Cout,) with noise
   float* y;
+  float* partial;       // (N, tiles, 2, Cout), kernel 1 only
+  float* ws;            // (splits, N*H*W, Cout) when splits > 1
   int n, h, wd, cin, cout;
   int act;
   float slope;
   // the plan and what follows from it (run() fills these)
-  int tw, th, g, stages, resident;
+  int tw, th, g, stages, resident, splits, cps;
   int chunks, tiles_x, tiles, cout_blocks, items;
+  int warp_stats;  // a warp's pixels lie in one image: one slot per warp
+  int spi;         // statistics slots per image
   FastDiv fd_wp, fd_hp, fd_per, fd_tw;
   int vec_x, vec_w;  // 16-byte cp.async allowed
-  int vec_y;         // float2 stores allowed
+  int vec_y;         // float2 stores allowed (y and the workspace)
 };
 
 // ---------------------------------------------------------------- PTX ----
@@ -150,21 +190,23 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 
 // ------------------------------------------------------------ helpers ----
 
-// One work item: a spatial tile of G images for BN output channels.
+// One work item: a spatial tile of G images for BN output channels and one
+// Cin split.
 struct Item {
-  int ty0, tx0, co0, n0;
+  int tile, ty0, tx0, co0, n0, split;
 };
 
 __device__ __forceinline__ Item item(const Args& a, int w, int bn) {
   Item t;
   const int rest = w / a.cout_blocks;
   t.co0 = (w - rest * a.cout_blocks) * bn;
-  const int grp = rest / a.tiles;
-  const int tile = rest - grp * a.tiles;
-  const int ty = tile / a.tiles_x;
+  const int z = rest / a.tiles;
+  t.tile = rest - z * a.tiles;
+  const int ty = t.tile / a.tiles_x;
   t.ty0 = ty * a.th;
-  t.tx0 = (tile - ty * a.tiles_x) * a.tw;
-  t.n0 = grp * a.g;
+  t.tx0 = (t.tile - ty * a.tiles_x) * a.tw;
+  t.split = z % a.splits;
+  t.n0 = (z / a.splits) * a.g;
   return t;
 }
 
@@ -267,14 +309,16 @@ __device__ __forceinline__ void load_taps(const Args& a, float* wt, int chunk,
   }
 }
 
-// Load position q of the block's (item, chunk) sequence into stage q % stages.
+// Load position q of the block's (item, chunk) sequence, nc chunks an item,
+// into stage q % stages.
 template <int BN, int CK>
 __device__ __forceinline__ void load_pos(const Args& a, const Layout& L,
-                                         float* ring, int q, int first,
-                                         int step, int tid, int threads) {
-  const int j = q / a.chunks;
-  const int c = q - j * a.chunks;
+                                         float* ring, int q, int nc,
+                                         int first, int step, int tid,
+                                         int threads) {
+  const int j = q / nc;
   const Item it = item(a, first + j * step, BN);
+  const int c = it.split * a.cps + q - j * nc;
   float* st = ring + (q % a.stages) * L.stage;
   load_halo<CK>(a, L, st, c, it, tid, threads);
   if (!a.resident) load_taps<BN, CK>(a, st + L.halo, c, it.co0, tid, threads);
@@ -284,6 +328,17 @@ __device__ __forceinline__ float activate(const Args& a, float v) {
   if (a.act == RELU) return fmaxf(v, 0.f);
   if (a.act == LEAKY) return v >= 0.f ? v : a.slope * v;
   return v;
+}
+
+// Two adjacent channels co, co + 1 of one pixel's row of `cout` values.
+__device__ __forceinline__ void store2(const Args& a, float* row, int co,
+                                       float v0, float v1) {
+  if (a.vec_y) {  // Cout even: co < Cout means co + 1 < Cout too
+    if (co < a.cout) *reinterpret_cast<float2*>(row + co) = make_float2(v0, v1);
+  } else {
+    if (co < a.cout) row[co] = v0;
+    if (co + 1 < a.cout) row[co + 1] = v1;
+  }
 }
 
 // ------------------------------------------------------------- kernels ----
@@ -299,11 +354,16 @@ struct Cfg {
 };
 
 // A persistent block walks the items blockIdx.x, blockIdx.x + gridDim.x, ...
-// The ring runs over the flattened (item, chunk) sequence, so the next
-// item's first chunks load while this item multiplies and stores.
-template <int BN, int WM, int MI, int CK>
+// (with a split, the grid has one block per item).  The ring runs over the
+// flattened (item, chunk) sequence, so the next item's first chunks load
+// while this item multiplies and stores.  KERNEL is the number of the
+// kernel whose entry point launches it (1 conv_in_stats, 2 small_conv, 3
+// bil_conv), so that a profile tells them apart by name; kernel 1 has its
+// own epilogue (STATS: noise and the statistics' partial sums).
+template <int BN, int WM, int MI, int CK, int KERNEL>
 __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
     conv3x3_tf32_kernel(const Args a) {
+  constexpr bool STATS = KERNEL == 1;
   constexpr int THREADS = WM * 32;
   constexpr int NJ = BN / 8;  // n8 fragments per warp
   constexpr int PS = pad_px(CK);
@@ -311,7 +371,7 @@ __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
   extern __shared__ __align__(128) float smem[];
 
   const Layout L = layout(BN, CK, a.g, a.th, a.tw, a.stages, a.resident,
-                          a.chunks);
+                          a.chunks, WM, MI, STATS);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int tig = lane % 4;
 
@@ -333,16 +393,19 @@ __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
 
   const int first = blockIdx.x, step = gridDim.x;
   const int items = (a.items - 1 - first) / step + 1;
-  const int nc = a.chunks;
+  // chunks per item: the same for every item of a block (a split has one
+  // item per block)
+  const int nc = min(a.chunks - item(a, first, BN).split * a.cps, a.cps);
   const int total = items * nc;
   const int NS = a.stages;
   float* const resident = smem + NS * L.stage;
+  float* const red = resident + (a.resident ? a.chunks * L.taps : 0);
   if (a.resident)  // one Cout block: every item uses the same taps
     for (int c = 0; c < nc; ++c)
       load_taps<BN, CK>(a, resident + c * L.taps, c, 0, tid, THREADS);
   for (int s = 0; s < NS - 1; ++s) {
     if (s < total)
-      load_pos<BN, CK>(a, L, smem, s, first, step, tid, THREADS);
+      load_pos<BN, CK>(a, L, smem, s, nc, first, step, tid, THREADS);
     cp_async_commit();
   }
 
@@ -356,7 +419,7 @@ __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
       cp_async_wait<0>();
     __syncthreads();  // chunk q landed; stage (q - 1) % NS is free
     if (q + NS - 1 < total)
-      load_pos<BN, CK>(a, L, smem, q + NS - 1, first, step, tid, THREADS);
+      load_pos<BN, CK>(a, L, smem, q + NS - 1, nc, first, step, tid, THREADS);
     cp_async_commit();
 
     const int j = q / nc;
@@ -407,88 +470,252 @@ __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
     // the item's last chunk: epilogue from the accumulators (the next
     // item's loads are in flight)
     const Item it = item(a, first + j * step, BN);
-    float bias[NJ][2];
+    if (a.splits > 1) {  // this split's sums, for the finish kernel
+      float* ws = a.ws + (size_t)it.split * a.n * a.h * a.wd * a.cout;
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const Pix px =
+              pixel(a, warp * 16 * MI + i * 16 + lane / 4 + half * 8, it);
+          if (!px.ok) continue;
+#pragma unroll
+          for (int jj = 0; jj < NJ; ++jj)
+            store2(a, ws + px.idx * a.cout, it.co0 + jj * 8 + 2 * tig,
+                   acc[i][jj][2 * half], acc[i][jj][2 * half + 1]);
+        }
+      continue;
+    }
+    float bias[NJ][2], ns[NJ][2];
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int co = it.co0 + jj * 8 + 2 * tig + e;
         bias[jj][e] = (a.bias != nullptr && co < a.cout) ? a.bias[co] : 0.f;
+        ns[jj][e] = (STATS && co < a.cout) ? a.nscale[co] : 0.f;
       }
+    float sum[NJ][2][2];  // [n8 fragment][channel of the pair][v, v^2]
+    if (STATS) {
 #pragma unroll
-    for (int i = 0; i < MI; ++i)
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[jj][e / 2][e % 2] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const Pix px =
             pixel(a, warp * 16 * MI + i * 16 + lane / 4 + half * 8, it);
         if (!px.ok) continue;
+        // loading the noise ahead of the item's last chunk instead gained
+        // under 1% on the card
+        const float nz = STATS ? a.noise[px.idx] : 0.f;
         float* yp = a.y + px.idx * a.cout;
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) {
-          const int co = it.co0 + jj * 8 + 2 * tig;
-          const float v0 = activate(a, acc[i][jj][2 * half] + bias[jj][0]);
-          const float v1 =
-              activate(a, acc[i][jj][2 * half + 1] + bias[jj][1]);
-          if (a.vec_y) {  // Cout even: co < Cout means co + 1 < Cout too
-            if (co < a.cout)
-              *reinterpret_cast<float2*>(yp + co) = make_float2(v0, v1);
-          } else {
-            if (co < a.cout) yp[co] = v0;
-            if (co + 1 < a.cout) yp[co + 1] = v1;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float t = acc[i][jj][2 * half + e];
+            if (STATS) t += nz * ns[jj][e];
+            v[e] = activate(a, t + bias[jj][e]);
+            // channels beyond Cout hold zero taps, scales and biases
+            if (STATS) {
+              sum[jj][e][0] += v[e];
+              sum[jj][e][1] += v[e] * v[e];
+            }
           }
+          store2(a, yp, it.co0 + jj * 8 + 2 * tig, v[0], v[1]);
         }
       }
+      if (!STATS || (a.warp_stats && i != MI - 1)) continue;
+      // this slot's sums: the 8 row lanes of each channel, then lane tig
+      float* slot = red + (a.warp_stats ? warp : warp * MI + i) * BN * 2;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            float t = sum[jj][e][k];
+            t += __shfl_xor_sync(0xFFFFFFFFu, t, 4);
+            t += __shfl_xor_sync(0xFFFFFFFFu, t, 8);
+            t += __shfl_xor_sync(0xFFFFFFFFu, t, 16);
+            if (lane < 4) slot[(jj * 8 + 2 * tig + e) * 2 + k] = t;
+            sum[jj][e][k] = 0.f;
+          }
+    }
+    if (!STATS) continue;
+    __syncthreads();  // the slots are written; the next write to them
+                      // follows the next chunk's barrier
+    for (int e = tid; e < a.g * BN; e += THREADS) {
+      const int gi = e / BN, ch = e - gi * BN;
+      const int nn = it.n0 + gi, co = it.co0 + ch;
+      if (nn >= a.n || co >= a.cout) continue;
+      float s1 = 0.f, s2 = 0.f;
+      for (int k = 0; k < a.spi; ++k) {
+        const float* slot = red + ((gi * a.spi + k) * BN + ch) * 2;
+        s1 += slot[0];
+        s2 += slot[1];
+      }
+      float* out =
+          a.partial + ((size_t)nn * a.tiles + it.tile) * 2 * a.cout + co;
+      out[0] = s1;
+      out[a.cout] = s2;
+    }
   }
   cp_async_wait<0>();
 }
 
+// Split-K: y = epilogue(sum of the splits in order) and, for kernel 1, the
+// statistics' partial sums.  grid: x = spatial tile, y = block of FINISH_BN
+// channels, z = image group; bm pixels a tile.
+__global__ void __launch_bounds__(FINISH_THREADS)
+    conv3x3_tf32_finish_kernel(const Args a, int bm) {
+  extern __shared__ __align__(16) float fsmem[];
+  float* vs = fsmem;                   // [bm][FINISH_VS], zero where masked
+  float* red = fsmem + bm * FINISH_VS;  // the segments' sums
+  Item it;
+  it.tile = blockIdx.x;
+  it.ty0 = (it.tile / a.tiles_x) * a.th;
+  it.tx0 = (it.tile % a.tiles_x) * a.tw;
+  it.co0 = blockIdx.y * FINISH_BN;
+  it.n0 = blockIdx.z * a.g;
+  it.split = 0;
+  const size_t plane = (size_t)a.n * a.h * a.wd * a.cout;
+  for (int i = threadIdx.x; i < bm * FINISH_BN; i += FINISH_THREADS) {
+    const int p = i / FINISH_BN;
+    const int c = i - p * FINISH_BN;
+    const int co = it.co0 + c;
+    const Pix q = pixel(a, p, it);
+    float v = 0.f;
+    if (q.ok && co < a.cout) {
+      const size_t off = q.idx * a.cout + co;
+      float s = 0.f;
+      for (int sp = 0; sp < a.splits; ++sp) s += a.ws[sp * plane + off];
+      if (a.noise != nullptr) s += a.noise[q.idx] * a.nscale[co];
+      if (a.bias != nullptr) s += a.bias[co];
+      v = activate(a, s);
+      a.y[off] = v;
+    }
+    vs[p * FINISH_VS + c] = v;
+  }
+  if (a.partial == nullptr) return;
+  __syncthreads();
+  // Statistics per (image, channel): each of S threads sums one contiguous
+  // segment of the image's tile pixels, then one thread adds the S segments
+  // in order.  E, S and the block's threads are powers of two.
+  const int per = a.th * a.tw;
+  const int E = a.g * FINISH_BN;
+  const int S = E >= FINISH_THREADS ? 1 : FINISH_THREADS / E;
+  const int len = (per + S - 1) / S;
+  for (int i = threadIdx.x; i < E * S; i += FINISH_THREADS) {
+    const int seg = i / E, e = i - seg * E;
+    const int gi = e / FINISH_BN, c = e - gi * FINISH_BN;
+    const int end = min(per, (seg + 1) * len);
+    float s1 = 0.f, s2 = 0.f;
+    for (int q = seg * len; q < end; ++q) {
+      const float v = vs[(gi * per + q) * FINISH_VS + c];
+      s1 += v;
+      s2 += v * v;
+    }
+    red[(seg * E + e) * 2] = s1;
+    red[(seg * E + e) * 2 + 1] = s2;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < E; e += FINISH_THREADS) {
+    const int gi = e / FINISH_BN, c = e - gi * FINISH_BN;
+    const int nn = it.n0 + gi, co = it.co0 + c;
+    if (nn >= a.n || co >= a.cout) continue;
+    float s1 = 0.f, s2 = 0.f;
+    for (int seg = 0; seg < S; ++seg) {
+      s1 += red[(seg * E + e) * 2];
+      s2 += red[(seg * E + e) * 2 + 1];
+    }
+    float* out =
+        a.partial + ((size_t)nn * a.tiles + it.tile) * 2 * a.cout + co;
+    out[0] = s1;
+    out[a.cout] = s2;
+  }
+}
+
 // ---------------------------------------------------------------- host ----
 
-template <int BN, int WM, int MI, int CK>
+template <int BN, int WM, int MI, int CK, int KERNEL>
 static int launch(const Args& a, cudaStream_t st) {
+  constexpr bool STATS = KERNEL == 1;
   constexpr int THREADS = WM * 32;
+  constexpr int BM = 16 * MI * WM;
   const Layout L = layout(BN, CK, a.g, a.th, a.tw, a.stages, a.resident,
-                          a.chunks);
+                          a.chunks, WM, MI, STATS);
   if (L.smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
-  auto kern = conv3x3_tf32_kernel<BN, WM, MI, CK>;
+  auto kern = conv3x3_tf32_kernel<BN, WM, MI, CK, KERNEL>;
   int rc = 0;
   if (L.smem > 48 * 1024 &&
       (rc = (int)cudaFuncSetAttribute(
            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem)))
     return rc;
-  // persistent: as many blocks as fit on the card, at most one per item
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((rc = (int)cudaGetDevice(&dev)) ||
-      (rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                        dev)) ||
-      (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kern, THREADS, L.smem)))
-    return rc;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   int grid = a.items;
-  if ((long long)per_sm * sms < grid) grid = per_sm * sms;
+  if (a.splits == 1) {
+    // persistent: as many blocks as fit on the card, at most one per item
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((rc = (int)cudaGetDevice(&dev)) ||
+        (rc = (int)cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)) ||
+        (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, kern, THREADS, L.smem)))
+      return rc;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    if ((long long)per_sm * sms < grid) grid = per_sm * sms;
+  }
   kern<<<grid, THREADS, L.smem, st>>>(a);
+  rc = (int)cudaGetLastError();
+  if (rc || a.splits == 1) return rc;
+  // The finish blocks take FINISH_BN channels each, not BN: a split plan has
+  // few tiles (that is why it splits), and the reduction is spread over
+  // BN / FINISH_BN times more SMs.  The statistics are per channel, so a
+  // narrower block writes the same partials.
+  const int e = a.g * FINISH_BN;
+  const int fsmem =
+      (BM * FINISH_VS + 2 * (e > FINISH_THREADS ? e : FINISH_THREADS)) * 4;
+  const dim3 fgrid(a.tiles, (a.cout + FINISH_BN - 1) / FINISH_BN,
+                   (a.n + a.g - 1) / a.g);
+  conv3x3_tf32_finish_kernel<<<fgrid, FINISH_THREADS, fsmem, st>>>(a, BM);
   return (int)cudaGetLastError();
 }
 
-template <int BN, int WM, int MI>
+template <int BN, int WM, int MI, int KERNEL>
 static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
-  return ck == 8 ? launch<BN, WM, MI, 8>(a, st)
-                 : launch<BN, WM, MI, 16>(a, st);
+  return ck == 8 ? launch<BN, WM, MI, 8, KERNEL>(a, st)
+                 : launch<BN, WM, MI, 16, KERNEL>(a, st);
 }
 
-// plan = {bn, wm, mi, ck, tw, th, g, stages, resident} from
+// plan = {bn, wm, mi, ck, tw, th, g, stages, resident, splits, cps} from
 // kernels/tc_plan.py::plan_f32.  Fills the plan's fields of `a` after
 // checking them; returns a CUDA error code (cudaErrorInvalidValue for a
-// plan this header does not take).
+// plan this header does not take).  KERNEL 1 is given noise, nscale and
+// partial; kernels 2 and 3 none of them.
+template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
+  static_assert(KERNEL >= 1 && KERNEL <= 3, "kernel 1, 2 or 3");
+  constexpr bool STATS = KERNEL == 1;
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  const bool k1 =
+      a.noise != nullptr && a.nscale != nullptr && a.partial != nullptr;
+  if (STATS ? !k1
+            : (a.noise != nullptr || a.nscale != nullptr ||
+               a.partial != nullptr))
+    return (int)cudaErrorInvalidValue;
   const int bn = plan[0], wm = plan[1], mi = plan[2], ck = plan[3];
   a.tw = plan[4];
   a.th = plan[5];
   a.g = plan[6];
   a.stages = plan[7];
   a.resident = plan[8];
+  a.splits = plan[9];
+  a.cps = plan[10];
   // the instantiated (BN, WM, MI): 4 warps of 32 or 64 pixels at BN <= 16,
   // 4 or 8 warps of 32 pixels at BN 32 and 64
   const bool tile_ok = bn == 8 || bn == 16
@@ -499,42 +726,57 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
       tile_ok && (ck == 8 || ck == 16) &&
       (a.tw == 4 || a.tw == 8 || a.tw == 16) && a.th >= 1 && a.g >= 1 &&
       a.tw * a.th * a.g == 16 * mi * wm && (a.stages == 2 || a.stages == 3) &&
-      (a.resident == 0 || a.resident == 1);
+      (a.resident == 0 || a.resident == 1) && a.splits >= 1 && a.cps >= 1;
   if (!shape_ok) return (int)cudaErrorInvalidValue;
   a.chunks = (a.cin + ck - 1) / ck;
+  // every Cin chunk in exactly one split, no split empty
+  if ((long long)(a.splits - 1) * a.cps >= a.chunks ||
+      (long long)a.splits * a.cps < a.chunks)
+    return (int)cudaErrorInvalidValue;
+  if (a.splits > 1 && (a.ws == nullptr || a.resident))
+    return (int)cudaErrorInvalidValue;
   a.tiles_x = (a.wd + a.tw - 1) / a.tw;
   a.cout_blocks = (a.cout + bn - 1) / bn;
   if (a.resident && a.cout_blocks != 1) return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)a.tiles_x * ((a.h + a.th - 1) / a.th);
   const long long groups = (a.n + a.g - 1) / a.g;
-  const long long items = tiles * a.cout_blocks * groups;
-  if (items >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const long long items = tiles * a.cout_blocks * groups * a.splits;
+  // the finish kernel's grid is (tiles, Cout / FINISH_BN, image groups)
+  if (items >= (1LL << 31) ||
+      (a.splits > 1 &&
+       ((a.cout + FINISH_BN - 1) / FINISH_BN > 65535 || groups > 65535)))
+    return (int)cudaErrorInvalidValue;
   a.tiles = (int)tiles;
   a.items = (int)items;
+  // the statistics' slots: an m16 fragment, or a whole warp, in one image
+  const int per = a.th * a.tw;
+  if (STATS && per % 16 != 0) return (int)cudaErrorInvalidValue;
+  a.warp_stats = per % (16 * mi) == 0;
+  a.spi = per / (a.warp_stats ? 16 * mi : 16);
   a.fd_wp.set(a.tw + 2);
   a.fd_hp.set(a.th + 2);
-  a.fd_per.set(a.th * a.tw);
+  a.fd_per.set(per);
   a.fd_tw.set(a.tw);
   a.vec_x = a.cin % 4 == 0 && aligned(a.x, 16);
   a.vec_w = a.cout % 4 == 0 && aligned(a.w, 16);
-  a.vec_y = a.cout % 2 == 0 && aligned(a.y, 8);
+  a.vec_y = a.cout % 2 == 0 && aligned(a.y, 8) && aligned(a.ws, 8);
   switch (bn * 10 + wm * mi / 2) {
     case 84:
-      return dispatch_ck<8, 4, 2>(a, ck, st);
+      return dispatch_ck<8, 4, 2, KERNEL>(a, ck, st);
     case 88:
-      return dispatch_ck<8, 4, 4>(a, ck, st);
+      return dispatch_ck<8, 4, 4, KERNEL>(a, ck, st);
     case 164:
-      return dispatch_ck<16, 4, 2>(a, ck, st);
+      return dispatch_ck<16, 4, 2, KERNEL>(a, ck, st);
     case 168:
-      return dispatch_ck<16, 4, 4>(a, ck, st);
+      return dispatch_ck<16, 4, 4, KERNEL>(a, ck, st);
     case 324:
-      return dispatch_ck<32, 4, 2>(a, ck, st);
+      return dispatch_ck<32, 4, 2, KERNEL>(a, ck, st);
     case 328:
-      return dispatch_ck<32, 8, 2>(a, ck, st);
+      return dispatch_ck<32, 8, 2, KERNEL>(a, ck, st);
     case 644:
-      return dispatch_ck<64, 4, 2>(a, ck, st);
+      return dispatch_ck<64, 4, 2, KERNEL>(a, ck, st);
     default:
-      return dispatch_ck<64, 8, 2>(a, ck, st);
+      return dispatch_ck<64, 8, 2, KERNEL>(a, ck, st);
   }
 }
 

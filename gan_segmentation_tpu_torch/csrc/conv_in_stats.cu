@@ -42,123 +42,29 @@
 // needs the statistics of the whole image, so it would run as the next
 // conv's prologue).
 //
-// f32 stays on the FFMA core of conv3x3_core.cuh: f32 on tensor cores
-// means TF32, which would break the f32 contract.
-#include "conv3x3_core.cuh"
+// f32 (the generator with dtype fp32: the sample collection and the
+// annotation side, batch 8) runs the 3xTF32 tensor-core implicit GEMM of
+// conv3x3_tf32.cuh, which keeps the f32 contract.  What bounds it: three
+// MMAs per product, 3 x FLOP / 495 TFLOP/s (1.58 ms over a batch's 9
+// calls; the 512 -> 512 layers run 8 Cout blocks of 64 with taps per
+// stage).  The plan splits K where the items are fewer than the SMs (4^2,
+// 8^2) and wherever one accumulator chain would pass 8 Cin chunks (Cin 512
+// and 256: the tensor cores round the accumulator toward zero).  The
+// noise is read in the epilogue; the statistics come from the accumulators
+// (xor-shuffles over a warp's rows, then the slots of an image added in
+// order), one partial per (image, tile) as in bf16.
+#include "conv3x3_core.cuh"  // DType, valid_dims
 #include "conv3x3_tc.cuh"
-
-namespace gst {
-
-template <typename T, int CT>
-__global__ void __launch_bounds__(Tile<CT>::THREADS)
-    conv3x3_in_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                            const float* __restrict__ noise,
-                            const float* __restrict__ nscale,
-                            const float* __restrict__ bias, T* __restrict__ y,
-                            float* __restrict__ partial, int h, int wd,
-                            int cin, int cout, float slope) {
-  __shared__ __align__(16) float xs[HALO_H * HALO_W * XS_STRIDE];
-  __shared__ __align__(16) float ws[9 * CK * CT];
-  __shared__ float red[2][PIX_GROUPS][CT];
-
-  const BlockTile b = block_tile<CT>(wd);
-  const ThreadSlot s = thread_slot<CT>();
-  float acc[PX][CPT];
-  conv3x3_accumulate<T, CT>(x, w, b.n, 1, TH, Tile<CT>::THREADS, h, wd, cin,
-                            cout, b.oy0, b.ox0, b.co0, s, acc, xs, ws);
-
-  const int oy = b.oy0 + s.prow;
-  float s1[CPT], s2[CPT], ns[CPT], bs[CPT];
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    const int co = b.co0 + s.cg * CPT + j;
-    s1[j] = 0.f;
-    s2[j] = 0.f;
-    ns[j] = co < cout ? nscale[co] : 0.f;
-    bs[j] = co < cout ? bias[co] : 0.f;
-  }
-#pragma unroll
-  for (int p = 0; p < PX; ++p) {
-    const int ox = b.ox0 + s.pcol + p;
-    if (oy >= h || ox >= wd) continue;
-    const size_t pix = ((size_t)b.n * h + oy) * wd + ox;
-    const float nz = noise[pix];
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int co = b.co0 + s.cg * CPT + j;
-      if (co >= cout) continue;
-      float v = acc[p][j] + nz * ns[j] + bs[j];
-      v = v >= 0.f ? v : slope * v;
-      y[pix * cout + co] = from_f32<T>(v);
-      s1[j] += v;
-      s2[j] += v * v;
-    }
-  }
-
-  // block reduction over the pixel groups, in a fixed order
-#pragma unroll
-  for (int j = 0; j < CPT; ++j) {
-    red[0][s.pg][s.cg * CPT + j] = s1[j];
-    red[1][s.pg][s.cg * CPT + j] = s2[j];
-  }
-  __syncthreads();
-  const int tiles = gridDim.x;
-  for (int i = threadIdx.x; i < 2 * CT; i += Tile<CT>::THREADS) {
-    const int k = i / CT;
-    const int c = i % CT;
-    const int co = b.co0 + c;
-    if (co >= cout) continue;
-    float t = 0.f;
-    for (int g = 0; g < PIX_GROUPS; ++g) t += red[k][g][c];
-    partial[(((size_t)b.n * tiles + b.tile) * 2 + k) * cout + co] = t;
-  }
-}
-
-template <typename T, int CT>
-static void launch(const void* x, const void* w, const float* noise,
-                   const float* nscale, const float* bias, void* y,
-                   float* partial, int n, int h, int wd, int cin, int cout,
-                   float slope, cudaStream_t stream) {
-  const dim3 grid(num_tiles(h, wd), (cout + CT - 1) / CT, n);
-  conv3x3_in_stats_kernel<T, CT><<<grid, Tile<CT>::THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), noise, nscale, bias,
-      static_cast<T*>(y), partial, h, wd, cin, cout, slope);
-}
-
-template <typename T>
-static void dispatch_ct(const void* x, const void* w, const float* noise,
-                        const float* nscale, const float* bias, void* y,
-                        float* partial, int n, int h, int wd, int cin,
-                        int cout, float slope, cudaStream_t stream) {
-  switch (pick_ct(cout)) {
-    case 32:
-      launch<T, 32>(x, w, noise, nscale, bias, y, partial, n, h, wd, cin,
-                    cout, slope, stream);
-      break;
-    case 16:
-      launch<T, 16>(x, w, noise, nscale, bias, y, partial, n, h, wd, cin,
-                    cout, slope, stream);
-      break;
-    default:
-      launch<T, 4>(x, w, noise, nscale, bias, y, partial, n, h, wd, cin, cout,
-                   slope, stream);
-  }
-}
-
-}  // namespace gst
+#include "conv3x3_tf32.cuh"
 
 extern "C" {
 
-// Number of spatial tiles of the f32 (FFMA) kernel, i.e. the extent of the
-// partial-sum axis the caller allocates for f32: partial is
-// (n, gst_conv3x3_num_tiles(h, w), 2, cout).  For bf16 the extent is the
-// plan's tile count (kernels/tc_plan.py: Plan.tiles).
-int gst_conv3x3_num_tiles(int h, int w) { return gst::num_tiles(h, w); }
-
-// f32 runs the FFMA core (ws and plan unused); bf16 runs the tensor-core
-// kernel with plan = int[9] from kernels/tc_plan.py and ws its split-K
-// workspace (null without a split).
-// Returns cudaGetLastError() after the launch (0 on success).
+// f32 runs the 3xTF32 tensor-core kernel with plan = int[11] from
+// kernels/tc_plan.py::plan_f32, bf16 the bf16 tensor-core kernel with
+// plan = int[9] from kernels/tc_plan.py::plan; ws is the plan's split-K
+// workspace (null without a split).  partial is (n, tiles, 2, cout) with
+// the plan's tile count.
+// Returns a CUDA error code (0 on success).
 int gst_conv3x3_in_stats(const void* x, const void* w, const float* noise,
                          const float* nscale, const float* bias, void* y,
                          float* partial, float* ws, int n, int h, int wd,
@@ -167,9 +73,23 @@ int gst_conv3x3_in_stats(const void* x, const void* w, const float* noise,
   if (!gst::valid_dims(n, h, wd, cin, cout)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == gst::F32) {
-    gst::dispatch_ct<float>(x, w, noise, nscale, bias, y, partial, n, h, wd,
-                            cin, cout, slope, st);
-    return (int)cudaGetLastError();
+    gst::tf32::Args a = {};
+    a.x = static_cast<const float*>(x);
+    a.w = static_cast<const float*>(w);
+    a.bias = bias;
+    a.noise = noise;
+    a.nscale = nscale;
+    a.y = static_cast<float*>(y);
+    a.partial = partial;
+    a.ws = ws;
+    a.n = n;
+    a.h = h;
+    a.wd = wd;
+    a.cin = cin;
+    a.cout = cout;
+    a.act = gst::LEAKY;
+    a.slope = slope;
+    return gst::tf32::run<1>(a, plan, st);
   }
   if (dtype != gst::BF16) return (int)cudaErrorInvalidValue;
   gst::tc::Args a = {};

@@ -28,68 +28,27 @@
 // epilogue), not HBM latency: an L2 bulk prefetch two items ahead made them
 // 5-10% slower.
 //
-// f32 (evaluate at batch 1, train's cvt_0..4 forward) stays on the FFMA
-// core of conv3x3_core.cuh: one TF32 pass would break the f32 contract
-// (card = CPU to six decimals in the train checks), and the 3xTF32 split
-// that keeps it (conv3x3_tf32.cuh, kernel 3) is not used here yet.
-#include "conv3x3_core.cuh"
+// f32 (evaluate at batch 1, train's cvt_0..4 forward, generate with
+// dtype fp32 at batch 8) runs the 3xTF32 tensor-core implicit GEMM of
+// conv3x3_tf32.cuh, which keeps the f32 contract (card = CPU to six
+// decimals in the train checks; one TF32 pass would break it).  What bounds
+// it: three MMAs per product, 3 x FLOP / 495 TFLOP/s (0.415 ms over an
+// evaluate sample's 26 convs).  cvt_0..4 at batch 1 (Cin 512 / 256 at
+// 4^2-64^2) have 1-32 items of 128 pixels for 132 SMs and 16-32 Cin chunks
+// each: the plan splits K there and a finish kernel adds the splits in a
+// fixed order.
+#include "conv3x3_core.cuh"  // DType, valid_dims
 #include "conv3x3_tc.cuh"
-
-namespace gst {
-
-template <typename T, int CT>
-__global__ void __launch_bounds__(Tile<CT>::THREADS)
-    conv3x3_small_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                         const float* __restrict__ bias, T* __restrict__ y,
-                         int h, int wd, int cin, int cout, int act,
-                         float slope) {
-  __shared__ __align__(16) float xs[HALO_H * HALO_W * XS_STRIDE];
-  __shared__ __align__(16) float ws[9 * CK * CT];
-
-  const BlockTile b = block_tile<CT>(wd);
-  const ThreadSlot s = thread_slot<CT>();
-  float acc[PX][CPT];
-  conv3x3_accumulate<T, CT>(x, w, b.n, 1, TH, Tile<CT>::THREADS, h, wd, cin,
-                            cout, b.oy0, b.ox0, b.co0, s, acc, xs, ws);
-  store_bias_act<T>(acc, bias, y, b.n, b.oy0 + s.prow, b.ox0 + s.pcol,
-                    b.co0 + s.cg * CPT, h, wd, cout, act, slope);
-}
-
-template <typename T, int CT>
-static void launch(const void* x, const void* w, const float* bias, void* y,
-                   int n, int h, int wd, int cin, int cout, int act,
-                   float slope, cudaStream_t stream) {
-  const dim3 grid(num_tiles(h, wd), (cout + CT - 1) / CT, n);
-  conv3x3_small_kernel<T, CT><<<grid, Tile<CT>::THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), bias,
-      static_cast<T*>(y), h, wd, cin, cout, act, slope);
-}
-
-template <typename T>
-static void dispatch_ct(const void* x, const void* w, const float* bias,
-                        void* y, int n, int h, int wd, int cin, int cout,
-                        int act, float slope, cudaStream_t stream) {
-  switch (pick_ct(cout)) {
-    case 32:
-      launch<T, 32>(x, w, bias, y, n, h, wd, cin, cout, act, slope, stream);
-      break;
-    case 16:
-      launch<T, 16>(x, w, bias, y, n, h, wd, cin, cout, act, slope, stream);
-      break;
-    default:
-      launch<T, 4>(x, w, bias, y, n, h, wd, cin, cout, act, slope, stream);
-  }
-}
-
-}  // namespace gst
+#include "conv3x3_tf32.cuh"
 
 extern "C" {
 
 // bias may be null.  act: 0 none, 1 relu, 2 leaky(slope).  f32 runs the
-// FFMA core (ws and plan unused); bf16 runs the tensor-core kernel with
-// plan = int[9] from kernels/tc_plan.py and ws its split-K workspace
-// (null without a split).
-// Returns cudaGetLastError() after the launch (0 on success).
+// 3xTF32 tensor-core kernel with plan = int[11] from
+// kernels/tc_plan.py::plan_f32, bf16 the bf16 tensor-core kernel with
+// plan = int[9] from kernels/tc_plan.py::plan; ws is the plan's split-K
+// workspace (null without a split).
+// Returns a CUDA error code (0 on success).
 int gst_conv3x3_small(const void* x, const void* w, const float* bias,
                       void* y, float* ws, int n, int h, int wd, int cin,
                       int cout, int dtype, int act, float slope,
@@ -98,9 +57,20 @@ int gst_conv3x3_small(const void* x, const void* w, const float* bias,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == gst::F32) {
-    gst::dispatch_ct<float>(x, w, bias, y, n, h, wd, cin, cout, act, slope,
-                            st);
-    return (int)cudaGetLastError();
+    gst::tf32::Args a = {};
+    a.x = static_cast<const float*>(x);
+    a.w = static_cast<const float*>(w);
+    a.bias = bias;
+    a.y = static_cast<float*>(y);
+    a.ws = ws;
+    a.n = n;
+    a.h = h;
+    a.wd = wd;
+    a.cin = cin;
+    a.cout = cout;
+    a.act = act;
+    a.slope = slope;
+    return gst::tf32::run<2>(a, plan, st);
   }
   if (dtype != gst::BF16) return (int)cudaErrorInvalidValue;
   gst::tc::Args a = {};

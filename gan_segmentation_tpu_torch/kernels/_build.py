@@ -143,20 +143,21 @@ def check_conv3x3(x, w, b):
 
 
 @functools.lru_cache(maxsize=None)
-def _tc_plan_c(n, h, w, cin, cout, noise):
-    p = tc_plan.plan(n, h, w, cin, cout, noise)
+def _tc_plan_c(f32, n, h, w, cin, cout, noise):
+    p = (tc_plan.plan_f32(n, h, w, cin, cout, stats=noise) if f32
+         else tc_plan.plan(n, h, w, cin, cout, noise))
     args = p.args()
     return p, (ctypes.c_int * len(args))(*args)
 
 
 def tc_launch_args(x, n, h, w, cin, cout, noise=False):
-    """For a bf16 call of kernel 1 (``noise``) or 2: (plan, plan as a C
-    int[9] or None, split-K workspace or None).  f32 calls run the FFMA core
-    and take neither.  The plan is cached per shape: the host's time per launch is
-    what bounds the small layers."""
-    if x.dtype != torch.bfloat16:
-        return None, None, None
-    p, plan_c = _tc_plan_c(n, h, w, cin, cout, noise)
+    """For a call of kernel 1 (``noise``) or 2: (plan, plan as a C int
+    array, split-K workspace or None).  bf16 takes ``tc_plan.plan`` (int[9],
+    conv3x3_tc.cuh), f32 ``tc_plan.plan_f32`` (int[11], conv3x3_tf32.cuh).
+    The plan is cached per shape: the host's time per launch is what bounds
+    the small layers."""
+    p, plan_c = _tc_plan_c(x.dtype == torch.float32, n, h, w, cin, cout,
+                           noise)
     ws = None
     if p.splits > 1:
         ws = torch.empty(p.ws_elems(n, h, w, cout), dtype=torch.float32,
@@ -166,9 +167,10 @@ def tc_launch_args(x, n, h, w, cin, cout, noise=False):
 
 @functools.lru_cache(maxsize=None)
 def tf32_plan_c(n, h, w, cin, cout):
-    """For an f32 call of kernel 3: its 3xTF32 plan as a C int[9], cached
-    per shape (the host's time per launch bounds the small layers)."""
-    args = tc_plan.plan_f32(n, h, w, cin, cout).args()
+    """For an f32 call of kernel 3: its 3xTF32 plan (no split) as a C
+    int[11], cached per shape (the host's time per launch bounds the small
+    layers)."""
+    args = tc_plan.plan_f32(n, h, w, cin, cout, splits=1).args()
     return (ctypes.c_int * len(args))(*args)
 
 
@@ -184,8 +186,6 @@ def library():
         return _LIB
     lib = ctypes.CDLL(build_library())
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gst_conv3x3_num_tiles.restype = i
-    lib.gst_conv3x3_num_tiles.argtypes = [i, i]
     lib.gst_conv3x3_in_stats.restype = i
     lib.gst_conv3x3_in_stats.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                          i, i, i, i, i, i, f, vp, vp]

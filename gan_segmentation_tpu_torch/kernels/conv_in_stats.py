@@ -1,8 +1,9 @@
 """Kernel 1: conv3x3 + noise + bias + leaky-relu with instance-norm statistics.
 
 CUDA source: ``csrc/conv_in_stats.cu``: bf16 runs the tensor-core implicit
-GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan: ``tc_plan.py``), f32 the FFMA
-core of ``csrc/conv3x3_core.cuh``.  Replaces the TPU kernel
+GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan: ``tc_plan.plan``), f32 the
+3xTF32 one of ``csrc/conv3x3_tf32.cuh`` (``tc_plan.plan_f32``).  Replaces
+the TPU kernel
 ``experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats``
 and keeps its contract: NHWC / HWIO, stride 1, pad 1, ``w`` the effective
 (wscaled) kernel, ``noise`` (N, H, W) f32, ``nscale`` and ``bias`` (Cout,) f32;
@@ -56,10 +57,10 @@ def conv3x3_noise_bias_lrelu_instats(x, w, noise, nscale, bias, *,
     lib = _build.library()
     plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
                                              noise=True)
-    # the partial axis is the launching kernel's own tile count
-    tiles = lib.gst_conv3x3_num_tiles(h, wd) if plan is None else plan.tiles
+    # the partial axis is the plan's tile count
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
-    partial = torch.empty((n, tiles, 2, cout), dtype=torch.float32, device=dev)
+    partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         rc = lib.gst_conv3x3_in_stats(
             x.data_ptr(), w.data_ptr(), noise.data_ptr(), nscale.data_ptr(),

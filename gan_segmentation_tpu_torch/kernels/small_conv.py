@@ -1,8 +1,9 @@
 """Kernel 2: direct 3x3 conv with a fused bias and relu / leaky epilogue.
 
 CUDA source: ``csrc/small_conv.cu``: bf16 runs the tensor-core implicit
-GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan: ``tc_plan.py``), f32 the FFMA
-core of ``csrc/conv3x3_core.cuh``.  Replaces the TPU kernel
+GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan: ``tc_plan.plan``), f32 the
+3xTF32 one of ``csrc/conv3x3_tf32.cuh`` (``tc_plan.plan_f32``).  Replaces
+the TPU kernel
 ``experiments/pallas_archive/small_conv.py::conv3x3_small`` and keeps its
 contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's
 dtype, ``b`` optional (Cout,) f32.  Unlike Pallas, any H and W run.

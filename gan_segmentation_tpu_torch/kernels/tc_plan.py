@@ -1,6 +1,6 @@
 """Launch plans of the tensor-core 3x3 convs: ``plan`` for the bf16 kernel
 (``csrc/conv3x3_tc.cuh``, kernels 1 and 2), ``plan_f32`` for the f32 3xTF32
-kernel (``csrc/conv3x3_tf32.cuh``, kernel 3).
+kernel (``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).
 
 Pure functions of the layer's shape, so the CPU tests can check every
 path shape's plan without a card.  The kernels validate the plan they are
@@ -33,16 +33,23 @@ then the block to 4 warps.
 ``16 * mi`` pixels each, all ``bn`` channels per warp: 256-pixel blocks
 where that grid fills the card twice over (8 warps of 32 pixels, or, for
 ``bn <= 16``, 4 warps of 64 pixels, ``mi`` 4), else 4 warps of 32; ``ck``
-8 for Cin <= 8, else 16 (f32 stages twice the bytes of bf16); no split-K;
-``resident``: with one Cout block, every chunk's taps load once per block
-beside the ring instead of once per item; ``stages`` 2, or 3 where an item
-has more than two chunks.  It takes the first of (resident taps, then per
-stage) and (3 stages, then 2) whose shared memory lets the blocks per SM
-that the kernel's launch bounds ask for share one SM, else the first that
-fits in a block's limit.
+8 for Cin <= 8, else 16 (f32 stages twice the bytes of bf16);
+``resident``: with one Cout block and no split, every chunk's taps load
+once per block beside the ring instead of once per item; ``stages`` 2, or 3
+where an item (a split's share of it) has more than two chunks.  It takes
+the first of (resident taps, then per stage) and (3 stages, then 2) whose
+shared memory lets the blocks per SM that the kernel's launch bounds ask
+for share one SM, else the first that fits in a block's limit.  ``splits``,
+``cps``: split-K over Cin chunks as in ``plan``, as many splits as keep the
+blocks within the SM count, each with at least ``MIN_CPS_F32`` chunks, and
+never more than ``MAX_CPS_F32`` chunks in one accumulator chain (kernels 1
+and 2; kernel 3 passes ``splits=1`` and has at most 8 chunks).  ``stats`` (kernel 1): the plan
+reserves the statistics' slots and keeps a tile's pixels per image a
+multiple of 16, so that an m16 fragment lies in one image.
 """
 
 from dataclasses import dataclass
+from typing import Optional
 
 MAX_SMEM = 232448        # a block's shared-memory limit on sm_90
 SM_SMEM = 233472         # an SM's shared memory; each block reserves 1 KB
@@ -116,8 +123,8 @@ class Plan:
         return self.splits * n * h * w * cout if self.splits > 1 else 0
 
 
-def _geometry(n, h, w, bm, tw):
-    th = min(bm // tw, _pow2ceil(h))
+def _geometry(n, h, w, bm, tw, min_th=1):
+    th = min(bm // tw, max(_pow2ceil(h), min_th))
     g = bm // (tw * th)
     return th, g, _cdiv(w, tw), _cdiv(h, th), _cdiv(n, g)
 
@@ -170,6 +177,16 @@ def pad_n(bn: int) -> int:
     return bn + 8 if bn % 16 == 0 else bn
 
 
+MIN_CPS_F32 = 2          # Cin chunks a split keeps at least
+# ... and at most.  The tensor cores round the f32 accumulator toward zero
+# after every MMA, so a chain's error grows with its length, one-sided:
+# measured on the card at K = 9 x 512 in one chain, 2.2e-4 at |y| ~ 4, most
+# of chip_smoke.py's f32 tolerance, against 4e-5 in chains of 8 chunks
+# (432 MMAs) added in f32 round-to-nearest by the finish kernel
+# (tests/test_torch_f32_tc.py emulates both).
+MAX_CPS_F32 = 8
+
+
 @dataclass(frozen=True)
 class PlanF32:
     bn: int
@@ -186,15 +203,27 @@ class PlanF32:
     groups: int
     cout_blocks: int
     mi: int
+    splits: int = 1
+    cps: int = 0          # chunks per split; 0 stands for all of them
+    stats: bool = False   # kernel 1: statistics slots after the ring
+
+    def __post_init__(self):
+        if self.cps == 0:
+            object.__setattr__(self, "cps", self.chunks)
 
     @property
     def bm(self) -> int:
         return 16 * self.mi * self.wm
 
     @property
+    def tiles(self) -> int:
+        """Spatial tiles per image: the extent of kernel 1's partial axis."""
+        return self.tiles_x * self.tiles_y
+
+    @property
     def blocks(self) -> int:
-        """Items: (spatial tile, Cout block, image group)."""
-        return self.tiles_x * self.tiles_y * self.cout_blocks * self.groups
+        """Items: (spatial tile, Cout block, image group, split)."""
+        return self.tiles * self.cout_blocks * self.groups * self.splits
 
     @property
     def min_blocks(self) -> int:
@@ -203,27 +232,58 @@ class PlanF32:
         return (1 if self.bn == 64 or self.mi == 4 else 2) * (8 // self.wm)
 
     @property
+    def stat_slots(self) -> int:
+        """Kernel 1's statistics slots: one per warp where a warp's pixels
+        lie in one image, else one per m16 fragment."""
+        if not self.stats:
+            return 0
+        warp_px = 16 * self.mi
+        return self.wm if (self.th * self.tw) % warp_px == 0 else (
+            self.wm * self.mi)
+
+    @property
     def smem_bytes(self) -> int:
         halo = self.g * (self.th + 2) * (self.tw + 2) * pad_px(self.ck)
         taps = 9 * self.ck * pad_n(self.bn)
+        red = self.stat_slots * self.bn * 2
         if self.resident:
-            return (self.stages * halo + self.chunks * taps) * 4
-        return self.stages * (halo + taps) * 4
+            return (self.stages * halo + self.chunks * taps + red) * 4
+        return (self.stages * (halo + taps) + red) * 4
 
     def args(self):
-        """The int[9] the C entry point takes."""
+        """The int[11] the C entry points take."""
         return (self.bn, self.wm, self.mi, self.ck, self.tw, self.th, self.g,
-                self.stages, int(self.resident))
+                self.stages, int(self.resident), self.splits, self.cps)
+
+    def ws_elems(self, n: int, h: int, w: int, cout: int) -> int:
+        """f32 elements of the split-K workspace (0 without a split)."""
+        return self.splits * n * h * w * cout if self.splits > 1 else 0
 
 
-def plan_f32(n: int, h: int, w: int, cin: int, cout: int) -> PlanF32:
-    """The plan of one f32 call of kernel 3."""
+def _splits_f32(items: int, chunks: int) -> int:
+    """Split-K where the items leave SMs idle: as many splits as keep the
+    blocks within the SM count (one wave), each with MIN_CPS_F32 chunks or
+    more (measured on the card, more splits than that lost to the
+    workspace's round trip, and one chunk per split to the blocks' fixed
+    cost); and everywhere enough splits that none sums more than
+    MAX_CPS_F32 chunks in one accumulator chain."""
+    fill = min(chunks // MIN_CPS_F32, NUM_SMS // items)
+    return max(1, fill, _cdiv(chunks, MAX_CPS_F32))
+
+
+def plan_f32(n: int, h: int, w: int, cin: int, cout: int,
+             stats: bool = False,
+             splits: Optional[int] = None) -> PlanF32:
+    """The plan of one f32 call: ``stats`` for kernel 1; ``splits`` fixes
+    the number of Cin splits asked for (kernel 3 passes 1) instead of the
+    rule's."""
     bn = min(64, max(8, _pow2ceil(cout)))
     ck = 8 if cin <= 8 else 16
     tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    min_th = 16 // tw if stats else 1
     chunks = _cdiv(cin, ck)
     cout_blocks = _cdiv(cout, bn)
-    _, _, tx, ty, gr = _geometry(n, h, w, 256, tw)
+    _, _, tx, ty, gr = _geometry(n, h, w, 256, tw, min_th)
     if tx * ty * gr * cout_blocks < 2 * NUM_SMS:
         tiles = [(4, 2)]                      # (wm, mi): 128-pixel blocks
     elif bn <= 16:
@@ -232,14 +292,20 @@ def plan_f32(n: int, h: int, w: int, cin: int, cout: int) -> PlanF32:
         tiles = [(8, 2), (4, 2)]
     plans = []
     for wm, mi in tiles:
-        th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 16 * mi * wm, tw)
-        for resident in ((True, False) if cout_blocks == 1 else (False,)):
-            for stages in ((3, 2) if chunks > 2 else (2,)):
+        th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 16 * mi * wm, tw,
+                                                    min_th)
+        want = splits or _splits_f32(tiles_x * tiles_y * groups * cout_blocks,
+                                     chunks)
+        cps = _cdiv(chunks, want)
+        nsplit = _cdiv(chunks, cps)
+        one = cout_blocks == 1 and nsplit == 1
+        for resident in ((True, False) if one else (False,)):
+            for stages in ((3, 2) if cps > 2 else (2,)):
                 plans.append(PlanF32(
                     bn=bn, wm=wm, ck=ck, tw=tw, th=th, g=g, stages=stages,
                     resident=resident, chunks=chunks, tiles_x=tiles_x,
                     tiles_y=tiles_y, groups=groups, cout_blocks=cout_blocks,
-                    mi=mi))
+                    mi=mi, splits=nsplit, cps=cps, stats=stats))
     for p in plans:
         if p.smem_bytes <= SM_SMEM // p.min_blocks - 1024:
             return p

@@ -1,5 +1,5 @@
-"""Kernel 3's f32 body on the tensor cores (``csrc/conv3x3_tf32.cuh``),
-checked where a CPU can check it: its launch plan (``tc_plan.plan_f32``)
+"""Kernel 3's f32 body on the tensor cores (``csrc/conv3x3_tf32.cuh``;
+kernels 1 and 2 run it too: ``tests/test_torch_f32_tc.py``), checked where a CPU can check it: its launch plan (``tc_plan.plan_f32``)
 at every call of a train step and at the contract's edges, the index maps
 and shared-memory layout that plan feeds, and the 3xTF32 numerics,
 emulated bit for bit on the operands.  The kernel itself runs on the card
@@ -58,20 +58,23 @@ def test_the_train_step_makes_38_calls():
 
 
 def _walk(p, n, h, w):
-    """Each output (image, row, column) under the kernel's item and pixel
-    maps: items run Cout block fastest, then spatial tile, then image group;
-    tile pixel q is (image, row, column) of g x th x tw."""
+    """Each output (image, row, column, Cout block, split) under the
+    kernel's item and pixel maps: items run Cout block fastest, then spatial
+    tile, then split, then image group; tile pixel q is (image, row, column)
+    of g x th x tw."""
     hits = {}
     tiles = p.tiles_x * p.tiles_y
     for it in range(p.blocks):
         rest, cb = divmod(it, p.cout_blocks)
-        grp, tile = divmod(rest, tiles)
+        z, tile = divmod(rest, tiles)
+        grp, split = divmod(z, p.splits)
         ty0, tx0 = (tile // p.tiles_x) * p.th, (tile % p.tiles_x) * p.tw
         for q in range(p.bm):
             gi, rem = divmod(q, p.th * p.tw)
             nn, oy, ox = grp * p.g + gi, ty0 + rem // p.tw, tx0 + rem % p.tw
             if nn < n and oy < h and ox < w:
-                hits[(nn, oy, ox, cb)] = hits.get((nn, oy, ox, cb), 0) + 1
+                key = (nn, oy, ox, cb, split)
+                hits[key] = hits.get(key, 0) + 1
     return hits
 
 
@@ -79,7 +82,8 @@ def _walk(p, n, h, w):
                          ids=lambda s: "x".join(map(str, s)))
 def test_plan_f32_fits_and_covers_every_output_once(shape):
     n, h, w, cin, cout = shape
-    p = tc_plan.plan_f32(n, h, w, cin, cout)
+    p = tc_plan.plan_f32(n, h, w, cin, cout, splits=1)  # kernel 3: no split
+    assert p.splits == 1 and p.cps == p.chunks and not p.stats, p
     assert p.smem_bytes <= tc_plan.MAX_SMEM, p
     assert p.bn % 8 == 0 and p.bn >= min(cout, 64) and p.bn <= 64, p
     assert p.tw * p.th * p.g == p.bm == 16 * p.mi * p.wm, p
@@ -87,7 +91,7 @@ def test_plan_f32_fits_and_covers_every_output_once(shape):
     assert p.stages in (2, 3) and (p.stages == 2 or p.chunks > 2)
     assert not p.resident or p.cout_blocks == 1
     assert p.blocks < 2 ** 31
-    assert len(p.args()) == 9 and p.mi in (2, 4)
+    assert len(p.args()) == 11 and p.mi in (2, 4)
     assert p.mi == 2 or (p.bn <= 16 and p.wm == 4)
     assert p.bn <= 16 or p.mi == 2
     if n * h * w <= 1 << 16:  # the index map, where it is cheap to walk
@@ -103,7 +107,7 @@ def test_plan_f32_keeps_the_big_layers_resident_and_two_blocks_per_sm():
     for (n, h, w, cin, cout) in TRAIN_CALLS:
         if h < 1024:
             continue
-        p = tc_plan.plan_f32(n, h, w, cin, cout)
+        p = tc_plan.plan_f32(n, h, w, cin, cout, splits=1)
         assert p.bm == 256 and p.resident, p
         assert p.smem_bytes * p.min_blocks <= tc_plan.SM_SMEM - 1024 * (
             p.min_blocks), p
@@ -162,33 +166,45 @@ def test_plan_f32_mirrors_the_header(tile):
     pad_px, pad_n, params, smem, min_blocks = _header_rules(
         HEADER.read_text())
     assert params == ["bn", "ck", "g", "th", "tw", "stages", "resident",
-                      "chunks"]
+                      "chunks", "wm", "mi", "stats"]
     bn, wm, mi = tile
     for ck in (8, 16):
         assert tc_plan.pad_px(ck) == pad_px(ck)
     assert tc_plan.pad_n(bn) == pad_n(bn)
-    plans = [p for p in (tc_plan.plan_f32(*s) for s in TRAIN_CALLS + EDGE_CALLS)
+    plans = [p for p in (tc_plan.plan_f32(*s, stats=stats)
+                         for s in TRAIN_CALLS + EDGE_CALLS
+                         for stats in (False, True))
              if (p.bn, p.wm, p.mi) == tile]
     bm = 16 * mi * wm
-    for ck, tw, stages, resident, chunks in itertools.product(
-            (8, 16), (4, 8, 16), (2, 3), (False, True), (1, 4)):
-        th, g = (bm // tw, 1) if tw == 16 else (bm // (4 * tw), 4)
-        plans.append(tc_plan.PlanF32(
-            bn=bn, wm=wm, ck=ck, tw=tw, th=th, g=g, stages=stages,
-            resident=resident, chunks=chunks, tiles_x=1, tiles_y=1,
-            groups=1, cout_blocks=1, mi=mi))
+    for ck, tw, stages, resident, chunks, stats in itertools.product(
+            (8, 16), (4, 8, 16), (2, 3), (False, True), (1, 4),
+            (False, True)):
+        # one image per tile, or four images of 16 pixels (a warp spans
+        # images: one statistics slot per m16 fragment)
+        for th, g in ((bm // tw, 1), (16 // tw, bm // 16)):
+            plans.append(tc_plan.PlanF32(
+                bn=bn, wm=wm, ck=ck, tw=tw, th=th, g=g, stages=stages,
+                resident=resident, chunks=chunks, tiles_x=1, tiles_y=1,
+                groups=1, cout_blocks=1, mi=mi, stats=stats))
     for p in plans:
         assert p.min_blocks == min_blocks(bn, wm, mi), p
         assert p.smem_bytes == smem(
             bn=p.bn, ck=p.ck, g=p.g, th=p.th, tw=p.tw, stages=p.stages,
-            resident=int(p.resident), chunks=p.chunks), p
+            resident=int(p.resident), chunks=p.chunks, wm=p.wm, mi=p.mi,
+            stats=int(p.stats)), p
 
 
 def test_wrapper_passes_the_plan_as_int9():
+    """The plan travels as a C int array: int[11] since the split-K fields
+    joined it (conv3x3_tf32.cuh::run reads plan[0..10]), kernel 3's with
+    one split."""
+    read = {int(i) for i in re.findall(r"plan\[(\d+)\]", HEADER.read_text())}
+    assert read == set(range(11))
     for shape in TRAIN_CALLS[:4] + EDGE_CALLS[:3]:
         c = _build.tf32_plan_c(*shape)
-        assert isinstance(c, ctypes.Array) and len(c) == 9
-        assert tuple(c) == tc_plan.plan_f32(*shape).args()
+        assert isinstance(c, ctypes.Array) and len(c) == 11
+        assert tuple(c) == tc_plan.plan_f32(*shape, splits=1).args()
+        assert tuple(c)[9:] == (1, tc_plan.plan_f32(*shape).chunks)
     assert _build.tf32_plan_c(*TRAIN_CALLS[0]) is _build.tf32_plan_c(
         *TRAIN_CALLS[0])
 
@@ -209,7 +225,7 @@ def test_shared_memory_reads_stay_inside_and_hit_distinct_banks(shape):
     the 8 rows of each ldmatrix matrix fall in 8 different 16-byte bank
     groups at every tap where they are 8 pixels of one tile row, and the 32
     lanes' B loads in 32 different banks."""
-    p = tc_plan.plan_f32(*shape)
+    p = tc_plan.plan_f32(*shape, splits=1)
     ps, bnp = tc_plan.pad_px(p.ck), tc_plan.pad_n(p.bn)
     hp, wp = p.th + 2, p.tw + 2
     halo = p.g * hp * wp * ps

@@ -200,14 +200,17 @@ def test_build_cache_key_covers_every_source():
     assert _build._source_tag() == _build._source_tag()
 
 
-# bf16 edge cases of the tensor-core kernel: 4^2 images with Cin 512 (a
-# tile spanning images, split-K), W = 20 / H = 12 (ragged tiles), Cout = 2
-# (N padded to 8), Cin = 3 (scalar staging), batch 1, Cout 24 (N = 32 with
-# masked channels), 256-pixel blocks of 64 channels with a ragged W
+# Edge cases of the tensor-core kernels, bf16 (conv3x3_tc.cuh) and f32
+# (conv3x3_tf32.cuh, 3xTF32): 4^2 images with Cin 512 (a tile spanning
+# images, split-K), W = 20 / H = 12 (ragged tiles), Cout = 2 (N padded to
+# 8), Cin = 3 (scalar staging), batch 1, Cout 24 (N = 32 with masked
+# channels), 256-pixel blocks of 64 channels with a ragged W, one 4^2 image
+# of Cin 512 (one item split 16 ways), a ragged 13 x 21 with a split
 TC_EDGE_SHAPES = [(8, 4, 4, 512, 512), (8, 4, 4, 512, 32), (3, 12, 20, 32, 16),
                   (2, 33, 40, 32, 2), (2, 9, 7, 3, 16), (1, 64, 64, 64, 16),
                   (1, 16, 16, 512, 512), (2, 5, 6, 40, 24),
-                  (8, 64, 72, 64, 64)]
+                  (8, 64, 72, 64, 64), (1, 4, 4, 512, 32),
+                  (1, 13, 21, 512, 32)]
 
 
 @pytest.mark.cuda
@@ -215,9 +218,7 @@ TC_EDGE_SHAPES = [(8, 4, 4, 512, 512), (8, 4, 4, 512, 32), (3, 12, 20, 32, 16),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_kernels_match_plain(cuda, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(0)
-    shapes = [s[:5] for s in SHAPES] + [(2, 64, 64, 64, 2)]
-    if dtype == torch.bfloat16:
-        shapes += TC_EDGE_SHAPES
+    shapes = [s[:5] for s in SHAPES] + [(2, 64, 64, 64, 2)] + TC_EDGE_SHAPES
     for (n, h, w, cin, cout) in shapes:
         x = torch.randn((n, h, w, cin), generator=g, device=cuda).to(dtype)
         wt = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
