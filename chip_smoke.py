@@ -44,6 +44,21 @@ Phases (any failure raises, so the exit code is non-zero):
    metrics above the untrained decoder's; the fit loop's rate, the step
    time by CUDA events, host vs device time, and the device time by
    kernel family.
+6. foreign weights — a seeded ffhq generator written as a synthetic
+   mxnet-format ``stylegan-ffhq.params`` (the reference's names and
+   layouts) and loaded by ``ImageGenerator``: a batch of 8 bit-identical
+   to the source generator's; a decoder written as a dotted-name mxnet
+   ``checkpoint_last.params`` and loaded by ``SegSolver.load``: logits
+   equal to the source decoder's; file sizes and load times.
+7. annotation — ``SegmentationAnnotator`` at ffhq 1024^2 driven through
+   its own handlers under a stub ``tkinter`` / ``PIL.ImageTk`` (the card's
+   machine has no display): Generate disabled at first, 6 annotations
+   saved by the handlers (trimap from the sample's own features), Retrain
+   (2 epochs: previews, falling loss, last preview = predict, buttons),
+   Generate of 16 pairs whose masks equal a fresh pipeline's on the saved
+   checkpoint, a pipeline built before Retrain refolded, launch counts by
+   stage (kernel 1 in the sampler, kernel 2 in predict, kernels 2 and 3
+   in Retrain), wall time of Retrain and of Generate.
 
 The last lines are the kernels' JSON record (per kernel: launches on the
 main path, max error, device ms of the kernel, its plain version and the
@@ -51,6 +66,7 @@ library call, and its bound), the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import logging
 import os
@@ -204,12 +220,12 @@ TOL = {"f32": dict(atol=1e-4, rtol=1e-4), "bf16": dict(atol=2e-2, rtol=1.6e-2)}
 STAT_TOL = {"f32": dict(atol=1e-4, rtol=1e-3), "bf16": dict(atol=1e-2, rtol=1e-2)}
 
 
-def kernel1_shapes(gcfg):
+def kernel1_shapes(gcfg, batch=BATCH):
     """(n, h, w, cin, cout) of conv_2 in every synthesis block."""
     out = []
     for res in range(2, gcfg.max_res_log2 + 1):
         c = gcfg.num_features(res)
-        out.append((BATCH, 2 ** res, 2 ** res, c, c))
+        out.append((batch, 2 ** res, 2 ** res, c, c))
     return out
 
 
@@ -429,6 +445,7 @@ def phase_kernels(torch, gcfg, scfg):
         f"{fl[0] / b1_dev['kernel']:.3f}; max abs err {b1_err:.3g}")
     phase_split_sweep(torch, gcfg, scfg, g, inputs)
     phase_tc_edges(torch, g, inputs)
+    phase_annotation_shapes(torch, gcfg, scfg, g, inputs)
     rec["bil_conv"] = phase_bil(torch, scfg, g, inputs)
     phase_conv_grads(torch, scfg, g)
     return rec
@@ -537,6 +554,56 @@ def phase_tc_edges(torch, g, inputs):
         log(f"tensor-core edge cases {tag}: {len(shapes)} shapes, kernel 1 "
             f"with statistics and kernel 2 x 3 epilogues, max |err| "
             f"{worst:.3g}")
+
+
+def phase_annotation_shapes(torch, gcfg, scfg, g, inputs):
+    """Kernels 1 and 2 in bf16 at every ffhq path shape at the annotation
+    run's batch (its sampler and Generate run ANN_BATCH images at a time, and
+    the launch plan depends on the batch), against the plain versions."""
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.kernels.tc_plan import plan
+
+    dev, dt = torch.device("cuda"), torch.bfloat16
+    worst = {"conv_in_stats": 0.0, "small_conv": 0.0}
+    split = []
+    for (n, h, w, cin, cout) in kernel1_shapes(gcfg, batch=ANN_BATCH):
+        x, wt = (t.to(dt) for t in inputs(n, h, w, cin, cout))
+        noise = torch.randn((n, h, w), generator=g, device=dev)
+        nscale = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        bias = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        args = (x, wt, noise, nscale, bias)
+        got = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+        want = k1m.conv3x3_noise_bias_lrelu_instats_plain(*args)
+        torch.cuda.synchronize()
+        name = f"conv_in_stats bf16 {(n, h, w, cin, cout)}"
+        check_close(name + " y", got[0], want[0], **TOL["bf16"])
+        for what, a, r in zip(("mean", "var"), got[1:], want[1:]):
+            check_close(f"{name} {what}", a, r, **STAT_TOL["bf16"])
+        worst["conv_in_stats"] = max(worst["conv_in_stats"],
+                                     max_err(got[0], want[0]))
+        if plan(n, h, w, cin, cout, True).splits > 1:
+            split.append((n, h, w, cin, cout))
+        del x, wt, got, want
+    for (cname, n, h, w, cin, cout, leaky) in kernel2_shapes(
+            scfg, batch=ANN_BATCH):
+        x, wt = (t.to(dt) for t in inputs(n, h, w, cin, cout))
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        kw = dict(leaky=0.2) if leaky else {}
+        y = k2m.conv3x3_small(x, wt, b, **kw)
+        yp = k2m.conv3x3_small_plain(x, wt, b, **kw)
+        torch.cuda.synchronize()
+        check_close(f"small_conv bf16 {cname} {(n, h, w, cin, cout)}", y, yp,
+                    **TOL["bf16"])
+        worst["small_conv"] = max(worst["small_conv"], max_err(y, yp))
+        if plan(n, h, w, cin, cout, False).splits > 1:
+            split.append((n, h, w, cin, cout))
+        del x, wt, y, yp
+    log(f"annotation run's shapes (bf16, batch {ANN_BATCH}): kernel 1 at "
+        f"{len(kernel1_shapes(gcfg))} and kernel 2 at "
+        f"{len(kernel2_shapes(scfg))} ffhq shapes against the plain "
+        f"versions, max|y err| {worst} (tol {TOL['bf16']}, stats "
+        f"{STAT_TOL['bf16']}); split-K at {split}")
 
 
 def phase_bil(torch, scfg, g, inputs):
@@ -899,11 +966,14 @@ class LogLines(logging.Handler):
         self.lines.append(record.getMessage())
 
     def __enter__(self):
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
         self.logger.addHandler(self)
         return self
 
     def __exit__(self, *exc):
         self.logger.removeHandler(self)
+        self.logger.setLevel(self.level)
 
     def floats(self, key):
         pat = re.compile(re.escape(key) + r"=([-+0-9.eE]+|nan|inf)")
@@ -1156,6 +1226,794 @@ def phase_train(torch):
                 sps=fit_steps / fit_s, metrics=metrics, prof=prof)
 
 
+# ------------------------------------------------ cars 512^2, bedrooms 256^2
+# The whole f32 slice on the card, kernels against plain versions: the
+# image after 17 (15) generator convs and the logits after 26 (23) decoder
+# convs, each kernel call within TOL["f32"] of its plain version.  Masks
+# must agree wherever the plain logits' margin exceeds MASK_MARGIN.
+SLICE_TOL = dict(atol=1e-3, rtol=1e-3)
+MASK_MARGIN = 4e-3  # a mask can flip only under twice the logits' error
+OTHER_GANS = {"cars": 512, "bedrooms": 256}
+OTHER_NUM = 16
+OTHER_RATE_NUM = 320  # the device pipeline's rate: 40 batches of 8
+
+
+def plain_path():
+    """Context: the generator and the decoder call the kernels' plain
+    PyTorch versions (what the wrappers do for a CPU tensor), on the card."""
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.models import decoder, stylegan
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        stylegan, "conv3x3_noise_bias_lrelu_instats",
+        k1m.conv3x3_noise_bias_lrelu_instats_plain))
+    stack.enter_context(mock.patch.object(decoder, "conv3x3_small",
+                                          k2m.conv3x3_small_plain))
+    return stack
+
+
+# The bf16 slice, kernels against plain versions.  Each of its ~40 layers
+# rounds to bf16 on both sides (TOL["bf16"] apart per layer) and a random
+# generator amplifies that, so the two bf16 slices cannot agree to 1 LSB.
+# The scale they may differ by is measured in the same run: the distance of
+# the plain bf16 slice from the plain f32 slice, which is bf16's own rounding
+# through the stack.  A kernel that computes something else lands whole
+# logits away (their spread is ~1).  Masks may flip only under BF16_MARGIN.
+BF16_MARGIN = 0.5
+BF16_SHARE = 1.25  # kernels' distance from f32 over the plain bf16 slice's
+
+
+def check_bf16_slice(gan, kern, plain, ref):
+    """(image, logits, mask) of the bf16 slice through the kernels, through
+    the plain versions, and of the plain f32 slice on the same z and noise.
+    Fails unless the kernels lie as near to f32 as the plain bf16 slice does
+    (mean |logit error| within BF16_SHARE of its), nearer to the plain bf16
+    slice than that slice lies to f32 (mean and max |logit error|, share of
+    image bytes beyond 1 LSB, share of mask pixels), and no mask pixel whose
+    plain bf16 margin exceeds BF16_MARGIN differs.  Returns the readings."""
+    def dist(a, b):
+        (ia, la, ma), (ib, lb, mb) = a, b
+        e = (la.float() - lb.float()).abs()
+        lsb = (ia.int() - ib.int()).abs()
+        return dict(mean=float(e.mean()), max=float(e.max()),
+                    img=float((lsb > 1).float().mean()),
+                    mask=float((ma != mb).float().mean()))
+    kp, pr, kr = dist(kern, plain), dist(plain, ref), dist(kern, ref)
+    margin = (plain[1][..., 1] - plain[1][..., 0]).abs()
+    confident = margin > BF16_MARGIN
+    flipped = int(((kern[2] != plain[2]) & confident).sum())
+    assert kr["mean"] <= BF16_SHARE * pr["mean"], (gan, kr, pr)
+    for key in ("mean", "max", "img", "mask"):
+        assert kp[key] <= pr[key], (gan, key, kp, pr)
+    assert flipped == 0, f"{gan}: {flipped} confident bf16 mask pixels differ"
+    return (f"bf16 slice kernels vs plain versions: logits mean|err| "
+            f"{kp['mean']:.4g}, max {kp['max']:.4g}, image bytes beyond 1 "
+            f"LSB {kp['img']:.4f}, mask pixels differing {kp['mask']:.5f}, "
+            f"0 of the {float(confident.float().mean()):.4f} with margin > "
+            f"{BF16_MARGIN}; the plain bf16 slice from the plain f32 slice: "
+            f"{pr['mean']:.4g}, {pr['max']:.4g}, {pr['img']:.4f}, "
+            f"{pr['mask']:.5f}; the kernels' bf16 slice from the plain f32 "
+            f"slice: mean {kr['mean']:.4g} (limit {BF16_SHARE} x "
+            f"{pr['mean']:.4g}), max {kr['max']:.4g}")
+
+
+def phase_other_gans(torch):
+    """``run_generate`` at cars 512^2 and bedrooms 256^2, bf16, batch 8, 16
+    pairs, with a fresh seeded decoder: launch counts, files, samples/s.
+    Their decoders end in a 64 -> 2 conv at 512^2 / 256^2, a shape the ffhq
+    path never launches: kernel 2 is held to its plain version there in
+    bf16 and f32, and the whole f32 slice (kernels) to the whole f32 slice
+    through the plain versions on the same z and noise: images within 1
+    LSB, logits within SLICE_TOL, masks equal off near-ties.  The whole
+    bf16 slice, the one ``run_generate`` runs, is held to its plain versions
+    by ``check_bf16_slice``, at the scale of bf16's own rounding."""
+    import numpy as np
+
+    from gan_segmentation_tpu_torch.apps.main import run_generate
+    from gan_segmentation_tpu_torch.core.config import AppConfig
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.train.generator import (
+        FusedPipeline, ImageGenerator, _to_uint8, class_mask)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    import cv2
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    inputs = conv_inputs(torch, g)
+    out = {}
+    for gan, res in OTHER_GANS.items():
+        with tempfile.TemporaryDirectory() as base:
+            cfg = AppConfig(BASE_DIR=base, GAN=gan,
+                            GAN_DIR=join(base, "no-models"),
+                            GAN_BATCH_SIZE_PER_GPU=BATCH,
+                            GENERATE_NUM=OTHER_NUM)
+            scfg = cfg.solver_config()
+            assert scfg.max_res_log2 == res.bit_length() - 1
+            ckpt = join(base, "checkpoints")
+            SegSolver(scfg.max_res_log2, "", ckpt, cfg=scfg).save()
+            n_batches = -(-OTHER_NUM // BATCH)
+            n_convs = len(kernel2_shapes(scfg))
+
+            k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
+            k2m.conv3x3_small.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_generate(cfg, writer="cv2")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n1 = k1m.conv3x3_noise_bias_lrelu_instats.launches
+            n2 = k2m.conv3x3_small.launches
+            assert n1 == (scfg.max_res_log2 - 1) * n_batches, n1
+            assert n2 == n_convs * n_batches, (n2, n_convs)
+            dst = join(base, "dataset", "train_generated")
+            values = set()
+            for i in range(OTHER_NUM):
+                im = cv2.imread(join(dst, f"img_{i:06d}.jpg"))
+                m = cv2.imread(join(dst, f"mask_{i:06d}.png"),
+                               cv2.IMREAD_GRAYSCALE)
+                assert im is not None and im.shape == (res, res, 3), i
+                assert m is not None and m.shape == (res, res), i
+                values |= set(np.unique(m).tolist())
+            assert values <= {0, 1}, values
+
+            solver = SegSolver(scfg.max_res_log2, "", ckpt, cfg=scfg)
+            assert solver.is_trained
+            pipe = FusedPipeline(ImageGenerator(
+                gan=gan, gan_dir=cfg.GAN_DIR, batch_size=BATCH), solver)
+            for _ in pipe.generate_batches(BATCH):  # warm-up
+                pass
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in pipe.generate_batches(OTHER_RATE_NUM):
+                pass
+            rate = OTHER_RATE_NUM / (time.perf_counter() - t0)
+
+            # the tail conv, kernel 2 against plain in both dtypes
+            (cname, n, h, w, cin, cout, _) = kernel2_shapes(scfg)[-1]
+            assert (h, cin, cout) == (res, 64, 2), (cname, h, cin, cout)
+            x32, w32 = inputs(n, h, w, cin, cout)
+            b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+            tail_err = {}
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                y = k2m.conv3x3_small(x32.to(dt), w32.to(dt), b)
+                yp = k2m.conv3x3_small_plain(x32.to(dt), w32.to(dt), b)
+                torch.cuda.synchronize()
+                check_close(f"small_conv {tag} {gan} {cname}", y, yp,
+                            **TOL[tag])
+                tail_err[tag] = max_err(y, yp)
+            del x32, w32, y, yp
+
+            # the whole f32 slice: kernels against plain versions
+            gen32 = ImageGenerator(gan=gan, gan_dir=cfg.GAN_DIR,
+                                   batch_size=BATCH, dtype="fp32", seed=3)
+            z, _ = gen32.next_inputs(BATCH)
+
+            def slice_f32():
+                noise = torch.Generator(device=dev).manual_seed(9)
+                with torch.inference_mode():
+                    rgb, feats = gen32.model(z, generator=noise)
+                    logits = solver.model(feats, None, torch.float32)
+                    return (_to_uint8(rgb, gen32.cfg.imrange), logits,
+                            class_mask(logits))
+
+            # the same weights, z and noise in bf16, as run_generate runs them
+            gen16 = ImageGenerator(gan=gan, gan_dir=cfg.GAN_DIR,
+                                   batch_size=BATCH, seed=3)
+            folded16 = solver.model.fold_bn(torch.bfloat16)
+
+            def slice_bf16():
+                noise = torch.Generator(device=dev).manual_seed(9)
+                with torch.inference_mode():
+                    rgb, feats = gen16.model(z, generator=noise)
+                    logits = solver.model(feats, folded16, torch.bfloat16)
+                    return (_to_uint8(rgb, gen16.cfg.imrange),
+                            logits.float(), class_mask(logits))
+
+            k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
+            img_k, logit_k, mask_k = slice_f32()
+            assert k1m.conv3x3_noise_bias_lrelu_instats.launches > 0
+            with plain_path():
+                k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
+                img_p, logit_p, mask_p = slice_f32()
+                assert k1m.conv3x3_noise_bias_lrelu_instats.launches == 0
+            torch.cuda.synchronize()
+            lsb = int((img_k.int() - img_p.int()).abs().max())
+            assert lsb <= 1, f"{gan}: images differ by {lsb} LSB"
+            check_close(f"{gan} f32 slice logits", logit_k, logit_p,
+                        **SLICE_TOL)
+            confident = (logit_p[..., 1] - logit_p[..., 0]).abs() > MASK_MARGIN
+            assert not bool(((mask_k != mask_p) & confident).any()), \
+                f"{gan}: masks differ off near-ties"
+            k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
+            bf_k = slice_bf16()
+            assert k1m.conv3x3_noise_bias_lrelu_instats.launches > 0
+            with plain_path():
+                k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
+                bf_p = slice_bf16()
+                assert k1m.conv3x3_noise_bias_lrelu_instats.launches == 0
+            torch.cuda.synchronize()
+            bf16_line = check_bf16_slice(gan, bf_k, bf_p,
+                                        (img_p, logit_p, mask_p))
+            del gen16, folded16, bf_k, bf_p
+            smi = smi_line()
+            log(f"{gan} {res}^2 generate: {OTHER_NUM} pairs, bf16, batch "
+                f"{BATCH}: launches conv_in_stats {n1}, small_conv {n2} "
+                f"({n_convs} convs x {n_batches} batches); "
+                f"{rate:.3f} samples/s (device pipeline, "
+                f"{OTHER_RATE_NUM} samples), "
+                f"{OTHER_NUM / wall:.3f} samples/s end to end with the cv2 "
+                f"writer and the first launches ({wall:.2f} s) on {smi}; "
+                f"tail conv {cname} {(n, h, w, cin, cout)} kernel vs plain "
+                f"max|err| f32 {tail_err['f32']:.3g} (tol {TOL['f32']}), "
+                f"bf16 {tail_err['bf16']:.3g} (tol {TOL['bf16']}); f32 "
+                f"slice kernels vs plain versions: images within {lsb} LSB, "
+                f"logits max|err| {max_err(logit_k, logit_p):.3g} (tol "
+                f"{SLICE_TOL}), masks equal on "
+                f"{float(confident.float().mean()):.4f} of the pixels "
+                f"(margin > {MASK_MARGIN}), "
+                f"{int((mask_k != mask_p).sum())} near-tie pixels differ; "
+                + bf16_line)
+            out[gan] = dict(launches={"conv_in_stats": n1, "small_conv": n2},
+                            pipeline_sps=rate)
+            del gen32, pipe, solver, img_k, img_p, logit_k, logit_p
+            torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------- foreign checkpoints
+def write_mx_file(path, named):
+    """Write ``{name: float32 array}`` in mxnet's NDArray-list format (V2
+    arrays, int64 dims, cpu(0) context), the layout
+    ``core/mx_params.py``'s docstring gives."""
+    import struct
+
+    import numpy as np
+
+    with open(path, "wb") as fp:
+        fp.write(struct.pack("<QQQ", 0x112, 0, len(named)))
+        for arr in named.values():
+            arr = np.ascontiguousarray(arr, np.float32)
+            fp.write(struct.pack("<IiI", 0xF993FAC9, 0, arr.ndim))
+            fp.write(struct.pack(f"<{arr.ndim}q", *arr.shape))
+            fp.write(struct.pack("<iii", 1, 0, 0))  # cpu(0), float32
+            fp.write(arr.tobytes())
+        fp.write(struct.pack("<Q", len(named)))
+        for name in named:
+            raw = name.encode()
+            fp.write(struct.pack("<Q", len(raw)) + raw)
+
+
+def generator_mx_arrays(state, gcfg):
+    """A generator ``state_dict`` of the port -> the reference's mxnet
+    names and layouts (the inverse of ``core/mx_params.py::
+    convert_stylegan_params`` followed by ``core/params_bridge.py``): convs
+    OIHW and dense (out, in) as the port keeps them, the transposed conv
+    (I, O, kh, kw), the constant NCHW, noise scales and biases (1, C, 1, 1)."""
+    t = {k: v.detach().float().cpu().numpy() for k, v in state.items()}
+    mx = {"constant_tensor": t["constant_tensor"].transpose(0, 3, 1, 2),
+          "latent_avg": t["latent_avg"],
+          "truncation_psi": t["truncation_psi"]}
+    for i in range(8):
+        mx[f"mp_dense_{i}_weight"] = t[f"mapping.dense_{i}.weight"]
+        mx[f"mp_dense_{i}_bias"] = t[f"mapping.dense_{i}.bias"]
+    for res in range(2, gcfg.max_res_log2 + 1):
+        s, blk = 2 ** res, f"block_{res}"
+        if res >= 3:
+            up = "deconv_1" if res >= 7 else "conv_1"
+            mx[f"{s}_{up}_weight"] = t[f"{blk}.{up}.weight"]
+        mx[f"{s}_conv_2_weight"] = t[f"{blk}.conv_2.weight"]
+        for j in (1, 2):
+            mx[f"{s}_noise_{j}_scale_factors"] = t[
+                f"{blk}.noise_{j}.scale_factors"].reshape(1, -1, 1, 1)
+            mx[f"{s}_bias_{j}_bias"] = t[f"{blk}.bias_{j}.bias"].reshape(
+                1, -1, 1, 1)
+            mx[f"{s}_adain_{j}_dense_affine_weight"] = t[
+                f"{blk}.adain_{j}.affine.weight"]
+            mx[f"{s}_adain_{j}_dense_affine_bias"] = t[
+                f"{blk}.adain_{j}.affine.bias"]
+    top = gcfg.max_res_log2
+    mx[f"{2 ** top}_conv_to_rgb_weight"] = t[f"to_rgb_{top}.weight"]
+    mx[f"{2 ** top}_conv_to_rgb_bias"] = t[f"to_rgb_{top}.bias"]
+    # entries a real file also holds and a loader must ignore
+    mx["16_conv_2_std"] = t["latent_avg"][:1]
+    return mx
+
+
+_BN_NAMES = {"weight": "gamma", "bias": "beta",
+             "running_mean": "running_mean", "running_var": "running_var"}
+
+
+def decoder_mx_arrays(state, scfg):
+    """A decoder ``state_dict`` of the port -> the attribute-path names of
+    the reference's ``save_parameters`` (``core/decoder_convert.py``'s
+    dotted scheme, batch norm on)."""
+    t = {k: v.detach().float().cpu().numpy() for k, v in state.items()
+         if not k.endswith("num_batches_tracked")}
+    mx = {}
+
+    def conv(src, dst):
+        mx[f"{dst}.weight"] = t.pop(f"{src}.weight")
+        mx[f"{dst}.bias"] = t.pop(f"{src}.bias")
+
+    def bn(src, dst):
+        for ours, theirs in _BN_NAMES.items():
+            mx[f"{dst}.{theirs}"] = t.pop(f"{src}.{ours}")
+
+    n = len(scfg.in_channels)
+    for i in range(scfg.start_res, n):
+        conv(f"cvt_{i}_conv", f"cvt_block_{i}.0")
+        bn(f"cvt_{i}_bn", f"cvt_block_{i}.1")
+    for i in range(scfg.start_res, n - 1):
+        base = f"main_block_{i}.1"
+        conv(f"main_{i}.conv_0", f"{base}.base_layers.0")
+        bn(f"main_{i}.bn_0", f"{base}.base_layers.1")
+        conv(f"main_{i}.conv_1", f"{base}.base_layers.3")
+        bn(f"main_{i}.bn_1", f"{base}.base_layers.4")
+        if f"main_{i}.shortcut.weight" in t:
+            conv(f"main_{i}.shortcut", f"{base}.shortcut.0")
+    conv(f"main_{n - 1}_conv", f"main_block_{n - 1}.0")
+    assert not t, sorted(t)
+    return mx
+
+
+def perturb(torch, module, seed):
+    """Move every parameter and statistic that a seeded init leaves at 0 or
+    1 (noise scales, biases, latent_avg, psi, batch-norm scale, shift and
+    running statistics) to seeded random values, so that a layout or name
+    mistake in any of them changes the output."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict().items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "num_batches_tracked" or t.dim() != 1:
+                continue
+            r = torch.randn(t.shape, generator=g)
+            if leaf in ("running_var", "truncation_psi") or (
+                    leaf == "weight" and "bn" in name):
+                t.copy_((0.75 + 0.25 * torch.tanh(r)).to(t.device))
+            else:
+                t.copy_((0.1 * r).to(t.device))
+
+
+def phase_foreign_weights(torch, gcfg, scfg):
+    """A seeded ffhq generator written as a synthetic mxnet
+    ``stylegan-ffhq.params`` and loaded by ``ImageGenerator``: one batch of
+    8 bit-identical to the source generator's.  A decoder written as a
+    dotted-name mxnet ``checkpoint_last.params`` and loaded by
+    ``SegSolver.load``: logits equal to the source decoder's."""
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.models.stylegan import init_generator
+    from gan_segmentation_tpu_torch.train.generator import ImageGenerator
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    with tempfile.TemporaryDirectory() as base:
+        gan_dir, ckpt = join(base, "stylegan-models"), join(base,
+                                                            "checkpoints")
+        os.makedirs(gan_dir)
+        os.makedirs(ckpt)
+        src = init_generator(gcfg, seed=11)
+        perturb(torch, src, 12)
+        state = src.state_dict()
+        path = join(gan_dir, "stylegan-ffhq.params")
+        write_mx_file(path, generator_mx_arrays(state, gcfg))
+        k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
+        t0 = time.perf_counter()
+        loaded = ImageGenerator(gan="ffhq", gan_dir=gan_dir, batch_size=BATCH)
+        torch.cuda.synchronize()
+        gen_load_s = time.perf_counter() - t0
+        want = ImageGenerator(gan="ffhq", gan_dir=join(base, "none"),
+                              batch_size=BATCH, params=state)
+        got_state = loaded.model.state_dict()
+        assert got_state.keys() == state.keys()
+        for k, v in state.items():
+            assert torch.equal(got_state[k].cpu(), v), k
+        img_a, feats_a, z_a = loaded.sample_batch()
+        img_b, feats_b, z_b = want.sample_batch()
+        torch.cuda.synchronize()
+        n1 = k1m.conv3x3_noise_bias_lrelu_instats.launches
+        assert n1 == 2 * (gcfg.max_res_log2 - 1), n1
+        assert torch.equal(z_a, z_b)
+        assert img_a.shape == (BATCH, 1024, 1024, 3)
+        assert torch.equal(img_a, img_b), "loaded generator's images differ"
+        assert all(torch.equal(a, b) for a, b in zip(feats_a, feats_b)), \
+            "loaded generator's features differ"
+        assert float(img_a.float().std()) > 1.0, "constant image"
+        log(f"foreign weights: {os.path.basename(path)} "
+            f"{os.path.getsize(path) / 2 ** 20:.1f} MiB (mxnet format, "
+            f"{len(state)} tensors) loaded by ImageGenerator in "
+            f"{gen_load_s:.2f} s (model build and upload included); a batch "
+            f"of {BATCH} at 1024^2 (bf16, conv_in_stats launched {n1} times "
+            f"over both generators) is bit-identical to the source "
+            f"generator's")
+
+        source = SegSolver(scfg.max_res_log2, "", join(base, "none"),
+                           cfg=scfg)
+        perturb(torch, source.model, 13)
+        dec_path = join(ckpt, "checkpoint_last.params")
+        write_mx_file(dec_path, decoder_mx_arrays(source.model.state_dict(),
+                                                  scfg))
+        t0 = time.perf_counter()
+        solver = SegSolver(scfg.max_res_log2, "", ckpt, cfg=scfg)
+        dec_load_s = time.perf_counter() - t0
+        assert solver.is_trained
+        assert solver.params_file == "checkpoint_last.params"
+        feats = [f[:1].float() for f in feats_b]
+        k2m.conv3x3_small.launches = 0
+        got, ref = solver.predict_logits(feats), source.predict_logits(feats)
+        torch.cuda.synchronize()
+        n2 = k2m.conv3x3_small.launches
+        assert n2 == 2 * SMALL_PER_EVAL_SAMPLE, n2
+        assert got.shape == (1, 1024, 1024, 2)
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, ref), "loaded decoder's logits differ"
+        fresh = SegSolver(scfg.max_res_log2, "", join(base, "none"), cfg=scfg)
+        assert not torch.equal(fresh.predict_logits(feats), ref)
+        log(f"foreign weights: {os.path.basename(dec_path)} "
+            f"{os.path.getsize(dec_path) / 2 ** 10:.1f} KiB (mxnet format, "
+            f"dotted names) loaded by SegSolver.load in {dec_load_s:.2f} s; "
+            f"logits on one 1024^2 pyramid (f32, small_conv launched {n2} "
+            f"times) equal the source decoder's")
+    return dict(launches={"conv_in_stats": n1, "small_conv": n2},
+                gen_load_s=gen_load_s, dec_load_s=dec_load_s)
+
+
+# ------------------------------------------------------------ annotation
+class FakeEvent:
+    def __init__(self, x=0, y=0, num=0, keycode=0):
+        self.x, self.y, self.num, self.keycode = x, y, num, keycode
+
+
+class FakeWidget:
+    """What the annotator asks of a tk widget, recorded."""
+
+    def __init__(self, *args, **kw):
+        self.kw = dict(kw)
+        self.bindings = {}
+
+    def pack(self, **kw):
+        return None
+
+    def bind(self, event, handler):
+        self.bindings[event] = handler
+
+    def config(self, **kw):
+        self.kw.update(kw)
+
+    def title(self, text):
+        self.kw["title"] = text
+
+
+class FakeButton(FakeWidget):
+    @property
+    def state(self):
+        return self.kw.get("state", "normal")
+
+    def invoke(self):
+        assert self.state != "disabled", f"{self.kw.get('text')} is disabled"
+        return self.kw["command"]()
+
+
+class FakeCanvas(FakeWidget):
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.alive, self.calls = set(), []
+
+    def _create(self, kind, *args, **kw):
+        cid = len(self.calls) + 1
+        self.alive.add(cid)
+        self.calls.append((kind, cid, args, kw))
+        return cid
+
+    def create_line(self, *a, **kw):
+        return self._create("line", *a, **kw)
+
+    def create_oval(self, *a, **kw):
+        return self._create("oval", *a, **kw)
+
+    def create_image(self, *a, **kw):
+        return self._create("image", *a, **kw)
+
+    def delete(self, cid):
+        self.alive.discard(cid)
+
+    def update(self):
+        return None
+
+    def images(self):
+        return sum(c[0] == "image" for c in self.calls)
+
+
+class FakePhotoImage:
+    def __init__(self, image=None):
+        self._size = image.size  # a PIL Image
+
+    def width(self):
+        return self._size[0]
+
+    def height(self):
+        return self._size[1]
+
+
+@contextlib.contextmanager
+def stub_tk():
+    """Context: ``tkinter`` and ``PIL.ImageTk`` replaced by the recording
+    stubs above (a headless machine has neither a display nor, often,
+    tkinter itself); PIL proper stays the real one.  Only these two entries
+    of ``sys.modules`` are set and put back: what is first imported inside
+    the context stays imported."""
+    import types
+
+    import PIL
+
+    tk = types.ModuleType("tkinter")
+    tk.Frame, tk.Tk, tk.Button, tk.Canvas = (FakeWidget, FakeWidget,
+                                             FakeButton, FakeCanvas)
+    tk.BOTTOM, tk.BOTH, tk.RIGHT, tk.NW = "bottom", "both", "right", "nw"
+    imagetk = types.ModuleType("PIL.ImageTk")
+    imagetk.PhotoImage = FakePhotoImage
+    stubs = {"tkinter": tk, "PIL.ImageTk": imagetk}
+    saved = {name: sys.modules.get(name) for name in stubs}
+    saved_attr = PIL.__dict__.get("ImageTk")
+    sys.modules.update(stubs)
+    PIL.ImageTk = imagetk
+    try:
+        yield tk
+    finally:
+        for name, module in saved.items():
+            if module is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = module
+        if saved_attr is None:
+            del PIL.ImageTk
+        else:
+            PIL.ImageTk = saved_attr
+
+
+def drag(a, points):
+    """A left-button drag over ``points`` through the annotator's mouse
+    handlers."""
+    a.on_mouse_down(FakeEvent(*points[0]))
+    for xy in points[1:]:
+        a.on_mouse_move(FakeEvent(*xy))
+    a.on_mouse_up(FakeEvent(*points[-1]))
+
+
+def drive_annotator(root_dir, gan, gan_dir, batch, n_images, n_generate,
+                    epochs=2, max_res_log2=None, counts=None):
+    """A whole annotation run through ``SegmentationAnnotator``'s own
+    handlers under the tk stub: ``n_images`` annotations (a drag sets
+    ``has_changes``; the trimap the handlers save is the sign of channel 0
+    of the sample's last feature, top two rows ignored, in place of the
+    rasterized strokes, so that the decoder can learn it), the last one
+    saved by Retrain itself, Retrain of ``epochs`` epochs with its preview,
+    one more image (now with a predicted mask), Generate of ``n_generate``
+    pairs.  Asserts what the run must show and returns what it saw;
+    ``counts()`` is read after each stage into ``marks``."""
+    import random
+    import types
+    from unittest import mock
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from gan_segmentation_tpu_torch.apps import annotator as ann
+    from gan_segmentation_tpu_torch.core.config import SolverConfig
+    from gan_segmentation_tpu_torch.data.collection import (
+        CollectionDataset, gray_from_trimap)
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator)
+    from gan_segmentation_tpu_torch.utils.viz import get_draw_mask
+
+    real_solver = ann.SegSolver
+
+    def short_solver(res_log2, data, ckpt, **kw):
+        cfg = SolverConfig(max_res_log2=res_log2)
+        cfg.train_epochs = epochs
+        return real_solver(res_log2, data, ckpt, cfg=cfg, **kw)
+
+    marks = {}
+
+    def mark(stage):
+        if counts is not None:
+            marks[stage] = counts()
+
+    def annotate(a):
+        """Draw, and make the handlers' save write the learnable trimap."""
+        trimap = (a.features[-1][..., 0] > 0).astype(np.int32)
+        trimap[:2] = -1
+        gray = gray_from_trimap(trimap)
+        drag(a, [(4, 4), (10, 10), (16, 16)])
+        assert a.strokes.has_changes and len(a.strokes.history) == 3
+        a.strokes.rasterize = lambda w, h: gray
+        return a.image_id
+
+    random.seed(0)
+    no_sleep = types.SimpleNamespace(sleep=lambda seconds: None)
+    with stub_tk(), mock.patch.object(ann, "SegSolver", short_solver), \
+            mock.patch.object(ann, "time", no_sleep):
+        a = ann.SegmentationAnnotator(
+            FakeWidget(), root_dir, gan_dir=gan_dir, gan=gan,
+            n_generate=n_generate, gan_batch_size=batch,
+            max_res_log2=max_res_log2)
+        res = 2 ** a.netG.cfg.max_res_log2
+        assert a.generate_btn.state == "disabled"
+        assert not a.solver.is_trained and a.can.images() == 1
+        assert a.img_orig.shape == (res, res, 3)
+        assert a.img_orig.dtype == np.uint8
+        assert all(f.dtype == np.float32 for f in a.features)
+        mark("constructed")
+
+        data = join(root_dir, "data")
+        ids = []
+        for _ in range(n_images - 1):
+            ids.append(annotate(a))
+            a.ok_btn.invoke()
+            assert a.image_id != ids[-1] and not a.strokes.has_changes
+        ids.append(annotate(a))  # Retrain saves this one
+        mark("annotated")
+
+        # a pipeline built before Retrain must see the new weights after it
+        reused = FusedPipeline(a.netG, a.solver)
+        before = reused._prepared()
+        shown = []
+        real_set_img = a.set_img
+        a.set_img = lambda img: (shown.append(np.array(img)),
+                                 real_set_img(img))[1]
+        redraws = a.can.images()
+        t0 = time.perf_counter()
+        a.retrain_btn.invoke()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        retrain_s = time.perf_counter() - t0
+        a.set_img = real_set_img
+        mark("retrained")
+        for i in ids:
+            for name in (f"mask_{i:06d}.png", f"img_{i:06d}.jpg",
+                         f"vis_img_{i:06d}.jpg", f"feat_{i:06d}.pickle"):
+                assert os.path.isfile(join(data, name)), name
+        ds = CollectionDataset(data, a.solver.cfg, load_to_memory=False)
+        assert len(ds) == n_images
+        _, mask, feats = ds.get_item(0)
+        assert set(np.unique(mask)) == {-1, 0, 1} and mask.shape == (res, res)
+        assert [f.shape[-1] for f in feats] == list(a.solver.cfg.in_channels)
+        assert a.solver.is_trained
+        assert a.can.images() >= redraws + epochs
+        history = a.solver.history
+        assert len(history) == epochs and all(
+            len(h) == n_images for h in history)
+        first, last = float(np.mean(history[0])), float(np.mean(history[-1]))
+        assert np.isfinite(first) and last < first, history
+        for b in (a.ok_btn, a.skip_btn, a.retrain_btn, a.generate_btn):
+            assert b.state == "normal"
+        # the preview after the last epoch is predict after fit returned
+        pred = a.solver.predict(a.features)[0].astype(np.uint8)
+        assert np.array_equal(shown[-1], get_draw_mask(
+            a.img_orig, pred[:, :, 0], alpha=0.5))
+        after = reused._prepared()
+        fresh_fold = a.solver.model.fold_bn(reused.dec_dtype)
+        assert all(torch.equal(after[k][0], fresh_fold[k][0])
+                   and torch.equal(after[k][1], fresh_fold[k][1])
+                   for k in fresh_fold)
+        assert any(not torch.equal(after[k][0], before[k][0])
+                   for k in fresh_fold), "Retrain left the weights as is"
+
+        a.skip_btn.invoke()  # the next image comes with a predicted mask
+        assert not np.array_equal(a.vis_img, a.img_orig)
+        mark("predicted")
+
+        consumed = a.netG._batch_index
+        t0 = time.perf_counter()
+        a.generate_btn.invoke()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        generate_s = time.perf_counter() - t0
+        mark("generated")
+        for b in (a.ok_btn, a.skip_btn, a.retrain_btn, a.generate_btn):
+            assert b.state == "normal"
+        device = a.solver.device
+        del a, reused
+
+    # Generate's masks are those of a fresh pipeline on the saved
+    # checkpoint at the same place of the same seeded stream
+    dst = join(root_dir, "dataset", "train_generated")
+    gen = ImageGenerator(gan=gan, gan_dir=gan_dir, batch_size=batch,
+                         max_res_log2=max_res_log2, device=device)
+    gen.skip_batches(consumed)
+    solver = short_solver(gen.cfg.max_res_log2, data,
+                          join(root_dir, "checkpoints"), device=device)
+    assert solver.is_trained and solver.params_file == "checkpoint_last.pt"
+    ones = 0
+    pairs = FusedPipeline(gen, solver).generate_pairs(n_generate)
+    for i, (img, mask) in enumerate(pairs):
+        got = cv2.imread(join(dst, f"mask_{i:06d}.png"), cv2.IMREAD_GRAYSCALE)
+        assert got is not None and np.array_equal(got, mask), i
+        jpg = cv2.imread(join(dst, f"img_{i:06d}.jpg"))
+        assert jpg is not None and jpg.shape == img.shape, i
+        ones += int(mask.sum())
+    assert len(os.listdir(dst)) == 2 * n_generate
+    return dict(ids=ids, history=history, marks=marks, retrain_s=retrain_s,
+                generate_s=generate_s, res=res,
+                mask_share=ones / (n_generate * res * res))
+
+
+ANN_BATCH = 2        # gan_batch_size of the run
+ANN_IMAGES = 6
+ANN_EPOCHS = 2
+ANN_GENERATE = 16
+
+
+def phase_annotation(torch):
+    """The annotation run at ffhq 1024^2 on the card (see
+    ``drive_annotator``), with the kernels' launch counts per stage."""
+    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+
+    wrappers = {"conv_in_stats": k1m.conv3x3_noise_bias_lrelu_instats,
+                "small_conv": k2m.conv3x3_small, "bil_conv": k3m.conv3x3_bil}
+    for fn in wrappers.values():
+        fn.launches = 0
+    with tempfile.TemporaryDirectory() as base, LogLines(
+            "gan_segmentation_tpu_torch.train.solver") as lines:
+        seen = drive_annotator(
+            base, "ffhq", join(base, "no-models"), ANN_BATCH, ANN_IMAGES,
+            ANN_GENERATE, epochs=ANN_EPOCHS,
+            counts=lambda: {k: fn.launches for k, fn in wrappers.items()})
+    epoch_s = lines.floats("Time cost")
+    assert len(epoch_s) == ANN_EPOCHS, epoch_s
+    total = {k: fn.launches for k, fn in wrappers.items()}
+    m = seen["marks"]
+    steps = ANN_EPOCHS * ANN_IMAGES
+    # the sampler: one batch of ANN_BATCH per two images shown, kernel 1
+    # nine times a batch; no decoder before Retrain
+    assert m["constructed"] == {"conv_in_stats": 9, "small_conv": 0,
+                                "bil_conv": 0}, m
+    assert m["annotated"]["conv_in_stats"] == 9 * -(-ANN_IMAGES // 2), m
+    assert m["annotated"]["small_conv"] == m["annotated"]["bil_conv"] == 0, m
+    # Retrain: kernels 3 and 2 in every step, kernel 2 in each epoch's
+    # preview and in the predict of the check after it
+    assert m["retrained"]["bil_conv"] == BIL_PER_STEP * steps, m
+    assert (m["retrained"]["small_conv"] == SMALL_PER_STEP * steps
+            + SMALL_PER_EVAL_SAMPLE * ANN_EPOCHS), m
+    assert m["retrained"]["conv_in_stats"] == m["annotated"]["conv_in_stats"]
+    # predict for the next image (and the check's own predict before it)
+    assert (m["predicted"]["small_conv"] - m["retrained"]["small_conv"]
+            == 2 * SMALL_PER_EVAL_SAMPLE), m
+    # Generate: kernels 1 and 2 per batch
+    batches = -(-ANN_GENERATE // ANN_BATCH)
+    assert (m["generated"]["conv_in_stats"] - m["predicted"]["conv_in_stats"]
+            == 9 * batches), m
+    assert (m["generated"]["small_conv"] - m["predicted"]["small_conv"]
+            == SMALL_PER_EVAL_SAMPLE * batches), m
+    assert m["generated"]["bil_conv"] == m["retrained"]["bil_conv"]
+    hist = seen["history"]
+    smi = smi_line()
+    log(f"annotation run (ffhq 1024^2, gan_batch_size {ANN_BATCH}): "
+        f"{ANN_IMAGES} annotations saved by the handlers and read back; "
+        f"Retrain ({ANN_EPOCHS} epochs x {ANN_IMAGES} steps, previews "
+        f"included) {seen['retrain_s']:.2f} s, of which the epochs' steps "
+        f"took {' + '.join(f'{t:.3f}' for t in epoch_s)} s and the rest is "
+        f"the last annotation's save, the collection's load and upload, "
+        f"the previews and the checkpoint; epoch loss "
+        f"{sum(hist[0]) / len(hist[0]):.4f} -> "
+        f"{sum(hist[-1]) / len(hist[-1]):.4f}, last preview = predict; "
+        f"Generate {ANN_GENERATE} pairs {seen['generate_s']:.2f} s "
+        f"({ANN_GENERATE / seen['generate_s']:.3f} samples/s with the cv2 "
+        f"writer), masks equal a fresh pipeline's on the saved checkpoint "
+        f"(class 1 on {seen['mask_share']:.4f} of the pixels), the pipeline "
+        f"built before Retrain refolded; launches by stage {m} on {smi}")
+    return dict(launches=total, retrain_s=seen["retrain_s"],
+                generate_s=seen["generate_s"])
+
+
 def main():
     import torch
 
@@ -1204,6 +2062,7 @@ def main():
         f"(device pipeline; generator {sl['gen_ms']:.3f} ms, decoder "
         f"{sl['dec_ms']:.3f} ms per batch), {sl['end_to_end_sps']:.3f} "
         f"samples/s (with the cv2 writer) on {smi}")
+    og = phase_other_gans(torch)
 
     # 5. train and evaluate
     phase_small_train_reference(torch)
@@ -1213,6 +2072,14 @@ def main():
         f"{tr['prof']['step_ms']:.3f} ms per step by CUDA events; evaluate "
         f"{tr['metrics']} on {smi}")
 
+    # 6. foreign weights, 7. annotation
+    fw = phase_foreign_weights(torch, gcfg, scfg)
+    an = phase_annotation(torch)
+    log(f"ffhq 1024^2 annotation run: Retrain {an['retrain_s']:.2f} s, "
+        f"Generate {an['generate_s']:.2f} s; foreign weights: generator "
+        f"loaded in {fw['gen_load_s']:.2f} s, decoder in "
+        f"{fw['dec_load_s']:.2f} s on {smi}")
+
     launches = {
         "conv_in_stats": {"generate": sl["launches"]["conv_in_stats"],
                           "collection": tr["collection_launches"]},
@@ -1220,6 +2087,13 @@ def main():
                        "train": tr["launches"]["small_conv"],
                        "evaluate": tr["eval_launches"]},
         "bil_conv": {"train": tr["launches"]["bil_conv"]}}
+    for path, counted in (("cars", og["cars"]["launches"]),
+                          ("bedrooms", og["bedrooms"]["launches"]),
+                          ("foreign_weights", fw["launches"]),
+                          ("annotation", an["launches"])):
+        for name, n in counted.items():
+            assert n > 0, f"{path}: {name} was not launched"
+            launches[name][path] = n
     tc_design = ("bf16: mma.sync m16n8k16 implicit GEMM fed by a 2- or "
                  "3-stage cp.async ring, split-K for Cin 512 at 4^2-16^2 "
                  "(conv3x3_tc.cuh); f32: 3xTF32 mma.sync m16n8k8 implicit "

@@ -1,17 +1,18 @@
 """CLI entry point of the PyTorch port:
 
-    python -m gan_segmentation_tpu_torch.apps.main train|evaluate|generate \
-        --config config.yml
+    python -m gan_segmentation_tpu_torch.apps.main \
+        [annotation|train|evaluate|generate] --config config.yml
 
 reads ``config.yml`` (keys at reference `main.py:33-43`), seeds numpy with
 0, and runs on one CUDA device:
+- ``annotation`` (the default) the tkinter annotator over GAN samples
+  (``apps/annotator.py``): brush strokes to trimaps, Retrain, Generate;
 - ``train``    decoder training on ``BASE_DIR/data`` (checkpoint to
   ``BASE_DIR/checkpoints``);
 - ``evaluate`` the trained decoder on ``BASE_DIR/eval``: prints accuracy,
   mean-iou and total-loss;
 - ``generate`` the synthetic-dataset emitter: z -> image and mask in one
   device pass, only uint8 crossing to the host.
-``annotation`` is not ported yet.
 """
 
 import argparse
@@ -146,10 +147,11 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
                  resume: bool = False, quant: Optional[str] = None,
                  dp: int = 1):
     if spatial != 1 or dp != 1:
-        raise SystemExit("--spatial and --dp are not ported yet: the PyTorch "
-                         "port generates on one device (ROADMAP Queue 1 #12)")
+        raise SystemExit("--spatial and --dp (multi-device generation) are "
+                         "not ported yet: the PyTorch port generates on one "
+                         "device")
     if quant is not None:
-        raise SystemExit("--quant is not ported yet (ROADMAP Queue 1 #14)")
+        raise SystemExit("--quant (int8 generation) is not ported yet")
     solver = build_solver(cfg)
     if not solver.is_trained:
         print("train Decoder first!")
@@ -194,24 +196,42 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
              n_todo, dst_dir, skip, n_local - 1)
 
 
+def run_annotation(cfg):
+    import tkinter as tk
+
+    from .annotator import SegmentationAnnotator
+
+    root = tk.Tk()
+    if cfg.ANNOTATION == "segmentation":
+        SegmentationAnnotator(
+            root, cfg.BASE_DIR, gan_dir=cfg.GAN_DIR, gan=cfg.GAN,
+            n_generate=cfg.GENERATE_NUM,
+            gan_batch_size=(cfg.GAN_BATCH_SIZE_PER_GPU
+                            * max(1, len(cfg.GAN_GPU_IDS))),
+        ).pack(fill="both", expand=True)
+    else:
+        print(f"uknown annotation type: {cfg.ANNOTATION}")
+        return
+    root.mainloop()
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s:%(name)s:%(message)s")
     args = parse_args(argv)
-    if args.action == "annotation":
-        raise SystemExit("'annotation' is not ported to PyTorch yet; use the "
-                         "JAX package (main.py) for it")
     np.random.seed(0)  # `main.py:29-31`
     cfg = load_config_file(args.config)
     if args.action == "train":
         run_train(cfg)
     elif args.action == "evaluate":
         run_evaluate(cfg)
-    else:
+    elif args.action == "generate":
         run_generate(cfg, spatial=args.spatial, writer=args.writer,
                      resume=args.resume,
                      quant=None if args.quant == "none" else args.quant,
                      dp=args.dp)
+    else:
+        run_annotation(cfg)
 
 
 if __name__ == "__main__":

@@ -9,13 +9,14 @@ byte (on the same device type; PyTorch's and JAX's random streams differ).
 
 import logging
 from os.path import isfile, join
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import dtypes
 from ..core.config import GanConfig, gan_config
+from ..core.mx_params import load_generator_params
 from ..models.stylegan import StyleGanGenerator, init_generator
 
 log = logging.getLogger(__name__)
@@ -50,11 +51,14 @@ def pack_mask_bits(mask):
 
 class ImageGenerator:
     """Seeded StyleGAN sampler on one device.  ``params`` is a generator
-    ``state_dict``; without it the generator is randomly initialised from
-    ``seed``, as the JAX package does when no checkpoint is present."""
+    ``state_dict``; without it the weights come from
+    ``gan_dir/stylegan-<gan>.params`` (mxnet's format or the JAX package's
+    msgpack tree), and where that file is missing the generator is randomly
+    initialised from ``seed``, as the JAX package does."""
 
     def __init__(self, gan: str = "ffhq", gan_dir: str = "stylegan-models",
-                 batch_size: int = 4, dtype: str = "bf16", seed: int = 0,
+                 batch_size: int = 4, dtype: str = "bf16",
+                 return_latents: bool = False, seed: int = 0,
                  params=None, max_res_log2: Optional[int] = None,
                  device: Optional[torch.device] = None):
         if seed < 0:
@@ -63,19 +67,20 @@ class ImageGenerator:
             self.cfg = GanConfig(max_res_log2=max_res_log2, dtype=dtype)
         else:
             self.cfg = gan_config(gan, dtype)
+        self.gan = gan
         self.batch_size = batch_size
+        self.return_latents = return_latents
         self.seed = seed
         self.device = device if device is not None else dtypes.cuda_device()
         cd = dtypes.default_policy(dtype).compute_dtype
+        path = join(gan_dir, f"stylegan-{gan}.params")
+        if params is None and isfile(path):
+            log.info("loading generator weights: %s", path)
+            params = load_generator_params(path, self.cfg)
         if params is not None:
             model = StyleGanGenerator(self.cfg, cd)
             model.load_state_dict(params)
         else:
-            path = join(gan_dir, f"stylegan-{gan}.params")
-            if isfile(path):
-                raise NotImplementedError(
-                    f"{path}: loading mxnet StyleGAN weights is not ported "
-                    "yet (ROADMAP Queue 1 #11)")
             log.warning("generator checkpoint %s not found; using random "
                         "init (seed %d)", path, seed)
             model = init_generator(self.cfg, seed=seed, compute_dtype=cd)
@@ -104,6 +109,29 @@ class ImageGenerator:
             rgb, feats = self.model(z, generator=gen)
             return _to_uint8(rgb, self.cfg.imrange), feats, z
 
+    def get_images(self, n: int
+                   ) -> Iterator[Tuple[np.ndarray, List[np.ndarray]]]:
+        """Reference-compatible sample iterator (`image_generator.py:86-123`):
+        per sample ``(uint8 image HWC, [f32 features (H, W, C)])`` as numpy,
+        and with ``return_latents`` also the z of the sample's whole trimmed
+        batch.  Every batch is sampled at ``batch_size`` and trimmed; the
+        features become f32 on the device (numpy has no bf16) and cross to
+        the host once per batch."""
+        produced = 0
+        while produced < n:
+            b = min(self.batch_size, n - produced)
+            imgs, feats, z = self.sample_batch(self.batch_size)
+            imgs_np = imgs[:b].cpu().numpy()
+            feats_np = [f[:b].float().cpu().numpy() for f in feats]
+            z_np = z[:b].cpu().numpy()
+            for i in range(b):
+                sample_feats = [f[i] for f in feats_np]
+                if self.return_latents:
+                    yield imgs_np[i], sample_feats, z_np
+                else:
+                    yield imgs_np[i], sample_feats
+            produced += b
+
 
 class FusedPipeline:
     """z -> (image uint8, mask uint8) on one device: generator, decoder
@@ -118,14 +146,13 @@ class FusedPipeline:
                  inference_dtype: Optional[torch.dtype] = torch.bfloat16,
                  s2d: bool = False, mesh=None, quant: Optional[str] = None):
         if mesh is not None:
-            raise NotImplementedError("multi-device generation is not ported "
-                                      "yet (ROADMAP Queue 1 #12)")
+            raise NotImplementedError("multi-device generation (a mesh) is "
+                                      "not ported yet")
         if s2d:
             raise NotImplementedError("the space-to-depth decoder tail is a "
                                       "TPU layout; the port does not use it")
         if quant is not None:
-            raise NotImplementedError("int8 generation is not ported yet "
-                                      "(ROADMAP Queue 1 #14)")
+            raise NotImplementedError("int8 generation is not ported yet")
         self.gen = image_generator
         self.solver = solver
         self.dec_dtype = inference_dtype or solver.model.compute_dtype
@@ -133,11 +160,17 @@ class FusedPipeline:
         res = 2 ** image_generator.cfg.max_res_log2
         self._pack_masks = nclass == 2 and res % 8 == 0
         self._folded = None
+        self._folded_at = None
 
     def _prepared(self):
-        """The decoder's BN-folded kernels, folded once."""
-        if self._folded is None:
+        """The decoder's BN-folded kernels, folded again whenever the
+        solver's weights changed.  PyTorch updates parameters in place, so
+        their identity does not tell; the solver counts its changes
+        (``SegSolver.weights_version``: ``fit``, ``load``, ``reinit``)."""
+        at = self.solver.weights_version
+        if self._folded is None or at != self._folded_at:
             self._folded = self.solver.model.fold_bn(self.dec_dtype)
+            self._folded_at = at
         return self._folded
 
     def _fused(self, z, generator: torch.Generator):

@@ -19,9 +19,12 @@ program) is read as off until a CUDA-graph epoch is ported; the multi-host
 and data-parallel branches are not ported.
 
 The port's checkpoint is ``torch.save`` of the decoder's ``state_dict`` as
-``checkpoints/*.pt``.  A checkpoint directory that holds only the JAX
-package's or mxnet's ``*.params`` raises: converting those is ROADMAP
-Queue 1 #11, and ignoring them would silently serve a random decoder.
+``checkpoints/*.pt``.  ``load`` takes its own ``*.pt`` first; otherwise the
+first ``*.params`` / ``*.msgpack`` of the directory, as the JAX package's
+``load`` picks it: an mxnet file of the reference (either naming scheme,
+``core/decoder_convert.py``) or the JAX package's msgpack tree
+(``core/checkpoint.py``), mapped onto the decoder by
+``core/params_bridge.py`` and loaded strictly.
 """
 
 import logging
@@ -36,17 +39,19 @@ import numpy as np
 import torch
 
 from ..core import dtypes
+from ..core.checkpoint import load_checkpoint
 from ..core.config import SolverConfig
+from ..core.decoder_convert import load_decoder_state_dict
+from ..core.mx_params import is_mx_params_file
+from ..core.params_bridge import decoder_state_dict
 from ..data.collection import CollectionDataset
 from ..metrics.seg_metrics import SegmentationMetric
 from ..models.decoder import decoder_from_config
 from ..ops.losses import weighted_softmax_ce
+from ..utils.io import list_files_with_ext
 from .generator import class_mask
 
 log = logging.getLogger(__name__)
-
-FOREIGN_CHECKPOINTS = (".params", ".msgpack")
-
 
 def _mask_weights(mask):
     """1.0 where annotated, 0.0 where ignore."""
@@ -68,7 +73,11 @@ class SegSolver:
         compute_dtype = dtypes.default_policy(self.cfg.dtype).compute_dtype
         self.model = decoder_from_config(self.cfg, compute_dtype)
         self.model.to(self.device).eval()
+        # counts the changes of the weights (reinit, load, every epoch of
+        # fit): FusedPipeline keys its folded kernels on it
+        self.weights_version = 0
         self.reinit()
+        self.print_params(self.model, "decoder")
         self.params_file = None
         self.history: List[List[float]] = []  # per-step losses of each epoch
         self.is_trained = self.load()
@@ -76,6 +85,19 @@ class SegSolver:
     def reinit(self):
         """The seeded init: Xavier(in, 2.34) kernels, zero biases, BN 1/0."""
         self.model.reset_parameters(torch.Generator().manual_seed(self.seed))
+        self.weights_version += 1
+
+    @staticmethod
+    def print_params(model: torch.nn.Module, title: str):
+        """Parameter table like `seg_solver.py:60-81`."""
+        log.info("%-48s%-12s%-24s%-10s", title, "params", "weight shape",
+                 "dtype")
+        total = 0
+        for name, p in model.named_parameters():
+            total += p.numel()
+            log.info("%-48s%-12d%-24s%-10s", name, p.numel(),
+                     str(tuple(p.shape)), str(p.dtype))
+        log.info("%-48s%-12d", "total", total)
 
     # ------------------------------------------------------------------ data
     def init_data(self):
@@ -85,11 +107,16 @@ class SegSolver:
             raise ValueError("number of training samples should be > 0")
         # hold the collection in host memory when it fits cache_max_size
         # (GB): re-reading the pickles every epoch costs more than a step
-        sample = ds.load_sample(ds._feat_names[0])
-        sample_bytes = sum(f.nbytes for f in sample[2]) + sample[1].nbytes
-        if sample_bytes * len(ds) <= self.cfg.cache_max_size * 1024 ** 3:
-            ds = CollectionDataset(self.path_to_data, self.cfg,
-                                   max_samples=None, load_to_memory=True)
+        try:
+            sample = ds.load_sample(ds._feat_names[0])
+            sample_bytes = (sum(f.nbytes for f in sample[2])
+                            + sample[1].nbytes)
+            if sample_bytes * len(ds) <= self.cfg.cache_max_size * 1024 ** 3:
+                ds = CollectionDataset(self.path_to_data, self.cfg,
+                                       max_samples=None, load_to_memory=True)
+        except (OSError, MemoryError) as exc:  # a sample that cannot be
+            # read, or no room on the host: each step then reads its samples
+            log.warning("host cache disabled (%s)", exc)
         iters_per_epoch = len(ds) // self.cfg.train_batch_size
         log.info("total train samples: %d, batch size: %d, epoch size: %d",
                  len(ds), self.cfg.train_batch_size, iters_per_epoch)
@@ -155,24 +182,37 @@ class SegSolver:
     def _try_device_cache(self, dataset):
         """The whole collection on the card, once: ``(feats_all,
         masks_all)`` with feats_all[i] (S, h_i, w_i, c_i) f32 and masks_all
-        (S, H, W) int8 where the labels allow, or None when switched off
-        or over the ``device_cache_gb`` budget (each step then uploads its
-        batch).  ~20 samples of ~130 MB f32 pyramids fit easily, and a
-        step then moves nothing over the host link."""
+        (S, H, W) int8 where the labels allow, or None when switched off,
+        over the ``device_cache_gb`` budget, or when reading or uploading
+        it fails (each step then uploads its batch).  ~20 samples of ~130
+        MB f32 pyramids fit easily, and a step then moves nothing over the
+        host link."""
         cfg = self.cfg
         if not cfg.device_cache or dataset._output_idx:
             return None
-        items = [dataset.get_item(i) for i in range(len(dataset))]
-        masks = np.stack([it[1] for it in items])
-        if masks.min() >= -128 and masks.max() <= 127:
-            masks = masks.astype(np.int8)
-        total = (sum(f.nbytes for f in items[0][2]) * len(items)
-                 + masks.nbytes)
-        budget = cfg.device_cache_gb * 1024 ** 3
-        if total > budget:
-            log.info("device cache skipped: %.2f GB > %.2f GB budget",
-                     total / 1024 ** 3, budget / 1024 ** 3)
+        try:
+            items = [dataset.get_item(i) for i in range(len(dataset))]
+            masks = np.stack([it[1] for it in items])
+            if masks.min() >= -128 and masks.max() <= 127:
+                masks = masks.astype(np.int8)
+            total = (sum(f.nbytes for f in items[0][2]) * len(items)
+                     + masks.nbytes)
+            budget = cfg.device_cache_gb * 1024 ** 3
+            if total > budget:
+                log.info("device cache skipped: %.2f GB > %.2f GB budget",
+                         total / 1024 ** 3, budget / 1024 ** 3)
+                return None
+            cached = self._upload_collection(items, masks)
+        except (torch.cuda.OutOfMemoryError, OSError) as exc:
+            # no room on the card, or a sample that cannot be read: fall
+            # back to the per-step upload
+            log.warning("device cache disabled (%s)", exc)
             return None
+        log.info("device cache: %d samples, %.2f GB resident on %s",
+                 len(items), total / 1024 ** 3, self.device)
+        return cached
+
+    def _upload_collection(self, items, masks):
         feats = []
         for k, f0 in enumerate(items[0][2]):
             dst = torch.empty((len(items), *f0.shape), dtype=torch.float32,
@@ -180,10 +220,7 @@ class SegSolver:
             for s, it in enumerate(items):
                 dst[s].copy_(torch.from_numpy(it[2][k]))
             feats.append(dst)
-        masks_dev = torch.from_numpy(masks).to(self.device)
-        log.info("device cache: %d samples, %.2f GB resident on %s",
-                 len(items), total / 1024 ** 3, self.device)
-        return feats, masks_dev
+        return feats, torch.from_numpy(masks).to(self.device)
 
     def _epoch_batches(self, dataset, epoch: int, cached):
         """(features, int64 mask) of each step of ``epoch`` on the device,
@@ -261,6 +298,7 @@ class SegSolver:
                 log.info("Epoch[%d] Train-total-loss=%f", epoch + 1,
                          float(np.mean(self.history[-1])))
             log.info("Epoch[%d] Time cost=%.3f", epoch + 1, time.time() - tic)
+            self.weights_version += 1
             if epoch_end_callback is not None:
                 self.model.eval()
                 epoch_end_callback()
@@ -361,21 +399,29 @@ class SegSolver:
     def load(self) -> bool:
         if not isdir(self.checkpoints_dir):
             return False
-        files = sorted(f for f in os.listdir(self.checkpoints_dir)
-                       if isfile(join(self.checkpoints_dir, f)))
-        ours = [f for f in files if f.endswith(".pt")]
-        if not ours:
-            foreign = [f for f in files if f.endswith(FOREIGN_CHECKPOINTS)]
-            if foreign:
-                raise RuntimeError(
-                    f"{join(self.checkpoints_dir, foreign[0])} is a JAX-"
-                    "package or mxnet checkpoint; the PyTorch port reads "
-                    "only its own *.pt checkpoints (converting the others is "
-                    "ROADMAP Queue 1 #11)")
+        ours = sorted(f for f in os.listdir(self.checkpoints_dir)
+                      if f.endswith(".pt")
+                      and isfile(join(self.checkpoints_dir, f)))
+        files = ours or list_files_with_ext(self.checkpoints_dir,
+                                            [".params", ".msgpack"])
+        if not files:
             return False
-        path = join(self.checkpoints_dir, ours[0])
-        log.info("loading checkpoint: %s", ours[0])
-        state = torch.load(path, map_location="cpu", weights_only=True)
+        path = join(self.checkpoints_dir, files[0])
+        log.info("loading checkpoint: %s", files[0])
+        if ours:
+            state = torch.load(path, map_location="cpu", weights_only=True)
+        else:
+            tree = load_checkpoint(path)
+            if is_mx_params_file(path):
+                # a reference (mxnet) decoder checkpoint: convert on load
+                state = load_decoder_state_dict(tree, self.cfg)
+            elif isinstance(tree, dict) and "params" in tree:
+                state = decoder_state_dict(tree["params"],
+                                           tree.get("batch_stats", {}))
+            else:
+                raise ValueError(f"{path!r} holds no 'params' tree: not a "
+                                 "decoder checkpoint of the JAX package")
         self.model.load_state_dict(state)
-        self.params_file = ours[0]
+        self.weights_version += 1
+        self.params_file = files[0]
         return True

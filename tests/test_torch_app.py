@@ -145,21 +145,40 @@ def test_untrained_solver_stops_generate(tmp_path, monkeypatch):
 @pytest.mark.parametrize("action", ["train", "evaluate", "annotation"])
 def test_main_says_other_actions_are_not_ported(action, tmp_path,
                                                 monkeypatch):
-    """Only ``annotation`` is still refused; ``train`` and ``evaluate``
-    reach their runners (tests/test_torch_train.py drives them)."""
+    """No action is refused any more: each reaches its runner
+    (tests/test_torch_train.py and tests/test_torch_annotator.py drive
+    them)."""
     ran = []
-    monkeypatch.setattr(app, "run_train", lambda cfg: ran.append("train"))
-    monkeypatch.setattr(app, "run_evaluate",
-                        lambda cfg: ran.append("evaluate"))
+    for name in ("train", "evaluate", "annotation"):
+        monkeypatch.setattr(app, f"run_{name}",
+                            lambda cfg, name=name: ran.append(name))
     config = tmp_path / "config.yml"
     config.write_text(f"BASE_DIR: {tmp_path}\n")
-    if action == "annotation":
-        with pytest.raises(SystemExit, match="not ported"):
-            app.main([action, "--config", str(config)])
-        assert ran == []
-    else:
-        app.main([action, "--config", str(config)])
-        assert ran == [action]
+    app.main([action, "--config", str(config)])
+    assert ran == [action]
+
+
+def test_main_default_action_builds_the_annotator(tmp_path, monkeypatch):
+    """``main([])`` is ``annotation``: under the tk stub it constructs the
+    annotator on ``config.yml``'s settings and enters the main loop."""
+    import chip_smoke
+    monkeypatch.setattr(dtypes, "cuda_device", lambda: CPU)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "config.yml").write_text(
+        f"BASE_DIR: {tmp_path / 'exp'}\nGAN: bedrooms\n"
+        f"GAN_DIR: {tmp_path / 'none'}\nGAN_BATCH_SIZE_PER_GPU: 2\n")
+    monkeypatch.setitem(tconfig.MAX_RES_LOG2, "bedrooms", 4)
+    loops = []
+    with chip_smoke.stub_tk():
+        tk = sys.modules["tkinter"]
+        monkeypatch.setattr(tk.Tk, "mainloop",
+                            lambda self: loops.append(self), raising=False)
+        app.main([])
+        assert len(loops) == 1 and loops[0].kw["title"] == "Image Viewer"
+        assert (tmp_path / "exp" / "data").is_dir()
+        # an unknown annotation type says so and starts no loop
+        app.run_annotation(tconfig.AppConfig(ANNOTATION="points"))
+        assert len(loops) == 1
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -181,8 +200,11 @@ def test_checkpoint_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("name", ["checkpoint_last.params", "x.msgpack"])
 def test_foreign_checkpoint_raises(tmp_path, name):
+    """A ``*.params`` / ``*.msgpack`` in the checkpoint directory is loaded
+    (tests/test_torch_convert.py); one that holds no decoder raises and is
+    never passed over for a random decoder."""
     (tmp_path / name).write_bytes(b"\0")
-    with pytest.raises(RuntimeError, match="Queue 1 #11"):
+    with pytest.raises(ValueError, match="no 'params' tree"):
         SegSolver(4, "", str(tmp_path), device=CPU)
 
 
@@ -193,13 +215,19 @@ def _modules():
 
 
 def test_no_jax_on_the_import_path():
-    """Every module of the port imports with jax, flax, yaml, cv2 and the
-    JAX package itself blocked, and none of them is loaded afterwards (the
-    first dotted component tells ``gan_segmentation_tpu`` apart from
-    ``gan_segmentation_tpu_torch``)."""
+    """Every module of the port (the annotator, the checkpoint readers and
+    the viz helpers among them) imports with jax, flax, msgpack, yaml, cv2,
+    tkinter, PIL and the JAX package itself blocked, and none of them is
+    loaded afterwards (the first dotted component tells
+    ``gan_segmentation_tpu`` apart from ``gan_segmentation_tpu_torch``)."""
+    pkg = gan_segmentation_tpu_torch.__name__
+    assert {f"{pkg}.apps.annotator", f"{pkg}.core.mx_params",
+            f"{pkg}.core.decoder_convert", f"{pkg}.core.checkpoint",
+            f"{pkg}.utils.viz"} <= set(_modules())
     code = f"""
 import importlib, sys
-BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "gan_segmentation_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "yaml", "cv2", "tkinter",
+           "PIL", "gan_segmentation_tpu")
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:

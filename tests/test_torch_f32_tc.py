@@ -23,16 +23,17 @@ CSRC = Path(tc_plan.__file__).parents[1] / "csrc"
 TOL = dict(atol=1e-4, rtol=1e-4)        # chip_smoke.py's TOL["f32"]
 
 
-def _kernel1_shapes(batch):
-    """conv_2 of every synthesis block of the ffhq generator."""
-    gcfg = gan_config("ffhq")
+def _kernel1_shapes(batch, gan="ffhq"):
+    """conv_2 of every synthesis block of the generator of ``gan``."""
+    gcfg = gan_config(gan)
     return [(batch, 2 ** r, 2 ** r, gcfg.num_features(r), gcfg.num_features(r))
             for r in range(2, gcfg.max_res_log2 + 1)]
 
 
-def _kernel2_shapes(batch):
-    """Every 3x3 conv of the ffhq decoder (evaluate: all 26 at batch 1)."""
-    scfg = SolverConfig(max_res_log2=10)
+def _kernel2_shapes(batch, gan="ffhq"):
+    """Every 3x3 conv of the decoder of ``gan`` (ffhq evaluate: all 26 at
+    batch 1)."""
+    scfg = SolverConfig(max_res_log2=gan_config(gan).max_res_log2)
     f, cin = scfg.features, scfg.in_channels
     last = len(cin) - 1
     out = []
@@ -60,6 +61,16 @@ SPLIT_EDGES = [(1, 4, 4, 512, 32), (1, 16, 16, 512, 512), (8, 4, 4, 512, 512),
 CASES = ([(s, False) for s in _kernel2_shapes(1) + _kernel2_shapes(8)]
          + [(s, True) for s in _kernel1_shapes(8) + _kernel1_shapes(1)]
          + [(s, st) for s in SPLIT_EDGES for st in (False, True)])
+# cars 512^2 and bedrooms 256^2: their generators' shapes are ffhq's first
+# 8 and 7, their decoders' all but the tail (64 -> 2 at 512^2 and 256^2)
+CASES += [c for gan in ("cars", "bedrooms") for b in (1, 8)
+          for c in ([(s, False) for s in _kernel2_shapes(b, gan)]
+                    + [(s, True) for s in _kernel1_shapes(b, gan)])
+          if c not in CASES]
+# batch 2, the annotation run's gan_batch_size
+CASES += [c for c in ([(s, False) for s in _kernel2_shapes(2)]
+                      + [(s, True) for s in _kernel1_shapes(2)])
+          if c not in CASES]
 
 
 def test_the_paths_give_26_and_9_shapes():
@@ -67,6 +78,10 @@ def test_the_paths_give_26_and_9_shapes():
     assert _kernel1_shapes(8)[0] == (8, 4, 4, 512, 512)
     assert _kernel1_shapes(8)[-1] == (8, 1024, 1024, 16, 16)
     assert _kernel2_shapes(1)[0] == (1, 4, 4, 512, 32)
+    assert _kernel2_shapes(8, "cars")[-1] == (8, 512, 512, 64, 2)
+    assert _kernel2_shapes(8, "bedrooms")[-1] == (8, 256, 256, 64, 2)
+    assert ((8, 512, 512, 64, 2), False) in CASES
+    assert ((1, 256, 256, 64, 2), False) in CASES
 
 
 def _items(p):

@@ -246,12 +246,14 @@ def test_cuda_kernels_match_plain(cuda, dtype, tol):
                            conv3x3_small(x, wt, b, leaky=0.2))
 
 
-def _path_shapes(batch):
-    """(n, h, w, cin, cout) of every kernel-1 and kernel-2 call of the ffhq
-    1024^2 generate path at this batch."""
+def _path_shapes(batch, gan="ffhq"):
+    """(n, h, w, cin, cout) of every kernel-1 and kernel-2 call of the
+    generate path of ``gan`` (ffhq 1024^2, cars 512^2, bedrooms 256^2) at
+    this batch."""
     from gan_segmentation_tpu_torch.core.config import (SolverConfig,
                                                         gan_config)
-    gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
+    gcfg = gan_config(gan)
+    scfg = SolverConfig(max_res_log2=gcfg.max_res_log2)
     out = []
     for res in range(2, gcfg.max_res_log2 + 1):
         c = gcfg.num_features(res)
@@ -288,15 +290,23 @@ def _covered(p, n, h, w):
     return hits
 
 
-@pytest.mark.parametrize("batch", [8, 1])
+@pytest.mark.parametrize("batch", [8, 1, 2])
 def test_tc_plan_fits_every_path_shape(batch):
-    """The bf16 launch plan of every kernel-1 / kernel-2 call on the path
-    (and of the edge cases): within a block's 227 KB of shared memory, N a
+    """The bf16 launch plan of every kernel-1 / kernel-2 call on the ffhq,
+    cars and bedrooms paths (the last two end in a 64 -> 2 conv at 512^2
+    and 256^2; batch 2 is the annotation run's sampler and Generate) and of
+    the edge cases: within a block's 227 KB of shared memory, N a
     multiple of 8 spanning Cout up to 64, whole warps of 32 pixels, the
     split-K covering every Cin chunk once, a grid inside CUDA's limits, and
     a partial extent (tiles) under which every output pixel of every image
     lands in exactly one (image, tile) partial."""
-    shapes = _path_shapes(batch) + [(batch, *s[1:]) for s in TC_EDGE_SHAPES]
+    tails = [_path_shapes(batch, gan)[-1] for gan in ("cars", "bedrooms")]
+    assert tails == [(batch, 512, 512, 64, 2), (batch, 256, 256, 64, 2)]
+    shapes = sorted(set(_path_shapes(batch) + _path_shapes(batch, "cars")
+                        + _path_shapes(batch, "bedrooms")))
+    assert set(tails) <= set(shapes) and len(shapes) > len(
+        set(_path_shapes(batch)))
+    shapes += [(batch, *s[1:]) for s in TC_EDGE_SHAPES]
     for (n, h, w, cin, cout), noise in itertools.product(shapes, (False,
                                                                    True)):
         p = tc_plan.plan(n, h, w, cin, cout, noise)

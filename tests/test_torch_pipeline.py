@@ -7,6 +7,8 @@ two packages (which differ) do not matter.  uint8 images agree to within 1
 LSB; masks agree wherever the decision is not a near-tie (margin > 1e-3).
 """
 
+import struct
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,8 +180,15 @@ def test_pipeline_refuses_what_is_not_ported(kw, tmp_path):
         tgen.FusedPipeline(_tiny_generator(), solver, **kw)
 
 
-def test_mxnet_generator_weights_raise(tmp_path):
-    (tmp_path / "stylegan-bedrooms.params").write_bytes(b"\0")
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
+@pytest.mark.parametrize("content,match", [
+    (struct.pack("<QQQ", 0x112, 0, 3), "truncated"),   # a torn mxnet file
+    (b"\0", "parameter tree"),                         # msgpack, but no tree
+    (b"\xc1junk", "msgpack")])                         # neither format
+def test_mxnet_generator_weights_raise(tmp_path, content, match):
+    """An existing ``stylegan-<gan>.params`` is loaded, never passed over:
+    one that cannot be read raises ``ValueError`` (a good one loads:
+    tests/test_torch_convert.py)."""
+    (tmp_path / "stylegan-bedrooms.params").write_bytes(content)
+    with pytest.raises(ValueError, match=match):
         tgen.ImageGenerator(gan="bedrooms", max_res_log2=3,
                             gan_dir=str(tmp_path), device=CPU)

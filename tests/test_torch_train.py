@@ -53,7 +53,9 @@ from gan_segmentation_tpu_torch.kernels.conv3x3_grad import Conv3x3
 from gan_segmentation_tpu_torch.kernels.small_conv import conv3x3_small_plain
 from gan_segmentation_tpu_torch.models import decoder as tdec
 from gan_segmentation_tpu_torch.ops import losses as tlosses
-from gan_segmentation_tpu_torch.train.generator import ImageGenerator
+from gan_segmentation_tpu_torch.train import solver as tsolver
+from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                        ImageGenerator)
 from gan_segmentation_tpu_torch.train.solver import SegSolver
 
 torch.set_num_threads(2)  # the test workers share the host's cores
@@ -593,3 +595,99 @@ def test_cli_train_then_evaluate(generator_dir, tmp_path, monkeypatch,
     values = dict(kv.split(": ") for kv in line.split(", "))
     assert list(values) == ["accuracy", "mean-iou", "total-loss"]
     assert all(np.isfinite(float(v)) for v in values.values())
+
+
+def test_pipeline_refolds_after_the_solver_changed(generator_dir, tmp_path):
+    """A pipeline built before ``fit`` / ``reinit`` / ``load`` emits the
+    masks of the solver's weights of now, as a fresh pipeline does: the
+    same z and noise through both.  (Folding once and keeping it served the
+    old decoder.)"""
+    cfg = SolverConfig(max_res_log2=5)
+    cfg.train_epochs = 3
+    solver = SegSolver(5, str(generator_dir), str(tmp_path / "ckpt"), cfg=cfg,
+                       device=CPU)
+    gen = ImageGenerator(gan="bedrooms", batch_size=2, dtype="fp32",
+                         max_res_log2=5, gan_dir=str(tmp_path / "none"),
+                         device=CPU)
+    pipe = FusedPipeline(gen, solver, inference_dtype=torch.float32)
+    z = torch.from_numpy(np.random.RandomState(0).randn(2, 512)
+                         .astype(np.float32))
+
+    def masks(pipeline):
+        return pipeline._fused(z, torch.Generator().manual_seed(1))[1]
+
+    def fresh():
+        return FusedPipeline(gen, solver, inference_dtype=torch.float32)
+
+    before = masks(pipe)
+    assert pipe._prepared() is pipe._prepared()   # kept while nothing changed
+    solver.fit()
+    after = masks(pipe)
+    assert torch.equal(after, masks(fresh()))
+    assert not torch.equal(after, before)
+    solver.reinit()
+    assert torch.equal(masks(pipe), before)
+    assert solver.load()                           # fit's checkpoint_last.pt
+    assert torch.equal(masks(pipe), after)
+
+
+@pytest.mark.parametrize("error", [torch.cuda.OutOfMemoryError("no room"),
+                                   OSError("unreadable")])
+def test_fit_goes_on_when_the_device_cache_fails(narrow_dir, tmp_path,
+                                                 monkeypatch, caplog, error):
+    """A failed upload of the collection is logged and ``fit`` trains on
+    with per-step uploads, to the same losses."""
+    def fit(patched):
+        cfg = _tcfg(use_dropout=False)
+        cfg.train_epochs = 1
+        s = SegSolver(5, str(narrow_dir), str(tmp_path / str(patched)),
+                      cfg=cfg, device=CPU)
+        s.fit()
+        return s
+
+    want = fit(False)
+
+    def refuse(self, items, masks):
+        raise error
+
+    monkeypatch.setattr(SegSolver, "_upload_collection", refuse)
+    with caplog.at_level(logging.WARNING, logger=tsolver.__name__):
+        got = fit(True)
+    assert want.cache_active and not got.cache_active
+    assert "device cache disabled" in caplog.text
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-6)
+
+
+@pytest.mark.parametrize("error", [OSError("unreadable"),
+                                   MemoryError("no room")])
+def test_fit_goes_on_when_the_host_cache_probe_fails(narrow_dir, tmp_path,
+                                                     monkeypatch, caplog,
+                                                     error):
+    """``init_data`` sizes the host cache from one sample; when that read
+    fails, or the host has no room for it, it logs and leaves the collection
+    on disk."""
+    cfg = _tcfg()
+    s = SegSolver(5, str(narrow_dir), str(tmp_path / "ckpt"), cfg=cfg,
+                  device=CPU)
+
+    def unreadable(self, name):
+        raise error
+
+    monkeypatch.setattr(CollectionDataset, "load_sample", unreadable)
+    with caplog.at_level(logging.WARNING, logger=tsolver.__name__):
+        ds, iters = s.init_data()
+    assert "host cache disabled" in caplog.text
+    assert ds._samples is None and iters == 6
+
+
+def test_print_params_lists_every_parameter(caplog):
+    model = tdec.decoder_from_config(_tcfg())
+    with caplog.at_level(logging.INFO, logger=tsolver.__name__):
+        SegSolver.print_params(model, "decoder")
+    lines = [r.getMessage() for r in caplog.records]
+    names = [n for n, _ in model.named_parameters()]
+    assert lines[0].split() == ["decoder", "params", "weight", "shape",
+                                "dtype"]
+    assert [ln.split()[0] for ln in lines[1:-1]] == names
+    total = sum(p.numel() for p in model.parameters())
+    assert lines[-1].split() == ["total", str(total)]
