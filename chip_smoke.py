@@ -59,6 +59,26 @@ Phases (any failure raises, so the exit code is non-zero):
    checkpoint, a pipeline built before Retrain refolded, launch counts by
    stage (kernel 1 in the sampler, kernel 2 in predict, kernels 2 and 3
    in Retrain), wall time of Retrain and of Generate.
+8. deeplab — the DeepLab stack (``models/{resnet,resnext,deeplab}.py``,
+   ``ops/{resize,losses,norm}.py``, ``train/deeplab_trainer.py``), which
+   launches no hand-written kernel (the JAX package computes it outside any
+   Pallas kernel; its convs are ``F.conv2d``).  Small, card against CPU in
+   f32: DeepLabV3+ on resnet50 at 2x96x96 with seeded weights and
+   randomised running statistics (eval outputs, one ``train_step`` without
+   dropout: loss, named gradients, running statistics), DeepLabV3 and
+   SE-ResNeXt-50 eval forwards, the seven losses.  Full width, the
+   experiment's configuration (DeepLabV3+ on dilated resnet50_v1s, 2
+   classes, aux weight 0.5, crop 480, batch 8, SGD 0.9, poly rate from
+   0.005, weight decay 2e-4, head rate x10), f32 with cuDNN's TF32 convs
+   as PyTorch's default has them: eval forward in f32 and bf16 (ms per
+   batch, bf16 logits against f32 logits; exact f32 timed once beside
+   them), 12 ``train_step``s on
+   one seeded batch in f32 and in bf16 with dropout (falling loss, finite
+   gradients, the two rates on the poly curve, ms per step, peak memory,
+   a repeated run's losses), the step's host and device time by kernel
+   family, a step with the batch norm written out beside the fused one.  Loaded weights: a dotted-name DeepLabV3+ file and a
+   legacy-name gluoncv backbone file, fabricated in mxnet's format from a
+   seeded model, load bit-identically and give the source's eval forward.
 
 The last lines are the kernels' JSON record (per kernel: launches on the
 main path, max error, device ms of the kernel, its plain version and the
@@ -2013,6 +2033,611 @@ def phase_annotation(torch):
     return dict(launches=total, retrain_s=seen["retrain_s"],
                 generate_s=seen["generate_s"])
 
+# ----------------------------------------------------------------- deeplab
+DL_BATCH, DL_CROP, DL_CLASSES = 8, 480, 2
+DL_STEPS, DL_WARMUP = 12, 2
+# the experiment's schedule: 20 epochs of 10000 samples at batch 8
+DL_LR, DL_WD, DL_MOMENTUM, DL_TOTAL_ITERS = 0.005, 2e-4, 0.9, 25000
+DL_AUX_WEIGHT = 0.5
+DL_GRADS = ("backbone.stem_conv0", "backbone.layer4_block2.conv2",
+            "aspp.b3_conv", "head_sep1.pointwise", "auxlayer.conv1")
+# card vs CPU in f32 (TF32 off): both sum thousands of products in another
+# order through 57 convs.  A gradient is held by its relative L2 error: 1e-2
+# with batch norm in eval mode (measured 5e-7 to 1.6e-3).  In train mode the
+# gradient of this random, 57-batch-norm-deep model is ill-conditioned: the
+# CPU against itself with its input scaled by 1 + 1e-7 moves it by 0.02-0.05
+# (0.00003 at auxlayer.conv1, next to the loss; the phase measures and logs
+# it), while the loss moves by 1e-6; the card against the CPU measured
+# 0.027-0.034.  A wrong layout or formula moves a gradient by its own size.
+DL_EVAL_TOL = dict(atol=1e-3, rtol=1e-3)
+DL_LOSS_RTOL = 1e-4
+DL_GRAD_L2 = 1e-2
+DL_TRAIN_GRAD_L2 = 0.2
+DL_STAT_TOL = dict(atol=1e-4, rtol=1e-4)
+# full width, bf16 logits against f32 logits on the same weights: a bound
+# on the mean |difference|, six times the first run's reading (0.00033 at a
+# mean |logit| of 0.0535, random init, NVIDIA H100 80GB HBM3)
+DL_BF16_MEAN = 0.002
+
+
+def _deeplab_ref_name(path):
+    """A module path of the port's DeepLabV3Plus -> the attribute path of
+    the reference's ``save_parameters`` file (``core/deeplab_convert.py``'s
+    table, inverted)."""
+    m = re.fullmatch(r"backbone\.stem_conv(\d)", path)
+    if m:
+        return f"conv1.{(0, 3, 6)[int(m.group(1))]}"
+    m = re.fullmatch(r"backbone\.stem_bn(\d)", path)
+    if m:
+        return ("conv1.1", "conv1.4", "bn1")[int(m.group(1))]
+    m = re.fullmatch(r"backbone\.layer(\d)_block(\d+)\.(conv|bn)(\d)", path)
+    if m:
+        i, b, kind, c = m.groups()
+        return f"layer{i}.{b}.{kind}{c}"
+    m = re.fullmatch(r"backbone\.layer(\d)_block0\.downsample_(conv|bn)", path)
+    if m:
+        return f"layer{m.group(1)}.0.downsample." \
+               f"{0 if m.group(2) == 'conv' else 1}"
+    m = re.fullmatch(r"aspp\.b(\d)_(conv|bn)", path)
+    if m:
+        return f"aspp.concurent.{m.group(1)}." \
+               f"{0 if m.group(2) == 'conv' else 1}"
+    m = re.fullmatch(r"head_sep(\d)\.(depthwise|pointwise)(_bn)?", path)
+    if m:
+        idx, kind, is_bn = m.groups()
+        if is_bn:
+            return f"head.block.{idx}.{'bn1' if kind == 'depthwise' else 'bn2'}"
+        return f"head.block.{idx}.{kind}_conv"
+    return {"skip_project.conv": "skip_project.skip_project.0",
+            "skip_project.bn": "skip_project.skip_project.1",
+            "aspp.pool_conv": "aspp.concurent.4.gap.1",
+            "aspp.pool_bn": "aspp.concurent.4.gap.2",
+            "aspp.project_conv": "aspp.project.0",
+            "aspp.project_bn": "aspp.project.1",
+            "head_classifier": "head.block.2",
+            "auxlayer.conv0": "auxlayer.block.0",
+            "auxlayer.bn0": "auxlayer.block.1",
+            "auxlayer.conv1": "auxlayer.block.4"}[path]
+
+
+def _backbone_legacy_name(path, prefix="resnetv1s_"):
+    """A module path of the port's ResNetV1s -> gluoncv's legacy name_scope
+    base name (``core/backbone_convert.py``'s map, inverted)."""
+    m = re.fullmatch(r"stem_(conv|bn)(\d)", path)
+    if m:
+        kind = "conv" if m.group(1) == "conv" else "batchnorm"
+        return f"{prefix}{kind}{m.group(2)}"
+    m = re.fullmatch(r"layer(\d)_block(\d+)\.(conv|bn)(\d)", path)
+    if m:
+        i, b, kind, c = m.groups()
+        kind = "conv" if kind == "conv" else "batchnorm"
+        return f"{prefix}layers{i}_bottleneckv1b{b}_{kind}{int(c) - 1}"
+    m = re.fullmatch(r"layer(\d)_block0\.downsample_(conv|bn)", path)
+    kind = "conv0" if m.group(2) == "conv" else "batchnorm0"
+    return f"{prefix}down{m.group(1)}_{kind}"
+
+
+def _mx_named(state, base_name, sep):
+    """``state_dict`` -> {mxnet name: array}: convs keep OIHW ``weight`` /
+    ``bias``, a batch norm's ``weight`` / ``bias`` become ``gamma`` /
+    ``beta``.  A batch norm is a module whose name holds ``bn``."""
+    mx = {}
+    for key, t in state.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        if "bn" in module.rsplit(".", 1)[-1]:
+            leaf = _BN_NAMES[leaf]
+        mx[f"{base_name(module)}{sep}{leaf}"] = t.detach().float().cpu(
+            ).contiguous().numpy()
+    return mx
+
+
+def deeplab_mx_arrays(state):
+    """A DeepLabV3Plus ``state_dict`` of the port -> the dotted attribute
+    paths of the reference's ``save_parameters`` file."""
+    return _mx_named(state, _deeplab_ref_name, ".")
+
+
+def backbone_mx_arrays(state):
+    """A ResNetV1s ``state_dict`` of the port -> gluoncv's legacy names,
+    with the classifier a real file also holds and a loader must skip."""
+    import numpy as np
+
+    mx = _mx_named(state, _backbone_legacy_name, "_")
+    mx["resnetv1s_dense0_weight"] = np.zeros((10, 2048), np.float32)
+    mx["resnetv1s_dense0_bias"] = np.zeros(10, np.float32)
+    return mx
+
+
+def deeplab_batch(torch, batch=DL_BATCH, size=DL_CROP, seed=21, device="cuda"):
+    """A seeded batch: uint8 NHWC images whose colour follows a blocky
+    field, int8 masks {0, 1} from the same field with -1 on ~6% of the
+    pixels."""
+    g = torch.Generator().manual_seed(seed)
+    cells = max(size // 32, 1)
+    field = torch.rand((batch, cells, cells), generator=g) > 0.5
+    field = field.repeat_interleave(size // cells, 1).repeat_interleave(
+        size // cells, 2)
+    colour = torch.tensor([[60.0, 90.0, 150.0], [190.0, 140.0, 70.0]])
+    images = colour[field.long()] + 40.0 * torch.randn(
+        (batch, size, size, 3), generator=g)
+    masks = field.to(torch.int8)
+    masks[torch.rand((batch, size, size), generator=g) < 0.06] = -1
+    return (images.clamp(0, 255).to(torch.uint8).to(device),
+            masks.to(device))
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def deeplab_small_reference(torch):
+    """Card against CPU at 2x96x96 in f32 (TF32 off)."""
+    import copy
+
+    from gan_segmentation_tpu_torch.models import resnext
+    from gan_segmentation_tpu_torch.models.deeplab import (DeepLabV3,
+                                                           DeepLabV3Plus)
+    from gan_segmentation_tpu_torch.ops import losses
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import (
+        make_optimizer, train_step)
+
+    cuda = torch.device("cuda")
+    images, masks = deeplab_batch(torch, 2, 96, seed=22, device="cpu")
+    x = (images.float() / 255.0 - 0.45) / 0.225
+
+    def both(model):
+        perturb(torch, model, 23)
+        return model, copy.deepcopy(model).to(cuda)
+
+    cpu, card = both(DeepLabV3Plus(DL_CLASSES, use_dropout=False))
+    for m in (cpu, card):
+        m.eval()
+    with torch.no_grad():
+        want, got = cpu(x), card(x.to(cuda))
+    errs = []
+    for name, g, w in zip(("out", "aux"), got, want):
+        assert g.shape == (2, 96, 96, DL_CLASSES)
+        check_close(f"deeplab small eval {name}", g.cpu(), w, **DL_EVAL_TOL)
+        errs.append(max_err(g.cpu(), w))
+    # the loss's gradients with batch norm in eval mode
+    eval_errs = {}
+    grads = {}
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        out = [o.float() for o in m(x.to(dev))]
+        losses.seg_loss_with_aux(out[0], out[1], masks.to(dev),
+                                 aux_weight=DL_AUX_WEIGHT).mean().backward()
+        grads[str(dev)] = {k: p.grad for k, p in m.named_parameters()}
+    for name in DL_GRADS:
+        k = f"{name}.weight"
+        eval_errs[name] = rel_l2(grads["cuda"][k], grads["cpu"][k])
+        assert eval_errs[name] < DL_GRAD_L2, (k, eval_errs[name])
+    del grads
+
+    readings = {}
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        opt, sched = make_optimizer(m, DL_LR, DL_TOTAL_ITERS, DL_WD,
+                                    DL_MOMENTUM)
+        loss, _ = train_step(m, opt, sched, images.to(dev), masks.to(dev),
+                             aux_weight=DL_AUX_WEIGHT)
+        readings[str(dev)] = (float(loss), {
+            k: p.grad for k, p in m.named_parameters()}, m.state_dict())
+    # the train-mode gradient's own conditioning: the CPU against itself
+    # with the input scaled by 1 + 1e-7
+    self_grads = []
+    for factor in (1.0, 1.0 + 1e-7):
+        m = copy.deepcopy(cpu)
+        opt, sched = make_optimizer(m, DL_LR, DL_TOTAL_ITERS, DL_WD,
+                                    DL_MOMENTUM)
+        train_step(m, opt, sched, x * factor, masks,
+                   aux_weight=DL_AUX_WEIGHT)
+        self_grads.append({k: p.grad for k, p in m.named_parameters()})
+    (lc, gc, sc), (lg, gg, sg) = readings["cpu"], readings["cuda"]
+    self_errs = {name: rel_l2(self_grads[1][f"{name}.weight"],
+                              self_grads[0][f"{name}.weight"])
+                 for name in DL_GRADS}
+    del self_grads
+    assert abs(lg - lc) <= DL_LOSS_RTOL * abs(lc), (lg, lc)
+    grad_errs = {}
+    for name in DL_GRADS:
+        k = f"{name}.weight"
+        grad_errs[name] = rel_l2(gg[k], gc[k])
+        assert grad_errs[name] < DL_TRAIN_GRAD_L2, (k, grad_errs[name])
+    assert all(bool(torch.isfinite(g).all()) for g in gg.values())
+    stat_err = 0.0
+    for k, w in sc.items():
+        if k.endswith(("running_mean", "running_var")):
+            check_close(f"deeplab small {k}", sg[k].cpu(), w, **DL_STAT_TOL)
+            stat_err = max(stat_err, max_err(sg[k].cpu(), w))
+    log(f"deeplab small (DeepLabV3+ resnet50, 2x96x96, f32) card vs CPU: "
+        f"eval out / aux max|err| {errs[0]:.3g} / {errs[1]:.3g} (tol "
+        f"{DL_EVAL_TOL}); the loss's gradients with batch norm in eval "
+        f"mode, relative L2 error "
+        f"{ {k: float(f'{v:.2g}') for k, v in eval_errs.items()} } (< "
+        f"{DL_GRAD_L2}); train_step loss {lg:.6f} vs {lc:.6f} (rtol "
+        f"{DL_LOSS_RTOL}), its gradients "
+        f"{ {k: float(f'{v:.2g}') for k, v in grad_errs.items()} } (< "
+        f"{DL_TRAIN_GRAD_L2}; ill-conditioned in train mode: the CPU "
+        f"against itself with its input scaled by 1 + 1e-7 "
+        f"{ {k: float(f'{v:.2g}') for k, v in self_errs.items()} }); "
+        f"running statistics max|err| {stat_err:.3g} (tol {DL_STAT_TOL})")
+    del cpu, card, readings
+
+    others = {}
+    for name, make in (
+            ("DeepLabV3", lambda: DeepLabV3(DL_CLASSES)),
+            ("SE-ResNeXt-50", resnext.se_resnext50_32x4d)):
+        cpu, card = both(make())
+        for m in (cpu, card):
+            m.eval()
+        with torch.no_grad():
+            want, got = cpu(x), card(x.to(cuda))
+        for i, (g, w) in enumerate(zip(got, want)):
+            check_close(f"{name} small eval output {i}", g.cpu(), w,
+                        **DL_EVAL_TOL)
+        others[name] = max(max_err(g.cpu(), w) for g, w in zip(got, want))
+        del cpu, card
+
+    g = torch.Generator().manual_seed(24)
+    logits = 2.0 * torch.randn((3, 24, 20, 4), generator=g)
+    flat = 2.0 * torch.randn((3, 24, 20), generator=g)
+    labels = torch.randint(-1, 4, (3, 24, 20), generator=g)
+    labels[-1] = -1
+    binary = labels.clamp_max(1)
+    area = 0.2 + torch.rand((3, 24, 20), generator=g)
+    cases = {
+        "weighted_softmax_ce": lambda d: losses.weighted_softmax_ce(
+            logits.to(d), labels.to(d), area.to(d)),
+        "softmax_ce_valid_norm": lambda d: losses.softmax_ce_valid_norm(
+            logits.to(d), labels.to(d)),
+        "normalized_focal_loss_softmax": lambda d:
+            losses.normalized_focal_loss_softmax(logits.to(d), labels.to(d)),
+        "area_normalized_focal_loss_softmax": lambda d:
+            losses.area_normalized_focal_loss_softmax(
+                logits.to(d), labels.to(d), area.to(d)),
+        "normalized_focal_loss_sigmoid": lambda d:
+            losses.normalized_focal_loss_sigmoid(flat.to(d), binary.to(d)),
+        "focal_loss_sigmoid": lambda d: losses.focal_loss_sigmoid(
+            flat.to(d), binary.to(d)),
+        "seg_loss_with_aux": lambda d: losses.seg_loss_with_aux(
+            logits.to(d), 0.5 * logits.to(d), labels.to(d)),
+    }
+    for name, call in cases.items():
+        want, got = call("cpu"), call(cuda)
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for gt, wt in zip(got, want):
+            check_close(f"loss {name}", gt.cpu(), wt, atol=1e-6, rtol=1e-5)
+    log(f"deeplab small: DeepLabV3 / SE-ResNeXt-50 eval max|err| "
+        f"{others['DeepLabV3']:.3g} / {others['SE-ResNeXt-50']:.3g}; the "
+        f"{len(cases)} losses on the card equal the CPU's (rtol 1e-5)")
+
+
+def deeplab_train_run(torch, model, state, images, masks, dtype,
+                      steps=DL_STEPS, seed=31):
+    """``steps`` train steps on one batch with ``model`` set back to
+    ``state``, a new optimizer and dropout on.  -> (losses, ms per step
+    after the warm-up, peak bytes, the two rates before each step)."""
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import (
+        make_optimizer, train_step)
+
+    model.load_state_dict(state)
+    opt, sched = make_optimizer(model, DL_LR, DL_TOTAL_ITERS, DL_WD,
+                                DL_MOMENTUM)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses, rates = [], []
+    for step in range(steps):
+        if step == DL_WARMUP:
+            start.record()
+        rates.append([g["lr"] for g in opt.param_groups])
+        loss, pred = train_step(model, opt, sched, images, masks, gen,
+                                aux_weight=DL_AUX_WEIGHT, dtype=dtype)
+        losses.append(loss)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / max(steps - DL_WARMUP, 1)
+    assert pred.shape == (DL_BATCH, DL_CROP, DL_CROP, DL_CLASSES)
+    assert pred.dtype == torch.float32
+    return ([float(v) for v in torch.stack(losses).cpu()], ms,
+            torch.cuda.max_memory_allocated(), rates)
+
+
+def deeplab_profile(torch, model, state, images, masks, dtype, steps=3):
+    """Where a full-width train step's time goes: wall time against the
+    host's time to enqueue 10 steps, and the device time of ``steps`` profiled
+    steps by kernel family (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import (
+        make_optimizer, train_step)
+
+    model.load_state_dict(state)
+    opt, sched = make_optimizer(model, DL_LR, DL_TOTAL_ITERS, DL_WD,
+                                DL_MOMENTUM)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+
+    def step():
+        train_step(model, opt, sched, images, masks, gen,
+                   aux_weight=DL_AUX_WEIGHT, dtype=dtype)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    enqueued = time.perf_counter()
+    torch.cuda.synchronize()
+    wall_ms, host_ms = ((time.perf_counter() - t0) * 100,
+                        (enqueued - t0) * 100)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    by_name, launches = {}, 0
+    for evt in prof.events():
+        annotation = (getattr(evt, "is_user_annotation", False)
+                      or evt.name.startswith("Optimizer."))
+        if evt.device_type == DeviceType.CUDA and not annotation:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+            launches += 1
+
+    def family(name):
+        low = name.lower()
+        if "batch_norm" in low or "batchnorm" in low or "bn_fw" in low \
+                or "bn_bw" in low:
+            return "batch norm"
+        if any(k in low for k in ("conv", "gemm", "xmma", "cudnn", "cutlass",
+                                  "wgrad", "dgrad", "nhwc", "nchw")):
+            return "cuDNN convs (forward, dgrad, wgrad, layout)"
+        if "upsample" in low or "max_pool" in low:
+            return "resize and max-pool"
+        if "memcpy" in low or "memset" in low:
+            return "memcpy / memset"
+        return "elementwise and reductions (relu, add, casts, dropout, " \
+               "loss, SGD)"
+
+    fam = {}
+    for name, t in by_name.items():
+        fam[family(name)] = fam.get(family(name), 0.0) + t / steps
+    busy = sum(fam.values())
+    log(f"deeplab train step {str(dtype).split('.')[1]}: wall {wall_ms:.3f} "
+        f"ms per step over 10 steps, host enqueue {host_ms:.3f} ms; device "
+        f"kernel time {busy:.3f} ms per step in {launches // steps} launches "
+        f"(profiler), busy share {busy / wall_ms:.3f}")
+    for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
+        log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {t / steps:8.3f} ms/step  {name[:110]}")
+    return dict(wall_ms=wall_ms, host_enqueue_ms=host_ms, busy_ms=busy,
+                launches=launches // steps, families=fam)
+
+
+def deeplab_full_width(torch, smi):
+    from gan_segmentation_tpu_torch.models import resnet
+    from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+    from gan_segmentation_tpu_torch.ops.norm import batch_norm_train
+    from gan_segmentation_tpu_torch.ops.resize import bilinear_resize
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import (
+        eval_step, poly_schedule)
+
+    images, masks = deeplab_batch(torch)
+    assert images.dtype == torch.uint8 and masks.dtype == torch.int8
+    assert set(masks.unique().tolist()) == {-1, 0, 1}
+    t0 = time.perf_counter()
+    model = DeepLabV3Plus(DL_CLASSES, "resnet50", aux=True, crop_size=DL_CROP,
+                          generator=torch.Generator().manual_seed(41))
+    init_s = time.perf_counter() - t0
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    model.cuda()
+
+    # (i) eval forward
+    out = {}
+    ms = {}
+    for name, dtype, tf32, reps in (("f32_exact", torch.float32, False, 2),
+                                    ("f32", torch.float32, True, REPS),
+                                    ("bf16", torch.bfloat16, True, REPS)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        t0 = time.perf_counter()
+        out[name] = eval_step(model, images, dtype=dtype)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        ms[name] = cuda_ms(lambda: eval_step(model, images, dtype=dtype),
+                           reps)
+        log(f"deeplab eval {name}: first call {first * 1e3:.1f} ms, then "
+            f"{ms[name]:.3f} ms per batch of {DL_BATCH} at {DL_CROP}^2")
+    for o in out.values():
+        assert o.shape == (DL_BATCH, DL_CROP, DL_CROP, DL_CLASSES)
+        assert o.dtype == torch.float32 and bool(torch.isfinite(o).all())
+    diff = (out["bf16"] - out["f32"]).abs()
+    flips = float((out["bf16"].argmax(-1) != out["f32"].argmax(-1)
+                   ).float().mean())
+    mean_diff, max_diff = float(diff.mean()), float(diff.max())
+    scale = float(out["f32"].abs().mean())
+    tf_diff = float((out["f32_exact"] - out["f32"]).abs().mean())
+    log(f"deeplab eval bf16 logits against f32 logits (mean |logit| "
+        f"{scale:.4f}): mean |difference| {mean_diff:.5f} (bound "
+        f"{DL_BF16_MEAN}), max {max_diff:.4f}, argmax flips on {flips:.5f} "
+        f"of the pixels; f32 with TF32 convs against exact f32: mean "
+        f"{tf_diff:.6f}")
+    assert mean_diff < DL_BF16_MEAN, (mean_diff, DL_BF16_MEAN)
+    # what the layouts do: an NHWC tensor viewed as NCHW is channels-last
+    with torch.no_grad():
+        x = torch.zeros((1, 64, 64, 3), device="cuda")
+        c1, c3, c4 = model.backbone(x)
+        y = model.aspp(c4)
+        layouts = {n: t.is_contiguous() for n, t in (
+            ("c1", c1), ("c4", c4), ("aspp", y),
+            ("resized", bilinear_resize(y, 16, 16)))}
+    log(f"deeplab layouts, NHWC-contiguous (channels-last under F.conv2d): "
+        f"{layouts}")
+    assert layouts["c1"] and layouts["c4"] and layouts["aspp"], layouts
+    del out, diff
+
+    # (ii) train steps
+    runs = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        losses, step_ms, peak, rates = deeplab_train_run(
+            torch, model, state, images, masks, dtype)
+        assert all(l == l and abs(l) < 1e4 for l in losses), losses
+        assert losses[-1] < 0.7 * losses[0], (name, losses)
+        grads = [p.grad for p in model.parameters()]
+        assert all(g is not None and bool(torch.isfinite(g).all())
+                   for g in grads), f"{name}: a gradient is missing or " \
+                                    f"not finite"
+        assert all(g.dtype == torch.float32 for g in grads)
+        sched = poly_schedule(DL_LR, DL_TOTAL_ITERS)
+        for step, (base, head) in enumerate(rates):
+            assert abs(base - sched(step)) <= 1e-9 + 1e-6 * base, (step, base)
+            assert abs(head - 10.0 * base) <= 1e-6 * head, (step, base, head)
+        assert rates[-1][0] < rates[0][0]
+        stats = model.state_dict()
+        moved = float((stats["backbone.stem_bn0.running_mean"]
+                       - state["backbone.stem_bn0.running_mean"].cuda()
+                       ).abs().max())
+        assert moved > 0, "running statistics did not move"
+        del grads
+        # the same seeds again: the first loss is a forward's; the second
+        # follows a backward, whose weight gradients cuDNN sums with
+        # atomics, and the third the ill-conditioned gradient of that
+        again, _, _, _ = deeplab_train_run(torch, model, state, images,
+                                           masks, dtype, steps=3)
+        same = [a == b for a, b in zip(again, losses)]
+        assert same[0], f"{name}: first-step loss differs between two runs"
+        drift = [abs(a - b) / abs(b) for a, b in zip(again, losses)]
+        assert drift[1] <= 1e-2, (name, drift)
+        runs[name] = dict(losses=losses, ms=step_ms, peak=peak,
+                          repeat_equal=same, repeat_drift=drift)
+        log(f"deeplab train {name}: {DL_STEPS} steps on one batch of "
+            f"{DL_BATCH} at {DL_CROP}^2, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, {step_ms:.3f} ms per step (steps "
+            f"{DL_WARMUP + 1}-{DL_STEPS}, CUDA events), peak memory "
+            f"{peak / 2 ** 30:.2f} GiB, rates {rates[0][0]:.6f} / "
+            f"{rates[0][1]:.6f} -> {rates[-1][0]:.6f} / {rates[-1][1]:.6f} "
+            f"on the poly curve; a second run's first 3 losses bit-equal: "
+            f"{same}, relative differences "
+            f"{[float(f'{d:.2g}') for d in drift]} (cuDNN sums the weight "
+            f"gradients with atomics)")
+
+    prof = {name: deeplab_profile(torch, model, state, images, masks, dtype)
+            for name, dtype in (("f32", torch.float32),
+                                ("bf16", torch.bfloat16))}
+
+    # the batch norm written out (the decoder's form) beside the fused one
+    fused = resnet.batch_norm
+    resnet.batch_norm = lambda x, bn, train: (
+        batch_norm_train(x, bn) if train else fused(x, bn, False))
+    plain = {}
+    try:
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            losses, step_ms, peak, _ = deeplab_train_run(
+                torch, model, state, images, masks, dtype, steps=5)
+            assert abs(losses[0] - runs[name]["losses"][0]) <= \
+                (1e-4 if name == "f32" else 2e-2) * runs[name]["losses"][0]
+            plain[name] = dict(ms=step_ms, peak=peak)
+    finally:
+        resnet.batch_norm = fused
+        torch.backends.cudnn.allow_tf32 = False
+    log(f"deeplab train with the batch norm written out "
+        f"(ops/norm.py::batch_norm_train) instead of F.batch_norm: "
+        f"{plain['f32']['ms']:.3f} ms per step and "
+        f"{plain['f32']['peak'] / 2 ** 30:.2f} GiB in f32, "
+        f"{plain['bf16']['ms']:.3f} ms and "
+        f"{plain['bf16']['peak'] / 2 ** 30:.2f} GiB in bf16")
+    return dict(
+        config=f"DeepLabV3+ resnet50_v1s dilated, {DL_CLASSES} classes, aux "
+               f"{DL_AUX_WEIGHT}, crop {DL_CROP}, batch {DL_BATCH}, SGD "
+               f"{DL_MOMENTUM}, poly from {DL_LR}, wd {DL_WD}, head x10",
+        params=n_params, init_s=init_s, eval_ms=ms,
+        bf16_vs_f32=dict(mean=mean_diff, max=max_diff, argmax_flips=flips,
+                         f32_mean_abs=scale, bound=DL_BF16_MEAN),
+        tf32_vs_f32_mean=tf_diff, train=runs, train_profile=prof,
+        train_plain_bn=plain, card=smi)
+
+
+def deeplab_loaded_weights(torch):
+    """A dotted-name DeepLabV3+ file and a legacy-name gluoncv backbone
+    file in mxnet's format, fabricated from a seeded model: every tensor
+    loads bit-identically and the eval forward equals the source's."""
+    from gan_segmentation_tpu_torch.core.backbone_convert import \
+        load_backbone_state_dict
+    from gan_segmentation_tpu_torch.core.deeplab_convert import \
+        load_deeplab_state_dict
+    from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+
+    src = DeepLabV3Plus(DL_CLASSES, generator=torch.Generator().manual_seed(
+        51))
+    perturb(torch, src, 52)
+    state = src.state_dict()
+    images, _ = deeplab_batch(torch, 2, 96, seed=53)
+    x = (images.float() / 255.0 - 0.45) / 0.225
+    src.cuda().eval()
+    with torch.no_grad():
+        want = src(x)
+    out = {}
+    with tempfile.TemporaryDirectory() as base:
+        path = join(base, "last_checkpoint.params")
+        write_mx_file(path, deeplab_mx_arrays(state))
+        t0 = time.perf_counter()
+        loaded = DeepLabV3Plus(DL_CLASSES, generator=torch.Generator(
+            ).manual_seed(54))
+        loaded.load_state_dict(load_deeplab_state_dict(path))
+        out["deeplab_s"] = time.perf_counter() - t0
+        out["deeplab_mib"] = os.path.getsize(path) / 2 ** 20
+        got_state = loaded.state_dict()
+        assert got_state.keys() == state.keys()
+        for k, v in state.items():
+            assert torch.equal(got_state[k], v.cpu()), k
+        loaded.cuda().eval()
+        with torch.no_grad():
+            got = loaded(x)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+            "the loaded DeepLabV3+ gives another forward"
+
+        bb_path = join(base, "resnet50_v1s.params")
+        bb_state = {k[len("backbone."):]: v for k, v in state.items()
+                    if k.startswith("backbone.")}
+        write_mx_file(bb_path, backbone_mx_arrays(bb_state))
+        fresh = DeepLabV3Plus(DL_CLASSES, generator=torch.Generator(
+            ).manual_seed(55))
+        before = fresh.backbone.layer4_block2.conv2.weight.clone()
+        fresh.backbone.load_state_dict(load_backbone_state_dict(bb_path))
+        out["backbone_mib"] = os.path.getsize(bb_path) / 2 ** 20
+        assert not torch.equal(before,
+                               fresh.backbone.layer4_block2.conv2.weight)
+        for k, v in bb_state.items():
+            assert torch.equal(fresh.backbone.state_dict()[k], v.cpu()), k
+        fresh.cuda().eval()
+        with torch.no_grad():
+            taps, want_taps = fresh.backbone(x), src.backbone(x)
+        assert all(torch.equal(g, w) for g, w in zip(taps, want_taps)), \
+            "the loaded backbone gives other taps"
+    log(f"deeplab loaded weights: last_checkpoint.params "
+        f"{out['deeplab_mib']:.1f} MiB (mxnet format, dotted names, "
+        f"{len(state)} tensors) loads bit-identically in "
+        f"{out['deeplab_s']:.2f} s (model build included) and gives the "
+        f"source's eval forward; resnet50_v1s.params "
+        f"{out['backbone_mib']:.1f} MiB (legacy gluoncv names) loads the "
+        f"backbone bit-identically, taps equal")
+    return out
+
+
+def phase_deeplab(torch, smi):
+    deeplab_small_reference(torch)
+    rec = deeplab_full_width(torch, smi)
+    rec["loaded_weights"] = deeplab_loaded_weights(torch)
+    torch.cuda.empty_cache()
+    return rec
+
 
 def main():
     import torch
@@ -2079,6 +2704,13 @@ def main():
         f"Generate {an['generate_s']:.2f} s; foreign weights: generator "
         f"loaded in {fw['gen_load_s']:.2f} s, decoder in "
         f"{fw['dec_load_s']:.2f} s on {smi}")
+
+    # 8. deeplab
+    dl = phase_deeplab(torch, smi)
+    log(f"deeplab crop {DL_CROP} batch {DL_BATCH}: eval "
+        f"{dl['eval_ms']['f32']:.3f} ms (f32) / {dl['eval_ms']['bf16']:.3f} "
+        f"ms (bf16) per batch, train {dl['train']['f32']['ms']:.3f} ms (f32) "
+        f"/ {dl['train']['bf16']['ms']:.3f} ms (bf16) per step on {smi}")
 
     launches = {
         "conv_in_stats": {"generate": sl["launches"]["conv_in_stats"],
@@ -2153,6 +2785,7 @@ def main():
                              batch_plain_ms_f32=f32["plain"],
                              batch_library_ms_f32=f32["library"])
         kernels.append(entry)
+    print(json.dumps({"deeplab": dl}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

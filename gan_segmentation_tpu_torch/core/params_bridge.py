@@ -13,10 +13,12 @@ multipliers at run time (`gan_segmentation_tpu/models/layers.py:79-90,
   jax_w[k-1-ky, k-1-kx, ci, co]``;
 - dense (in, out) -> (out, in);
 - the JAX package's BatchNorm ``scale``/``bias`` and batch stats
-  ``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``.
+  ``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``
+  (``tree_state_dict``, for the decoder and the DeepLab models, whose
+  submodules carry the JAX package's names; ``state_dict_trees`` is its inverse).
 """
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -68,11 +70,15 @@ def generator_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 
 
-def decoder_state_dict(params: Mapping,
-                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX ``Decoder`` params + batch_stats -> ``models.decoder``
-    state_dict.  Conv ``kernel`` and BatchNorm ``scale`` both become
-    ``weight``; ``bias`` keeps its name in both."""
+def tree_state_dict(params: Mapping,
+                    batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """A conv / batch-norm model's JAX trees -> the ``state_dict`` of the
+    port's module with the same submodule names.  Conv ``kernel`` (HWIO,
+    grouped and depthwise too: ``(kh, kw, Cin/groups, Cout)`` ->
+    ``(Cout, Cin/groups, kh, kw)``) and BatchNorm ``scale`` both become
+    ``weight``; ``bias`` keeps its name; the batch statistics ``mean`` /
+    ``var`` become ``running_mean`` / ``running_var``, and every batch norm
+    gets its ``num_batches_tracked``."""
     out = {}
     for key, v in _flatten(params).items():
         module, leaf = key.rsplit(".", 1)
@@ -88,3 +94,49 @@ def decoder_state_dict(params: Mapping,
             np.array(v, np.float32))
         out[f"{module}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def decoder_state_dict(params: Mapping,
+                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``Decoder`` params + batch_stats -> ``models.decoder``
+    state_dict."""
+    return tree_state_dict(params, batch_stats)
+
+
+def deeplab_state_dict(params: Mapping,
+                       batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``DeepLabV3Plus`` / ``DeepLabV3`` / ``ResNetV1s`` /
+    ``ResNextDilated`` params + batch_stats -> the state_dict of the
+    port's model of the same name (`models/deeplab.py`, `resnet.py`,
+    `resnext.py`)."""
+    return tree_state_dict(params, batch_stats)
+
+
+def _put(tree: Dict, dotted: str, value) -> None:
+    *path, leaf = dotted.split(".")
+    for p in path:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
+def state_dict_trees(state: Mapping) -> Tuple[Dict, Dict]:
+    """The inverse of ``tree_state_dict``: a ``state_dict`` of conv and
+    batch-norm modules -> numpy ``(params, batch_stats)`` trees.  A 4-d
+    ``weight`` is a conv kernel (-> HWIO ``kernel``), a 1-d ``weight`` a
+    batch norm's ``scale``."""
+    params, batch_stats = {}, {}
+    for key, t in state.items():
+        module, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        v = t.detach().float().cpu().numpy()
+        if leaf == "weight" and v.ndim == 4:
+            _put(params, f"{module}.kernel",
+                 np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
+        elif leaf == "weight":
+            _put(params, f"{module}.scale", v)
+        elif leaf in ("running_mean", "running_var"):
+            _put(batch_stats, f"{module}.{leaf[len('running_'):]}", v)
+        else:
+            _put(params, key, v)
+    return params, batch_stats

@@ -33,12 +33,13 @@ from ..core.config import SolverConfig
 from ..kernels.conv3x3_grad import Conv3x3
 from ..kernels.small_conv import conv3x3_small
 from ..ops.conv import conv2d
+from ..ops.dropout import dropout
+from ..ops.norm import batch_norm_train
 from ..ops.resize import upsample_nearest_2x
 from .layers import hwio
 
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.2
-DROPOUT_RATE = 0.5
 Folded = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -79,41 +80,6 @@ def leaky_relu(x, slope: float = LEAKY_SLOPE):
     """``where(x >= 0, x, slope * x)``, as the JAX package (its gradient at
     0 is 1)."""
     return torch.where(x >= 0, x, slope * x)
-
-
-def batch_norm_train(x, bn: nn.BatchNorm2d):
-    """Train-mode batch norm of NHWC ``x`` as the JAX package's
-    ``BatchNorm`` computes it, updating ``bn``'s running statistics in
-    place.
-
-    Statistics in f32 over (N, H, W): ``mean = E[x]`` and the BIASED
-    variance ``max(E[x^2] - mean^2, 0)`` (the JAX side's fast variance).
-    The running update is ``ra = 0.9 ra + 0.1 stat`` with that biased variance;
-    ``nn.BatchNorm2d``'s train mode would fold in the unbiased variance
-    instead, which at batch 1 and 4x4 is 16/15 of it.  Output
-    ``(x - mean) * rsqrt(var + eps) * scale + shift`` in x's dtype."""
-    xf = x.float()
-    dims = (0, 1, 2)
-    mean = xf.mean(dim=dims)
-    var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
-    with torch.no_grad():
-        keep = 1.0 - bn.momentum
-        bn.running_mean.mul_(keep).add_(mean, alpha=bn.momentum)
-        bn.running_var.mul_(keep).add_(var, alpha=bn.momentum)
-        bn.num_batches_tracked.add_(1)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return ((xf - mean) * mul + bn.bias).to(x.dtype)
-
-
-def dropout(x, generator: torch.Generator, rate: float = DROPOUT_RATE):
-    """The JAX package's ``Dropout``: keep where uniform < 1 - rate, scaled
-    by 1 / (1 - rate).  The bits come from ``generator`` (PyTorch's stream,
-    not JAX's)."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
 
 
 def conv3x3_train(conv: "Conv", x):

@@ -24,12 +24,28 @@ def _oihw(w):
     return w.permute(3, 2, 0, 1)
 
 
-def conv2d(x, w, b=None, *, stride: int = 1, padding: int = 0,
-           groups: int = 1):
+def conv2d(x, w, b=None, *, stride: int = 1, padding=0, groups: int = 1,
+           dilation: int = 1):
     """x: (N,H,W,C), w: (kh,kw,Cin/groups,Cout); cross-correlation with
-    symmetric zero padding, as mxnet ``Convolution``."""
-    y = _nhwc(F.conv2d(_nchw(x), _oihw(w), stride=stride, padding=padding,
-                       groups=groups))
+    zero padding, as mxnet ``Convolution``.  ``padding`` is one int for
+    both sides of both spatial dims, or a (begin, end) pair."""
+    return conv2d_oihw(x, _oihw(w), b, stride=stride, padding=padding,
+                       groups=groups, dilation=dilation)
+
+
+def conv2d_oihw(x, w, b=None, *, stride: int = 1, padding=0,
+                groups: int = 1, dilation: int = 1):
+    """``conv2d`` with the kernel as PyTorch keeps it, (Cout, Cin/groups,
+    kh, kw)."""
+    x = _nchw(x)
+    if not isinstance(padding, int):
+        beg, end = padding
+        if beg != end:
+            x, padding = F.pad(x, (beg, end, beg, end)), 0
+        else:
+            padding = beg
+    y = _nhwc(F.conv2d(x, w, stride=stride, padding=padding,
+                       dilation=dilation, groups=groups))
     if b is not None:
         y = y + b.to(y.dtype)
     return y

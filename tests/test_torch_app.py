@@ -223,11 +223,15 @@ def test_no_jax_on_the_import_path():
     pkg = gan_segmentation_tpu_torch.__name__
     assert {f"{pkg}.apps.annotator", f"{pkg}.core.mx_params",
             f"{pkg}.core.decoder_convert", f"{pkg}.core.checkpoint",
-            f"{pkg}.utils.viz"} <= set(_modules())
+            f"{pkg}.utils.viz", f"{pkg}.models.resnet",
+            f"{pkg}.models.resnext", f"{pkg}.models.deeplab",
+            f"{pkg}.core.backbone_convert", f"{pkg}.core.deeplab_convert",
+            f"{pkg}.train.deeplab_trainer", f"{pkg}.ops.dropout"
+            } <= set(_modules())
     code = f"""
 import importlib, sys
-BLOCKED = ("jax", "jaxlib", "flax", "msgpack", "yaml", "cv2", "tkinter",
-           "PIL", "gan_segmentation_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "cv2",
+           "tkinter", "PIL", "gan_segmentation_tpu")
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -255,6 +259,7 @@ def test_sources_name_no_jax():
     for path in paths + [join(REPO, "chip_smoke.py")]:
         with open(path) as fh:
             src = fh.read()
-        for bad in ("import jax", "from jax", "flax"):
+        for bad in ("import jax", "from jax", "flax", "import optax",
+                    "from optax"):
             assert bad not in src, (path, bad)
         assert not _JAX_PACKAGE_IMPORT.search(src), path
