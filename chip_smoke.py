@@ -79,6 +79,24 @@ Phases (any failure raises, so the exit code is non-zero):
    family, a step with the batch norm written out beside the fused one.  Loaded weights: a dotted-name DeepLabV3+ file and a
    legacy-name gluoncv backbone file, fabricated in mxnet's format from a
    seeded model, load bit-identically and give the source's eval forward.
+9. step 5 — the experiment ``01_hair_deeplabv3_ffhq_pretrain_gan`` through
+   the port's runner (``train/rgb_experiments.py::run``), which launches
+   no hand-written kernel of its own: ``run_generate`` writes 32 pairs at
+   ffhq 1024^2 (phase 4's seeded generator and decoder, cv2 writer) and
+   generator seed 1 writes 8 more as the val split (synthetic: the
+   repository holds no real annotated data); ``train`` at the spec's crop
+   480, base 512, scale factor 0.5, rotate 15, DeepLabV3+ on resnet50, f32
+   with cuDNN's TF32 convs, batch 8, 2 epochs of 32 draws, 4 decode
+   threads: a validation line and a checkpoint per epoch, finite losses,
+   the rates on the poly curve; the trainer's loop ms per step beside the
+   feed alone (``batch_iter``, no model) and the bare ``train_step`` on a
+   resident batch; a second run stopped by SIGTERM after step 3 (bundle,
+   no ``.tmp``, ``try_resume`` restoring weights, momentum, scheduler and
+   dropout generator bit-equal) and continued with ``--resume`` to the
+   uninterrupted run's step and epoch; ``test`` with flip at test batch 2
+   on the sliding-window path (one model call per bucket of 16 windows),
+   images/s and both metrics; ``MultiEvalModel`` on the card against the
+   CPU (tiny backbone, crop 32, base 48, scales 0.75 and 1.0, TF32 off).
 
 The last lines are the kernels' JSON record (per kernel: launches on the
 main path, max error, device ms of the kernel, its plain version and the
@@ -2351,7 +2369,6 @@ def deeplab_profile(torch, model, state, images, masks, dtype, steps=3):
     """Where a full-width train step's time goes: wall time against the
     host's time to enqueue 10 steps, and the device time of ``steps`` profiled
     steps by kernel family (torch.profiler)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from gan_segmentation_tpu_torch.train.deeplab_trainer import (
@@ -2381,6 +2398,26 @@ def deeplab_profile(torch, model, state, images, masks, dtype, steps=3):
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
+    by_name, launches, fam = kernel_families(prof, steps)
+    busy = sum(fam.values())
+    log(f"deeplab train step {str(dtype).split('.')[1]}: wall {wall_ms:.3f} "
+        f"ms per step over 10 steps, host enqueue {host_ms:.3f} ms; device "
+        f"kernel time {busy:.3f} ms per step in {launches // steps} launches "
+        f"(profiler), busy share {busy / wall_ms:.3f}")
+    for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
+        log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
+    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"    {t / steps:8.3f} ms/step  {name[:110]}")
+    return dict(wall_ms=wall_ms, host_enqueue_ms=host_ms, busy_ms=busy,
+                launches=launches // steps, families=fam)
+
+
+def kernel_families(prof, steps):
+    """A DeepLab step's device kernels in a ``torch.profiler`` trace of
+    ``steps`` steps: (ms per kernel name, launches, ms per step by
+    family)."""
+    from torch.autograd import DeviceType
+
     by_name, launches = {}, 0
     for evt in prof.events():
         annotation = (getattr(evt, "is_user_annotation", False)
@@ -2408,17 +2445,7 @@ def deeplab_profile(torch, model, state, images, masks, dtype, steps=3):
     fam = {}
     for name, t in by_name.items():
         fam[family(name)] = fam.get(family(name), 0.0) + t / steps
-    busy = sum(fam.values())
-    log(f"deeplab train step {str(dtype).split('.')[1]}: wall {wall_ms:.3f} "
-        f"ms per step over 10 steps, host enqueue {host_ms:.3f} ms; device "
-        f"kernel time {busy:.3f} ms per step in {launches // steps} launches "
-        f"(profiler), busy share {busy / wall_ms:.3f}")
-    for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
-        log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        log(f"    {t / steps:8.3f} ms/step  {name[:110]}")
-    return dict(wall_ms=wall_ms, host_enqueue_ms=host_ms, busy_ms=busy,
-                launches=launches // steps, families=fam)
+    return by_name, launches, fam
 
 
 def deeplab_full_width(torch, smi):
@@ -2639,6 +2666,412 @@ def phase_deeplab(torch, smi):
     return rec
 
 
+# Phase 9: the experiment 01_hair_deeplabv3_ffhq_pretrain_gan at its own
+# widths (crop 480, base 512, scale factor 0.5, rotate 15, DeepLabV3+ on
+# resnet50), cut to 2 epochs of 32 draws from 32 generated pairs.
+# ``tests/test_torch_experiment_cli.py`` rehearses the phase on the CPU with
+# a smaller ``STEP5``.
+STEP5 = dict(exp="01_hair_deeplabv3_ffhq_pretrain_gan", gan="ffhq",
+             res_log2=None, gen_batch=BATCH, n_train=32, n_val=8, batch=8,
+             epochs=2, epoch_len=32, workers=4, test_batch=2,
+             preempt_after=3, feed_draws=64, bare_steps=5, overrides=[],
+             eval_check=dict(crop=32, base=48, scales=(0.75, 1.0),
+                             hw=(40, 56), images=2))
+
+
+class StepProbe:
+    """Stands in for ``deeplab_trainer.train_step`` while a run is driven:
+    the host clock at each call, the rates before it and its loss; after
+    ``stop_after`` steps it sends SIGTERM to this process, the signal a
+    preemption notice brings."""
+
+    def __init__(self, dt, stop_after=None):
+        self.dt, self.train_step = dt, dt.train_step
+        self.stop_after = stop_after
+        self.starts, self.rates, self.losses = [], [], []
+
+    def __enter__(self):
+        self.dt.train_step = self
+        return self
+
+    def __exit__(self, *exc):
+        self.dt.train_step = self.train_step
+
+    def __call__(self, model, optimizer, scheduler, *args, **kwargs):
+        import signal
+        self.starts.append(time.perf_counter())
+        self.rates.append([g["lr"] for g in optimizer.param_groups])
+        out = self.train_step(model, optimizer, scheduler, *args, **kwargs)
+        self.losses.append(out[0])
+        if len(self.starts) == self.stop_after:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+
+def write_step5_dataset(torch, base, conf):
+    """``run_generate`` (cv2 writer) with phase 4's seeded random generator
+    and seeded decoder writes ``n_train`` pairs to dataset/train_generated;
+    the same pipeline with generator seed 1 writes ``n_val`` to
+    dataset/val.  -> (dataset dir, seconds)."""
+    from gan_segmentation_tpu_torch.apps.main import (_write_pairs_cv2,
+                                                      run_generate)
+    from gan_segmentation_tpu_torch.core.config import AppConfig
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    t0 = time.perf_counter()
+    cfg = AppConfig(BASE_DIR=base, GAN=conf["gan"],
+                    GAN_DIR=join(base, "no-models"),
+                    GAN_BATCH_SIZE_PER_GPU=conf["gen_batch"],
+                    GENERATE_NUM=conf["n_train"],
+                    MAX_RES_LOG2=conf["res_log2"])
+    ckpt = join(base, "checkpoints")
+    SegSolver(cfg.max_res_log2, "", ckpt, cfg=cfg.solver_config()).save()
+    run_generate(cfg, writer="cv2")
+    solver = SegSolver(cfg.max_res_log2, "", ckpt, cfg=cfg.solver_config())
+    val = join(base, "dataset", "val")
+    os.makedirs(val)
+    _write_pairs_cv2(FusedPipeline(ImageGenerator(
+        gan=conf["gan"], gan_dir=cfg.GAN_DIR, batch_size=conf["gen_batch"],
+        max_res_log2=cfg.max_res_log2, seed=1), solver), conf["n_val"], val,
+        0, None)
+    return join(base, "dataset"), time.perf_counter() - t0
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def step5_feed_and_bare_step(torch, trainer, args, spec, conf):
+    """(samples/s of ``batch_iter`` alone over the train set with
+    ``workers`` decode threads, no model; wall ms per ``train_step`` on one
+    resident batch, the trainer's model, optimizer and dtype)."""
+    import dataclasses
+
+    from gan_segmentation_tpu_torch.train import deeplab_trainer as dt
+    from gan_segmentation_tpu_torch.train.rgb_experiments import datasets
+
+    feedset, _ = datasets(args, dataclasses.replace(
+        spec, train_epoch_len=conf["feed_draws"]))
+    n = 0
+    t0 = time.perf_counter()
+    for imgs, masks, _ in dt.batch_iter(feedset, conf["batch"], True, 0,
+                                        decode_workers=conf["workers"]):
+        n += len(imgs)
+    feed_sps = n / (time.perf_counter() - t0)
+    images, _ = trainer._inputs(imgs)
+    labels = trainer._upload(trainer._feed(masks, feedset.num_class))
+    kw = dict(aux_weight=trainer.aux_weight, dtype=trainer.compute_dtype)
+    dt.train_step(trainer.model, trainer.optimizer, trainer.scheduler,
+                  images, labels, trainer.generator, **kw)
+    _sync(torch, trainer.device)
+    t0 = time.perf_counter()
+    for _ in range(conf["bare_steps"]):
+        dt.train_step(trainer.model, trainer.optimizer, trainer.scheduler,
+                      images, labels, trainer.generator, **kw)
+    _sync(torch, trainer.device)
+    return feed_sps, (time.perf_counter() - t0) * 1e3 / conf["bare_steps"]
+
+
+def step5_profile(torch, trainer, dt, conf, smi):
+    """One more epoch of the trainer under ``torch.profiler`` (the feed,
+    the steps, the loss pulls; not the epoch's checkpoint, whose 167 MB
+    pull to the host is no part of a step): ms per step of the loop, device
+    kernel time per step by family, the device's busy share of the loop.
+    Profiled on the card only."""
+    if torch.device(conf["device"]).type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    per = conf["epoch_len"] // conf["batch"]
+    trainer.save_checkpoint = lambda: None  # shadows the method
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof, \
+                StepProbe(dt) as probe:
+            trainer.training(conf["epochs"])
+            torch.cuda.synchronize()
+    finally:
+        del trainer.save_checkpoint
+    gaps = [(b - a) * 1e3 for a, b in zip(probe.starts, probe.starts[1:])]
+    loop_ms = sum(gaps) / len(gaps)
+    by_name, launches, fam = kernel_families(prof, per)
+    busy = sum(fam.values())
+    log(f"step 5 trainer profiled (one more epoch, {per} steps): loop "
+        f"{loop_ms:.3f} ms per step (profiler on), device kernel time "
+        f"{busy:.3f} ms per step in {launches // per} launches, busy share "
+        f"{busy / loop_ms:.3f} on {smi}")
+    for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
+        log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
+    return dict(loop_ms=loop_ms, busy_ms=busy, busy_share=busy / loop_ms,
+                launches=launches // per, families=fam)
+
+
+def _trainer_state(torch, trainer):
+    """Copies of what a resume bundle holds."""
+    opt = trainer.optimizer.state_dict()
+    return dict(
+        model={k: v.detach().clone() for k, v in
+               trainer.model.state_dict().items()},
+        momentum={k: s["momentum_buffer"].clone()
+                  for k, s in opt["state"].items()},
+        step=trainer.scheduler.last_epoch,
+        lrs=[g["lr"] for g in opt["param_groups"]],
+        generator=trainer.generator.get_state().clone())
+
+
+def check_resume_restores(torch, trainer):
+    """The preempted trainer's state, scrambled and then restored by
+    ``try_resume`` from its bundle, equals the state it saved, bit for
+    bit: weights and statistics, momentum buffers, the scheduler's step
+    and rates, the dropout generator."""
+    saved = _trainer_state(torch, trainer)
+    with torch.no_grad():
+        for v in trainer.model.state_dict().values():
+            v.zero_()
+    for s in trainer.optimizer.state.values():
+        s["momentum_buffer"].fill_(1.0)
+    trainer.scheduler.last_epoch = 0
+    for g in trainer.optimizer.param_groups:
+        g["lr"] = -1.0
+    trainer.generator.manual_seed(12345)
+    pos = trainer.try_resume()
+    got = _trainer_state(torch, trainer)
+    for k, v in saved["model"].items():
+        assert torch.equal(got["model"][k], v), f"resume: {k} differs"
+    assert got["momentum"].keys() == saved["momentum"].keys()
+    for k, v in saved["momentum"].items():
+        assert torch.equal(got["momentum"][k], v), f"resume: momentum {k}"
+    assert got["step"] == saved["step"] and got["lrs"] == saved["lrs"]
+    assert torch.equal(got["generator"], saved["generator"]), \
+        "resume: dropout generator state differs"
+    return pos, len(saved["model"]), len(saved["momentum"])
+
+
+def step5_eval_card_vs_cpu(torch, conf):
+    """``MultiEvalModel`` scores of a seeded DeepLabV3+ on a (1, 1, 1, 1)
+    backbone on the main device against the same model's on the CPU, in
+    f32 with TF32 off: crop 32, base 48, two scales (sliding windows), flip.
+    -> (max |difference|, model calls)."""
+    import copy
+
+    import numpy as np
+
+    from gan_segmentation_tpu_torch.models import deeplab as tdl
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import \
+        MultiEvalModel
+
+    ec = conf["eval_check"]
+    tdl._BACKBONE_LAYERS["tiny"] = (1, 1, 1, 1)
+    try:
+        model = tdl.DeepLabV3Plus(2, "tiny", generator=torch.Generator(
+            ).manual_seed(61))
+    finally:
+        del tdl._BACKBONE_LAYERS["tiny"]
+    perturb(torch, model, 62)
+    rs = np.random.RandomState(63)
+    images = [rs.randn(*ec["hw"], 3).astype(np.float32)
+              for _ in range(ec["images"])]
+    kw = dict(base_size=ec["base"], crop_size=ec["crop"], flip=True,
+              scales=ec["scales"])
+    want = MultiEvalModel(copy.deepcopy(model).cpu(), 2,
+                          **kw).device_scores_batch(images)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        ev = MultiEvalModel(model.to(conf["device"]), 2, **kw)
+        got = ev.device_scores_batch(images).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.shape == (ec["images"], *ec["hw"], 2), got.shape
+    check_close("MultiEvalModel card vs CPU", got, want, **DL_EVAL_TOL)
+    return max_err(got, want), ev.calls
+
+
+def phase_step5(torch, smi, conf=None):
+    """Step 5 of the pipeline through the port's experiment runner
+    (``train.rgb_experiments.run``): generate a dataset, train two epochs
+    with validation and checkpoints, preempt a second run by SIGTERM and
+    resume it, test with the batched multi-scale evaluation, and hold the
+    evaluator on the card to the CPU."""
+    import math
+    import signal
+    import types
+
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.train import deeplab_trainer as dt
+    from gan_segmentation_tpu_torch.train import rgb_experiments as rx
+
+    conf = dict(STEP5, **(conf or {}))
+    device = conf.setdefault("device", "cuda")
+    spec = rx.SPECS[conf["exp"]]
+    t_phase = time.perf_counter()
+    rec = {}
+    with tempfile.TemporaryDirectory() as base:
+        k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
+        k2m.conv3x3_small.launches = 0
+        dataset, rec["dataset_s"] = write_step5_dataset(torch, base, conf)
+        rec["launches"] = {
+            "conv_in_stats": k1m.conv3x3_noise_bias_lrelu_instats.launches,
+            "small_conv": k2m.conv3x3_small.launches}
+        log(f"step 5 dataset: {conf['n_train']} pairs from run_generate "
+            f"(cv2 writer) in dataset/train_generated and {conf['n_val']} "
+            f"from generator seed 1 in dataset/val, {rec['dataset_s']:.2f} "
+            f"s, launches {rec['launches']}; the val split is synthetic too "
+            f"(the repository holds no real annotated data)")
+        common = ["--input-path", dataset, "--workers",
+                  str(conf["workers"]), "--reader", "cv2"] + conf["overrides"]
+        train_argv = ["train", "--batch-size", str(conf["batch"]),
+                      "--test-batch-size", str(conf["batch"]), "--epochs",
+                      str(conf["epochs"]), "--epoch-len",
+                      str(conf["epoch_len"])] + common
+        steps = conf["epochs"] * (conf["epoch_len"] // conf["batch"])
+        sigterm = signal.getsignal(signal.SIGTERM)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+        try:
+            # (a) the uninterrupted run
+            with LogLines("gan_segmentation_tpu_torch") as lines, \
+                    StepProbe(dt) as probe:
+                t0 = time.perf_counter()
+                trainer = rx.run(spec, train_argv, exp_path=join(base, "a"))
+                _sync(torch, device)
+                rec["train_run_s"] = time.perf_counter() - t0
+            run_a = trainer.args.run_path
+            vals = [m for m in lines.lines if " validation " in m]
+            saves = [m for m in lines.lines if m.startswith(
+                "saved checkpoint last_checkpoint.pt")]
+            assert len(vals) == conf["epochs"], vals
+            assert len(saves) == conf["epochs"], saves
+            assert (run_a / "checkpoints" / "last_checkpoint.pt").is_file()
+            assert (run_a / "run.py").is_file()
+            assert (run_a / "logs" / "train_log.txt").stat().st_size > 0
+            losses = [float(v) for v in torch.stack(probe.losses).cpu()]
+            assert len(losses) == steps and all(map(math.isfinite, losses))
+            poly = dt.poly_schedule(spec.lr, steps)
+            for k, lrs in enumerate(probe.rates):
+                want = [poly(k), 10 * poly(k)]
+                assert all(abs(a - b) <= 1e-9 * max(b, 1e-30) + 1e-15
+                           for a, b in zip(lrs, want)), (k, lrs, want)
+            assert trainer.scheduler.last_epoch == steps
+            per = conf["epoch_len"] // conf["batch"]
+            gaps = [(probe.starts[i + 1] - probe.starts[i]) * 1e3
+                    for i in range(steps - 1) if (i + 1) % per]
+            rec["loop_ms"] = sorted(gaps)[len(gaps) // 2]
+            rec["loop_ms_all"] = gaps
+            rec["losses"] = losses
+            rec["validation"] = vals
+            rec["profile"] = step5_profile(torch, trainer, dt, conf, smi)
+            args = types.SimpleNamespace(input_path=dataset, reader="cv2")
+            rec["feed_sps"], rec["bare_step_ms"] = step5_feed_and_bare_step(
+                torch, trainer, args, rx.apply_overrides(
+                    spec, trainer.args), conf)
+            del trainer
+            log(f"step 5 train: {steps} steps in {conf['epochs']} epochs, "
+                f"losses {[round(v, 4) for v in losses]}, rates on the poly "
+                f"curve, {len(vals)} validation lines ({vals[-1]}), "
+                f"last_checkpoint.pt each epoch; run {rec['train_run_s']:.2f}"
+                f" s (model build and checkpoints included) on {smi}")
+            log(f"step 5 pace: the trainer's loop {rec['loop_ms']:.3f} ms "
+                f"per step (median of {len(gaps)} gaps between step starts "
+                f"within an epoch: {[round(g, 1) for g in gaps]}); the feed "
+                f"alone (batch_iter, {conf['workers']} decode threads, no "
+                f"model) {rec['feed_sps']:.2f} samples/s = "
+                f"{conf['batch'] * 1e3 / rec['feed_sps']:.3f} ms per batch "
+                f"of {conf['batch']}; the bare train_step on a resident "
+                f"batch {rec['bare_step_ms']:.3f} ms (wall, "
+                f"{conf['bare_steps']} steps) on {smi}")
+
+            # (b) preempted by SIGTERM after preempt_after steps, resumed
+            with StepProbe(dt, stop_after=conf["preempt_after"]) as probe:
+                trainer = rx.run(spec, train_argv, exp_path=join(base, "b"))
+            run_b = trainer.args.run_path
+            ck = run_b / "checkpoints"
+            assert trainer.preempted and len(probe.starts) == \
+                conf["preempt_after"], len(probe.starts)
+            assert (ck / dt.RESUME_BUNDLE).is_file()
+            assert not list(ck.glob("*.tmp")), list(ck.glob("*.tmp"))
+            pos, n_tensors, n_buffers = check_resume_restores(torch, trainer)
+            assert pos == (0, conf["preempt_after"]), pos
+            del trainer
+            with StepProbe(dt) as probe:
+                trainer = rx.run(spec, train_argv + ["--resume", str(run_b)],
+                                 exp_path=join(base, "b"))
+            assert len(probe.starts) == steps - conf["preempt_after"]
+            assert trainer.scheduler.last_epoch == steps
+            assert not trainer.preempted
+            assert not (ck / dt.RESUME_BUNDLE).exists()
+            del trainer
+            rec["resume"] = dict(position=pos, tensors=n_tensors,
+                                 momentum_buffers=n_buffers)
+            log(f"step 5 preemption: SIGTERM after step "
+                f"{conf['preempt_after']}, resume bundle written (no .tmp "
+                f"left), try_resume restored {n_tensors} tensors, "
+                f"{n_buffers} momentum buffers, the scheduler's step and the "
+                f"dropout generator bit-equal; --resume ran the remaining "
+                f"{steps - conf['preempt_after']} steps to step {steps} and "
+                f"epoch {conf['epochs'] - 1}, as the uninterrupted run")
+
+            # (c) test: batched multi-scale + flip evaluation of run a
+            test_argv = ["test", str(run_a), "--test-batch-size",
+                         str(conf["test_batch"])] + common
+            t0 = time.perf_counter()
+            tester = rx.run(spec, test_argv, exp_path=join(base, "a"))
+            rec["test_run_s"] = time.perf_counter() - t0
+            assert tester.args.weights.endswith("last_checkpoint.pt")
+            testset = rx.FFHQHairSegmentation(
+                dataset, scale_factor=rx.apply_overrides(
+                    spec, tester.args).scale_factor, split="val")
+            first = tester.bucket_calls
+            _sync(torch, device)
+            t0 = time.perf_counter()
+            result = tester.test(testset)
+            _sync(torch, device)
+            rec["test_ips"] = len(testset) / (time.perf_counter() - t0)
+            assert tester.bucket_calls == first, (tester.bucket_calls, first)
+            names, values = tester.metric.get()
+            assert all(0.0 <= v <= 1.0 for v in result.values()), result
+            assert all(math.isfinite(v) for v in values), values
+            rec["metric"] = dict(zip(names, values))
+            rec["metric_orig"] = result
+            rec["bucket_calls"] = first
+            ev = tester.evaluator
+            h, w = testset[0][0].shape[:2]
+            height, width, _ = ev._scaled_size(h, w, ev.scales[0])
+            n_win = len(ev._window_positions(max(height, ev.crop_size),
+                                             max(width, ev.crop_size)))
+            del tester
+            log(f"step 5 test: {len(testset)} images of {h}x{w}, "
+                f"{n_win} windows x 2 flips each at test batch "
+                f"{conf['test_batch']}: model calls per bucket {first} "
+                f"({conf['test_batch'] * n_win * 2} windows a call); "
+                f"{rec['test_ips']:.3f} images/s (warm; the run with its "
+                f"model build {rec['test_run_s']:.2f} s); new metric "
+                f"{ {k: round(v, 5) for k, v in rec['metric'].items()} }, "
+                f"original {result} on {smi}")
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+            signal.signal(signal.SIGTERM, sigterm)
+
+    # (d) the evaluator on the card against the CPU
+    rec["eval_card_vs_cpu_err"], calls = step5_eval_card_vs_cpu(torch, conf)
+    log(f"step 5 MultiEvalModel card vs CPU (tiny backbone, crop 32, base "
+        f"48, scales (0.75, 1.0), flip, f32 TF32 off): max |err| "
+        f"{rec['eval_card_vs_cpu_err']:.3g} ({calls} model call)")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    import importlib.util
+    rec["optional"] = {m: importlib.util.find_spec(m) is not None
+                       for m in ("tensorboardX", "sklearn")}
+    log(f"step 5 phase: {rec['phase_s']:.1f} s on {smi}; optional packages "
+        f"on this machine: {rec['optional']}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     import torch
 
@@ -2712,6 +3145,14 @@ def main():
         f"ms (bf16) per batch, train {dl['train']['f32']['ms']:.3f} ms (f32) "
         f"/ {dl['train']['bf16']['ms']:.3f} ms (bf16) per step on {smi}")
 
+    # 9. step 5: the DeepLab experiment end to end
+    s5 = phase_step5(torch, smi)
+    log(f"step 5 at crop 480, batch 8 (f32, cuDNN's TF32 convs): the "
+        f"trainer's loop {s5['loop_ms']:.3f} ms per step, the feed alone "
+        f"{s5['feed_sps']:.2f} samples/s, the bare step "
+        f"{s5['bare_step_ms']:.3f} ms; test {s5['test_ips']:.3f} images/s "
+        f"on {smi}")
+
     launches = {
         "conv_in_stats": {"generate": sl["launches"]["conv_in_stats"],
                           "collection": tr["collection_launches"]},
@@ -2719,7 +3160,8 @@ def main():
                        "train": tr["launches"]["small_conv"],
                        "evaluate": tr["eval_launches"]},
         "bil_conv": {"train": tr["launches"]["bil_conv"]}}
-    for path, counted in (("cars", og["cars"]["launches"]),
+    for path, counted in (("step5_dataset", s5["launches"]),
+                          ("cars", og["cars"]["launches"]),
                           ("bedrooms", og["bedrooms"]["launches"]),
                           ("foreign_weights", fw["launches"]),
                           ("annotation", an["launches"])):
@@ -2786,6 +3228,8 @@ def main():
                              batch_library_ms_f32=f32["library"])
         kernels.append(entry)
     print(json.dumps({"deeplab": dl}), flush=True)
+    print(json.dumps({"step5": {k: v for k, v in s5.items()
+                                if k != "losses"}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

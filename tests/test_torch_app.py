@@ -226,8 +226,11 @@ def test_no_jax_on_the_import_path():
             f"{pkg}.utils.viz", f"{pkg}.models.resnet",
             f"{pkg}.models.resnext", f"{pkg}.models.deeplab",
             f"{pkg}.core.backbone_convert", f"{pkg}.core.deeplab_convert",
-            f"{pkg}.train.deeplab_trainer", f"{pkg}.ops.dropout"
-            } <= set(_modules())
+            f"{pkg}.train.deeplab_trainer", f"{pkg}.ops.dropout",
+            f"{pkg}.train.experiments", f"{pkg}.train.rgb_experiments",
+            f"{pkg}.data.augment", f"{pkg}.data.segmentation",
+            f"{pkg}.data.batchify", f"{pkg}.utils.image", f"{pkg}.utils.log",
+            f"{pkg}.core.yaml_config"} <= set(_modules())
     code = f"""
 import importlib, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "cv2",
