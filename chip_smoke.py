@@ -31,8 +31,8 @@ Phases (any failure raises, so the exit code is non-zero):
    three epilogues, kernel 1 with its statistics) and for bit-identical
    repeats; every f32 path shape that splits K is timed beside one split.
 4. generate — ``run_generate`` at ffhq 1024^2, batch 8, 24 pairs, with a
-   seeded random generator and a seeded decoder checkpoint; the launch
-   counters must show that it went through kernels 1 and 2; a repeated
+   seeded random generator and a seeded decoder checkpoint; a device trace
+   must show that it went through kernels 1 and 2; a repeated
    batch must be bit-identical; a small slice on the card must agree with
    the same slice on the CPU (plain versions); samples/s beside the
    generator's and the decoder's stage times per batch (CUDA events).
@@ -40,10 +40,12 @@ Phases (any failure raises, so the exit code is non-zero):
    ``main train`` and ``main evaluate`` at ffhq 1024^2 with the defaults
    (24 epochs, batch 1, Adam 1e-4, dropout on) on 20 + 4 samples of the
    seeded f32 generator (kernel 1 in f32, 9 launches per batch of 8):
-   launch counts per step, falling loss, checkpoint,
-   metrics above the untrained decoder's; the fit loop's rate, the step
-   time by CUDA events, host vs device time, and the device time by
-   kernel family.
+   ``main train`` runs each step as a replay of a CUDA graph, once timed
+   and once traced for its launch counts per step; falling loss,
+   checkpoint, metrics above the untrained decoder's; the fit loop's rate,
+   the step time by CUDA events, host vs device time, and the device time
+   by kernel family, eager and as replays; a 2-epoch graphed fit equal to
+   the per-step fit bit for bit in cuDNN's deterministic mode.
 6. foreign weights — a seeded ffhq generator written as a synthetic
    mxnet-format ``stylegan-ffhq.params`` (the reference's names and
    layouts) and loaded by ``ImageGenerator``: a batch of 8 bit-identical
@@ -98,6 +100,12 @@ Phases (any failure raises, so the exit code is non-zero):
    images/s and both metrics; ``MultiEvalModel`` on the card against the
    CPU (tiny backbone, crop 32, base 48, scales 0.75 and 1.0, TF32 off).
 
+Launch counts: every run of a main path that the script counts runs
+under ``LaunchTrace``, which sets the wrappers' counters to 0, traces the
+device and counts each kernel's runs by name (the card's count, replays of
+CUDA graphs included), and holds that count to the wrappers' own counts
+(eager launches and the launches a capture records) plus the replays.
+
 The last lines are the kernels' JSON record (per kernel: launches on the
 main path, max error, device ms of the kernel, its plain version and the
 library call, and its bound), the nvidia-smi line, and
@@ -134,6 +142,17 @@ SMALL_PER_EVAL_SAMPLE = 26  # eval mode: every 3x3 conv, BN folded
 
 def log(*args):
     print(*args, flush=True)
+
+
+# failed checks that let the script run on to its end first (so that one
+# run reads every phase); main raises on any of them before its last lines
+FAILED = []
+
+
+def check_later(ok, message):
+    if not ok:
+        log(f"FAILED (raised at the end): {message}")
+        FAILED.append(message)
 
 
 def smi_line() -> str:
@@ -202,6 +221,133 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * replays)
+
+
+# ------------------------------------------------------ counting launches
+# A wrapper call launches one device kernel of its own (and with split-K a
+# finish kernel, not counted here).  The tensor-core kernels carry the
+# number of the kernel that launches them as their last template argument;
+# kernel 3's bf16 body is a kernel of its own.
+KERNEL_NUMBERS = {"1": "conv_in_stats", "2": "small_conv", "3": "bil_conv"}
+
+
+def kernel_of(name):
+    """The hand-written kernel (1-3, by name) a device kernel is, or None."""
+    m = re.search(r"conv3x3_(?:tc|tf32)_kernel<[^>]*,\s*(\d)>", name)
+    if m:
+        return KERNEL_NUMBERS[m.group(1)]
+    return "bil_conv" if "conv3x3_bil_kernel<" in name else None
+
+
+def kernel_wrappers():
+    """{kernel: its wrapper}, whose ``launches`` counts its launches."""
+    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    return {"conv_in_stats": k1m.conv3x3_noise_bias_lrelu_instats,
+            "small_conv": k2m.conv3x3_small, "bil_conv": k3m.conv3x3_bil}
+
+
+class ReplayTally:
+    """While open, the launches of every ``GraphedCall`` capture and
+    replay, by wrapper: a capture records ``deltas`` into its graph (the
+    wrappers count them, the card does not run them), a replay runs them.
+    ``ran(counts)``: what the card ran, from the wrappers' counts over the
+    same span, i.e. their eager launches plus the replays' launches."""
+
+    def __enter__(self):
+        from collections import Counter
+        from unittest import mock
+
+        from gan_segmentation_tpu_torch.core.graphs import GraphedCall
+
+        self.recorded, self.replayed = Counter(), Counter()
+        real = GraphedCall.__call__
+
+        def spy(call):
+            fresh, replays = call.graph is None, call.replays
+            out = real(call)
+            runs = call.replays - replays
+            for fn, d in (call.deltas.items() if runs else ()):
+                self.replayed[fn] += d * runs
+                if fresh:  # this call captured
+                    self.recorded[fn] += d
+            return out
+
+        self._patch = mock.patch.object(GraphedCall, "__call__", spy)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+        return False
+
+    def ran(self, counts):
+        return {fn: n - self.recorded[fn] + self.replayed[fn]
+                for fn, n in counts.items()}
+
+
+def device_kernel_names(prof):
+    """The name of every device kernel run in a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+class LaunchTrace:
+    """The launches of kernels 1-3 in a span of a main path, as the card
+    ran them.  On entry every wrapper's counter is set to 0 and a device
+    trace starts (``torch.profiler``, kernels only: CUPTI records each
+    kernel node of a replayed CUDA graph).  On exit ``device`` = {kernel:
+    its runs in the trace} and ``wrapper`` = {kernel: its wrapper's count,
+    i.e. eager launches plus the launches each capture recorded}; the exit
+    fails unless ``device`` equals what ``ReplayTally`` derives from
+    ``wrapper`` and the replays.  ``so_far()`` is that derived count at
+    any point inside the span.  Without a card (the tests' CPU rehearsals
+    of a phase) nothing is traced and ``device`` is that derived count."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.fns = kernel_wrappers()
+        self.prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        for fn in self.fns.values():
+            fn.launches = 0
+        self.tally = ReplayTally().__enter__()
+        if self.torch.cuda.is_available():
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        return self
+
+    def so_far(self):
+        ran = self.tally.ran({fn: fn.launches for fn in self.fns.values()})
+        return {k: ran[fn] for k, fn in self.fns.items()}
+
+    def __exit__(self, *exc):
+        if self.prof is not None:
+            self.torch.cuda.synchronize()
+            self.prof.__exit__(*exc)
+        self.tally.__exit__(*exc)
+        if exc[0] is not None:
+            return False
+        self.wrapper = {k: fn.launches for k, fn in self.fns.items()}
+        expected = self.so_far()
+        if self.prof is None:
+            self.device = expected
+            return False
+        self.device = dict.fromkeys(self.fns, 0)
+        for name in device_kernel_names(self.prof):
+            k = kernel_of(name)
+            if k is not None:
+                self.device[k] += 1
+        assert self.device == expected, (
+            f"the trace ran {self.device}, the wrappers' counts "
+            f"{self.wrapper} with the replays give {expected}")
+        return False
 
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s
@@ -854,8 +1000,6 @@ def phase_slice(torch):
 
     from gan_segmentation_tpu_torch.apps.main import run_generate
     from gan_segmentation_tpu_torch.core.config import AppConfig
-    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
-    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
     from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
                                                             ImageGenerator)
     from gan_segmentation_tpu_torch.train.solver import SegSolver
@@ -873,27 +1017,27 @@ def phase_slice(torch):
                   cfg=cfg.solver_config()).save()
         n_batches = -(-GENERATE_NUM // BATCH)
 
-        k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
-        k2m.conv3x3_small.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if cv2 is not None:
-            run_generate(cfg, writer="cv2")
-        else:
-            log("no host encoder on this machine (cv2 missing, the native "
-                "writer is not used here): checking generate_batches instead")
-            solver = SegSolver(cfg.max_res_log2, "",
-                               os.path.join(base, "checkpoints"),
-                               cfg=cfg.solver_config())
-            pipe = FusedPipeline(ImageGenerator(
-                gan="ffhq", gan_dir=cfg.GAN_DIR, batch_size=BATCH), solver)
-            batches = list(pipe.generate_batches(GENERATE_NUM))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n1 = k1m.conv3x3_noise_bias_lrelu_instats.launches
-        n2 = k2m.conv3x3_small.launches
-        log(f"slice launches: conv_in_stats {n1}, small_conv {n2} "
-            f"({n_batches} batches)")
+        with LaunchTrace(torch) as trace:
+            t0 = time.perf_counter()
+            if cv2 is not None:
+                run_generate(cfg, writer="cv2")
+            else:
+                log("no host encoder on this machine (cv2 missing, the "
+                    "native writer is not used here): checking "
+                    "generate_batches instead")
+                solver = SegSolver(cfg.max_res_log2, "",
+                                   os.path.join(base, "checkpoints"),
+                                   cfg=cfg.solver_config())
+                pipe = FusedPipeline(ImageGenerator(
+                    gan="ffhq", gan_dir=cfg.GAN_DIR, batch_size=BATCH),
+                    solver)
+                batches = list(pipe.generate_batches(GENERATE_NUM))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        n1, n2 = trace.device["conv_in_stats"], trace.device["small_conv"]
+        log(f"slice launches (device trace): conv_in_stats {n1}, small_conv "
+            f"{n2} ({n_batches} batches; the wrappers counted {trace.wrapper}"
+            f", eager and recorded at the capture)")
         assert n1 == 9 * n_batches, "conv_in_stats must run 9x per batch"
         assert n2 > 0, "small_conv was not launched"
 
@@ -922,7 +1066,7 @@ def phase_slice(torch):
         assert values <= {0, 1}, values
         log(f"slice: {GENERATE_NUM} pairs at 1024^2 written, mask values "
             f"{sorted(values)}, {GENERATE_NUM / wall:.3f} samples/s end to "
-            f"end including the cv2 writer ({wall:.2f} s)")
+            f"end including the cv2 writer, traced ({wall:.2f} s)")
 
         # determinism, finiteness, and the device pipeline's own rate
         solver = SegSolver(cfg.max_res_log2, "",
@@ -953,18 +1097,12 @@ def phase_slice(torch):
             dec_ms = cuda_ms(lambda: solver.model(
                 feats, pipe._prepared(), pipe.dec_dtype), 5)
 
-        for _ in pipe.generate_batches(BATCH):  # warm-up
-            pass
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in pipe.generate_batches(GENERATE_NUM):
-            pass
-        rate = GENERATE_NUM / (time.perf_counter() - t0)
+        rate = pipeline_rate(torch, pipe, GENERATE_NUM)
         log(f"device pipeline (generate_batches, no writer): {rate:.3f} "
             f"samples/s at 1024^2, batch {BATCH}; stages per batch (CUDA "
             f"events, 5 batches): generator {gen_ms:.3f} ms, decoder "
             f"{dec_ms:.3f} ms")
-    return dict(launches={"conv_in_stats": n1, "small_conv": n2},
+    return dict(launches=trace.device, wrapper=trace.wrapper,
                 end_to_end_sps=GENERATE_NUM / wall, pipeline_sps=rate,
                 gen_ms=gen_ms, dec_ms=dec_ms)
 
@@ -1055,6 +1193,147 @@ def phase_small_train_reference(torch):
     log(f"small train reference (res 32, f32, 3 steps) card vs CPU losses: "
         f"{[f'{v:.6f}' for v in card]} vs {[f'{v:.6f}' for v in cpu]} "
         f"(rtol 1e-4)")
+    small_graphed_fit_is_the_per_step_fit(torch)
+
+
+@contextlib.contextmanager
+def graph_optimizer_per_step():
+    """The per-step path with the graph path's optimizer (Adam
+    ``capturable``, SGD ``fused``, the rate a device tensor): the eager
+    twin of a graphed fit, step for step the same arithmetic."""
+    import warnings
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    real = SegSolver._make_optimizer
+
+    def make(self, iters_per_epoch=1, graphed=False):
+        return real(self, iters_per_epoch, True)
+
+    with mock.patch.object(SegSolver, "_make_optimizer", make), \
+            warnings.catch_warnings():
+        warnings.filterwarnings("ignore", "This instance was constructed "
+                                "with capturable=True")
+        yield
+
+
+def small_graphed_fit_is_the_per_step_fit(torch):
+    """At res 32 on the card in cuDNN's deterministic mode, dropout on, with
+    Adam and with SGD (momentum 0.9, weight decay): a fit of 4 epochs x 3
+    steps as replays of its graph (2 eager steps, the capture, 9 replays)
+    equals its eager twin (the per-step path with the graph's optimizer)
+    bit for bit, every step's loss and the final weights; its distance from
+    the per-step path's own optimizer is read."""
+    import dataclasses
+
+    import numpy as np
+
+    from gan_segmentation_tpu_torch.core.config import SolverConfig
+    from gan_segmentation_tpu_torch.train.generator import ImageGenerator
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    seen = {}
+    with tempfile.TemporaryDirectory() as base, cudnn_deterministic(torch):
+        gen = ImageGenerator(gan="bedrooms", batch_size=3, dtype="fp32",
+                             max_res_log2=5, gan_dir=join(base, "none"),
+                             seed=7, device=torch.device("cpu"))
+        make_collection(gen, join(base, "data"), 3)
+        for opt in ("adam", "sgd"):
+            cfg = SolverConfig(max_res_log2=5, optimizer=opt,
+                               scheduler="cos",
+                               wd=1e-4 if opt == "sgd" else 0.0,
+                               momentum=0.9 if opt == "sgd" else None)
+            cfg.train_epochs = 4
+            runs = {}
+            for tag, scan in (("plain", False), ("twin", False),
+                              ("graph", None)):
+                solver = SegSolver(
+                    5, join(base, "data"), join(base, f"c-{opt}-{tag}"),
+                    cfg=dataclasses.replace(cfg, scan_epochs=scan))
+                with LogLines("gan_segmentation_tpu_torch.train.solver"
+                              ) as lines, (graph_optimizer_per_step()
+                                           if tag == "twin"
+                                           else contextlib.nullcontext()):
+                    solver.fit()
+                graphed = any(m.startswith("scan_epochs: each")
+                              for m in lines.lines)
+                assert graphed == (scan is None), (opt, scan)
+                runs[tag] = (np.array(solver.history), {
+                    k: v.clone() for k, v in
+                    solver.model.state_dict().items()})
+            (h_twin, w_twin), (h_graph, w_graph) = runs["twin"], runs["graph"]
+            assert (h_graph == h_twin).all(), (opt, h_graph, h_twin)
+            assert all(torch.equal(w_graph[k], w_twin[k])
+                       for k in w_twin), f"{opt}: weights differ"
+            h_plain = runs["plain"][0]
+            seen[opt] = (h_graph[-1][-1], float(np.max(
+                np.abs(h_graph - h_plain) / np.abs(h_plain))))
+    log(f"small graphed fit (res 32, 4 epochs x 3 steps, dropout on, cuDNN "
+        f"deterministic): every loss and the final weights bit-identical to "
+        f"its eager twin, Adam and SGD (last losses, and the max relative "
+        f"loss distance from the per-step optimizer: "
+        f"{', '.join(f'{k} {v:.7f} {d:.3g}' for k, (v, d) in seen.items())})")
+
+
+def kernel_times(prof):
+    """ms per device kernel name in a ``torch.profiler`` trace: kernels
+    only (user ranges such as "Optimizer.step#Adam.step" also sit on the
+    device timeline and overlap the kernels they enclose)."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for evt in prof.events():
+        annotation = (getattr(evt, "is_user_annotation", False)
+                      or evt.name.startswith("Optimizer."))
+        if evt.device_type == DeviceType.CUDA and not annotation:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+    return by_name
+
+
+def decoder_family(name):
+    """The kernel family of a decoder train step's device kernel."""
+    low = name.lower()
+    # the 3xTF32 kernels carry their kernel's number as the last template
+    # argument; only kernels 1 and 2 split K (finish kernel)
+    tf32 = re.search(r"conv3x3_tf32_kernel<[^>]*,\s*(\d)>", name)
+    if tf32:
+        return {"1": "conv_in_stats", "2": "small_conv",
+                "3": "bil_conv"}[tf32.group(1)]
+    if "conv3x3_tf32_finish" in low:
+        return "small_conv"
+    if "conv3x3_bil" in low:
+        return "bil_conv"
+    if "wgrad" in low:
+        return "cuDNN wgrad"
+    if any(k in low for k in ("conv", "gemm", "xmma", "cudnn", "cutlass")):
+        return "cuDNN other"
+    return "elementwise + reductions (BN, leaky, dropout, loss, Adam)"
+
+
+def families(by_name, steps, family=decoder_family):
+    fam = {}
+    for name, t in by_name.items():
+        fam[family(name)] = fam.get(family(name), 0.0) + t / steps
+    return fam
+
+
+def graph_fit_runner(torch, base, scfg):
+    """A fresh solver on the collection of ``base`` with its graphed epoch
+    loop ready (``SegSolver._graphed_epochs``, the collection resident):
+    -> (solver, run)."""
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    solver = SegSolver(scfg.max_res_log2, join(base, "data"),
+                       join(base, "no-checkpoints"), cfg=scfg)
+    dataset, iters = solver.init_data()
+    cached = solver._try_device_cache(dataset)
+    assert cached is not None, "the collection is not resident"
+    opt, lr = solver._make_optimizer(iters, graphed=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    solver.model.train()
+    return solver, solver._graphed_epochs(opt, lr, cached, gen)
 
 
 def profile_train_step(torch, base, scfg, steps=5):
@@ -1062,8 +1341,8 @@ def profile_train_step(torch, base, scfg, steps=5):
     steps), whether the host or the device bounds it (three windows of 10
     steps: wall time, the time the host took to enqueue them, and the
     process's CPU time), and its device time by kernel family
-    (torch.profiler)."""
-    from torch.autograd import DeviceType
+    (torch.profiler); then the same for the step as replays of its CUDA
+    graph (``SegSolver._graphed_epochs``), windows of one epoch each."""
     from torch.profiler import ProfilerActivity, profile
 
     from gan_segmentation_tpu_torch.data.collection import CollectionDataset
@@ -1110,38 +1389,8 @@ def profile_train_step(torch, base, scfg, steps=5):
         torch.cuda.synchronize()
     window_ms = (time.perf_counter() - t0) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    by_name = {}
-    for evt in prof.events():
-        # kernels only: user ranges such as "Optimizer.step#Adam.step" also
-        # sit on the device timeline and overlap the kernels they enclose
-        annotation = (getattr(evt, "is_user_annotation", False)
-                      or evt.name.startswith("Optimizer."))
-        if evt.device_type == DeviceType.CUDA and not annotation:
-            by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3)
-
-    def family(name):
-        low = name.lower()
-        # the 3xTF32 kernels carry their kernel's number as the last
-        # template argument; only kernels 1 and 2 split K (finish kernel)
-        tf32 = re.search(r"conv3x3_tf32_kernel<[^>]*,\s*(\d)>", name)
-        if tf32:
-            return {"1": "conv_in_stats", "2": "small_conv",
-                    "3": "bil_conv"}[tf32.group(1)]
-        if "conv3x3_tf32_finish" in low:
-            return "small_conv"
-        if "conv3x3_bil" in low:
-            return "bil_conv"
-        if "wgrad" in low:
-            return "cuDNN wgrad"
-        if any(k in low for k in ("conv", "gemm", "xmma", "cudnn",
-                                  "cutlass")):
-            return "cuDNN other"
-        return "elementwise + reductions (BN, leaky, dropout, loss, Adam)"
-
-    fam = {}
-    for name, t in by_name.items():
-        fam[family(name)] = fam.get(family(name), 0.0) + t / steps
+    by_name = kernel_times(prof)
+    fam = families(by_name, steps)
     busy = sum(fam.values())
     log(f"train step (ffhq 1024^2, batch 1, f32): {step_ms:.3f} ms "
         f"(CUDA events, 10 steps); kernel time {busy:.3f} ms per step "
@@ -1152,66 +1401,317 @@ def profile_train_step(torch, base, scfg, steps=5):
         log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         log(f"    {t / steps:8.3f} ms/step  {name[:110]}")
-    return dict(step_ms=step_ms, windows=windows, families=fam, busy_ms=busy)
+    del solver, opt, feats, mask
+    torch.cuda.empty_cache()
+
+    # the same step as replays of its CUDA graph: three epochs of 20 steps
+    # (wall, host enqueue and process CPU per step), then a profiled epoch
+    gsolver, run = graph_fit_runner(torch, base, scfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    run(0, 0).cpu()  # the eager warm-up steps, the capture, the replays
+    torch.cuda.empty_cache()
+    # what the first epoch keeps reserved: the graph's pool and the
+    # optimizer's state
+    pool_gb = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    gwindows, done = [], TRAIN_SAMPLES
+    for epoch in range(1, 4):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), time.process_time()
+        series = run(epoch, done)
+        enqueued = time.perf_counter()
+        torch.cuda.synchronize()
+        t1, c1 = time.perf_counter(), time.process_time()
+        n = len(series)
+        done += n
+        gwindows.append(((t1 - t0) * 1e3 / n, (enqueued - t0) * 1e3 / n,
+                         (c1 - c0) * 1e3 / n))
+        assert bool(torch.isfinite(series.cpu()).all())
+    gpeak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n = len(run(4, done))
+        torch.cuda.synchronize()
+    gwindow_ms = (time.perf_counter() - t0) * 1e3
+    ran = {k: 0 for k in KERNEL_NUMBERS.values()}
+    for name in device_kernel_names(prof):
+        if kernel_of(name) is not None:
+            ran[kernel_of(name)] += 1
+    per_replay = {k: run.call.deltas[fn]
+                  for k, fn in kernel_wrappers().items()}
+    assert ran == {k: d * n for k, d in per_replay.items()}, (ran, per_replay)
+    gby_name = kernel_times(prof)
+    gfam = families(gby_name, n)
+    gbusy = sum(gfam.values())
+    graph_ms = min(w for w, _, _ in gwindows)
+    log("train step as CUDA-graph replays, windows of one epoch of "
+        f"{TRAIN_SAMPLES} steps (ms per step: wall / host enqueue / "
+        "process CPU): " + "; ".join(
+            f"{w:.3f} / {e:.3f} / {c:.3f}" for w, e, c in gwindows)
+        + f"; kernel time {gbusy:.3f} ms per step (profiler), a busy "
+        f"share of {gbusy / graph_ms:.3f} of the fastest window (a "
+        f"profiled epoch took {gwindow_ms / n:.3f} ms a step); the first "
+        f"epoch keeps {pool_gb:.3f} GiB reserved (the graph's pool, Adam's "
+        f"state), peak memory {gpeak_gb:.2f} GiB; launches per replay "
+        f"{per_replay}, and the profiled epoch's trace ran {ran} in {n} "
+        f"replays")
+    for name, t in sorted(gfam.items(), key=lambda kv: -kv[1]):
+        log(f"  {name}: {t:.3f} ms/step ({t / max(gbusy, 1e-9):.3f} of "
+            f"device time)")
+    del gsolver, run
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, windows=windows, families=fam, busy_ms=busy,
+                graph_windows=gwindows, graph_ms=graph_ms,
+                graph_busy_ms=gbusy, graph_families=gfam, pool_gib=pool_gb)
+
+
+GRAPH_FIT_EPOCHS = 2     # the graph-vs-eager fits
+BITS_STEPS = 3           # steps whose dropout bits are compared
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch, on=True):
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def fit_series(torch, base, scfg, tag, scan, twin=False):
+    """A ``GRAPH_FIT_EPOCHS``-epoch fit from the seeded init on the
+    collection of ``base``: the per-step path (``scan`` False; ``twin``:
+    with the graph's optimizer) or the graphed one (None, the auto rule on
+    the card).  -> ((steps, 2) numpy (loss, accuracy) per step, the dropout
+    keep masks of its first ``BITS_STEPS`` steps, the final weights, the
+    fit's wall seconds)."""
+    import dataclasses
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.models import decoder as dec
+    from gan_segmentation_tpu_torch.ops.dropout import DROPOUT_RATE
+    from gan_segmentation_tpu_torch.train import solver as solver_mod
+
+    cfg = dataclasses.replace(scfg, train_epochs=GRAPH_FIT_EPOCHS,
+                              scan_epochs=scan)
+    solver = solver_mod.SegSolver(cfg.max_res_log2, join(base, "data"),
+                                  join(base, f"ckpt-{tag}"), cfg=cfg)
+    per_step = len(cfg.in_channels) - cfg.start_res
+    bits, rows = [], []
+    keep = 1.0 - DROPOUT_RATE
+
+    def record(draws):
+        for u in draws:
+            if len(bits) < BITS_STEPS * per_step:
+                bits.append(u < keep)
+
+    real_dropout, real_draw = dec.dropout, dec.Decoder.draw_dropout
+    real_log = solver._log_epoch
+
+    def spy_dropout(x, generator=None, rate=DROPOUT_RATE, uniform=None):
+        if uniform is None:  # the per-step path draws here
+            uniform = torch.rand(x.shape, generator=generator,
+                                 device=x.device)
+            record([uniform])
+        return real_dropout(x, rate=rate, uniform=uniform)
+
+    def spy_draw(self, shapes, generator, out=None):
+        out = real_draw(self, shapes, generator, out=out)
+        record(out)  # the graphed path draws here, before each call
+        return out
+
+    def log_epoch(epoch, series, *a):
+        rows.append(series.clone())
+        return real_log(epoch, series, *a)
+
+    solver._log_epoch = log_epoch
+    with mock.patch.object(dec, "dropout", spy_dropout), \
+            mock.patch.object(dec.Decoder, "draw_dropout", spy_draw), \
+            (graph_optimizer_per_step() if twin
+             else contextlib.nullcontext()):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.fit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    series = torch.cat(rows).numpy()
+    assert len(series) == GRAPH_FIT_EPOCHS * TRAIN_SAMPLES, len(series)
+    assert len(bits) == BITS_STEPS * per_step, len(bits)
+    weights = {k: v.clone() for k, v in solver.model.state_dict().items()}
+    del solver
+    torch.cuda.empty_cache()
+    return series, bits, weights, wall
+
+
+def fit_dist(x, y):
+    """(max relative loss difference, max accuracy difference) of two
+    fits' (steps, 2) series."""
+    import numpy as np
+    return (float(np.max(np.abs(x[:, 0] - y[:, 0]) / np.abs(y[:, 0]))),
+            float(np.max(np.abs(x[:, 1] - y[:, 1]))))
+
+
+SPREAD_FITS = 4          # per-step fits whose 6 pairs give the spread
+
+
+def train_graph_vs_eager(torch, base, scfg):
+    """Graphed fits against per-step fits, 2 epochs each from the same init
+    on the same collection.  In cuDNN's deterministic mode (held): the
+    graphed fit equals its eager twin (the per-step path with the graph's
+    optimizer, Adam ``capturable``) bit for bit, every step's (loss,
+    accuracy) and the final weights, and the dropout bits of its first
+    steps equal the per-step path's; its distance from the per-step
+    path's own optimizer is read.  In its default mode, where cuDNN's wgrad
+    adds with atomics (held): step 1's loss within 1e-6 relative of the
+    per-step fit's, and the graphed fit, taken as one more member of the
+    per-step fits' ensemble, as far from them as they are from each other
+    within twice: the median of its distances from ``SPREAD_FITS``
+    per-step fits against the largest distance between two of them."""
+    with cudnn_deterministic(torch):
+        p, bits_p, _, wall_dp = fit_series(torch, base, scfg, "det-plain",
+                                           False)
+        t, _, w_t, wall_dt = fit_series(torch, base, scfg, "det-twin",
+                                        False, twin=True)
+        g, bits_g, w_g, wall_dg = fit_series(torch, base, scfg, "det-graph",
+                                             None)
+    same_series = bool((t == g).all())
+    same_weights = all(torch.equal(w_t[k], w_g[k]) for k in w_t)
+    same_bits = all(torch.equal(x, y) for x, y in zip(bits_g, bits_p))
+    optimizer_dist = fit_dist(g, p)
+    eager, walls = [], []
+    for i in range(SPREAD_FITS):
+        e, _, _, wall = fit_series(torch, base, scfg, f"eager-{i}", False)
+        eager.append(e)
+        walls.append(wall)
+    g2, _, _, wall_g = fit_series(torch, base, scfg, "graph", None)
+    pairs = [fit_dist(eager[j], eager[i]) for i in range(SPREAD_FITS)
+             for j in range(i + 1, SPREAD_FITS)]
+    spread = (max(d[0] for d in pairs), max(d[1] for d in pairs))
+    dists = [fit_dist(g2, e) for e in eager]
+    # the upper median of the graph's distances, per component
+    apart = tuple(sorted(d[c] for d in dists)[SPREAD_FITS // 2]
+                  for c in range(2))
+    first = float(abs(g2[0, 0] - eager[0][0, 0]) / abs(eager[0][0, 0]))
+    log(f"train graph vs eager ({GRAPH_FIT_EPOCHS} epochs x "
+        f"{TRAIN_SAMPLES} steps each, ffhq 1024^2): cuDNN deterministic: "
+        f"graph vs its eager twin: every step's loss and accuracy "
+        f"{'bit-identical' if same_series else 'DIFFER'} (max "
+        f"{fit_dist(g, t)}), final weights "
+        f"{'bit-identical' if same_weights else 'DIFFER'}; dropout bits of "
+        f"the first {BITS_STEPS} steps {'equal' if same_bits else 'DIFFER'} "
+        f"({len(bits_g)} draws); graph vs the per-step optimizer max "
+        f"relative loss difference {optimizer_dist[0]:.3g}, accuracy "
+        f"{optimizer_dist[1]:.3g}; fit wall s per-step {wall_dp:.2f}, twin "
+        f"{wall_dt:.2f}, graph {wall_dg:.2f}. Default mode: step 1 loss "
+        f"{g2[0, 0]:.7f} vs {eager[0][0, 0]:.7f} (relative {first:.3g}, "
+        f"limit 1e-6); graph vs each eager fit (max relative loss "
+        f"difference, max accuracy difference) "
+        f"{[tuple(float(f'{v:.3g}') for v in d) for d in dists]}, median "
+        f"{apart[0]:.3g} / {apart[1]:.3g}; {len(pairs)} eager pairs "
+        f"{[tuple(float(f'{v:.3g}') for v in d) for d in pairs]}, spread "
+        f"{spread[0]:.3g} / {spread[1]:.3g} (limit twice that); fit wall s "
+        f"(collection load included): eager "
+        f"{', '.join(f'{w:.2f}' for w in walls)}, graph {wall_g:.2f}; final "
+        f"loss eager {eager[0][-1, 0]:.6f}, graph {g2[-1, 0]:.6f}")
+    assert same_bits, "dropout bits differ between the graphed and eager fits"
+    check_later(same_series and same_weights, "train: the graphed fit is not "
+                "its eager twin bit for bit in cuDNN's deterministic mode")
+    check_later(first <= 1e-6, f"train: step 1 loss {g2[0]} vs {eager[0][0]}")
+    check_later(apart[0] <= 2 * spread[0] and apart[1] <= 2 * spread[1],
+                f"train: graph vs eager {apart} beyond twice the eager "
+                f"spread {spread}")
+    return dict(twin_equal=same_series and same_weights,
+                optimizer_dist=optimizer_dist, first_rel=first, apart=apart,
+                dists=dists, spread=spread, pairs=pairs,
+                wall_s={"eager": walls, "graph": wall_g,
+                        "deterministic": [wall_dp, wall_dt, wall_dg]})
+
+
+def write_train_collection(torch, base):
+    """``TRAIN_SAMPLES`` + ``EVAL_SAMPLES`` ffhq 1024^2 samples of the
+    port's seeded f32 generator in ``base``/data and ``base``/eval, and
+    ``base``/config.yml with the defaults.  -> (config path, its solver
+    config)."""
+    from gan_segmentation_tpu_torch.core.config import load_config_file
+    from gan_segmentation_tpu_torch.train.generator import ImageGenerator
+
+    gen = ImageGenerator(gan="ffhq", batch_size=BATCH, dtype="fp32",
+                         gan_dir=join(base, "no-models"), seed=0)
+    make_collection(gen, join(base, "data"), TRAIN_SAMPLES)
+    # eval: the same generator, the next z of its stream
+    make_collection(gen, join(base, "eval"), EVAL_SAMPLES)
+    del gen
+    torch.cuda.empty_cache()
+    config = join(base, "config.yml")
+    with open(config, "w") as fh:
+        fh.write(f"BASE_DIR: {base}\nGAN: ffhq\n"
+                 f"GAN_DIR: {join(base, 'no-models')}\n")
+    return config, load_config_file(config).solver_config()
 
 
 def phase_train(torch):
     """``main train`` then ``main evaluate`` at ffhq 1024^2 with the
     defaults (24 epochs, batch 1, Adam 1e-4, dropout on) on a collection
-    of the port's seeded generator; launch counts, falling loss,
-    checkpoint, metrics, and mean-iou above the untrained decoder's."""
+    of the port's seeded generator; falling loss, checkpoint, metrics, and
+    mean-iou above the untrained decoder's.  ``main train`` runs twice:
+    timed, then under a device trace for its launch counts (the trace
+    slows the replays)."""
     import contextlib
     import io
     import math
 
     from gan_segmentation_tpu_torch.apps.main import main as cli
-    from gan_segmentation_tpu_torch.core.config import load_config_file
-    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
-    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
-    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
-    from gan_segmentation_tpu_torch.train.generator import ImageGenerator
     from gan_segmentation_tpu_torch.train.solver import SegSolver
 
     with tempfile.TemporaryDirectory() as base:
         free = shutil.disk_usage(base).free / 2 ** 30
-        k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
-        t0 = time.perf_counter()
-        gen = ImageGenerator(gan="ffhq", batch_size=BATCH, dtype="fp32",
-                             gan_dir=join(base, "no-models"), seed=0)
-        make_collection(gen, join(base, "data"), TRAIN_SAMPLES)
-        # eval: the same generator, the next z of its stream
-        make_collection(gen, join(base, "eval"), EVAL_SAMPLES)
-        del gen
-        torch.cuda.empty_cache()
-        n_k1 = k1m.conv3x3_noise_bias_lrelu_instats.launches
+        with LaunchTrace(torch) as ctrace:
+            t0 = time.perf_counter()
+            config, scfg = write_train_collection(torch, base)
+        n_k1 = ctrace.device["conv_in_stats"]
         batches = -(-TRAIN_SAMPLES // BATCH) + -(-EVAL_SAMPLES // BATCH)
         log(f"train collection: {TRAIN_SAMPLES} + {EVAL_SAMPLES} ffhq 1024^2 "
             f"samples (f32 pyramids) written in "
-            f"{time.perf_counter() - t0:.1f} s ({free:.1f} GiB free before); "
-            f"conv_in_stats (f32) launches {n_k1} over {batches} batches of "
-            f"{BATCH}")
+            f"{time.perf_counter() - t0:.1f} s, traced ({free:.1f} GiB free "
+            f"before); conv_in_stats (f32) launches {n_k1} over {batches} "
+            f"batches of {BATCH} (device trace; the wrapper counted "
+            f"{ctrace.wrapper['conv_in_stats']})")
         assert n_k1 == 9 * batches, "conv_in_stats must run 9x per batch"
-        config = join(base, "config.yml")
-        with open(config, "w") as fh:
-            fh.write(f"BASE_DIR: {base}\nGAN: ffhq\n"
-                     f"GAN_DIR: {join(base, 'no-models')}\n")
-        scfg = load_config_file(config).solver_config()
         steps = scfg.train_epochs * (TRAIN_SAMPLES // scfg.train_batch_size)
 
-        k3m.conv3x3_bil.launches = 0
-        k2m.conv3x3_small.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with LogLines("gan_segmentation_tpu_torch.train.solver") as lines:
-            cli(["train", "--config", config])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n_bil, n_small = k3m.conv3x3_bil.launches, k2m.conv3x3_small.launches
-        log(f"train launches: bil_conv {n_bil}, small_conv {n_small} over "
-            f"{steps} steps (expected {BIL_PER_STEP} and {SMALL_PER_STEP} "
-            f"per step)")
+        def main_train():
+            """-> (the solver's log lines, wall s, fit loop s after the
+            first epoch); the fit replayed its graph."""
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with LogLines("gan_segmentation_tpu_torch.train.solver") as lines:
+                cli(["train", "--config", config])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            assert any(line.startswith("scan_epochs: each step replays")
+                       for line in lines.lines), "main train ran no graph"
+            # each epoch's log line follows a sync
+            return lines, wall, sum(lines.floats("Time cost")[1:])
+
+        lines, wall, fit_s = main_train()
+        with LaunchTrace(torch) as trace:
+            _, traced_wall, traced_fit_s = main_train()
+        n_bil, n_small = trace.device["bil_conv"], trace.device["small_conv"]
+        log(f"train launches (device trace of the second run): bil_conv "
+            f"{n_bil}, small_conv {n_small}, conv_in_stats "
+            f"{trace.device['conv_in_stats']} over {steps} steps (expected "
+            f"{BIL_PER_STEP} and {SMALL_PER_STEP} per step); the wrappers "
+            f"counted {trace.wrapper} (the eager steps and the capture's "
+            f"recording); traced run {traced_wall:.1f} s, its fit loop "
+            f"{traced_fit_s:.3f} s against {fit_s:.3f} s untraced")
         assert n_bil == BIL_PER_STEP * steps, n_bil
         assert n_small == SMALL_PER_STEP * steps, n_small
+        assert trace.device["conv_in_stats"] == 0, trace.device
         epoch_loss = lines.floats("Train-total-loss")
         epoch_acc = lines.floats("Train-accuracy")
         cost = lines.floats("Time cost")
@@ -1221,10 +1721,9 @@ def phase_train(torch):
         ckpt = join(base, "checkpoints", "checkpoint_last.pt")
         assert os.path.isfile(ckpt), "no checkpoint written"
         # the fit loop's rate: every step after the first epoch over the
-        # wall time of those epochs (each epoch's log line follows a sync)
+        # wall time of those epochs
         later = sorted(cost[1:])
         fit_steps = len(later) * TRAIN_SAMPLES
-        fit_s = sum(later)
         log(f"train: epoch loss {epoch_loss[0]:.4f} -> {epoch_loss[-1]:.4f}, "
             f"accuracy {epoch_acc[0]:.4f} -> {epoch_acc[-1]:.4f}; "
             f"{fit_steps / fit_s:.3f} train samples/s, "
@@ -1234,14 +1733,11 @@ def phase_train(torch):
             f"{later[-1]:.3f} s), first epoch {cost[0]:.2f} s, "
             f"whole run {wall:.1f} s including the collection's load; "
             f"checkpoint {os.path.basename(ckpt)}")
-        train_launches = {"bil_conv": n_bil, "small_conv": n_small}
 
-        k3m.conv3x3_bil.launches = 0
-        k2m.conv3x3_small.launches = 0
         out = io.StringIO()
-        with contextlib.redirect_stdout(out):
+        with LaunchTrace(torch) as etrace, contextlib.redirect_stdout(out):
             cli(["evaluate", "--config", config])
-        n_eval = k2m.conv3x3_small.launches
+        n_eval = etrace.device["small_conv"]
         line = out.getvalue().strip().splitlines()[-1]
         log(f"evaluate prints: {line}")
         metrics = dict(kv.split(": ") for kv in line.split(", "))
@@ -1249,7 +1745,7 @@ def phase_train(torch):
         metrics = {k: float(v) for k, v in metrics.items()}
         assert all(math.isfinite(v) for v in metrics.values()), metrics
         assert n_eval == SMALL_PER_EVAL_SAMPLE * EVAL_SAMPLES, n_eval
-        assert k3m.conv3x3_bil.launches == 0
+        assert etrace.device["bil_conv"] == 0, etrace.device
 
         untrained = SegSolver(scfg.max_res_log2, "",
                               join(base, "no-checkpoints"), cfg=scfg)
@@ -1259,9 +1755,15 @@ def phase_train(torch):
             f"{before['mean-iou']:.4f}, accuracy {before['accuracy']:.4f}")
         assert metrics["mean-iou"] > before["mean-iou"], (metrics, before)
         prof = profile_train_step(torch, base, scfg)
-    return dict(launches=train_launches, eval_launches=n_eval,
-                collection_launches=n_k1, steps=steps, step_ms=fit_s / fit_steps * 1e3,
-                sps=fit_steps / fit_s, metrics=metrics, prof=prof)
+        versus = train_graph_vs_eager(torch, base, scfg)
+    return dict(launches={"bil_conv": n_bil, "small_conv": n_small},
+                eval_launches=n_eval, versus=versus,
+                wrapper=dict(collection=ctrace.wrapper, train=trace.wrapper,
+                             evaluate=etrace.wrapper),
+                collection_launches=n_k1, steps=steps,
+                step_ms=fit_s / fit_steps * 1e3, sps=fit_steps / fit_s,
+                traced_fit_s=traced_fit_s, fit_s=fit_s, metrics=metrics,
+                prof=prof)
 
 
 # ------------------------------------------------ cars 512^2, bedrooms 256^2
@@ -1377,15 +1879,12 @@ def phase_other_gans(torch):
             n_batches = -(-OTHER_NUM // BATCH)
             n_convs = len(kernel2_shapes(scfg))
 
-            k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
-            k2m.conv3x3_small.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run_generate(cfg, writer="cv2")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n1 = k1m.conv3x3_noise_bias_lrelu_instats.launches
-            n2 = k2m.conv3x3_small.launches
+            with LaunchTrace(torch) as trace:
+                t0 = time.perf_counter()
+                run_generate(cfg, writer="cv2")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n1, n2 = trace.device["conv_in_stats"], trace.device["small_conv"]
             assert n1 == (scfg.max_res_log2 - 1) * n_batches, n1
             assert n2 == n_convs * n_batches, (n2, n_convs)
             dst = join(base, "dataset", "train_generated")
@@ -1403,13 +1902,7 @@ def phase_other_gans(torch):
             assert solver.is_trained
             pipe = FusedPipeline(ImageGenerator(
                 gan=gan, gan_dir=cfg.GAN_DIR, batch_size=BATCH), solver)
-            for _ in pipe.generate_batches(BATCH):  # warm-up
-                pass
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in pipe.generate_batches(OTHER_RATE_NUM):
-                pass
-            rate = OTHER_RATE_NUM / (time.perf_counter() - t0)
+            rate = pipeline_rate(torch, pipe, OTHER_RATE_NUM)
 
             # the tail conv, kernel 2 against plain in both dtypes
             (cname, n, h, w, cin, cout, _) = kernel2_shapes(scfg)[-1]
@@ -1480,12 +1973,14 @@ def phase_other_gans(torch):
             del gen16, folded16, bf_k, bf_p
             smi = smi_line()
             log(f"{gan} {res}^2 generate: {OTHER_NUM} pairs, bf16, batch "
-                f"{BATCH}: launches conv_in_stats {n1}, small_conv {n2} "
-                f"({n_convs} convs x {n_batches} batches); "
+                f"{BATCH}: launches (device trace) conv_in_stats {n1}, "
+                f"small_conv {n2} ({n_convs} convs x {n_batches} batches; "
+                f"the wrappers counted {trace.wrapper}); "
                 f"{rate:.3f} samples/s (device pipeline, "
                 f"{OTHER_RATE_NUM} samples), "
                 f"{OTHER_NUM / wall:.3f} samples/s end to end with the cv2 "
-                f"writer and the first launches ({wall:.2f} s) on {smi}; "
+                f"writer and the first launches, traced ({wall:.2f} s) on "
+                f"{smi}; "
                 f"tail conv {cname} {(n, h, w, cin, cout)} kernel vs plain "
                 f"max|err| f32 {tail_err['f32']:.3g} (tol {TOL['f32']}), "
                 f"bf16 {tail_err['bf16']:.3g} (tol {TOL['bf16']}); f32 "
@@ -1496,11 +1991,247 @@ def phase_other_gans(torch):
                 f"(margin > {MASK_MARGIN}), "
                 f"{int((mask_k != mask_p).sum())} near-tie pixels differ; "
                 + bf16_line)
+            assert trace.device["bil_conv"] == 0, trace.device
             out[gan] = dict(launches={"conv_in_stats": n1, "small_conv": n2},
-                            pipeline_sps=rate)
+                            wrapper=trace.wrapper, pipeline_sps=rate)
             del gen32, pipe, solver, img_k, img_p, logit_k, logit_p
             torch.cuda.empty_cache()
     return out
+
+
+# ------------------------------------------ generate as CUDA-graph replays
+GRAPH_GANS = ("ffhq", "cars", "bedrooms")
+GRAPH_BATCHES = 4   # the eager first batch, the capture's, two more replays
+GRAPH_RATE_NUM = {"ffhq": 48, "cars": 96, "bedrooms": 160}
+GRAPH_PROFILE_BATCHES = 3
+
+
+def pipeline_rate(torch, pipe, n):
+    """Samples/s of ``pipe.generate_batches(n)`` (device pipeline, no
+    writer) after two warm-up batches (on a card the eager first batch and
+    the graph's capture); its last batch waits for the card."""
+    for _ in pipe.generate_batches(2 * BATCH):
+        pass
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in pipe.generate_batches(n):
+        pass
+    return n / (time.perf_counter() - t0)
+
+
+def pipeline_busy(torch, pipe):
+    """(kernel ms per batch, wall ms per batch, busy share) of a profiled
+    window of ``GRAPH_PROFILE_BATCHES`` batches of ``generate_batches``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in pipe.generate_batches(GRAPH_PROFILE_BATCHES * BATCH):
+            pass
+        wall = (time.perf_counter() - t0) * 1e3 / GRAPH_PROFILE_BATCHES
+    kern = sum(kernel_times(prof).values()) / GRAPH_PROFILE_BATCHES
+    return kern, wall, kern / wall
+
+
+def sampler_f32_vs_eager(torch, state, gan_dir):
+    """``ImageGenerator.sample_batch`` in f32 at ffhq 1024^2, batch 8 (the
+    collection's sampler) as graph replays against the eager forward of the
+    same draws, and that against a second eager forward: in cuDNN's
+    deterministic mode all bit-identical (images and the 9 features); in
+    its default mode, where two eager forwards differ, the graph within
+    twice the eager path's own repeat spread.
+    -> readings and a line."""
+    from gan_segmentation_tpu_torch.train.generator import (ImageGenerator,
+                                                            _to_uint8)
+
+    def eager(g):
+        z, noise = g.next_inputs(BATCH)
+        with torch.inference_mode():
+            rgb, feats = g.model(z, generator=noise)
+            return _to_uint8(rgb, g.cfg.imrange), feats, z
+
+    def dist(a, b):  # max |difference| of the images, of the features
+        return (int((a[0].int() - b[0].int()).abs().max()),
+                max(float((x - y).abs().max()) for x, y in zip(a[1], b[1])))
+
+    def levels(a, b):
+        return [f"{float((x - y).abs().max()):.3g}" for x, y in zip(a[1], b[1])]
+
+    out = {}
+    for mode in ("deterministic", "default"):
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = mode == "deterministic"
+        try:
+            g32, r1, r2, r3 = (ImageGenerator(
+                gan="ffhq", gan_dir=gan_dir, batch_size=BATCH, dtype="fp32",
+                seed=5, params=state) for _ in range(4))
+            graph_eager, eager_eager, side_eager, by_level = [], [], [], []
+            side = torch.cuda.Stream()
+            for i in range(3):
+                if i == 1:  # the capture
+                    torch.cuda.synchronize()
+                    torch.cuda.empty_cache()
+                    reserved = torch.cuda.memory_reserved()
+                got, want, again = g32.sample_batch(), eager(r1), eager(r2)
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    aside = eager(r3)
+                torch.cuda.current_stream().wait_stream(side)
+                assert torch.equal(got[2], want[2]), f"f32 z of batch {i}"
+                graph_eager.append(dist(got, want))
+                eager_eager.append(dist(again, want))
+                side_eager.append(dist(aside, want))
+                by_level.append(levels(got, want))
+                del got, want, again, aside
+                if i == 1:  # what the capture keeps reserved
+                    torch.cuda.empty_cache()
+                    pool = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        out[mode] = dict(graph_vs_eager=graph_eager,
+                         eager_vs_eager=eager_eager,
+                         side_stream_vs_eager=side_eager,
+                         levels=by_level, pool_gib=pool)
+        del g32, r1, r2, r3
+        torch.cuda.empty_cache()
+    det, dft = out["deterministic"], out["default"]
+    line = (f"ImageGenerator.sample_batch f32, batches 0-2 (max |image "
+            f"diff|, max |feature diff| per batch): cuDNN deterministic "
+            f"graph vs eager {det['graph_vs_eager']}, eager vs eager "
+            f"{det['eager_vs_eager']}, eager on a side stream vs eager "
+            f"{det['side_stream_vs_eager']}; default mode graph vs eager "
+            f"{dft['graph_vs_eager']} (by feature {dft['levels']}), eager "
+            f"vs eager {dft['eager_vs_eager']}, side stream "
+            f"{dft['side_stream_vs_eager']}; the capture kept "
+            f"{dft['pool_gib']:.3f} GiB reserved")
+    log(line)
+    exact = [(0, 0.0)] * 3
+    check_later(det["graph_vs_eager"] == exact and det["eager_vs_eager"]
+                == exact, "f32 sampler: not bit-identical in cuDNN's "
+                "deterministic mode")
+    spread = tuple(max(v) for v in zip(*dft["eager_vs_eager"]))
+    check_later(all(g <= 2 * e for d in dft["graph_vs_eager"]
+                    for g, e in zip(d, spread)),
+                "f32 sampler: the graph lies beyond twice the eager repeat "
+                "spread")
+    out["line"] = line
+    return out
+
+
+def phase_graph_generate(torch):
+    """Generate as replays of CUDA graphs against the eager path, bf16,
+    batch 8, at ffhq 1024^2, cars 512^2 and bedrooms 256^2, with seeded
+    random weights whose noise scales and batch-norm statistics are moved
+    off their init (so the noise draws and the fold show): the graph's
+    batches 0-3 (the eager first batch, the capture, two replays) equal
+    the eager ``_fused`` of the same draws in every byte of the images and
+    masks; a replay runs on the card (device trace) what an eager batch
+    launches; device-pipeline samples/s graph vs eager in turns (graph,
+    eager, eager, graph); kernel time and busy share under the profiler;
+    the graph's pool.  At ffhq also ``ImageGenerator.sample_batch`` in f32
+    (the collection's sampler, ``sampler_f32_vs_eager``)."""
+    from gan_segmentation_tpu_torch.core.config import MAX_RES_LOG2, \
+        SolverConfig
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    k1, k2 = k1m.conv3x3_noise_bias_lrelu_instats, k2m.conv3x3_small
+    out, launched = {}, {"conv_in_stats": 0, "small_conv": 0}
+    smi = smi_line()
+    for gan in GRAPH_GANS:
+        r = MAX_RES_LOG2[gan]
+        with tempfile.TemporaryDirectory() as base:
+            none = join(base, "none")
+            scfg = SolverConfig(max_res_log2=r)
+            solver = SegSolver(r, "", none, cfg=scfg)
+            perturb(torch, solver.model, 31)
+            solver.weights_version += 1
+            gen = ImageGenerator(gan=gan, gan_dir=none, batch_size=BATCH,
+                                 seed=5)
+            perturb(torch, gen.model, 32)
+            ref = ImageGenerator(gan=gan, gan_dir=none, batch_size=BATCH,
+                                 seed=5, params=gen.model.state_dict())
+            pipe, eager = FusedPipeline(gen, solver), FusedPipeline(ref,
+                                                                    solver)
+            # the eager path: every batch through _fused, as before graphs
+            eager._batch = lambda b, p=eager: p._fused(*p.gen.next_inputs(b))
+            n_blocks, n_convs = r - 1, len(kernel2_shapes(scfg))
+
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            with LaunchTrace(torch) as gtrace:
+                got = [[t.cpu() for t in pipe.sample_batch()]
+                       for _ in range(GRAPH_BATCHES)]
+            torch.cuda.empty_cache()
+            # what the graph keeps reserved, its static inputs and outputs
+            # included (the capture emptied the cache before it)
+            pool_gib = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+            with LaunchTrace(torch) as etrace:
+                want = [[t.cpu() for t in eager._batch(BATCH)]
+                        for _ in range(GRAPH_BATCHES)]
+            n_graph = (gtrace.device["conv_in_stats"],
+                       gtrace.device["small_conv"])
+            n_eager = (etrace.device["conv_in_stats"],
+                       etrace.device["small_conv"])
+            call = pipe._graphs[BATCH]
+            assert n_eager == (GRAPH_BATCHES * n_blocks,
+                               GRAPH_BATCHES * n_convs), n_eager
+            assert n_graph == n_eager, (n_graph, n_eager)
+            assert call.replays == GRAPH_BATCHES - 1, call.replays
+            assert (call.deltas[k1], call.deltas[k2]) == (n_blocks, n_convs)
+            # the eager first batch and the capture's recording
+            assert (gtrace.wrapper["conv_in_stats"],
+                    gtrace.wrapper["small_conv"]) == (2 * n_blocks,
+                                                      2 * n_convs), gtrace
+            for i, (x, y) in enumerate(zip(got, want)):
+                assert all(a.dtype == torch.uint8 for a in x)
+                assert all(torch.equal(a, b) for a, b in zip(x, y)), \
+                    f"{gan}: graph batch {i} differs from the eager batch"
+            assert not torch.equal(got[0][0], got[1][0])
+            for k, n in zip(launched, n_graph):
+                launched[k] += n
+
+            rates = {"graph": [], "eager": []}
+            for tag, p in (("graph", pipe), ("eager", eager),
+                           ("eager", eager), ("graph", pipe)):
+                rates[tag].append(pipeline_rate(torch, p,
+                                                GRAPH_RATE_NUM[gan]))
+            busy = {tag: pipeline_busy(torch, p)
+                    for tag, p in (("graph", pipe), ("eager", eager))}
+            rec = dict(rates=rates, busy=busy, pool_gib=pool_gib,
+                       launches_per_replay={"conv_in_stats": n_blocks,
+                                            "small_conv": n_convs})
+            line = (f"{gan} {2 ** r}^2 generate as graph replays (bf16, "
+                    f"batch {BATCH}): batches 0-{GRAPH_BATCHES - 1} "
+                    f"bit-identical to the eager path (images and masks), "
+                    f"launches (device traces) {n_graph} = eager {n_eager}, "
+                    f"the wrappers counted {gtrace.wrapper} (the eager first "
+                    f"batch and the capture's recording), per replay "
+                    f"conv_in_stats {n_blocks}, small_conv {n_convs}; device "
+                    f"pipeline samples/s graph "
+                    f"{', '.join(f'{v:.3f}' for v in rates['graph'])} vs "
+                    f"eager {', '.join(f'{v:.3f}' for v in rates['eager'])}"
+                    f"; profiled (kernel ms / wall ms per batch, busy): "
+                    + "; ".join(f"{t} {k:.3f} / {w:.3f}, {b:.3f}"
+                                for t, (k, w, b) in busy.items())
+                    + f"; the graph keeps {rec['pool_gib']:.3f} GiB "
+                    f"reserved")
+            if gan == "ffhq":  # the collection's sampler, f32
+                del eager, ref
+                rec["f32"] = sampler_f32_vs_eager(torch, gen.model.state_dict(),
+                                                  none)
+                line += "; " + rec["f32"].pop("line")
+            log(line + f" on {smi}")
+            out[gan] = rec
+            del pipe, gen, solver
+            torch.cuda.empty_cache()
+    return dict(gans=out, launches=launched)
 
 
 # --------------------------------------------------- foreign checkpoints
@@ -1624,8 +2355,6 @@ def phase_foreign_weights(torch, gcfg, scfg):
     8 bit-identical to the source generator's.  A decoder written as a
     dotted-name mxnet ``checkpoint_last.params`` and loaded by
     ``SegSolver.load``: logits equal to the source decoder's."""
-    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
-    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
     from gan_segmentation_tpu_torch.models.stylegan import init_generator
     from gan_segmentation_tpu_torch.train.generator import ImageGenerator
     from gan_segmentation_tpu_torch.train.solver import SegSolver
@@ -1640,7 +2369,6 @@ def phase_foreign_weights(torch, gcfg, scfg):
         state = src.state_dict()
         path = join(gan_dir, "stylegan-ffhq.params")
         write_mx_file(path, generator_mx_arrays(state, gcfg))
-        k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
         t0 = time.perf_counter()
         loaded = ImageGenerator(gan="ffhq", gan_dir=gan_dir, batch_size=BATCH)
         torch.cuda.synchronize()
@@ -1651,10 +2379,10 @@ def phase_foreign_weights(torch, gcfg, scfg):
         assert got_state.keys() == state.keys()
         for k, v in state.items():
             assert torch.equal(got_state[k].cpu(), v), k
-        img_a, feats_a, z_a = loaded.sample_batch()
-        img_b, feats_b, z_b = want.sample_batch()
-        torch.cuda.synchronize()
-        n1 = k1m.conv3x3_noise_bias_lrelu_instats.launches
+        with LaunchTrace(torch) as trace1:
+            img_a, feats_a, z_a = loaded.sample_batch()
+            img_b, feats_b, z_b = want.sample_batch()
+        n1 = trace1.device["conv_in_stats"]
         assert n1 == 2 * (gcfg.max_res_log2 - 1), n1
         assert torch.equal(z_a, z_b)
         assert img_a.shape == (BATCH, 1024, 1024, 3)
@@ -1682,10 +2410,10 @@ def phase_foreign_weights(torch, gcfg, scfg):
         assert solver.is_trained
         assert solver.params_file == "checkpoint_last.params"
         feats = [f[:1].float() for f in feats_b]
-        k2m.conv3x3_small.launches = 0
-        got, ref = solver.predict_logits(feats), source.predict_logits(feats)
-        torch.cuda.synchronize()
-        n2 = k2m.conv3x3_small.launches
+        with LaunchTrace(torch) as trace2:
+            got, ref = (solver.predict_logits(feats),
+                        source.predict_logits(feats))
+        n2 = trace2.device["small_conv"]
         assert n2 == 2 * SMALL_PER_EVAL_SAMPLE, n2
         assert got.shape == (1, 1024, 1024, 2)
         assert bool(torch.isfinite(got).all())
@@ -1824,16 +2552,20 @@ def drag(a, points):
 
 
 def drive_annotator(root_dir, gan, gan_dir, batch, n_images, n_generate,
-                    epochs=2, max_res_log2=None, counts=None):
+                    epochs=2, max_res_log2=None, counts=None,
+                    retrain_again=False):
     """A whole annotation run through ``SegmentationAnnotator``'s own
     handlers under the tk stub: ``n_images`` annotations (a drag sets
     ``has_changes``; the trimap the handlers save is the sign of channel 0
     of the sample's last feature, top two rows ignored, in place of the
     rasterized strokes, so that the decoder can learn it), the last one
     saved by Retrain itself, Retrain of ``epochs`` epochs with its preview,
-    one more image (now with a predicted mask), Generate of ``n_generate``
-    pairs.  Asserts what the run must show and returns what it saw;
-    ``counts()`` is read after each stage into ``marks``."""
+    a pipeline whose graph was captured before Retrain serving the new
+    decoder after it, one more image (now with a predicted mask), Generate
+    of ``n_generate`` pairs; with ``retrain_again`` a second Retrain (warm)
+    and a third on the per-step path (``scan_epochs=False``), timed.
+    Asserts what the run must show and returns what it saw; ``counts()`` is
+    read after each stage into ``marks``."""
     import random
     import types
     from unittest import mock
@@ -1898,9 +2630,18 @@ def drive_annotator(root_dir, gan, gan_dir, batch, n_images, n_generate,
         ids.append(annotate(a))  # Retrain saves this one
         mark("annotated")
 
-        # a pipeline built before Retrain must see the new weights after it
-        reused = FusedPipeline(a.netG, a.solver)
-        before = reused._prepared()
+        # a pipeline built, and its graph captured, before Retrain must
+        # serve the new weights after it
+        reused_gen = ImageGenerator(gan=gan, gan_dir=gan_dir,
+                                    batch_size=batch,
+                                    max_res_log2=max_res_log2,
+                                    device=a.solver.device)
+        reused = FusedPipeline(reused_gen, a.solver)
+        for _ in range(2):  # the eager first batch, then the capture
+            reused.sample_batch()
+        mark("reused")
+        before = {k: (w.clone(), b.clone())
+                  for k, (w, b) in reused._prepared().items()}
         shown = []
         real_set_img = a.set_img
         a.set_img = lambda img: (shown.append(np.array(img)),
@@ -1942,6 +2683,17 @@ def drive_annotator(root_dir, gan, gan_dir, batch, n_images, n_generate,
                    for k in fresh_fold)
         assert any(not torch.equal(after[k][0], before[k][0])
                    for k in fresh_fold), "Retrain left the weights as is"
+        got = reused.sample_batch()  # a replay of the graph from before
+        fresh_gen = ImageGenerator(gan=gan, gan_dir=gan_dir,
+                                   batch_size=batch,
+                                   max_res_log2=max_res_log2,
+                                   device=a.solver.device)
+        fresh_gen.skip_batches(reused_gen._batch_index - 1)
+        want = FusedPipeline(fresh_gen, a.solver).sample_batch()
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+            "a graph captured before Retrain served the old decoder"
+        del reused_gen, fresh_gen, got, want
+        mark("stale_checked")
 
         a.skip_btn.invoke()  # the next image comes with a predicted mask
         assert not np.array_equal(a.vis_img, a.img_orig)
@@ -1954,19 +2706,34 @@ def drive_annotator(root_dir, gan, gan_dir, batch, n_images, n_generate,
             torch.cuda.synchronize()
         generate_s = time.perf_counter() - t0
         mark("generated")
+        # the weights Generate used, for the check below (the Retrains
+        # after it train on)
+        shutil.copytree(join(root_dir, "checkpoints"),
+                        join(root_dir, "checkpoints_at_generate"))
         for b in (a.ok_btn, a.skip_btn, a.retrain_btn, a.generate_btn):
             assert b.state == "normal"
+        retrain = {}
+        if retrain_again:  # warm, then the per-step path, same collection
+            for tag, scan in (("warm", None), ("eager", False)):
+                a.solver.cfg.scan_epochs = scan
+                t0 = time.perf_counter()
+                a.retrain_btn.invoke()
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                retrain[tag] = time.perf_counter() - t0
+            a.solver.cfg.scan_epochs = None
         device = a.solver.device
         del a, reused
 
-    # Generate's masks are those of a fresh pipeline on the saved
-    # checkpoint at the same place of the same seeded stream
+    # Generate's masks are those of a fresh pipeline on the checkpoint
+    # saved before Generate, at the same place of the same seeded stream
     dst = join(root_dir, "dataset", "train_generated")
     gen = ImageGenerator(gan=gan, gan_dir=gan_dir, batch_size=batch,
                          max_res_log2=max_res_log2, device=device)
     gen.skip_batches(consumed)
     solver = short_solver(gen.cfg.max_res_log2, data,
-                          join(root_dir, "checkpoints"), device=device)
+                          join(root_dir, "checkpoints_at_generate"),
+                          device=device)
     assert solver.is_trained and solver.params_file == "checkpoint_last.pt"
     ones = 0
     pairs = FusedPipeline(gen, solver).generate_pairs(n_generate)
@@ -1978,7 +2745,7 @@ def drive_annotator(root_dir, gan, gan_dir, batch, n_images, n_generate,
         ones += int(mask.sum())
     assert len(os.listdir(dst)) == 2 * n_generate
     return dict(ids=ids, history=history, marks=marks, retrain_s=retrain_s,
-                generate_s=generate_s, res=res,
+                retrain_again_s=retrain, generate_s=generate_s, res=res,
                 mask_share=ones / (n_generate * res * res))
 
 
@@ -1991,23 +2758,20 @@ ANN_GENERATE = 16
 def phase_annotation(torch):
     """The annotation run at ffhq 1024^2 on the card (see
     ``drive_annotator``), with the kernels' launch counts per stage."""
-    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
-    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
-    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
-
-    wrappers = {"conv_in_stats": k1m.conv3x3_noise_bias_lrelu_instats,
-                "small_conv": k2m.conv3x3_small, "bil_conv": k3m.conv3x3_bil}
-    for fn in wrappers.values():
-        fn.launches = 0
     with tempfile.TemporaryDirectory() as base, LogLines(
-            "gan_segmentation_tpu_torch.train.solver") as lines:
+            "gan_segmentation_tpu_torch.train.solver") as lines, \
+            LaunchTrace(torch) as trace:
         seen = drive_annotator(
             base, "ffhq", join(base, "no-models"), ANN_BATCH, ANN_IMAGES,
-            ANN_GENERATE, epochs=ANN_EPOCHS,
-            counts=lambda: {k: fn.launches for k, fn in wrappers.items()})
+            ANN_GENERATE, epochs=ANN_EPOCHS, counts=trace.so_far,
+            retrain_again=True)
     epoch_s = lines.floats("Time cost")
-    assert len(epoch_s) == ANN_EPOCHS, epoch_s
-    total = {k: fn.launches for k, fn in wrappers.items()}
+    assert len(epoch_s) == 3 * ANN_EPOCHS, epoch_s  # 3 Retrains
+    graphed = [m for m in lines.lines if m.startswith("scan_epochs: each")]
+    assert len(graphed) == 2, graphed  # the first two Retrains, not eager
+    # the device trace's count; the stages' counts below are the wrappers'
+    # eager launches plus their graphs' replays, whose sum the trace equals
+    total = trace.device
     m = seen["marks"]
     steps = ANN_EPOCHS * ANN_IMAGES
     # the sampler: one batch of ANN_BATCH per two images shown, kernel 1
@@ -2016,15 +2780,24 @@ def phase_annotation(torch):
                                 "bil_conv": 0}, m
     assert m["annotated"]["conv_in_stats"] == 9 * -(-ANN_IMAGES // 2), m
     assert m["annotated"]["small_conv"] == m["annotated"]["bil_conv"] == 0, m
-    # Retrain: kernels 3 and 2 in every step, kernel 2 in each epoch's
-    # preview and in the predict of the check after it
+    # two batches of the pipeline built before Retrain
+    assert (m["reused"]["conv_in_stats"] - m["annotated"]["conv_in_stats"]
+            == 2 * 9), m
+    assert m["reused"]["small_conv"] == 2 * SMALL_PER_EVAL_SAMPLE, m
+    # Retrain: kernels 3 and 2 in every step (eager steps and replays),
+    # kernel 2 in each epoch's preview
     assert m["retrained"]["bil_conv"] == BIL_PER_STEP * steps, m
-    assert (m["retrained"]["small_conv"] == SMALL_PER_STEP * steps
-            + SMALL_PER_EVAL_SAMPLE * ANN_EPOCHS), m
-    assert m["retrained"]["conv_in_stats"] == m["annotated"]["conv_in_stats"]
-    # predict for the next image (and the check's own predict before it)
-    assert (m["predicted"]["small_conv"] - m["retrained"]["small_conv"]
-            == 2 * SMALL_PER_EVAL_SAMPLE), m
+    assert (m["retrained"]["small_conv"] - m["reused"]["small_conv"]
+            == SMALL_PER_STEP * steps + SMALL_PER_EVAL_SAMPLE * ANN_EPOCHS), m
+    assert m["retrained"]["conv_in_stats"] == m["reused"]["conv_in_stats"]
+    # the check's predict, a replay of the old graph, a fresh batch
+    assert (m["stale_checked"]["small_conv"] - m["retrained"]["small_conv"]
+            == 3 * SMALL_PER_EVAL_SAMPLE), m
+    assert (m["stale_checked"]["conv_in_stats"]
+            - m["retrained"]["conv_in_stats"] == 2 * 9), m
+    # predict for the next image
+    assert (m["predicted"]["small_conv"] - m["stale_checked"]["small_conv"]
+            == SMALL_PER_EVAL_SAMPLE), m
     # Generate: kernels 1 and 2 per batch
     batches = -(-ANN_GENERATE // ANN_BATCH)
     assert (m["generated"]["conv_in_stats"] - m["predicted"]["conv_in_stats"]
@@ -2038,17 +2811,25 @@ def phase_annotation(torch):
         f"{ANN_IMAGES} annotations saved by the handlers and read back; "
         f"Retrain ({ANN_EPOCHS} epochs x {ANN_IMAGES} steps, previews "
         f"included) {seen['retrain_s']:.2f} s, of which the epochs' steps "
-        f"took {' + '.join(f'{t:.3f}' for t in epoch_s)} s and the rest is "
+        f"took {' + '.join(f'{t:.3f}' for t in epoch_s[:ANN_EPOCHS])} s and "
+        f"the rest is "
         f"the last annotation's save, the collection's load and upload, "
         f"the previews and the checkpoint; epoch loss "
         f"{sum(hist[0]) / len(hist[0]):.4f} -> "
         f"{sum(hist[-1]) / len(hist[-1]):.4f}, last preview = predict; "
+        f"again: warm {seen['retrain_again_s']['warm']:.2f} s, on the "
+        f"per-step path {seen['retrain_again_s']['eager']:.2f} s (epochs "
+        f"{' + '.join(f'{t:.3f}' for t in epoch_s[2 * ANN_EPOCHS:])} s); "
+        f"a graph captured before Retrain serves the new decoder; "
         f"Generate {ANN_GENERATE} pairs {seen['generate_s']:.2f} s "
         f"({ANN_GENERATE / seen['generate_s']:.3f} samples/s with the cv2 "
         f"writer), masks equal a fresh pipeline's on the saved checkpoint "
         f"(class 1 on {seen['mask_share']:.4f} of the pixels), the pipeline "
-        f"built before Retrain refolded; launches by stage {m} on {smi}")
+        f"built before Retrain refolded; launches by stage {m}, in all "
+        f"{total} (device trace; the run was traced) on {smi}")
     return dict(launches=total, retrain_s=seen["retrain_s"],
+                retrain_warm_s=seen["retrain_again_s"]["warm"],
+                retrain_eager_s=seen["retrain_again_s"]["eager"],
                 generate_s=seen["generate_s"])
 
 # ----------------------------------------------------------------- deeplab
@@ -2418,14 +3199,11 @@ def kernel_families(prof, steps):
     family)."""
     from torch.autograd import DeviceType
 
-    by_name, launches = {}, 0
-    for evt in prof.events():
-        annotation = (getattr(evt, "is_user_annotation", False)
-                      or evt.name.startswith("Optimizer."))
-        if evt.device_type == DeviceType.CUDA and not annotation:
-            by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3)
-            launches += 1
+    by_name = kernel_times(prof)
+    launches = sum(
+        1 for evt in prof.events() if evt.device_type == DeviceType.CUDA
+        and not (getattr(evt, "is_user_annotation", False)
+                 or evt.name.startswith("Optimizer.")))
 
     def family(name):
         low = name.lower()
@@ -2442,10 +3220,7 @@ def kernel_families(prof, steps):
         return "elementwise and reductions (relu, add, casts, dropout, " \
                "loss, SGD)"
 
-    fam = {}
-    for name, t in by_name.items():
-        fam[family(name)] = fam.get(family(name), 0.0) + t / steps
-    return by_name, launches, fam
+    return by_name, launches, families(by_name, steps, family)
 
 
 def deeplab_full_width(torch, smi):
@@ -2900,8 +3675,6 @@ def phase_step5(torch, smi, conf=None):
     import signal
     import types
 
-    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
-    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
     from gan_segmentation_tpu_torch.train import deeplab_trainer as dt
     from gan_segmentation_tpu_torch.train import rgb_experiments as rx
 
@@ -2911,17 +3684,17 @@ def phase_step5(torch, smi, conf=None):
     t_phase = time.perf_counter()
     rec = {}
     with tempfile.TemporaryDirectory() as base:
-        k1m.conv3x3_noise_bias_lrelu_instats.launches = 0
-        k2m.conv3x3_small.launches = 0
-        dataset, rec["dataset_s"] = write_step5_dataset(torch, base, conf)
-        rec["launches"] = {
-            "conv_in_stats": k1m.conv3x3_noise_bias_lrelu_instats.launches,
-            "small_conv": k2m.conv3x3_small.launches}
+        with LaunchTrace(torch) as trace:
+            dataset, rec["dataset_s"] = write_step5_dataset(torch, base,
+                                                            conf)
+        rec["launches"] = {k: trace.device[k]
+                           for k in ("conv_in_stats", "small_conv")}
         log(f"step 5 dataset: {conf['n_train']} pairs from run_generate "
             f"(cv2 writer) in dataset/train_generated and {conf['n_val']} "
             f"from generator seed 1 in dataset/val, {rec['dataset_s']:.2f} "
-            f"s, launches {rec['launches']}; the val split is synthetic too "
-            f"(the repository holds no real annotated data)")
+            f"s (traced), launches {rec['launches']} (the wrappers counted "
+            f"{trace.wrapper}); the val split is synthetic too (the "
+            f"repository holds no real annotated data)")
         common = ["--input-path", dataset, "--workers",
                   str(conf["workers"]), "--reader", "cv2"] + conf["overrides"]
         train_argv = ["train", "--batch-size", str(conf["batch"]),
@@ -3085,6 +3858,7 @@ def main():
         sys.exit(f"chip_smoke: run from the repository root ({exc})")
 
     # 1. device
+    marks = [("start", time.perf_counter())]  # seconds per phase, logged
     smi = smi_line()
     log(f"torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}, capability "
@@ -3111,7 +3885,9 @@ def main():
 
     # 3. kernels
     gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
+    marks.append(("build", time.perf_counter()))
     rec = phase_kernels(torch, gcfg, scfg)
+    marks.append(("kernels", time.perf_counter()))
 
     # 4. generate
     phase_small_reference(torch)
@@ -3120,26 +3896,36 @@ def main():
         f"(device pipeline; generator {sl['gen_ms']:.3f} ms, decoder "
         f"{sl['dec_ms']:.3f} ms per batch), {sl['end_to_end_sps']:.3f} "
         f"samples/s (with the cv2 writer) on {smi}")
+    marks.append(("generate", time.perf_counter()))
     og = phase_other_gans(torch)
+    marks.append(("cars and bedrooms", time.perf_counter()))
+    gg = phase_graph_generate(torch)
+    marks.append(("generate as graphs", time.perf_counter()))
 
     # 5. train and evaluate
     phase_small_train_reference(torch)
     tr = phase_train(torch)
     log(f"ffhq 1024^2 train: {tr['sps']:.3f} samples/s, {tr['step_ms']:.3f} "
-        f"ms per step over the fit loop after its first epoch, "
-        f"{tr['prof']['step_ms']:.3f} ms per step by CUDA events; evaluate "
-        f"{tr['metrics']} on {smi}")
+        f"ms per step over the fit loop after its first epoch (graph "
+        f"replays), {tr['prof']['graph_ms']:.3f} ms per step as graph "
+        f"replays and {tr['prof']['step_ms']:.3f} ms per eager step by CUDA "
+        f"events; evaluate {tr['metrics']} on {smi}")
 
     # 6. foreign weights, 7. annotation
+    marks.append(("train", time.perf_counter()))
     fw = phase_foreign_weights(torch, gcfg, scfg)
     an = phase_annotation(torch)
-    log(f"ffhq 1024^2 annotation run: Retrain {an['retrain_s']:.2f} s, "
+    marks.append(("foreign weights and annotation", time.perf_counter()))
+    log(f"ffhq 1024^2 annotation run: Retrain {an['retrain_s']:.2f} s "
+        f"(warm {an['retrain_warm_s']:.2f} s, per-step path "
+        f"{an['retrain_eager_s']:.2f} s), "
         f"Generate {an['generate_s']:.2f} s; foreign weights: generator "
         f"loaded in {fw['gen_load_s']:.2f} s, decoder in "
         f"{fw['dec_load_s']:.2f} s on {smi}")
 
     # 8. deeplab
     dl = phase_deeplab(torch, smi)
+    marks.append(("deeplab", time.perf_counter()))
     log(f"deeplab crop {DL_CROP} batch {DL_BATCH}: eval "
         f"{dl['eval_ms']['f32']:.3f} ms (f32) / {dl['eval_ms']['bf16']:.3f} "
         f"ms (bf16) per batch, train {dl['train']['f32']['ms']:.3f} ms (f32) "
@@ -3147,6 +3933,10 @@ def main():
 
     # 9. step 5: the DeepLab experiment end to end
     s5 = phase_step5(torch, smi)
+    marks.append(("step 5", time.perf_counter()))
+    log("seconds per phase: " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}"
+        for i, (name, t) in enumerate(marks[1:])))
     log(f"step 5 at crop 480, batch 8 (f32, cuDNN's TF32 convs): the "
         f"trainer's loop {s5['loop_ms']:.3f} ms per step, the feed alone "
         f"{s5['feed_sps']:.2f} samples/s, the bare step "
@@ -3161,6 +3951,7 @@ def main():
                        "evaluate": tr["eval_launches"]},
         "bil_conv": {"train": tr["launches"]["bil_conv"]}}
     for path, counted in (("step5_dataset", s5["launches"]),
+                          ("generate_graph_vs_eager", gg["launches"]),
                           ("cars", og["cars"]["launches"]),
                           ("bedrooms", og["bedrooms"]["launches"]),
                           ("foreign_weights", fw["launches"]),
@@ -3195,7 +3986,9 @@ def main():
             name=name, route="cuda", source=src, replaces=replaces,
             design=design,
             launches=sum(launches[name].values()),
-            launches_by_path=launches[name])
+            launches_by_path=launches[name],
+            launches_counted_by="device traces (torch.profiler) of the "
+                                "main path's runs")
         if name == "bil_conv":  # the train path runs f32
             entry.update(max_abs_err=r["errs"]["f32"],
                          max_abs_err_bf16=r["errs"]["bf16"],
@@ -3227,9 +4020,24 @@ def main():
                              batch_plain_ms_f32=f32["plain"],
                              batch_library_ms_f32=f32["library"])
         kernels.append(entry)
+    prof = tr["prof"]
+    print(json.dumps({"graphs": {
+        "generate": gg["gans"],
+        "train": dict(graph_windows=prof["graph_windows"],
+                      eager_windows=prof["windows"],
+                      graph_busy_ms=prof["graph_busy_ms"],
+                      eager_busy_ms=prof["busy_ms"],
+                      graph_ms=prof["graph_ms"],
+                      eager_ms=prof["step_ms"], fit_step_ms=tr["step_ms"],
+                      fit_s=tr["fit_s"], traced_fit_s=tr["traced_fit_s"],
+                      pool_gib=prof["pool_gib"], versus=tr["versus"]),
+        "retrain_s": {k: an[k] for k in ("retrain_s", "retrain_warm_s",
+                                         "retrain_eager_s")}}}), flush=True)
     print(json.dumps({"deeplab": dl}), flush=True)
     print(json.dumps({"step5": {k: v for k, v in s5.items()
                                 if k != "losses"}}), flush=True)
+    if FAILED:
+        raise AssertionError("checks failed: " + "; ".join(FAILED))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -439,8 +439,10 @@ struct Warps {
 // A persistent block walks the items blockIdx.x, blockIdx.x + gridDim.x,
 // ... (with a split, the grid has one block per item).  The ring runs over
 // the flattened (item, chunk) sequence, so the next item's first chunks
-// load while this item multiplies and stores.
-template <int BN, int WM, int CK>
+// load while this item multiplies and stores.  KERNEL is the number of the
+// kernel whose entry point launches it (1 conv_in_stats, 2 small_conv), so
+// that a profile tells them apart by name; the code does not read it.
+template <int BN, int WM, int CK, int KERNEL>
 __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
                                   Warps<BN, WM>::MIN_BLOCKS)
     conv3x3_tc_kernel(const Args a) {
@@ -627,14 +629,14 @@ static int set_smem(K kern, int bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <int BN, int WM, int CK>
+template <int BN, int WM, int CK, int KERNEL>
 static int launch(const Args& a, cudaStream_t st) {
   constexpr int BM = WM * 32;
   constexpr int THREADS = WM * Warps<BN, WM>::WN * 32;
   const Layout L = layout(BN, CK, BM, THREADS, a.g, a.th, a.tw, a.stages,
                           a.noise != nullptr);
   if (L.smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
-  auto kern = conv3x3_tc_kernel<BN, WM, CK>;
+  auto kern = conv3x3_tc_kernel<BN, WM, CK, KERNEL>;
   int rc = set_smem(kern, L.smem);
   if (rc) return rc;
   int grid = a.items;
@@ -667,16 +669,19 @@ static int launch(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int BN, int WM>
+template <int BN, int WM, int KERNEL>
 static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
-  return ck == 16 ? launch<BN, WM, 16>(a, st) : launch<BN, WM, 32>(a, st);
+  return ck == 16 ? launch<BN, WM, 16, KERNEL>(a, st)
+                  : launch<BN, WM, 32, KERNEL>(a, st);
 }
 
 // plan = {bn, wm, ck, tw, th, g, splits, cps, stages} from
 // kernels/tc_plan.py.  Fills the plan's fields of `a` after checking them;
 // returns a CUDA error code (cudaErrorInvalidValue for a plan this header
-// does not take).
+// does not take).  KERNEL: 1 or 2, the caller's number (see the kernel).
+template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
+  static_assert(KERNEL == 1 || KERNEL == 2, "kernel 1 or 2");
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const int bn = plan[0], wm = plan[1], ck = plan[2];
   a.tw = plan[3];
@@ -720,21 +725,21 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   a.vec_y = a.cout % 8 == 0 && aligned(a.y, 16);
   switch (bn * 10 + wm) {
     case 84:
-      return dispatch_ck<8, 4>(a, ck, st);
+      return dispatch_ck<8, 4, KERNEL>(a, ck, st);
     case 88:
-      return dispatch_ck<8, 8>(a, ck, st);
+      return dispatch_ck<8, 8, KERNEL>(a, ck, st);
     case 164:
-      return dispatch_ck<16, 4>(a, ck, st);
+      return dispatch_ck<16, 4, KERNEL>(a, ck, st);
     case 168:
-      return dispatch_ck<16, 8>(a, ck, st);
+      return dispatch_ck<16, 8, KERNEL>(a, ck, st);
     case 324:
-      return dispatch_ck<32, 4>(a, ck, st);
+      return dispatch_ck<32, 4, KERNEL>(a, ck, st);
     case 328:
-      return dispatch_ck<32, 8>(a, ck, st);
+      return dispatch_ck<32, 8, KERNEL>(a, ck, st);
     case 644:
-      return dispatch_ck<64, 4>(a, ck, st);
+      return dispatch_ck<64, 4, KERNEL>(a, ck, st);
     default:
-      return dispatch_ck<64, 8>(a, ck, st);
+      return dispatch_ck<64, 8, KERNEL>(a, ck, st);
   }
 }
 

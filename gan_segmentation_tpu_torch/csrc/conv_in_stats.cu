@@ -108,7 +108,7 @@ int gst_conv3x3_in_stats(const void* x, const void* w, const float* noise,
   a.cout = cout;
   a.act = gst::tc::LEAKY;
   a.slope = slope;
-  return gst::tc::run(a, plan, st);
+  return gst::tc::run<1>(a, plan, st);
 }
 
 }  // extern "C"

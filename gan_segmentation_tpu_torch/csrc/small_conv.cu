@@ -86,7 +86,7 @@ int gst_conv3x3_small(const void* x, const void* w, const float* bias,
   a.cout = cout;
   a.act = act;
   a.slope = slope;
-  return gst::tc::run(a, plan, st);
+  return gst::tc::run<2>(a, plan, st);
 }
 
 }  // extern "C"

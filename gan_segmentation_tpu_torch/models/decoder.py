@@ -16,7 +16,8 @@ Conv3x3`` (kernel 3 where its contract holds, else kernel 2, with the
 input gradient through the same kernels), then batch norm over the batch
 statistics as the JAX package computes them (``batch_norm_train``), leaky
 0.2, and for ``cvt_i`` dropout drawn from the ``torch.Generator`` the caller
-passes.
+passes, or given as the uniform draws ``draw_dropout`` made before (the
+static inputs of the train step's CUDA graph; the same bits).
 
 The 1x1 shortcut and the residual add stay plain.  Parameters keep the JAX
 package's names (``cvt_0_conv``, ``main_0.bn_0``, ...); BatchNorm2d's
@@ -94,16 +95,21 @@ def conv_bn_lrelu_train(conv: "Conv", bn: Optional[nn.BatchNorm2d], x):
     return leaky_relu(y)
 
 
+@torch.no_grad()
 def fold_conv_bn(conv: Conv, bn: Optional[nn.BatchNorm2d],
                  dtype: torch.dtype):
     """-> (HWIO kernel in ``dtype``, f32 bias) of conv followed by eval BN:
-    ``w * g/sqrt(var+eps)`` and ``(b - mean) * g/sqrt(var+eps) + beta``."""
+    ``w * g/sqrt(var+eps)`` and ``(b - mean) * g/sqrt(var+eps) + beta``.
+    Eval constants: no autograd graph, and tensors of their own (without
+    BN the bias would otherwise be the parameter itself).  A graph kept
+    alive on a parameter would hold its gradient accumulator on the stream
+    it was made on, which a later captured train step cannot use."""
     w, b = conv.weight.float(), conv.bias.float()
     if bn is not None:
         s = bn.weight.float() * torch.rsqrt(bn.running_var.float() + BN_EPS)
         w = w * s[:, None, None, None]
         b = (b - bn.running_mean.float()) * s + bn.bias.float()
-    return hwio(w).to(dtype).contiguous(), b.contiguous()
+    return hwio(w).to(dtype).contiguous(), b.clone()
 
 
 class DecoderResBlock(nn.Module):
@@ -193,17 +199,41 @@ class Decoder(nn.Module):
                     getattr(self, f"main_{i}_conv"), None, dtype)
         return out
 
+    def dropout_shapes(self, feature_shapes: Sequence[Sequence[int]]
+                       ) -> List[Tuple[int, ...]]:
+        """The shape of each train-mode dropout draw (one per ``cvt_i``, in
+        forward's order), for NHWC features of ``feature_shapes``."""
+        f = self.features_cfg
+        return [(*feature_shapes[i][:3], f[i])
+                for i in range(self.start_res, len(self.in_channels))]
+
+    def draw_dropout(self, feature_shapes, generator: torch.Generator,
+                     out: Optional[List[torch.Tensor]] = None
+                     ) -> List[torch.Tensor]:
+        """The uniform draws of train-mode dropout, made from ``generator``
+        up front in the order and shapes in which the forward would make
+        them (``torch.rand``), into ``out``'s tensors when given (then
+        ``feature_shapes`` is not read)."""
+        if out is None:
+            out = [torch.empty(s, device=generator.device)
+                   for s in self.dropout_shapes(feature_shapes)]
+        for u in out:
+            u.uniform_(0.0, 1.0, generator=generator)  # what torch.rand draws
+        return out
+
     def forward(self, inputs: List[torch.Tensor],
                 folded: Optional[Folded] = None,
                 dtype: Optional[torch.dtype] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_u: Optional[List[torch.Tensor]] = None):
         """Eval mode: ``folded`` is ``fold_bn(dtype)``, computed here when
-        not given.  Train mode: ``generator`` draws the dropout bits (on
-        the features' device).  Activations run in ``dtype`` (default: the
-        compute dtype)."""
+        not given.  Train mode: ``dropout_u`` (``draw_dropout``'s draws) or
+        else ``generator`` gives the dropout bits (on the features'
+        device).  Activations run in ``dtype`` (default: the compute
+        dtype)."""
         dtype = dtype or self.compute_dtype
         if self.training:
-            return self._forward_train(inputs, dtype, generator)
+            return self._forward_train(inputs, dtype, generator, dropout_u)
         folded = folded if folded is not None else self.fold_bn(dtype)
         last = len(self.in_channels) - 1
         prev = pred = None
@@ -220,8 +250,8 @@ class Decoder(nn.Module):
             prev = pred
         return pred.float()
 
-    def _forward_train(self, inputs, dtype, generator):
-        if self.use_dropout and generator is None:
+    def _forward_train(self, inputs, dtype, generator, dropout_u=None):
+        if self.use_dropout and generator is None and dropout_u is None:
             raise ValueError("train mode with dropout needs a "
                              "torch.Generator for the dropout bits")
         last = len(self.in_channels) - 1
@@ -231,7 +261,8 @@ class Decoder(nn.Module):
             x = conv_bn_lrelu_train(getattr(self, f"cvt_{i}_conv"),
                                     getattr(self, f"cvt_{i}_bn", None), x)
             if self.use_dropout:
-                x = dropout(x, generator)
+                x = dropout(x, generator, uniform=None if dropout_u is None
+                            else dropout_u[i - self.start_res])
             if i > self.start_res:
                 x = torch.cat([prev, x], dim=-1)
             if i < last:

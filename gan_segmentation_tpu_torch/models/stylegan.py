@@ -128,6 +128,33 @@ class StyleGanGenerator(nn.Module):
             if m is not self and hasattr(m, "reset_parameters"):
                 m.reset_parameters(gen)
 
+    def noise_shapes(self, batch: int) -> Dict[str, Tuple[int, ...]]:
+        """``"block_{res}.noise_{1|2}"`` -> (N, H, W, 1), in the order in
+        which ``forward`` draws them."""
+        cfg = self.cfg
+        out = {}
+        for res in range(2, cfg.max_res_log2 + 1):
+            s = 2 ** (res - 2)
+            shape = (batch, cfg.base_scale_y * s, cfg.base_scale_x * s, 1)
+            out[f"block_{res}.noise_1"] = out[f"block_{res}.noise_2"] = shape
+        return out
+
+    def draw_noise(self, batch: int, generator: torch.Generator,
+                   out: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """Every noise input of a batch, drawn from ``generator`` up front in
+        the order and shapes in which ``forward`` would draw them, so that
+        ``forward(z, noise=draw_noise(n, g))`` equals ``forward(z,
+        generator=g)`` bit for bit.  Drawn into ``out``'s tensors when given
+        (a CUDA graph's static inputs)."""
+        shapes = self.noise_shapes(batch)
+        if out is None:
+            out = {k: torch.empty(s, device=generator.device)
+                   for k, s in shapes.items()}
+        for k in shapes:
+            out[k].normal_(generator=generator)  # what torch.randn draws
+        return out
+
     @staticmethod
     def lerp(psi, latent_avg, w):
         # latent_avg*(1-psi) + w*psi (`networks_stylegan.py:158-163`)

@@ -1,5 +1,9 @@
 """The [1,2,1] x [1,2,1] / 16 depthwise blur after every generator upsample
-(`networks_stylegan.py:200-236`), stride 1, pad 1."""
+(`networks_stylegan.py:200-236`), stride 1, pad 1.  ``blur_3x3`` builds its
+kernel once per (channels, dtype, device): built per call it is a copy from
+host memory, which a CUDA graph cannot capture."""
+
+import functools
 
 import torch
 
@@ -15,6 +19,12 @@ def blur_kernel(channels: int, dtype=torch.float32, device=None):
     return w.to(dtype=dtype, device=device).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _cached_kernel(channels: int, dtype, device):
+    with torch.inference_mode(False):  # usable outside inference mode too
+        return blur_kernel(channels, dtype, device)
+
+
 def blur_3x3(x):
-    return depthwise_conv2d(x, blur_kernel(x.shape[-1], x.dtype, x.device),
-                            padding=1)
+    return depthwise_conv2d(
+        x, _cached_kernel(x.shape[-1], x.dtype, x.device), padding=1)

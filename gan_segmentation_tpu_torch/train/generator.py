@@ -5,8 +5,17 @@ The z and noise of batch i are drawn from a ``torch.Generator`` seeded with
 a pure function of ``(seed, i)``, so ``skip_batches(k)`` only moves a
 counter and ``generate --resume`` reproduces an interrupted run byte for
 byte (on the same device type; PyTorch's and JAX's random streams differ).
+
+A batch is one program, as the JAX package's ``jax.jit`` makes it: on a
+card ``ImageGenerator`` and ``FusedPipeline`` replay a CUDA graph per batch
+size (``core/graphs.py``), captured after one eager batch.  z and every
+noise input are drawn before the replay, in the order and shapes in which
+the eager forward draws them (``StyleGanGenerator.draw_noise``), into the
+graph's static inputs; so batch i is bit-identical to the eager path's
+batch i.  On the CPU the same code runs eagerly.
 """
 
+import functools
 import logging
 from os.path import isfile, join
 from typing import Iterator, List, Optional, Tuple
@@ -16,6 +25,7 @@ import torch
 
 from ..core import dtypes
 from ..core.config import GanConfig, gan_config
+from ..core.graphs import GraphedCall
 from ..core.mx_params import load_generator_params
 from ..models.stylegan import StyleGanGenerator, init_generator
 
@@ -41,12 +51,35 @@ def class_mask(logits):
     return torch.argmax(logits, dim=-1).to(torch.uint8)
 
 
+@functools.lru_cache(maxsize=None)
+def _bit_weights(device: torch.device):
+    """Built once per device: per call it is a copy from host memory, which
+    a CUDA graph cannot capture."""
+    with torch.inference_mode(False):
+        return torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=device)
+
+
 def pack_mask_bits(mask):
     """(N, H, W) {0,1} uint8 -> (N, H, W/8), 8 pixels per byte, MSB first."""
     n, h, w = mask.shape
     bits = mask.reshape(n, h, w // 8, 8).to(torch.int32)
-    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=mask.device)
-    return (bits * weights).sum(dim=-1).to(torch.uint8)
+    return (bits * _bit_weights(mask.device)).sum(dim=-1).to(torch.uint8)
+
+
+def _generate(model, imrange, z, generator=None, noise=None):
+    """(uint8 images, features) of one batch, eagerly."""
+    with torch.inference_mode():
+        rgb, feats = model(z, noise=noise, generator=generator)
+        return _to_uint8(rgb, imrange), feats
+
+
+def _generate_masks(model, decoder, folded, dtype, pack, imrange, z,
+                    generator=None, noise=None):
+    """(uint8 images, uint8 masks) of one batch, eagerly."""
+    imgs, feats = _generate(model, imrange, z, generator, noise)
+    with torch.inference_mode():
+        mask = class_mask(decoder(feats, folded, dtype))
+        return imgs, pack_mask_bits(mask) if pack else mask
 
 
 class ImageGenerator:
@@ -86,28 +119,64 @@ class ImageGenerator:
             model = init_generator(self.cfg, seed=seed, compute_dtype=cd)
         self.model = model.to(self.device).eval()
         self._batch_index = 0
+        self._inputs = {}  # batch size -> static (z, noise)
+        self._graphs = {}  # batch size -> GraphedCall of _forward
 
     def skip_batches(self, k: int):
         """Advance the z/noise stream past k batches without generating
         them (`generate --resume`)."""
         self._batch_index += k
 
-    def next_inputs(self, batch_size: int):
-        """(z, generator) of the next batch; the generator then draws the
-        batch's noise."""
+    def _next_generator(self) -> torch.Generator:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed * 2 ** 32 + self._batch_index)
         self._batch_index += 1
+        return gen
+
+    def next_inputs(self, batch_size: int):
+        """(z, generator) of the next batch; the generator then draws the
+        batch's noise."""
+        gen = self._next_generator()
         z = torch.randn((batch_size, self.cfg.latent_size), generator=gen,
                         device=self.device, dtype=torch.float32)
         return z, gen
 
+    def draw_inputs(self, batch_size: int):
+        """(z, noise) of the next batch, drawn as ``next_inputs`` and the
+        eager forward draw them, into this batch size's static buffers (the
+        graphs' inputs; the next call overwrites them)."""
+        if batch_size not in self._inputs:
+            with torch.inference_mode(False):
+                self._inputs[batch_size] = (
+                    torch.empty((batch_size, self.cfg.latent_size),
+                                device=self.device),
+                    {k: torch.empty(s, device=self.device) for k, s in
+                     self.model.noise_shapes(batch_size).items()})
+        z, noise = self._inputs[batch_size]
+        gen = self._next_generator()
+        z.normal_(generator=gen)  # what torch.randn draws
+        self.model.draw_noise(batch_size, gen, out=noise)
+        return z, noise
+
+    def _sample(self, batch_size: int):
+        """(uint8 images, features, z) of the next batch; on a card the
+        static tensors of this batch size's graph, which the next batch
+        overwrites."""
+        z, noise = self.draw_inputs(batch_size)
+        call = self._graphs.get(batch_size)
+        if call is None:  # reads the model, not self: no reference cycle
+            call = self._graphs[batch_size] = GraphedCall(functools.partial(
+                _generate, self.model, self.cfg.imrange, z, noise=noise),
+                self.device)
+        imgs, feats = call()
+        return imgs, feats, z
+
     def sample_batch(self, batch_size: Optional[int] = None):
-        """One device batch: (uint8 images NHWC, features list, z)."""
-        z, gen = self.next_inputs(batch_size or self.batch_size)
+        """One device batch: (uint8 images NHWC, features list, z), copied
+        out of the graph's static outputs."""
+        imgs, feats, z = self._sample(batch_size or self.batch_size)
         with torch.inference_mode():
-            rgb, feats = self.model(z, generator=gen)
-            return _to_uint8(rgb, self.cfg.imrange), feats, z
+            return imgs.clone(), [f.clone() for f in feats], z.clone()
 
     def get_images(self, n: int
                    ) -> Iterator[Tuple[np.ndarray, List[np.ndarray]]]:
@@ -120,10 +189,10 @@ class ImageGenerator:
         produced = 0
         while produced < n:
             b = min(self.batch_size, n - produced)
-            imgs, feats, z = self.sample_batch(self.batch_size)
+            imgs, feats, z = self._sample(self.batch_size)  # copied to host
             imgs_np = imgs[:b].cpu().numpy()
             feats_np = [f[:b].float().cpu().numpy() for f in feats]
-            z_np = z[:b].cpu().numpy()
+            z_np = np.array(z[:b].cpu())  # z is the next batch's buffer
             for i in range(b):
                 sample_feats = [f[i] for f in feats_np]
                 if self.return_latents:
@@ -137,6 +206,12 @@ class FusedPipeline:
     """z -> (image uint8, mask uint8) on one device: generator, decoder
     (eval, BN folded, ``inference_dtype``), class mask, and bit-packing of
     binary masks when the width divides by 8.  Only uint8 leaves the card.
+
+    On a card a batch replays one CUDA graph per batch size (the JAX
+    package's ``_fused``).  The graph reads the decoder's folded kernels
+    where ``_prepared`` keeps them; when the solver's weights change,
+    ``_prepared`` folds again into those same tensors before the next
+    replay, so the graph never serves a stale decoder.
 
     The JAX package's mesh (``--spatial``/``--dp``), space-to-depth decoder
     tail and int8 modes are not ported; asking for one raises.
@@ -161,39 +236,67 @@ class FusedPipeline:
         self._pack_masks = nclass == 2 and res % 8 == 0
         self._folded = None
         self._folded_at = None
+        self._graphs = {}  # batch size -> GraphedCall of _fused
 
     def _prepared(self):
         """The decoder's BN-folded kernels, folded again whenever the
-        solver's weights changed.  PyTorch updates parameters in place, so
-        their identity does not tell; the solver counts its changes
+        solver's weights changed, into the same tensors (a captured graph
+        reads them).  PyTorch updates parameters in place, so their
+        identity does not tell; the solver counts its changes
         (``SegSolver.weights_version``: ``fit``, ``load``, ``reinit``)."""
         at = self.solver.weights_version
-        if self._folded is None or at != self._folded_at:
-            self._folded = self.solver.model.fold_bn(self.dec_dtype)
-            self._folded_at = at
+        if self._folded is not None and at == self._folded_at:
+            return self._folded
+        # plain tensors (not inference tensors), so that any mode may
+        # refold them in place
+        with torch.inference_mode(False), torch.no_grad():
+            folded = self.solver.model.fold_bn(self.dec_dtype)
+            if self._folded is None:
+                self._folded = folded
+            else:
+                for k, (w, b) in folded.items():
+                    self._folded[k][0].copy_(w)
+                    self._folded[k][1].copy_(b)
+        self._folded_at = at
         return self._folded
 
-    def _fused(self, z, generator: torch.Generator):
-        with torch.inference_mode():
-            rgb, feats = self.gen.model(z, generator=generator)
-            logits = self.solver.model(feats, self._prepared(), self.dec_dtype)
-            mask = class_mask(logits)
-            if self._pack_masks:
-                mask = pack_mask_bits(mask)
-            return _to_uint8(rgb, self.gen.cfg.imrange), mask
+    def _fused_args(self):
+        return (self.gen.model, self.solver.model, self._prepared(),
+                self.dec_dtype, self._pack_masks, self.gen.cfg.imrange)
+
+    def _fused(self, z, generator: Optional[torch.Generator] = None,
+               noise=None):
+        """One batch, eagerly: the noise from ``noise`` or drawn from
+        ``generator``."""
+        return _generate_masks(*self._fused_args(), z, generator, noise)
+
+    def _batch(self, batch_size: int):
+        """(uint8 images, uint8 masks) of the next batch; on a card the
+        static outputs of this batch size's graph, which the next batch
+        overwrites."""
+        z, noise = self.gen.draw_inputs(batch_size)
+        args = self._fused_args()  # refolds first, if the weights moved
+        call = self._graphs.get(batch_size)
+        if call is None:  # reads the models, not self: no reference cycle
+            call = self._graphs[batch_size] = GraphedCall(functools.partial(
+                _generate_masks, *args, z, noise=noise), self.gen.device)
+        return call()
 
     def sample_batch(self, batch_size: Optional[int] = None):
         """Device batch: (uint8 images NHWC, uint8 masks), masks bit-packed
-        along W when ``self._pack_masks``."""
-        z, gen = self.gen.next_inputs(batch_size or self.gen.batch_size)
-        return self._fused(z, gen)
+        along W when ``self._pack_masks``; copied out of the graph's static
+        outputs."""
+        imgs, masks = self._batch(batch_size or self.gen.batch_size)
+        with torch.inference_mode():
+            return imgs.clone(), masks.clone()
 
     def _enqueue(self, batch_size: int):
         """Enqueue one batch and its copy to host.  On a card the copy goes
         into pinned buffers with ``non_blocking`` and an event marks its end,
         so waiting for batch i does not wait for batch i+1 enqueued after
-        it on the same stream."""
-        imgs, masks = self.sample_batch(batch_size)
+        it on the same stream.  The copy reads the graph's static outputs
+        before the next replay, which is enqueued after it."""
+        imgs, masks = self._batch(batch_size)
         if imgs.device.type != "cuda":
             return imgs, masks, None
         host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

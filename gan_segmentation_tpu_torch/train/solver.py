@@ -12,11 +12,25 @@ CUDA kernels (``models/decoder.py`` train mode).  When the annotated
 collection fits ``device_cache_gb`` it is uploaded to the card once and
 each step selects its batch there; otherwise each step uploads its batch.
 
-One dispatch per step: a step enqueues its forward, backward and update on
-the card, and the host waits only for the display lines and the epoch
-logs.  ``SolverConfig.scan_epochs`` (the JAX package's whole epoch as one
-program) is read as off until a CUDA-graph epoch is ported; the multi-host
-and data-parallel branches are not ported.
+``SolverConfig.scan_epochs`` (the JAX package's whole epoch as one
+program): with the collection resident on a card, a train step is one
+CUDA graph (``core/graphs.py``), captured after ``GRAPH_WARMUP_STEPS``
+eager steps of epoch 1 (counted in ``history``) and replayed for every
+later step.  Its optimizer reads the rate from a device tensor (Adam
+``capturable=True``, which keeps its step count and bias corrections on
+the card; SGD ``fused``).  Before each replay the host fills that rate,
+copies the step's batch indices on the card and draws the dropout bits
+into the graph's static inputs (the eager path's bits,
+``Decoder.draw_dropout``); the graph gathers the batch, runs the forward,
+backward and update, and writes (loss, accuracy).  The host does not wait
+inside an epoch: one copy of the epoch's (loss, accuracy) series to the
+host follows it, and the speedometer and epoch lines are written from that
+series, as the JAX package writes them after its scanned epoch.  ``None``
+(auto) takes this path when the collection is resident on a CUDA device;
+``False``, an upload per step or a CPU device take the per-step path,
+whose step enqueues its forward, backward and update and waits only for
+the display lines and the epoch logs.  ``True`` on a CPU device raises.
+The multi-host and data-parallel branches are not ported.
 
 The port's checkpoint is ``torch.save`` of the decoder's ``state_dict`` as
 ``checkpoints/*.pt``.  ``load`` takes its own ``*.pt`` first; otherwise the
@@ -31,6 +45,7 @@ import logging
 import math
 import os
 import time
+import warnings
 from os import makedirs
 from os.path import isdir, isfile, join
 from typing import Callable, List, Optional
@@ -42,6 +57,7 @@ from ..core import dtypes
 from ..core.checkpoint import load_checkpoint
 from ..core.config import SolverConfig
 from ..core.decoder_convert import load_decoder_state_dict
+from ..core.graphs import GraphedCall
 from ..core.mx_params import is_mx_params_file
 from ..core.params_bridge import decoder_state_dict
 from ..data.collection import CollectionDataset
@@ -52,6 +68,21 @@ from ..utils.io import list_files_with_ext
 from .generator import class_mask
 
 log = logging.getLogger(__name__)
+
+# eager steps of epoch 1 before the train step's graph is captured: they
+# create the optimizer's state and cuDNN's plans (real steps, in history)
+GRAPH_WARMUP_STEPS = 2
+
+
+def _set_rate(optimizer, rate: float):
+    """Every group's rate: into the device tensor of a graph's optimizer,
+    else the number itself."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(rate)
+        else:
+            group["lr"] = rate
+
 
 def _mask_weights(mask):
     """1.0 where annotated, 0.0 where ignore."""
@@ -161,23 +192,49 @@ class SegSolver:
             return cos_lr
         raise ValueError(cfg.scheduler)
 
-    def _make_optimizer(self, iters_per_epoch: int = 1):
-        """-> (optimizer, lr schedule).  The caller sets each step's rate.
-        ``wd`` is torch's ``weight_decay``: ``wd * param`` added to the
-        gradient before the update, as optax's ``add_decayed_weights``."""
+    def _make_optimizer(self, iters_per_epoch: int = 1,
+                        graphed: bool = False):
+        """-> (optimizer, lr schedule).  The caller sets each step's rate
+        (``_set_rate``).  ``wd`` is torch's ``weight_decay``: ``wd * param``
+        added to the gradient before the update, as optax's
+        ``add_decayed_weights``.  ``graphed`` on a card: the update of a
+        step captured in a CUDA graph, whose rate is a device tensor that
+        the host fills before each replay: Adam ``capturable=True``, SGD
+        ``fused``."""
         cfg = self.cfg
         lr = self._make_lr(iters_per_epoch)
         params = list(self.model.parameters())
+        on_card = graphed and self.device.type == "cuda"
+        rate = (torch.tensor(lr(0), device=self.device) if on_card
+                else lr(0))
         if cfg.optimizer == "adam":
-            opt = torch.optim.Adam(params, lr=lr(0), betas=(0.9, 0.999),
-                                   eps=1e-8, weight_decay=cfg.wd)
+            opt = torch.optim.Adam(params, lr=rate, betas=(0.9, 0.999),
+                                   eps=1e-8, weight_decay=cfg.wd,
+                                   capturable=on_card)
         elif cfg.optimizer == "sgd":
-            opt = torch.optim.SGD(params, lr=lr(0),
+            opt = torch.optim.SGD(params, lr=rate,
                                   momentum=cfg.momentum or 0.0,
-                                  weight_decay=cfg.wd)
+                                  weight_decay=cfg.wd,
+                                  fused=True if on_card else None)
         else:
             raise ValueError(cfg.optimizer)
         return opt, lr
+
+    def _scan_epochs(self, cached) -> bool:
+        """Whether ``fit`` runs its steps as replays of a CUDA graph: the
+        JAX package's ``scan_epochs`` rule (auto: the collection is
+        resident and the device is a card)."""
+        flag = self.cfg.scan_epochs
+        if flag and self.device.type != "cuda":
+            raise ValueError(
+                f"scan_epochs=True runs each epoch as replays of a CUDA graph "
+                f"and needs a CUDA device, got {self.device}")
+        if flag is None:
+            flag = self.device.type == "cuda"
+        if flag and cached is None:
+            log.info("scan_epochs: the collection is not resident on the "
+                     "device; one eager dispatch per step")
+        return bool(flag) and cached is not None
 
     def _try_device_cache(self, dataset):
         """The whole collection on the card, once: ``(feats_all,
@@ -244,10 +301,12 @@ class SegSolver:
             yield ([f.index_select(0, idx) for f in feats_all],
                    masks_all.index_select(0, idx).long())
 
-    def _train_step(self, optimizer, features, mask, generator):
+    def _train_step(self, optimizer, features, mask, generator,
+                    dropout_u=None):
         """One step; returns (loss, pixel accuracy over all pixels) as
         device scalars (no host sync)."""
-        logits = self.model(features, generator=generator)
+        logits = self.model(features, generator=generator,
+                            dropout_u=dropout_u)
         loss = weighted_softmax_ce(logits, mask, _mask_weights(mask)).mean()
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -257,52 +316,141 @@ class SegSolver:
         acc = (logits.detach().argmax(-1) == mask).float().mean()
         return loss.detach(), acc
 
+    def _graphed_epochs(self, optimizer, lr, cached, dropout_gen):
+        """-> ``run(epoch, step) -> (n, 2)`` device tensor of per-step
+        (loss, accuracy), returned once the epoch is enqueued: its steps as
+        replays of the train step's graph (its first ``GRAPH_WARMUP_STEPS``
+        calls run eagerly) in ``_epoch_batches``' order.  It is
+        overwritten by the next epoch."""
+        cfg, dev = self.cfg, self.device
+        b = cfg.train_batch_size
+        feats_all, masks_all = cached
+        n_max = len(masks_all) // b
+        idx = torch.zeros((b,), dtype=torch.long, device=dev)
+        idx_host = torch.empty((n_max, b), dtype=torch.long,
+                               pin_memory=dev.type == "cuda")
+        idx_all = torch.empty((n_max, b), dtype=torch.long, device=dev)
+        series = torch.zeros((n_max, 2), dtype=torch.float32, device=dev)
+        dropout_u = ([torch.empty(s, device=dev) for s in
+                      self.model.dropout_shapes(
+                          [(b, *f.shape[1:]) for f in feats_all])]
+                     if self.model.use_dropout else None)
+
+        def step():
+            feats = [f.index_select(0, idx) for f in feats_all]
+            mask = masks_all.index_select(0, idx).long()
+            with warnings.catch_warnings():  # the warm-up steps' update
+                warnings.filterwarnings("ignore", "This instance was "
+                                        "constructed with capturable=True")
+                loss, acc = self._train_step(optimizer, feats, mask, None,
+                                             dropout_u)
+            return torch.stack([loss, acc])
+
+        call = GraphedCall(step, dev, warmup=GRAPH_WARMUP_STEPS)
+
+        def run(epoch, first_step):
+            order = np.arange(len(masks_all))
+            np.random.RandomState(self.seed + epoch).shuffle(order)
+            n = len(order) // b
+            if n == 0:
+                return series[:0]
+            # the previous epoch's series was copied to the host, which
+            # waited for its steps: the pinned buffer is free
+            idx_host[:n].copy_(torch.from_numpy(order[:n * b].reshape(n, b)))
+            idx_all[:n].copy_(idx_host[:n], non_blocking=True)
+            for k in range(n):
+                _set_rate(optimizer, lr(first_step + k))
+                idx.copy_(idx_all[k])
+                if dropout_u is not None:
+                    self.model.draw_dropout(None, dropout_gen, out=dropout_u)
+                series[k].copy_(call())
+            return series[:n]
+
+        run.call = call  # its graph and launch deltas
+        return run
+
+    def _log_speed(self, epoch: int, batch: int, speed: float, window):
+        """The speedometer line of the display interval that ends at step
+        ``batch`` of ``epoch``; ``window`` holds its (loss, accuracy)
+        rows."""
+        log.info("Epoch[%03d] Batch[%04d] Speed: %9.2f samples/sec "
+                 "accuracy=%f total-loss=%f", epoch, batch, speed,
+                 float(window[:, 1].contiguous().mean()),
+                 float(window[:, 0].contiguous().mean()))
+
+    def _log_epoch(self, epoch: int, series,
+                   elapsed: Optional[float] = None):
+        """After an epoch, from its (n, 2) host series of (loss, accuracy):
+        its losses appended to ``history`` and its accuracy and loss lines.
+        ``elapsed`` (the graphed path, whose host does not see the display
+        intervals): the epoch's seconds, and the speedometer lines first,
+        each with the epoch's mean speed; the per-step path wrote them as
+        its steps ran."""
+        display = self.cfg.train_display_iters
+        n = len(series)
+        if elapsed is not None and display:
+            speed = n * self.cfg.train_batch_size / max(elapsed, 1e-9)
+            for s in range(display, n + 1, display):
+                self._log_speed(epoch, s, speed, series[s - display:s])
+        if n:
+            self.history.append(series[:, 0].tolist())
+            log.info("Epoch[%d] Train-accuracy=%f", epoch + 1,
+                     float(series[:, 1].contiguous().mean()))
+            log.info("Epoch[%d] Train-total-loss=%f", epoch + 1,
+                     float(np.mean(self.history[-1])))
+
     def fit(self, epoch_end_callback: Optional[Callable] = None):
         if not self.keep_weights:
             self.reinit()
         cfg = self.cfg
         dataset, iters_per_epoch = self.init_data()
-        optimizer, lr = self._make_optimizer(iters_per_epoch)
         cached = self._try_device_cache(dataset)
         self.cache_active = cached is not None
+        graphed = self._scan_epochs(cached)
+        optimizer, lr = self._make_optimizer(iters_per_epoch, graphed)
+        if graphed:
+            log.info("scan_epochs: each step replays one CUDA graph, "
+                     "captured after %d eager steps", GRAPH_WARMUP_STEPS)
         dropout_gen = torch.Generator(device=self.device)
         dropout_gen.manual_seed(self.seed)
         display = cfg.train_display_iters
         self.history = []
         step = 0
         self.model.train()
+        run_epoch = (self._graphed_epochs(optimizer, lr, cached, dropout_gen)
+                     if graphed else None)
         for epoch in range(cfg.train_epochs):
             tic = speed_tic = time.time()
-            losses, accs = [], []
-            for feats, mask in self._epoch_batches(dataset, epoch, cached):
-                for group in optimizer.param_groups:
-                    group["lr"] = lr(step)
+            if graphed:
+                series = run_epoch(epoch, step).cpu()  # the epoch's one wait
+                step += len(series)
+                self._log_epoch(epoch, series, time.time() - tic)
+            rows = []
+            for feats, mask in (() if graphed else
+                                self._epoch_batches(dataset, epoch, cached)):
+                _set_rate(optimizer, lr(step))
                 loss, acc = self._train_step(optimizer, feats, mask,
                                              dropout_gen)
                 step += 1
-                losses.append(loss)
-                accs.append(acc)
-                if display and len(losses) % display == 0:
-                    loss_v = float(torch.stack(losses[-display:]).mean())
-                    acc_v = float(torch.stack(accs[-display:]).mean())
+                rows.append(torch.stack([loss, acc]))
+                if display and len(rows) % display == 0:
+                    # waits for the interval's steps, then times them
+                    window = torch.stack(rows[-display:]).cpu()
                     speed = display * cfg.train_batch_size / (
                         time.time() - speed_tic)
-                    log.info("Epoch[%03d] Batch[%04d] Speed: %9.2f "
-                             "samples/sec accuracy=%f total-loss=%f",
-                             epoch, len(losses), speed, acc_v, loss_v)
+                    self._log_speed(epoch, len(rows), speed, window)
                     speed_tic = time.time()
-            if losses:
-                self.history.append(torch.stack(losses).tolist())
-                log.info("Epoch[%d] Train-accuracy=%f", epoch + 1,
-                         float(torch.stack(accs).mean()))
-                log.info("Epoch[%d] Train-total-loss=%f", epoch + 1,
-                         float(np.mean(self.history[-1])))
+            if not graphed:
+                self._log_epoch(epoch, torch.stack(rows).cpu() if rows
+                                else torch.zeros((0, 2)))
             log.info("Epoch[%d] Time cost=%.3f", epoch + 1, time.time() - tic)
             self.weights_version += 1
             if epoch_end_callback is not None:
                 self.model.eval()
                 epoch_end_callback()
                 self.model.train()
+        if graphed:  # the gradients live in the graph's memory pool
+            optimizer.zero_grad(set_to_none=True)
         self.model.eval()
         self.is_trained = True
         self.save()

@@ -218,13 +218,13 @@ def test_f32_of_kernels_1_and_2_runs_no_ffma_body():
     more: f32 goes to conv3x3_tf32.cuh (kernel 1 with its statistics
     epilogue), bf16 to conv3x3_tc.cuh, anything else is refused; the FFMA
     core serves kernel 3's bf16 body alone."""
-    for name, run in (("small_conv.cu", "gst::tf32::run<2>"),
-                      ("conv_in_stats.cu", "gst::tf32::run<1>")):
+    for name, k in (("small_conv.cu", 2), ("conv_in_stats.cu", 1)):
         text = (CSRC / name).read_text()
         code = re.sub(r"//.*", "", text)
         assert "__global__" not in code and "conv3x3_accumulate" not in code
         assert "dispatch_ct" not in code and "num_tiles" not in code
-        assert code.count(run) == 1 and code.count("gst::tc::run(") == 1
+        assert code.count(f"gst::tf32::run<{k}>(") == 1
+        assert code.count(f"gst::tc::run<{k}>(") == 1
         assert "return (int)cudaErrorInvalidValue;" in code
     assert "conv3x3_accumulate" in (CSRC / "bil_conv.cu").read_text()
     wrappers = Path(tc_plan.__file__).parent
