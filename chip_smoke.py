@@ -46,6 +46,17 @@ Phases (any failure raises, so the exit code is non-zero):
    the step time by CUDA events, host vs device time, and the device time
    by kernel family, eager and as replays; a 2-epoch graphed fit equal to
    the per-step fit bit for bit in cuDNN's deterministic mode.
+5b. export — the serving export (``core/export.py``) of the decoder that
+   phase 5 trained, with the seeded ffhq generator, bf16, batch 8: the
+   artifact and the bundle (export seconds, file sizes); the bundle served
+   in a fresh interpreter that imports only ``core.export``, batches 0-3
+   from a seed bit-identical to ``FusedPipeline.sample_batch`` from that
+   seed; both forms served here as CUDA-graph replays under a device
+   trace (9 + 26 launches of kernels 1 and 2 a replay); served samples/s
+   beside the live pipeline's in turns; the DeepLab evaluator (DeepLabV3+
+   resnet50, crop 480, base 512, flip) exported at 1x512x512x3 and served
+   here: equal to the live ``device_scores_batch`` in cuDNN's
+   deterministic mode, ms per image beside it (TF32 convs).
 6. foreign weights — a seeded ffhq generator written as a synthetic
    mxnet-format ``stylegan-ffhq.params`` (the reference's names and
    layouts) and loaded by ``ImageGenerator``: a batch of 8 bit-identical
@@ -1654,13 +1665,14 @@ def write_train_collection(torch, base):
     return config, load_config_file(config).solver_config()
 
 
-def phase_train(torch):
+def phase_train(torch, keep_dir):
     """``main train`` then ``main evaluate`` at ffhq 1024^2 with the
     defaults (24 epochs, batch 1, Adam 1e-4, dropout on) on a collection
     of the port's seeded generator; falling loss, checkpoint, metrics, and
     mean-iou above the untrained decoder's.  ``main train`` runs twice:
     timed, then under a device trace for its launch counts (the trace
-    slows the replays)."""
+    slows the replays).  The trained checkpoint is copied into
+    ``keep_dir`` (the export phase serves that decoder)."""
     import contextlib
     import io
     import math
@@ -1720,6 +1732,7 @@ def phase_train(torch):
         assert epoch_loss[-1] < epoch_loss[0], epoch_loss
         ckpt = join(base, "checkpoints", "checkpoint_last.pt")
         assert os.path.isfile(ckpt), "no checkpoint written"
+        shutil.copy(ckpt, keep_dir)
         # the fit loop's rate: every step after the first epoch over the
         # wall time of those epochs
         later = sorted(cost[1:])
@@ -1764,6 +1777,293 @@ def phase_train(torch):
                 step_ms=fit_s / fit_steps * 1e3, sps=fit_steps / fit_s,
                 traced_fit_s=traced_fit_s, fit_s=fit_s, metrics=metrics,
                 prof=prof)
+
+
+# ------------------------------------------------- serving export (phase 5b)
+# The generate program at ffhq 1024^2, batch 8, bf16, exported as an
+# artifact and a bundle, and the bundle served from a fresh process; the
+# DeepLab evaluator exported at the experiment's crop.  A served batch
+# replays one CUDA graph of 9 kernel-1 and 26 kernel-2 launches.
+EXPORT_SEED = 9
+EXPORT_BATCHES = 4        # the eager first batch, the capture's, 2 replays
+EXPORT_RATE_BATCHES = 6   # batches per timed run, served or live
+EXPORT_DL_SHAPE = (1, 512, 512, 3)  # crop 480, base 512, flip: 8 windows
+
+SERVE_WORKER = r"""
+import json, sys, time
+import torch
+t0 = time.perf_counter()
+from gan_segmentation_tpu_torch.core.export import draw_inputs, load_bundle
+bundle, out, seed, n, det = sys.argv[1:]
+torch.backends.cudnn.deterministic = det == "1"
+torch.backends.cudnn.allow_tf32 = False
+serve = load_bundle(bundle)
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+gen = torch.Generator(device=serve.device)
+outs = []
+for i in range(int(n)):
+    gen.manual_seed(int(seed) * 2 ** 32 + i)
+    outs.append([t.cpu() for t in serve(*draw_inputs(serve.meta, gen))])
+torch.save(outs, out)
+models = [m for m in sys.modules
+          if m.startswith("gan_segmentation_tpu_torch.models")
+          or m.split(".")[0] in ("jax", "gan_segmentation_tpu")]
+print(json.dumps({"load_s": load_s, "replays": serve.call.replays,
+                  "model_modules": models}))
+"""
+
+
+def start_fresh_serving(bundle, base, deterministic):
+    """Start serving batches 0..EXPORT_BATCHES-1 from ``EXPORT_SEED`` with
+    the bundle in a fresh interpreter that imports only ``core.export``;
+    ``finish_fresh_serving`` collects them."""
+    out = join(base, f"served_{int(deterministic)}.pt")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE_WORKER, bundle, out, str(EXPORT_SEED),
+         str(EXPORT_BATCHES), "1" if deterministic else "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return proc, out, time.perf_counter()
+
+
+def finish_fresh_serving(torch, started):
+    """-> (the fresh process's batches on the host, its record)."""
+    proc, out, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
+    assert proc.returncode == 0, (stdout + stderr)[-4000:]
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    rec["wall_s"] = time.perf_counter() - t0
+    assert rec["replays"] == EXPORT_BATCHES - 1, rec
+    assert not rec["model_modules"], rec
+    return torch.load(out, weights_only=True), rec
+
+
+def export_pipeline(torch, solver, gan_dir):
+    """The phase's FusedPipeline: the seeded ffhq generator (bf16) with its
+    noise scales moved off zero, so the served noise inputs show."""
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator)
+    gen = ImageGenerator(gan="ffhq", gan_dir=gan_dir, batch_size=BATCH,
+                         seed=EXPORT_SEED)
+    perturb(torch, gen.model, 34)
+    return FusedPipeline(gen, solver)
+
+
+def same_batches(torch, a, b):
+    return len(a) == len(b) and all(
+        torch.equal(x, y) for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+def seconds_per_call(torch, step, n=EXPORT_RATE_BATCHES):
+    """Wall seconds per call of ``step`` over ``n`` calls after one warm
+    call, ending in a sync."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def phase_export_deeplab(torch, base):
+    """The DeepLab evaluator (DeepLabV3+ resnet50, seeded, crop 480, base
+    512, flip) exported at ``EXPORT_DL_SHAPE`` and served in this process
+    (eager, capture, replay) against the live ``device_scores_batch`` of
+    the same image, equal in cuDNN's deterministic mode (f32, TF32 off);
+    ms per image of both with cuDNN's TF32 convs, in turns."""
+    from gan_segmentation_tpu_torch.core import export as tex
+    from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import \
+        MultiEvalModel
+
+    model = DeepLabV3Plus(DL_CLASSES, "resnet50", aux=True,
+                          crop_size=DL_CROP,
+                          generator=torch.Generator().manual_seed(43))
+    perturb(torch, model, 44)
+    ev = MultiEvalModel(model.cuda(), DL_CLASSES, base_size=512,
+                        crop_size=DL_CROP, flip=True)
+    path = join(base, "deeplab_eval.pt2")
+    b, h, w, c = EXPORT_DL_SHAPE
+    image = torch.randn((h, w, c), generator=torch.Generator(
+        device="cuda").manual_seed(45), device="cuda")
+    t0 = time.perf_counter()
+    tex.export_eval_model(ev, b, h, w, c, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve = tex.load_artifact(path)
+    load_s = time.perf_counter() - t0
+    with cudnn_deterministic(torch):  # cuDNN's default f32 algorithms
+        live = ev.device_scores_batch([image])  # differ run to run
+        served = [serve(image[None]) for _ in range(3)]
+    assert serve.call.replays == 2
+    errs = [float((s - live).abs().max()) for s in served]
+    # timed as step 5's evaluator runs: cuDNN's default mode with its TF32
+    # convs (PyTorch's default), a fresh load captured so; in turns
+    serve = tex.load_artifact(path)
+    times = {"served": [], "live": []}
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for tag in ("served", "live", "live", "served"):
+            times[tag].append(1e3 * seconds_per_call(
+                torch, (lambda: serve(image[None])) if tag == "served" else
+                (lambda: ev.device_scores_batch([image])), n=3))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    rec = dict(export_s=export_s, load_s=load_s,
+               size_bytes=os.path.getsize(path), max_abs_err=errs,
+               ms=times, shape=list(EXPORT_DL_SHAPE))
+    check_later(all(e == 0.0 for e in errs), "deeplab eval artifact: served "
+                f"scores differ from the live evaluator's ({errs})")
+    del serve, ev, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_export(torch, ckpt_dir, smi):
+    """The serving export at ffhq 1024^2, batch 8, bf16, on the decoder in
+    ``ckpt_dir`` (phase 5's, or a seeded random one when None): the
+    artifact and the bundle exported (seconds, sizes); the bundle served
+    in a fresh process, batches 0-3 from a seed equal to
+    ``FusedPipeline.sample_batch`` from that seed bit for bit (in cuDNN's
+    deterministic mode on both sides if they differ in its default mode);
+    the bundle and the artifact served in this process under a device
+    trace (9 + 26 launches per replay); served samples/s beside the live
+    pipeline's in turns; then the DeepLab evaluator
+    (``phase_export_deeplab``)."""
+    from gan_segmentation_tpu_torch.core import export as tex
+    from gan_segmentation_tpu_torch.core.config import SolverConfig
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    k1, k2 = k1m.conv3x3_noise_bias_lrelu_instats, k2m.conv3x3_small
+    scfg = SolverConfig(max_res_log2=10)
+    n_convs = len(kernel2_shapes(scfg))
+    rec = {}
+    with tempfile.TemporaryDirectory() as base:
+        none = join(base, "none")
+        if ckpt_dir is None:
+            solver = SegSolver(10, "", none, cfg=scfg)
+            perturb(torch, solver.model, 35)
+            solver.weights_version += 1
+        else:
+            solver = SegSolver(10, "", ckpt_dir, cfg=scfg)
+            assert solver.is_trained, f"no decoder checkpoint in {ckpt_dir}"
+        rec["decoder"] = "phase 5's" if ckpt_dir else "seeded random"
+        pipe = export_pipeline(torch, solver, none)
+        art, bdir = join(base, "generate.pt2"), join(base, "generate.bundle")
+        t0 = time.perf_counter()
+        tex.export_fused_pipeline(pipe, BATCH, art)
+        t1 = time.perf_counter()
+        tex.export_fused_pipeline_bundle(pipe, BATCH, bdir)
+        t2 = time.perf_counter()
+        rec["export_s"] = {"artifact": t1 - t0, "bundle": t2 - t1}
+        rec["sizes"] = {"artifact": os.path.getsize(art), **{
+            f: os.path.getsize(join(bdir, f))
+            for f in ("program.pt2", "weights.pt", "meta.json")}}
+        rec["meta"] = tex.load_bundle_meta(bdir)
+        assert rec["meta"]["decoder_dtype"] == "bfloat16"
+
+        # the fresh process serves while this one runs the live batches
+        # and serves the two forms itself (no timing until it is done)
+        fresh = start_fresh_serving(bdir, base, False)
+        live = [[t.cpu() for t in pipe.sample_batch()]
+                for _ in range(EXPORT_BATCHES)]
+        assert not torch.equal(live[0][0], live[1][0])
+
+        # in this process, under a device trace: 9 + 26 launches a replay
+        t0 = time.perf_counter()
+        served = tex.load_bundle(bdir)
+        torch.cuda.synchronize()
+        rec["load_s"] = {"bundle_here": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        hermetic = tex.load_artifact(art)
+        torch.cuda.synchronize()
+        rec["load_s"]["artifact_here"] = time.perf_counter() - t0
+        gen = torch.Generator(device="cuda")
+
+        def serve_batch(fn, i):
+            gen.manual_seed(EXPORT_SEED * 2 ** 32 + i)
+            return fn(*tex.draw_inputs(fn.meta, gen))
+
+        with LaunchTrace(torch) as trace:
+            here = [[t.cpu() for t in serve_batch(served, i)]
+                    for i in range(EXPORT_BATCHES)]
+        counted = (trace.device["conv_in_stats"], trace.device["small_conv"])
+        deltas = (served.call.deltas[k1], served.call.deltas[k2])
+        assert deltas == (9, n_convs), deltas
+        assert counted == (EXPORT_BATCHES * 9, EXPORT_BATCHES * n_convs), \
+            counted
+        assert served.call.replays == EXPORT_BATCHES - 1
+        hermetic_batches = [[t.cpu() for t in serve_batch(hermetic, i)]
+                            for i in range(EXPORT_BATCHES)]
+        rec["here_equal"] = same_batches(torch, here, live)
+        rec["hermetic_equal_bundle"] = same_batches(torch, hermetic_batches,
+                                                   here)
+        check_later(rec["here_equal"] and rec["hermetic_equal_bundle"],
+                    "export: the bundle or the artifact served in this "
+                    "process differs from FusedPipeline")
+        rec["launches"] = dict(zip(("conv_in_stats", "small_conv"), counted))
+        rec["per_replay"] = {"conv_in_stats": deltas[0],
+                             "small_conv": deltas[1]}
+
+        fresh, rec["worker"] = finish_fresh_serving(torch, fresh)
+        rec["load_s"]["bundle_fresh_process"] = rec["worker"]["load_s"]
+        rec["fresh_default_equal"] = same_batches(torch, fresh, live)
+        if not rec["fresh_default_equal"]:
+            with cudnn_deterministic(torch):
+                twin = export_pipeline(torch, solver, none)
+                live_det = [[t.cpu() for t in twin.sample_batch()]
+                            for _ in range(EXPORT_BATCHES)]
+                del twin
+            fresh_det, rec["worker_det"] = finish_fresh_serving(
+                torch, start_fresh_serving(bdir, base, True))
+            rec["fresh_deterministic_equal"] = same_batches(
+                torch, fresh_det, live_det)
+            check_later(rec["fresh_deterministic_equal"], "export: the "
+                        "bundle served in a fresh process differs from "
+                        "FusedPipeline also in cuDNN's deterministic mode")
+
+        # samples/s in turns: served, live, live, served (device-resident
+        # outputs, inputs drawn on the card, as sample_batch does)
+        n = [EXPORT_BATCHES]
+
+        def served_step():
+            serve_batch(served, n[0])
+            n[0] += 1
+
+        rates = {"served": [], "live": []}
+        for tag in ("served", "live", "live", "served"):
+            rates[tag].append(BATCH / seconds_per_call(
+                torch, served_step if tag == "served" else pipe.sample_batch))
+        rates["live_pipeline"] = pipeline_rate(torch, pipe, 48)
+        rec["rates"] = rates
+        del served, hermetic, pipe
+        torch.cuda.empty_cache()
+        rec["deeplab"] = phase_export_deeplab(torch, base)
+    log(f"export (ffhq 1024^2, batch {BATCH}, bf16, {rec['decoder']} "
+        f"decoder): artifact {rec['export_s']['artifact']:.2f} s, bundle "
+        f"{rec['export_s']['bundle']:.2f} s to export; sizes {rec['sizes']} "
+        f"bytes; load {rec['load_s']}; fresh process served batches "
+        f"0-{EXPORT_BATCHES - 1} equal to FusedPipeline.sample_batch: "
+        f"{rec['fresh_default_equal']} (cuDNN default mode)"
+        + (f", deterministic mode {rec['fresh_deterministic_equal']}"
+           if "fresh_deterministic_equal" in rec else "")
+        + f"; in this process bundle {rec['here_equal']}, artifact = bundle "
+        f"{rec['hermetic_equal_bundle']}; launches (device trace) "
+        f"{rec['launches']} over {EXPORT_BATCHES} batches, per replay "
+        f"{rec['per_replay']}; samples/s served "
+        f"{', '.join(f'{v:.3f}' for v in rates['served'])} vs live "
+        f"sample_batch {', '.join(f'{v:.3f}' for v in rates['live'])}, live "
+        f"generate_batches {rates['live_pipeline']:.3f}; deeplab eval "
+        f"{rec['deeplab']} on {smi}")
+    return rec
 
 
 # ------------------------------------------------ cars 512^2, bedrooms 256^2
@@ -3864,6 +4164,11 @@ def main():
         f"{torch.cuda.get_device_name(0)}, capability "
         f"{torch.cuda.get_device_capability(0)}, {torch.cuda.device_count()} "
         f"device(s); nvidia-smi: {smi}")
+    version = tuple(int(v) for v in re.findall(r"\d+",
+                                                torch.__version__)[:2])
+    assert version >= (2, 4), (
+        f"torch {torch.__version__}: kernels 1 and 2 are torch.library "
+        f"custom ops, which need torch 2.4 or later")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -3902,17 +4207,24 @@ def main():
     gg = phase_graph_generate(torch)
     marks.append(("generate as graphs", time.perf_counter()))
 
-    # 5. train and evaluate
+    # 5. train and evaluate, 5b. the serving export of the trained decoder
     phase_small_train_reference(torch)
-    tr = phase_train(torch)
-    log(f"ffhq 1024^2 train: {tr['sps']:.3f} samples/s, {tr['step_ms']:.3f} "
-        f"ms per step over the fit loop after its first epoch (graph "
-        f"replays), {tr['prof']['graph_ms']:.3f} ms per step as graph "
-        f"replays and {tr['prof']['step_ms']:.3f} ms per eager step by CUDA "
-        f"events; evaluate {tr['metrics']} on {smi}")
+    trained = tempfile.mkdtemp()
+    try:
+        tr = phase_train(torch, trained)
+        log(f"ffhq 1024^2 train: {tr['sps']:.3f} samples/s, "
+            f"{tr['step_ms']:.3f} ms per step over the fit loop after its "
+            f"first epoch (graph replays), {tr['prof']['graph_ms']:.3f} ms "
+            f"per step as graph replays and {tr['prof']['step_ms']:.3f} ms "
+            f"per eager step by CUDA events; evaluate {tr['metrics']} on "
+            f"{smi}")
+        marks.append(("train", time.perf_counter()))
+        ex = phase_export(torch, trained, smi)
+    finally:
+        shutil.rmtree(trained, ignore_errors=True)
 
     # 6. foreign weights, 7. annotation
-    marks.append(("train", time.perf_counter()))
+    marks.append(("export", time.perf_counter()))
     fw = phase_foreign_weights(torch, gcfg, scfg)
     an = phase_annotation(torch)
     marks.append(("foreign weights and annotation", time.perf_counter()))
@@ -3955,6 +4267,7 @@ def main():
                           ("cars", og["cars"]["launches"]),
                           ("bedrooms", og["bedrooms"]["launches"]),
                           ("foreign_weights", fw["launches"]),
+                          ("export", ex["launches"]),
                           ("annotation", an["launches"])):
         for name, n in counted.items():
             assert n > 0, f"{path}: {name} was not launched"
@@ -4034,6 +4347,7 @@ def main():
         "retrain_s": {k: an[k] for k in ("retrain_s", "retrain_warm_s",
                                          "retrain_eager_s")}}}), flush=True)
     print(json.dumps({"deeplab": dl}), flush=True)
+    print(json.dumps({"export": ex}), flush=True)
     print(json.dumps({"step5": {k: v for k, v in s5.items()
                                 if k != "losses"}}), flush=True)
     if FAILED:

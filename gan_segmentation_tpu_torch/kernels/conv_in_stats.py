@@ -1,8 +1,10 @@
 """Kernel 1: conv3x3 + noise + bias + leaky-relu with instance-norm statistics.
 
-CUDA source: ``csrc/conv_in_stats.cu``: bf16 runs the tensor-core implicit
-GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan: ``tc_plan.plan``), f32 the
-3xTF32 one of ``csrc/conv3x3_tf32.cuh`` (``tc_plan.plan_f32``).  Replaces
+CUDA source: ``csrc/conv_in_stats.cu``, bound as the custom op
+``torch.ops.gst.conv3x3_in_stats`` (``kernels/ops.py``): bf16 runs the
+tensor-core implicit GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan:
+``tc_plan.plan``), f32 the 3xTF32 one of ``csrc/conv3x3_tf32.cuh``
+(``tc_plan.plan_f32``).  Replaces
 the TPU kernel
 ``experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats``
 and keeps its contract: NHWC / HWIO, stride 1, pad 1, ``w`` the effective
@@ -30,10 +32,10 @@ def conv3x3_noise_bias_lrelu_instats_plain(x, w, noise, nscale, bias, *,
     return y.to(x.dtype), mean, var
 
 
-def conv3x3_noise_bias_lrelu_instats(x, w, noise, nscale, bias, *,
-                                     leaky: float = 0.2):
-    """-> (y, mean, var).  A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+def check_args(x, w, noise, nscale, bias):
+    """Raise unless the arguments are what the kernel takes (one device,
+    contiguous, the contract's shapes and dtypes); -> (n, h, w, cin,
+    cout)."""
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     n, h, wd, cin = x.shape
@@ -48,34 +50,20 @@ def conv3x3_noise_bias_lrelu_instats(x, w, noise, nscale, bias, *,
     _build.check(noise, "noise", (n, h, wd), torch.float32, dev)
     _build.check(nscale, "nscale", (cout,), torch.float32, dev)
     _build.check(bias, "bias", (cout,), torch.float32, dev)
-    if dev.type == "cpu":
-        return conv3x3_noise_bias_lrelu_instats_plain(x, w, noise, nscale,
-                                                      bias, leaky=leaky)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-
-    lib = _build.library()
-    plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
-                                             noise=True)
-    # the partial axis is the plan's tile count
-    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
-    partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.gst_conv3x3_in_stats(
-            x.data_ptr(), w.data_ptr(), noise.data_ptr(), nscale.data_ptr(),
-            bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
-            None if ws is None else ws.data_ptr(), n, h, wd, cin, cout,
-            _build.DTYPE_CODES[x.dtype], float(leaky), plan_c,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "conv3x3_noise_bias_lrelu_instats")
-    conv3x3_noise_bias_lrelu_instats.launches += 1
-    # second pass: the per-tile partial sums, reduced over the tile axis in a
-    # fixed order (no atomics, so the statistics are deterministic)
-    sums = partial.sum(dim=1)
-    mean = sums[:, 0] / (h * wd)
-    var = sums[:, 1] / (h * wd) - mean * mean
-    return y, mean, var
+    return n, h, wd, cin, cout
 
 
-conv3x3_noise_bias_lrelu_instats.launches = 0
+def conv3x3_noise_bias_lrelu_instats(x, w, noise, nscale, bias, *,
+                                     leaky: float = 0.2):
+    """-> (y, mean, var), through the custom op
+    ``torch.ops.gst.conv3x3_in_stats`` (``kernels/ops.py``).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    check_args(x, w, noise, nscale, bias)
+    return torch.ops.gst.conv3x3_in_stats(x, w, noise, nscale, bias,
+                                          float(leaky))
+
+
+conv3x3_noise_bias_lrelu_instats.launches = 0  # counted in kernels/ops.py

@@ -1,0 +1,110 @@
+"""Kernels 1 and 2 as ``torch.library`` custom ops, so that a tracer
+(``torch.export``, ``core/export.py``) can pass through them and a saved
+program names them: ``torch.ops.gst.conv3x3_small`` and
+``torch.ops.gst.conv3x3_in_stats``.
+
+- CPU: the plain PyTorch version (``*_plain`` beside each wrapper).
+- CUDA: the hand-written kernel through the ``ctypes`` library of
+  ``_build``, launched on the current stream; it raises when the launch
+  fails and never falls back to the plain version.  Each launch adds one
+  to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
+  ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``), the one counter a
+  run reads whether the call came through the wrapper or from an exported
+  program.
+- Fake (``register_fake``): the output shapes and dtypes, from the inputs'
+  alone; the library is not touched.
+
+The wrappers check their arguments before they call the op.  A program
+loaded from a file calls the op directly, so the CUDA implementations
+check again: the kernels index raw pointers.  Kernel 3 (``bil_conv``, the
+train path only) is still a plain ``ctypes`` wrapper.
+"""
+
+from typing import Optional, Tuple
+
+import torch
+from torch import Tensor
+
+from . import _build, conv_in_stats, small_conv
+
+
+@torch.library.custom_op("gst::conv3x3_small", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_small_op(x: Tensor, w: Tensor, b: Optional[Tensor], act: str,
+                     leaky: float) -> Tensor:
+    """y = conv3x3(x, w) [+ b] then ``act`` ("none", "relu" or "leaky" with
+    slope ``leaky``); NHWC / HWIO, y in x's dtype."""
+    return small_conv.conv3x3_small_plain(
+        x, w, b, relu=act == "relu", leaky=leaky if act == "leaky" else None)
+
+
+@conv3x3_small_op.register_fake
+def _(x, w, b, act, leaky):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
+@conv3x3_small_op.register_kernel("cuda")
+def _(x, w, b, act, leaky):
+    n, h, wd, cin, cout = _build.check_conv3x3(x, w, b)
+    dev = x.device
+    lib = _build.library()
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
+    with torch.cuda.device(dev):
+        rc = lib.gst_conv3x3_small(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
+            cin, cout, _build.DTYPE_CODES[x.dtype],
+            small_conv._ACT_CODES[act], float(leaky), plan,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "conv3x3_small")
+    small_conv.conv3x3_small.launches += 1
+    return y
+
+
+@torch.library.custom_op("gst::conv3x3_in_stats", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_in_stats_op(x: Tensor, w: Tensor, noise: Tensor, nscale: Tensor,
+                        bias: Tensor, leaky: float
+                        ) -> Tuple[Tensor, Tensor, Tensor]:
+    """-> (y, mean, var): conv3x3 + noise * nscale + bias + leaky, and the
+    instance-norm statistics of y (f32, var not clamped)."""
+    return conv_in_stats.conv3x3_noise_bias_lrelu_instats_plain(
+        x, w, noise, nscale, bias, leaky=leaky)
+
+
+@conv3x3_in_stats_op.register_fake
+def _(x, w, noise, nscale, bias, leaky):
+    n, cout = x.shape[0], w.shape[3]
+    stats = (n, cout)
+    return (x.new_empty((*x.shape[:3], cout)),
+            x.new_empty(stats, dtype=torch.float32),
+            x.new_empty(stats, dtype=torch.float32))
+
+
+@conv3x3_in_stats_op.register_kernel("cuda")
+def _(x, w, noise, nscale, bias, leaky):
+    n, h, wd, cin, cout = conv_in_stats.check_args(x, w, noise, nscale, bias)
+    dev = x.device
+    lib = _build.library()
+    plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
+                                             noise=True)
+    # the partial axis is the plan's tile count
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.gst_conv3x3_in_stats(
+            x.data_ptr(), w.data_ptr(), noise.data_ptr(), nscale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            None if ws is None else ws.data_ptr(), n, h, wd, cin, cout,
+            _build.DTYPE_CODES[x.dtype], float(leaky), plan_c,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch(rc, "conv3x3_noise_bias_lrelu_instats")
+    conv_in_stats.conv3x3_noise_bias_lrelu_instats.launches += 1
+    # second pass: the per-tile partial sums, reduced over the tile axis in a
+    # fixed order (no atomics, so the statistics are deterministic)
+    sums = partial.sum(dim=1)
+    mean = sums[:, 0] / (h * wd)
+    var = sums[:, 1] / (h * wd) - mean * mean
+    return y, mean, var

@@ -1,8 +1,10 @@
 """Kernel 2: direct 3x3 conv with a fused bias and relu / leaky epilogue.
 
-CUDA source: ``csrc/small_conv.cu``: bf16 runs the tensor-core implicit
-GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan: ``tc_plan.plan``), f32 the
-3xTF32 one of ``csrc/conv3x3_tf32.cuh`` (``tc_plan.plan_f32``).  Replaces
+CUDA source: ``csrc/small_conv.cu``, bound as the custom op
+``torch.ops.gst.conv3x3_small`` (``kernels/ops.py``): bf16 runs the
+tensor-core implicit GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan:
+``tc_plan.plan``), f32 the 3xTF32 one of ``csrc/conv3x3_tf32.cuh``
+(``tc_plan.plan_f32``).  Replaces
 the TPU kernel
 ``experiments/pallas_archive/small_conv.py::conv3x3_small`` and keeps its
 contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's
@@ -43,26 +45,12 @@ def conv3x3_small_plain(x, w, b=None, *, relu: bool = False,
 
 def conv3x3_small(x, w, b=None, *, relu: bool = False,
                   leaky: Optional[float] = None):
-    """y = conv3x3(x, w) [+ b] [relu | leaky].  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    """y = conv3x3(x, w) [+ b] [relu | leaky], through the custom op
+    ``torch.ops.gst.conv3x3_small`` (``kernels/ops.py``).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises."""
     act = _act(relu, leaky)
-    n, h, wd, cin, cout = _build.check_conv3x3(x, w, b)
-    if x.device.type == "cpu":
-        return conv3x3_small_plain(x, w, b, relu=relu, leaky=leaky)
-    dev = x.device
-    lib = _build.library()
-    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
-    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
-    with torch.cuda.device(dev):
-        rc = lib.gst_conv3x3_small(
-            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
-            cin, cout, _build.DTYPE_CODES[x.dtype], _ACT_CODES[act],
-            float(leaky or 0.0), plan,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "conv3x3_small")
-    conv3x3_small.launches += 1
-    return y
+    _build.check_conv3x3(x, w, b)
+    return torch.ops.gst.conv3x3_small(x, w, b, act, float(leaky or 0.0))
 
 
-conv3x3_small.launches = 0
+conv3x3_small.launches = 0  # the CUDA launches, counted in kernels/ops.py

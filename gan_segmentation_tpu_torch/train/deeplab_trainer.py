@@ -47,6 +47,7 @@ Multi-process training (the JAX package's ``process_index`` /
 ``process_count``, SyncBatchNorm) is not ported: one process, one device.
 """
 
+import functools
 import logging
 import math
 import os
@@ -590,6 +591,15 @@ def _pad_fill(c: int, pad_values=None) -> np.ndarray:
     return fill
 
 
+@functools.lru_cache(maxsize=None)
+def _device_fill(c: int, pad_values, device: torch.device) -> torch.Tensor:
+    """``_pad_fill`` on ``device``, built once per (c, pad values, device):
+    built per call it is a copy from host memory, which a CUDA graph
+    cannot capture (an exported evaluator replays one)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_pad_fill(c, pad_values)).to(device)
+
+
 class MultiEvalModel:
     """Multi-scale + flip sliding-window inference
     (`lib/core/segmentation.py:207-208`, gluoncv segbase), batched.
@@ -665,9 +675,16 @@ class MultiEvalModel:
         x = torch.stack([torch.as_tensor(im, dtype=torch.float32,
                                          device=self.device)
                          for im in images])
+        return self.scores(x)
+
+    def scores(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) f32 normalised images on the model's device ->
+        (B, H, W, nclass) f32 scores: the whole protocol as one tensor
+        function of a fixed shape (``core/export.py`` traces it)."""
         b, h, w, c = x.shape
         crop = self.crop_size
-        fill = torch.from_numpy(_pad_fill(c, self.pad_values)).to(x.device)
+        fill = _device_fill(c, None if self.pad_values is None else tuple(
+            np.asarray(self.pad_values, np.float32).tolist()), x.device)
         plans, windows = [], []
         for scale in self.scales:
             height, width, long_size = self._scaled_size(h, w, scale)

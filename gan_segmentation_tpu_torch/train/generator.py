@@ -18,10 +18,11 @@ batch i.  On the CPU the same code runs eagerly.
 import functools
 import logging
 from os.path import isfile, join
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..core import dtypes
 from ..core.config import GanConfig, gan_config
@@ -73,13 +74,54 @@ def _generate(model, imrange, z, generator=None, noise=None):
         return _to_uint8(rgb, imrange), feats
 
 
-def _generate_masks(model, decoder, folded, dtype, pack, imrange, z,
-                    generator=None, noise=None):
-    """(uint8 images, uint8 masks) of one batch, eagerly."""
-    imgs, feats = _generate(model, imrange, z, generator, noise)
+class FusedProgram(nn.Module):
+    """One batch z -> (uint8 images, uint8 masks) as a module: the
+    generator, the decoder (eval, BN folded, ``dtype``), the class mask
+    and, with ``pack``, the bit-packing of binary masks.  ``folded`` is the
+    decoder's ``fold_bn`` dict; its tensors become this module's buffers
+    (``fold.<conv>.w`` / ``.b``, "." in a conv's name as "__"; the same
+    tensors, so a refold in place reaches them), so an export
+    (``core/export.py``) carries them with the generator's and decoder's
+    parameters.  ``forward(z, noise)`` takes the
+    noise as inputs (``StyleGanGenerator.draw_noise``); without ``noise``
+    it draws it from ``generator``.  ``FusedPipeline`` runs every batch
+    through it, eagerly or as a CUDA graph, and the export traces it: the
+    live and the exported programs are one body."""
+
+    def __init__(self, model: StyleGanGenerator, decoder, folded,
+                 dtype: torch.dtype, pack: bool, imrange):
+        super().__init__()
+        self.model = model
+        self.decoder = decoder
+        self.dtype = dtype
+        self.pack = pack
+        self.imrange = imrange
+        self.fold = nn.Module()
+        self.fold_names = tuple(folded)
+        for name, (w, b) in folded.items():
+            conv = nn.Module()
+            conv.register_buffer("w", w)
+            conv.register_buffer("b", b)
+            self.fold.add_module(name.replace(".", "__"), conv)
+
+    def folded(self):
+        """The folded (kernel, bias) pairs, read from the buffers at call
+        time (a trace reads them as the program's weights)."""
+        return {name: (conv.w, conv.b) for name, conv in
+                zip(self.fold_names, self.fold.children())}
+
+    def forward(self, z, noise: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        rgb, feats = self.model(z, noise=noise, generator=generator)
+        mask = class_mask(self.decoder(feats, self.folded(), self.dtype))
+        return (_to_uint8(rgb, self.imrange),
+                pack_mask_bits(mask) if self.pack else mask)
+
+
+def _infer(program, *args, **kwargs):
+    """``program(*args, **kwargs)`` in inference mode (a batch's body)."""
     with torch.inference_mode():
-        mask = class_mask(decoder(feats, folded, dtype))
-        return imgs, pack_mask_bits(mask) if pack else mask
+        return program(*args, **kwargs)
 
 
 class ImageGenerator:
@@ -236,7 +278,8 @@ class FusedPipeline:
         self._pack_masks = nclass == 2 and res % 8 == 0
         self._folded = None
         self._folded_at = None
-        self._graphs = {}  # batch size -> GraphedCall of _fused
+        self._program = None
+        self._graphs = {}  # batch size -> GraphedCall of the program
 
     def _prepared(self):
         """The decoder's BN-folded kernels, folded again whenever the
@@ -260,26 +303,33 @@ class FusedPipeline:
         self._folded_at = at
         return self._folded
 
-    def _fused_args(self):
-        return (self.gen.model, self.solver.model, self._prepared(),
-                self.dec_dtype, self._pack_masks, self.gen.cfg.imrange)
+    def program(self) -> FusedProgram:
+        """The batch's body (``FusedProgram``), one per pipeline, over the
+        folded kernels of ``_prepared`` (refolded first if the solver's
+        weights moved)."""
+        folded = self._prepared()
+        if self._program is None:
+            self._program = FusedProgram(
+                self.gen.model, self.solver.model, folded, self.dec_dtype,
+                self._pack_masks, self.gen.cfg.imrange)
+        return self._program
 
     def _fused(self, z, generator: Optional[torch.Generator] = None,
                noise=None):
         """One batch, eagerly: the noise from ``noise`` or drawn from
         ``generator``."""
-        return _generate_masks(*self._fused_args(), z, generator, noise)
+        return _infer(self.program(), z, noise=noise, generator=generator)
 
     def _batch(self, batch_size: int):
         """(uint8 images, uint8 masks) of the next batch; on a card the
         static outputs of this batch size's graph, which the next batch
         overwrites."""
         z, noise = self.gen.draw_inputs(batch_size)
-        args = self._fused_args()  # refolds first, if the weights moved
+        program = self.program()  # refolds first, if the weights moved
         call = self._graphs.get(batch_size)
-        if call is None:  # reads the models, not self: no reference cycle
+        if call is None:  # reads the program, not self: no reference cycle
             call = self._graphs[batch_size] = GraphedCall(functools.partial(
-                _generate_masks, *args, z, noise=noise), self.gen.device)
+                _infer, program, z, noise=noise), self.gen.device)
         return call()
 
     def sample_batch(self, batch_size: Optional[int] = None):

@@ -230,7 +230,9 @@ def test_no_jax_on_the_import_path():
             f"{pkg}.train.experiments", f"{pkg}.train.rgb_experiments",
             f"{pkg}.data.augment", f"{pkg}.data.segmentation",
             f"{pkg}.data.batchify", f"{pkg}.utils.image", f"{pkg}.utils.log",
-            f"{pkg}.core.yaml_config", f"{pkg}.core.graphs"} <= set(_modules())
+            f"{pkg}.core.yaml_config", f"{pkg}.core.graphs",
+            f"{pkg}.core.export", f"{pkg}.kernels.ops", f"{pkg}.apps.export",
+            f"{pkg}.examples.serving_demo"} <= set(_modules())
     code = f"""
 import importlib, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "cv2",
