@@ -89,7 +89,14 @@ Phases (any failure raises, so the exit code is non-zero):
    one seeded batch in f32 and in bf16 with dropout (falling loss, finite
    gradients, the two rates on the poly curve, ms per step, peak memory,
    a repeated run's losses), the step's host and device time by kernel
-   family, a step with the batch norm written out beside the fused one.  Loaded weights: a dotted-name DeepLabV3+ file and a
+   family, a step with the batch norm written out beside the fused one;
+   the step as a CUDA graph (``GraphedTrainStep``): 6 graphed steps (2
+   eager warm-ups, the capture, 3 replays) equal to 6 eager steps with the
+   same optimizer bit for bit in cuDNN's deterministic mode, f32 (TF32
+   convs) and bf16, then graph beside eager per step (ms
+   by CUDA events, host enqueue, busy share, launches in the device trace,
+   the memory the graph keeps).  Loaded weights: a dotted-name DeepLabV3+
+   file and a
    legacy-name gluoncv backbone file, fabricated in mxnet's format from a
    seeded model, load bit-identically and give the source's eval forward.
 9. step 5 — the experiment ``01_hair_deeplabv3_ffhq_pretrain_gan`` through
@@ -99,17 +106,26 @@ Phases (any failure raises, so the exit code is non-zero):
    generator seed 1 writes 8 more as the val split (synthetic: the
    repository holds no real annotated data); ``train`` at the spec's crop
    480, base 512, scale factor 0.5, rotate 15, DeepLabV3+ on resnet50, f32
-   with cuDNN's TF32 convs, batch 8, 2 epochs of 32 draws, 4 decode
-   threads: a validation line and a checkpoint per epoch, finite losses,
-   the rates on the poly curve; the trainer's loop ms per step beside the
-   feed alone (``batch_iter``, no model) and the bare ``train_step`` on a
-   resident batch; a second run stopped by SIGTERM after step 3 (bundle,
+   with cuDNN's TF32 convs, batch 8, 2 epochs of 64 draws, each step a
+   replay of the trainer's CUDA graph, 4 decode processes: a validation
+   line (validation as graph replays) and a checkpoint per epoch, finite
+   losses, the rates on the poly curve; the trainer's loop ms per step
+   beside the feed alone (``batch_iter``, no model, 4 threads, 4 and 7
+   processes) and the bare step on a resident batch (graph and eager); a
+   second run stopped by SIGTERM after step 3 (bundle,
    no ``.tmp``, ``try_resume`` restoring weights, momentum, scheduler and
    dropout generator bit-equal) and continued with ``--resume`` to the
    uninterrupted run's step and epoch; ``test`` with flip at test batch 2
-   on the sliding-window path (one model call per bucket of 16 windows),
-   images/s and both metrics; ``MultiEvalModel`` on the card against the
-   CPU (tiny backbone, crop 32, base 48, scales 0.75 and 1.0, TF32 off).
+   on the sliding-window path (one model call per bucket of 16 windows,
+   each bucket a replay of its graph), images/s and both metrics;
+   ``MultiEvalModel`` on the card against the CPU (tiny backbone, crop 32,
+   base 48, scales 0.75 and 1.0, TF32 off).
+10. demo — ``gan_segmentation_tpu_torch/examples/full_pipeline_demo.py``
+   at bedrooms 256^2 (all 8 levels; 12 fixture annotations, decoder fit of
+   10 epochs and evaluation, 96 + 12 generated pairs, DeepLabV3+ resnet50
+   at crop 256 for 2 epochs of 64 draws through its graphed step, and
+   validation) under a device trace: kernels 1, 2 and 3 all run, and the
+   trace's counts equal the wrappers' counts plus the replays.
 
 Launch counts: every run of a main path that the script counts runs
 under ``LaunchTrace``, which sets the wrappers' counters to 0, traces the
@@ -3523,6 +3539,143 @@ def kernel_families(prof, steps):
     return by_name, launches, families(by_name, steps, family)
 
 
+DL_GRAPH_STEPS = 6    # eager steps held to as many graphed ones, bit for bit
+DL_GRAPH_TIMED = 10   # replays timed per dtype
+
+
+def deeplab_graph_twin(torch, model, state, images, masks, dtype, graphed,
+                       steps=DL_GRAPH_STEPS, seed=33):
+    """``steps`` train steps from ``state`` with the graphed optimizer
+    (fused SGD, rate tensors) and dropout on: as ``GraphedTrainStep`` (two
+    eager warm-up steps, the capture, replays) or as eager ``train_step``s
+    (the graph's eager twin).  -> (losses, state after, generator state)."""
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import (
+        GraphedTrainStep, make_optimizer, train_step)
+
+    model.load_state_dict(state)
+    opt, sched = make_optimizer(model, DL_LR, DL_TOTAL_ITERS, DL_WD,
+                                DL_MOMENTUM, graphed=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    step = (GraphedTrainStep(model, opt, sched, gen, aux_weight=DL_AUX_WEIGHT,
+                             dtype=dtype) if graphed else None)
+    losses = []
+    for _ in range(steps):
+        if graphed:
+            loss, _ = step(images, masks)
+        else:
+            loss, _ = train_step(model, opt, sched, images, masks, gen,
+                                 aux_weight=DL_AUX_WEIGHT, dtype=dtype)
+        losses.append(loss.clone())
+    torch.cuda.synchronize()
+    out = (torch.stack(losses).cpu(),
+           {k: v.clone() for k, v in model.state_dict().items()},
+           gen.get_state())
+    del step, opt, sched
+    return out
+
+
+def deeplab_graph_profile(torch, model, state, images, masks, dtype):
+    """The step as replays, default cuDNN mode: ms per step by CUDA events
+    over ``DL_GRAPH_TIMED`` replays and the host's time to enqueue them, the
+    memory the first calls keep reserved (the graph's pool, the optimizer's
+    state, the static inputs), and a profile of 3 replays: device kernel
+    time by family, launches per replay (the trace's kernels)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import (
+        GraphedTrainStep, make_optimizer)
+
+    model.load_state_dict(state)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    opt, sched = make_optimizer(model, DL_LR, DL_TOTAL_ITERS, DL_WD,
+                                DL_MOMENTUM, graphed=True)
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    step = GraphedTrainStep(model, opt, sched, gen, aux_weight=DL_AUX_WEIGHT,
+                            dtype=dtype)
+    for _ in range(4):  # two warm-up steps, the capture, a replay
+        step(images, masks)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool_gib = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(DL_GRAPH_TIMED):
+        step(images, masks)
+    host_ms = (time.perf_counter() - t0) * 1e3 / DL_GRAPH_TIMED
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / DL_GRAPH_TIMED
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(images, masks)
+        torch.cuda.synchronize()
+    _, launches, fam = kernel_families(prof, steps)
+    busy = sum(fam.values())
+    replays = sum(c.replays for c in step.fn.calls.values())
+    del step, opt, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(ms=ms, host_enqueue_ms=host_ms, busy_ms=busy,
+                busy_share=busy / ms, launches=launches // steps,
+                pool_gib=pool_gib, families=fam, replays=replays)
+
+
+def deeplab_graph_vs_eager(torch, model, state, images, masks, eager_prof,
+                           smi):
+    """The train step as a CUDA graph (``GraphedTrainStep``) at full width:
+    in cuDNN's deterministic mode ``DL_GRAPH_STEPS`` graphed steps equal as
+    many eager steps with the same optimizer bit for bit (losses, weights,
+    running statistics, momentum-fed updates, the dropout generator), in
+    f32 with TF32 convs and in bf16; then graph beside eager per step."""
+    import math
+
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        with cudnn_deterministic(torch):
+            eager = deeplab_graph_twin(torch, model, state, images, masks,
+                                       dtype, graphed=False)
+            graphed = deeplab_graph_twin(torch, model, state, images, masks,
+                                         dtype, graphed=True)
+        differ = [k for k in eager[1] if not torch.equal(eager[1][k],
+                                                         graphed[1][k])]
+        same = dict(losses=bool(torch.equal(eager[0], graphed[0])),
+                    tensors_differ=len(differ),
+                    generator=bool(torch.equal(eager[2], graphed[2])))
+        check_later(same["losses"] and not differ and same["generator"],
+                    f"deeplab {name}: {DL_GRAPH_STEPS} graphed steps differ "
+                    f"from the eager steps in deterministic mode: {same}, "
+                    f"first tensors {differ[:3]}, losses "
+                    f"{eager[0].tolist()} vs {graphed[0].tolist()}")
+        assert all(math.isfinite(v) for v in graphed[0].tolist())
+        prof = deeplab_graph_profile(torch, model, state, images, masks,
+                                     dtype)
+        ep = eager_prof[name]
+        log(f"deeplab train step {name} as a CUDA graph: {DL_GRAPH_STEPS} "
+            f"graphed steps (2 eager warm-ups, the capture, replays) against "
+            f"{DL_GRAPH_STEPS} eager steps in cuDNN's "
+            f"deterministic mode: losses bit-equal {same['losses']}, "
+            f"{len(eager[1]) - len(differ)}/{len(eager[1])} tensors of the "
+            f"state bit-equal, generator {same['generator']}; per step, "
+            f"graph (eager): {prof['ms']:.3f} ({ep['wall_ms']:.3f}) ms, "
+            f"host enqueue {prof['host_enqueue_ms']:.3f} "
+            f"({ep['host_enqueue_ms']:.3f}) ms, device kernels "
+            f"{prof['busy_ms']:.3f} ({ep['busy_ms']:.3f}) ms, busy share "
+            f"{prof['busy_share']:.3f} ({ep['busy_ms'] / ep['wall_ms']:.3f}),"
+            f" {prof['launches']} ({ep['launches']}) launches per step in "
+            f"the device trace; the graph keeps {prof['pool_gib']:.3f} GiB "
+            f"reserved (pool, optimizer state, static inputs) on {smi}")
+        out[name] = dict(bit_equal=same, **prof)
+    return out
+
+
 def deeplab_full_width(torch, smi):
     from gan_segmentation_tpu_torch.models import resnet
     from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
@@ -3633,6 +3786,8 @@ def deeplab_full_width(torch, smi):
     prof = {name: deeplab_profile(torch, model, state, images, masks, dtype)
             for name, dtype in (("f32", torch.float32),
                                 ("bf16", torch.bfloat16))}
+    graph = deeplab_graph_vs_eager(torch, model, state, images, masks, prof,
+                                   smi)
 
     # the batch norm written out (the decoder's form) beside the fused one
     fused = resnet.batch_norm
@@ -3663,7 +3818,7 @@ def deeplab_full_width(torch, smi):
         bf16_vs_f32=dict(mean=mean_diff, max=max_diff, argmax_flips=flips,
                          f32_mean_abs=scale, bound=DL_BF16_MEAN),
         tf32_vs_f32_mean=tf_diff, train=runs, train_profile=prof,
-        train_plain_bn=plain, card=smi)
+        train_graph=graph, train_plain_bn=plain, card=smi)
 
 
 def deeplab_loaded_weights(torch):
@@ -3743,41 +3898,50 @@ def phase_deeplab(torch, smi):
 
 # Phase 9: the experiment 01_hair_deeplabv3_ffhq_pretrain_gan at its own
 # widths (crop 480, base 512, scale factor 0.5, rotate 15, DeepLabV3+ on
-# resnet50), cut to 2 epochs of 32 draws from 32 generated pairs.
+# resnet50), cut to 2 epochs of 64 draws from 32 generated pairs.
 # ``tests/test_torch_experiment_cli.py`` rehearses the phase on the CPU with
 # a smaller ``STEP5``.
 STEP5 = dict(exp="01_hair_deeplabv3_ffhq_pretrain_gan", gan="ffhq",
              res_log2=None, gen_batch=BATCH, n_train=32, n_val=8, batch=8,
-             epochs=2, epoch_len=32, workers=4, test_batch=2,
+             epochs=2, epoch_len=64, workers=4, feed_workers=7,
+             test_batch=2,
              preempt_after=3, feed_draws=64, bare_steps=5, overrides=[],
              eval_check=dict(crop=32, base=48, scales=(0.75, 1.0),
                              hw=(40, 56), images=2))
 
 
 class StepProbe:
-    """Stands in for ``deeplab_trainer.train_step`` while a run is driven:
-    the host clock at each call, the rates before it and its loss; after
-    ``stop_after`` steps it sends SIGTERM to this process, the signal a
-    preemption notice brings."""
+    """Stands in for ``SegmentationTrainer.step`` while a run is driven: the
+    host clock at each call, the rates before it (the scheduler's host
+    floats: reading a graphed step's rate tensors would wait for the card)
+    and a copy of its loss (a replay's loss tensor is the graph's, which the
+    next replay overwrites); after ``stop_after`` steps it sends SIGTERM to
+    this process, the signal a preemption notice brings."""
 
     def __init__(self, dt, stop_after=None):
-        self.dt, self.train_step = dt, dt.train_step
+        self.cls, self.step = dt.SegmentationTrainer, \
+            dt.SegmentationTrainer.step
         self.stop_after = stop_after
         self.starts, self.rates, self.losses = [], [], []
 
     def __enter__(self):
-        self.dt.train_step = self
+        probe = self
+
+        def step(trainer, *args, **kwargs):
+            return probe(trainer, *args, **kwargs)
+
+        self.cls.step = step
         return self
 
     def __exit__(self, *exc):
-        self.dt.train_step = self.train_step
+        self.cls.step = self.step
 
-    def __call__(self, model, optimizer, scheduler, *args, **kwargs):
+    def __call__(self, trainer, *args, **kwargs):
         import signal
         self.starts.append(time.perf_counter())
-        self.rates.append([g["lr"] for g in optimizer.param_groups])
-        out = self.train_step(model, optimizer, scheduler, *args, **kwargs)
-        self.losses.append(out[0])
+        self.rates.append(list(trainer.scheduler.get_last_lr()))
+        out = self.step(trainer, *args, **kwargs)
+        self.losses.append(out[0].clone())
         if len(self.starts) == self.stop_after:
             os.kill(os.getpid(), signal.SIGTERM)
         return out
@@ -3819,10 +3983,30 @@ def _sync(torch, device):
         torch.cuda.synchronize()
 
 
+def step5_feed(dt, feedset, conf, workers, processes):
+    """``batch_iter`` alone over ``feedset`` with ``workers`` decode
+    processes or threads, no model: -> (ms per batch after the first, the
+    seconds to the first batch, the last batch)."""
+    n, first = 0, None
+    t0 = time.perf_counter()
+    for batch in dt.batch_iter(feedset, conf["batch"], True, 0,
+                               decode_workers=workers,
+                               decode_processes=processes):
+        if first is None:
+            first = time.perf_counter()
+        n += 1
+    ms = (time.perf_counter() - first) * 1e3 / max(n - 1, 1)
+    return ms, first - t0, batch
+
+
 def step5_feed_and_bare_step(torch, trainer, args, spec, conf):
-    """(samples/s of ``batch_iter`` alone over the train set with
-    ``workers`` decode threads, no model; wall ms per ``train_step`` on one
-    resident batch, the trainer's model, optimizer and dtype)."""
+    """The feed alone (``batch_iter`` over the train set, no model), with
+    ``workers`` decode threads and processes and with ``feed_workers``
+    processes: ms per batch after the first and the start-up; the bare
+    step on one resident batch, wall ms per step
+    as replays of the trainer's graph (``SegmentationTrainer.step``'s
+    graphed step, without the staging) and as eager ``train_step``s with
+    the same optimizer."""
     import dataclasses
 
     from gan_segmentation_tpu_torch.train import deeplab_trainer as dt
@@ -3830,57 +4014,74 @@ def step5_feed_and_bare_step(torch, trainer, args, spec, conf):
 
     feedset, _ = datasets(args, dataclasses.replace(
         spec, train_epoch_len=conf["feed_draws"]))
-    n = 0
-    t0 = time.perf_counter()
-    for imgs, masks, _ in dt.batch_iter(feedset, conf["batch"], True, 0,
-                                        decode_workers=conf["workers"]):
-        n += len(imgs)
-    feed_sps = n / (time.perf_counter() - t0)
+    feed = {}
+    for kind, workers, processes in (
+            ("threads", conf["workers"], False),
+            ("processes", conf["workers"], True),
+            ("more_processes", conf["feed_workers"], True)):
+        ms, start_s, (imgs, masks, _) = step5_feed(dt, feedset, conf,
+                                                   workers, processes)
+        feed[kind] = dict(ms=ms, start_s=start_s, workers=workers)
     images, _ = trainer._inputs(imgs)
     labels = trainer._upload(trainer._feed(masks, feedset.num_class))
     kw = dict(aux_weight=trainer.aux_weight, dtype=trainer.compute_dtype)
-    dt.train_step(trainer.model, trainer.optimizer, trainer.scheduler,
-                  images, labels, trainer.generator, **kw)
-    _sync(torch, trainer.device)
-    t0 = time.perf_counter()
-    for _ in range(conf["bare_steps"]):
-        dt.train_step(trainer.model, trainer.optimizer, trainer.scheduler,
-                      images, labels, trainer.generator, **kw)
-    _sync(torch, trainer.device)
-    return feed_sps, (time.perf_counter() - t0) * 1e3 / conf["bare_steps"]
+    bare = {}
+    runs = [("eager", lambda: dt.train_step(
+        trainer.model, trainer.optimizer, trainer.scheduler, images, labels,
+        trainer.generator, **kw))]
+    if trainer.graphed:
+        runs.insert(0, ("graph", lambda: trainer._train_graph(images,
+                                                              labels)))
+    for name, step in runs:
+        step()
+        _sync(torch, trainer.device)
+        t0 = time.perf_counter()
+        for _ in range(conf["bare_steps"]):
+            step()
+        _sync(torch, trainer.device)
+        bare[name] = (time.perf_counter() - t0) * 1e3 / conf["bare_steps"]
+    return feed, bare
 
 
-def step5_profile(torch, trainer, dt, conf, smi):
-    """One more epoch of the trainer under ``torch.profiler`` (the feed,
-    the steps, the loss pulls; not the epoch's checkpoint, whose 167 MB
-    pull to the host is no part of a step): ms per step of the loop, device
-    kernel time per step by family, the device's busy share of the loop.
-    Profiled on the card only."""
-    if torch.device(conf["device"]).type != "cuda":
-        return None
-    from torch.profiler import ProfilerActivity, profile
-
+def step5_loop(torch, trainer, dt, conf, smi):
+    """Two more epochs of the trainer (the feed, the steps, the loss pulls;
+    not the epoch's checkpoint, whose 167 MB pull to the host is no part of
+    a step).  The first is timed: the loop's ms per step is the time from
+    its first step's start (the first batch in hand: the workers' start-up
+    is not in it) to the end of its last step's work, synchronised, over
+    its steps; the steps do not wait for the card, so the gaps between
+    their starts are not step times.  The second runs under
+    ``torch.profiler`` (on the card only): device kernel time per step by
+    family, and the busy share of the timed loop."""
     per = conf["epoch_len"] // conf["batch"]
     trainer.save_checkpoint = lambda: None  # shadows the method
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof, \
-                StepProbe(dt) as probe:
+        with StepProbe(dt) as probe:
             trainer.training(conf["epochs"])
+            _sync(torch, trainer.device)
+            end = time.perf_counter()
+        loop_ms = (end - probe.starts[0]) * 1e3 / len(probe.starts)
+        rec = dict(loop_ms=loop_ms, steps=len(probe.starts))
+        if trainer.device.type != "cuda":
+            return rec
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.training(conf["epochs"] + 1)
             torch.cuda.synchronize()
     finally:
         del trainer.save_checkpoint
-    gaps = [(b - a) * 1e3 for a, b in zip(probe.starts, probe.starts[1:])]
-    loop_ms = sum(gaps) / len(gaps)
     by_name, launches, fam = kernel_families(prof, per)
     busy = sum(fam.values())
-    log(f"step 5 trainer profiled (one more epoch, {per} steps): loop "
-        f"{loop_ms:.3f} ms per step (profiler on), device kernel time "
-        f"{busy:.3f} ms per step in {launches // per} launches, busy share "
-        f"{busy / loop_ms:.3f} on {smi}")
+    log(f"step 5 trainer, two more epochs of {per} steps: loop "
+        f"{loop_ms:.3f} ms per step (the first epoch, from its first step's "
+        f"start to the end of its last, synchronised); the second profiled: "
+        f"device kernel time {busy:.3f} ms per step in {launches // per} "
+        f"launches, busy share {busy / loop_ms:.3f} of the timed loop on "
+        f"{smi}")
     for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
         log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
-    return dict(loop_ms=loop_ms, busy_ms=busy, busy_share=busy / loop_ms,
+    return dict(rec, busy_ms=busy, busy_share=busy / loop_ms,
                 launches=launches // per, families=fam)
 
 
@@ -3893,7 +4094,7 @@ def _trainer_state(torch, trainer):
         momentum={k: s["momentum_buffer"].clone()
                   for k, s in opt["state"].items()},
         step=trainer.scheduler.last_epoch,
-        lrs=[g["lr"] for g in opt["param_groups"]],
+        lrs=[float(g["lr"]) for g in opt["param_groups"]],
         generator=trainer.generator.get_state().clone())
 
 
@@ -4033,13 +4234,14 @@ def phase_step5(torch, smi, conf=None):
             per = conf["epoch_len"] // conf["batch"]
             gaps = [(probe.starts[i + 1] - probe.starts[i]) * 1e3
                     for i in range(steps - 1) if (i + 1) % per]
-            rec["loop_ms"] = sorted(gaps)[len(gaps) // 2]
-            rec["loop_ms_all"] = gaps
+            rec["start_gaps_ms"] = gaps
             rec["losses"] = losses
             rec["validation"] = vals
-            rec["profile"] = step5_profile(torch, trainer, dt, conf, smi)
+            rec["profile"] = step5_loop(torch, trainer, dt, conf, smi)
+            rec["loop_ms"] = rec["profile"]["loop_ms"]
             args = types.SimpleNamespace(input_path=dataset, reader="cv2")
-            rec["feed_sps"], rec["bare_step_ms"] = step5_feed_and_bare_step(
+            assert trainer.graphed == (torch.device(device).type == "cuda")
+            rec["feed"], rec["bare_step_ms"] = step5_feed_and_bare_step(
                 torch, trainer, args, rx.apply_overrides(
                     spec, trainer.args), conf)
             del trainer
@@ -4048,15 +4250,20 @@ def phase_step5(torch, smi, conf=None):
                 f"curve, {len(vals)} validation lines ({vals[-1]}), "
                 f"last_checkpoint.pt each epoch; run {rec['train_run_s']:.2f}"
                 f" s (model build and checkpoints included) on {smi}")
+            feed, bare = rec["feed"], rec["bare_step_ms"]
             log(f"step 5 pace: the trainer's loop {rec['loop_ms']:.3f} ms "
-                f"per step (median of {len(gaps)} gaps between step starts "
-                f"within an epoch: {[round(g, 1) for g in gaps]}); the feed "
-                f"alone (batch_iter, {conf['workers']} decode threads, no "
-                f"model) {rec['feed_sps']:.2f} samples/s = "
-                f"{conf['batch'] * 1e3 / rec['feed_sps']:.3f} ms per batch "
-                f"of {conf['batch']}; the bare train_step on a resident "
-                f"batch {rec['bare_step_ms']:.3f} ms (wall, "
-                f"{conf['bare_steps']} steps) on {smi}")
+                f"per step (a timed epoch of {rec['profile']['steps']} "
+                f"graphed steps, {conf['workers']} decode processes; gaps "
+                f"between step starts in the run: "
+                f"{[round(g, 1) for g in gaps]}); the feed "
+                f"alone (batch_iter, no model), ms per batch of "
+                f"{conf['batch']} after the first (seconds to the first): "
+                + ", ".join(f"{v['workers']} {k.split('_')[-1]} "
+                            f"{v['ms']:.3f} ({v['start_s']:.2f} s)"
+                            for k, v in feed.items())
+                + "; the bare step on a resident batch, wall ms: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in bare.items())
+                + f" ({conf['bare_steps']} steps) on {smi}")
 
             # (b) preempted by SIGTERM after preempt_after steps, resumed
             with StepProbe(dt, stop_after=conf["preempt_after"]) as probe:
@@ -4143,6 +4350,54 @@ def phase_step5(torch, smi, conf=None):
     if device == "cuda":
         torch.cuda.empty_cache()
     return rec
+
+
+# Phase 10: the closed-loop demo at bedrooms' own 256^2 (all 8 levels), its
+# defaults otherwise: 12 annotations, decoder 10 epochs, 96 + 12 generated
+# pairs, DeepLabV3+ resnet50 at crop 256, 2 epochs of 64 draws
+DEMO_ARGS = ["--max-res-log2", "8"]
+
+
+def phase_demo(torch, smi):
+    """``examples/full_pipeline_demo.py`` on the card under a device trace:
+    fixture annotations from the bedrooms generator (kernels 1 and 2), the
+    decoder's graphed fit (kernels 2 and 3) and evaluation (kernel 2, mean
+    IoU above 0.5), the fused generate (kernels 1 and 2), DeepLabV3+ through
+    its graphed train step and validation.  The trace's counts of kernels
+    1-3 equal the wrappers' counts plus the replays (``LaunchTrace``), and
+    each kernel ran."""
+    import gc
+
+    from gan_segmentation_tpu_torch.examples import full_pipeline_demo
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    try:
+        with LaunchTrace(torch) as trace:
+            out = full_pipeline_demo.main(["--workdir", work] + DEMO_ARGS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        shutil.rmtree(work, ignore_errors=True)
+    for k, n in trace.device.items():
+        assert n > 0, f"demo: {k} was not launched"
+    dl = out["deeplab"]
+    assert dl["graphed"], "the demo's DeepLab steps did not run as graphs"
+    assert all(0.0 <= dl[k] <= 1.0 for k in ("accuracy", "mean-iou")), dl
+    out.update(launches=trace.device, wrapper_launches=trace.wrapper,
+               phase_s=time.perf_counter() - t0)
+    log(f"demo (full_pipeline_demo {' '.join(DEMO_ARGS)}): stage seconds "
+        f"{ {k: round(v, 2) for k, v in out['seconds'].items()} }, decoder "
+        f"accuracy {out['decoder']['accuracy']:.4f} mean-iou "
+        f"{out['decoder']['mean-iou']:.4f}, {out['pairs']} pairs, DeepLab "
+        f"validation pixAcc {dl['accuracy']:.4f} mIoU {dl['mean-iou']:.4f} "
+        f"(graphed steps); launches in the device trace {trace.device} "
+        f"(the wrappers counted {trace.wrapper}, the rest are replays); "
+        f"phase {out['phase_s']:.1f} s on {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def main():
@@ -4246,13 +4501,18 @@ def main():
     # 9. step 5: the DeepLab experiment end to end
     s5 = phase_step5(torch, smi)
     marks.append(("step 5", time.perf_counter()))
+
+    # 10. the closed-loop demo
+    demo = phase_demo(torch, smi)
+    marks.append(("demo", time.perf_counter()))
     log("seconds per phase: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
     log(f"step 5 at crop 480, batch 8 (f32, cuDNN's TF32 convs): the "
         f"trainer's loop {s5['loop_ms']:.3f} ms per step, the feed alone "
-        f"{s5['feed_sps']:.2f} samples/s, the bare step "
-        f"{s5['bare_step_ms']:.3f} ms; test {s5['test_ips']:.3f} images/s "
+        f"{s5['feed']['processes']['ms']:.3f} ms per batch in processes "
+        f"({s5['feed']['threads']['ms']:.3f} in threads), the bare step "
+        f"{s5['bare_step_ms']} ms; test {s5['test_ips']:.3f} images/s "
         f"on {smi}")
 
     launches = {
@@ -4263,6 +4523,7 @@ def main():
                        "evaluate": tr["eval_launches"]},
         "bil_conv": {"train": tr["launches"]["bil_conv"]}}
     for path, counted in (("step5_dataset", s5["launches"]),
+                          ("demo", demo["launches"]),
                           ("generate_graph_vs_eager", gg["launches"]),
                           ("cars", og["cars"]["launches"]),
                           ("bedrooms", og["bedrooms"]["launches"]),
@@ -4350,6 +4611,7 @@ def main():
     print(json.dumps({"export": ex}), flush=True)
     print(json.dumps({"step5": {k: v for k, v in s5.items()
                                 if k != "losses"}}), flush=True)
+    print(json.dumps({"demo": demo}), flush=True)
     if FAILED:
         raise AssertionError("checks failed: " + "; ".join(FAILED))
     print(json.dumps({"kernels": kernels}), flush=True)

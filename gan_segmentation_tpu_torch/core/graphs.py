@@ -25,7 +25,7 @@ and returns its outputs (a tensor, or lists, tuples and dicts of them).
   (``chip_smoke.py``).
 """
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Sequence
 
 import torch
 
@@ -35,6 +35,10 @@ from ..kernels.small_conv import conv3x3_small
 
 # the kernel wrappers whose launches a capture records (``deltas``)
 COUNTED = (conv3x3_noise_bias_lrelu_instats, conv3x3_small, conv3x3_bil)
+
+# eager steps of a train step's ``GraphedCall`` before its capture: they
+# create the optimizer's state and cuDNN's plans (real steps)
+GRAPH_WARMUP_STEPS = 2
 
 
 def launch_counts() -> Dict[Callable, int]:
@@ -98,3 +102,31 @@ class GraphedCall:
 
     def _replay(self):
         self.graph.replay()
+
+
+class GraphedFunction:
+    """``fn(*tensors)`` as one ``GraphedCall`` per input signature (the
+    shapes and dtypes of the arguments): a call copies its arguments into
+    that signature's static tensors (non-blocking) and runs the call.  The
+    outputs are static: the next call of the same signature overwrites
+    them.  ``warmup`` as ``GraphedCall``'s."""
+
+    def __init__(self, fn: Callable, device, warmup: int = 1):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.warmup = warmup
+        self.calls: Dict[tuple, GraphedCall] = {}
+        self.inputs: Dict[tuple, Sequence[torch.Tensor]] = {}
+
+    def __call__(self, *args: torch.Tensor):
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        call = self.calls.get(key)
+        if call is None:
+            static = [torch.empty(a.shape, dtype=a.dtype, device=self.device)
+                      for a in args]
+            call = GraphedCall(lambda: self.fn(*static), self.device,
+                               self.warmup)
+            self.calls[key], self.inputs[key] = call, static
+        for s, a in zip(self.inputs[key], args):
+            s.copy_(a, non_blocking=True)
+        return call()

@@ -157,6 +157,9 @@ class RGBSegmentationAug:
                 op.mask_fill = fill
         self._rs = np.random.RandomState(seed)
 
+    def reseed(self, seed: int) -> None:
+        self._rs = np.random.RandomState(seed)
+
     def __call__(self, image, mask, rs: Optional[np.random.RandomState] = None):
         rs = rs or self._rs
         mask = np.asarray(mask, np.int32)
@@ -175,6 +178,9 @@ class OriginalRGBSegmentationAug:
         self.base_size = base_size
         self.crop_size = crop_size
         self.mode = mode
+        self._rs = np.random.RandomState(seed)
+
+    def reseed(self, seed: int) -> None:
         self._rs = np.random.RandomState(seed)
 
     def __call__(self, image, mask, rs=None):

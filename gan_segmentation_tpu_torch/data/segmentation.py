@@ -91,6 +91,16 @@ class SegmentationDataset:
                         1, 2, 4, 8):
                     self._native_denom = int(round(inv))
 
+    def reseed(self, seed: int) -> None:
+        """Restart the dataset's random draws from ``seed``: the index of a
+        ``train_epoch_len`` draw and the augmentator's.  A decode worker
+        process (``data/feed.py``) reseeds before each item, since a copy
+        of the dataset in every worker would repeat one stream."""
+        index_seed, aug_seed = np.random.SeedSequence(seed).generate_state(2)
+        self._rng.seed(int(index_seed))
+        if hasattr(self.augmentator, "reseed"):
+            self.augmentator.reseed(int(aug_seed))
+
     # -- domain-specific mask handling -------------------------------------
     def _process_mask(self, mask: np.ndarray) -> np.ndarray:
         return mask

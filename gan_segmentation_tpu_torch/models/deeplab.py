@@ -16,7 +16,10 @@ counterpart of ``gan_segmentation_tpu/models/deeplab.py``).
 Only ``head_classifier`` and ``auxlayer.conv1`` carry a bias.  Activations
 are NHWC in the input's dtype.  Train or eval by ``self.training``; in
 train mode the dropout bits come from the ``torch.Generator`` given to
-``forward`` (none is needed when ``use_dropout`` is False).  The channel
+``forward``, or from ``dropout_u``, the uniform draws that
+``draw_dropout`` made before from that generator in the forward's order
+and shapes (a CUDA graph's static inputs; the same bits either way).  None
+is needed when ``use_dropout`` is False.  The channel
 counts that the JAX package infers are constructor arguments here; the
 backbone takes 4 input channels (``in_channels=4``) when ``forward`` is
 given a ``depth`` plane.
@@ -46,13 +49,48 @@ def _same_padding(kernel_size: int, dilation: int) -> Tuple[int, int]:
     return beg, total - beg
 
 
-def _drop(x, rate, training, use_dropout, generator):
+def _drop(x, rate, training, use_dropout, generator, uniforms=None):
+    """Dropout at one site; ``uniforms`` is an iterator over the forward's
+    pre-drawn uniforms, of which this site takes the next."""
     if not (training and use_dropout):
         return x
+    if uniforms is not None:
+        return dropout(x, rate=rate, uniform=next(uniforms))
     if generator is None:
         raise ValueError("train mode with dropout needs a torch.Generator "
                          "for the dropout bits")
     return dropout(x, generator, rate)
+
+
+def _stride8(n: int) -> int:
+    """The size of c3 and c4 of the dilated backbone for an input of ``n``
+    pixels: each of its three stride-2 ops (the stem's first conv, the
+    max-pool, layer2's first block) rounds up."""
+    for _ in range(3):
+        n = (n + 1) // 2
+    return n
+
+
+class _DropoutDraws:
+    """``dropout_shapes`` / ``draw_dropout`` of a DeepLab model, whose
+    ``_dropout_sites()`` lists (module with ``use_dropout``, channels) in
+    the forward's order."""
+
+    def dropout_shapes(self, x_shape) -> List[Tuple[int, ...]]:
+        """The shape of each train-mode dropout draw, in the forward's
+        order, for an NHWC input of ``x_shape``: every site runs at output
+        stride 8."""
+        n, h, w = x_shape[:3]
+        return [(n, _stride8(h), _stride8(w), c)
+                for module, c in self._dropout_sites() if module.use_dropout]
+
+    def draw_dropout(self, x_shape, generator: torch.Generator
+                     ) -> List[torch.Tensor]:
+        """The uniform draws of train-mode dropout, made from ``generator``
+        up front in the order and shapes in which the forward would make
+        them (``torch.rand``, on the generator's device)."""
+        return [torch.rand(s, generator=generator, device=generator.device)
+                for s in self.dropout_shapes(x_shape)]
 
 
 class SeparableConv(nn.Module):
@@ -101,7 +139,8 @@ class ASPP(nn.Module):
         self.project_conv = Conv2d(c * (self.n_atrous + 2), c)
         self.project_bn = BatchNorm(c)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                uniforms=None):
         branches = [F.relu(getattr(self, f"b{bi}_bn")(
             getattr(self, f"b{bi}_conv")(x)))
             for bi in range(self.n_atrous + 1)]
@@ -110,7 +149,8 @@ class ASPP(nn.Module):
         branches.append(pool.expand(*x.shape[:3], -1))
         y = torch.cat(branches, dim=-1)
         y = F.relu(self.project_bn(self.project_conv(y)))
-        return _drop(y, 0.5, self.training, self.use_dropout, generator)
+        return _drop(y, 0.5, self.training, self.use_dropout, generator,
+                     uniforms)
 
 
 class FCNHead(nn.Module):
@@ -123,10 +163,13 @@ class FCNHead(nn.Module):
         self.conv0 = Conv2d(in_ch, inter, 3, padding=1)
         self.bn0 = BatchNorm(inter)
         self.conv1 = Conv2d(inter, nclass, bias=True)
+        self.inter = inter
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None,
+                uniforms=None):
         x = F.relu(self.bn0(self.conv0(x)))
-        x = _drop(x, 0.1, self.training, self.use_dropout, generator)
+        x = _drop(x, 0.1, self.training, self.use_dropout, generator,
+                  uniforms)
         return self.conv1(x)
 
 
@@ -155,7 +198,7 @@ def _backbone(kind: str, in_channels: int = 3) -> ResNetV1s:
                      in_channels=in_channels)
 
 
-class DeepLabV3Plus(nn.Module):
+class DeepLabV3Plus(_DropoutDraws, nn.Module):
     """``forward(x) -> (out,)`` or ``(out, aux)``, NHWC logits at
     ``out_hw``."""
 
@@ -176,25 +219,32 @@ class DeepLabV3Plus(nn.Module):
             self.auxlayer = FCNHead(c3, nclass, use_dropout=use_dropout)
         init_parameters(self, generator or torch.Generator().manual_seed(0))
 
+    def _dropout_sites(self):
+        sites = [(self.aspp, 256)]
+        return sites + [(self.auxlayer, self.auxlayer.inter)] if self.aux \
+            else sites
+
     def forward(self, x, out_hw: Optional[Tuple[int, int]] = None,
-                depth=None, generator: Optional[torch.Generator] = None):
+                depth=None, generator: Optional[torch.Generator] = None,
+                dropout_u: Optional[List[torch.Tensor]] = None):
         out_hw = out_hw or (x.shape[1], x.shape[2])
+        u = None if dropout_u is None else iter(dropout_u)
         if depth is not None:  # the inverse-depth plane joins the RGB planes
             x = torch.cat([x, depth.to(x.dtype)], dim=-1)
         c1, c3, c4 = self.backbone(x)
         c1p = self.skip_project(c1)
-        y = self.aspp(c4, generator)
+        y = self.aspp(c4, generator, u)
         y = bilinear_resize(y, c1p.shape[1], c1p.shape[2])
         y = torch.cat([y, c1p], dim=-1)
         y = self.head_sep1(self.head_sep0(y))
         outputs = [bilinear_resize(self.head_classifier(y), *out_hw)]
         if self.aux:
-            outputs.append(bilinear_resize(self.auxlayer(c3, generator),
+            outputs.append(bilinear_resize(self.auxlayer(c3, generator, u),
                                            *out_hw))
         return tuple(outputs)
 
 
-class DeepLabV3(nn.Module):
+class DeepLabV3(_DropoutDraws, nn.Module):
     """Plain DeepLabV3 (no encoder-decoder skip)."""
 
     def __init__(self, nclass: int, backbone: str = "resnet50",
@@ -213,16 +263,23 @@ class DeepLabV3(nn.Module):
             self.auxlayer = FCNHead(c3, nclass, use_dropout=use_dropout)
         init_parameters(self, generator or torch.Generator().manual_seed(0))
 
+    def _dropout_sites(self):
+        sites = [(self.aspp, 256), (self, 256)]
+        return sites + [(self.auxlayer, self.auxlayer.inter)] if self.aux \
+            else sites
+
     def forward(self, x, out_hw: Optional[Tuple[int, int]] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                dropout_u: Optional[List[torch.Tensor]] = None):
         out_hw = out_hw or (x.shape[1], x.shape[2])
+        u = None if dropout_u is None else iter(dropout_u)
         _c1, c3, c4 = self.backbone(x)
-        y = self.aspp(c4, generator)
+        y = self.aspp(c4, generator, u)
         y = F.relu(self.head_bn(self.head_conv(y)))
-        y = _drop(y, 0.1, self.training, self.use_dropout, generator)
+        y = _drop(y, 0.1, self.training, self.use_dropout, generator, u)
         outputs = [bilinear_resize(self.head_classifier(y), *out_hw)]
         if self.aux:
-            outputs.append(bilinear_resize(self.auxlayer(c3, generator),
+            outputs.append(bilinear_resize(self.auxlayer(c3, generator, u),
                                            *out_hw))
         return tuple(outputs)
 

@@ -3,21 +3,29 @@
 
 - ``train_step`` / ``eval_step``: one SGD step and one eval forward.  A raw
   uint8 batch is ImageNet-normalised on the device and cast to the compute
-  dtype; the train forward draws its dropout bits from a ``torch.Generator``;
-  outputs go to f32, ``mean(criterion)`` (``seg_loss_with_aux``), backward,
-  SGD update, running statistics updated by the forward.
-- ``batch_iter``: the seeded batcher with its background prefetch thread
-  and a decode thread pool.
-- ``SegmentationTrainer``: epochs of ``train_step`` fed by ``batch_iter``,
-  loss bookkeeping pulled once per log interval, TensorBoard scalars and
-  image triptychs (when tensorboardX is installed), per-epoch ``*.pt``
-  checkpoints, pixAcc / mIoU validation, and a step-granular resume bundle
-  written on SIGTERM.
+  dtype; the train forward draws its dropout bits from a ``torch.Generator``
+  (or takes them pre-drawn, ``dropout_u``); outputs go to f32,
+  ``mean(criterion)`` (``seg_loss_with_aux``), backward, SGD update,
+  running statistics updated by the forward.
+- ``GraphedTrainStep``: ``train_step`` as one CUDA graph per input shape
+  (``core/graphs.py``), the JAX package's jitted step: static input
+  tensors, the dropout uniforms drawn before each replay in the eager
+  order, the poly rate filled into the optimizer's rate tensors on the host
+  (``make_optimizer(graphed=True)``: fused SGD on a card).
+- ``batch_iter``: the seeded batcher with its background prefetch thread,
+  decoding in worker processes (``data/feed.py``) or a thread pool.
+- ``SegmentationTrainer``: epochs of train steps fed by ``batch_iter``
+  (graphed on a card: batches staged in pinned memory and copied without a
+  wait), each step's loss kept in a device series pulled once per log
+  interval, TensorBoard scalars and image triptychs (when tensorboardX is
+  installed), per-epoch ``*.pt`` checkpoints, pixAcc / mIoU validation
+  (graphed: one graph for the set, its ragged tail padded), and a
+  step-granular resume bundle written on SIGTERM.
 - ``MultiEvalModel`` / ``SegmentationTester``: multi-scale + flip
   sliding-window evaluation (gluoncv ``MultiEvalModel``), batched: the
   windows of B same-shape images at every scale, with their mirror images,
   go through the model in one call (up to ``max_windows``), and the label
-  map is taken on the device.
+  map is taken on the device; on a card each batch shape replays one graph.
 
 Optimizer semantics are the JAX package's (optax ``add_decayed_weights``
 before ``sgd``): ``g <- g + wd * w`` for EVERY parameter (batch-norm scales
@@ -27,7 +35,7 @@ at the count of steps taken BEFORE the update (0 on the first); ``mult`` is
 1 for the backbone and ``HEAD_LR_MULT`` for everything else.  That is
 ``torch.optim.SGD(momentum, weight_decay)`` over two groups under a
 ``LambdaLR`` (``tests/test_torch_deeplab_step.py`` holds five steps to
-optax).
+optax, eager and graphed).
 
 Mixed precision as the JAX package has it: parameters, batch-norm
 statistics, loss and gradients f32; with ``dtype=torch.bfloat16`` the
@@ -54,13 +62,15 @@ import os
 import signal
 import time
 from pathlib import Path
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.dtypes import cuda_device
+from ..core.graphs import GRAPH_WARMUP_STEPS, GraphedCall, GraphedFunction
+from ..data.feed import process_batches, stack_batch
 from ..data.segmentation import (IMAGENET_MEAN, IMAGENET_STD,
                                  imagenet_denormalize)
 from ..metrics.seg_metrics import SegMetric, SegmentationMetric
@@ -74,13 +84,22 @@ log = logging.getLogger(__name__)
 RESUME_BUNDLE = "resume_bundle.pt"
 
 
+@functools.lru_cache(maxsize=None)
+def _device_mean_std(device: torch.device):
+    """ImageNet's mean and std on ``device``, built once per device: built
+    per call they are copies from host memory, which a CUDA graph cannot
+    capture."""
+    with torch.inference_mode(False):
+        return (torch.from_numpy(IMAGENET_MEAN).to(device),
+                torch.from_numpy(IMAGENET_STD).to(device))
+
+
 def _device_normalize(images):
     """ImageNet-normalise on the device when the feed is raw uint8 (a
     quarter of the f32 feed's bytes over the host link); a float feed is
     taken as already normalised."""
     if images.dtype == torch.uint8:
-        mean = torch.from_numpy(IMAGENET_MEAN).to(images.device)
-        std = torch.from_numpy(IMAGENET_STD).to(images.device)
+        mean, std = _device_mean_std(images.device)
         return (images.float() / 255.0 - mean) / std
     return images
 
@@ -118,42 +137,128 @@ def poly_schedule(base_lr: float, total_iters: int,
     return fn
 
 
+class TensorRateLambdaLR(torch.optim.lr_scheduler.LambdaLR):
+    """``LambdaLR`` over rates held in tensors, which a captured fused SGD
+    reads: each step computes every group's rate on the host, from the
+    groups' base rates, and fills the group's tensor with it in place.  The
+    tensor objects stay (a replaced one would freeze the captured rate), and
+    no step reads the device.  ``get_last_lr()`` gives the host floats."""
+
+    def __init__(self, optimizer, lr_lambda, base_lrs: Sequence[float]):
+        self.host_base_lrs = [float(b) for b in base_lrs]
+        super().__init__(optimizer, lr_lambda)
+
+    def step(self, epoch=None):
+        if epoch is not None:
+            raise ValueError("TensorRateLambdaLR takes no epoch")
+        self._step_count = getattr(self, "_step_count", 0) + 1
+        self.last_epoch += 1
+        self._last_lr = [base * fn(self.last_epoch) for base, fn in zip(
+            self.host_base_lrs, self.lr_lambdas)]
+        for group, lr in zip(self.optimizer.param_groups, self._last_lr):
+            group["lr"].fill_(lr)
+
+
 def make_optimizer(model, base_lr: float, total_iters: int, wd: float,
-                   momentum: float, head_mult: float = HEAD_LR_MULT
+                   momentum: float, head_mult: float = HEAD_LR_MULT,
+                   graphed: bool = False
                    ) -> Tuple[torch.optim.Optimizer,
                               torch.optim.lr_scheduler.LambdaLR]:
     """SGD + momentum with the poly rate; everything outside
     ``model.backbone`` gets ``head_mult`` times the rate.  -> (optimizer,
-    scheduler); call ``scheduler.step()`` after each ``optimizer.step()``."""
+    scheduler); call ``scheduler.step()`` after each ``optimizer.step()``.
+    ``graphed``: the update of a step captured in a CUDA graph: each
+    group's rate is a tensor on the parameters' device that the scheduler
+    (``TensorRateLambdaLR``) fills on the host before the next replay, and
+    on a card the SGD is ``fused``."""
     base, head = head_param_groups(model)
+    rates = [base_lr, base_lr * head_mult]
+    device = base[0].device
+    if graphed:
+        groups = [{"params": p, "lr": torch.tensor(r, device=device)}
+                  for p, r in zip((base, head), rates)]
+    else:
+        groups = [{"params": p, "lr": r} for p, r in zip((base, head), rates)]
     optimizer = torch.optim.SGD(
-        [{"params": base, "lr": base_lr},
-         {"params": head, "lr": base_lr * head_mult}],
-        lr=base_lr, momentum=momentum, weight_decay=wd or 0.0)
-    scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, poly_schedule(1.0, total_iters))
+        groups, lr=base_lr, momentum=momentum, weight_decay=wd or 0.0,
+        fused=True if graphed and device.type == "cuda" else None)
+    schedule = poly_schedule(1.0, total_iters)
+    scheduler = (TensorRateLambdaLR(optimizer, schedule, rates) if graphed
+                 else torch.optim.lr_scheduler.LambdaLR(optimizer, schedule))
     return optimizer, scheduler
 
 
 def train_step(model, optimizer, scheduler, images, masks,
                generator: Optional[torch.Generator] = None, *,
                aux_weight: float = 0.5, dtype: torch.dtype = torch.float32,
-               depth=None, criterion: Callable = seg_loss_with_aux):
+               depth=None, criterion: Callable = seg_loss_with_aux,
+               dropout_u: Optional[List[torch.Tensor]] = None):
     """One SGD step on ``(images, masks)``: NHWC uint8 (or normalised float)
     images and (N, H, W) integer masks with ignore label -1, on the model's
     device; ``depth`` an (N, H, W, 1) float plane for a 4-channel model.
+    The dropout bits come from ``dropout_u`` (``model.draw_dropout``'s
+    draws) when given, else from ``generator``.  ``scheduler`` steps after
+    the update unless it is None (a graphed step leaves it to the host).
     -> (loss, logits of the main head), both f32 and detached."""
     model.train()
     x = _device_normalize(images).to(dtype)
     kwargs = {} if depth is None else {"depth": depth}
+    if dropout_u is not None:
+        kwargs["dropout_u"] = dropout_u
+    # a captured step's gradients are made in the graph's memory pool
     optimizer.zero_grad(set_to_none=True)
     outputs = [o.float() for o in model(x, generator=generator, **kwargs)]
     loss = criterion(outputs[0], outputs[1], masks,
                      aux_weight=aux_weight).mean()
     loss.backward()
     optimizer.step()
-    scheduler.step()
+    if scheduler is not None:
+        scheduler.step()
     return loss.detach(), outputs[0].detach()
+
+
+class GraphedTrainStep:
+    """``train_step`` as one CUDA graph per input shape (``GraphedFunction``):
+    the JAX package's jitted step.  ``optimizer`` and ``scheduler`` come
+    from ``make_optimizer(graphed=True)``.
+
+    ``step(images, masks, depth=None) -> (loss, logits)``: the dropout
+    uniforms are drawn from ``generator`` (the eager forward's order and
+    shapes, so the generator's stream is the eager step's), the inputs and
+    the uniforms are copied into the shape's static tensors without a wait
+    (the inputs on the model's device or in pinned host memory), the graph
+    runs (its first ``warmup`` calls eagerly, real steps that make the
+    optimizer's state), and the scheduler fills the next step's rates.  The
+    outputs are static: the next step of the same shape overwrites them.
+    On the CPU the same body runs eagerly."""
+
+    def __init__(self, model, optimizer, scheduler, generator, *,
+                 aux_weight: float = 0.5, dtype: torch.dtype = torch.float32,
+                 criterion: Callable = seg_loss_with_aux,
+                 warmup: int = GRAPH_WARMUP_STEPS):
+        self.model, self.optimizer, self.scheduler = model, optimizer, \
+            scheduler
+        self.generator = generator
+        self.kw = dict(aux_weight=aux_weight, dtype=dtype,
+                       criterion=criterion)
+        self.fn = GraphedFunction(self._step, next(model.parameters()).device,
+                                  warmup)
+
+    def _step(self, images, masks, *rest):
+        """``rest``: [depth] and the dropout uniforms."""
+        n_depth = len(rest) - len(self.model.dropout_shapes(images.shape))
+        # looked up at each call: a test may wrap train_step
+        return train_step(self.model, self.optimizer, None, images, masks,
+                          depth=rest[0] if n_depth else None,
+                          dropout_u=list(rest[n_depth:]), **self.kw)
+
+    def __call__(self, images, masks, depth=None):
+        uniforms = self.model.draw_dropout(images.shape, self.generator)
+        self.model.train()
+        out = self.fn(images, masks, *([] if depth is None else [depth]),
+                      *uniforms)
+        self.scheduler.step()
+        return out
 
 
 @torch.no_grad()
@@ -168,8 +273,9 @@ def eval_step(model, images, *, dtype: torch.dtype = torch.float32,
 
 def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
                drop_last: bool = True, prefetch: int = 2,
-               decode_workers: int = 1, start_batch: int = 0):
-    """Batches of ``dataset`` from a background prefetch thread (host-side
+               decode_workers: int = 1, start_batch: int = 0,
+               decode_processes: bool = True):
+    """Batches of ``dataset`` decoded off the consuming thread (host-side
     decode overlaps device compute): ``(images, masks, extra)`` numpy
     stacks, ``extra`` the items' third elements (paths) or None.
 
@@ -177,13 +283,16 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
     ``shuffle``.  Items whose first element is an (image, depth) tuple (the
     reference's with_depth batchify ``Tuple(Tuple(Stack(), Stack()),
     Stack())``, `lib/core/segmentation.py:32-35`) are stacked component-wise.
-    ``decode_workers > 1`` decodes a batch's items in a thread pool (the
-    reference DataLoader's ``num_workers``; cv2 and the native reader release
-    the GIL), which interleaves a dataset's or augmentator's random draws
-    nondeterministically: use 1 for bit-reproducible runs.  ``start_batch``
-    skips the first N batches of the epoch's order without decoding them
-    (mid-epoch resume).  A decode error in the worker reaches the consumer;
-    the worker stops when the consumer stops early.
+    ``decode_workers`` is the reference DataLoader's ``num_workers``.  1: a
+    background prefetch thread decodes, drawing from the dataset's own
+    streams in order (bit-reproducible).  More: ``decode_workers`` worker
+    processes (``data/feed.py``), each item's draws from a seed of its own
+    (reproducible for a ``seed``, but not the thread path's draws); with
+    ``decode_processes=False`` a thread pool instead, which interleaves the
+    dataset's draws nondeterministically.  ``start_batch`` skips the first
+    N batches of the epoch's order without decoding them (mid-epoch
+    resume).  A decode error reaches the consumer; the workers stop when
+    the consumer stops early.
     """
     import queue
     import threading
@@ -194,16 +303,16 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
         np.random.RandomState(seed).shuffle(order)
     steps = n // batch_size if drop_last else math.ceil(n / batch_size)
 
+    if decode_workers > 1 and decode_processes:
+        sels = [order[s * batch_size:(s + 1) * batch_size]
+                for s in range(start_batch, steps)]
+        if sels:
+            yield from process_batches(dataset, sels, decode_workers, seed,
+                                       prefetch, start_batch * batch_size)
+        return
+
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
-
-    def stack_first(items):
-        if isinstance(items[0][0], tuple):
-            k = len(items[0][0])
-            return tuple(np.stack([it[0][j] for it in items])
-                         for j in range(k))
-        return np.stack([it[0] for it in items])
-
     pool = None
     if decode_workers > 1:
         from concurrent.futures import ThreadPoolExecutor
@@ -219,13 +328,10 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
         try:
             for s in range(start_batch, steps):
                 sel = order[s * batch_size:(s + 1) * batch_size]
-                items = fetch(sel)
-                imgs = stack_first(items)
-                masks = np.stack([it[1] for it in items])
-                extra = [it[2] for it in items] if len(items[0]) > 2 else None
+                batch = stack_batch(fetch(sel))
                 while not stop.is_set():
                     try:
-                        q.put((imgs, masks, extra), timeout=0.2)
+                        q.put(batch, timeout=0.2)
                         break
                     except queue.Full:
                         continue
@@ -262,17 +368,24 @@ class SegmentationTrainer:
 
     ``args``: ``batch_size``, ``test_batch_size``, ``checkpoints_path``,
     and optionally ``device`` (else the CUDA card), ``dtype``, ``workers``
-    (decode threads), ``seed`` (the dropout generator's), ``logs_path``
+    (decode processes), ``seed`` (the dropout generator's), ``logs_path``
     (TensorBoard), ``backbone_weights`` (a gluoncv backbone file) and
     ``weights`` (a checkpoint, see ``load_checkpoint``).  The model moves
     to the device; ``optimizer_params``: ``baselr``, ``nepochs``, ``wd``,
     ``momentum``.
+
+    ``graphed`` (default: on a CUDA device): every train step replays one
+    CUDA graph per batch shape (``GraphedTrainStep``, after its eager
+    warm-up steps) and validation one graph for the set; ``False`` runs
+    them eagerly (the eager twin of a graphed run).  A graphed trainer on
+    the CPU runs the graphed body eagerly.
     """
 
     def __init__(self, args, model, model_cfg, trainset, valset,
                  optimizer_params: dict, with_depth: bool = False,
                  image_dump_interval: int = 200,
-                 criterion: Callable = seg_loss_with_aux):
+                 criterion: Callable = seg_loss_with_aux,
+                 graphed: Optional[bool] = None):
         self.args = args
         self.device = _device_of(args)
         self.model = model.to(self.device)
@@ -290,8 +403,10 @@ class SegmentationTrainer:
             log.info("compute dtype: %s (f32 master params + BN stats)",
                      self.compute_dtype)
         # the reference's --workers DataLoader knob (`cmd_args.py:14-16`):
-        # 0/1 = decode in the prefetch thread
+        # 0/1 = decode in the prefetch thread, more = worker processes
         self._decode_workers = max(1, getattr(args, "workers", 1) or 1)
+        self.graphed = (self.device.type == "cuda" if graphed is None
+                        else graphed)
         self.batch_size = args.batch_size
         self.iters_per_epoch = len(trainset) // self.batch_size
         self.total_iters = self.iters_per_epoch * optimizer_params["nepochs"]
@@ -315,9 +430,10 @@ class SegmentationTrainer:
         self.optimizer, self.scheduler = make_optimizer(
             self.model, self.base_lr, self.total_iters,
             optimizer_params.get("wd", 0.0),
-            optimizer_params.get("momentum", 0.9))
+            optimizer_params.get("momentum", 0.9), graphed=self.graphed)
         self.generator = torch.Generator(device=self.device).manual_seed(
             getattr(args, "seed", 0))
+        self._graphs()
         self.metric = SegmentationMetric(trainset.num_class)
         self.sw = None
         self._sw_made = False
@@ -341,6 +457,16 @@ class SegmentationTrainer:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _host(self, imgs, masks) -> List[np.ndarray]:
+        """A host batch as the arrays a step takes: images, masks[,
+        depth]."""
+        depth = []
+        if self.with_depth:
+            imgs, d = imgs
+            depth = [d.astype(np.float32)]
+        return [self._feed(imgs, 256),
+                self._feed(masks, self.trainset.num_class)] + depth
+
     def _inputs(self, imgs):
         """Host images, or (image, depth) pairs -> (images, depth or None)
         on the device."""
@@ -353,6 +479,40 @@ class SegmentationTrainer:
     def current_lr(self, step: int) -> float:
         return poly_schedule(self.base_lr, self.total_iters)(step)
 
+    def _graphs(self):
+        """(Re)build the graphed step and evaluation: after a resume the
+        optimizer's state is new tensors, which a new capture reads."""
+        if not self.graphed:
+            self._train_graph = self._eval_graph = None
+            return
+        self._train_graph = GraphedTrainStep(
+            self.model, self.optimizer, self.scheduler, self.generator,
+            aux_weight=self.aux_weight, dtype=self.compute_dtype,
+            criterion=self.criterion)
+        self._eval_graph = GraphedFunction(
+            lambda images, *depth: eval_step(
+                self.model, images, dtype=self.compute_dtype,
+                depth=depth[0] if depth else None), self.device)
+        self._stage = _HostStage(self.device)
+
+    def step(self, imgs, masks):
+        """One train step on a host batch (``batch_iter``'s stacks) -> (loss,
+        logits of the main head) on the device.  Graphed: the batch goes
+        through pinned memory to the step's static inputs without a wait,
+        and the outputs are the graph's, which the next step overwrites."""
+        if not self.graphed:
+            images, depth = self._inputs(imgs)
+            labels = self._upload(self._feed(masks,
+                                             self.trainset.num_class))
+            return train_step(
+                self.model, self.optimizer, self.scheduler, images, labels,
+                self.generator, aux_weight=self.aux_weight,
+                dtype=self.compute_dtype, depth=depth,
+                criterion=self.criterion)
+        out = self._train_graph(*self._stage.put(self._host(imgs, masks)))
+        self._stage.release()
+        return out
+
     # -------------------------------------------------------------- training
     def training(self, epoch: int, log_interval: int = 25,
                  start_iter: int = 0) -> float:
@@ -363,22 +523,25 @@ class SegmentationTrainer:
         self.metric.reset()
         tic = time.time()
 
-        # no per-step sync: each step's loss stays on the device, and the
-        # pending ones are pulled in one transfer per log interval (TB
-        # scalars written afterwards with their own global step), so the
+        # no per-step sync: each step's loss is copied into a device series
+        # (a graphed step's loss tensor is overwritten by the next replay),
+        # and the pending ones are pulled in one transfer per log interval
+        # (TB scalars written afterwards with their own global step), so the
         # epoch loss is the exact mean of the batch losses
         # (`lib/core/segmentation.py:116-117,139-141`)
-        pending = []
+        series = torch.zeros((max(self.iters_per_epoch - start_iter, 0),),
+                             device=self.device)
+        pulled = done = 0  # steps of this call pulled, and run
         train_loss = 0.0
         n_pulled = 0
         last_step = -1
 
         def drain(upto_global_step):
-            nonlocal train_loss, n_pulled
-            if not pending:
+            nonlocal train_loss, n_pulled, pulled
+            if pulled == done:
                 return
-            vals = torch.stack(pending).cpu().numpy()
-            pending.clear()
+            vals = series[pulled:done].cpu().numpy()
+            pulled = done
             for k, v in enumerate(vals):
                 step = upto_global_step - (len(vals) - 1 - k)
                 train_loss += float(v)
@@ -390,7 +553,6 @@ class SegmentationTrainer:
                     self.sw.add_scalar("learning_rate",
                                        self.current_lr(step), step)
 
-        nc = self.trainset.num_class
         for off, (imgs, masks, _) in enumerate(batch_iter(
                 self.trainset, self.batch_size, shuffle=True, seed=epoch,
                 decode_workers=self._decode_workers,
@@ -407,17 +569,13 @@ class SegmentationTrainer:
                 return train_loss / max(1, n_pulled)
             global_step = self.iters_per_epoch * epoch + i
             last_step = global_step
-            images, depth = self._inputs(imgs)
-            labels = self._upload(self._feed(masks, nc))
-            loss, pred = train_step(
-                self.model, self.optimizer, self.scheduler, images, labels,
-                self.generator, aux_weight=self.aux_weight,
-                dtype=self.compute_dtype, depth=depth,
-                criterion=self.criterion)
-            pending.append(loss)
+            loss, pred = self.step(imgs, masks)
+            series[done].copy_(loss)
+            done += 1
 
             if (self.sw is not None and self.image_dump_interval > 0
                     and global_step % self.image_dump_interval == 0):
+                # read now: the next graphed step overwrites pred
                 self._dump_images(imgs, masks, pred[:1].cpu().numpy(),
                                   global_step)
             if i % log_interval == log_interval - 1 or i == 0:
@@ -447,16 +605,27 @@ class SegmentationTrainer:
     # ------------------------------------------------------------ validation
     def validation(self, epoch: int) -> dict:
         """pixAcc / mIoU over the whole val set, ``test_batch_size`` at a
-        time; the argmax is taken on the device."""
+        time; the argmax is taken on the device.  Graphed, every batch
+        replays one graph: the ragged last batch is padded with repeats of
+        its last image (eval-mode batch norm keeps every image's logits its
+        own) and the padding's rows are dropped before the metric."""
         self.metric.reset()
+        bs = max(1, self.args.test_batch_size)
         for imgs, masks, _ in batch_iter(
-                self.valset, max(1, self.args.test_batch_size),
-                shuffle=False, drop_last=False,
+                self.valset, bs, shuffle=False, drop_last=False,
                 decode_workers=self._decode_workers):
-            images, depth = self._inputs(imgs)
-            logits = eval_step(self.model, images, dtype=self.compute_dtype,
-                               depth=depth)
-            self.metric.update([masks], [logits.argmax(-1).cpu()])
+            n = len(masks)
+            if self.graphed:
+                if n < bs:
+                    imgs = _pad_batch(imgs, bs)
+                images, depth = self._inputs(imgs)
+                logits = self._eval_graph(
+                    images, *([] if depth is None else [depth]))
+            else:
+                images, depth = self._inputs(imgs)
+                logits = eval_step(self.model, images,
+                                   dtype=self.compute_dtype, depth=depth)
+            self.metric.update([masks], [logits.argmax(-1)[:n].cpu()])
         names, values = self.metric.get()
         result = ", ".join(f"{n}: {v:4f}" for n, v in zip(names, values))
         log.info("Epoch %d validation %s", epoch, result)
@@ -526,6 +695,12 @@ class SegmentationTrainer:
         self.optimizer.load_state_dict(d["optimizer"])
         self.scheduler.load_state_dict(d["scheduler"])
         self.generator.set_state(d["generator"])
+        if self.graphed:
+            # the bundle's rates were loaded to the host; the momentum
+            # buffers are new tensors: a new capture reads them
+            for g in self.optimizer.param_groups:
+                g["lr"] = torch.tensor(float(g["lr"]), device=self.device)
+            self._graphs()
         epoch, next_iter = int(d["epoch"]), int(d["next_iter"])
         log.info("resumed from bundle %s: epoch %d iter %d (step %d)", path,
                  epoch, next_iter, self.scheduler.last_epoch)
@@ -537,6 +712,52 @@ class SegmentationTrainer:
         path = self._resume_bundle_path()
         if path.is_file():
             path.unlink()
+
+
+def _pad_batch(imgs, size: int):
+    """A host batch (or an (image, depth) pair of them) padded to ``size``
+    rows with repeats of its last row."""
+    if isinstance(imgs, tuple):
+        return tuple(_pad_batch(a, size) for a in imgs)
+    return np.concatenate([imgs, np.repeat(imgs[-1:], size - len(imgs), 0)])
+
+
+class _HostStage:
+    """Host batches -> pinned tensors for copies to the card that do not
+    wait, in a ring of ``slots``: a slot is refilled only after the event
+    recorded behind its last use (its copies and the step they fed) has
+    completed.  On the CPU the arrays are taken as they are."""
+
+    def __init__(self, device: torch.device, slots: int = 3):
+        self.cuda = device.type == "cuda"
+        self.bufs: List[Optional[List[torch.Tensor]]] = [None] * slots
+        self.events: List[Optional[torch.cuda.Event]] = [None] * slots
+        self.k = 0
+
+    def put(self, arrays) -> List[torch.Tensor]:
+        if not self.cuda:
+            return [torch.from_numpy(np.ascontiguousarray(a))
+                    for a in arrays]
+        i = self.k % len(self.bufs)
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        bufs = self.bufs[i]
+        if bufs is None or [tuple(b.shape) for b in bufs] != [
+                a.shape for a in arrays]:
+            bufs = self.bufs[i] = [
+                torch.empty(a.shape, dtype=torch.from_numpy(a[:0]).dtype,
+                            pin_memory=True) for a in arrays]
+        for b, a in zip(bufs, arrays):
+            b.numpy()[...] = a
+        return bufs
+
+    def release(self):
+        """Behind the last ``put``'s copies and step."""
+        if self.cuda:
+            i = self.k % len(self.bufs)
+            self.events[i] = torch.cuda.Event()
+            self.events[i].record()
+        self.k += 1
 
 
 def save_checkpoint_file(path: str, state_dict) -> None:
@@ -614,6 +835,12 @@ class MultiEvalModel:
     ``max_windows`` at a time (a bound on the activations' memory: 32
     windows of 480² hold a few GB in resnet50's eval forward); ``calls``
     counts the model calls.
+
+    ``graphed`` (default: on a CUDA device): ``device_scores_batch`` runs
+    ``scores`` as one CUDA graph per batch shape (``GraphedFunction``, as
+    ``core/export.py::Served`` replays an exported evaluator); a replay
+    adds to ``calls`` the model calls its capture made.  Its scores are the
+    graph's outputs, which the next call of the same shape overwrites.
     """
 
     max_windows = 32
@@ -621,7 +848,8 @@ class MultiEvalModel:
     def __init__(self, model, nclass: int, base_size: int = 520,
                  crop_size: int = 480, flip: bool = True,
                  scales: Sequence[float] = (1.0,), prob_avg: bool = False,
-                 pad_values=None, dtype: torch.dtype = torch.float32):
+                 pad_values=None, dtype: torch.dtype = torch.float32,
+                 graphed: Optional[bool] = None):
         self.model = model.eval()
         self.nclass = nclass
         self.base_size = base_size
@@ -632,6 +860,9 @@ class MultiEvalModel:
         self.pad_values = pad_values
         self.dtype = dtype
         self.calls = 0
+        self.graphed = graphed
+        self._graph = None
+        self._calls_per_shape = {}
 
     @property
     def device(self) -> torch.device:
@@ -675,7 +906,19 @@ class MultiEvalModel:
         x = torch.stack([torch.as_tensor(im, dtype=torch.float32,
                                          device=self.device)
                          for im in images])
-        return self.scores(x)
+        graphed = (x.device.type == "cuda" if self.graphed is None
+                   else self.graphed)
+        if not graphed:
+            return self.scores(x)
+        if self._graph is None:
+            self._graph = GraphedFunction(self.scores, x.device)
+        before = self.calls
+        out = self._graph(x)
+        if self.calls == before:  # a replay: no Python ran
+            self.calls += self._calls_per_shape[x.shape]
+        else:
+            self._calls_per_shape[x.shape] = self.calls - before
+        return out
 
     def scores(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C) f32 normalised images on the model's device ->

@@ -30,7 +30,7 @@ def get_common_arguments():
     parser = argparse.ArgumentParser()
     parser.add_argument("mode", choices=["train", "test"])
     parser.add_argument("--workers", type=int, default=4, metavar="N",
-                        help="Dataloader threads")
+                        help="decode worker processes (1: one thread)")
     parser.add_argument("--no-cuda", action="store_true", default=False,
                         help="run on the CPU (the default is the CUDA card)")
     parser.add_argument("--ngpus", type=int, default=None,

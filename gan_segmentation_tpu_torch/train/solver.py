@@ -57,7 +57,7 @@ from ..core import dtypes
 from ..core.checkpoint import load_checkpoint
 from ..core.config import SolverConfig
 from ..core.decoder_convert import load_decoder_state_dict
-from ..core.graphs import GraphedCall
+from ..core.graphs import GRAPH_WARMUP_STEPS, GraphedCall
 from ..core.mx_params import is_mx_params_file
 from ..core.params_bridge import decoder_state_dict
 from ..data.collection import CollectionDataset
@@ -68,10 +68,6 @@ from ..utils.io import list_files_with_ext
 from .generator import class_mask
 
 log = logging.getLogger(__name__)
-
-# eager steps of epoch 1 before the train step's graph is captured: they
-# create the optimizer's state and cuDNN's plans (real steps, in history)
-GRAPH_WARMUP_STEPS = 2
 
 
 def _set_rate(optimizer, rate: float):

@@ -232,7 +232,9 @@ def test_no_jax_on_the_import_path():
             f"{pkg}.data.batchify", f"{pkg}.utils.image", f"{pkg}.utils.log",
             f"{pkg}.core.yaml_config", f"{pkg}.core.graphs",
             f"{pkg}.core.export", f"{pkg}.kernels.ops", f"{pkg}.apps.export",
-            f"{pkg}.examples.serving_demo"} <= set(_modules())
+            f"{pkg}.examples.serving_demo",
+            f"{pkg}.examples.full_pipeline_demo",
+            f"{pkg}.data.feed"} <= set(_modules())
     code = f"""
 import importlib, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "cv2",

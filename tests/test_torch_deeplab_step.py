@@ -46,11 +46,13 @@ def test_head_param_groups_split_like_the_jax_labels(tiny_backbones):
         "auxlayer"}
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
 @pytest.mark.parametrize("wd", [2e-4, 0.0])
-def test_optimizer_matches_optax_over_five_steps(rng, wd):
+def test_optimizer_matches_optax_over_five_steps(rng, wd, graphed):
     """SGD + momentum + weight decay on EVERY parameter + the poly rate at
     the step count before the update, head at 10x: five steps on a fixed
-    gradient sequence, 1e-6."""
+    gradient sequence, 1e-6.  ``graphed``: the rates live in tensors that
+    the scheduler fills (``make_optimizer(graphed=True)``)."""
     jm = jdl.SkipProject(4)
     x = jnp.zeros((1, 3, 3, 6))
     params = {"backbone": jax_variables(jm, x, False, seed=1)["params"],
@@ -67,10 +69,11 @@ def test_optimizer_matches_optax_over_five_steps(rng, wd):
     tm = Two()
     tm.load_state_dict({k: v for k, v in deeplab_state_dict(
         params, {}).items()}, strict=False)
-    optimizer, scheduler = ttrainer.make_optimizer(tm, 0.005, 7, wd, 0.9)
+    optimizer, scheduler = ttrainer.make_optimizer(tm, 0.005, 7, wd, 0.9,
+                                                   graphed=graphed)
     named = dict(tm.named_parameters())
     for step in range(5):
-        lrs = [g["lr"] for g in optimizer.param_groups]
+        lrs = [float(g["lr"]) for g in optimizer.param_groups]
         want_lr = float(jtrainer.poly_schedule(0.005, 7)(step))
         np.testing.assert_allclose(lrs, [want_lr, 10 * want_lr], rtol=1e-6)
         np.testing.assert_allclose(

@@ -5,7 +5,9 @@ CPU in f32.
 
 - ``batch_iter``: the same batches in the same order as the JAX function;
   ``start_batch``, the ragged tail, (image, depth) items, a worker's error
-  reaching the consumer, the thread stopping when the consumer stops.
+  reaching the consumer, the thread stopping when the consumer stops; in
+  worker processes: the thread path's batches on a set without draws,
+  every item's own draws on the train split, the error, no process left.
 - ``SegmentationTrainer`` against the JAX ``SegmentationTrainer`` from the
   same initial weights (carried by ``core/params_bridge.py``), dropout off
   on both sides: 16 images at crop 32, batch 4, 2 epochs of the tiny
@@ -19,7 +21,8 @@ CPU in f32.
   packages agree to 7e-5.
 - Preempted mid-epoch and resumed: bit-identical weights, statistics,
   momentum and generator to an uninterrupted run (dropout on, no random
-  augmentation, ``train_epoch_len = -1``, one decode thread).
+  augmentation, ``train_epoch_len = -1``, one decode thread), eager and
+  graphed.
 - ``--weights``: the port's ``*.pt`` and the JAX package's msgpack file
   give the JAX ``load_checkpoint``'s eval forward within ``_close``'s 2e-3
   of the largest logit; a reference mxnet DeepLabV3+ file loads the very
@@ -45,6 +48,7 @@ from test_deeplab_convert import synth_reference_deeplab
 from test_mx_params import write_mx_file
 from test_torch_deeplab import (_close, _no_dropout, jax_variables,
                                 tiny_backbones)  # noqa: F401
+from util_torch_feed import Items, Pids
 
 from gan_segmentation_tpu.core.mesh import make_mesh
 from gan_segmentation_tpu.data import augment as jaug
@@ -68,28 +72,6 @@ MODEL_CFG = {"num_classes": 2, "crop_size": CROP, "aux_weight": 0.5}
 
 
 # ------------------------------------------------------------- batch_iter
-class Items:
-    """``n`` items (image, mask) or ((image, depth), mask[, path]) whose
-    values name their index; ``fail_at`` raises on one index."""
-
-    def __init__(self, n, depth=False, paths=False, fail_at=None, delay=0.0):
-        self.n, self.depth, self.paths = n, depth, paths
-        self.fail_at, self.delay = fail_at, delay
-
-    def __len__(self):
-        return self.n
-
-    def __getitem__(self, i):
-        if i == self.fail_at:
-            raise ValueError(f"cannot decode item {i}")
-        time.sleep(self.delay)
-        img = np.full((2, 3, 3), i, np.uint8)
-        mask = np.full((2, 3), i % 3 - 1, np.int32)
-        first = (img, np.full((2, 3, 1), i / 7, np.float32)) if self.depth \
-            else img
-        return (first, mask, f"p{i}") if self.paths else (first, mask)
-
-
 def _batches(fn, ds, *args, **kw):
     return [b for b in fn(ds, *args, **kw)]
 
@@ -146,6 +128,86 @@ def test_batch_iter_thread_stops_when_the_consumer_stops(workers):
     while set(_batch_iter_threads()) - before and time.time() < deadline:
         time.sleep(0.02)
     assert not set(_batch_iter_threads()) - before, "worker thread left"
+
+
+# ------------------------------------------------ batch_iter in processes
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=3, shuffle=True, seed=4),
+    dict(batch_size=3, shuffle=True, seed=4, drop_last=False),
+    dict(batch_size=4, shuffle=False, drop_last=False, start_batch=1)],
+    ids=["drop_last", "ragged", "start"])
+@pytest.mark.parametrize("items", ["plain", "depth_paths"])
+def test_batch_iter_processes_give_the_thread_batches(kw, items):
+    """On a set without random draws, 3 worker processes give the batches
+    of the thread path (one prefetch thread), in the epoch's order."""
+    ds = Items(10) if items == "plain" else Items(10, depth=True, paths=True)
+    got = _batches(ttrainer.batch_iter, ds, decode_workers=3, **kw)
+    _same_batches(got, _batches(ttrainer.batch_iter, ds, **kw))
+    assert len(got) >= 2
+
+
+def _draw_set(root, n_draws):
+    """The train split drawing ``n_draws`` items with replacement from 16
+    images, each through a random flip and a random affine."""
+    aug = taug.RGBSegmentationAug([taug.HorizontalFlip(),
+                                   taug.ShiftScaleRotate(),
+                                   taug.PadIfNeeded(CROP, CROP),
+                                   taug.RandomCrop(CROP, CROP)],
+                                  ignore_class=-1)
+    return tseg.FFHQHairSegmentation(
+        str(root), split="train", subdir="train_generated", transform=None,
+        augmentator=aug, rng_seed=0, train_epoch_len=n_draws)
+
+
+def test_batch_iter_processes_give_every_item_its_own_draws(data_root):
+    """4 workers, each with a copy of the dataset: no two items of an epoch
+    share their (index, augmentation) draws, so no two images are equal
+    (a copied stream would repeat worker 0's items in every worker); the
+    epoch is a function of its seed."""
+    ds = _draw_set(data_root, 32)
+    runs = [_batches(ttrainer.batch_iter, ds, 4, True, seed=s,
+                     decode_workers=4) for s in (0, 0, 1)]
+    images = [im for b in runs[0] for im in b[0]]
+    assert len(images) == 32
+    distinct = {im.tobytes() for im in images}
+    assert len(distinct) == 32, f"{32 - len(distinct)} repeated draws"
+    _same_batches(runs[1], runs[0])
+    assert not all(np.array_equal(a[0], b[0])
+                   for a, b in zip(runs[2], runs[0]))
+
+
+def test_batch_iter_process_error_reaches_the_consumer():
+    it = ttrainer.batch_iter(Items(8, fail_at=5), 2, shuffle=False,
+                             decode_workers=3)
+    assert len(next(it)[0]) == 2
+    with pytest.raises(ValueError, match="cannot decode item 5"):
+        list(it)
+
+
+def _alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def test_batch_iter_processes_stop_when_the_consumer_stops():
+    """The consumer takes two batches of a long epoch and stops: every
+    worker process (each decoded a batch) has exited afterwards."""
+    import multiprocessing as mp
+
+    before = set(mp.active_children())
+    it = ttrainer.batch_iter(Pids(400, delay=0.002), 2, shuffle=True,
+                             prefetch=1, decode_workers=3)
+    pids = set(next(it)[2]) | set(next(it)[2])
+    assert os.getpid() not in pids and len(pids) == 2
+    it.close()
+    assert not set(mp.active_children()) - before
+    deadline = time.time() + 10
+    while any(map(_alive, pids)) and time.time() < deadline:
+        time.sleep(0.02)
+    assert not any(map(_alive, pids)), "a decode worker is still alive"
 
 
 # ------------------------------------------------ trainer against the JAX one
@@ -274,11 +336,12 @@ def test_trainer_checkpoint_is_the_model(two_trainers):
 
 
 # ------------------------------------------------------ preemption / resume
-def _port_trainer(base, root, path, n=8):
+def _port_trainer(base, root, path, n=8, graphed=False):
     tset, tval = _sets(tseg, taug, root, n)
     return ttrainer.SegmentationTrainer(_args(path, device="cpu"),
                                         _tiny(base), MODEL_CFG, tset, tval,
-                                        OPT, image_dump_interval=0)
+                                        OPT, image_dump_interval=0,
+                                        graphed=graphed)
 
 
 def _state(trainer):
@@ -311,18 +374,23 @@ class StopAfter:
         return out
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
 def test_preempt_then_resume_is_bit_identical(tiny_base, data_root, tmp_path,
-                                              monkeypatch):
+                                              monkeypatch, graphed):
     """Dropout on (its generator is in the bundle), deterministic feed, 8
     images at batch 4: preempted after step 1 of epoch 0, resumed by a new
-    trainer, the final state equals an uninterrupted run's bit for bit."""
-    whole = _port_trainer(tiny_base, data_root, tmp_path / "whole")
+    trainer, the final state equals an uninterrupted run's bit for bit.
+    ``graphed``: every trainer runs ``GraphedTrainStep`` (the resumed one
+    builds a new one on the restored state)."""
+    whole = _port_trainer(tiny_base, data_root, tmp_path / "whole",
+                          graphed=graphed)
     for epoch in range(2):
         whole.training(epoch)
         whole.validation(epoch)
     assert whole.scheduler.last_epoch == 4
 
-    first = _port_trainer(tiny_base, data_root, tmp_path / "cut")
+    first = _port_trainer(tiny_base, data_root, tmp_path / "cut",
+                          graphed=graphed)
     with monkeypatch.context() as m:
         m.setattr(ttrainer, "train_step",
                   StopAfter(ttrainer.train_step, 1, first))
@@ -333,7 +401,8 @@ def test_preempt_then_resume_is_bit_identical(tiny_base, data_root, tmp_path,
     assert (ck / "last_checkpoint.pt").is_file()
     assert not list(ck.glob("*.tmp"))
 
-    second = _port_trainer(tiny_base, data_root, tmp_path / "cut")
+    second = _port_trainer(tiny_base, data_root, tmp_path / "cut",
+                           graphed=graphed)
     second.generator.manual_seed(99)
     assert second.try_resume() == (0, 1)
     _assert_same_state(_state(second), _state(first))
