@@ -106,12 +106,14 @@ Phases (any failure raises, so the exit code is non-zero):
    generator seed 1 writes 8 more as the val split (synthetic: the
    repository holds no real annotated data); ``train`` at the spec's crop
    480, base 512, scale factor 0.5, rotate 15, DeepLabV3+ on resnet50, f32
-   with cuDNN's TF32 convs, batch 8, 2 epochs of 64 draws, each step a
+   with cuDNN's TF32 convs, batch 8, 2 epochs of 128 draws, each step a
    replay of the trainer's CUDA graph, 4 decode processes: a validation
    line (validation as graph replays) and a checkpoint per epoch, finite
    losses, the rates on the poly curve; the trainer's loop ms per step
-   beside the feed alone (``batch_iter``, no model, 4 threads, 4 and 7
-   processes) and the bare step on a resident batch (graph and eager); a
+   with its 4 decode processes and with one decode thread (two epochs
+   each, alternated) beside the feed alone (``batch_iter``, no model, one
+   thread, 4 and 7 processes, two rounds) and the bare step on a resident
+   batch (graph and eager); a
    second run stopped by SIGTERM after step 3 (bundle,
    no ``.tmp``, ``try_resume`` restoring weights, momentum, scheduler and
    dropout generator bit-equal) and continued with ``--resume`` to the
@@ -3462,10 +3464,26 @@ def deeplab_train_run(torch, model, state, images, masks, dtype,
             torch.cuda.max_memory_allocated(), rates)
 
 
+def enqueue_ms(torch, step, n=5):
+    """The host's time to enqueue one ``step`` on an idle card, after a
+    synchronise (back-to-back steps would fill the launch queue and time
+    the card instead): the median of ``n``."""
+    import statistics
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def deeplab_profile(torch, model, state, images, masks, dtype, steps=3):
-    """Where a full-width train step's time goes: wall time against the
-    host's time to enqueue 10 steps, and the device time of ``steps`` profiled
-    steps by kernel family (torch.profiler)."""
+    """Where a full-width train step's time goes: wall time over 10 steps
+    against the host's time to enqueue one (``enqueue_ms``), and the device
+    time of ``steps`` profiled steps by kernel family (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     from gan_segmentation_tpu_torch.train.deeplab_trainer import (
@@ -3486,10 +3504,9 @@ def deeplab_profile(torch, model, state, images, masks, dtype, steps=3):
     t0 = time.perf_counter()
     for _ in range(10):
         step()
-    enqueued = time.perf_counter()
     torch.cuda.synchronize()
-    wall_ms, host_ms = ((time.perf_counter() - t0) * 100,
-                        (enqueued - t0) * 100)
+    wall_ms = (time.perf_counter() - t0) * 100
+    host_ms = enqueue_ms(torch, step)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -3498,7 +3515,8 @@ def deeplab_profile(torch, model, state, images, masks, dtype, steps=3):
     by_name, launches, fam = kernel_families(prof, steps)
     busy = sum(fam.values())
     log(f"deeplab train step {str(dtype).split('.')[1]}: wall {wall_ms:.3f} "
-        f"ms per step over 10 steps, host enqueue {host_ms:.3f} ms; device "
+        f"ms per step over 10 steps, host enqueue of one step on an idle "
+        f"card {host_ms:.3f} ms; device "
         f"kernel time {busy:.3f} ms per step in {launches // steps} launches "
         f"(profiler), busy share {busy / wall_ms:.3f}")
     for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
@@ -3576,7 +3594,8 @@ def deeplab_graph_twin(torch, model, state, images, masks, dtype, graphed,
 
 def deeplab_graph_profile(torch, model, state, images, masks, dtype):
     """The step as replays, default cuDNN mode: ms per step by CUDA events
-    over ``DL_GRAPH_TIMED`` replays and the host's time to enqueue them, the
+    over ``DL_GRAPH_TIMED`` replays and the host's time to enqueue one
+    (``enqueue_ms``), the
     memory the first calls keep reserved (the graph's pool, the optimizer's
     state, the static inputs), and a profile of 3 replays: device kernel
     time by family, launches per replay (the trace's kernels)."""
@@ -3603,14 +3622,13 @@ def deeplab_graph_profile(torch, model, state, images, masks, dtype):
     torch.cuda.empty_cache()
     pool_gib = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0 = time.perf_counter()
     start.record()
     for _ in range(DL_GRAPH_TIMED):
         step(images, masks)
-    host_ms = (time.perf_counter() - t0) * 1e3 / DL_GRAPH_TIMED
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / DL_GRAPH_TIMED
+    host_ms = enqueue_ms(torch, lambda: step(images, masks))
     steps = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3665,8 +3683,9 @@ def deeplab_graph_vs_eager(torch, model, state, images, masks, eager_prof,
             f"{len(eager[1]) - len(differ)}/{len(eager[1])} tensors of the "
             f"state bit-equal, generator {same['generator']}; per step, "
             f"graph (eager): {prof['ms']:.3f} ({ep['wall_ms']:.3f}) ms, "
-            f"host enqueue {prof['host_enqueue_ms']:.3f} "
-            f"({ep['host_enqueue_ms']:.3f}) ms, device kernels "
+            f"host enqueue of one step on an idle card "
+            f"{prof['host_enqueue_ms']:.3f} ({ep['host_enqueue_ms']:.3f}) "
+            f"ms, device kernels "
             f"{prof['busy_ms']:.3f} ({ep['busy_ms']:.3f}) ms, busy share "
             f"{prof['busy_share']:.3f} ({ep['busy_ms'] / ep['wall_ms']:.3f}),"
             f" {prof['launches']} ({ep['launches']}) launches per step in "
@@ -3898,14 +3917,15 @@ def phase_deeplab(torch, smi):
 
 # Phase 9: the experiment 01_hair_deeplabv3_ffhq_pretrain_gan at its own
 # widths (crop 480, base 512, scale factor 0.5, rotate 15, DeepLabV3+ on
-# resnet50), cut to 2 epochs of 64 draws from 32 generated pairs.
+# resnet50), cut to 2 epochs of 128 draws from 32 generated pairs.
 # ``tests/test_torch_experiment_cli.py`` rehearses the phase on the CPU with
 # a smaller ``STEP5``.
 STEP5 = dict(exp="01_hair_deeplabv3_ffhq_pretrain_gan", gan="ffhq",
              res_log2=None, gen_batch=BATCH, n_train=32, n_val=8, batch=8,
-             epochs=2, epoch_len=64, workers=4, feed_workers=7,
+             epochs=2, epoch_len=128, workers=4, feed_workers=7,
              test_batch=2,
-             preempt_after=3, feed_draws=64, bare_steps=5, overrides=[],
+             preempt_after=3, feed_draws=128, feed_reps=2, bare_steps=5,
+             overrides=[],
              eval_check=dict(crop=32, base=48, scales=(0.75, 1.0),
                              hw=(40, 56), images=2))
 
@@ -3983,15 +4003,21 @@ def _sync(torch, device):
         torch.cuda.synchronize()
 
 
-def step5_feed(dt, feedset, conf, workers, processes):
-    """``batch_iter`` alone over ``feedset`` with ``workers`` decode
-    processes or threads, no model: -> (ms per batch after the first, the
+# the feeds that phase 9 compares: one decode thread (``batch_iter``'s
+# thread path), ``workers`` and ``feed_workers`` decode processes
+def step5_feeds(conf):
+    return {"thread": 1, "processes": conf["workers"],
+            "more_processes": conf["feed_workers"]}
+
+
+def step5_feed(dt, feedset, conf, workers):
+    """``batch_iter`` alone over ``feedset`` with ``workers`` decoders (one
+    thread, or processes), no model: -> (ms per batch after the first, the
     seconds to the first batch, the last batch)."""
     n, first = 0, None
     t0 = time.perf_counter()
     for batch in dt.batch_iter(feedset, conf["batch"], True, 0,
-                               decode_workers=workers,
-                               decode_processes=processes):
+                               decode_workers=workers):
         if first is None:
             first = time.perf_counter()
         n += 1
@@ -4001,9 +4027,9 @@ def step5_feed(dt, feedset, conf, workers, processes):
 
 def step5_feed_and_bare_step(torch, trainer, args, spec, conf):
     """The feed alone (``batch_iter`` over the train set, no model), with
-    ``workers`` decode threads and processes and with ``feed_workers``
-    processes: ms per batch after the first and the start-up; the bare
-    step on one resident batch, wall ms per step
+    each of ``step5_feeds`` in turn, ``feed_reps`` times: ms per batch after
+    the first and the start-up; the bare step on one resident batch, wall ms
+    per step
     as replays of the trainer's graph (``SegmentationTrainer.step``'s
     graphed step, without the staging) and as eager ``train_step``s with
     the same optimizer."""
@@ -4014,14 +4040,14 @@ def step5_feed_and_bare_step(torch, trainer, args, spec, conf):
 
     feedset, _ = datasets(args, dataclasses.replace(
         spec, train_epoch_len=conf["feed_draws"]))
-    feed = {}
-    for kind, workers, processes in (
-            ("threads", conf["workers"], False),
-            ("processes", conf["workers"], True),
-            ("more_processes", conf["feed_workers"], True)):
-        ms, start_s, (imgs, masks, _) = step5_feed(dt, feedset, conf,
-                                                   workers, processes)
-        feed[kind] = dict(ms=ms, start_s=start_s, workers=workers)
+    feed = {kind: dict(ms=[], start_s=[], workers=workers)
+            for kind, workers in step5_feeds(conf).items()}
+    for _ in range(conf["feed_reps"]):
+        for kind, rec in feed.items():
+            ms, start_s, (imgs, masks, _) = step5_feed(dt, feedset, conf,
+                                                       rec["workers"])
+            rec["ms"].append(ms)
+            rec["start_s"].append(start_s)
     images, _ = trainer._inputs(imgs)
     labels = trainer._upload(trainer._feed(masks, feedset.num_class))
     kw = dict(aux_weight=trainer.aux_weight, dtype=trainer.compute_dtype)
@@ -4043,45 +4069,66 @@ def step5_feed_and_bare_step(torch, trainer, args, spec, conf):
     return feed, bare
 
 
+# the timed epochs of ``step5_loop``: its feed (the run's ``workers``
+# processes) and one decode thread, each twice, in this order
+LOOP_FEEDS = ("processes", "thread", "thread", "processes")
+
+
 def step5_loop(torch, trainer, dt, conf, smi):
-    """Two more epochs of the trainer (the feed, the steps, the loss pulls;
-    not the epoch's checkpoint, whose 167 MB pull to the host is no part of
-    a step).  The first is timed: the loop's ms per step is the time from
-    its first step's start (the first batch in hand: the workers' start-up
-    is not in it) to the end of its last step's work, synchronised, over
-    its steps; the steps do not wait for the card, so the gaps between
-    their starts are not step times.  The second runs under
-    ``torch.profiler`` (on the card only): device kernel time per step by
-    family, and the busy share of the timed loop."""
+    """More epochs of the trainer (the feed, the steps, the loss pulls; not
+    the epoch's checkpoint, whose 167 MB pull to the host is no part of a
+    step).  One epoch for each of ``LOOP_FEEDS`` is timed: the loop's ms
+    per step is the time from its first step's start (the first batch in
+    hand: the workers' start-up is not in it) to the end of its last
+    step's work, synchronised, over its steps; the steps do not wait for
+    the card, so the gaps between their starts are not step times.  A last
+    epoch with the run's feed runs under ``torch.profiler`` (on the card
+    only): device kernel time per step by family, and the busy share of
+    the loop (the mean of its timed epochs with that feed)."""
     per = conf["epoch_len"] // conf["batch"]
+    feeds = step5_feeds(conf)
+    workers = trainer._decode_workers
+    assert workers == feeds["processes"], (workers, feeds)
+    loop_ms = {kind: [] for kind in LOOP_FEEDS}
     trainer.save_checkpoint = lambda: None  # shadows the method
+    epoch = conf["epochs"]
     try:
-        with StepProbe(dt) as probe:
-            trainer.training(conf["epochs"])
-            _sync(torch, trainer.device)
-            end = time.perf_counter()
-        loop_ms = (end - probe.starts[0]) * 1e3 / len(probe.starts)
+        for kind in LOOP_FEEDS:
+            trainer._decode_workers = feeds[kind]
+            with StepProbe(dt) as probe:
+                trainer.training(epoch)
+                _sync(torch, trainer.device)
+                end = time.perf_counter()
+            epoch += 1
+            loop_ms[kind].append((end - probe.starts[0]) * 1e3
+                                 / len(probe.starts))
+        trainer._decode_workers = workers
         rec = dict(loop_ms=loop_ms, steps=len(probe.starts))
         if trainer.device.type != "cuda":
             return rec
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            trainer.training(conf["epochs"] + 1)
+            trainer.training(epoch)
             torch.cuda.synchronize()
     finally:
+        trainer._decode_workers = workers
         del trainer.save_checkpoint
     by_name, launches, fam = kernel_families(prof, per)
     busy = sum(fam.values())
-    log(f"step 5 trainer, two more epochs of {per} steps: loop "
-        f"{loop_ms:.3f} ms per step (the first epoch, from its first step's "
-        f"start to the end of its last, synchronised); the second profiled: "
-        f"device kernel time {busy:.3f} ms per step in {launches // per} "
-        f"launches, busy share {busy / loop_ms:.3f} of the timed loop on "
-        f"{smi}")
+    mean = sum(loop_ms["processes"]) / len(loop_ms["processes"])
+    log(f"step 5 trainer, {len(LOOP_FEEDS) + 1} more epochs of {per} "
+        f"steps: loop ms per step (an epoch from its first step's start to "
+        f"the end of its last, synchronised), in the order "
+        f"{', '.join(LOOP_FEEDS)}: {workers} decode processes "
+        f"{[round(v, 3) for v in loop_ms['processes']]}, one decode thread "
+        f"{[round(v, 3) for v in loop_ms['thread']]}; the last epoch "
+        f"profiled ({workers} processes): device kernel time {busy:.3f} ms "
+        f"per step in {launches // per} launches, busy share "
+        f"{busy / mean:.3f} of the processes' loop on {smi}")
     for name, t in sorted(fam.items(), key=lambda kv: -kv[1]):
         log(f"  {name}: {t:.3f} ms/step ({t / busy:.3f} of device time)")
-    return dict(rec, busy_ms=busy, busy_share=busy / loop_ms,
+    return dict(rec, busy_ms=busy, busy_share=busy / mean,
                 launches=launches // per, families=fam)
 
 
@@ -4251,15 +4298,19 @@ def phase_step5(torch, smi, conf=None):
                 f"last_checkpoint.pt each epoch; run {rec['train_run_s']:.2f}"
                 f" s (model build and checkpoints included) on {smi}")
             feed, bare = rec["feed"], rec["bare_step_ms"]
-            log(f"step 5 pace: the trainer's loop {rec['loop_ms']:.3f} ms "
-                f"per step (a timed epoch of {rec['profile']['steps']} "
-                f"graphed steps, {conf['workers']} decode processes; gaps "
-                f"between step starts in the run: "
+            log(f"step 5 pace: the trainer's loop, ms per step (timed "
+                f"epochs of {rec['profile']['steps']} graphed steps): "
+                + ", ".join(f"{step5_feeds(conf)[k]} {k.split('_')[-1]} "
+                            f"{[round(v, 3) for v in vs]}"
+                            for k, vs in rec['loop_ms'].items())
+                + f" (gaps between step starts in the run: "
                 f"{[round(g, 1) for g in gaps]}); the feed "
                 f"alone (batch_iter, no model), ms per batch of "
-                f"{conf['batch']} after the first (seconds to the first): "
+                f"{conf['batch']} after the first (seconds to the first), "
+                f"{conf['feed_reps']} rounds: "
                 + ", ".join(f"{v['workers']} {k.split('_')[-1]} "
-                            f"{v['ms']:.3f} ({v['start_s']:.2f} s)"
+                            f"{[round(x, 3) for x in v['ms']]} "
+                            f"({[round(x, 2) for x in v['start_s']]} s)"
                             for k, v in feed.items())
                 + "; the bare step on a resident batch, wall ms: "
                 + ", ".join(f"{k} {v:.3f}" for k, v in bare.items())
@@ -4509,9 +4560,9 @@ def main():
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
     log(f"step 5 at crop 480, batch 8 (f32, cuDNN's TF32 convs): the "
-        f"trainer's loop {s5['loop_ms']:.3f} ms per step, the feed alone "
-        f"{s5['feed']['processes']['ms']:.3f} ms per batch in processes "
-        f"({s5['feed']['threads']['ms']:.3f} in threads), the bare step "
+        f"trainer's loop {s5['loop_ms']} ms per step, the feed alone "
+        f"{ {k: v['ms'] for k, v in s5['feed'].items()} } ms per batch, "
+        f"the bare step "
         f"{s5['bare_step_ms']} ms; test {s5['test_ips']:.3f} images/s "
         f"on {smi}")
 

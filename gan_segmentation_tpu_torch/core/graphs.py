@@ -57,8 +57,12 @@ def _tensors(out):
 
 
 class GraphedCall:
-    def __init__(self, fn: Callable, device, warmup: int = 1):
+    """``pool``: a ``torch.cuda.graph_pool_handle()`` that the capture
+    shares with other graphs (default: a private pool)."""
+
+    def __init__(self, fn: Callable, device, warmup: int = 1, pool=None):
         self.fn = fn
+        self.pool = pool
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
@@ -97,7 +101,8 @@ class GraphedCall:
 
     def _capture(self):
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
+        with torch.cuda.device(self.device), \
+                torch.cuda.graph(self.graph, pool=self.pool):
             return self.fn()
 
     def _replay(self):
@@ -107,14 +112,20 @@ class GraphedCall:
 class GraphedFunction:
     """``fn(*tensors)`` as one ``GraphedCall`` per input signature (the
     shapes and dtypes of the arguments): a call copies its arguments into
-    that signature's static tensors (non-blocking) and runs the call.  The
-    outputs are static: the next call of the same signature overwrites
-    them.  ``warmup`` as ``GraphedCall``'s."""
+    that signature's static tensors (non-blocking) and runs the call.
+    ``warmup`` as ``GraphedCall``'s.
+
+    On a card the graphs share one memory pool, so a set of many shapes
+    keeps about the memory of its largest graph, not the sum.  The calls
+    run in order on one stream, and the outputs are static: the next call,
+    of any signature, may overwrite them."""
 
     def __init__(self, fn: Callable, device, warmup: int = 1):
         self.fn = fn
         self.device = torch.device(device)
         self.warmup = warmup
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == "cuda" else None)
         self.calls: Dict[tuple, GraphedCall] = {}
         self.inputs: Dict[tuple, Sequence[torch.Tensor]] = {}
 
@@ -125,7 +136,7 @@ class GraphedFunction:
             static = [torch.empty(a.shape, dtype=a.dtype, device=self.device)
                       for a in args]
             call = GraphedCall(lambda: self.fn(*static), self.device,
-                               self.warmup)
+                               self.warmup, self.pool)
             self.calls[key], self.inputs[key] = call, static
         for s, a in zip(self.inputs[key], args):
             s.copy_(a, non_blocking=True)

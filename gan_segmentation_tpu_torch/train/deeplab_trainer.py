@@ -13,7 +13,7 @@
   order, the poly rate filled into the optimizer's rate tensors on the host
   (``make_optimizer(graphed=True)``: fused SGD on a card).
 - ``batch_iter``: the seeded batcher with its background prefetch thread,
-  decoding in worker processes (``data/feed.py``) or a thread pool.
+  decoding in worker processes (``data/feed.py``) when it has several.
 - ``SegmentationTrainer``: epochs of train steps fed by ``batch_iter``
   (graphed on a card: batches staged in pinned memory and copied without a
   wait), each step's loss kept in a device series pulled once per log
@@ -229,7 +229,7 @@ class GraphedTrainStep:
     (the inputs on the model's device or in pinned host memory), the graph
     runs (its first ``warmup`` calls eagerly, real steps that make the
     optimizer's state), and the scheduler fills the next step's rates.  The
-    outputs are static: the next step of the same shape overwrites them.
+    outputs are static: the next step overwrites them.
     On the CPU the same body runs eagerly."""
 
     def __init__(self, model, optimizer, scheduler, generator, *,
@@ -273,8 +273,7 @@ def eval_step(model, images, *, dtype: torch.dtype = torch.float32,
 
 def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
                drop_last: bool = True, prefetch: int = 2,
-               decode_workers: int = 1, start_batch: int = 0,
-               decode_processes: bool = True):
+               decode_workers: int = 1, start_batch: int = 0):
     """Batches of ``dataset`` decoded off the consuming thread (host-side
     decode overlaps device compute): ``(images, masks, extra)`` numpy
     stacks, ``extra`` the items' third elements (paths) or None.
@@ -287,12 +286,10 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
     background prefetch thread decodes, drawing from the dataset's own
     streams in order (bit-reproducible).  More: ``decode_workers`` worker
     processes (``data/feed.py``), each item's draws from a seed of its own
-    (reproducible for a ``seed``, but not the thread path's draws); with
-    ``decode_processes=False`` a thread pool instead, which interleaves the
-    dataset's draws nondeterministically.  ``start_batch`` skips the first
-    N batches of the epoch's order without decoding them (mid-epoch
-    resume).  A decode error reaches the consumer; the workers stop when
-    the consumer stops early.
+    (reproducible for a ``seed``, but not the thread path's draws).
+    ``start_batch`` skips the first N batches of the epoch's order without
+    decoding them (mid-epoch resume).  A decode error reaches the consumer;
+    the workers stop when the consumer stops early.
     """
     import queue
     import threading
@@ -303,7 +300,7 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
         np.random.RandomState(seed).shuffle(order)
     steps = n // batch_size if drop_last else math.ceil(n / batch_size)
 
-    if decode_workers > 1 and decode_processes:
+    if decode_workers > 1:
         sels = [order[s * batch_size:(s + 1) * batch_size]
                 for s in range(start_batch, steps)]
         if sels:
@@ -313,22 +310,12 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
 
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
-    pool = None
-    if decode_workers > 1:
-        from concurrent.futures import ThreadPoolExecutor
-        pool = ThreadPoolExecutor(max_workers=decode_workers,
-                                  thread_name_prefix="decode")
-
-    def fetch(sel):
-        if pool is not None:
-            return list(pool.map(dataset.__getitem__, [int(i) for i in sel]))
-        return [dataset[int(i)] for i in sel]
 
     def worker():
         try:
             for s in range(start_batch, steps):
                 sel = order[s * batch_size:(s + 1) * batch_size]
-                batch = stack_batch(fetch(sel))
+                batch = stack_batch([dataset[int(i)] for i in sel])
                 while not stop.is_set():
                     try:
                         q.put(batch, timeout=0.2)
@@ -359,8 +346,6 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
             yield item
     finally:
         stop.set()
-        if pool is not None:
-            pool.shutdown(wait=False)
 
 
 class SegmentationTrainer:
@@ -840,7 +825,8 @@ class MultiEvalModel:
     ``scores`` as one CUDA graph per batch shape (``GraphedFunction``, as
     ``core/export.py::Served`` replays an exported evaluator); a replay
     adds to ``calls`` the model calls its capture made.  Its scores are the
-    graph's outputs, which the next call of the same shape overwrites.
+    graph's outputs, which the next call overwrites (the shapes' graphs
+    share one memory pool).
     """
 
     max_windows = 32

@@ -21,7 +21,8 @@ backbone under the real heads, crop 32, batch 2-4, f32.
   of the eager evaluator when its calls replay.
 
 The ``cuda`` tests hold replays to eager steps on the card (cuDNN's
-deterministic mode) and skip without one.  This module imports jax only
+deterministic mode) and a ``GraphedFunction``'s graphs to one memory pool,
+and skip without one.  This module imports jax only
 inside the test that needs it, so the ``cuda`` tests run where jax is
 installed without its neural-network library.
 """
@@ -390,3 +391,36 @@ def test_cuda_graphed_evaluation(cuda, tiny_model):
     assert graphed._graph.calls and all(
         c.replays == 2 for c in graphed._graph.calls.values())
 
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_function_shares_one_pool(cuda):
+    """On the card: the graphs of two input shapes share one memory pool.
+    Each capture frees a 256 MiB temporary into the pool; the second
+    capture reuses it, so the two graphs keep about one temporary's memory
+    reserved, not two (a tester that meets many image shapes would
+    otherwise keep one activation pool per shape)."""
+    big = 64 * 2 ** 20  # f32 elements: 256 MiB
+
+    def body(x):
+        return x + torch.ones(big, device=x.device).sum()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    fn = graphs.GraphedFunction(body, cuda)
+    grown = []
+    for n in (4, 8):
+        x = torch.arange(n, dtype=torch.float32, device=cuda)
+        want = body(x)
+        for _ in range(3):  # warm-up, capture, replay
+            assert torch.equal(fn(x), want)
+        del want
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        grown.append(torch.cuda.memory_reserved() - base)
+    assert len(fn.calls) == 2
+    assert {c.pool for c in fn.calls.values()} == {fn.pool}
+    temp = big * 4
+    assert temp <= grown[0] < 1.5 * temp, grown
+    assert grown[1] - grown[0] < 0.25 * temp, grown

@@ -5,8 +5,9 @@ CPU in f32.
 
 - ``batch_iter``: the same batches in the same order as the JAX function;
   ``start_batch``, the ragged tail, (image, depth) items, a worker's error
-  reaching the consumer, the thread stopping when the consumer stops; in
-  worker processes: the thread path's batches on a set without draws,
+  reaching the consumer, the prefetch thread (one worker) or the worker
+  processes (three) stopping when the consumer stops; in worker
+  processes: the thread path's batches on a set without draws,
   every item's own draws on the train split, the error, no process left.
 - ``SegmentationTrainer`` against the JAX ``SegmentationTrainer`` from the
   same initial weights (carried by ``core/params_bridge.py``), dropout off
@@ -48,7 +49,7 @@ from test_deeplab_convert import synth_reference_deeplab
 from test_mx_params import write_mx_file
 from test_torch_deeplab import (_close, _no_dropout, jax_variables,
                                 tiny_backbones)  # noqa: F401
-from util_torch_feed import Items, Pids
+from test_torch_feed_items import Items, Pids
 
 from gan_segmentation_tpu.core.mesh import make_mesh
 from gan_segmentation_tpu.data import augment as jaug
@@ -119,15 +120,23 @@ def _batch_iter_threads():
 
 @pytest.mark.parametrize("workers", [1, 3])
 def test_batch_iter_thread_stops_when_the_consumer_stops(workers):
+    """The consumer takes a batch of a long epoch and stops: no prefetch
+    thread and no decode process is left.  One worker decodes in this
+    process's prefetch thread, three in worker processes."""
+    import multiprocessing as mp
+
     before = set(_batch_iter_threads())
-    it = ttrainer.batch_iter(Items(200, delay=0.002), 2, shuffle=True,
+    children = set(mp.active_children())
+    it = ttrainer.batch_iter(Pids(200, delay=0.002), 2, shuffle=True,
                              prefetch=1, decode_workers=workers)
-    next(it)
+    pids = set(next(it)[2])
+    assert (pids == {os.getpid()}) == (workers == 1), pids
     it.close()
     deadline = time.time() + 10
     while set(_batch_iter_threads()) - before and time.time() < deadline:
         time.sleep(0.02)
     assert not set(_batch_iter_threads()) - before, "worker thread left"
+    assert not set(mp.active_children()) - children, "worker process left"
 
 
 # ------------------------------------------------ batch_iter in processes

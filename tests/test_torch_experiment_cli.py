@@ -58,8 +58,13 @@ def test_chip_smoke_step5_rehearsal(tiny_resnet50, monkeypatch):
     assert rec["bucket_calls"] == [1, 1]
     assert set(rec["metric_orig"]) == {"accuracy", "mean-iou"}
     assert rec["eval_card_vs_cpu_err"] == 0.0
-    assert rec["feed"]["threads"]["ms"] > 0
-    assert rec["feed"]["processes"]["ms"] > 0
+    assert {k: v["workers"] for k, v in rec["feed"].items()} == dict(
+        thread=1, processes=2, more_processes=7)
+    assert all(len(v["ms"]) == 2 and min(v["ms"]) > 0
+               for v in rec["feed"].values())
+    assert {k: len(v) for k, v in rec["loop_ms"].items()} == dict(
+        processes=2, thread=2)
+    assert min(min(v) for v in rec["loop_ms"].values()) > 0
     assert rec["bare_step_ms"]["eager"] > 0
 
 

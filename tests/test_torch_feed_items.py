@@ -1,6 +1,7 @@
 """Small picklable datasets for the tests of the port's batch feed
-(``train/deeplab_trainer.py::batch_iter``), kept out of the test modules so
-that a decode worker process imports only this module to unpickle one."""
+(``train/deeplab_trainer.py::batch_iter``), kept out of the test modules
+that import jax, so that a decode worker process imports only this module
+(which holds no test) to unpickle one."""
 
 import os
 import time
