@@ -128,6 +128,38 @@ Phases (any failure raises, so the exit code is non-zero):
    at crop 256 for 2 epochs of 64 draws through its graphed step, and
    validation) under a device trace: kernels 1, 2 and 3 all run, and the
    trace's counts equal the wrappers' counts plus the replays.
+11. scale-out — (a) this process alone in an NCCL group, passed
+   explicitly: the DeepLab step of phase 8 (f32, TF32 convs) with batch
+   norm over the group and the gradient all-reduce captured in its CUDA
+   graph, 6 graphed steps equal to 6 eager ones bit for bit in cuDNN's
+   deterministic mode, ms per step as replays with and without the
+   group, NCCL's kernels per step, the fused global batch norm against
+   the written-out one; the decoder fit at ffhq 1024^2 (4 samples, 2
+   epochs, graphed) with the group under a device trace (kernels 2 and 3)
+   against the fit without it; ``generate --dp 2``'s machinery on the one
+   card (two replicas, batch 8 = 4 + 4): against one device its
+   differences recorded, against the one-device program on each half of
+   the same inputs bit for bit.  (b) Two processes on the one card: first
+   whether NCCL refuses two ranks on one device; then over gloo, eager,
+   through the runner's spawn entry: the decoder fit at global batch
+   2 = 1 + 1 against one process at batch 2, the experiment runner's
+   DeepLab training (global batch 8 = 4 + 4, one epoch of 2 steps) with
+   one run dir and the primary's checkpoint, its validation over a ragged
+   set of 5 against that checkpoint validated in one process (equal
+   confusion counters), and ``generate`` of 16 ffhq 1024^2 pairs per
+   process, each process's files byte-equal to one process with its seed.
+   Prints a ``{"scale_out": ...}`` line before the kernels' line.
+
+Not in the default run (it needs one card): ``phase_multi_card`` on a
+machine with several cards — ``generate --dp N`` over them against the
+one-device program on each part, then one process per card over NCCL (the
+decoder fit, the DeepLab step as replays beside one card's, the runner's
+graphed training and ragged validation, ``generate``'s slices), each
+against one process:
+``python3 -c "import chip_smoke as c, torch; from
+gan_segmentation_tpu_torch.kernels import _build; _build.build_library();
+torch.backends.cudnn.allow_tf32 = False; c.phase_multi_card(torch,
+c.smi_line()); assert not c.FAILED"``.
 
 Launch counts: every run of a main path that the script counts runs
 under ``LaunchTrace``, which sets the wrappers' counters to 0, traces the
@@ -2477,7 +2509,8 @@ def phase_graph_generate(torch):
             pipe, eager = FusedPipeline(gen, solver), FusedPipeline(ref,
                                                                     solver)
             # the eager path: every batch through _fused, as before graphs
-            eager._batch = lambda b, p=eager: p._fused(*p.gen.next_inputs(b))
+            eager._batch = lambda b, p=eager: [p._fused(
+                *p.gen.next_inputs(b))]
             n_blocks, n_convs = r - 1, len(kernel2_shapes(scfg))
 
             torch.cuda.synchronize()
@@ -2491,7 +2524,7 @@ def phase_graph_generate(torch):
             # included (the capture emptied the cache before it)
             pool_gib = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
             with LaunchTrace(torch) as etrace:
-                want = [[t.cpu() for t in eager._batch(BATCH)]
+                want = [[t.cpu() for t in eager._batch(BATCH)[0]]
                         for _ in range(GRAPH_BATCHES)]
             n_graph = (gtrace.device["conv_in_stats"],
                        gtrace.device["small_conv"])
@@ -3562,11 +3595,12 @@ DL_GRAPH_TIMED = 10   # replays timed per dtype
 
 
 def deeplab_graph_twin(torch, model, state, images, masks, dtype, graphed,
-                       steps=DL_GRAPH_STEPS, seed=33):
+                       steps=DL_GRAPH_STEPS, seed=33, group=None):
     """``steps`` train steps from ``state`` with the graphed optimizer
     (fused SGD, rate tensors) and dropout on: as ``GraphedTrainStep`` (two
     eager warm-up steps, the capture, replays) or as eager ``train_step``s
-    (the graph's eager twin).  -> (losses, state after, generator state)."""
+    (the graph's eager twin); ``group``: the gradient all-reduce over it.
+    -> (losses, state after, generator state)."""
     from gan_segmentation_tpu_torch.train.deeplab_trainer import (
         GraphedTrainStep, make_optimizer, train_step)
 
@@ -3575,14 +3609,15 @@ def deeplab_graph_twin(torch, model, state, images, masks, dtype, graphed,
                                 DL_MOMENTUM, graphed=True)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     step = (GraphedTrainStep(model, opt, sched, gen, aux_weight=DL_AUX_WEIGHT,
-                             dtype=dtype) if graphed else None)
+                             dtype=dtype, group=group) if graphed else None)
     losses = []
     for _ in range(steps):
         if graphed:
             loss, _ = step(images, masks)
         else:
             loss, _ = train_step(model, opt, sched, images, masks, gen,
-                                 aux_weight=DL_AUX_WEIGHT, dtype=dtype)
+                                 aux_weight=DL_AUX_WEIGHT, dtype=dtype,
+                                 group=group)
         losses.append(loss.clone())
     torch.cuda.synchronize()
     out = (torch.stack(losses).cpu(),
@@ -3592,13 +3627,15 @@ def deeplab_graph_twin(torch, model, state, images, masks, dtype, graphed,
     return out
 
 
-def deeplab_graph_profile(torch, model, state, images, masks, dtype):
+def deeplab_graph_profile(torch, model, state, images, masks, dtype,
+                          group=None):
     """The step as replays, default cuDNN mode: ms per step by CUDA events
     over ``DL_GRAPH_TIMED`` replays and the host's time to enqueue one
     (``enqueue_ms``), the
     memory the first calls keep reserved (the graph's pool, the optimizer's
     state, the static inputs), and a profile of 3 replays: device kernel
-    time by family, launches per replay (the trace's kernels)."""
+    time by family, launches per replay (the trace's kernels), NCCL's
+    among them (``group``: the gradient all-reduce over it)."""
     import gc
 
     from torch.profiler import ProfilerActivity, profile
@@ -3615,7 +3652,7 @@ def deeplab_graph_profile(torch, model, state, images, masks, dtype):
                                 DL_MOMENTUM, graphed=True)
     gen = torch.Generator(device="cuda").manual_seed(34)
     step = GraphedTrainStep(model, opt, sched, gen, aux_weight=DL_AUX_WEIGHT,
-                            dtype=dtype)
+                            dtype=dtype, group=group)
     for _ in range(4):  # two warm-up steps, the capture, a replay
         step(images, masks)
     torch.cuda.synchronize()
@@ -3636,6 +3673,7 @@ def deeplab_graph_profile(torch, model, state, images, masks, dtype):
             step(images, masks)
         torch.cuda.synchronize()
     _, launches, fam = kernel_families(prof, steps)
+    nccl = sum("nccl" in n.lower() for n in device_kernel_names(prof))
     busy = sum(fam.values())
     replays = sum(c.replays for c in step.fn.calls.values())
     del step, opt, sched
@@ -3643,7 +3681,8 @@ def deeplab_graph_profile(torch, model, state, images, masks, dtype):
     torch.cuda.empty_cache()
     return dict(ms=ms, host_enqueue_ms=host_ms, busy_ms=busy,
                 busy_share=busy / ms, launches=launches // steps,
-                pool_gib=pool_gib, families=fam, replays=replays)
+                nccl_launches=nccl / steps, pool_gib=pool_gib, families=fam,
+                replays=replays)
 
 
 def deeplab_graph_vs_eager(torch, model, state, images, masks, eager_prof,
@@ -3810,8 +3849,8 @@ def deeplab_full_width(torch, smi):
 
     # the batch norm written out (the decoder's form) beside the fused one
     fused = resnet.batch_norm
-    resnet.batch_norm = lambda x, bn, train: (
-        batch_norm_train(x, bn) if train else fused(x, bn, False))
+    resnet.batch_norm = lambda x, bn, train, group=None: (
+        batch_norm_train(x, bn, group) if train else fused(x, bn, False))
     plain = {}
     try:
         for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -4451,6 +4490,951 @@ def phase_demo(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------- phase 11
+SO_SAMPLES = 4           # ffhq 1024^2 samples of the scale-out fits
+SO_EPOCHS = 2
+SO_WORLD = 2             # processes sharing the one card over gloo
+SO_TRAIN, SO_VAL = 16, 5  # the runner's synthetic 512^2 pairs (ragged val)
+SO_GEN_PER_RANK = 16
+SO_SPEC = "01_hair_deeplabv3_ffhq_pretrain_gan"
+SO_TIMEOUT = 480         # seconds for the processes of (b)
+SO_FIT_RTOL = 1e-4       # the CPU tests' bound on a fit's per-step losses
+# the fits' optimizer, the CPU tests' SGD: a uniform scale on the gradients
+# (a sum where a mean belongs) shows in the weights, where Adam cancels it
+SO_FIT_OPT = dict(optimizer="sgd", momentum=0.9)
+SO_PARAM_TOL = 1e-5      # the CPU tests' rtol and atol on a fit's weights
+SO_CHANGE_REL = 1e-2     # the parameters' change over a fit, as one vector,
+#                          rel. L2 (the ROADMAP's eval-mode bound)
+SO_BN_REL = 1e-4         # fused against written-out global BN, rel. L2
+
+
+@contextlib.contextmanager
+def world_of_one(torch):
+    """This process alone in an NCCL group on card 0, the group yielded to
+    be passed explicitly (the port makes none at world 1 by itself)."""
+    import torch.distributed as dist
+
+    from gan_segmentation_tpu_torch.core.distributed import free_port
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def global_bn_card_vs_written(torch, grp):
+    """``FusedGlobalBatchNorm`` (torch's fused primitives) against
+    ``GlobalBatchNorm`` (the formula written out) on the card, f32, at the
+    DeepLab step's first bottleneck shape (8 x 120 x 120 x 256): output,
+    statistics and the three gradients of sum(y * dy) (relative L2), and
+    ms per forward + backward of each."""
+    from gan_segmentation_tpu_torch.ops.norm import (FusedGlobalBatchNorm,
+                                                     GlobalBatchNorm)
+    g = torch.Generator(device="cuda").manual_seed(51)
+    shape = (DL_BATCH, DL_CROP // 4, DL_CROP // 4, 256)
+    x = torch.randn(shape, device="cuda", generator=g) * 2 + 0.5
+    dy = torch.randn(shape, device="cuda", generator=g)
+    w = (1 + 0.3 * torch.randn(256, device="cuda", generator=g)
+         ).requires_grad_()
+    b = (0.2 * torch.randn(256, device="cuda", generator=g)).requires_grad_()
+    outs, ms = {}, {}
+    for name, fn in (("fused", FusedGlobalBatchNorm),
+                     ("written", GlobalBatchNorm)):
+        def run():
+            xs = x.detach().requires_grad_()
+            w.grad = b.grad = None
+            y, mean, var = fn.apply(xs, w, b, 1e-5, grp)
+            y.backward(dy)
+            return [y.detach(), mean, var, xs.grad, w.grad, b.grad]
+        outs[name] = run()
+        ms[name] = cuda_ms(run, 5)
+    names = ("y", "mean", "var", "dx", "dw", "db")
+    rel = {n: rel_l2(a, c) for n, a, c in zip(names, outs["fused"],
+                                               outs["written"])}
+    check_later(max(rel.values()) <= SO_BN_REL,
+                f"global BN: the fused version differs from the written-out "
+                f"one on the card: {rel} (bound {SO_BN_REL})")
+    return dict(rel_l2=rel, bound=SO_BN_REL, ms=ms, shape=list(shape))
+
+
+def scale_out_deeplab(torch, grp, smi):
+    """Phase 11 (a), DeepLab: the experiment's step (DeepLabV3+ resnet50,
+    crop 480, batch 8, f32 with TF32 convs) with batch norm over ``grp``
+    and the gradient all-reduce captured in the step's graph:
+    ``DL_GRAPH_STEPS`` graphed steps against as many eager steps in cuDNN's
+    deterministic mode, then ms per step as replays with and without the
+    group, and the fused global BN against the written-out one."""
+    import gc
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+    from gan_segmentation_tpu_torch.models.resnet import set_process_group
+    from gan_segmentation_tpu_torch.ops import norm
+
+    images, masks = deeplab_batch(torch)
+    model = DeepLabV3Plus(DL_CLASSES, "resnet50", aux=True, crop_size=DL_CROP,
+                          generator=torch.Generator().manual_seed(41))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.cuda()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        set_process_group(model, grp)
+        with cudnn_deterministic(torch):
+            eager = deeplab_graph_twin(torch, model, state, images, masks,
+                                       torch.float32, graphed=False,
+                                       group=grp)
+            graphed = deeplab_graph_twin(torch, model, state, images, masks,
+                                         torch.float32, graphed=True,
+                                         group=grp)
+        differ = [k for k in eager[1]
+                  if not torch.equal(eager[1][k], graphed[1][k])]
+        same = dict(losses=bool(torch.equal(eager[0], graphed[0])),
+                    tensors_differ=len(differ),
+                    generator=bool(torch.equal(eager[2], graphed[2])))
+        check_later(same["losses"] and not differ and same["generator"],
+                    f"scale-out deeplab: {DL_GRAPH_STEPS} graphed steps with "
+                    f"the captured all-reduce differ from the eager steps: "
+                    f"{same}, first tensors {differ[:3]}")
+        with_group = deeplab_graph_profile(torch, model, state, images,
+                                           masks, torch.float32, group=grp)
+        with mock.patch.object(norm, "FusedGlobalBatchNorm",
+                               norm.GlobalBatchNorm):
+            written = deeplab_graph_profile(torch, model, state, images,
+                                            masks, torch.float32, group=grp)
+        set_process_group(model, None)
+        without = deeplab_graph_profile(torch, model, state, images, masks,
+                                        torch.float32)
+        bn = global_bn_card_vs_written(torch, grp)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+        set_process_group(model, None)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"scale-out (a) deeplab crop {DL_CROP} batch {DL_BATCH}, f32 with "
+        f"TF32 convs, world of one over NCCL: {DL_GRAPH_STEPS} graphed steps "
+        f"(global BN, the all-reduce captured) against eager: {same}; ms "
+        f"per step as replays with the group {with_group['ms']:.3f} (its "
+        f"batch norm written out {written['ms']:.3f}), without "
+        f"{without['ms']:.3f}; launches per step "
+        f"{with_group['launches']} ({without['launches']} without), NCCL "
+        f"kernels among them {with_group['nccl_launches']:.2f}; fused "
+        f"global BN against the written-out one: rel. L2 "
+        f"{max(bn['rel_l2'].values()):.2e}, ms {bn['ms']['fused']:.3f} "
+        f"against {bn['ms']['written']:.3f} on {smi}")
+    keep = ("ms", "host_enqueue_ms", "busy_ms", "busy_share", "launches",
+            "nccl_launches", "pool_gib", "replays")
+    return dict(bit_equal=same, losses=graphed[0].tolist(),
+                with_group={k: with_group[k] for k in keep},
+                with_group_bn_written={k: written[k] for k in keep},
+                without_group={k: without[k] for k in keep}, global_bn=bn)
+
+
+def scale_out_cfg(**kw):
+    import dataclasses
+
+    from gan_segmentation_tpu_torch.core.config import SolverConfig
+    return dataclasses.replace(SolverConfig(max_res_log2=10),
+                               train_epochs=SO_EPOCHS, **{**SO_FIT_OPT, **kw})
+
+
+def scale_out_fit(torch, base, tag, group=None, **kw):
+    """A ``SO_EPOCHS``-epoch fit from the seeded init on ``base``/data ->
+    (per-step losses, weights, wall seconds, whether it ran as graph
+    replays, the initial weights)."""
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+    solver = SegSolver(10, join(base, "data"), join(base, f"ckpt-{tag}"),
+                       cfg=scale_out_cfg(**kw), group=group)
+    init = {k: v.clone() for k, v in solver.model.state_dict().items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = ([x for e in solver.history for x in e],
+           {k: v.clone() for k, v in solver.model.state_dict().items()},
+           wall, solver._scan_epochs(object()), init)
+    del solver
+    torch.cuda.empty_cache()
+    return out
+
+
+def losses_close(got, want, rtol=SO_FIT_RTOL):
+    import numpy as np
+    got, want = np.asarray(got), np.asarray(want)
+    return (got.shape == want.shape and bool(np.all(
+        np.abs(got - want) <= rtol * np.abs(want)))), float(
+        np.max(np.abs(got - want) / np.abs(want))) if len(want) else 0.0
+
+
+def weights_close(got, want, init):
+    """A fit's final weights against another's from the same ``init``
+    (``state_dict``s): -> (whether every float tensor is within
+    ``SO_PARAM_TOL``, rtol and atol, and the parameters' change from
+    ``init`` within ``SO_CHANGE_REL``, rel. L2 as one vector; the tensor
+    farthest apart and its largest difference; that rel. L2; the change's
+    L2 over the parameters')."""
+    import torch
+    keys = [k for k in want if want[k].is_floating_point()]
+    g, w, i = ({k: d[k].detach().double().cpu() for k in keys}
+               for d in (got, want, init))
+    close = all(torch.allclose(g[k], w[k], rtol=SO_PARAM_TOL,
+                               atol=SO_PARAM_TOL) for k in keys)
+    diffs = {k: float((g[k] - w[k]).abs().max()) for k in keys}
+    worst = max(diffs, key=diffs.get)
+    params = [k for k in keys  # not the running statistics
+              if not k.endswith(("running_mean", "running_var"))]
+    dg = torch.cat([(g[k] - i[k]).flatten() for k in params])
+    dw = torch.cat([(w[k] - i[k]).flatten() for k in params])
+    change = rel_l2(dg, dw)
+    size = float(dw.norm() / torch.cat(
+        [i[k].flatten() for k in params]).norm())
+    return (close and change <= SO_CHANGE_REL, (worst, diffs[worst]),
+            change, size)
+
+
+def scale_out_decoder(torch, grp, base, smi):
+    """Phase 11 (a), decoder: the fit at ffhq 1024^2, f32, graphed (the
+    collection resident), with batch norm and the gradient all-reduce over
+    ``grp``, under a device trace (kernels 2 and 3, NCCL), against the same
+    fit without the group, in cuDNN's deterministic mode."""
+    with cudnn_deterministic(torch), tf32(torch, False):
+        plain = scale_out_fit(torch, base, "plain")
+        with LaunchTrace(torch) as trace:
+            grouped = scale_out_fit(torch, base, "group", group=grp)
+    nccl = sum("nccl" in n.lower() for n in device_kernel_names(trace.prof))
+    ok, dist = losses_close(grouped[0], plain[0])
+    w_ok, worst, change, size = weights_close(grouped[1], plain[1], plain[4])
+    check_later(ok and w_ok,
+                f"scale-out decoder fit with the group: per-step losses "
+                f"{grouped[0]} against {plain[0]} without; weights: "
+                f"farthest {worst}, parameters' change rel. L2 {change:.3g}")
+    check_later(grouped[3] and trace.device["bil_conv"] > 0
+                and trace.device["small_conv"] > 0,
+                f"scale-out decoder fit: not graphed or kernels 2 and 3 "
+                f"missing from the trace: {trace.device}")
+    steps = len(grouped[0])
+    log(f"scale-out (a) decoder fit ffhq 1024^2, {SO_SAMPLES} samples x "
+        f"{SO_EPOCHS} epochs, SGD, graphed, world of one over NCCL: "
+        f"per-step losses within {dist:.2e} relative of the fit without the "
+        f"group (bound {SO_FIT_RTOL}); weights: farthest {worst[0]} by "
+        f"{worst[1]:.3g} (bound {SO_PARAM_TOL} rtol and atol), the "
+        f"parameters' change within {change:.3g} rel. L2 (bound "
+        f"{SO_CHANGE_REL}; the change is {size:.3g} of the parameters); "
+        f"{grouped[2]:.2f} s against "
+        f"{plain[2]:.2f} s; device trace {trace.device}, NCCL kernels "
+        f"{nccl} over {steps} steps on {smi}")
+    return dict(steps=steps, loss_rel_dist=dist, weights_worst=worst,
+                change_rel_l2=change, change_size=size, seconds=grouped[2],
+                seconds_without_group=plain[2], launches=trace.device,
+                nccl_launches=nccl, losses=grouped[0])
+
+
+SO_DP_BATCHES = 3        # the eager first batch, the capture's, a replay
+
+
+def scale_out_dp_pipeline(torch, smi):
+    """``FusedPipeline(mesh=[cuda:0, cuda:0])``, the machinery of
+    ``generate --dp 2`` on the one card (two replicas, each its graph, half
+    the batch each), at ffhq 1024^2, batch 8, bf16, under a device trace:
+    its batches against the one-device pipeline's from the same seed.
+    Equal bit for bit only if every kernel computes a sample of a batch of
+    4 as it does in a batch of 8, so the differences are recorded; held bit
+    for bit instead to the one-device program run eagerly on each half of
+    the same z and noise (what each replica was given)."""
+    import numpy as np
+
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator,
+                                                            _infer)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    none = tempfile.mkdtemp()
+    try:
+        solver = SegSolver(10, "", join(none, "no-checkpoints"))
+
+        def pipeline(mesh=None):
+            return FusedPipeline(ImageGenerator(
+                gan="ffhq", gan_dir=none, batch_size=BATCH, seed=3),
+                solver, mesh=mesh)
+
+        with tf32(torch, False):
+            one = pipeline()
+            want = [[t.cpu() for t in one.sample_batch()]
+                    for _ in range(SO_DP_BATCHES)]
+            halves, draw = [], ImageGenerator(gan="ffhq", gan_dir=none,
+                                              batch_size=BATCH, seed=3)
+            for _ in range(SO_DP_BATCHES):
+                z, noise = draw.draw_inputs(BATCH)
+                parts = [_infer(one.program(), z[h].clone(), noise={
+                    k: v[h].clone() for k, v in noise.items()})
+                    for h in (slice(0, BATCH // 2), slice(BATCH // 2, None))]
+                halves.append([torch.cat([p[i] for p in parts]).cpu()
+                               for i in (0, 1)])
+            del one, draw
+            two = pipeline(["cuda:0", "cuda:0"])
+            with LaunchTrace(torch) as trace:
+                got = [[t.cpu() for t in two.sample_batch()]
+                       for _ in range(SO_DP_BATCHES)]
+        replays = [c.replays for c, _, _ in two._parts.values()]
+        del two, solver
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(none, ignore_errors=True)
+    equal = all(torch.equal(g, w) for gb, wb in zip(got, want)
+                for g, w in zip(gb, wb))
+    halves_equal = all(torch.equal(g, w) for gb, wb in zip(got, halves)
+                       for g, w in zip(gb, wb))
+    img_diff = max(int((g[0].int() - w[0].int()).abs().max())
+                   for g, w in zip(got, want))
+    bits = [np.unpackbits((g[1] ^ w[1]).numpy()) for g, w in zip(got, want)]
+    bit_share = float(sum(int(b.sum()) for b in bits)) / sum(
+        b.size for b in bits)
+    check_later(halves_equal and trace.device["conv_in_stats"] > 0
+                and trace.device["small_conv"] > 0
+                and replays == [SO_DP_BATCHES - 1] * 2,
+                f"generate --dp 2 on one card: halves equal {halves_equal}, "
+                f"launches {trace.device}, replays {replays}")
+    log(f"scale-out (a) generate split over two replicas on the one card "
+        f"(--dp 2's machinery), ffhq 1024^2, batch 8 = 4 + 4, bf16: "
+        f"{SO_DP_BATCHES} batches bit-equal to one device {equal} (largest "
+        f"image difference {img_diff}, mask bits differing "
+        f"{bit_share:.2e}), to the one-device program on each half of the "
+        f"same inputs {halves_equal}; device trace {trace.device}, replays "
+        f"{replays} on {smi}")
+    return dict(bit_equal_to_one_device=equal,
+                bit_equal_to_one_device_by_halves=halves_equal,
+                max_image_diff=img_diff,
+                mask_bits_differing=bit_share, launches=trace.device,
+                replays=replays)
+
+
+def nccl_pair_rank(index, port, out):
+    """One of two processes that ask NCCL for a group on the one card."""
+    import torch
+    import torch.distributed as dist
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=index,
+            world_size=2, device_id=torch.device("cuda", 0))
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        result = f"all_reduce gave {t.item()}"
+    except Exception as exc:  # the refusal is the expected outcome
+        result = f"{type(exc).__name__}: {exc}"
+    with open(join(out, f"nccl_{index}.txt"), "w") as fh:
+        fh.write(result)
+    try:
+        dist.destroy_process_group()
+    except Exception:
+        pass
+
+
+def run_processes(target, args, n, timeout):
+    """``target(index, *args)`` in ``n`` spawned processes; -> whether all
+    ended within ``timeout`` seconds (those that did not are killed).  A
+    process that raises fails here."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(target, args=args, nprocs=n, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                return False
+        return True
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def scale_out_dataset(torch, root):
+    """``SO_TRAIN`` + ``SO_VAL`` synthetic 512^2 pairs (the blocky colour
+    field of ``deeplab_batch``, ignore written as 255) in the layout
+    ``generate`` writes."""
+    import cv2
+    import numpy as np
+    images, masks = deeplab_batch(torch, batch=SO_TRAIN + SO_VAL, size=512,
+                                  seed=61, device="cpu")
+    for split, first, n in (("train_generated", 0, SO_TRAIN),
+                            ("val", SO_TRAIN, SO_VAL)):
+        d = join(root, split)
+        os.makedirs(d)
+        for j in range(n):
+            m = masks[first + j].numpy().astype(np.int16)
+            m[m < 0] = 255
+            cv2.imwrite(join(d, f"img_{j:06d}.jpg"),
+                        images[first + j].numpy()[:, :, ::-1])
+            cv2.imwrite(join(d, f"mask_{j:06d}.png"), m.astype(np.uint8))
+
+
+def scale_out_runner_argv(base):
+    return ["train", "--input-path", join(base, "rgb"), "--crop-size", "480",
+            "--base-size", "512", "--scale-factor", "1.0", "--epochs", "1",
+            "--epoch-len", str(SO_TRAIN), "--batch-size", "8",
+            "--test-batch-size", "8", "--workers", "1", "--no-preempt-save"]
+
+
+def scale_out_app_config(base, world=SO_WORLD):
+    from gan_segmentation_tpu_torch.core.config import AppConfig
+    return AppConfig(BASE_DIR=join(base, "gen"), GAN="ffhq",
+                     GAN_DIR=join(base, "no-models"),
+                     GAN_BATCH_SIZE_PER_GPU=BATCH,
+                     GENERATE_NUM=world * SO_GEN_PER_RANK)
+
+
+@contextlib.contextmanager
+def tf32(torch, convs, matmul=False):
+    """cuDNN's and cuBLAS's TF32 switches for a span, restored after."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = convs
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def scale_out_rank(base, out):
+    """One of the ``SO_WORLD`` processes of phase 11 (b) on the one card,
+    joined over gloo (started by the runner's ``_spawned``, which sets the
+    launcher's environment): the decoder fit at global batch 2, the
+    experiment runner's training and validation, and ``generate``; each
+    with the kernel wrappers' counts set to 0 before it; -> a JSON file."""
+    import torch
+
+    from gan_segmentation_tpu_torch.apps import main as app
+    from gan_segmentation_tpu_torch.core import distributed as dist_
+    from gan_segmentation_tpu_torch.train import rgb_experiments as rx
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    assert dist_.initialize(cuda=True, backend="gloo")
+    rank = dist_.process_index()
+    fns = kernel_wrappers()
+
+    def zero():
+        for fn in fns.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in fns.items()}
+
+    res = {"rank": rank, "device": torch.cuda.current_device()}
+    zero()
+    solver = SegSolver(10, join(base, "data"), join(out, f"fit-{rank}"),
+                       cfg=scale_out_cfg(train_batch_size=SO_WORLD,
+                                         use_dropout=False))
+    with tf32(torch, False):  # as the one-process fit it is held to
+        solver.fit()
+    res["fit"] = dict(losses=[x for e in solver.history for x in e],
+                      launches=counts(), cached=solver.cache_active,
+                      graphed=solver._scan_epochs(object()))
+    torch.save({k: v.cpu() for k, v in solver.model.state_dict().items()},
+               join(out, f"fit-{rank}.pt"))
+    del solver
+    torch.cuda.empty_cache()
+    with tf32(torch, True):  # f32 with TF32 convs, as the experiment runs
+        trainer = rx.run(rx.SPECS[SO_SPEC], scale_out_runner_argv(base),
+                         exp_path=join(out, "exp"))
+    m = trainer.metric
+    res["runner"] = dict(
+        counters=[m.total_inter.tolist(), m.total_union.tolist(),
+                  int(m.total_correct), int(m.total_label)],
+        run_path=str(trainer.args.run_path), graphed=trainer.graphed,
+        world=[trainer._pi, trainer._pc], steps=trainer.scheduler.last_epoch)
+    del trainer
+    torch.cuda.empty_cache()
+    zero()
+    with tf32(torch, False):
+        app.run_generate(scale_out_app_config(base), writer="cv2")
+    res["generate"] = counts()
+    with open(join(out, f"rank-{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def scale_out_one_validation(torch, base, run_path, world=SO_WORLD):
+    """The validation of the primary's checkpoint in one process, eager,
+    each image scored once in the batches of 8 / ``world`` that the
+    processes ran (the ragged tail's last image padded with itself): the
+    confusion counters."""
+    import dataclasses
+    import types
+
+    from gan_segmentation_tpu_torch.data.feed import stack_batch
+    from gan_segmentation_tpu_torch.train import rgb_experiments as rx
+    from gan_segmentation_tpu_torch.train.deeplab_trainer import (
+        SegmentationTrainer)
+    spec = dataclasses.replace(rx.SPECS[SO_SPEC], scale_factor=1.0,
+                               num_epochs=1, train_epoch_len=SO_TRAIN)
+    args = types.SimpleNamespace(
+        input_path=join(base, "rgb"), reader="cv2", batch_size=8,
+        test_batch_size=8 // world, workers=1, seed=0, logs_path=None,
+        weights=join(run_path, "checkpoints", "last_checkpoint.pt"),
+        checkpoints_path=join(base, "one-val"), device="cuda:0")
+    model, model_cfg = rx.init_model(spec)
+    trainset, valset = rx.datasets(args, spec)
+    trainer = SegmentationTrainer(
+        args, model, model_cfg, trainset, valset,
+        {"baselr": spec.lr, "nepochs": 1, "wd": spec.weight_decay,
+         "momentum": 0.9}, graphed=False)
+    per = 8 // world
+    trainer.metric.reset()
+    for first in range(0, SO_VAL, per):
+        idx = [min(i, SO_VAL - 1) for i in range(first, first + per)]
+        imgs, masks, _ = stack_batch([valset[i] for i in idx])
+        trainer._score(imgs, masks, per, min(per, SO_VAL - first))
+    m = trainer.metric
+    out = [m.total_inter.tolist(), m.total_union.tolist(),
+           int(m.total_correct), int(m.total_label)]
+    del trainer, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def scale_out_processes(torch, base, smi):
+    """Phase 11 (b): two processes on the one card.  First whether NCCL
+    refuses two ranks on one device; then, over gloo and eager, the
+    decoder fit at global batch 2 = 1 + 1 against one process at batch 2,
+    the runner's DeepLab training (global batch 8 = 4 + 4, one epoch of 2
+    steps) and validation over a ragged set against the primary's
+    checkpoint validated in one process, and ``generate`` of 16 pairs per
+    process against one process with each one's seed, byte for byte."""
+    from gan_segmentation_tpu_torch.apps.main import _write_pairs_cv2
+    from gan_segmentation_tpu_torch.core.distributed import free_port
+    from gan_segmentation_tpu_torch.train.experiments import _spawned
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    out = join(base, "ranks")
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ended = run_processes(nccl_pair_rank, (free_port(), out), SO_WORLD, 60)
+    nccl = {}
+    for r in range(SO_WORLD):
+        path = join(out, f"nccl_{r}.txt")
+        nccl[r] = open(path).read() if os.path.exists(path) else (
+            "no result" + ("" if ended else " (killed after 60 s)"))
+    nccl_s = time.perf_counter() - t0
+    log(f"scale-out (b): NCCL with two ranks on the one card: {nccl}")
+
+    scale_out_dataset(torch, join(base, "rgb"))
+    app_cfg = scale_out_app_config(base)
+    ckpt = join(app_cfg.BASE_DIR, "checkpoints")
+    SegSolver(10, "", ckpt, cfg=app_cfg.solver_config()).save()
+    t0 = time.perf_counter()
+    ok = run_processes(_spawned, (["cuda:0"] * SO_WORLD, free_port(),
+                                  scale_out_rank, (base, out)),
+                       SO_WORLD, SO_TIMEOUT)
+    assert ok, f"scale-out (b): the processes did not end in {SO_TIMEOUT} s"
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.load(open(join(out, f"rank-{r}.json")))
+             for r in range(SO_WORLD)]
+
+    # the decoder fit: two processes against one at the global batch, from
+    # the same seeded init
+    with tf32(torch, False):
+        one = scale_out_fit(torch, base, "one", train_batch_size=SO_WORLD,
+                            use_dropout=False, scan_epochs=False)
+    fit_ok, fit_dist = True, 0.0
+    for r in ranks:
+        ok, d = losses_close(r["fit"]["losses"], one[0])
+        fit_ok, fit_dist = fit_ok and ok, max(fit_dist, d)
+    w0 = torch.load(join(out, "fit-0.pt"), weights_only=True)
+    w1 = torch.load(join(out, "fit-1.pt"), weights_only=True)
+    replicas_equal = all(torch.equal(w0[k], w1[k]) for k in w0)
+    w_ok, worst, change, size = weights_close(w0, one[1], one[4])
+    check_later(fit_ok and w_ok and replicas_equal and all(
+        not r["fit"]["graphed"] and r["fit"]["launches"]["bil_conv"] > 0
+        for r in ranks),
+        f"scale-out (b) fit: losses {[r['fit']['losses'] for r in ranks]} "
+        f"against {one[0]}; weights: farthest {worst}, parameters' change "
+        f"rel. L2 {change:.3g}; replicas equal {replicas_equal}")
+
+    # the runner: one run dir, the primary's files, the counters
+    runs = os.listdir(join(out, "exp", "runs"))
+    run_path = ranks[0]["runner"]["run_path"]
+    files = sorted(os.listdir(join(run_path, "checkpoints")))
+    with tf32(torch, True):
+        want = scale_out_one_validation(torch, base, run_path)
+    counters_equal = all(r["runner"]["counters"] == want for r in ranks)
+    check_later(len(runs) == 1 and files == ["last_checkpoint.pt"]
+                and counters_equal and all(
+                    r["runner"]["run_path"] == run_path
+                    and r["runner"]["steps"] == SO_TRAIN // 8
+                    and not r["runner"]["graphed"] for r in ranks),
+                f"scale-out (b) runner: runs {runs}, checkpoints {files}, "
+                f"counters {[r['runner']['counters'] for r in ranks]} "
+                f"against {want}")
+
+    # generate: each process's slice against one process with its seed
+    solver = SegSolver(10, "", ckpt, cfg=app_cfg.solver_config())
+    dst = join(app_cfg.BASE_DIR, "dataset", "train_generated")
+    same_files = True
+    for r in range(SO_WORLD):
+        one_dir = join(base, f"one-gen-{r}")
+        os.makedirs(one_dir)
+        pipe = FusedPipeline(ImageGenerator(
+            gan="ffhq", gan_dir=app_cfg.GAN_DIR, batch_size=BATCH, seed=r),
+            solver)
+        with tf32(torch, False):
+            _write_pairs_cv2(pipe, SO_GEN_PER_RANK, one_dir,
+                             r * SO_GEN_PER_RANK, None)
+        for name in os.listdir(one_dir):
+            with open(join(one_dir, name), "rb") as a, \
+                    open(join(dst, name), "rb") as b:
+                same_files = same_files and a.read() == b.read()
+        del pipe
+    written = len(os.listdir(dst))
+    check_later(same_files and written == 2 * SO_WORLD * SO_GEN_PER_RANK
+                and all(r["generate"]["conv_in_stats"] > 0
+                        and r["generate"]["small_conv"] > 0 for r in ranks),
+                f"scale-out (b) generate: files equal {same_files}, "
+                f"{written} written, launches "
+                f"{[r['generate'] for r in ranks]}")
+    del solver
+    torch.cuda.empty_cache()
+    log(f"scale-out (b) {SO_WORLD} processes on the one card over gloo, "
+        f"eager ({ranks_s:.1f} s): decoder fit at global batch "
+        f"{SO_WORLD}, SGD: per-step losses within {fit_dist:.2e} relative of "
+        f"one process at batch {SO_WORLD}, replicas bit-equal "
+        f"{replicas_equal}, weights farthest {worst[0]} by {worst[1]:.3g} "
+        f"(bound {SO_PARAM_TOL} rtol and atol), the parameters' change "
+        f"within {change:.3g} rel. L2 (bound {SO_CHANGE_REL}; the change is "
+        f"{size:.3g} of the parameters); runner: one run dir, "
+        f"checkpoints {files}, validation counters equal to one process on "
+        f"the primary's checkpoint {counters_equal}; generate "
+        f"{SO_GEN_PER_RANK} pairs a process, files equal to one process "
+        f"with the rank's seed {same_files}; launches "
+        f"{[r['generate'] for r in ranks]} on {smi}")
+    return dict(
+        nccl_two_ranks_one_card=nccl, nccl_probe_s=nccl_s,
+        processes_s=ranks_s,
+        fit=dict(loss_rel_dist=fit_dist, replicas_bit_equal=replicas_equal,
+                 weights_worst=worst, change_rel_l2=change,
+                 change_size=size,
+                 launches=[r["fit"]["launches"] for r in ranks]),
+        runner=dict(run_dirs=len(runs), checkpoints=files,
+                    counters_equal=counters_equal, counters=want),
+        generate=dict(files_equal=same_files, written=written,
+                      launches=[r["generate"] for r in ranks]))
+
+
+def phase_scale_out(torch, smi):
+    """Phase 11: (a) a world of one over NCCL in this process, the group
+    passed explicitly: the DeepLab step and the decoder fit; (b) two
+    processes on the one card over gloo."""
+    from gan_segmentation_tpu_torch.train.generator import ImageGenerator
+
+    base = tempfile.mkdtemp()
+    try:
+        gen = ImageGenerator(gan="ffhq", batch_size=BATCH, dtype="fp32",
+                             gan_dir=join(base, "no-models"), seed=0)
+        make_collection(gen, join(base, "data"), SO_SAMPLES)
+        del gen
+        torch.cuda.empty_cache()
+        with world_of_one(torch) as grp:
+            dl = scale_out_deeplab(torch, grp, smi)
+            dec = scale_out_decoder(torch, grp, base, smi)
+        dp = scale_out_dp_pipeline(torch, smi)
+        procs = scale_out_processes(torch, base, smi)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return dict(deeplab=dl, decoder_fit=dec, generate_dp=dp,
+                processes=procs)
+
+
+# ------------------------------------------------- several cards (by hand)
+MC_SAMPLES = 8           # ffhq 1024^2 samples of the fits across cards
+MC_EPOCH_LEN = 32        # the runner's draws: 4 steps of 8, 2 of them replays
+MC_TIMEOUT = 240         # seconds for the processes
+MC_RATE_BATCHES = 6      # batches timed per generate pipeline
+
+
+def multi_card_rank(base, out):
+    """One process per card over NCCL (started by the runner's
+    ``_spawned``, which sets the launcher's environment): the decoder fit
+    at global batch P, graphed with the all-reduce captured; the DeepLab
+    step as replays across the cards (batch 8 a card); the experiment
+    runner's graphed training and ragged validation; ``generate`` of 16
+    pairs a process.  -> a JSON file."""
+    import torch
+
+    from gan_segmentation_tpu_torch.apps import main as app
+    from gan_segmentation_tpu_torch.core import distributed as dist_
+    from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+    from gan_segmentation_tpu_torch.models.resnet import set_process_group
+    from gan_segmentation_tpu_torch.train import rgb_experiments as rx
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    assert dist_.initialize(cuda=True)
+    rank, world, grp = (dist_.process_index(), dist_.process_count(),
+                        dist_.group())
+    fns = kernel_wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    res = {"rank": rank, "device": torch.cuda.current_device()}
+    solver = SegSolver(10, join(base, "data"), join(out, f"fit-{rank}"),
+                       cfg=scale_out_cfg(train_batch_size=world,
+                                         use_dropout=False))
+    with tf32(torch, False):
+        solver.fit()
+    res["fit"] = dict(losses=[x for e in solver.history for x in e],
+                      graphed=solver._scan_epochs(object()),
+                      launches={k: fn.launches for k, fn in fns.items()})
+    torch.save({k: v.cpu() for k, v in solver.model.state_dict().items()},
+               join(out, f"fit-{rank}.pt"))
+    del solver
+    torch.cuda.empty_cache()
+    images, masks = deeplab_batch(torch, seed=21 + rank)
+    model = DeepLabV3Plus(DL_CLASSES, "resnet50", aux=True, crop_size=DL_CROP,
+                          generator=torch.Generator().manual_seed(41))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.cuda()
+    set_process_group(model, grp)
+    with tf32(torch, True):
+        prof = deeplab_graph_profile(torch, model, state, images, masks,
+                                     torch.float32, group=grp)
+    res["deeplab"] = {k: prof[k] for k in (
+        "ms", "host_enqueue_ms", "busy_ms", "busy_share", "launches",
+        "nccl_launches", "replays")}
+    del model, state
+    torch.cuda.empty_cache()
+    with tf32(torch, True):
+        trainer = rx.run(rx.SPECS[SO_SPEC], [
+            "train", "--input-path", join(base, "rgb"), "--crop-size", "480",
+            "--base-size", "512", "--scale-factor", "1.0", "--epochs", "1",
+            "--epoch-len", str(MC_EPOCH_LEN), "--batch-size", "8",
+            "--test-batch-size", "8", "--workers", "1",
+            "--no-preempt-save"], exp_path=join(out, "exp"))
+    m = trainer.metric
+    res["runner"] = dict(
+        counters=[m.total_inter.tolist(), m.total_union.tolist(),
+                  int(m.total_correct), int(m.total_label)],
+        run_path=str(trainer.args.run_path), graphed=trainer.graphed,
+        world=[trainer._pi, trainer._pc], steps=trainer.scheduler.last_epoch,
+        replays=sum(c.replays for c in
+                    trainer._train_graph.fn.calls.values()))
+    del trainer
+    torch.cuda.empty_cache()
+    for fn in fns.values():
+        fn.launches = 0
+    with tf32(torch, False):
+        app.run_generate(scale_out_app_config(base, world), writer="cv2")
+    res["generate"] = {k: fn.launches for k, fn in fns.items()}
+    with open(join(out, f"rank-{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def generate_rate(torch, pipe, batches=MC_RATE_BATCHES):
+    """Samples/s of ``pipe.generate_batches`` over ``batches`` batches after
+    three (the eager first, the capture, a replay)."""
+    b = pipe.gen.batch_size
+    for _ in pipe.generate_batches(3 * b):
+        pass
+    t0 = time.perf_counter()
+    for _ in pipe.generate_batches(batches * b):
+        pass
+    return batches * b / (time.perf_counter() - t0)
+
+
+def multi_card_dp(torch, n, smi):
+    """``generate --dp n`` in this process: each batch of 8 n split over
+    the n cards, one replica and graph a card, against the one-device
+    program on each part of the same inputs (bit for bit), and samples/s
+    beside one card at batch 8."""
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator,
+                                                            _infer)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    none = tempfile.mkdtemp()
+    try:
+        solver = SegSolver(10, "", join(none, "no-checkpoints"))
+        cards = [torch.device("cuda", i) for i in range(n)]
+        with tf32(torch, False):
+            one = FusedPipeline(ImageGenerator(
+                gan="ffhq", gan_dir=none, batch_size=BATCH, seed=3), solver)
+            one_rate = generate_rate(torch, one)
+            dp = FusedPipeline(ImageGenerator(
+                gan="ffhq", gan_dir=none, batch_size=BATCH * n, seed=3),
+                solver, mesh=cards)
+            draw = ImageGenerator(gan="ffhq", gan_dir=none,
+                                  batch_size=BATCH * n, seed=3)
+            with LaunchTrace(torch) as trace:
+                got = [[t.cpu() for t in dp.sample_batch()] for _ in range(3)]
+            want = []
+            for _ in range(3):
+                z, noise = draw.draw_inputs(BATCH * n)
+                parts = [_infer(one.program(), z[k * BATCH:(k + 1) * BATCH]
+                                .clone(), noise={
+                                    name: v[k * BATCH:(k + 1) * BATCH].clone()
+                                    for name, v in noise.items()})
+                         for k in range(n)]
+                want.append([torch.cat([p[i] for p in parts]).cpu()
+                             for i in (0, 1)])
+            dp_rate = generate_rate(torch, dp)
+        equal = all(torch.equal(g, w) for gb, wb in zip(got, want)
+                    for g, w in zip(gb, wb))
+        replays = [c.replays for c, _, _ in dp._parts.values()]
+        del one, dp, draw, solver
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(none, ignore_errors=True)
+    check_later(equal and trace.device["conv_in_stats"] > 0,
+                f"generate --dp {n}: parts equal to the one-device program "
+                f"{equal}, launches {trace.device}")
+    log(f"several cards: generate --dp {n}, ffhq 1024^2, batch {BATCH * n} "
+        f"= {n} x {BATCH}, bf16: each card's part bit-equal to the "
+        f"one-device program on it {equal}; {dp_rate:.3f} samples/s against "
+        f"{one_rate:.3f} on one card at batch {BATCH}; device trace "
+        f"{trace.device}, replays {replays} on {smi}")
+    return dict(parts_bit_equal=equal, samples_per_s=dp_rate,
+                one_card_samples_per_s=one_rate, launches=trace.device,
+                replays=replays)
+
+
+def phase_multi_card(torch, smi):
+    """Scale-out across the machine's cards (two or more; not part of the
+    script's default run, which needs one card): ``generate --dp`` in one
+    process, then one process per card over NCCL through the runner's
+    spawn entry: the decoder fit against one process at the global batch,
+    the DeepLab step as replays across the cards beside one card's, the
+    runner's graphed training and ragged validation (counters equal to
+    one process on the primary's checkpoint), and ``generate``'s slices
+    (each equal to one process with the rank's seed, byte for byte)."""
+    import gc
+
+    from gan_segmentation_tpu_torch.apps.main import _write_pairs_cv2
+    from gan_segmentation_tpu_torch.core.distributed import free_port
+    from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+    from gan_segmentation_tpu_torch.train.experiments import _spawned
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    n = torch.cuda.device_count()
+    assert n >= 2, f"phase_multi_card needs two cards or more, found {n}"
+    base = tempfile.mkdtemp()
+    try:
+        dp = multi_card_dp(torch, n, smi)
+        gen = ImageGenerator(gan="ffhq", batch_size=BATCH, dtype="fp32",
+                             gan_dir=join(base, "no-models"), seed=0)
+        make_collection(gen, join(base, "data"), MC_SAMPLES)
+        del gen
+        scale_out_dataset(torch, join(base, "rgb"))
+        app_cfg = scale_out_app_config(base, n)
+        ckpt = join(app_cfg.BASE_DIR, "checkpoints")
+        SegSolver(10, "", ckpt, cfg=app_cfg.solver_config()).save()
+        # one card's DeepLab step as replays, the baseline of the cards'
+        images, masks = deeplab_batch(torch)
+        model = DeepLabV3Plus(DL_CLASSES, "resnet50", aux=True,
+                              crop_size=DL_CROP,
+                              generator=torch.Generator().manual_seed(41))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        model.cuda()
+        with tf32(torch, True):
+            one_step = deeplab_graph_profile(torch, model, state, images,
+                                             masks, torch.float32)
+        del model, state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out = join(base, "ranks")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        ended = run_processes(_spawned, ([f"cuda:{i}" for i in range(n)],
+                                         free_port(), multi_card_rank,
+                                         (base, out)), n, MC_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        check_later(ended, f"several cards: the processes did not end in "
+                           f"{MC_TIMEOUT} s")
+        ranks = [json.load(open(join(out, f"rank-{r}.json")))
+                 for r in range(n)]
+
+        with tf32(torch, False):
+            one = scale_out_fit(torch, base, "one", train_batch_size=n,
+                                use_dropout=False, scan_epochs=False)
+        fit_ok, fit_dist = True, 0.0
+        for r in ranks:
+            ok, d = losses_close(r["fit"]["losses"], one[0])
+            fit_ok, fit_dist = fit_ok and ok, max(fit_dist, d)
+        w_ok, worst, change, _ = weights_close(
+            torch.load(join(out, "fit-0.pt"), weights_only=True), one[1],
+            one[4])
+        check_later(fit_ok and w_ok
+                    and all(r["fit"]["graphed"] for r in ranks),
+                    f"several cards, fit: losses "
+                    f"{[r['fit']['losses'] for r in ranks]} against {one[0]}; "
+                    f"weights: farthest {worst}, parameters' change rel. L2 "
+                    f"{change:.3g}")
+
+        run_path = ranks[0]["runner"]["run_path"]
+        with tf32(torch, True):
+            want = scale_out_one_validation(torch, base, run_path, n)
+        counters_equal = all(r["runner"]["counters"] == want for r in ranks)
+        check_later(counters_equal and all(
+            r["runner"]["graphed"] and r["runner"]["replays"] > 0
+            for r in ranks),
+            f"several cards, runner: counters "
+            f"{[r['runner']['counters'] for r in ranks]} against {want}")
+
+        solver = SegSolver(10, "", ckpt, cfg=app_cfg.solver_config())
+        dst = join(app_cfg.BASE_DIR, "dataset", "train_generated")
+        same_files = True
+        for r in range(n):
+            one_dir = join(base, f"one-gen-{r}")
+            os.makedirs(one_dir)
+            pipe = FusedPipeline(ImageGenerator(
+                gan="ffhq", gan_dir=app_cfg.GAN_DIR, batch_size=BATCH,
+                seed=r), solver)
+            with tf32(torch, False):
+                _write_pairs_cv2(pipe, SO_GEN_PER_RANK, one_dir,
+                                 r * SO_GEN_PER_RANK, None)
+            for name in os.listdir(one_dir):
+                with open(join(one_dir, name), "rb") as a, \
+                        open(join(dst, name), "rb") as b:
+                    same_files = same_files and a.read() == b.read()
+            del pipe
+        check_later(same_files, "several cards, generate: a process's "
+                                "pairs differ from one process's")
+        del solver
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    step = [r["deeplab"] for r in ranks]
+    log(f"several cards ({n}, NCCL, {ranks_s:.1f} s): decoder fit at global "
+        f"batch {n}, SGD, graphed: losses within {fit_dist:.2e} relative of "
+        f"one process, weights farthest {worst[0]} by {worst[1]:.3g}, the "
+        f"parameters' change within {change:.3g} rel. L2; DeepLab step at 8 a card (global {8 * n}) as replays "
+        f"{[round(s['ms'], 3) for s in step]} ms against {one_step['ms']:.3f} "
+        f"on one card at 8, NCCL kernels a step "
+        f"{[s['nccl_launches'] for s in step]}; runner graphed, ragged "
+        f"validation counters equal to one process {counters_equal}; "
+        f"generate slices equal to one process by seed {same_files} on "
+        f"{smi}")
+    return dict(cards=n, processes_s=ranks_s, processes_ended=ended,
+                generate_dp=dp,
+                fit=dict(loss_rel_dist=fit_dist, weights_worst=worst,
+                         change_rel_l2=change,
+                         launches=[r["fit"]["launches"] for r in ranks]),
+                deeplab=dict(per_card=step, one_card={
+                    k: one_step[k] for k in ("ms", "launches", "busy_share")}),
+                runner=dict(counters_equal=counters_equal,
+                            runs=[r["runner"] for r in ranks]),
+                generate=dict(files_equal=same_files,
+                              launches=[r["generate"] for r in ranks]))
+
+
 def main():
     import torch
 
@@ -4556,6 +5540,10 @@ def main():
     # 10. the closed-loop demo
     demo = phase_demo(torch, smi)
     marks.append(("demo", time.perf_counter()))
+
+    # 11. scale-out: a world of one over NCCL, two processes over gloo
+    so = phase_scale_out(torch, smi)
+    marks.append(("scale-out", time.perf_counter()))
     log("seconds per phase: " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}"
         for i, (name, t) in enumerate(marks[1:])))
@@ -4573,8 +5561,22 @@ def main():
                        "train": tr["launches"]["small_conv"],
                        "evaluate": tr["eval_launches"]},
         "bil_conv": {"train": tr["launches"]["bil_conv"]}}
+    so_procs = so["processes"]
     for path, counted in (("step5_dataset", s5["launches"]),
                           ("demo", demo["launches"]),
+                          ("scale_out_fit", {
+                              k: so["decoder_fit"]["launches"][k]
+                              for k in ("small_conv", "bil_conv")}),
+                          ("scale_out_fit_two_processes", {
+                              k: sum(r[k] for r in so_procs["fit"]["launches"])
+                              for k in ("small_conv", "bil_conv")}),
+                          ("scale_out_generate_dp", {
+                              k: so["generate_dp"]["launches"][k]
+                              for k in ("conv_in_stats", "small_conv")}),
+                          ("scale_out_generate_two_processes", {
+                              k: sum(r[k] for r in
+                                     so_procs["generate"]["launches"])
+                              for k in ("conv_in_stats", "small_conv")}),
                           ("generate_graph_vs_eager", gg["launches"]),
                           ("cars", og["cars"]["launches"]),
                           ("bedrooms", og["bedrooms"]["launches"]),
@@ -4663,6 +5665,7 @@ def main():
     print(json.dumps({"step5": {k: v for k, v in s5.items()
                                 if k != "losses"}}), flush=True)
     print(json.dumps({"demo": demo}), flush=True)
+    print(json.dumps({"scale_out": so}), flush=True)
     if FAILED:
         raise AssertionError("checks failed: " + "; ".join(FAILED))
     print(json.dumps({"kernels": kernels}), flush=True)

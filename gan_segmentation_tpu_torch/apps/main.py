@@ -4,7 +4,7 @@
         [annotation|train|evaluate|generate] --config config.yml
 
 reads ``config.yml`` (keys at reference `main.py:33-43`), seeds numpy with
-0, and runs on one CUDA device:
+0, and runs on the CUDA card:
 - ``annotation`` (the default) the tkinter annotator over GAN samples
   (``apps/annotator.py``): brush strokes to trimaps, Retrain, Generate;
 - ``train``    decoder training on ``BASE_DIR/data`` (checkpoint to
@@ -12,7 +12,16 @@ reads ``config.yml`` (keys at reference `main.py:33-43`), seeds numpy with
 - ``evaluate`` the trained decoder on ``BASE_DIR/eval``: prints accuracy,
   mean-iou and total-loss;
 - ``generate`` the synthetic-dataset emitter: z -> image and mask in one
-  device pass, only uint8 crossing to the host.
+  device pass, only uint8 crossing to the host; ``--dp D`` splits each
+  batch over D cards of this process (0: every card).
+
+Under a launcher (``torchrun --nproc-per-node N -m
+gan_segmentation_tpu_torch.apps.main train|evaluate|generate``) each
+process joins the NCCL group on ``cuda:LOCAL_RANK`` (``core/
+distributed.py``): ``train`` fits data-parallel (the solver's
+``train_batch_size`` is the global batch), ``evaluate`` runs on the
+primary, and ``generate`` gives each process its own z stream (seed =
+rank) and the disjoint index slice ``rank * ceil(N / P)`` onward.
 """
 
 import argparse
@@ -20,12 +29,14 @@ import logging
 import os
 import sys
 from os import makedirs
-from os.path import isdir, isfile, join
+from os.path import isfile, join
 from typing import Optional
 
 import numpy as np
 
+from ..core import distributed as dist_
 from ..core.config import load_config_file
+from ..core.mesh import generate_devices
 from ..train.generator import FusedPipeline, ImageGenerator
 from ..train.solver import SegSolver
 
@@ -44,8 +55,11 @@ def parse_args(argv=None):
              "only 1 is accepted)")
     parser.add_argument(
         "--dp", type=int, default=1, metavar="D",
-        help="generate: data parallelism over D devices (not ported; only 1 "
-             "is accepted)")
+        help="generate: split each batch over D cards of this process "
+             "(0: every card).  On cards the pairs are not bit-equal to "
+             "--dp 1's: each card computes its part at batch B/D, and "
+             "kernels 1 and 2 split their sums by the batch size "
+             "(ROADMAP.md, Queue 3)")
     parser.add_argument(
         "--resume", action="store_true", default=False,
         help="generate: continue an interrupted emission — keep the "
@@ -76,6 +90,8 @@ def run_train(cfg):
 
 
 def run_evaluate(cfg):
+    if not dist_.is_primary():  # the primary evaluates
+        return
     solver = build_solver(cfg, keep_weights=False)
     if not solver.is_trained:
         print("train Decoder first!")
@@ -146,36 +162,52 @@ def resume_offset(dst_dir: str, start: int, n_local: int,
 def run_generate(cfg, spatial: int = 1, writer: str = "auto",
                  resume: bool = False, quant: Optional[str] = None,
                  dp: int = 1):
-    if spatial != 1 or dp != 1:
-        raise SystemExit("--spatial and --dp (multi-device generation) are "
-                         "not ported yet: the PyTorch port generates on one "
-                         "device")
+    """Emit ``GENERATE_NUM`` pairs; under a launcher this process's slice
+    of them, from its own z stream.  ``dp``: the cards of this process over
+    which each batch is split (``core/mesh.py::generate_devices``)."""
     if quant is not None:
         raise SystemExit("--quant (int8 generation) is not ported yet")
+    try:
+        mesh = generate_devices(spatial, dp=None if dp == 1 else dp)
+    except (ValueError, NotImplementedError) as exc:
+        raise SystemExit(str(exc))
+    pc, pi = dist_.process_count(), dist_.process_index()
+    if mesh is not None and pc > 1:
+        raise SystemExit("--dp splits the batches of one process over its "
+                         "cards; under a launcher each process generates "
+                         "on its own card: drop --dp")
     solver = build_solver(cfg)
     if not solver.is_trained:
         print("train Decoder first!")
         sys.exit(-1)
 
-    n_local = cfg.GENERATE_NUM
+    # several processes: each its own z stream (seed = rank) and a disjoint
+    # contiguous slice of the global index range
+    n_total = cfg.GENERATE_NUM
+    share = (n_total + pc - 1) // pc
+    start = pi * share
+    n_local = max(0, min(share, n_total - start))
     batch_size = cfg.GAN_BATCH_SIZE_PER_GPU * max(1, len(cfg.GAN_GPU_IDS))
     netG = ImageGenerator(gan=cfg.GAN, gan_dir=cfg.GAN_DIR,
                           batch_size=batch_size,
-                          max_res_log2=cfg.MAX_RES_LOG2, seed=0)
-    pipeline = FusedPipeline(netG, solver)
+                          max_res_log2=cfg.MAX_RES_LOG2, seed=pi)
+    if mesh is not None:
+        log.info("generate over %d cards: each batch of %d split over them",
+                 len(mesh), batch_size)
+    pipeline = FusedPipeline(netG, solver, mesh=mesh)
 
     dst_dir = join(cfg.BASE_DIR, "dataset", "train_generated")
-    if not isdir(dst_dir):
-        makedirs(dst_dir)
+    makedirs(dst_dir, exist_ok=True)
 
     skip = 0
     if resume:
-        skip = resume_offset(dst_dir, 0, n_local, batch_size)
+        skip = resume_offset(dst_dir, start, n_local, batch_size)
         if skip:
             netG.skip_batches(skip // batch_size)
             log.info("resume: %d pairs already on disk, fast-forwarded the "
                      "z stream %d batches; writing indices %d..%d",
-                     skip, skip // batch_size, skip, n_local - 1)
+                     skip, skip // batch_size, start + skip,
+                     start + n_local - 1)
     n_todo = n_local - skip
 
     progress = None
@@ -189,11 +221,11 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
         writer = "native" if native_available() else "cv2"
     log.info("pair writer: %s", writer)
     write = _write_pairs_native if writer == "native" else _write_pairs_cv2
-    write(pipeline, n_todo, dst_dir, skip, progress)
+    write(pipeline, n_todo, dst_dir, start + skip, progress)
     if progress is not None:
         progress.close()
     log.info("wrote %d (image, mask) pairs to %s (indices %d..%d)",
-             n_todo, dst_dir, skip, n_local - 1)
+             n_todo, dst_dir, start + skip, start + n_local - 1)
 
 
 def run_annotation(cfg):
@@ -220,18 +252,22 @@ def main(argv=None):
                         format="%(levelname)s:%(name)s:%(message)s")
     args = parse_args(argv)
     np.random.seed(0)  # `main.py:29-31`
+    dist_.initialize()  # under a launcher: this process's card and group
     cfg = load_config_file(args.config)
-    if args.action == "train":
-        run_train(cfg)
-    elif args.action == "evaluate":
-        run_evaluate(cfg)
-    elif args.action == "generate":
-        run_generate(cfg, spatial=args.spatial, writer=args.writer,
-                     resume=args.resume,
-                     quant=None if args.quant == "none" else args.quant,
-                     dp=args.dp)
-    else:
-        run_annotation(cfg)
+    try:
+        if args.action == "train":
+            run_train(cfg)
+        elif args.action == "evaluate":
+            run_evaluate(cfg)
+        elif args.action == "generate":
+            run_generate(cfg, spatial=args.spatial, writer=args.writer,
+                         resume=args.resume,
+                         quant=None if args.quant == "none" else args.quant,
+                         dp=args.dp)
+        else:
+            run_annotation(cfg)
+    finally:
+        dist_.shutdown()
 
 
 if __name__ == "__main__":

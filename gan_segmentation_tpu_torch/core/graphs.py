@@ -25,6 +25,7 @@ and returns its outputs (a tensor, or lists, tuples and dicts of them).
   (``chip_smoke.py``).
 """
 
+import functools
 from typing import Callable, Dict, Sequence
 
 import torch
@@ -39,6 +40,15 @@ COUNTED = (conv3x3_noise_bias_lrelu_instats, conv3x3_small, conv3x3_bil)
 # eager steps of a train step's ``GraphedCall`` before its capture: they
 # create the optimizer's state and cuDNN's plans (real steps)
 GRAPH_WARMUP_STEPS = 2
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device):
+    """The side stream of the captures on ``device``: one per card
+    (``torch.cuda.graph``'s own default is one stream on whichever card was
+    current at its first use, which a capture on another card cannot
+    use)."""
+    return torch.cuda.Stream(device)
 
 
 def launch_counts() -> Dict[Callable, int]:
@@ -102,7 +112,8 @@ class GraphedCall:
     def _capture(self):
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), \
-                torch.cuda.graph(self.graph, pool=self.pool):
+                torch.cuda.graph(self.graph, pool=self.pool,
+                                 stream=_capture_stream(self.device)):
             return self.fn()
 
     def _replay(self):

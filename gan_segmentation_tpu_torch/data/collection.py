@@ -163,9 +163,10 @@ class CollectionDataset:
         return self.get_item(idx)
 
     def batches(self, batch_size: int, shuffle: bool = True, seed: int = 0,
-                drop_last: bool = True):
+                drop_last: bool = True, part: slice = slice(None)):
         """Yield dicts of stacked numpy arrays: image (N,H,W,3), mask
-        (N,H,W), features list[(N,h,w,c)], idx (N,)."""
+        (N,H,W), features list[(N,h,w,c)], idx (N,).  ``part``: the share
+        of each batch to load (a data-parallel process's slice of it)."""
         order = np.arange(len(self))
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
@@ -175,6 +176,7 @@ class CollectionDataset:
             sel = order[s:s + step]
             if drop_last and len(sel) < step:
                 return
+            sel = sel[part]
             items = [self.get_item(i) for i in sel]
             if self._output_idx:
                 idxs, imgs, masks, feats = zip(*items)

@@ -30,7 +30,7 @@ import queue
 import traceback
 from multiprocessing import resource_tracker
 from multiprocessing.shared_memory import SharedMemory
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -146,12 +146,15 @@ def _worker(dataset, jobs, out, stop):
 
 
 def process_batches(dataset, batches: Sequence[np.ndarray], workers: int,
-                    seed: int, prefetch: int = 2, first_position: int = 0
+                    seed: int, prefetch: int = 2, first_position: int = 0,
+                    positions: Optional[Sequence[Sequence[int]]] = None
                     ) -> Iterator:
     """Yield ``(images, masks, extra)`` for each index array of
     ``batches``, in order, decoded by ``workers`` processes that run up to
     ``prefetch`` batches ahead each.  ``first_position``: the epoch position
-    of ``batches[0]``'s first item (item seeds are by position)."""
+    of ``batches[0]``'s first item (item seeds are by position; the batches
+    follow each other); ``positions``: each batch's item positions instead
+    (one process's slices of global batches)."""
     import multiprocessing as mp
 
     ctx = mp.get_context("forkserver")
@@ -161,8 +164,8 @@ def process_batches(dataset, batches: Sequence[np.ndarray], workers: int,
     jobs = [[] for _ in range(workers)]
     pos = first_position
     for b, sel in enumerate(batches):
-        jobs[b % workers].append(
-            (b, np.asarray(sel), item_seeds(seed, range(pos, pos + len(sel)))))
+        at = range(pos, pos + len(sel)) if positions is None else positions[b]
+        jobs[b % workers].append((b, np.asarray(sel), item_seeds(seed, at)))
         pos += len(sel)
     procs = [ctx.Process(target=_worker, args=(dataset, jobs[w], queues[w],
                                                stop),

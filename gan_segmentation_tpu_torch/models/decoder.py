@@ -14,7 +14,8 @@ epilogue fused (none for the final conv), dropout is the identity.
 Train mode (``.train()``): every 3x3 conv is ``kernels/conv3x3_grad.py::
 Conv3x3`` (kernel 3 where its contract holds, else kernel 2, with the
 input gradient through the same kernels), then batch norm over the batch
-statistics as the JAX package computes them (``batch_norm_train``), leaky
+statistics as the JAX package computes them (``batch_norm_train``; over the
+global batch of a data-parallel fit's processes with ``group``), leaky
 0.2, and for ``cvt_i`` dropout drawn from the ``torch.Generator`` the caller
 passes, or given as the uniform draws ``draw_dropout`` made before (the
 static inputs of the train step's CUDA graph; the same bits).
@@ -88,10 +89,12 @@ def conv3x3_train(conv: "Conv", x):
     return Conv3x3.apply(x, hwio(conv.weight).to(x.dtype), conv.bias)
 
 
-def conv_bn_lrelu_train(conv: "Conv", bn: Optional[nn.BatchNorm2d], x):
+def conv_bn_lrelu_train(conv: "Conv", bn: Optional[nn.BatchNorm2d], x,
+                        group=None):
+    """``group``: batch norm over the global batch of its processes."""
     y = conv3x3_train(conv, x)
     if bn is not None:
-        y = batch_norm_train(y, bn)
+        y = batch_norm_train(y, bn, group)
     return leaky_relu(y)
 
 
@@ -134,9 +137,11 @@ class DecoderResBlock(nn.Module):
         sc = x if self.shortcut is None else self.shortcut(x)
         return sc + y
 
-    def forward_train(self, x):
-        y = conv_bn_lrelu_train(self.conv_0, getattr(self, "bn_0", None), x)
-        y = conv_bn_lrelu_train(self.conv_1, getattr(self, "bn_1", None), y)
+    def forward_train(self, x, group=None):
+        y = conv_bn_lrelu_train(self.conv_0, getattr(self, "bn_0", None), x,
+                                group)
+        y = conv_bn_lrelu_train(self.conv_1, getattr(self, "bn_1", None), y,
+                                group)
         sc = x if self.shortcut is None else self.shortcut(x)
         return sc + y
 
@@ -225,15 +230,18 @@ class Decoder(nn.Module):
                 folded: Optional[Folded] = None,
                 dtype: Optional[torch.dtype] = None,
                 generator: Optional[torch.Generator] = None,
-                dropout_u: Optional[List[torch.Tensor]] = None):
+                dropout_u: Optional[List[torch.Tensor]] = None,
+                group=None):
         """Eval mode: ``folded`` is ``fold_bn(dtype)``, computed here when
         not given.  Train mode: ``dropout_u`` (``draw_dropout``'s draws) or
         else ``generator`` gives the dropout bits (on the features'
-        device).  Activations run in ``dtype`` (default: the compute
-        dtype)."""
+        device), and ``group`` (a process group) makes every batch norm's
+        statistics those of the global batch.  Activations run in ``dtype``
+        (default: the compute dtype)."""
         dtype = dtype or self.compute_dtype
         if self.training:
-            return self._forward_train(inputs, dtype, generator, dropout_u)
+            return self._forward_train(inputs, dtype, generator, dropout_u,
+                                       group)
         folded = folded if folded is not None else self.fold_bn(dtype)
         last = len(self.in_channels) - 1
         prev = pred = None
@@ -250,7 +258,8 @@ class Decoder(nn.Module):
             prev = pred
         return pred.float()
 
-    def _forward_train(self, inputs, dtype, generator, dropout_u=None):
+    def _forward_train(self, inputs, dtype, generator, dropout_u=None,
+                       group=None):
         if self.use_dropout and generator is None and dropout_u is None:
             raise ValueError("train mode with dropout needs a "
                              "torch.Generator for the dropout bits")
@@ -259,7 +268,8 @@ class Decoder(nn.Module):
         for i in range(self.start_res, last + 1):
             x = inputs[i].to(dtype).contiguous()
             x = conv_bn_lrelu_train(getattr(self, f"cvt_{i}_conv"),
-                                    getattr(self, f"cvt_{i}_bn", None), x)
+                                    getattr(self, f"cvt_{i}_bn", None), x,
+                                    group)
             if self.use_dropout:
                 x = dropout(x, generator, uniform=None if dropout_u is None
                             else dropout_u[i - self.start_res])
@@ -267,7 +277,7 @@ class Decoder(nn.Module):
                 x = torch.cat([prev, x], dim=-1)
             if i < last:
                 x = upsample_nearest_2x(x)
-                pred = getattr(self, f"main_{i}").forward_train(x)
+                pred = getattr(self, f"main_{i}").forward_train(x, group)
             else:
                 pred = conv3x3_train(getattr(self, f"main_{i}_conv"), x)
             prev = pred

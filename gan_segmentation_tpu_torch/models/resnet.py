@@ -79,7 +79,11 @@ class Conv2d(nn.Module):
 class BatchNorm(nn.BatchNorm2d):
     """The JAX package's ``BatchNorm(momentum=0.9, epsilon=1e-5)`` on NHWC
     activations (`ops/norm.py::batch_norm`); train or eval by
-    ``self.training``.  ``zero_scale`` starts the scale at 0."""
+    ``self.training``.  ``zero_scale`` starts the scale at 0.
+    ``process_group`` (``set_process_group``): train mode over the global
+    batch of that group's processes."""
+
+    process_group = None
 
     def __init__(self, features: int, zero_scale: bool = False):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -92,7 +96,15 @@ class BatchNorm(nn.BatchNorm2d):
             nn.init.zeros_(self.weight)
 
     def forward(self, x):
-        return batch_norm(x, self, self.training)
+        return batch_norm(x, self, self.training, self.process_group)
+
+
+def set_process_group(module: nn.Module, group) -> None:
+    """Every ``BatchNorm`` under ``module`` takes its train-mode statistics
+    over the global batch of ``group`` (None: this process's batch)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.process_group = group
 
 
 def init_parameters(module: nn.Module, gen: torch.Generator) -> None:

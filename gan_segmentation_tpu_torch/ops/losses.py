@@ -15,9 +15,19 @@ axes (per image for (N, H, W) values) so that it sums to the valid count,
 then sum over every non-batch axis; they return the per-sample loss and the
 mean multiplier.  ``seg_loss_with_aux`` is the DeepLab trainer's criterion,
 ``CE(pred) + aux_weight * CE(aux)``.
+
+Data-parallel (``group``, a ``torch.distributed`` process group): a
+normaliser that spans the batch spans the GLOBAL batch, as the JAX
+functions compute it on a global array.  ``softmax_ce_valid_norm`` divides
+by the valid pixels of every process, and returns this process's share so
+that the mean over the processes (what the step's gradient average takes)
+is the global loss; the focal variants' mean multiplier is the global
+mean.  The per-sample losses need nothing: equal shards make the mean of
+the processes' means the global mean.
 """
 
 import torch
+import torch.distributed as dist
 
 
 def _per_pixel_ce(logits, labels):
@@ -38,11 +48,32 @@ def softmax_ce_with_ignore(logits, labels, ignore_label: int = -1):
     return weighted_softmax_ce(logits, labels, labels != ignore_label)
 
 
-def softmax_ce_valid_norm(logits, labels, ignore_label: int = -1):
-    """Scalar CE normalised by the number of valid pixels."""
+def _global_sum(value, group):
+    """``value`` summed over ``group``'s processes, outside autograd."""
+    total = value.detach().clone()
+    dist.all_reduce(total, group=group)
+    return total
+
+
+def softmax_ce_valid_norm(logits, labels, ignore_label: int = -1,
+                          group=None):
+    """Scalar CE normalised by the number of valid pixels (of the global
+    batch with ``group``: P times this process's sum over the global
+    count, so that the processes' mean is the global loss)."""
     mask = (labels != ignore_label).float()
     ce = _per_pixel_ce(logits, labels) * mask
-    return ce.sum() / mask.sum().clamp_min(1.0)
+    if group is None:
+        return ce.sum() / mask.sum().clamp_min(1.0)
+    count = _global_sum(mask.sum(), group).clamp_min(1.0)
+    return ce.sum() * dist.get_world_size(group) / count
+
+
+def _mean_multiplier(mult, group):
+    """The mean of the per-sample multipliers, over the global batch with
+    ``group`` (equal shards)."""
+    if group is None:
+        return mult.mean()
+    return _global_sum(mult.mean(), group) / dist.get_world_size(group)
 
 
 def _pt_softmax(logits, labels, ignore_label):
@@ -75,13 +106,14 @@ def _clipped_log(pt, eps):
 
 def normalized_focal_loss_softmax(logits, labels, *, gamma: float = 2.0,
                                   ignore_label: int = -1, eps: float = 1e-10,
-                                  size_average: bool = True):
+                                  size_average: bool = True, group=None):
     """-> (per-sample loss (N,), mean multiplier)."""
     pt, valid = _pt_softmax(logits, labels, ignore_label)
     valid = valid.float()
     beta, mult = _renormalize((1.0 - pt) ** gamma, valid, eps)
     loss = -beta * _clipped_log(pt, eps)
-    return _reduce(loss, valid, eps, size_average), mult.mean()
+    return _reduce(loss, valid, eps, size_average), _mean_multiplier(
+        mult, group)
 
 
 def area_normalized_focal_loss_softmax(logits, labels, area_weights, *,
@@ -89,7 +121,8 @@ def area_normalized_focal_loss_softmax(logits, labels, area_weights, *,
                                        area_gamma: float = 0.5,
                                        ignore_label: int = -1,
                                        eps: float = 1e-10,
-                                       size_average: bool = True):
+                                       size_average: bool = True,
+                                       group=None):
     """The focal beta also weighted by ``area_weights ** area_gamma``
     (per pixel) before the renormalisation."""
     pt, valid = _pt_softmax(logits, labels, ignore_label)
@@ -97,7 +130,8 @@ def area_normalized_focal_loss_softmax(logits, labels, area_weights, *,
     beta = ((1.0 - pt) ** gamma) * (area_weights.float() ** area_gamma)
     beta, mult = _renormalize(beta, valid, eps)
     loss = -beta * _clipped_log(pt, eps)
-    return _reduce(loss, valid, eps, size_average), mult.mean()
+    return _reduce(loss, valid, eps, size_average), _mean_multiplier(
+        mult, group)
 
 
 def _pt_sigmoid(logits, labels):
@@ -109,7 +143,8 @@ def _pt_sigmoid(logits, labels):
 def normalized_focal_loss_sigmoid(logits, labels, *, alpha: float = 0.25,
                                   gamma: float = 2.0, eps: float = 1e-12,
                                   size_average: bool = True,
-                                  scale: float = 1.0, normalize: bool = True):
+                                  scale: float = 1.0, normalize: bool = True,
+                                  group=None):
     """Sigmoid focal loss with the per-sample beta renormalisation (over
     every pixel, ignored ones included); ``labels`` has the logits' shape.
     -> (per-sample loss, mean multiplier)."""
@@ -122,7 +157,7 @@ def normalized_focal_loss_sigmoid(logits, labels, *, alpha: float = 0.25,
     sample_weight = (labels != -1).float()
     loss = -alpha_w * beta * _clipped_log(pt, eps) * sample_weight
     return (scale * _reduce(loss, sample_weight, eps, size_average),
-            mult.mean())
+            _mean_multiplier(mult, group))
 
 
 def focal_loss_sigmoid(logits, labels, *, alpha: float = 0.25,

@@ -51,8 +51,23 @@ caller asks for it), else on the CUDA card, and raise without one.
 Checkpoints are the port's ``*.pt`` (a ``state_dict``), written to a
 ``.tmp`` file and moved into place; ``--weights`` also reads the JAX
 package's msgpack ``*.params`` and reference mxnet DeepLabV3+ files.
-Multi-process training (the JAX package's ``process_index`` /
-``process_count``, SyncBatchNorm) is not ported: one process, one device.
+
+Data-parallel (the JAX package's multi-host trainer): with a process group
+(``group``, by default the launcher's world of ``core/distributed.py``)
+every process runs on its own card, ``batch_size`` is the GLOBAL batch and
+``batch_iter(process_index, process_count)`` feeds each process its
+contiguous slice of every global batch.  Batch norm takes the global
+batch's statistics (``models/resnet.py::set_process_group``), the step
+averages the gradients over the processes through one flat buffer (one
+collective, captured in the step's CUDA graph over NCCL), dropout draws
+differ per process, the logged loss is the global mean, a SIGTERM stop is
+agreed at every ``log_interval`` step (``any_flag``), validation scores
+each process's shard and its padded part of the ragged tail and sums the
+confusion counters, and only the primary writes checkpoints, the resume
+bundle (which holds every process's dropout generator), TensorBoard and
+images; every process reads them.  ``SegmentationTester`` runs in one
+process.  Over gloo (two processes sharing one card) the steps run
+eagerly.
 """
 
 import functools
@@ -68,6 +83,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import distributed as dist_
 from ..core.dtypes import cuda_device
 from ..core.graphs import GRAPH_WARMUP_STEPS, GraphedCall, GraphedFunction
 from ..data.feed import process_batches, stack_batch
@@ -75,6 +91,7 @@ from ..data.segmentation import (IMAGENET_MEAN, IMAGENET_STD,
                                  imagenet_denormalize)
 from ..metrics.seg_metrics import SegMetric, SegmentationMetric
 from ..models.deeplab import HEAD_LR_MULT, head_param_groups
+from ..models.resnet import set_process_group
 from ..ops.losses import seg_loss_with_aux
 from ..ops.resize import bilinear_resize
 from ..utils.viz import visualize_mask
@@ -192,13 +209,16 @@ def train_step(model, optimizer, scheduler, images, masks,
                generator: Optional[torch.Generator] = None, *,
                aux_weight: float = 0.5, dtype: torch.dtype = torch.float32,
                depth=None, criterion: Callable = seg_loss_with_aux,
-               dropout_u: Optional[List[torch.Tensor]] = None):
+               dropout_u: Optional[List[torch.Tensor]] = None, group=None):
     """One SGD step on ``(images, masks)``: NHWC uint8 (or normalised float)
     images and (N, H, W) integer masks with ignore label -1, on the model's
     device; ``depth`` an (N, H, W, 1) float plane for a 4-channel model.
     The dropout bits come from ``dropout_u`` (``model.draw_dropout``'s
     draws) when given, else from ``generator``.  ``scheduler`` steps after
     the update unless it is None (a graphed step leaves it to the host).
+    ``group``: the gradients are averaged over its processes before the
+    update (one collective); the batch norms' own group is the model's
+    (``set_process_group``).
     -> (loss, logits of the main head), both f32 and detached."""
     model.train()
     x = _device_normalize(images).to(dtype)
@@ -211,6 +231,7 @@ def train_step(model, optimizer, scheduler, images, masks,
     loss = criterion(outputs[0], outputs[1], masks,
                      aux_weight=aux_weight).mean()
     loss.backward()
+    dist_.allreduce_mean_([p.grad for p in model.parameters()], group)
     optimizer.step()
     if scheduler is not None:
         scheduler.step()
@@ -229,18 +250,20 @@ class GraphedTrainStep:
     (the inputs on the model's device or in pinned host memory), the graph
     runs (its first ``warmup`` calls eagerly, real steps that make the
     optimizer's state), and the scheduler fills the next step's rates.  The
-    outputs are static: the next step overwrites them.
+    outputs are static: the next step overwrites them.  ``group``: the
+    gradient all-reduce of ``train_step``, captured with the rest (NCCL;
+    the warm-up steps run the communicator's first collectives).
     On the CPU the same body runs eagerly."""
 
     def __init__(self, model, optimizer, scheduler, generator, *,
                  aux_weight: float = 0.5, dtype: torch.dtype = torch.float32,
                  criterion: Callable = seg_loss_with_aux,
-                 warmup: int = GRAPH_WARMUP_STEPS):
+                 warmup: int = GRAPH_WARMUP_STEPS, group=None):
         self.model, self.optimizer, self.scheduler = model, optimizer, \
             scheduler
         self.generator = generator
         self.kw = dict(aux_weight=aux_weight, dtype=dtype,
-                       criterion=criterion)
+                       criterion=criterion, group=group)
         self.fn = GraphedFunction(self._step, next(model.parameters()).device,
                                   warmup)
 
@@ -273,7 +296,8 @@ def eval_step(model, images, *, dtype: torch.dtype = torch.float32,
 
 def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
                drop_last: bool = True, prefetch: int = 2,
-               decode_workers: int = 1, start_batch: int = 0):
+               decode_workers: int = 1, start_batch: int = 0,
+               process_index: int = 0, process_count: int = 1):
     """Batches of ``dataset`` decoded off the consuming thread (host-side
     decode overlaps device compute): ``(images, masks, extra)`` numpy
     stacks, ``extra`` the items' third elements (paths) or None.
@@ -290,6 +314,13 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
     ``start_batch`` skips the first N batches of the epoch's order without
     decoding them (mid-epoch resume).  A decode error reaches the consumer;
     the workers stop when the consumer stops early.
+
+    Several processes (``process_index`` of ``process_count``): every
+    process draws the same permutation and takes its contiguous
+    ``batch_size``-slice of each global batch of ``batch_size *
+    process_count``, full global batches only (the JAX package's order);
+    the union of the slices is the one-process order.  Worker processes
+    seed each item by its position in that global order.
     """
     import queue
     import threading
@@ -298,14 +329,25 @@ def batch_iter(dataset, batch_size: int, shuffle: bool, seed: int = 0,
     order = np.arange(n)
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
-    steps = n // batch_size if drop_last else math.ceil(n / batch_size)
+    positions = None
+    if process_count > 1:
+        g = batch_size * process_count
+        steps = n // g
+        starts = [s * g + process_index * batch_size for s in range(steps)]
+        order = np.concatenate([order[a:a + batch_size] for a in starts]
+                               ) if steps else order[:0]
+        positions = [range(a, a + batch_size) for a in starts]
+    else:
+        steps = n // batch_size if drop_last else math.ceil(n / batch_size)
 
     if decode_workers > 1:
         sels = [order[s * batch_size:(s + 1) * batch_size]
                 for s in range(start_batch, steps)]
         if sels:
-            yield from process_batches(dataset, sels, decode_workers, seed,
-                                       prefetch, start_batch * batch_size)
+            yield from process_batches(
+                dataset, sels, decode_workers, seed, prefetch,
+                start_batch * batch_size,
+                None if positions is None else positions[start_batch:])
         return
 
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
@@ -359,21 +401,33 @@ class SegmentationTrainer:
     to the device; ``optimizer_params``: ``baselr``, ``nepochs``, ``wd``,
     ``momentum``.
 
-    ``graphed`` (default: on a CUDA device): every train step replays one
-    CUDA graph per batch shape (``GraphedTrainStep``, after its eager
-    warm-up steps) and validation one graph for the set; ``False`` runs
-    them eagerly (the eager twin of a graphed run).  A graphed trainer on
-    the CPU runs the graphed body eagerly.
+    ``graphed`` (default: on a CUDA device, unless over gloo): every train
+    step replays one CUDA graph per batch shape (``GraphedTrainStep``,
+    after its eager warm-up steps) and validation one graph for the set;
+    ``False`` runs them eagerly (the eager twin of a graphed run).  A
+    graphed trainer on the CPU runs the graphed body eagerly.
+
+    ``group``: the processes of a data-parallel run (default: the
+    launcher's world, None in one process); ``batch_size`` is then the
+    global batch, which their count must divide.
     """
 
     def __init__(self, args, model, model_cfg, trainset, valset,
                  optimizer_params: dict, with_depth: bool = False,
                  image_dump_interval: int = 200,
                  criterion: Callable = seg_loss_with_aux,
-                 graphed: Optional[bool] = None):
+                 graphed: Optional[bool] = None, group=None):
         self.args = args
         self.device = _device_of(args)
         self.model = model.to(self.device)
+        self.group = dist_.group() if group is None else group
+        self._pc, self._pi = dist_.size_of(self.group), dist_.rank_of(
+            self.group)
+        if args.batch_size % self._pc:
+            raise ValueError(f"data-parallel training needs batch_size "
+                             f"({args.batch_size}) divisible by the process "
+                             f"count ({self._pc})")
+        set_process_group(self.model, self.group)
         self.model_cfg = model_cfg
         self.trainset = trainset
         self.valset = valset
@@ -390,8 +444,14 @@ class SegmentationTrainer:
         # the reference's --workers DataLoader knob (`cmd_args.py:14-16`):
         # 0/1 = decode in the prefetch thread, more = worker processes
         self._decode_workers = max(1, getattr(args, "workers", 1) or 1)
-        self.graphed = (self.device.type == "cuda" if graphed is None
-                        else graphed)
+        gloo = (self.group is not None
+                and torch.distributed.get_backend(self.group) == "gloo")
+        if graphed and gloo and self.device.type == "cuda":
+            raise ValueError("a graphed step captures its gradient "
+                             "all-reduce, which gloo cannot join: use NCCL "
+                             "or graphed=False")
+        self.graphed = (self.device.type == "cuda" and not gloo
+                        if graphed is None else graphed)
         self.batch_size = args.batch_size
         self.iters_per_epoch = len(trainset) // self.batch_size
         self.total_iters = self.iters_per_epoch * optimizer_params["nepochs"]
@@ -411,20 +471,25 @@ class SegmentationTrainer:
                     f"=> no checkpoint found at '{args.weights}'")
             load_checkpoint(args.weights, self.model)
             log.info("resumed weights from %s", args.weights)
+        # every replica starts from the primary's weights
+        dist_.broadcast_tensors_(list(self.model.state_dict().values()),
+                                 self.group)
 
         self.optimizer, self.scheduler = make_optimizer(
             self.model, self.base_lr, self.total_iters,
             optimizer_params.get("wd", 0.0),
             optimizer_params.get("momentum", 0.9), graphed=self.graphed)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            getattr(args, "seed", 0))
+            dist_.rank_seed(getattr(args, "seed", 0), self._pi))
         self._graphs()
         self.metric = SegmentationMetric(trainset.num_class)
         self.sw = None
         self._sw_made = False
         # preemption: SIGTERM sets the flag, training() saves a resume
-        # bundle at the next step boundary and stops
+        # bundle at the next step boundary and stops (several processes:
+        # at the next step where they agree on it)
         self._stop_requested = False
+        self._stop_agreed = False
         self.preempted = False
 
     # ----------------------------------------------------------------- feeds
@@ -473,7 +538,7 @@ class SegmentationTrainer:
         self._train_graph = GraphedTrainStep(
             self.model, self.optimizer, self.scheduler, self.generator,
             aux_weight=self.aux_weight, dtype=self.compute_dtype,
-            criterion=self.criterion)
+            criterion=self.criterion, group=self.group)
         self._eval_graph = GraphedFunction(
             lambda images, *depth: eval_step(
                 self.model, images, dtype=self.compute_dtype,
@@ -493,7 +558,7 @@ class SegmentationTrainer:
                 self.model, self.optimizer, self.scheduler, images, labels,
                 self.generator, aux_weight=self.aux_weight,
                 dtype=self.compute_dtype, depth=depth,
-                criterion=self.criterion)
+                criterion=self.criterion, group=self.group)
         out = self._train_graph(*self._stage.put(self._host(imgs, masks)))
         self._stage.release()
         return out
@@ -503,7 +568,8 @@ class SegmentationTrainer:
                  start_iter: int = 0) -> float:
         """One epoch from batch ``start_iter``; -> the mean batch loss."""
         if not self._sw_made:  # once: None (one warning) without the package
-            self.sw = _make_summary_writer(self.args)
+            self.sw = (_make_summary_writer(self.args) if self._pi == 0
+                       else None)
             self._sw_made = True
         self.metric.reset()
         tic = time.time()
@@ -525,7 +591,9 @@ class SegmentationTrainer:
             nonlocal train_loss, n_pulled, pulled
             if pulled == done:
                 return
-            vals = series[pulled:done].cpu().numpy()
+            vals = series[pulled:done].clone()
+            dist_.allreduce_mean_([vals], self.group)  # the global mean
+            vals = vals.cpu().numpy()
             pulled = done
             for k, v in enumerate(vals):
                 step = upto_global_step - (len(vals) - 1 - k)
@@ -539,11 +607,19 @@ class SegmentationTrainer:
                                        self.current_lr(step), step)
 
         for off, (imgs, masks, _) in enumerate(batch_iter(
-                self.trainset, self.batch_size, shuffle=True, seed=epoch,
-                decode_workers=self._decode_workers,
-                start_batch=start_iter)):
+                self.trainset, self.batch_size // self._pc, shuffle=True,
+                seed=epoch, decode_workers=self._decode_workers,
+                start_batch=start_iter, process_index=self._pi,
+                process_count=self._pc)):
             i = start_iter + off
-            if self._stop_requested:
+            if self._pc > 1 and i % log_interval == 0:
+                # the processes see SIGTERM at different steps (or only one
+                # sees it): agree, at a step every process reaches, and act
+                # on the agreed value only, so that all stop at one step
+                self._stop_agreed = dist_.any_flag(self._stop_requested,
+                                                   self.group)
+            if (self._stop_agreed if self._pc > 1
+                    else self._stop_requested):
                 # batch i has NOT run: the bundle points the resumed run at it
                 drain(last_step)
                 self.save_resume_bundle(epoch, i)
@@ -593,24 +669,34 @@ class SegmentationTrainer:
         time; the argmax is taken on the device.  Graphed, every batch
         replays one graph: the ragged last batch is padded with repeats of
         its last image (eval-mode batch norm keeps every image's logits its
-        own) and the padding's rows are dropped before the metric."""
+        own) and the padding's rows are dropped before the metric.
+
+        Several processes: each scores its slice of every full global
+        batch of ``test_batch_size`` (``batch_iter``), then its part of the
+        ragged tail, padded to its slice's size with the set's last image,
+        and the four confusion counters are summed over the processes, so
+        the scored set is the whole val set once."""
         self.metric.reset()
-        bs = max(1, self.args.test_batch_size)
+        bs = max(1, self.args.test_batch_size // self._pc)
         for imgs, masks, _ in batch_iter(
                 self.valset, bs, shuffle=False, drop_last=False,
-                decode_workers=self._decode_workers):
-            n = len(masks)
-            if self.graphed:
-                if n < bs:
-                    imgs = _pad_batch(imgs, bs)
-                images, depth = self._inputs(imgs)
-                logits = self._eval_graph(
-                    images, *([] if depth is None else [depth]))
-            else:
-                images, depth = self._inputs(imgs)
-                logits = eval_step(self.model, images,
-                                   dtype=self.compute_dtype, depth=depth)
-            self.metric.update([masks], [logits.argmax(-1)[:n].cpu()])
+                decode_workers=self._decode_workers,
+                process_index=self._pi, process_count=self._pc):
+            self._score(imgs, masks, bs)
+        if self._pc > 1:
+            n, g = len(self.valset), bs * self._pc
+            rem = n % g
+            if rem:
+                mine = [min(n - rem + self._pi * bs + j, n - 1)
+                        for j in range(bs)]
+                valid = sum(self._pi * bs + j < rem for j in range(bs))
+                imgs, masks, _ = stack_batch([self.valset[i] for i in mine])
+                self._score(imgs, masks, bs, valid)
+            m = self.metric
+            (m.total_inter, m.total_union, m.total_correct,
+             m.total_label) = dist_.allreduce_sum(
+                (m.total_inter, m.total_union, m.total_correct,
+                 m.total_label), self.group)
         names, values = self.metric.get()
         result = ", ".join(f"{n}: {v:4f}" for n, v in zip(names, values))
         log.info("Epoch %d validation %s", epoch, result)
@@ -619,8 +705,27 @@ class SegmentationTrainer:
                 self.sw.add_scalars(f"Metrics/{n}", {"val": v}, epoch)
         return dict(zip(names, values))
 
+    def _score(self, imgs, masks, bs: int, valid: Optional[int] = None):
+        """The metric over a host batch's first ``valid`` rows (all by
+        default); graphed, a batch short of ``bs`` is padded first."""
+        n = len(masks) if valid is None else valid
+        if self.graphed:
+            if len(masks) < bs:
+                imgs = _pad_batch(imgs, bs)
+            images, depth = self._inputs(imgs)
+            logits = self._eval_graph(
+                images, *([] if depth is None else [depth]))
+        else:
+            images, depth = self._inputs(imgs)
+            logits = eval_step(self.model, images,
+                               dtype=self.compute_dtype, depth=depth)
+        if n:
+            self.metric.update([masks[:n]], [logits.argmax(-1)[:n].cpu()])
+
     # ------------------------------------------------------------ checkpoint
     def save_checkpoint(self, epoch: Optional[int] = None):
+        if self._pi != 0:  # the primary writes
+            return
         path = Path(self.args.checkpoints_path)
         path.mkdir(parents=True, exist_ok=True)
         name = ("last_checkpoint.pt" if epoch is None
@@ -652,15 +757,31 @@ class SegmentationTrainer:
     def _resume_bundle_path(self) -> Path:
         return Path(self.args.checkpoints_path) / RESUME_BUNDLE
 
+    def _generator_states(self) -> List[torch.Tensor]:
+        """Every process's dropout generator state, by rank (a collective:
+        each fills its row of a zero matrix, and the sum has them all)."""
+        mine = self.generator.get_state()
+        if self._pc == 1:
+            return [mine]
+        rows = torch.zeros((self._pc, mine.numel()), dtype=torch.int64,
+                           device=dist_.comm_device(self.group))
+        rows[self._pi] = mine.to(rows.device, torch.int64)
+        torch.distributed.all_reduce(rows, group=self.group)
+        return [r.to("cpu", torch.uint8) for r in rows]
+
     def save_resume_bundle(self, epoch: int, next_iter: int):
         """Persist the whole training state and the position to resume
-        from, atomically."""
+        from, atomically (the primary; every process's dropout generator
+        is in it)."""
+        generators = self._generator_states()
+        if self._pi != 0:
+            return
         path = self._resume_bundle_path()
         path.parent.mkdir(parents=True, exist_ok=True)
         payload = {"model": self.model.state_dict(),
                    "optimizer": self.optimizer.state_dict(),
                    "scheduler": self.scheduler.state_dict(),
-                   "generator": self.generator.get_state(),
+                   "generator": generators[0], "generators": generators,
                    "epoch": epoch, "next_iter": next_iter}
         tmp = path.with_name(path.name + ".tmp")
         torch.save(payload, tmp)
@@ -679,7 +800,11 @@ class SegmentationTrainer:
         self.model.load_state_dict(d["model"])
         self.optimizer.load_state_dict(d["optimizer"])
         self.scheduler.load_state_dict(d["scheduler"])
-        self.generator.set_state(d["generator"])
+        states = d.get("generators", [d["generator"]])
+        if len(states) != self._pc:
+            raise ValueError(f"{path} was saved by {len(states)} "
+                             f"process(es); this run has {self._pc}")
+        self.generator.set_state(states[self._pi])
         if self.graphed:
             # the bundle's rates were loaded to the host; the momentum
             # buffers are new tensors: a new capture reads them
@@ -695,7 +820,7 @@ class SegmentationTrainer:
         """Drop the bundle once an epoch completed after it (a later run in
         the same dir must start fresh, not 'resume' into the past)."""
         path = self._resume_bundle_path()
-        if path.is_file():
+        if self._pi == 0 and path.is_file():
             path.unlink()
 
 
@@ -1003,13 +1128,18 @@ def _to_host(t: torch.Tensor):
 
 
 class SegmentationTester:
-    """`lib/core/segmentation.py:186-253`."""
+    """`lib/core/segmentation.py:186-253`, in one process (as the JAX
+    package's tester): in a world of several processes it raises."""
 
     def __init__(self, model, args, num_classes: int, use_flip: bool,
                  scales: Sequence[float], skip_bg: bool = True,
                  use_prob_avg: bool = False, class_names=None,
                  threshold: float = 0.5, base_size: int = 512,
                  crop_size: int = 480):
+        if dist_.process_count() > 1:
+            raise RuntimeError("SegmentationTester runs in one process; "
+                               "launch `test` without torchrun or --gpus "
+                               "lists")
         self.args = args
         # the reference casts the model to args.dtype at tester init too
         # (`lib/core/segmentation.py:199-200`)

@@ -1,29 +1,43 @@
 """Experiment management (`deeplabv3plus/lib/utils/{cmd_args,exps_utils}.py`):
-the counterpart of ``gan_segmentation_tpu/train/experiments.py`` on one
-device.
+the counterpart of ``gan_segmentation_tpu/train/experiments.py``.
 
-``init_exp`` parses the command line, resolves the device (the CUDA card, or
-the CPU with ``--no-cuda``; it raises without a card and never falls back),
-creates ``<exp>/runs/train_<timestamp>/{logs,checkpoints}`` with a copy of
-the run file (or reuses a run dir with ``--resume``), logs to
-``logs/train_log.txt``, and in test mode picks the newest checkpoint of the
-run dir: the port's ``*.pt`` first, then ``*.params``.
+``init_exp`` parses the command line, resolves the world of the run
+(``resolve_world``), creates ``<exp>/runs/train_<timestamp>/{logs,
+checkpoints}`` with a copy of the run file (or reuses a run dir with
+``--resume``), logs to ``logs/train_log.txt``, and in test mode picks the
+newest checkpoint of the run dir: the port's ``*.pt`` first, then
+``*.params``.
+
+The world (the JAX package's device mesh, one process per card here):
+- under a launcher (``torchrun``: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+  ``MASTER_ADDR``, ``MASTER_PORT``) this process joins the group on
+  ``cuda:LOCAL_RANK`` (NCCL), or on the CPU with ``--no-cuda`` (gloo);
+  the primary makes the run dir and broadcasts its path;
+- else ``--gpus a,b,...`` / ``--ngpus N`` / every card (``--kvstore
+  local``: the first) give the cards; several make ``spawn_world`` start
+  one training process per card, so the reference's command line keeps
+  its meaning; ``--no-cuda`` is one CPU process (the reference forces
+  ``--kvstore local`` there);
+- no card without ``--no-cuda`` raises before any directory is made: there
+  is no fallback, and a process of the world that fails fails the run.
+Test mode runs in one process, on the first card.
 """
 
 import argparse
+import os
 import shutil
 import sys
 from datetime import datetime
 from pathlib import Path
+from typing import Callable, List, Sequence
 
 import torch
 
+from ..core import distributed as dist_
 from ..core.dtypes import cuda_device
+from ..core.mesh import kvstore_devices
 from ..utils.log import add_console_handler, add_file_handler, logger
 from .deeplab_trainer import RESUME_BUNDLE
-
-ONE_DEVICE = ("the port trains and tests on one device; multi-device runs "
-              "are not ported yet (ROADMAP.md, Queue 1, item 7: scale-out)")
 
 
 def get_common_arguments():
@@ -34,13 +48,15 @@ def get_common_arguments():
     parser.add_argument("--no-cuda", action="store_true", default=False,
                         help="run on the CPU (the default is the CUDA card)")
     parser.add_argument("--ngpus", type=int, default=None,
-                        help="number of devices: 1 (the default)")
+                        help="number of cards, one training process each "
+                             "(default: every card)")
     parser.add_argument("--gpus", type=str, default="", required=False,
-                        help="the CUDA device's index, e.g. '0'")
+                        help="the cards' indices, e.g. '0,1': one training "
+                             "process each")
     parser.add_argument("--kvstore", type=str, default="device",
-                        help="accepted for reference CLI compat: a "
-                             "single-device kvstore ('device', 'local', "
-                             "'nccl')")
+                        help="the reference's flag: 'local' takes one card; "
+                             "the others ('device', 'nccl', 'dist_*') every "
+                             "card listed")
     parser.add_argument("--dtype", type=str, default="float32")
     parser.add_argument("--batch-size", type=int, default=8)
     return parser
@@ -70,30 +86,50 @@ def get_test_arguments():
     return parser
 
 
-def resolve_device(args) -> torch.device:
-    """The one device of the run: the CPU with ``--no-cuda``, else the CUDA
-    card (``--gpus`` picks its index).  More than one device is refused;
-    no card without ``--no-cuda`` raises."""
-    ids = [int(i) for i in args.gpus.split(",") if i.strip()]
-    if len(ids) > 1:
-        raise ValueError(f"--gpus {args.gpus}: {ONE_DEVICE}")
-    if args.ngpus not in (None, 1):
-        raise ValueError(f"--ngpus {args.ngpus}: {ONE_DEVICE}")
-    if args.kvstore.startswith("dist") or args.kvstore == "horovod":
-        raise ValueError(f"--kvstore {args.kvstore}: {ONE_DEVICE}")
-    if args.no_cuda:
-        return torch.device("cpu")
+def resolve_world(args) -> List[torch.device]:
+    """The devices of the run, one process each: this process's device
+    alone under a launcher (after joining its group) or for one device;
+    several cards mean ``spawn_world``.  Test mode takes the first."""
+    if dist_.launched():
+        if args.no_cuda:
+            device = torch.device("cpu")
+        else:
+            try:
+                cuda_device()
+            except RuntimeError as exc:
+                raise RuntimeError(f"{exc}; pass --no-cuda to run on the "
+                                   f"CPU") from None
+            device = dist_.local_device()
+        dist_.initialize(cuda=device.type == "cuda")
+        return [device]
+    devices = kvstore_devices(args.kvstore, args.gpus, args.ngpus,
+                              args.no_cuda)
+    return devices[:1] if args.mode == "test" else devices
+
+
+def _spawned(index: int, devices: Sequence[str], port: int,
+             target: Callable, target_args: tuple):
+    """One process of ``spawn_world``: its place in the world as a
+    launcher would set it, then ``target(*target_args)``."""
+    device = torch.device(devices[index])
+    os.environ.update(RANK=str(index), WORLD_SIZE=str(len(devices)),
+                      LOCAL_RANK=str(device.index or 0),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
     try:
-        device = cuda_device()
-    except RuntimeError as exc:
-        raise RuntimeError(f"{exc}; pass --no-cuda to run on the CPU"
-                           ) from None
-    if ids:
-        if ids[0] >= torch.cuda.device_count():
-            raise ValueError(f"--gpus {args.gpus}: this machine has "
-                             f"{torch.cuda.device_count()} CUDA device(s)")
-        device = torch.device("cuda", ids[0])
-    return device
+        target(*target_args)
+    finally:
+        dist_.shutdown()
+
+
+def spawn_world(devices: Sequence[torch.device], target: Callable,
+                target_args: tuple = ()) -> None:
+    """Run ``target(*target_args)`` in one new process per device (spawn),
+    as ``torchrun`` would, and wait for all; any that fails raises here."""
+    import torch.multiprocessing as mp
+    mp.start_processes(_spawned, args=([str(d) for d in devices],
+                                       dist_.free_port(), target,
+                                       target_args),
+                       nprocs=len(devices), join=True, start_method="spawn")
 
 
 def newest_checkpoint(run_path: Path) -> Path:
@@ -118,11 +154,16 @@ def init_exp(exp_path, add_exp_args, argv=None, run_file=None):
               else get_test_arguments())
     parser = add_exp_args(parser)
     args = parser.parse_args(argv)
-    device = resolve_device(args)  # before any directory is made
-    args.device = str(device)
-    args.ngpus = 1
+    devices = resolve_world(args)  # before any directory is made
     if args.no_cuda:
         args.kvstore = "local"
+    if len(devices) > 1:  # the caller spawns one process per device
+        args.spawn_devices = devices
+        return args
+    device = devices[0]
+    args.device = str(device)
+    args.spawn_devices = None
+    args.ngpus = dist_.process_count()
     stdout_log_path = None
 
     if args.mode == "train" and getattr(args, "resume", None):
@@ -137,11 +178,12 @@ def init_exp(exp_path, add_exp_args, argv=None, run_file=None):
         stdout_log_path = args.logs_path / "train_log.txt"
     elif args.mode == "train":
         run_name = args.mode + datetime.today().strftime("_%Y-%m-%d_%H-%M-%S")
-        run_path = Path(exp_path) / "runs" / run_name
+        # the primary's name, on every process
+        run_path = Path(exp_path) / "runs" / dist_.broadcast_str(run_name)
         args.logs_path = run_path / "logs"
         args.run_path = run_path
         args.checkpoints_path = run_path / "checkpoints"
-        if not args.no_exp:
+        if not args.no_exp and dist_.is_primary():
             if run_path.exists():
                 raise FileExistsError(f"run dir {run_path} exists")
             run_path.mkdir(parents=True)
@@ -150,6 +192,8 @@ def init_exp(exp_path, add_exp_args, argv=None, run_file=None):
             args.checkpoints_path.mkdir(parents=True, exist_ok=True)
             args.logs_path.mkdir(parents=True, exist_ok=True)
             stdout_log_path = args.logs_path / "train_log.txt"
+        if not args.no_exp:  # the run dir exists before any process uses it
+            dist_.barrier()
     else:
         run_path = Path(args.run_path)
         args.logs_path = run_path / "logs"
@@ -163,8 +207,9 @@ def init_exp(exp_path, add_exp_args, argv=None, run_file=None):
         args.weights = str(newest_checkpoint(run_path))
 
     add_console_handler()
-    if stdout_log_path is not None:
+    if stdout_log_path is not None and dist_.is_primary():
         add_file_handler(stdout_log_path)
-    logger.info("Device: %s", device)
+    logger.info("Device: %s (process %d of %d)", device,
+                dist_.process_index(), dist_.process_count())
     logger.info("%s", args)
     return args

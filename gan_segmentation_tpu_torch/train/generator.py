@@ -13,8 +13,17 @@ noise input are drawn before the replay, in the order and shapes in which
 the eager forward draws them (``StyleGanGenerator.draw_noise``), into the
 graph's static inputs; so batch i is bit-identical to the eager path's
 batch i.  On the CPU the same code runs eagerly.
+
+``FusedPipeline(mesh=[dev0, dev1, ...])`` (``generate --dp D``, the JAX
+package's data mesh) splits each batch over the devices: each holds a
+replica of the batch's program and its own graph per part, and z and the
+noise are drawn once on the first device in the eager order and scattered:
+each part is what one device computes on it.  On a card that equals one
+device's batch only up to rounding, as kernels 1 and 2 split their sums
+by the part's size (ROADMAP Queue 3); on the CPU it is the same.
 """
 
+import copy
 import functools
 import logging
 from os.path import isfile, join
@@ -255,16 +264,28 @@ class FusedPipeline:
     ``_prepared`` folds again into those same tensors before the next
     replay, so the graph never serves a stale decoder.
 
-    The JAX package's mesh (``--spatial``/``--dp``), space-to-depth decoder
-    tail and int8 modes are not ported; asking for one raises.
+    ``mesh``: a list of devices, the first the generator's, over which
+    each batch is split in contiguous parts (``torch.tensor_split``), one
+    replica of the program and one graph per part and device; the replicas
+    take the program's weights again whenever it refolds.  The JAX
+    package's space-to-depth decoder tail and int8 modes are not ported;
+    asking for one raises.
     """
 
     def __init__(self, image_generator: ImageGenerator, solver,
                  inference_dtype: Optional[torch.dtype] = torch.bfloat16,
                  s2d: bool = False, mesh=None, quant: Optional[str] = None):
         if mesh is not None:
-            raise NotImplementedError("multi-device generation (a mesh) is "
-                                      "not ported yet")
+            if (not isinstance(mesh, (list, tuple)) or not mesh
+                    or not all(isinstance(d, (torch.device, str))
+                               for d in mesh)):
+                raise TypeError(f"mesh: a list of devices, got {mesh!r}")
+            mesh = [torch.device(d) for d in mesh]
+            if mesh[0] != image_generator.device:
+                raise ValueError(f"mesh[0] ({mesh[0]}) must be the "
+                                 f"generator's device "
+                                 f"({image_generator.device})")
+        self.mesh = mesh
         if s2d:
             raise NotImplementedError("the space-to-depth decoder tail is a "
                                       "TPU layout; the port does not use it")
@@ -280,6 +301,9 @@ class FusedPipeline:
         self._folded_at = None
         self._program = None
         self._graphs = {}  # batch size -> GraphedCall of the program
+        self._replicas = []  # mesh[1:]'s copies of the program
+        self._replicas_at = None
+        self._parts = {}  # (batch size, part) -> (GraphedCall, z, noise)
 
     def _prepared(self):
         """The decoder's BN-folded kernels, folded again whenever the
@@ -321,40 +345,93 @@ class FusedPipeline:
         return _infer(self.program(), z, noise=noise, generator=generator)
 
     def _batch(self, batch_size: int):
-        """(uint8 images, uint8 masks) of the next batch; on a card the
-        static outputs of this batch size's graph, which the next batch
-        overwrites."""
+        """[(uint8 images, uint8 masks)] of the next batch, one pair per
+        part (one without a mesh); on a card the static outputs of the
+        part's graph, which the next batch overwrites."""
         z, noise = self.gen.draw_inputs(batch_size)
         program = self.program()  # refolds first, if the weights moved
+        if self.mesh is not None:
+            return self._mesh_batch(program, z, noise)
         call = self._graphs.get(batch_size)
         if call is None:  # reads the program, not self: no reference cycle
             call = self._graphs[batch_size] = GraphedCall(functools.partial(
                 _infer, program, z, noise=noise), self.gen.device)
-        return call()
+        return [call()]
+
+    def _mesh_batch(self, program, z, noise):
+        """The parts of one batch, each on its device's replica: z and the
+        noise split along the batch and copied to the part's static
+        inputs."""
+        if not self._replicas:
+            self._replicas = [copy.deepcopy(program).to(d)
+                              for d in self.mesh[1:]]
+            self._replicas_at = self._folded_at
+        elif self._replicas_at != self._folded_at:
+            state = program.state_dict()
+            for r in self._replicas:
+                r.load_state_dict(state)
+            self._replicas_at = self._folded_at
+        b = len(z)
+        bounds = [len(t) for t in torch.tensor_split(torch.arange(b),
+                                                     len(self.mesh))]
+        outs, start = [], 0
+        for k, (dev, n) in enumerate(zip(self.mesh, bounds)):
+            if n == 0:
+                continue
+            sl = slice(start, start + n)
+            start += n
+            part = self._parts.get((b, k))
+            if part is None:
+                with torch.inference_mode(False):
+                    zs = torch.empty((n, *z.shape[1:]), device=dev)
+                    ns = {key: torch.empty((n, *v.shape[1:]), device=dev)
+                          for key, v in noise.items()}
+                body = program if k == 0 else self._replicas[k - 1]
+                part = self._parts[(b, k)] = (GraphedCall(functools.partial(
+                    _infer, body, zs, noise=ns), dev), zs, ns)
+            call, zs, ns = part
+            zs.copy_(z[sl], non_blocking=True)
+            for key, v in noise.items():
+                ns[key].copy_(v[sl], non_blocking=True)
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    outs.append(call())
+            else:
+                outs.append(call())
+        return outs
 
     def sample_batch(self, batch_size: Optional[int] = None):
         """Device batch: (uint8 images NHWC, uint8 masks), masks bit-packed
-        along W when ``self._pack_masks``; copied out of the graph's static
-        outputs."""
-        imgs, masks = self._batch(batch_size or self.gen.batch_size)
+        along W when ``self._pack_masks``; copied out of the graphs' static
+        outputs (to the first device)."""
+        parts = self._batch(batch_size or self.gen.batch_size)
+        dev = self.gen.device
         with torch.inference_mode():
-            return imgs.clone(), masks.clone()
+            return tuple(torch.cat([p[i].to(dev) for p in parts])
+                         for i in (0, 1))
 
     def _enqueue(self, batch_size: int):
         """Enqueue one batch and its copy to host.  On a card the copy goes
-        into pinned buffers with ``non_blocking`` and an event marks its end,
-        so waiting for batch i does not wait for batch i+1 enqueued after
-        it on the same stream.  The copy reads the graph's static outputs
-        before the next replay, which is enqueued after it."""
-        imgs, masks = self._batch(batch_size)
-        if imgs.device.type != "cuda":
-            return imgs, masks, None
-        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                for t in (imgs, masks)]
-        for h, t in zip(host, (imgs, masks)):
-            h.copy_(t, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        into pinned buffers with ``non_blocking`` and an event per part
+        marks its end, so waiting for batch i does not wait for batch i+1
+        enqueued after it on the same stream.  The copy reads the graph's
+        static outputs before the next replay, which is enqueued after
+        it."""
+        parts = self._batch(batch_size)
+        if parts[0][0].device.type != "cuda":
+            return (*(torch.cat([p[i] for p in parts]) for i in (0, 1)),
+                    [])
+        host = [torch.empty((batch_size, *t.shape[1:]), dtype=t.dtype,
+                            pin_memory=True) for t in parts[0]]
+        done, start = [], 0
+        for imgs, masks in parts:
+            n = len(imgs)
+            for h, t in zip(host, (imgs, masks)):
+                h[start:start + n].copy_(t, non_blocking=True)
+            with torch.cuda.device(imgs.device):
+                done.append(torch.cuda.Event())
+                done[-1].record()
+            start += n
         return host[0], host[1], done
 
     def generate_batches(self, n: int
@@ -372,8 +449,8 @@ class FusedPipeline:
             take = min(b, n - produced)
             if produced + take < n:
                 pending = self._enqueue(b)
-            if done is not None:
-                done.synchronize()
+            for event in done:
+                event.synchronize()
             yield (imgs.numpy()[:take], masks.numpy()[:take],
                    self._pack_masks)
             produced += take

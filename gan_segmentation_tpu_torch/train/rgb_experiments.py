@@ -23,13 +23,14 @@ from pathlib import Path
 
 import torch
 
+from ..core import distributed as dist_
 from ..data.augment import (CenterCrop, HorizontalFlip, PadIfNeeded,
                             RandomCrop, RGBSegmentationAug, ShiftScaleRotate)
 from ..data.segmentation import FFHQHairSegmentation, imagenet_transform
 from ..models.deeplab import DeepLabV3Plus
 from ..utils.log import logger
 from .deeplab_trainer import SegmentationTester, SegmentationTrainer
-from .experiments import init_exp
+from .experiments import init_exp, spawn_world
 
 EXPERIMENTS_DIR = (Path(__file__).resolve().parents[2] / "experiments"
                    / "rgb_segmentation")
@@ -204,9 +205,15 @@ def apply_overrides(spec: ExpSpec, args) -> ExpSpec:
 def run(spec: ExpSpec, argv=None, exp_path=None):
     """Train or test ``spec`` as the command line ``argv`` says; runs go
     under ``exp_path`` (default ``experiments/rgb_segmentation/<name>``).
-    -> the ``SegmentationTrainer`` or ``SegmentationTester``."""
+    -> the ``SegmentationTrainer`` or ``SegmentationTester``; None where
+    ``--gpus`` / ``--ngpus`` named several cards, which spawns one training
+    process per card, each running this with the same command line."""
     exp_path = EXPERIMENTS_DIR / spec.name if exp_path is None else exp_path
     args = init_exp(exp_path, add_exp_args, argv, run_file=__file__)
+    if args.spawn_devices:
+        spawn_world(args.spawn_devices, run, (
+            spec, sys.argv[1:] if argv is None else list(argv), exp_path))
+        return None
     spec = apply_overrides(spec, args)
     if args.mode == "train":
         return train(args, spec)
@@ -219,7 +226,10 @@ def main(argv=None):
         sys.exit("usage: python -m gan_segmentation_tpu_torch.train."
                  "rgb_experiments {" + ",".join(SPECS) + "} {train|test} "
                  "[options]")
-    run(SPECS[argv[0]], argv[1:])
+    try:
+        run(SPECS[argv[0]], argv[1:])
+    finally:  # under a launcher: the trainer and its graphs are gone
+        dist_.shutdown()
 
 
 if __name__ == "__main__":

@@ -30,7 +30,22 @@ series, as the JAX package writes them after its scanned epoch.  ``None``
 ``False``, an upload per step or a CPU device take the per-step path,
 whose step enqueues its forward, backward and update and waits only for
 the display lines and the epoch logs.  ``True`` on a CPU device raises.
-The multi-host and data-parallel branches are not ported.
+
+Data-parallel (``group``: a ``torch.distributed`` process group, by default
+the launcher's world of ``core/distributed.py``, None in one process): one
+process per card, ``train_batch_size`` the GLOBAL batch, as the JAX
+package's multi-host fit.  The per-step path loads each process's
+contiguous slice of every global batch (P must divide the batch); the
+resident collection slices its batch indices the same way, and where P
+does not divide the batch (the reference's batch 1) every process runs the
+whole batch, replicated.  Batch norm takes the global batch's statistics
+(``Decoder(group=...)``), and the gradients are averaged over the
+processes before the update, one collective per step, inside the captured
+step too (NCCL).  The parameters start from the primary's, the logged loss
+and accuracy are the global means, a device cache that fails anywhere is
+given up everywhere, dropout draws differ per process (seeded from (seed,
+rank)), and only the primary writes the checkpoint and the epoch lines.  Over gloo (two
+processes sharing one card) the steps run eagerly.
 
 The port's checkpoint is ``torch.save`` of the decoder's ``state_dict`` as
 ``checkpoints/*.pt``.  ``load`` takes its own ``*.pt`` first; otherwise the
@@ -53,6 +68,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from ..core import distributed as dist_
 from ..core import dtypes
 from ..core.checkpoint import load_checkpoint
 from ..core.config import SolverConfig
@@ -90,8 +106,10 @@ class SegSolver:
                  checkpoints_dir: str, keep_weights: bool = True,
                  cfg: Optional[SolverConfig] = None,
                  seed: Optional[int] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, group=None):
         self.path_to_data = path_to_data
+        # the processes of a data-parallel fit (None: this one alone)
+        self.group = dist_.group() if group is None else group
         self.checkpoints_dir = checkpoints_dir
         self.keep_weights = keep_weights
         self.cfg = cfg or SolverConfig(max_res_log2=max_res_log2)
@@ -219,14 +237,21 @@ class SegSolver:
     def _scan_epochs(self, cached) -> bool:
         """Whether ``fit`` runs its steps as replays of a CUDA graph: the
         JAX package's ``scan_epochs`` rule (auto: the collection is
-        resident and the device is a card)."""
+        resident and the device is a card; not over gloo, whose collectives
+        wait on the host)."""
         flag = self.cfg.scan_epochs
         if flag and self.device.type != "cuda":
             raise ValueError(
                 f"scan_epochs=True runs each epoch as replays of a CUDA graph "
                 f"and needs a CUDA device, got {self.device}")
+        gloo = (self.group is not None
+                and torch.distributed.get_backend(self.group) == "gloo")
+        if flag and gloo:
+            raise ValueError("scan_epochs=True captures the gradient "
+                             "all-reduce in a CUDA graph, which gloo cannot "
+                             "join: use NCCL")
         if flag is None:
-            flag = self.device.type == "cuda"
+            flag = self.device.type == "cuda" and not gloo
         if flag and cached is None:
             log.info("scan_epochs: the collection is not resident on the "
                      "device; one eager dispatch per step")
@@ -275,20 +300,56 @@ class SegSolver:
             feats.append(dst)
         return feats, torch.from_numpy(masks).to(self.device)
 
-    def _epoch_batches(self, dataset, epoch: int, cached):
+    def _agree_on_cache(self, cached):
+        """Data-parallel: the resident collection only where every process
+        built it (the processes must run one program)."""
+        if self.group is None:
+            return cached
+        failed = int(dist_.allreduce_sum(np.int64(cached is None),
+                                         self.group))
+        if failed and cached is not None:
+            log.warning("device cache disabled: %d process(es) could not "
+                        "build it", failed)
+            return None
+        return cached
+
+    def _split(self, cached):
+        """-> (this process's share of each step's batch, the group of its
+        batch norm): the contiguous slice and the group when P divides the
+        global batch, else (a resident collection) the whole batch,
+        replicated, with batch norm over it alone."""
+        b, grp = self.cfg.train_batch_size, self.group
+        p, r = dist_.size_of(grp), dist_.rank_of(grp)
+        if grp is None or b % p == 0:
+            return slice(r * (b // p), (r + 1) * (b // p)), grp
+        if cached is None:
+            raise ValueError(f"data-parallel training needs train_batch_size "
+                             f"({b}) divisible by the process count ({p})")
+        return slice(0, b), None
+
+    def _epoch_orders(self, n: int, epoch: int):
+        """The global index batches of ``epoch``: ``RandomState(seed +
+        epoch)``'s permutation in full batches (``dataset.batches``'
+        order)."""
+        b = self.cfg.train_batch_size
+        order = np.arange(n)
+        np.random.RandomState(self.seed + epoch).shuffle(order)
+        return [order[s:s + b] for s in range(0, len(order) - (b - 1), b)]
+
+    def _epoch_batches(self, dataset, epoch: int, cached, part=slice(None)):
         """(features, int64 mask) of each step of ``epoch`` on the device,
-        in the order of ``dataset.batches(shuffle=True, seed=seed+epoch)``."""
+        in the order of ``dataset.batches(shuffle=True, seed=seed+epoch)``;
+        ``part``: this process's share of each batch (``_split``)."""
         b = self.cfg.train_batch_size
         if cached is None:
             for batch in dataset.batches(b, shuffle=True,
-                                         seed=self.seed + epoch):
+                                         seed=self.seed + epoch, part=part):
                 yield ([torch.from_numpy(f).to(self.device)
                         for f in batch["features"]],
                        torch.from_numpy(batch["mask"]).to(self.device).long())
             return
-        order = np.arange(len(dataset))
-        np.random.RandomState(self.seed + epoch).shuffle(order)
-        steps = [order[s:s + b] for s in range(0, len(order) - (b - 1), b)]
+        steps = [idx[part] for idx in self._epoch_orders(len(dataset),
+                                                         epoch)]
         if not steps:
             return
         feats_all, masks_all = cached
@@ -298,30 +359,35 @@ class SegSolver:
                    masks_all.index_select(0, idx).long())
 
     def _train_step(self, optimizer, features, mask, generator,
-                    dropout_u=None):
+                    dropout_u=None, bn_group=None):
         """One step; returns (loss, pixel accuracy over all pixels) as
-        device scalars (no host sync)."""
+        device scalars (no host sync).  Data-parallel: batch norm over
+        ``bn_group``'s global batch, and the gradients averaged over
+        ``self.group`` before the update."""
         logits = self.model(features, generator=generator,
-                            dropout_u=dropout_u)
+                            dropout_u=dropout_u, group=bn_group)
         loss = weighted_softmax_ce(logits, mask, _mask_weights(mask)).mean()
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dist_.allreduce_mean_([p.grad for p in self.model.parameters()],
+                              self.group)
         optimizer.step()
         # train metric: plain pixel accuracy over ALL pixels, ignore
         # included, as the reference's mx.metric.Accuracy
         acc = (logits.detach().argmax(-1) == mask).float().mean()
         return loss.detach(), acc
 
-    def _graphed_epochs(self, optimizer, lr, cached, dropout_gen):
+    def _graphed_epochs(self, optimizer, lr, cached, dropout_gen,
+                        part=slice(None), bn_group=None):
         """-> ``run(epoch, step) -> (n, 2)`` device tensor of per-step
         (loss, accuracy), returned once the epoch is enqueued: its steps as
         replays of the train step's graph (its first ``GRAPH_WARMUP_STEPS``
-        calls run eagerly) in ``_epoch_batches``' order.  It is
-        overwritten by the next epoch."""
+        calls run eagerly) in ``_epoch_batches``' order, each on ``part``
+        of its batch.  It is overwritten by the next epoch."""
         cfg, dev = self.cfg, self.device
-        b = cfg.train_batch_size
+        n_max = len(cached[1]) // cfg.train_batch_size
+        b = len(range(cfg.train_batch_size)[part])
         feats_all, masks_all = cached
-        n_max = len(masks_all) // b
         idx = torch.zeros((b,), dtype=torch.long, device=dev)
         idx_host = torch.empty((n_max, b), dtype=torch.long,
                                pin_memory=dev.type == "cuda")
@@ -339,20 +405,20 @@ class SegSolver:
                 warnings.filterwarnings("ignore", "This instance was "
                                         "constructed with capturable=True")
                 loss, acc = self._train_step(optimizer, feats, mask, None,
-                                             dropout_u)
+                                             dropout_u, bn_group)
             return torch.stack([loss, acc])
 
         call = GraphedCall(step, dev, warmup=GRAPH_WARMUP_STEPS)
 
         def run(epoch, first_step):
-            order = np.arange(len(masks_all))
-            np.random.RandomState(self.seed + epoch).shuffle(order)
-            n = len(order) // b
+            steps = [idx[part] for idx in self._epoch_orders(len(masks_all),
+                                                             epoch)]
+            n = len(steps)
             if n == 0:
                 return series[:0]
             # the previous epoch's series was copied to the host, which
             # waited for its steps: the pinned buffer is free
-            idx_host[:n].copy_(torch.from_numpy(order[:n * b].reshape(n, b)))
+            idx_host[:n].copy_(torch.from_numpy(np.stack(steps)))
             idx_all[:n].copy_(idx_host[:n], non_blocking=True)
             for k in range(n):
                 _set_rate(optimizer, lr(first_step + k))
@@ -365,11 +431,24 @@ class SegSolver:
         run.call = call  # its graph and launch deltas
         return run
 
+    def _global_mean(self, rows, bn_group):
+        """(n, 2) device rows of (loss, accuracy) -> the global batch's, on
+        the host: the processes' mean when each ran its own slice."""
+        if bn_group is not None:
+            rows = rows.clone()
+            dist_.allreduce_mean_([rows], bn_group)
+        return rows.cpu()
+
+    def _info(self, *args):
+        """An epoch log line, written by the primary process alone."""
+        if dist_.rank_of(self.group) == 0:
+            log.info(*args)
+
     def _log_speed(self, epoch: int, batch: int, speed: float, window):
         """The speedometer line of the display interval that ends at step
         ``batch`` of ``epoch``; ``window`` holds its (loss, accuracy)
         rows."""
-        log.info("Epoch[%03d] Batch[%04d] Speed: %9.2f samples/sec "
+        self._info("Epoch[%03d] Batch[%04d] Speed: %9.2f samples/sec "
                  "accuracy=%f total-loss=%f", epoch, batch, speed,
                  float(window[:, 1].contiguous().mean()),
                  float(window[:, 0].contiguous().mean()))
@@ -390,56 +469,69 @@ class SegSolver:
                 self._log_speed(epoch, s, speed, series[s - display:s])
         if n:
             self.history.append(series[:, 0].tolist())
-            log.info("Epoch[%d] Train-accuracy=%f", epoch + 1,
-                     float(series[:, 1].contiguous().mean()))
-            log.info("Epoch[%d] Train-total-loss=%f", epoch + 1,
-                     float(np.mean(self.history[-1])))
+            self._info("Epoch[%d] Train-accuracy=%f", epoch + 1,
+                       float(series[:, 1].contiguous().mean()))
+            self._info("Epoch[%d] Train-total-loss=%f", epoch + 1,
+                       float(np.mean(self.history[-1])))
 
     def fit(self, epoch_end_callback: Optional[Callable] = None):
         if not self.keep_weights:
             self.reinit()
         cfg = self.cfg
         dataset, iters_per_epoch = self.init_data()
-        cached = self._try_device_cache(dataset)
+        cached = self._agree_on_cache(self._try_device_cache(dataset))
         self.cache_active = cached is not None
+        part, bn_group = self._split(cached)
+        if self.group is not None:  # every replica starts from the primary's
+            dist_.broadcast_tensors_(list(self.model.state_dict().values()),
+                                     self.group)
+            log.info("data-parallel fit over %d processes: %s",
+                     dist_.size_of(self.group),
+                     "each its slice of every batch" if bn_group is not None
+                     else "every batch replicated")
         graphed = self._scan_epochs(cached)
         optimizer, lr = self._make_optimizer(iters_per_epoch, graphed)
         if graphed:
             log.info("scan_epochs: each step replays one CUDA graph, "
                      "captured after %d eager steps", GRAPH_WARMUP_STEPS)
         dropout_gen = torch.Generator(device=self.device)
-        dropout_gen.manual_seed(self.seed)
+        dropout_gen.manual_seed(dist_.rank_seed(
+            self.seed, dist_.rank_of(bn_group)))
         display = cfg.train_display_iters
         self.history = []
         step = 0
         self.model.train()
-        run_epoch = (self._graphed_epochs(optimizer, lr, cached, dropout_gen)
+        run_epoch = (self._graphed_epochs(optimizer, lr, cached, dropout_gen,
+                                          part, bn_group)
                      if graphed else None)
         for epoch in range(cfg.train_epochs):
             tic = speed_tic = time.time()
-            if graphed:
-                series = run_epoch(epoch, step).cpu()  # the epoch's one wait
+            if graphed:  # the epoch's one wait
+                series = self._global_mean(run_epoch(epoch, step), bn_group)
                 step += len(series)
                 self._log_epoch(epoch, series, time.time() - tic)
             rows = []
-            for feats, mask in (() if graphed else
-                                self._epoch_batches(dataset, epoch, cached)):
+            for feats, mask in (() if graphed else self._epoch_batches(
+                    dataset, epoch, cached, part)):
                 _set_rate(optimizer, lr(step))
                 loss, acc = self._train_step(optimizer, feats, mask,
-                                             dropout_gen)
+                                             dropout_gen, bn_group=bn_group)
                 step += 1
                 rows.append(torch.stack([loss, acc]))
                 if display and len(rows) % display == 0:
                     # waits for the interval's steps, then times them
-                    window = torch.stack(rows[-display:]).cpu()
+                    window = self._global_mean(torch.stack(rows[-display:]),
+                                               bn_group)
                     speed = display * cfg.train_batch_size / (
                         time.time() - speed_tic)
                     self._log_speed(epoch, len(rows), speed, window)
                     speed_tic = time.time()
             if not graphed:
-                self._log_epoch(epoch, torch.stack(rows).cpu() if rows
-                                else torch.zeros((0, 2)))
-            log.info("Epoch[%d] Time cost=%.3f", epoch + 1, time.time() - tic)
+                self._log_epoch(epoch, self._global_mean(
+                    torch.stack(rows), bn_group) if rows
+                    else torch.zeros((0, 2)))
+            self._info("Epoch[%d] Time cost=%.3f", epoch + 1,
+                       time.time() - tic)
             self.weights_version += 1
             if epoch_end_callback is not None:
                 self.model.eval()
@@ -449,7 +541,8 @@ class SegSolver:
             optimizer.zero_grad(set_to_none=True)
         self.model.eval()
         self.is_trained = True
-        self.save()
+        if dist_.rank_of(self.group) == 0:  # the primary writes
+            self.save()
         return []
 
     # --------------------------------------------------------------- predict

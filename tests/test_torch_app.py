@@ -234,7 +234,8 @@ def test_no_jax_on_the_import_path():
             f"{pkg}.core.export", f"{pkg}.kernels.ops", f"{pkg}.apps.export",
             f"{pkg}.examples.serving_demo",
             f"{pkg}.examples.full_pipeline_demo",
-            f"{pkg}.data.feed"} <= set(_modules())
+            f"{pkg}.data.feed", f"{pkg}.core.distributed",
+            f"{pkg}.core.mesh"} <= set(_modules())
     code = f"""
 import importlib, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "cv2",
@@ -262,6 +263,8 @@ _JAX_PACKAGE_IMPORT = re.compile(
 
 
 def test_sources_name_no_jax():
+    pkg = gan_segmentation_tpu_torch.__name__
+    assert {f"{pkg}.core.distributed", f"{pkg}.core.mesh"} <= set(_modules())
     paths = [importlib.util.find_spec(m).origin for m in _modules()]
     for path in paths + [join(REPO, "chip_smoke.py")]:
         with open(path) as fh:

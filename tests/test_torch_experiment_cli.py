@@ -10,7 +10,7 @@
 - the run dir layout, the checkpoint test mode picks, ``--resume`` on a
   directory that is not a run, the two specs;
 - without ``--no-cuda`` on a machine without a card the runner refuses
-  before it creates anything, and more than one device is refused.
+  before it creates anything; with it, card lists resolve to the CPU.
 """
 
 import os
@@ -136,19 +136,30 @@ def test_specs_are_the_experiments():
         "rgb_segmentation"
 
 
-@pytest.mark.parametrize("flags,match", [
-    ([], "pass --no-cuda"),
-    (["--no-cuda", "--gpus", "0,1"], "one device"),
-    (["--no-cuda", "--ngpus", "2"], "one device"),
-    (["--no-cuda", "--kvstore", "dist_sync"], "one device")])
+@pytest.mark.parametrize("flags,match", [([], "pass --no-cuda")])
 def test_runner_refuses_before_it_makes_a_run_dir(tmp_path, monkeypatch,
                                                   flags, match):
+    """Without a card and without ``--no-cuda`` the runner raises before it
+    makes a run dir."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises((RuntimeError, ValueError), match=match):
+    with pytest.raises(RuntimeError, match=match):
         rx.run(rx.SPECS["01_hair_deeplabv3_ffhq_pretrain_gan"],
                ["train", "--input-path", str(tmp_path)] + flags,
                exp_path=tmp_path)
     assert not (tmp_path / "runs").exists()
+
+
+@pytest.mark.parametrize("flags", [
+    ["--no-cuda", "--gpus", "0,1"], ["--no-cuda", "--ngpus", "2"],
+    ["--no-cuda", "--kvstore", "dist_sync"]])
+def test_no_cuda_card_lists_resolve_to_one_cpu_process(monkeypatch, flags):
+    """With ``--no-cuda`` the card lists and a distributed kvstore resolve
+    to one device, the CPU, in this one process (the JAX package forces
+    kvstore ``local`` there): no process is spawned and no group joined."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = texp.get_train_arguments().parse_args(["train"] + flags)
+    assert texp.resolve_world(args) == [torch.device("cpu")]
+    assert not torch.distributed.is_initialized()
 
 
 def test_command_line_refuses_without_a_card(tmp_path):

@@ -175,8 +175,11 @@ def test_generate_batches_trims_and_packs(tmp_path):
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(s2d=True),
                                 dict(quant="int8")])
 def test_pipeline_refuses_what_is_not_ported(kw, tmp_path):
+    """The space-to-depth tail and int8 are not ported; a mesh is a list of
+    devices (``tests/test_torch_scale_out.py`` runs one), and anything else
+    is refused."""
     solver = SegSolver(3, "", str(tmp_path), device=CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError if "mesh" in kw else NotImplementedError):
         tgen.FusedPipeline(_tiny_generator(), solver, **kw)
 
 
