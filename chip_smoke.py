@@ -36,6 +36,24 @@ Phases (any failure raises, so the exit code is non-zero):
    batch must be bit-identical; a small slice on the card must agree with
    the same slice on the CPU (plain versions); samples/s beside the
    generator's and the decoder's stage times per batch (CUDA events).
+4b. int8  — int8 generation (``generate --quant``) at ffhq 1024^2, batch 8,
+   bf16, after the generate-as-graphs checks: each s8 body of kernels 1
+   and 2 at every s8 3x3 shape of an int8-full batch (split-K ones among
+   them) equals the exact integer product bit for bit (deq 1, f32 out),
+   and with real scales, bias, noise and activation equals its plain twin
+   on >= 99.99% of the elements and within 1 bf16 ulp elsewhere (kernel
+   1's statistics within the bf16 body's tolerance); the quantize pass
+   equals its twin (ties at .5, saturation); device times beside the bf16
+   bodies' on the same shapes and the bound at 1,979 int8 TOPS;
+   ``FusedPipeline(quant="int8" | "int8-full")`` with seeded random
+   weights as CUDA graphs equal to the eager path bit for bit, a replay
+   repeated equal to itself, the s8 kernels' launches traced, masks and
+   image against the bf16 pipeline on the same z and noise (each mode held
+   just under its repeatable reading, ``INT8_MIN_AGREEMENT``), samples/s
+   of the three in turns; ``run_generate(quant="int8")`` and ``--resume``
+   byte-identical, ``quant="int8-full"`` alone and with ``dp=2`` (two
+   replicas on the one card).  Prints a ``{"int8": ...}`` line before the
+   kernels'.
 5. train   — three fit steps at res 32 on the card agree with the CPU; then
    ``main train`` and ``main evaluate`` at ffhq 1024^2 with the defaults
    (24 epochs, batch 1, Adam 1e-4, dropout on) on 20 + 4 samples of the
@@ -167,13 +185,15 @@ device and counts each kernel's runs by name (the card's count, replays of
 CUDA graphs included), and holds that count to the wrappers' own counts
 (eager launches and the launches a capture records) plus the replays.
 
-The last lines are the kernels' JSON record (per kernel: launches on the
-main path, max error, device ms of the kernel, its plain version and the
-library call, and its bound), the nvidia-smi line, and
+The last lines are the kernels' JSON record (per kernel, the s8 bodies and
+the quantize pass included: launches on the main path, max error, device
+ms of the kernel, its plain version and the library call, and its bound),
+the nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
+import functools
 import json
 import logging
 import os
@@ -287,26 +307,39 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 # ------------------------------------------------------ counting launches
 # A wrapper call launches one device kernel of its own (and with split-K a
 # finish kernel, not counted here).  The tensor-core kernels carry the
-# number of the kernel that launches them as their last template argument;
-# kernel 3's bf16 body is a kernel of its own.
-KERNEL_NUMBERS = {"1": "conv_in_stats", "2": "small_conv", "3": "bil_conv"}
+# number of the entry point that launches them as their last template
+# argument (4 and 5: kernels 1 and 2's s8 bodies); kernel 3's bf16 body and
+# the quantize pass are kernels of their own.
+KERNEL_NUMBERS = {"1": "conv_in_stats", "2": "small_conv", "3": "bil_conv",
+                  "4": "conv_in_stats_s8", "5": "small_conv_s8"}
+S8_KERNELS = ("conv_in_stats_s8", "small_conv_s8", "quantize_s8")
 
 
 def kernel_of(name):
-    """The hand-written kernel (1-3, by name) a device kernel is, or None."""
+    """The hand-written kernel (1-3, by name; the s8 bodies and the quantize
+    pass of int8 generation) a device kernel is, or None."""
     m = re.search(r"conv3x3_(?:tc|tf32)_kernel<[^>]*,\s*(\d)>", name)
     if m:
         return KERNEL_NUMBERS[m.group(1)]
+    if "quantize_s8_kernel<" in name:
+        return "quantize_s8"
     return "bil_conv" if "conv3x3_bil_kernel<" in name else None
 
 
-def kernel_wrappers():
-    """{kernel: its wrapper}, whose ``launches`` counts its launches."""
+def kernel_wrappers(s8=False):
+    """{kernel: its wrapper}, whose ``launches`` counts its launches; with
+    ``s8`` the int8 kernels too."""
     from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import quantize as kqm
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
-    return {"conv_in_stats": k1m.conv3x3_noise_bias_lrelu_instats,
-            "small_conv": k2m.conv3x3_small, "bil_conv": k3m.conv3x3_bil}
+    out = {"conv_in_stats": k1m.conv3x3_noise_bias_lrelu_instats,
+           "small_conv": k2m.conv3x3_small, "bil_conv": k3m.conv3x3_bil}
+    if s8:
+        out.update(conv_in_stats_s8=k1m.conv3x3_noise_bias_lrelu_instats_s8,
+                   small_conv_s8=k2m.conv3x3_small_s8,
+                   quantize_s8=kqm.quantize_s8)
+    return out
 
 
 class ReplayTally:
@@ -348,6 +381,21 @@ class ReplayTally:
                 for fn, n in counts.items()}
 
 
+# kineto keeps a device activity only if it falls inside the profiler's
+# window on the host's clock; the card's timestamps, converted to that
+# clock, drift from it over a long run, so a kernel that ran right after
+# the start or right before the stop can land outside and drop out of the
+# trace.  An idle margin on both sides of a counted span keeps its kernels
+# well inside.
+TRACE_MARGIN_S = 0.1
+
+
+def trace_margin(torch):
+    """Let the card go idle, then wait ``TRACE_MARGIN_S``."""
+    torch.cuda.synchronize()
+    time.sleep(TRACE_MARGIN_S)
+
+
 def device_kernel_names(prof):
     """The name of every device kernel run in a ``torch.profiler`` trace."""
     from torch.autograd import DeviceType
@@ -365,11 +413,12 @@ class LaunchTrace:
     fails unless ``device`` equals what ``ReplayTally`` derives from
     ``wrapper`` and the replays.  ``so_far()`` is that derived count at
     any point inside the span.  Without a card (the tests' CPU rehearsals
-    of a phase) nothing is traced and ``device`` is that derived count."""
+    of a phase) nothing is traced and ``device`` is that derived count.
+    ``s8``: the int8 kernels are counted too (int8 generation's spans)."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, s8=False):
         self.torch = torch
-        self.fns = kernel_wrappers()
+        self.fns = kernel_wrappers(s8)
         self.prof = None
 
     def __enter__(self):
@@ -382,6 +431,7 @@ class LaunchTrace:
             self.torch.cuda.synchronize()
             self.prof = profile(activities=[ProfilerActivity.CUDA])
             self.prof.__enter__()
+            trace_margin(self.torch)
         return self
 
     def so_far(self):
@@ -390,7 +440,7 @@ class LaunchTrace:
 
     def __exit__(self, *exc):
         if self.prof is not None:
-            self.torch.cuda.synchronize()
+            trace_margin(self.torch)
             self.prof.__exit__(*exc)
         self.tally.__exit__(*exc)
         if exc[0] is not None:
@@ -404,7 +454,7 @@ class LaunchTrace:
         for name in device_kernel_names(self.prof):
             k = kernel_of(name)
             if k is not None:
-                self.device[k] += 1
+                self.device[k] = self.device.get(k, 0) + 1
         assert self.device == expected, (
             f"the trace ran {self.device}, the wrappers' counts "
             f"{self.wrapper} with the replays give {expected}")
@@ -414,7 +464,7 @@ class LaunchTrace:
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s
 # and operations/s by type.  3xTF32 does three TF32 MMAs per f32 product.
 HBM_RATE = 3.35e12
-PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12}
+PEAK = {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 
 
 def conv_floors(n, h, w, cin, cout, elem, extra_bytes=0):
@@ -701,7 +751,6 @@ def phase_split_sweep(torch, gcfg, scfg, g, inputs):
     time (graph replay) with the plan's split beside the same body with one
     split (the plan function swapped for that launch only), so that the
     record shows where the split wins and what the chain cap costs."""
-    import functools
     from unittest import mock
 
     from gan_segmentation_tpu_torch.kernels import _build, tc_plan
@@ -1491,19 +1540,21 @@ def profile_train_step(torch, base, scfg, steps=5):
                          (c1 - c0) * 1e3 / n))
         assert bool(torch.isfinite(series.cpu()).all())
     gpeak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        trace_margin(torch)
+        t0 = time.perf_counter()
         n = len(run(4, done))
         torch.cuda.synchronize()
-    gwindow_ms = (time.perf_counter() - t0) * 1e3
-    ran = {k: 0 for k in KERNEL_NUMBERS.values()}
+        gwindow_ms = (time.perf_counter() - t0) * 1e3
+        trace_margin(torch)
+    fns = kernel_wrappers()
+    ran = dict.fromkeys(fns, 0)
     for name in device_kernel_names(prof):
-        if kernel_of(name) is not None:
-            ran[kernel_of(name)] += 1
-    per_replay = {k: run.call.deltas[fn]
-                  for k, fn in kernel_wrappers().items()}
+        k = kernel_of(name)
+        if k is not None:
+            ran[k] = ran.get(k, 0) + 1
+    per_replay = {k: run.call.deltas[fn] for k, fn in fns.items()}
     assert ran == {k: d * n for k, d in per_replay.items()}, (ran, per_replay)
     gby_name = kernel_times(prof)
     gfam = families(gby_name, n)
@@ -2583,6 +2634,425 @@ def phase_graph_generate(torch):
             del pipe, gen, solver
             torch.cuda.empty_cache()
     return dict(gans=out, launches=launched)
+
+
+# ------------------------------------------------------- int8 generation
+INT8_BATCHES = 4     # the eager first batch, the capture's, two replays
+INT8_RATE_NUM = 48   # samples per timed device-pipeline run
+INT8_GENERATE = 16   # pairs of run_generate --quant int8 (two batches)
+INT8_SEED = 13
+# int8 against bf16 on the phase's random weights: the share of mask
+# pixels each mode keeps and the int8-full image's PSNR, each limit just
+# under its reading, which repeats from run to run (the weights are seeded:
+# 0.967 and 0.921 of the pixels, 20.1 dB; PERF.md)
+INT8_MIN_AGREEMENT = {"int8": 0.96, "int8-full": 0.91}
+INT8_MIN_PSNR = 19.5
+
+
+def bf16_ulp(torch, v):
+    """One bf16 ulp at each value of ``v`` (f32): 2^(e - 8) for |v| =
+    m * 2^e, m in [0.5, 1); the smallest normal's where v is 0."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8).clamp(
+        min=2.0 ** -133)
+
+
+def s8_bytes_ops(n, h, w, cin, cout, kernel1):
+    """(bytes, int8 operations) of one s8 3x3 call: x and w once in s8, y
+    once in bf16, deq and bias (kernel 1: the noise scale, the noise and
+    the statistics too) once in f32."""
+    nbytes = n * h * w * cin + 9 * cin * cout + 2 * n * h * w * cout
+    nbytes += 4 * 2 * cout
+    if kernel1:
+        nbytes += 4 * cout + 4 * n * h * w + 4 * 2 * n * cout
+    return nbytes, 18 * n * h * w * cin * cout
+
+
+def quantize_calls(torch, pipe):
+    """(shape, dtype) of every quantize_s8 call of one eager batch of
+    ``pipe`` (an int8 pipeline), in order."""
+    from gan_segmentation_tpu_torch.ops import quant as q8
+    seen, real = [], q8.quantize_act
+
+    def spy(x, inv):
+        seen.append((tuple(x.shape), x.dtype))
+        return real(x, inv)
+
+    q8.quantize_act = spy
+    try:
+        pipe._fused(*pipe.gen.next_inputs(BATCH))
+    finally:
+        q8.quantize_act = real
+    return seen
+
+
+def phase_s8_kernels(torch, gcfg, scfg, pipe):
+    """(i) and (ii) of the int8 phase, and the device times: each s8 body
+    at every s8 3x3 shape of an int8-full batch at ffhq 1024^2, batch 8 (the
+    split-K shapes among them), and the quantize pass at every input an
+    int8-full batch quantizes (``pipe``'s calls)."""
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import quantize as kqm
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.kernels import tc_plan
+    from gan_segmentation_tpu_torch.ops import quant as q8
+
+    g = torch.Generator("cuda").manual_seed(INT8_SEED)
+    dev = torch.device("cuda")
+    # quantize: ties at .5 (half to even), saturation, both dtypes, the
+    # vector path and the scalar one (an odd length)
+    ties = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, 127.5,
+                         -127.5, 300.0, -300.0, 0.49999997, 3.0, -4.0, 7.5,
+                         8.5] * 8, device=dev)
+    one = torch.ones(1, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        for t in (ties.to(dt), ties.to(dt)[1:].contiguous()):
+            check_later(torch.equal(kqm.quantize_s8(t, one),
+                                    kqm.quantize_s8_plain(t, one)),
+                        f"quantize_s8 {dt}: ties or saturation differ")
+    out = {k: dict(ms=0.0, plain_ms=0.0, bf16_ms=0.0, bounds=[], shapes=0,
+                   exact=True, equal_min=1.0, ulps_max=0.0, err=0.0)
+           for k in ("conv_in_stats_s8", "small_conv_s8")}
+    shapes = q8.conv3x3_s8_shapes(gcfg, scfg, BATCH)
+    stat_err = 0.0
+    for key, kernel1 in (("conv_in_stats_s8", True), ("small_conv_s8", False)):
+        r = out[key]
+        for n, h, w, cin, cout in shapes[key]:
+            x = torch.randn((n, h, w, cin), device=dev, generator=g)
+            xb = x.bfloat16()
+            inv = (127.0 / xb.float().abs().amax()).reshape(1)
+            xq = kqm.quantize_s8(xb, inv)
+            wq = torch.randint(-127, 128, (3, 3, cout, cin),
+                               dtype=torch.int8, device=dev, generator=g)
+            acc = k2m.conv3x3_s8_acc(xq, wq)
+            ones = torch.ones(cout, device=dev)
+            zeros = torch.zeros(cout, device=dev)
+            deq = (torch.rand(cout, device=dev, generator=g) + 0.5) / (
+                127.0 * (9 * cin) ** 0.5)
+            bias = 0.1 * torch.randn(cout, device=dev, generator=g)
+            noise = torch.randn((n, h, w), device=dev, generator=g)
+            ns = 0.1 * torch.randn(cout, device=dev, generator=g)
+            # (i) exactness: deq = 1, no bias, no activation, f32 out
+            if kernel1:
+                y = k1m.conv3x3_noise_bias_lrelu_instats_s8(
+                    xq, wq, ones, torch.zeros_like(noise), zeros, zeros,
+                    leaky=1.0, out_dtype=torch.float32)[0]
+            else:
+                y = k2m.conv3x3_small_s8(xq, wq, ones,
+                                         out_dtype=torch.float32)
+            exact = torch.equal(y, acc)
+            # (ii) the real epilogue against its twin
+            if kernel1:
+                def run():
+                    return k1m.conv3x3_noise_bias_lrelu_instats_s8(
+                        xq, wq, deq, noise, ns, bias)
+
+                def plain():
+                    return k1m.conv3x3_noise_bias_lrelu_instats_s8_plain(
+                        xq, wq, deq, noise, ns, bias)
+                got, mean, var = run()
+                want, pm, pv = k1m.s8_in_stats_epilogue_plain(
+                    acc, deq, noise, ns, bias)
+                check_close(f"{key} {n}x{h}x{w}x{cin}->{cout} mean", mean,
+                            pm, **STAT_TOL["bf16"])
+                check_close(f"{key} {n}x{h}x{w}x{cin}->{cout} var", var, pv,
+                            **STAT_TOL["bf16"])
+                stat_err = max(stat_err, max_err(mean, pm), max_err(var, pv))
+                wb = (torch.randn((3, 3, cin, cout), device=dev,
+                                  generator=g) / (9 * cin) ** 0.5).bfloat16()
+
+                def bf16_body():
+                    return k1m.conv3x3_noise_bias_lrelu_instats(
+                        xb, wb, noise, ns, bias)
+            else:
+                def run():
+                    return k2m.conv3x3_small_s8(xq, wq, deq, bias, leaky=0.2)
+
+                def plain():
+                    return k2m.conv3x3_small_s8_plain(xq, wq, deq, bias,
+                                                      leaky=0.2)
+                got = run()
+                want = k2m.s8_epilogue_plain(acc, deq, bias, leaky=0.2)
+                wb = (torch.randn((3, 3, cin, cout), device=dev,
+                                  generator=g) / (9 * cin) ** 0.5).bfloat16()
+
+                def bf16_body():
+                    return k2m.conv3x3_small(xb, wb, bias, leaky=0.2)
+            diff = (got.float() - want.float()).abs()
+            equal = float((diff == 0).float().mean())
+            ulps = float((diff / bf16_ulp(torch, want)).max())
+            tag = f"{key} {n}x{h}x{w}x{cin}->{cout}"
+            check_later(exact, f"{tag}: the s8 sums differ from the exact "
+                               f"integer product")
+            check_later(equal >= 0.9999 and ulps <= 1.0,
+                        f"{tag}: y equal on {equal:.6f} of the elements, "
+                        f"{ulps:.2f} bf16 ulps at most")
+            r["exact"] &= exact
+            r["equal_min"] = min(r["equal_min"], equal)
+            r["ulps_max"] = max(r["ulps_max"], ulps)
+            r["err"] = max(r["err"], float(diff.max()))
+            r["ms"] += graph_ms(run)
+            r["plain_ms"] += graph_ms(plain, reps=1, replays=2)
+            r["bf16_ms"] += graph_ms(bf16_body)
+            r["bounds"].append(bound(*s8_bytes_ops(n, h, w, cin, cout,
+                                                   kernel1), PEAK["int8"]))
+            r["shapes"] += 1
+            if tc_plan.plan(n, h, w, cin, cout, kernel1, s8=True).splits > 1:
+                r["split"] = r.get("split", 0) + 1
+            del x, xb, xq, wq, acc, got, want, diff
+        r["bound_ms"], r["bound_by"] = summed_bound(r.pop("bounds"))
+        log(f"{key} at the {r['shapes']} s8 shapes of an int8-full ffhq "
+            f"1024^2 batch of {BATCH} ({r.get('split', 0)} split-K): exact "
+            f"s32 sums {r['exact']}; real epilogue y equal on >= "
+            f"{r['equal_min']:.6f} of the elements, <= {r['ulps_max']:.2f} "
+            f"bf16 ulp; device ms per batch {r['ms']:.4f} (bf16 body on the "
+            f"same shapes {r['bf16_ms']:.4f}, plain {r['plain_ms']:.3f}), "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+    out["conv_in_stats_s8"]["stat_err"] = stat_err
+    # the quantize pass at every input an int8-full batch quantizes
+    q = dict(ms=0.0, plain_ms=0.0, bounds=[], calls=0, exact=True)
+    for shape, dt in quantize_calls(torch, pipe):
+        x = torch.randn(shape, device=dev, generator=g).to(dt)
+        inv = (127.0 / x.float().abs().amax()).reshape(1)
+        got, want = kqm.quantize_s8(x, inv), kqm.quantize_s8_plain(x, inv)
+        exact = torch.equal(got, want)
+        check_later(exact, f"quantize_s8 {shape} {dt} differs from plain")
+        q["exact"] &= exact
+        q["err"] = max(q.get("err", 0.0), max_err(got, want))
+        q["ms"] += graph_ms(lambda: kqm.quantize_s8(x, inv))
+        q["plain_ms"] += graph_ms(lambda: kqm.quantize_s8_plain(x, inv))
+        numel = x.numel()
+        q["bounds"].append(bound((x.element_size() + 1) * numel, numel,
+                                 PEAK["f32"]))
+        q["calls"] += 1
+    q["bound_ms"], q["bound_by"] = summed_bound(q.pop("bounds"))
+    out["quantize_s8"] = q
+    log(f"quantize_s8 at the {q['calls']} inputs of an int8-full batch: "
+        f"equal to plain {q['exact']} (ties and saturation included); "
+        f"device ms per batch {q['ms']:.4f} (plain {q['plain_ms']:.4f}), "
+        f"bound {q['bound_ms']:.4f} ({q['bound_by']})")
+    return out
+
+
+def masks_of(batch):
+    """A batch's masks as (N, H, W) {0, 1}, unpacked where bit-packed."""
+    import numpy as np
+    m = batch[1].numpy()
+    return np.unpackbits(m, axis=-1) if m.shape[-1] * 8 == batch[0].shape[2] \
+        else m
+
+
+def phase_int8(torch, smi):
+    """Int8 generation at ffhq 1024^2, batch 8, bf16 (``generate --quant``).
+    (i)-(ii) the s8 bodies and the quantize pass against their plain
+    versions (``phase_s8_kernels``); (iii) ``FusedPipeline(quant="int8")``
+    and ``"int8-full"`` with seeded random weights as CUDA graphs: batches
+    0-3 equal the eager path's bit for bit, a replay repeated equals
+    itself, the s8 kernels' launches in device traces, the masks against
+    the bf16 pipeline's on the same z and noise, the int8-full image's
+    PSNR, samples/s of the three in turns; (iv) ``run_generate(quant=
+    "int8")`` writes pairs and ``--resume`` rewrites a lost tail byte for
+    byte."""
+    import numpy as np
+
+    from gan_segmentation_tpu_torch.apps.main import run_generate
+    from gan_segmentation_tpu_torch.core.config import (AppConfig,
+                                                        SolverConfig,
+                                                        gan_config)
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator,
+                                                            _infer)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    t0 = time.perf_counter()
+    gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
+    launched = {k: {} for k in S8_KERNELS}
+    with tempfile.TemporaryDirectory() as base:
+        none = join(base, "none")
+        solver = SegSolver(10, "", none, cfg=scfg)
+        perturb(torch, solver.model, 41)
+        solver.weights_version += 1
+        src = ImageGenerator(gan="ffhq", gan_dir=none, batch_size=BATCH,
+                             seed=7)
+        perturb(torch, src.model, 42)
+        state = src.model.state_dict()
+        del src
+
+        def fresh():
+            return ImageGenerator(gan="ffhq", gan_dir=none, batch_size=BATCH,
+                                  seed=7, params=state)
+
+        pipes = {q: FusedPipeline(fresh(), solver, quant=q)
+                 for q in (None, "int8", "int8-full")}
+        kern = phase_s8_kernels(torch, gcfg, scfg, pipes["int8-full"])
+        t_kernels = time.perf_counter() - t0
+        runs, per_batch = {}, {}
+        for q in ("int8", "int8-full"):
+            pipe = pipes[q]
+            pipe.gen.skip_batches(-pipe.gen._batch_index)  # batch 0 again
+            eager = FusedPipeline(fresh(), solver, quant=q)
+            eager._batch = lambda b, p=eager: [p._fused(
+                *p.gen.next_inputs(b))]
+            pipe.program(), eager.program()  # quantized before the traces
+            with LaunchTrace(torch, s8=True) as gtrace:
+                got = [[t.cpu() for t in pipe.sample_batch()]
+                       for _ in range(INT8_BATCHES)]
+            with LaunchTrace(torch, s8=True) as etrace:
+                want = [[t.cpu() for t in eager._batch(BATCH)[0]]
+                        for _ in range(INT8_BATCHES)]
+            del eager
+            call = pipe._graphs[BATCH]
+            assert call.replays == INT8_BATCHES - 1, call.replays
+            assert gtrace.device == etrace.device, (gtrace.device,
+                                                    etrace.device)
+            same = all(torch.equal(a, b) for x, y in zip(got, want)
+                       for a, b in zip(x, y))
+            check_later(same, f"{q}: graph batches differ from the eager "
+                              f"path's")
+            first = [t.clone() for t in call()]
+            again = call()
+            check_later(all(torch.equal(a, b) for a, b in zip(first, again)),
+                        f"{q}: a replay repeated differs from itself")
+            per_batch[q] = {k: n // INT8_BATCHES
+                            for k, n in etrace.device.items() if n}
+            for k in S8_KERNELS:
+                if gtrace.device[k]:
+                    launched[k][f"{q} graph vs eager"] = (gtrace.device[k]
+                                                          + etrace.device[k])
+            runs[q] = got
+        ref = pipes[None]
+        ref.gen.skip_batches(-ref.gen._batch_index)
+        runs["bf16"] = [[t.cpu() for t in ref.sample_batch()]
+                        for _ in range(INT8_BATCHES)]
+        quality = {}
+        for q in ("int8", "int8-full"):
+            agree = float(np.mean([(masks_of(a) == masks_of(b)).mean()
+                                   for a, b in zip(runs[q], runs["bf16"])]))
+            mse = float(np.mean([((a[0].double() - b[0].double()) ** 2
+                                  ).mean().item()
+                                 for a, b in zip(runs[q], runs["bf16"])]))
+            psnr = None if mse == 0 else float(10 * np.log10(255 ** 2 / mse))
+            quality[q] = dict(mask_agreement=agree, image_psnr_db=psnr,
+                              images_equal=mse == 0)
+            check_later(agree >= INT8_MIN_AGREEMENT[q],
+                        f"{q}: masks agree with bf16 on {agree:.4f} of the "
+                        f"pixels (< {INT8_MIN_AGREEMENT[q]})")
+        check_later(quality["int8-full"]["image_psnr_db"] is not None
+                    and quality["int8-full"]["image_psnr_db"]
+                    >= INT8_MIN_PSNR, f"int8-full: image PSNR "
+                    f"{quality['int8-full']['image_psnr_db']} dB (< "
+                    f"{INT8_MIN_PSNR})")
+        check_later(quality["int8"]["images_equal"],
+                    "int8: the images differ from bf16's (the generator is "
+                    "float under int8)")
+        rates = {k: [] for k in ("bf16", "int8", "int8-full")}
+        for tag in ("bf16", "int8", "int8-full", "int8-full", "int8",
+                    "bf16"):
+            rates[tag].append(pipeline_rate(
+                torch, pipes[None if tag == "bf16" else tag], INT8_RATE_NUM))
+        # --dp's machinery on the one card: two replicas of the int8-full
+        # program, half the batch each, each part bit-equal to the
+        # one-device program on that half (the replicas serve its state)
+        one = pipes["int8-full"].program()
+        dp = FusedPipeline(fresh(), solver, mesh=["cuda:0", "cuda:0"],
+                           quant="int8-full")
+        with LaunchTrace(torch, s8=True) as dtrace:
+            parts = [[t.cpu() for t in dp.sample_batch()] for _ in range(2)]
+        draw, dp_equal = fresh(), True
+        for got in parts:
+            z, noise = draw.draw_inputs(BATCH)
+            halves = [_infer(one, z[h].clone(), noise={
+                k: v[h].clone() for k, v in noise.items()})
+                for h in (slice(0, BATCH // 2), slice(BATCH // 2, None))]
+            dp_equal &= all(torch.equal(g, torch.cat(
+                [p[i] for p in halves]).cpu()) for i, g in enumerate(got))
+        check_later(dp_equal, "int8-full over two replicas differs from the "
+                              "one-device program on each half")
+        for k in S8_KERNELS:
+            launched[k]["int8-full --dp 2 parts"] = dtrace.device[k]
+        del pipes, runs, dp, draw, one
+        torch.cuda.empty_cache()
+
+        # (iv) the entry point, and --resume
+        try:
+            import cv2  # noqa: F401
+            writer = "cv2"
+        except ImportError:
+            writer = None
+        resume = None
+        if writer is not None:
+            cfg = AppConfig(BASE_DIR=base, GAN="ffhq", GAN_DIR=none,
+                            GAN_BATCH_SIZE_PER_GPU=BATCH,
+                            GENERATE_NUM=INT8_GENERATE)
+            solver.checkpoints_dir = join(base, "checkpoints")
+            solver.save()  # the decoder run_generate loads
+            out = join(base, "dataset", "train_generated")
+            with LaunchTrace(torch, s8=True) as trace:
+                run_generate(cfg, writer=writer, quant="int8")
+            for k in S8_KERNELS:
+                if trace.device[k]:
+                    launched[k]["run_generate int8"] = trace.device[k]
+            ref_bytes = {f: open(join(out, f), "rb").read()
+                         for f in os.listdir(out)}
+            assert len(ref_bytes) == 2 * INT8_GENERATE, sorted(ref_bytes)
+            lost = [f"{k}_{i:06d}.{e}" for i in range(BATCH + 2,
+                                                       INT8_GENERATE)
+                    for k, e in (("img", "jpg"), ("mask", "png"))]
+            for f in lost:
+                os.remove(join(out, f))
+            run_generate(cfg, writer=writer, quant="int8", resume=True)
+            resume = all(open(join(out, f), "rb").read() == b
+                         for f, b in ref_bytes.items()) and sorted(
+                os.listdir(out)) == sorted(ref_bytes)
+            check_later(resume, "run_generate --quant int8 --resume: the "
+                                "rewritten tail differs")
+            shutil.rmtree(out)
+            cfg.GENERATE_NUM = BATCH
+            with LaunchTrace(torch, s8=True) as trace:
+                run_generate(cfg, writer=writer, quant="int8-full")
+            for k in S8_KERNELS:
+                launched[k]["run_generate int8-full"] = trace.device[k]
+            assert len(os.listdir(out)) == 2 * BATCH, os.listdir(out)
+            # --quant int8-full --dp 2 through the entry point, its two
+            # replicas on the one card (generate_devices over [card, card])
+            shutil.rmtree(out)
+            import gan_segmentation_tpu_torch.apps.main as app
+            real = app.generate_devices
+            app.generate_devices = functools.partial(
+                real, devices=[torch.device("cuda", 0)] * 2)
+            try:
+                with LaunchTrace(torch, s8=True) as trace:
+                    run_generate(cfg, writer=writer, quant="int8-full", dp=2)
+            finally:
+                app.generate_devices = real
+            for k in S8_KERNELS:
+                launched[k]["run_generate int8-full --dp 2"] = \
+                    trace.device[k]
+                check_later(trace.device[k] > 0, f"run_generate --quant "
+                            f"int8-full --dp 2 launched no {k}")
+            check_later(len(os.listdir(out)) == 2 * BATCH,
+                        f"run_generate --quant int8-full --dp 2 wrote "
+                        f"{sorted(os.listdir(out))}")
+        else:
+            log("int8: no cv2 on this machine, run_generate not driven")
+    for k in S8_KERNELS:
+        check_later(sum(launched[k].values()) > 0,
+                    f"int8: {k} was not launched on the main path")
+    seconds = time.perf_counter() - t0
+    log(f"int8 generation at ffhq 1024^2, batch {BATCH} (bf16 compute): "
+        f"graphs equal eager (batches 0-{INT8_BATCHES - 1}); launches per "
+        f"batch {per_batch}; against bf16 on the same z and noise "
+        f"{quality}; device pipeline samples/s "
+        + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)}"
+                    for k, vs in rates.items())
+        + f"; --dp 2 parts = the one-device int8-full program on each "
+        f"half {dp_equal}; run_generate --quant int8: {INT8_GENERATE} "
+        f"pairs, --resume byte-identical {resume}, --quant int8-full "
+        f"{BATCH} pairs, with --dp 2 {BATCH} pairs; phase {seconds:.1f} s (kernel checks "
+        f"{t_kernels:.1f} s) on {smi}")
+    return dict(kernels=kern, launches=launched, per_batch=per_batch,
+                quality=quality, rates=rates, resume=resume,
+                dp_parts_equal=dp_equal, seconds=seconds)
 
 
 # --------------------------------------------------- foreign checkpoints
@@ -5251,7 +5721,9 @@ def multi_card_dp(torch, n, smi):
     """``generate --dp n`` in this process: each batch of 8 n split over
     the n cards, one replica and graph a card, against the one-device
     program on each part of the same inputs (bit for bit), and samples/s
-    beside one card at batch 8."""
+    beside one card at batch 8; then the same split of the int8-full
+    program (``--quant int8-full --dp n``: each card's replica serves the
+    int8 state of the pipeline's primary)."""
     from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
                                                             ImageGenerator,
                                                             _infer)
@@ -5283,24 +5755,66 @@ def multi_card_dp(torch, n, smi):
                 want.append([torch.cat([p[i] for p in parts]).cpu()
                              for i in (0, 1)])
             dp_rate = generate_rate(torch, dp)
-        equal = all(torch.equal(g, w) for gb, wb in zip(got, want)
-                    for g, w in zip(gb, wb))
-        replays = [c.replays for c, _, _ in dp._parts.values()]
-        del one, dp, draw, solver
+            equal = all(torch.equal(g, w) for gb, wb in zip(got, want)
+                        for g, w in zip(gb, wb))
+            replays = [c.replays for c, _, _ in dp._parts.values()]
+            del one, dp, draw
+            torch.cuda.empty_cache()
+            q_equal, q_trace = multi_card_int8(torch, solver, cards, none)
+        del solver
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(none, ignore_errors=True)
     check_later(equal and trace.device["conv_in_stats"] > 0,
                 f"generate --dp {n}: parts equal to the one-device program "
                 f"{equal}, launches {trace.device}")
+    check_later(q_equal and all(q_trace.device[k] > 0 for k in S8_KERNELS),
+                f"generate --quant int8-full --dp {n}: parts equal to the "
+                f"one-device program {q_equal}, launches {q_trace.device}")
     log(f"several cards: generate --dp {n}, ffhq 1024^2, batch {BATCH * n} "
         f"= {n} x {BATCH}, bf16: each card's part bit-equal to the "
         f"one-device program on it {equal}; {dp_rate:.3f} samples/s against "
         f"{one_rate:.3f} on one card at batch {BATCH}; device trace "
-        f"{trace.device}, replays {replays} on {smi}")
+        f"{trace.device}, replays {replays}; --quant int8-full --dp {n}: "
+        f"each card's part bit-equal to the one-device int8-full program "
+        f"on it {q_equal}, device trace {q_trace.device} on {smi}")
     return dict(parts_bit_equal=equal, samples_per_s=dp_rate,
                 one_card_samples_per_s=one_rate, launches=trace.device,
-                replays=replays)
+                replays=replays, int8_full_parts_bit_equal=q_equal,
+                int8_full_launches=q_trace.device)
+
+
+def multi_card_int8(torch, solver, cards, gan_dir, batches=2):
+    """The int8-full program split over ``cards`` (a batch of 8 a card)
+    against the one-device int8-full program on each part of the same
+    inputs: -> (bit-equal, the ``LaunchTrace`` of the split batches)."""
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator,
+                                                            _infer)
+
+    n = len(cards)
+
+    def fresh(batch):
+        return ImageGenerator(gan="ffhq", gan_dir=gan_dir, batch_size=batch,
+                              seed=3)
+
+    one = FusedPipeline(fresh(BATCH), solver, quant="int8-full")
+    dp = FusedPipeline(fresh(BATCH * n), solver, mesh=cards,
+                       quant="int8-full")
+    with LaunchTrace(torch, s8=True) as trace:
+        got = [[t.cpu() for t in dp.sample_batch()] for _ in range(batches)]
+    draw, equal = fresh(BATCH * n), True
+    for gb in got:
+        z, noise = draw.draw_inputs(BATCH * n)
+        parts = [_infer(one.program(), z[k * BATCH:(k + 1) * BATCH].clone(),
+                        noise={name: v[k * BATCH:(k + 1) * BATCH].clone()
+                               for name, v in noise.items()})
+                 for k in range(n)]
+        equal &= all(torch.equal(g, torch.cat([p[i] for p in parts]).cpu())
+                     for i, g in enumerate(gb))
+    del one, dp, draw
+    torch.cuda.empty_cache()
+    return equal, trace
 
 
 def phase_multi_card(torch, smi):
@@ -5469,13 +5983,19 @@ def main():
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(so)}")
     spills = ptxas_report(so + ".ptxas.txt")
     tc = {k: v for k, v in spills.items()
-          if "conv3x3_tc" in k or "conv3x3_tf32" in k}
+          if "conv3x3_tc" in k or "conv3x3_tf32" in k
+          or "quantize_s8_kernel" in k}
     assert any("conv3x3_tc" in k for k in tc), "no bf16 tensor-core kernel"
     assert any("conv3x3_tf32" in k for k in tc), "no 3xTF32 kernel"
+    # the s8 bodies: the tensor-core kernel launched by entry 4 or 5
+    n_s8 = sum("conv3x3_tc_kernel" in k and re.search(r"Li[45]EEEv", k)
+               is not None for k in tc)
+    assert n_s8 > 0, "no s8 tensor-core kernel"
+    assert any("quantize_s8_kernel" in k for k in tc), "no quantize kernel"
     bad = {k: v for k, v in tc.items() if v != (0, 0)}
     assert not bad, f"tensor-core kernels spill: {bad}"
-    log(f"ptxas: {len(tc)} tensor-core kernels (bf16 and 3xTF32), 0 bytes "
-        f"of spill in each; spills elsewhere: "
+    log(f"ptxas: {len(tc)} tensor-core and quantize kernels (bf16, 3xTF32, "
+        f"{n_s8} s8), 0 bytes of spill in each; spills elsewhere: "
         f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
 
     # 3. kernels
@@ -5496,6 +6016,8 @@ def main():
     marks.append(("cars and bedrooms", time.perf_counter()))
     gg = phase_graph_generate(torch)
     marks.append(("generate as graphs", time.perf_counter()))
+    i8 = phase_int8(torch, smi)
+    marks.append(("int8", time.perf_counter()))
 
     # 5. train and evaluate, 5b. the serving export of the trained decoder
     phase_small_train_reference(torch)
@@ -5647,6 +6169,56 @@ def main():
                              batch_plain_ms_f32=f32["plain"],
                              batch_library_ms_f32=f32["library"])
         kernels.append(entry)
+    s8_design = ("s8 body of conv3x3_tc.cuh: mma.sync m16n8k32 s8 x s8 -> "
+                 "s32 implicit GEMM fed by a 2- or 3-stage cp.async ring of "
+                 "32 or 64 channels, w laid out [tap][Cout][Cin] for "
+                 "non-transposed ldmatrix, split-K in exact s32 with a "
+                 "fixed-order finish kernel; epilogue float(acc) * deq "
+                 "(+ bias) rounded step by step")
+    s8_sources = {
+        "conv_in_stats_s8": (
+            "gan_segmentation_tpu_torch/csrc/conv_in_stats.cu",
+            "experiments/pallas_archive/conv_in_stats.py:118",
+            s8_design + ", + noise * nscale, leaky, statistics from the "
+            "f32 values"),
+        "small_conv_s8": (
+            "gan_segmentation_tpu_torch/csrc/small_conv.cu",
+            "experiments/pallas_archive/small_conv.py:84",
+            s8_design + ", none / relu / leaky; Cout up to 4 x 512 (the "
+            "sub-pixel up-sampling convs)"),
+        "quantize_s8": (
+            "gan_segmentation_tpu_torch/csrc/quantize_s8.cu",
+            "gan_segmentation_tpu/ops/quant.py:125",
+            "elementwise bf16 / f32 -> s8, 8 elements a thread (16-byte "
+            "loads), round half to even, saturating, the scale read from "
+            "the device (quantize_act: XLA on the TPU, no Pallas kernel)")}
+    for name, (src, replaces, design) in s8_sources.items():
+        r = i8["kernels"][name]
+        entry = dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            design=design, launches=sum(i8["launches"][name].values()),
+            launches_by_path=i8["launches"][name],
+            launches_counted_by="device traces (torch.profiler) of the "
+                                "int8 phase's main-path runs",
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None)
+        if name == "quantize_s8":
+            entry.update(exact=r["exact"], calls_per_batch=r["calls"],
+                         timed="device time (graph replay) of every "
+                               "quantize of an int8-full generate batch of "
+                               "8; library: none")
+        else:
+            entry.update(exact_s32=r["exact"],
+                         equal_share_min=r["equal_min"],
+                         bf16_ulps_max=r["ulps_max"],
+                         bf16_body_ms=r["bf16_ms"],
+                         timed="bf16 out, device time (graph replay) per "
+                               "int8-full generate batch of 8, bound at "
+                               "1,979 int8 TOPS; library: none (no single "
+                               "PyTorch call computes an s8 3x3 conv); "
+                               "bf16_body_ms: the bf16 body on the same "
+                               "shapes")
+        kernels.append(entry)
     prof = tr["prof"]
     print(json.dumps({"graphs": {
         "generate": gg["gans"],
@@ -5660,6 +6232,8 @@ def main():
                       pool_gib=prof["pool_gib"], versus=tr["versus"]),
         "retrain_s": {k: an[k] for k in ("retrain_s", "retrain_warm_s",
                                          "retrain_eager_s")}}}), flush=True)
+    print(json.dumps({"int8": {k: v for k, v in i8.items()
+                               if k != "kernels"}}), flush=True)
     print(json.dumps({"deeplab": dl}), flush=True)
     print(json.dumps({"export": ex}), flush=True)
     print(json.dumps({"step5": {k: v for k, v in s5.items()

@@ -56,10 +56,11 @@ def parse_args(argv=None):
     parser.add_argument(
         "--dp", type=int, default=1, metavar="D",
         help="generate: split each batch over D cards of this process "
-             "(0: every card).  On cards the pairs are not bit-equal to "
-             "--dp 1's: each card computes its part at batch B/D, and "
-             "kernels 1 and 2 split their sums by the batch size "
-             "(ROADMAP.md, Queue 3)")
+             "(0: every card); composes with --quant.  The pairs match "
+             "--dp 1 up to bf16 rounding, as the JAX package's do: each "
+             "card computes its part at batch B/D, and kernels 1 and 2 "
+             "split their float sums by the batch size (their s8 bodies' "
+             "integer sums are exact in any split)")
     parser.add_argument(
         "--resume", action="store_true", default=False,
         help="generate: continue an interrupted emission — keep the "
@@ -68,8 +69,13 @@ def parse_args(argv=None):
              "(the pairs produced are identical to an uninterrupted run)")
     parser.add_argument(
         "--quant", choices=("none", "int8", "int8-full"), default="none",
-        help="generate: post-training quantization (not ported; only "
-             "'none' is accepted)")
+        help="generate: post-training int8 quantization.  'int8': the "
+             "decoder's convs in s8 (the s8 bodies of kernels 1 and 2), "
+             "activation scales calibrated on two fixed generator batches "
+             "disjoint from the emission stream, so --resume stays "
+             "byte-identical; 'int8-full': the generator's synthesis convs "
+             "too.  Masks agree with 'none' on most pixels; validate on "
+             "trained weights before production emission")
     parser.add_argument(
         "--writer", choices=("auto", "native", "cv2"), default="auto",
         help="generate: host-side pair writer. 'native' is the C++ threaded "
@@ -165,8 +171,8 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
     """Emit ``GENERATE_NUM`` pairs; under a launcher this process's slice
     of them, from its own z stream.  ``dp``: the cards of this process over
     which each batch is split (``core/mesh.py::generate_devices``)."""
-    if quant is not None:
-        raise SystemExit("--quant (int8 generation) is not ported yet")
+    if quant not in (None, "int8", "int8-full"):
+        raise SystemExit(f"--quant: unknown mode {quant!r}")
     try:
         mesh = generate_devices(spatial, dp=None if dp == 1 else dp)
     except (ValueError, NotImplementedError) as exc:
@@ -194,7 +200,9 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
     if mesh is not None:
         log.info("generate over %d cards: each batch of %d split over them",
                  len(mesh), batch_size)
-    pipeline = FusedPipeline(netG, solver, mesh=mesh)
+    if quant is not None:
+        log.info("int8 generation: %s", quant)
+    pipeline = FusedPipeline(netG, solver, mesh=mesh, quant=quant)
 
     dst_dir = join(cfg.BASE_DIR, "dataset", "train_generated")
     makedirs(dst_dir, exist_ok=True)

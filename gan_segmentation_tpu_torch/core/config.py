@@ -33,7 +33,8 @@ class GanConfig:
     # mapping-net dense layers run with lr_mult 0.01 folded into the forward
     # weight scale (`image_generator.py:42`, `networks_stylegan.py:134-136`)
     mapping_lr_mult: float = 0.01
-    # int8 form-policy sizing of the JAX package; the port has no int8 path
+    # the JAX package's int8 XLA form-policy sizing; the port's int8 runs
+    # its s8 kernels, which need no such policy (kept field for field)
     quant_batch_shards: int = 1
     # blur folded into the fused-upscale deconv in the JAX package (default
     # off there); the port refuses it

@@ -286,6 +286,7 @@ def _fused_inputs(pipeline, batch_size: Optional[int]):
             "generator_dtype": str(gen.model.compute_dtype).replace(
                 "torch.", ""),
             "masks_packed": pipeline._pack_masks,
+            "quant": pipeline.quant,
             "resolution": 2 ** gen.cfg.max_res_log2}
     return pipeline.program(), (z, noise), meta
 

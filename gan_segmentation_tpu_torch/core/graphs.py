@@ -31,11 +31,16 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from ..kernels.bil_conv import conv3x3_bil
-from ..kernels.conv_in_stats import conv3x3_noise_bias_lrelu_instats
-from ..kernels.small_conv import conv3x3_small
+from ..kernels.conv_in_stats import (conv3x3_noise_bias_lrelu_instats,
+                                     conv3x3_noise_bias_lrelu_instats_s8)
+from ..kernels.quantize import quantize_s8
+from ..kernels.small_conv import conv3x3_small, conv3x3_small_s8
 
-# the kernel wrappers whose launches a capture records (``deltas``)
-COUNTED = (conv3x3_noise_bias_lrelu_instats, conv3x3_small, conv3x3_bil)
+# the kernel wrappers whose launches a capture records (``deltas``): kernels
+# 1-3, then int8 generation's s8 bodies and quantize pass
+COUNTED = (conv3x3_noise_bias_lrelu_instats, conv3x3_small, conv3x3_bil,
+           conv3x3_noise_bias_lrelu_instats_s8, conv3x3_small_s8,
+           quantize_s8)
 
 # eager steps of a train step's ``GraphedCall`` before its capture: they
 # create the optimizer's state and cuDNN's plans (real steps)

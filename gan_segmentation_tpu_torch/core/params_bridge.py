@@ -15,7 +15,11 @@ multipliers at run time (`gan_segmentation_tpu/models/layers.py:79-90,
 - the JAX package's BatchNorm ``scale``/``bias`` and batch stats
   ``mean``/``var`` -> ``weight``/``bias``/``running_mean``/``running_var``
   (``tree_state_dict``, for the decoder and the DeepLab models, whose
-  submodules carry the JAX package's names; ``state_dict_trees`` is its inverse).
+  submodules carry the JAX package's names; ``state_dict_trees`` is its inverse);
+- int8 state: the JAX generator's ``quant`` collection
+  (``generator_quant_invs``) and the JAX decoder's ``prepare_s2d_int8``
+  tree (``decoder_int8_state``) -> the port's ``ops/quant.py`` states, so
+  both packages can serve the same quantized model.
 """
 
 from typing import Dict, Mapping, Tuple
@@ -140,3 +144,77 @@ def state_dict_trees(state: Mapping) -> Tuple[Dict, Dict]:
         else:
             _put(params, key, v)
     return params, batch_stats
+
+
+def generator_quant_invs(quant: Mapping) -> Dict[str, float]:
+    """The JAX generator's ``quant`` collection (``{"block_3": {"conv_1":
+    {"inv_in": ...}}, ...}``) -> ``{"block_3.conv_1": inv_in}``, the scales
+    ``ops/quant.py::generator_int8_state`` takes (the weights quantize from
+    the port's own parameters, as the JAX package's do at trace time)."""
+    return {k.rsplit(".", 1)[0]: float(np.float32(v))
+            for k, v in _flatten(quant).items()}
+
+
+# Fine-kernel row ky -> (block row dy, input parity a') of the s2d 3x3
+# kernel, for output parity 0 (``gan_segmentation_tpu/ops/s2d_decoder.py::
+# _ROW_S2D[0]``): its entries there are the fine kernel's, each once.
+_ROW_S2D0 = ((0, 0, 1), (1, 1, 0), (2, 1, 1))
+
+
+def _fine_from_s2d3x3(k):
+    """(3, 3, 4 Ci, 4 Co) s2d kernel (``conv3x3_kernel_s2d``) -> the fine
+    (3, 3, Ci, Co) kernel it re-places."""
+    ci, co = k.shape[2] // 4, k.shape[3] // 4
+    out = np.zeros((3, 3, ci, co), k.dtype)
+    for ky, dy, ap in _ROW_S2D0:
+        for kx, dx, bp in _ROW_S2D0:
+            out[ky, kx] = k[dy, dx, ap * 2 + bp::4, 0::4]
+    return out
+
+
+def decoder_int8_state(qtree: Mapping, dec, n_block_stages: int = 3):
+    """The JAX decoder's ``prepare_s2d_int8`` tree (numpy) -> the port's
+    ``QuantState`` for ``Decoder.forward_int8`` on ``dec``'s sites, on the
+    CPU.  Every kernel but a block stage's conv_0 holds the fine kernel's
+    integers in an s2d arrangement, and the fine ones are taken back (output
+    parity 0's channels, ``0::4``, of the per-channel vectors); a block
+    stage's conv_0 stays the (3, 3, Ci, 4 Co) kernel in its ``c * 4 +
+    parity`` order, with its per-(channel, parity) scales."""
+    from ..ops.quant import (QConv, QuantState, _layout1x1, _layout3x3,
+                             _plan, check_shortcut_scales)
+    stages = qtree["stages"]
+    last = len(dec.in_channels) - 1
+    _, sres, first_block = _plan(last + 1, dec.start_res, n_block_stages)
+
+    def site(st, kkey, bkey, w, sl=slice(None)):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+        w = t(np.asarray(w, np.int8))
+        return QConv(_layout1x1(w) if w.shape[0] == 1 else _layout3x3(w),
+                     t(np.asarray(st[kkey + "_deq"], np.float32)[sl]),
+                     t(np.asarray(st[bkey], np.float32)[sl]),
+                     torch.tensor([float(np.float32(st[kkey + "_inv"]))]))
+
+    out = {}
+    for i in range(sres, last + 1):
+        st = {k: np.asarray(v) for k, v in stages[str(i)].items()}
+        block = i >= first_block
+        p0 = slice(0, None, 4)
+        if i == last:  # cvt_k: strided_parity_kernel, parity 0 at (0, 0)
+            out[f"cvt_{i}"] = site(st, "cvt_k", "cvt_b",
+                                   st["cvt_k"][0:3, 0:3, :, 0::4], p0)
+            out[f"main_{i}_conv"] = site(st, "kf", "bf",
+                                         _fine_from_s2d3x3(st["kf"]), p0)
+            continue
+        out[f"cvt_{i}"] = site(st, "cvt_k", "cvt_b", st["cvt_k"])
+        out[f"main_{i}.conv_0"] = site(st, "k0", "b0", st["k0"])
+        if block:
+            out[f"main_{i}.conv_1"] = site(st, "k1", "b1",
+                                           _fine_from_s2d3x3(st["k1"]), p0)
+        else:
+            out[f"main_{i}.conv_1"] = site(st, "k1", "b1", st["k1"])
+        if "ksc" in st:
+            ksc = st["ksc"][..., 0::4] if block else st["ksc"]
+            out[f"main_{i}.shortcut"] = site(st, "ksc", "bsc", ksc,
+                                             p0 if block else slice(None))
+    check_shortcut_scales({k: v.inv for k, v in out.items()})
+    return QuantState(out, first_block)

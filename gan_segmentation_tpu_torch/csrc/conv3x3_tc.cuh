@@ -1,6 +1,6 @@
-// Tensor-core implicit GEMM for the bf16 3x3 convolutions of kernels 1 and 2
-// (conv_in_stats.cu, small_conv.cu).  bf16 only: the f32 calls run the
-// 3xTF32 kernel of conv3x3_tf32.cuh.
+// Tensor-core implicit GEMM for the bf16 and s8 3x3 convolutions of kernels
+// 1 and 2 (conv_in_stats.cu, small_conv.cu).  The f32 calls run the 3xTF32
+// kernel of conv3x3_tf32.cuh.
 //
 // Layout: x is NHWC, w is HWIO (3, 3, Cin, Cout), stride 1, zero pad 1.
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x Cin.
@@ -61,6 +61,21 @@
 // tile) partial sums of v and v^2 are taken in a fixed pixel order from the
 // f32 values before the bf16 rounding; a block spanning G images writes one
 // partial per image.
+//
+// s8 body (int8 generation; the s8 entry points of both kernels).  x and w
+// are s8 and the MMA is mma.sync.m16n8k32.s32.s8.s8.s32: exact integer
+// sums, in any order, so a split-K adds its s32 partials exactly too.  A
+// stage holds CK = 32 or 64 channels, the same 32 or 64 bytes a pixel as
+// bf16's CK = 16 or 32, so the halo, its padding and A's ldmatrix offsets
+// are the bf16 body's in bytes.  B differs: ldmatrix.trans moves 16-bit
+// elements and cannot transpose s8, so w comes laid out [tap][Cout][Cin]
+// (K contiguous, the host lays it out once per quantization) and B's
+// fragments are plain ldmatrix rows of a [n][k] tap slice.  The epilogue
+// dequantizes first, v = float(acc) * deq[c], with every product and sum
+// rounded separately (__fmul_rn, __fadd_rn: never a fused multiply-add), so
+// its f32 values are those of the plain version's ops in the same order.
+// y is stored in bf16, or in f32 where the caller asks (the f32 compute
+// dtype, and the exactness check with deq = 1).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -80,21 +95,51 @@ constexpr int FINISH_BN = 8;  // output channels per split-K finish block
 
 enum Act { NONE = 0, RELU = 1, LEAKY = 2 };
 
-// A row of e bf16 elements (e a multiple of 8) padded to an odd number of
-// 16-byte units: 8 consecutive rows then start in 8 different bank groups.
-__host__ __device__ constexpr int pad_row(int e) {
-  return ((e / 8) % 2 == 0) ? e + 8 : e;
+// The entry point that launches a body (the kernels' last template
+// argument, which a profile shows): 1 conv_in_stats and 2 small_conv in
+// bf16, 4 and 5 the same two in s8.
+__host__ __device__ constexpr bool is_s8(int kernel) {
+  return kernel == 4 || kernel == 5;
 }
 
-// Shared-memory layout of one launch (runtime G, TH, TW and stage count):
-// the ring of `stages` stages, then the f32 epilogue tile and the
+// x's and w's element and the accumulator of each body.
+template <bool S8>
+struct Elem {
+  using T = __nv_bfloat16;
+  using Acc = float;
+  static constexpr int BYTES = 2;
+};
+template <>
+struct Elem<true> {
+  using T = int8_t;
+  using Acc = int;
+  static constexpr int BYTES = 1;
+};
+
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// A row of b bytes (a multiple of 16) padded to an odd number of 16-byte
+// units: 8 consecutive rows then start in 8 different bank groups.
+__host__ __device__ constexpr int pad16(int b) {
+  return ((b / 16) % 2 == 0) ? b + 16 : b;
+}
+
+// Shared-memory layout of one launch (runtime G, TH, TW and stage count),
+// in bytes: the ring of `stages` stages, then the f32 epilogue tile and the
 // statistics' segment sums, which live apart from the ring so that the
 // next item's loads can land while this item's epilogue runs.
 struct Layout {
   int hp, wp;         // halo rows and columns per image
-  int halo_elems;     // bf16 elements of one stage's halo
-  int noise_off;      // bf16 elements before the stage's noise (after taps)
-  int stage_elems;    // halo + taps + noise
+  int halo_bytes;     // one stage's halo
+  int noise_off;      // bytes before the stage's noise (after the taps)
+  int stage_bytes;    // halo + taps + noise
   int ring_bytes;
   int vs;             // f32 row stride of the epilogue tile
   int smem;           // bytes
@@ -104,16 +149,19 @@ __host__ __device__ inline int red_floats(int threads, int g, int bn) {
   return 2 * (threads > g * bn ? threads : g * bn);
 }
 
-__host__ __device__ inline Layout layout(int bn, int ck, int bm, int threads,
-                                         int g, int th, int tw, int stages,
-                                         bool noise) {
+// eb: bytes of an element (2 bf16, 1 s8).  The taps of a stage: bf16 as
+// [tap][CK][BN], s8 as [tap][BN][CK], each row padded by pad16.
+__host__ __device__ inline Layout layout(int bn, int ck, int eb, int bm,
+                                         int threads, int g, int th, int tw,
+                                         int stages, bool noise) {
   Layout L;
   L.hp = th + 2;
   L.wp = tw + 2;
-  L.halo_elems = g * L.hp * L.wp * pad_row(ck);
-  L.noise_off = L.halo_elems + 9 * ck * pad_row(bn);
-  L.stage_elems = L.noise_off + (noise ? 2 * bm : 0);  // bm f32 values
-  L.ring_bytes = stages * L.stage_elems * 2;
+  L.halo_bytes = g * L.hp * L.wp * pad16(ck * eb);
+  L.noise_off = L.halo_bytes +
+                (eb == 2 ? 9 * ck * pad16(2 * bn) : 9 * bn * pad16(ck));
+  L.stage_bytes = L.noise_off + (noise ? 4 * bm : 0);  // bm f32 values
+  L.ring_bytes = stages * L.stage_bytes;
   L.vs = bn + 4;
   L.smem = L.ring_bytes + (bm * L.vs + red_floats(threads, g, bn)) * 4;
   return L;
@@ -121,14 +169,16 @@ __host__ __device__ inline Layout layout(int bn, int ck, int bm, int threads,
 
 // Everything a launch reads; passed by value.
 struct Args {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* w;
+  const void* x;        // NHWC: bf16, or s8 (s8 body)
+  const void* w;        // bf16 HWIO, or s8 [tap][Cout][Cin] (s8 body)
+  const float* deq;     // s8 body: (Cout,) dequantization multipliers
   const float* bias;    // (Cout,) or null
   const float* noise;   // (N, H, W) or null (kernel 2)
   const float* nscale;  // (Cout,) with noise
-  __nv_bfloat16* y;
+  void* y;              // NHWC: bf16, or f32 where y_f32 (s8 body)
+  int y_f32;
   float* partial;       // (N, tiles, 2, Cout) or null (kernel 2)
-  float* ws;            // (splits, N*H*W, Cout) f32 when splits > 1
+  float* ws;            // (splits, N*H*W, Cout) f32 (s8: s32) when splits > 1
   int n, h, wd, cin, cout;
   int act;
   float slope;
@@ -160,13 +210,39 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1,
       : "r"(addr));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void ldsm_x4_n(uint32_t& r0, uint32_t& r1,
+                                          uint32_t& r2, uint32_t& r3,
+                                          uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_n(uint32_t& r0, uint32_t& r1,
+                                          uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma(int (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -213,9 +289,10 @@ __device__ __forceinline__ Pix pixel(const Args& a, int p, int n0, int ty0,
   return q;
 }
 
-// A channel's noise scale and bias (0 where absent or co >= cout).
+// A channel's noise scale, bias and dequantization multiplier (0 where
+// absent or co >= cout).
 struct Chan {
-  float ns, b;
+  float ns, b, dq;
 };
 
 __device__ __forceinline__ Chan channel(const Args& a, int co) {
@@ -223,10 +300,11 @@ __device__ __forceinline__ Chan channel(const Args& a, int co) {
   const bool ok = co < a.cout;
   ch.ns = (ok && a.noise != nullptr) ? a.nscale[co] : 0.f;
   ch.b = (ok && a.bias != nullptr) ? a.bias[co] : 0.f;
+  ch.dq = (ok && a.deq != nullptr) ? a.deq[co] : 0.f;
   return ch;
 }
 
-// The epilogue of one value of channel ch; nz is the pixel's noise
+// The epilogue of one accumulator of channel ch; nz is the pixel's noise
 // (kernel 1).
 __device__ __forceinline__ float epilogue(const Args& a, float v, float nz,
                                           Chan ch) {
@@ -239,35 +317,52 @@ __device__ __forceinline__ float epilogue(const Args& a, float v, float nz,
   return v;
 }
 
-// Stage chunk `chunk` of Cin: the halo of G images, the 9 x CK x BN taps
-// (unless resident) and, on the item's last chunk in kernel 1, the noise of
-// its bm pixels, so the epilogue reads it from shared memory.
-template <int BN, int CK>
+// s8: dequantize, then the same steps, each rounded on its own.
+__device__ __forceinline__ float epilogue(const Args& a, int acc, float nz,
+                                          Chan ch) {
+  float v = __fmul_rn(__int2float_rn(acc), ch.dq);
+  if (a.noise != nullptr) v = __fadd_rn(v, __fmul_rn(nz, ch.ns));
+  if (a.bias != nullptr) v = __fadd_rn(v, ch.b);
+  if (a.act == RELU)
+    v = fmaxf(v, 0.f);
+  else if (a.act == LEAKY)
+    v = v >= 0.f ? v : __fmul_rn(a.slope, v);
+  return v;
+}
+
+// Stage chunk `chunk` of Cin: the halo of G images, the taps (unless
+// resident) and, on the item's last chunk in kernel 1, the noise of its bm
+// pixels, so the epilogue reads it from shared memory.
+template <int BN, int CK, bool S8>
 __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
-                                           __nv_bfloat16* st, int chunk,
+                                           unsigned char* st, int chunk,
                                            const Item& it, bool taps,
                                            bool noise, int bm, int tid,
                                            int threads) {
-  constexpr int PS = pad_row(CK);
-  constexpr int BNP = pad_row(BN);
+  using T = typename Elem<S8>::T;
+  constexpr int EB = Elem<S8>::BYTES;
+  constexpr int PS = pad16(CK * EB);  // halo pixel stride, bytes
+  constexpr int E16 = 16 / EB;        // elements in 16 bytes
+  const T* x = static_cast<const T*>(a.x);
+  const T* w = static_cast<const T*>(a.w);
   const int c0 = chunk * CK;
   const int hpx = a.g * L.hp * L.wp;
   if (a.vec_x) {
-    constexpr int P8 = CK / 8;
-    for (int i = tid; i < hpx * P8; i += threads) {
-      const int px = i / P8;
-      const int c8 = i - px * P8;
+    constexpr int U = CK / E16;
+    for (int i = tid; i < hpx * U; i += threads) {
+      const int px = i / U;
+      const int u = i - px * U;
       const int r = a.fd_wp.div(px);
       const int hx = px - r * L.wp;
       const int gi = a.fd_hp.div(r);
       const int hy = r - gi * L.hp;
       const int nn = it.n0 + gi;
-      const int iy = it.ty0 - 1 + hy, ix = it.tx0 - 1 + hx, c = c0 + c8 * 8;
+      const int iy = it.ty0 - 1 + hy, ix = it.tx0 - 1 + hx, c = c0 + u * E16;
       const bool ok = nn < a.n && iy >= 0 && iy < a.h && ix >= 0 &&
                       ix < a.wd && c < a.cin;
-      const __nv_bfloat16* src =
-          ok ? a.x + (((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c : a.x;
-      cp_async16(st + px * PS + c8 * 8, src, ok);
+      const T* src =
+          ok ? x + (((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c : x;
+      cp_async16(st + px * PS + u * 16, src, ok);
     }
   } else {
     for (int i = tid; i < hpx * CK; i += threads) {
@@ -279,11 +374,11 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
       const int hy = r - gi * L.hp;
       const int nn = it.n0 + gi;
       const int iy = it.ty0 - 1 + hy, ix = it.tx0 - 1 + hx, c = c0 + ci;
-      __nv_bfloat16 v = __float2bfloat16(0.f);
+      T v = zero<T>();
       if (nn < a.n && iy >= 0 && iy < a.h && ix >= 0 && ix < a.wd &&
           c < a.cin)
-        v = a.x[(((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c];
-      st[px * PS + ci] = v;
+        v = x[(((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c];
+      reinterpret_cast<T*>(st + px * PS)[ci] = v;
     }
   }
   if (noise) {
@@ -294,31 +389,58 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
     }
   }
   if (!taps) return;
-  __nv_bfloat16* wt = st + L.halo_elems;
-  if (a.vec_w) {
-    constexpr int N8 = BN / 8;
-    for (int i = tid; i < 9 * CK * N8; i += threads) {
-      const int r = i / N8;
-      const int j8 = i - r * N8;
-      const int tap = r / CK;
-      const int ci = r - tap * CK;
-      const int c = c0 + ci, o = it.co0 + j8 * 8;
-      const bool ok = c < a.cin && o < a.cout;
-      const __nv_bfloat16* src =
-          ok ? a.w + ((size_t)tap * a.cin + c) * a.cout + o : a.w;
-      cp_async16(wt + (tap * CK + ci) * BNP + j8 * 8, src, ok);
+  unsigned char* wt = st + L.halo_bytes;
+  if (!S8) {  // [tap][CK][BN]: w's HWIO rows
+    constexpr int RB = pad16(BN * 2);
+    if (a.vec_w) {
+      constexpr int N8 = BN / 8;
+      for (int i = tid; i < 9 * CK * N8; i += threads) {
+        const int r = i / N8;
+        const int j8 = i - r * N8;
+        const int tap = r / CK;
+        const int ci = r - tap * CK;
+        const int c = c0 + ci, o = it.co0 + j8 * 8;
+        const bool ok = c < a.cin && o < a.cout;
+        const T* src = ok ? w + ((size_t)tap * a.cin + c) * a.cout + o : w;
+        cp_async16(wt + (tap * CK + ci) * RB + j8 * 16, src, ok);
+      }
+    } else {
+      for (int i = tid; i < 9 * CK * BN; i += threads) {
+        const int r = i / BN;
+        const int j = i - r * BN;
+        const int tap = r / CK;
+        const int ci = r - tap * CK;
+        const int c = c0 + ci, o = it.co0 + j;
+        T v = zero<T>();
+        if (c < a.cin && o < a.cout) v = w[((size_t)tap * a.cin + c) * a.cout + o];
+        reinterpret_cast<T*>(wt + (tap * CK + ci) * RB)[j] = v;
+      }
     }
-  } else {
-    for (int i = tid; i < 9 * CK * BN; i += threads) {
-      const int r = i / BN;
-      const int j = i - r * BN;
-      const int tap = r / CK;
-      const int ci = r - tap * CK;
-      const int c = c0 + ci, o = it.co0 + j;
-      __nv_bfloat16 v = __float2bfloat16(0.f);
-      if (c < a.cin && o < a.cout)
-        v = a.w[((size_t)tap * a.cin + c) * a.cout + o];
-      wt[(tap * CK + ci) * BNP + j] = v;
+  } else {  // [tap][BN][CK]: w's [tap][Cout][Cin] rows, K contiguous
+    constexpr int RB = pad16(CK);
+    if (a.vec_w) {
+      constexpr int U = CK / 16;
+      for (int i = tid; i < 9 * BN * U; i += threads) {
+        const int r = i / U;
+        const int u = i - r * U;
+        const int tap = r / BN;
+        const int j = r - tap * BN;
+        const int c = c0 + u * 16, o = it.co0 + j;
+        const bool ok = c < a.cin && o < a.cout;
+        const T* src = ok ? w + ((size_t)tap * a.cout + o) * a.cin + c : w;
+        cp_async16(wt + r * RB + u * 16, src, ok);
+      }
+    } else {
+      for (int i = tid; i < 9 * BN * CK; i += threads) {
+        const int r = i / CK;
+        const int ci = i - r * CK;
+        const int tap = r / BN;
+        const int j = r - tap * BN;
+        const int c = c0 + ci, o = it.co0 + j;
+        T v = zero<T>();
+        if (c < a.cin && o < a.cout) v = w[((size_t)tap * a.cout + o) * a.cin + c];
+        reinterpret_cast<T*>(wt + r * RB)[ci] = v;
+      }
     }
   }
 }
@@ -329,13 +451,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Store the item's f32 epilogue tile vs ([bm][vstride], followed by the
-// statistics' scratch) as bf16 y and, for kernel 1, its per-(image, tile)
-// partial sums.  Shared by both kernels.
+// statistics' scratch) as y (bf16, or f32 where y_f32) and, for kernel 1,
+// its per-(image, tile) partial sums.  Shared by both kernels.
 __device__ __forceinline__ void store_tile(const Args& a, float* vs,
                                            int vstride, int bm, int bn,
                                            const Item it, int tid,
                                            int threads) {
-  if (a.vec_y) {  // Cout % 8 == 0: 8 channels (16 bytes) per store
+  if (a.vec_y) {  // Cout % 8 == 0: 8 channels (16 or 32 bytes) per store
     const int n8 = bn / 8;
     for (int i = tid; i < bm * n8; i += threads) {
       const int p = i / n8;
@@ -346,12 +468,20 @@ __device__ __forceinline__ void store_tile(const Args& a, float* vs,
       const float4 lo = *reinterpret_cast<const float4*>(vs + p * vstride + c);
       const float4 hi =
           *reinterpret_cast<const float4*>(vs + p * vstride + c + 4);
-      uint4 out;
-      out.x = pack_bf16(lo.x, lo.y);
-      out.y = pack_bf16(lo.z, lo.w);
-      out.z = pack_bf16(hi.x, hi.y);
-      out.w = pack_bf16(hi.z, hi.w);
-      *reinterpret_cast<uint4*>(a.y + q.idx * a.cout + it.co0 + c) = out;
+      const size_t off = q.idx * a.cout + co;
+      if (a.y_f32) {
+        float4* y = reinterpret_cast<float4*>(static_cast<float*>(a.y) + off);
+        y[0] = lo;
+        y[1] = hi;
+      } else {
+        uint4 out;
+        out.x = pack_bf16(lo.x, lo.y);
+        out.y = pack_bf16(lo.z, lo.w);
+        out.z = pack_bf16(hi.x, hi.y);
+        out.w = pack_bf16(hi.z, hi.w);
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(a.y) + off) =
+            out;
+      }
     }
   } else {  // only the block's real channels (Cout = 2 keeps 2 of N = 8)
     const int cn = min(bn, a.cout - it.co0);
@@ -360,7 +490,12 @@ __device__ __forceinline__ void store_tile(const Args& a, float* vs,
       const int c = i - p * cn;
       const Pix q = pixel(a, p, it.n0, it.ty0, it.tx0);
       if (!q.ok) continue;
-      a.y[q.idx * a.cout + it.co0 + c] = __float2bfloat16(vs[p * vstride + c]);
+      const size_t off = q.idx * a.cout + it.co0 + c;
+      if (a.y_f32)
+        static_cast<float*>(a.y)[off] = vs[p * vstride + c];
+      else
+        static_cast<__nv_bfloat16*>(a.y)[off] =
+            __float2bfloat16(vs[p * vstride + c]);
     }
   }
   if (a.partial == nullptr) return;
@@ -407,18 +542,18 @@ __device__ __forceinline__ void store_tile(const Args& a, float* vs,
 
 // Load position q of the block's (item, chunk) sequence into stage q % ns.
 // With resident taps, a stage's taps are loaded on its first fill only.
-template <int BN, int CK, int THREADS, int BM>
+template <int BN, int CK, bool S8, int THREADS, int BM>
 __device__ __forceinline__ void load_pos(const Args& a, const Layout& L,
-                                         __nv_bfloat16* ring, int q, int nc,
+                                         unsigned char* ring, int q, int nc,
                                          int ns, int first, int step,
                                          int tid) {
   const int j = q / nc;
   const int c = q - j * nc;
   const Item it = item(a, first + j * step, BN);
-  load_stage<BN, CK>(a, L, ring + (q % ns) * L.stage_elems,
-                     it.split * a.cps + c, it, !a.b_resident || q < ns,
-                     a.noise != nullptr && a.splits == 1 && c == nc - 1, BM,
-                     tid, THREADS);
+  load_stage<BN, CK, S8>(a, L, ring + (q % ns) * L.stage_bytes,
+                         it.split * a.cps + c, it, !a.b_resident || q < ns,
+                         a.noise != nullptr && a.splits == 1 && c == nc - 1,
+                         BM, tid, THREADS);
 }
 
 // ------------------------------------------------------------- kernels ----
@@ -428,42 +563,52 @@ struct Warps {
   // warps along N: 2 where a 128-pixel block has 64 channels, else 1 (each
   // warp then takes all BN channels of its 32 pixels)
   static constexpr int WN = BN == 64 && WM == 4 ? 2 : 1;
-  // Blocks per SM asked of ptxas: 3 for the narrow tiles (BN <= 16), which
-  // caps them at 80 registers (3 blocks of 256 threads per SM) with no
-  // spill; left without a minimum ptxas spilled the prologue's ldmatrix
-  // offsets there.  1 for the wide tiles, which shared memory holds to 1-2
-  // blocks per SM anyway.
-  static constexpr int MIN_BLOCKS = BN <= 16 ? 3 : 1;
 };
+
+// Blocks per SM asked of ptxas: 3 for the narrow tiles (BN <= 16), which
+// caps them at 80 registers (3 blocks of 256 threads per SM) with no spill;
+// left without a minimum ptxas spilled the prologue's ldmatrix offsets
+// there.  The s8 BN = 16 tile with CK = 64 (two k32 steps a tap) spilled 4
+// bytes at 3 and asks for 2.  1 for the wide tiles, which shared memory
+// holds to 1-2 blocks per SM anyway.
+template <int BN, int CK, int KERNEL>
+__host__ __device__ constexpr int min_blocks() {
+  return BN > 16 ? 1 : (is_s8(KERNEL) && BN == 16 && CK == 64 ? 2 : 3);
+}
 
 // A persistent block walks the items blockIdx.x, blockIdx.x + gridDim.x,
 // ... (with a split, the grid has one block per item).  The ring runs over
 // the flattened (item, chunk) sequence, so the next item's first chunks
 // load while this item multiplies and stores.  KERNEL is the number of the
-// kernel whose entry point launches it (1 conv_in_stats, 2 small_conv), so
-// that a profile tells them apart by name; the code does not read it.
+// entry point that launches it (is_s8), so that a profile tells them apart
+// by name; the body is bf16 or s8 by it.
 template <int BN, int WM, int CK, int KERNEL>
 __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
-                                  Warps<BN, WM>::MIN_BLOCKS)
+                                  min_blocks<BN, CK, KERNEL>())
     conv3x3_tc_kernel(const Args a) {
+  constexpr bool S8 = is_s8(KERNEL);
+  using Acc = typename Elem<S8>::Acc;
+  constexpr int EB = Elem<S8>::BYTES;
   constexpr int WN = Warps<BN, WM>::WN;
   constexpr int THREADS = WM * WN * 32;
   constexpr int BM = WM * 32;
   constexpr int NW = BN / WN;  // channels per warp
   constexpr int NJ = NW / 8;   // n8 fragments per warp
-  constexpr int PS = pad_row(CK);
-  constexpr int BNP = pad_row(BN);
+  constexpr int PS = pad16(CK * EB);           // halo pixel stride, bytes
+  constexpr int RB = S8 ? pad16(CK) : pad16(BN * 2);  // tap row, bytes
+  constexpr int KSTEPS = CK * EB / 32;         // MMAs per tap and fragment
   static_assert(NJ >= 1, "BN too small");
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ring = smem;
 
-  const Layout L = layout(BN, CK, BM, THREADS, a.g, a.th, a.tw, a.stages,
+  const Layout L = layout(BN, CK, EB, BM, THREADS, a.g, a.th, a.tw, a.stages,
                           a.noise != nullptr);
   float* vs = reinterpret_cast<float*>(smem + L.ring_bytes);
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int warp_m = warp % WM, warp_n = warp / WM;
 
   // this thread's ldmatrix row of A in each m16 fragment, at tap (0, 0)
+  // (the same bytes for bf16's k16 and s8's k32 steps)
   uint32_t a_off[2];
   {
     const int r = lane % 8 + 8 * ((lane / 8) % 2);
@@ -472,14 +617,17 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
       const int p = warp_m * 32 + i * 16 + r;
       const int gi = a.fd_per.div(p), rem = p - gi * a.th * a.tw;
       const int ty = a.fd_tw.div(rem), tx = rem - ty * a.tw;
-      a_off[i] = (((gi * L.hp + ty) * L.wp + tx) * PS + 8 * (lane / 16)) * 2;
+      a_off[i] = ((gi * L.hp + ty) * L.wp + tx) * PS + 16 * (lane / 16);
     }
   }
-  // ... and of B: k row (lane % 8) + 8 * ((lane / 8) % 2), n block lane / 16
+  // ... and of B.  bf16 (ldmatrix.trans of [k][n] rows): k row (lane % 8) +
+  // 8 * ((lane / 8) % 2), n block lane / 16.  s8 (ldmatrix of [n][k]
+  // rows): n row lane % 8 + 8 * (lane / 16), k half (lane / 8) % 2.
   const uint32_t b_off =
-      (L.halo_elems +
-       (lane % 8 + 8 * ((lane / 8) % 2)) * BNP + warp_n * NW + (lane / 16) * 8) *
-      2;
+      S8 ? L.halo_bytes + (warp_n * NW + (lane / 16) * 8 + lane % 8) * RB +
+               ((lane / 8) % 2) * 16
+         : L.halo_bytes + (lane % 8 + 8 * ((lane / 8) % 2)) * RB +
+               (warp_n * NW + (lane / 16) * 8) * 2;
 
   const int first = blockIdx.x, step = gridDim.x;
   const int items = (a.items - 1 - first) / step + 1;
@@ -490,12 +638,12 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
   const int NS = a.stages;
   for (int s = 0; s < NS - 1; ++s) {
     if (s < total)
-      load_pos<BN, CK, THREADS, BM>(a, L, ring, s, nc, NS, first, step,
-                                    tid);
+      load_pos<BN, CK, S8, THREADS, BM>(a, L, ring, s, nc, NS, first, step,
+                                        tid);
     cp_async_commit();
   }
 
-  float acc[2][NJ][4];
+  Acc acc[2][NJ][4];
   for (int q = 0; q < total; ++q) {
     if (NS == 3)
       cp_async_wait<1>();
@@ -503,8 +651,8 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
       cp_async_wait<0>();
     __syncthreads();  // chunk q landed; stage (q - 1) % NS is free
     if (q + NS - 1 < total)
-      load_pos<BN, CK, THREADS, BM>(a, L, ring, q + NS - 1, nc, NS, first,
-                                    step, tid);
+      load_pos<BN, CK, S8, THREADS, BM>(a, L, ring, q + NS - 1, nc, NS,
+                                        first, step, tid);
     cp_async_commit();
 
     const int j = q / nc;
@@ -515,40 +663,52 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][jj][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[i][jj][e] = Acc(0);
     }
     const uint32_t sbase = static_cast<uint32_t>(
-        __cvta_generic_to_shared(ring + (q % NS) * L.stage_elems));
+        __cvta_generic_to_shared(ring + (q % NS) * L.stage_bytes));
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
-      const uint32_t shift = ((tap / 3) * L.wp + tap % 3) * (PS * 2);
+      const uint32_t shift = ((tap / 3) * L.wp + tap % 3) * PS;
 #pragma unroll
-      for (int kk = 0; kk < CK / 16; ++kk) {
+      for (int kk = 0; kk < KSTEPS; ++kk) {
         uint32_t af[2][4];
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           ldsm_x4(af[i], sbase + a_off[i] + shift + kk * 32);
         uint32_t bf[NJ][2];
-        const uint32_t brow = sbase + b_off + (tap * CK + kk * 16) * BNP * 2;
+        if (S8) {
+          const uint32_t brow = sbase + b_off + tap * BN * RB + kk * 32;
 #pragma unroll
-        for (int jj = 0; jj + 1 < NJ; jj += 2)
-          ldsm_x4_t(bf[jj][0], bf[jj][1], bf[jj + 1][0], bf[jj + 1][1],
-                    brow + jj * 16);
-        if (NJ % 2) ldsm_x2_t(bf[NJ - 1][0], bf[NJ - 1][1], brow + (NJ - 1) * 16);
+          for (int jj = 0; jj + 1 < NJ; jj += 2)
+            ldsm_x4_n(bf[jj][0], bf[jj][1], bf[jj + 1][0], bf[jj + 1][1],
+                      brow + jj * 8 * RB);
+          if (NJ % 2)
+            ldsm_x2_n(bf[NJ - 1][0], bf[NJ - 1][1], brow + (NJ - 1) * 8 * RB);
+        } else {
+          const uint32_t brow = sbase + b_off + (tap * CK + kk * 16) * RB;
+#pragma unroll
+          for (int jj = 0; jj + 1 < NJ; jj += 2)
+            ldsm_x4_t(bf[jj][0], bf[jj][1], bf[jj + 1][0], bf[jj + 1][1],
+                      brow + jj * 16);
+          if (NJ % 2)
+            ldsm_x2_t(bf[NJ - 1][0], bf[NJ - 1][1], brow + (NJ - 1) * 16);
+        }
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int jj = 0; jj < NJ; ++jj)
-            mma_bf16(acc[i][jj], af[i], bf[jj][0], bf[jj][1]);
+            mma(acc[i][jj], af[i], bf[jj][0], bf[jj][1]);
       }
     }
     if (c != nc - 1) continue;
 
     // the item's last chunk: epilogue (the next item's loads are in flight)
     const Item it = item(a, first + j * step, BN);
-    float* ws = a.ws + (size_t)it.split * a.n * a.h * a.wd * a.cout;
+    Acc* ws = reinterpret_cast<Acc*>(a.ws) +
+              (size_t)it.split * a.n * a.h * a.wd * a.cout;
     const float* snoise = reinterpret_cast<const float*>(
-        ring + (q % NS) * L.stage_elems + L.noise_off);
+        ring + (q % NS) * L.stage_bytes + L.noise_off);
     Chan ch[NJ][2];  // this thread's channels, read once per item
 #pragma unroll
     for (int jj = 0; jj < NJ; ++jj)
@@ -570,7 +730,7 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
           for (int e = 0; e < 2; ++e) {
             const int cc = warp_n * NW + jj * 8 + (lane % 4) * 2 + e;
             const int co = it.co0 + cc;
-            const float v = acc[i][jj][half * 2 + e];
+            const Acc v = acc[i][jj][half * 2 + e];
             const bool ok = px.ok && co < a.cout;
             if (a.splits == 1)
               vs[p * L.vs + cc] = ok ? epilogue(a, v, nz, ch[jj][e]) : 0.f;
@@ -587,11 +747,14 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
 
 // Split-K: y = epilogue(sum of the splits in order), then the same stores.
 // grid: x = spatial tile, y = block of bn (FINISH_BN) channels, z = image
-// group
+// group.  s8 sums the s32 partials (exact).
+template <bool S8>
 __global__ void __launch_bounds__(FINISH_THREADS)
     conv3x3_tc_finish_kernel(const Args a, int bm, int bn) {
+  using Acc = typename Elem<S8>::Acc;
   extern __shared__ __align__(128) unsigned char smem[];
   float* vs = reinterpret_cast<float*>(smem);
+  const Acc* wsp = reinterpret_cast<const Acc*>(a.ws);
   const int vstride = bn + 4;
   Item it;
   it.tile = blockIdx.x;
@@ -609,8 +772,8 @@ __global__ void __launch_bounds__(FINISH_THREADS)
     float v = 0.f;
     if (q.ok && co < a.cout) {
       const size_t off = q.idx * a.cout + co;
-      float s = 0.f;
-      for (int sp = 0; sp < a.splits; ++sp) s += a.ws[sp * plane + off];
+      Acc s = Acc(0);
+      for (int sp = 0; sp < a.splits; ++sp) s += wsp[sp * plane + off];
       v = epilogue(a, s, a.noise != nullptr ? a.noise[q.idx] : 0.f,
                    channel(a, co));
     }
@@ -631,10 +794,11 @@ static int set_smem(K kern, int bytes) {
 
 template <int BN, int WM, int CK, int KERNEL>
 static int launch(const Args& a, cudaStream_t st) {
+  constexpr bool S8 = is_s8(KERNEL);
   constexpr int BM = WM * 32;
   constexpr int THREADS = WM * Warps<BN, WM>::WN * 32;
-  const Layout L = layout(BN, CK, BM, THREADS, a.g, a.th, a.tw, a.stages,
-                          a.noise != nullptr);
+  const Layout L = layout(BN, CK, Elem<S8>::BYTES, BM, THREADS, a.g, a.th,
+                          a.tw, a.stages, a.noise != nullptr);
   if (L.smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
   auto kern = conv3x3_tc_kernel<BN, WM, CK, KERNEL>;
   int rc = set_smem(kern, L.smem);
@@ -660,17 +824,21 @@ static int launch(const Args& a, cudaStream_t st) {
   // narrower block writes the same partials.
   const int fsmem =
       (BM * (FINISH_BN + 4) + red_floats(FINISH_THREADS, a.g, FINISH_BN)) * 4;
-  rc = set_smem(conv3x3_tc_finish_kernel, fsmem);
+  auto fin = conv3x3_tc_finish_kernel<S8>;
+  rc = set_smem(fin, fsmem);
   if (rc) return rc;
   const dim3 fgrid(a.tiles, (a.cout + FINISH_BN - 1) / FINISH_BN,
                    (a.n + a.g - 1) / a.g);
-  conv3x3_tc_finish_kernel<<<fgrid, FINISH_THREADS, fsmem, st>>>(a, BM,
-                                                                 FINISH_BN);
+  fin<<<fgrid, FINISH_THREADS, fsmem, st>>>(a, BM, FINISH_BN);
   return (int)cudaGetLastError();
 }
 
+// CK: bf16 16 or 32 channels a stage, s8 32 or 64 (32 or 64 bytes either)
 template <int BN, int WM, int KERNEL>
 static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
+  if (is_s8(KERNEL))
+    return ck == 32 ? launch<BN, WM, 32, KERNEL>(a, st)
+                    : launch<BN, WM, 64, KERNEL>(a, st);
   return ck == 16 ? launch<BN, WM, 16, KERNEL>(a, st)
                   : launch<BN, WM, 32, KERNEL>(a, st);
 }
@@ -678,10 +846,13 @@ static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
 // plan = {bn, wm, ck, tw, th, g, splits, cps, stages} from
 // kernels/tc_plan.py.  Fills the plan's fields of `a` after checking them;
 // returns a CUDA error code (cudaErrorInvalidValue for a plan this header
-// does not take).  KERNEL: 1 or 2, the caller's number (see the kernel).
+// does not take).  KERNEL: 1 or 2 (bf16), 4 or 5 (s8), the caller's number
+// (see the kernel).
 template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
-  static_assert(KERNEL == 1 || KERNEL == 2, "kernel 1 or 2");
+  static_assert(KERNEL == 1 || KERNEL == 2 || is_s8(KERNEL),
+                "kernel 1, 2, 4 or 5");
+  constexpr bool S8 = is_s8(KERNEL);
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const int bn = plan[0], wm = plan[1], ck = plan[2];
   a.tw = plan[3];
@@ -690,12 +861,15 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   a.splits = plan[6];
   a.cps = plan[7];
   a.stages = plan[8];
+  const bool ck_ok = S8 ? (ck == 32 || ck == 64) : (ck == 16 || ck == 32);
   const bool shape_ok =
       (bn == 8 || bn == 16 || bn == 32 || bn == 64) &&
-      (wm == 4 || wm == 8) && (ck == 16 || ck == 32) &&
+      (wm == 4 || wm == 8) && ck_ok &&
       (a.tw == 4 || a.tw == 8 || a.tw == 16) && a.th >= 1 && a.g >= 1 &&
       a.tw * a.th * a.g == wm * 32 && (a.stages == 2 || a.stages == 3);
   if (!shape_ok || a.splits < 1 || a.cps < 1) return (int)cudaErrorInvalidValue;
+  if (S8 ? a.deq == nullptr : (a.deq != nullptr || a.y_f32))
+    return (int)cudaErrorInvalidValue;
   a.chunks = (a.cin + ck - 1) / ck;
   if ((long long)(a.splits - 1) * a.cps >= a.chunks ||
       (long long)a.splits * a.cps < a.chunks)
@@ -720,8 +894,10 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   // chunks: stage s always holds chunk s % chunks of the same taps
   a.b_resident = a.cout_blocks == 1 && a.splits == 1 && a.stages == 2 &&
                  a.chunks <= 2;
-  a.vec_x = a.cin % 8 == 0 && aligned(a.x, 16);
-  a.vec_w = a.cout % 8 == 0 && aligned(a.w, 16);
+  // 16 bytes: 8 bf16 or 16 s8 channels; the s8 taps' rows run along Cin
+  const int e16 = S8 ? 16 : 8;
+  a.vec_x = a.cin % e16 == 0 && aligned(a.x, 16);
+  a.vec_w = (S8 ? a.cin % 16 : a.cout % 8) == 0 && aligned(a.w, 16);
   a.vec_y = a.cout % 8 == 0 && aligned(a.y, 16);
   switch (bn * 10 + wm) {
     case 84:

@@ -42,6 +42,12 @@
 // needs the statistics of the whole image, so it would run as the next
 // conv's prologue).
 //
+// s8 (generate --quant int8-full): the s8 body of conv3x3_tc.cuh behind
+// gst_conv3x3_in_stats_s8, with this kernel's epilogue after the
+// dequantization: v = float(acc) * deq[c] + noise * nscale + bias, leaky,
+// the statistics from the f32 v as in bf16.  x comes quantized by
+// quantize_s8.cu, w is s8 [tap][Cout][Cin].
+//
 // f32 (the generator with dtype fp32: the sample collection and the
 // annotation side, batch 8) runs the 3xTF32 tensor-core implicit GEMM of
 // conv3x3_tf32.cuh, which keeps the f32 contract.  What bounds it: three
@@ -109,6 +115,40 @@ int gst_conv3x3_in_stats(const void* x, const void* w, const float* noise,
   a.act = gst::tc::LEAKY;
   a.slope = slope;
   return gst::tc::run<1>(a, plan, st);
+}
+
+// The s8 body: x s8 NHWC, w s8 [tap][Cout][Cin], deq (Cout,) f32; y in
+// out_dtype (0 f32, 1 bf16); plan = int[9] from
+// kernels/tc_plan.py::plan(noise=True, s8=True); ws the split-K workspace
+// (s32); partial as above.
+int gst_conv3x3_in_stats_s8(const void* x, const void* w, const float* deq,
+                            const float* noise, const float* nscale,
+                            const float* bias, void* y, float* partial,
+                            float* ws, int n, int h, int wd, int cin,
+                            int cout, int out_dtype, float slope,
+                            const int* plan, void* stream) {
+  if (!gst::valid_dims(n, h, wd, cin, cout) ||
+      (out_dtype != gst::F32 && out_dtype != gst::BF16) || deq == nullptr)
+    return (int)cudaErrorInvalidValue;
+  gst::tc::Args a = {};
+  a.x = x;
+  a.w = w;
+  a.deq = deq;
+  a.bias = bias;
+  a.noise = noise;
+  a.nscale = nscale;
+  a.y = y;
+  a.y_f32 = out_dtype == gst::F32;
+  a.partial = partial;
+  a.ws = ws;
+  a.n = n;
+  a.h = h;
+  a.wd = wd;
+  a.cin = cin;
+  a.cout = cout;
+  a.act = gst::tc::LEAKY;
+  a.slope = slope;
+  return gst::tc::run<4>(a, plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -142,26 +142,49 @@ def check_conv3x3(x, w, b):
     return n, h, wd, cin, cout
 
 
+def check_conv3x3_s8(x, w, deq, b):
+    """Validate the arguments of an s8 3x3 conv (x NHWC s8, w s8 (3, 3,
+    Cout, Cin), i.e. [tap][Cout][Cin], deq and b (Cout,) f32, b may be
+    None, one device, contiguous); returns (n, h, w, cin, cout)."""
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"x must be NHWC and w (3, 3, Cout, Cin), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, h, wd, cin = x.shape
+    cout = w.shape[2]
+    dev = x.device
+    check(x, "x", (n, h, wd, cin), torch.int8, dev)
+    check(w, "w", (3, 3, cout, cin), torch.int8, dev)
+    check(deq, "deq", (cout,), torch.float32, dev)
+    if b is not None:
+        check(b, "b", (cout,), torch.float32, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return n, h, wd, cin, cout
+
+
 @functools.lru_cache(maxsize=None)
-def _tc_plan_c(f32, n, h, w, cin, cout, noise):
-    p = (tc_plan.plan_f32(n, h, w, cin, cout, stats=noise) if f32
-         else tc_plan.plan(n, h, w, cin, cout, noise))
+def _tc_plan_c(dtype, n, h, w, cin, cout, noise):
+    p = (tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
+         if dtype == torch.float32
+         else tc_plan.plan(n, h, w, cin, cout, noise,
+                           s8=dtype == torch.int8))
     args = p.args()
     return p, (ctypes.c_int * len(args))(*args)
 
 
 def tc_launch_args(x, n, h, w, cin, cout, noise=False):
     """For a call of kernel 1 (``noise``) or 2: (plan, plan as a C int
-    array, split-K workspace or None).  bf16 takes ``tc_plan.plan`` (int[9],
-    conv3x3_tc.cuh), f32 ``tc_plan.plan_f32`` (int[11], conv3x3_tf32.cuh).
-    The plan is cached per shape: the host's time per launch is what bounds
-    the small layers."""
-    p, plan_c = _tc_plan_c(x.dtype == torch.float32, n, h, w, cin, cout,
-                           noise)
+    array, split-K workspace or None).  bf16 and s8 take ``tc_plan.plan``
+    (int[9], conv3x3_tc.cuh), f32 ``tc_plan.plan_f32`` (int[11],
+    conv3x3_tf32.cuh).  The plan is cached per shape: the host's time per
+    launch is what bounds the small layers.  The s8 body's workspace holds
+    s32 partials."""
+    p, plan_c = _tc_plan_c(x.dtype, n, h, w, cin, cout, noise)
     ws = None
     if p.splits > 1:
-        ws = torch.empty(p.ws_elems(n, h, w, cout), dtype=torch.float32,
-                         device=x.device)
+        ws = torch.empty(p.ws_elems(n, h, w, cout),
+                         dtype=torch.int32 if x.dtype == torch.int8
+                         else torch.float32, device=x.device)
     return p, plan_c, ws
 
 
@@ -192,6 +215,14 @@ def library():
     lib.gst_conv3x3_small.restype = i
     lib.gst_conv3x3_small.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
                                       f, vp, vp]
+    lib.gst_conv3x3_in_stats_s8.restype = i
+    lib.gst_conv3x3_in_stats_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                            vp, i, i, i, i, i, i, f, vp, vp]
+    lib.gst_conv3x3_small_s8.restype = i
+    lib.gst_conv3x3_small_s8.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i,
+                                         i, i, i, f, vp, vp]
+    lib.gst_quantize_s8.restype = i
+    lib.gst_quantize_s8.argtypes = [vp, vp, vp, ctypes.c_longlong, i, vp]
     lib.gst_conv3x3_bil.restype = i
     lib.gst_conv3x3_bil.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f,
                                     vp, vp]

@@ -12,6 +12,13 @@ and keeps its contract: NHWC / HWIO, stride 1, pad 1, ``w`` the effective
 ``y`` in x's dtype; ``mean`` and ``var`` (N, Cout) f32 taken from the f32
 epilogue values, with ``var = E[y^2] - mean^2`` NOT clamped — the consumer
 (`ops.norm.instance_norm_apply`) clamps.  Unlike Pallas, any H and W run.
+
+``conv3x3_noise_bias_lrelu_instats_s8`` is its s8 body (int8-full
+generation, ``torch.ops.gst.conv3x3_in_stats_s8``): x s8, w s8 laid out
+(3, 3, Cout, Cin), exact s32 sums, ``v = float(acc) * deq + noise * nscale
++ bias``, leaky, the statistics from the f32 v, y in bf16 or f32.  The
+JAX package casts the dequantized conv to the compute dtype before the
+noise; here, as in the bf16 body, the epilogue stays f32.
 """
 
 import torch
@@ -67,3 +74,56 @@ def conv3x3_noise_bias_lrelu_instats(x, w, noise, nscale, bias, *,
 
 
 conv3x3_noise_bias_lrelu_instats.launches = 0  # counted in kernels/ops.py
+
+
+def conv3x3_noise_bias_lrelu_instats_s8_plain(
+        x, w, deq, noise, nscale, bias, *, leaky: float = 0.2,
+        out_dtype: torch.dtype = torch.bfloat16):
+    """The plain PyTorch version of the s8 body: the exact integer conv,
+    then the kernel's f32 ops in its order."""
+    from .small_conv import conv3x3_s8_acc
+    return s8_in_stats_epilogue_plain(conv3x3_s8_acc(x, w), deq, noise,
+                                      nscale, bias, leaky=leaky,
+                                      out_dtype=out_dtype)
+
+
+def s8_in_stats_epilogue_plain(acc, deq, noise, nscale, bias, *,
+                               leaky: float = 0.2,
+                               out_dtype: torch.dtype = torch.bfloat16):
+    """The s8 body's epilogue on the f32 of the exact sums ``acc`` ->
+    (y, mean, var)."""
+    y = acc * deq
+    y = y + noise[..., None] * nscale + bias
+    y = torch.where(y >= 0, y, leaky * y)
+    mean = y.mean(dim=(1, 2))
+    var = (y * y).mean(dim=(1, 2)) - mean * mean
+    return y.to(out_dtype), mean, var
+
+
+def check_args_s8(x, w, deq, noise, nscale, bias):
+    """``check_args`` of the s8 body; -> (n, h, w, cin, cout)."""
+    n, h, wd, cin, cout = _build.check_conv3x3_s8(x, w, deq, bias)
+    dev = x.device
+    _build.check(noise, "noise", (n, h, wd), torch.float32, dev)
+    _build.check(nscale, "nscale", (cout,), torch.float32, dev)
+    _build.check(bias, "bias", (cout,), torch.float32, dev)
+    return n, h, wd, cin, cout
+
+
+def conv3x3_noise_bias_lrelu_instats_s8(x, w, deq, noise, nscale, bias, *,
+                                        leaky: float = 0.2,
+                                        out_dtype: torch.dtype =
+                                        torch.bfloat16):
+    """-> (y, mean, var) of the s8 body, through the custom op
+    ``torch.ops.gst.conv3x3_in_stats_s8``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    check_args_s8(x, w, deq, noise, nscale, bias)
+    if out_dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    return torch.ops.gst.conv3x3_in_stats_s8(x, w, deq, noise, nscale, bias,
+                                             float(leaky),
+                                             out_dtype == torch.float32)
+
+
+conv3x3_noise_bias_lrelu_instats_s8.launches = 0  # counted in kernels/ops.py

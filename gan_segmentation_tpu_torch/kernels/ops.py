@@ -1,15 +1,17 @@
-"""Kernels 1 and 2 as ``torch.library`` custom ops, so that a tracer
-(``torch.export``, ``core/export.py``) can pass through them and a saved
-program names them: ``torch.ops.gst.conv3x3_small`` and
-``torch.ops.gst.conv3x3_in_stats``.
+"""Kernels 1 and 2 (bf16 / f32 and their s8 bodies) and the s8 quantize
+pass as ``torch.library`` custom ops, so that a tracer (``torch.export``,
+``core/export.py``) can pass through them and a saved program names them:
+``torch.ops.gst.conv3x3_small``, ``torch.ops.gst.conv3x3_in_stats``,
+``torch.ops.gst.conv3x3_small_s8``, ``torch.ops.gst.conv3x3_in_stats_s8``
+and ``torch.ops.gst.quantize_s8``.
 
 - CPU: the plain PyTorch version (``*_plain`` beside each wrapper).
 - CUDA: the hand-written kernel through the ``ctypes`` library of
   ``_build``, launched on the current stream; it raises when the launch
   fails and never falls back to the plain version.  Each launch adds one
   to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
-  ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``), the one counter a
-  run reads whether the call came through the wrapper or from an exported
+  ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``, the ``_s8`` twins,
+  ``quantize.quantize_s8``), the one counter a run reads whether the call came through the wrapper or from an exported
   program.
 - Fake (``register_fake``): the output shapes and dtypes, from the inputs'
   alone; the library is not touched.
@@ -25,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from . import _build, conv_in_stats, small_conv
+from . import _build, conv_in_stats, quantize, small_conv
 
 
 @torch.library.custom_op("gst::conv3x3_small", mutates_args=(),
@@ -105,6 +107,122 @@ def _(x, w, noise, nscale, bias, leaky):
     # second pass: the per-tile partial sums, reduced over the tile axis in a
     # fixed order (no atomics, so the statistics are deterministic)
     sums = partial.sum(dim=1)
+    mean = sums[:, 0] / (h * wd)
+    var = sums[:, 1] / (h * wd) - mean * mean
+    return y, mean, var
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+@torch.library.custom_op("gst::quantize_s8", mutates_args=(),
+                         device_types="cpu")
+def quantize_s8_op(x: Tensor, inv: Tensor) -> Tensor:
+    """s8 = clip(round(x * inv), -127, 127); inv a (1,) f32 tensor."""
+    return quantize.quantize_s8_plain(x, inv)
+
+
+@quantize_s8_op.register_fake
+def _(x, inv):
+    return x.new_empty(x.shape, dtype=torch.int8)
+
+
+@quantize_s8_op.register_kernel("cuda")
+def _(x, inv):
+    quantize.check_args(x, inv)
+    dev = x.device
+    y = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().gst_quantize_s8(
+            x.data_ptr(), inv.data_ptr(), y.data_ptr(), x.numel(),
+            _build.DTYPE_CODES[x.dtype], _stream(dev))
+    _build.check_launch(rc, "quantize_s8")
+    quantize.quantize_s8.launches += 1
+    return y
+
+
+def _out_dtype(out_f32: bool):
+    return torch.float32 if out_f32 else torch.bfloat16
+
+
+@torch.library.custom_op("gst::conv3x3_small_s8", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_small_s8_op(x: Tensor, w: Tensor, deq: Tensor, b: Optional[Tensor],
+                        act: str, leaky: float, out_f32: bool) -> Tensor:
+    """The s8 body of kernel 2: y = act(conv3x3_s8(x, w) * deq [+ b]), w
+    (3, 3, Cout, Cin) s8, y in f32 (``out_f32``) or bf16."""
+    return small_conv.conv3x3_small_s8_plain(
+        x, w, deq, b, relu=act == "relu",
+        leaky=leaky if act == "leaky" else None,
+        out_dtype=_out_dtype(out_f32))
+
+
+@conv3x3_small_s8_op.register_fake
+def _(x, w, deq, b, act, leaky, out_f32):
+    return x.new_empty((*x.shape[:3], w.shape[2]), dtype=_out_dtype(out_f32))
+
+
+@conv3x3_small_s8_op.register_kernel("cuda")
+def _(x, w, deq, b, act, leaky, out_f32):
+    n, h, wd, cin, cout = _build.check_conv3x3_s8(x, w, deq, b)
+    dev = x.device
+    out = _out_dtype(out_f32)
+    y = torch.empty((n, h, wd, cout), dtype=out, device=dev)
+    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
+    with torch.cuda.device(dev):
+        rc = _build.library().gst_conv3x3_small_s8(
+            x.data_ptr(), w.data_ptr(), deq.data_ptr(),
+            None if b is None else b.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(), n, h, wd, cin, cout,
+            _build.DTYPE_CODES[out], small_conv._ACT_CODES[act], float(leaky),
+            plan, _stream(dev))
+    _build.check_launch(rc, "conv3x3_small_s8")
+    small_conv.conv3x3_small_s8.launches += 1
+    return y
+
+
+@torch.library.custom_op("gst::conv3x3_in_stats_s8", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_in_stats_s8_op(x: Tensor, w: Tensor, deq: Tensor, noise: Tensor,
+                           nscale: Tensor, bias: Tensor, leaky: float,
+                           out_f32: bool) -> Tuple[Tensor, Tensor, Tensor]:
+    """The s8 body of kernel 1: -> (y, mean, var)."""
+    return conv_in_stats.conv3x3_noise_bias_lrelu_instats_s8_plain(
+        x, w, deq, noise, nscale, bias, leaky=leaky,
+        out_dtype=_out_dtype(out_f32))
+
+
+@conv3x3_in_stats_s8_op.register_fake
+def _(x, w, deq, noise, nscale, bias, leaky, out_f32):
+    n, cout = x.shape[0], w.shape[2]
+    stats = (n, cout)
+    return (x.new_empty((*x.shape[:3], cout), dtype=_out_dtype(out_f32)),
+            x.new_empty(stats, dtype=torch.float32),
+            x.new_empty(stats, dtype=torch.float32))
+
+
+@conv3x3_in_stats_s8_op.register_kernel("cuda")
+def _(x, w, deq, noise, nscale, bias, leaky, out_f32):
+    n, h, wd, cin, cout = conv_in_stats.check_args_s8(x, w, deq, noise,
+                                                      nscale, bias)
+    dev = x.device
+    out = _out_dtype(out_f32)
+    plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
+                                             noise=True)
+    y = torch.empty((n, h, wd, cout), dtype=out, device=dev)
+    partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().gst_conv3x3_in_stats_s8(
+            x.data_ptr(), w.data_ptr(), deq.data_ptr(), noise.data_ptr(),
+            nscale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            partial.data_ptr(), None if ws is None else ws.data_ptr(), n, h,
+            wd, cin, cout, _build.DTYPE_CODES[out], float(leaky), plan_c,
+            _stream(dev))
+    _build.check_launch(rc, "conv3x3_noise_bias_lrelu_instats_s8")
+    conv_in_stats.conv3x3_noise_bias_lrelu_instats_s8.launches += 1
+    sums = partial.sum(dim=1)  # the tile axis, in a fixed order
     mean = sums[:, 0] / (h * wd)
     var = sums[:, 1] / (h * wd) - mean * mean
     return y, mean, var

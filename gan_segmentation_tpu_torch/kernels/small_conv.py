@@ -9,6 +9,13 @@ the TPU kernel
 ``experiments/pallas_archive/small_conv.py::conv3x3_small`` and keeps its
 contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's
 dtype, ``b`` optional (Cout,) f32.  Unlike Pallas, any H and W run.
+
+``conv3x3_small_s8`` is its s8 body (int8 generation,
+``torch.ops.gst.conv3x3_small_s8``): x s8 NHWC, w s8 laid out (3, 3, Cout,
+Cin), exact s32 sums, then ``float(acc) * deq + b`` and the activation in
+f32, y in bf16 or f32.  Its plain version is the exact integer
+convolution (a float64 ``F.conv2d`` of the s8 values: every sum is an
+integer below 2^53) followed by the same f32 ops in the same order.
 """
 
 from typing import Optional
@@ -54,3 +61,58 @@ def conv3x3_small(x, w, b=None, *, relu: bool = False,
 
 
 conv3x3_small.launches = 0  # the CUDA launches, counted in kernels/ops.py
+
+
+def conv3x3_s8_acc(x, w):
+    """The exact s32 sums of an s8 3x3 conv (x NHWC, w (3, 3, Cout, Cin)),
+    as f32 (each integer rounded to the nearest f32, as the kernel's
+    ``__int2float_rn``): a float64 ``F.conv2d``, exact since every partial
+    sum is an integer far below 2^53."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).double(),
+                 w.permute(2, 3, 0, 1).double(), padding=1)
+    return y.permute(0, 2, 3, 1).float()
+
+
+def conv3x3_small_s8_plain(x, w, deq, b=None, *, relu: bool = False,
+                           leaky: Optional[float] = None,
+                           out_dtype: torch.dtype = torch.bfloat16):
+    """The plain PyTorch version of the s8 body: the CPU path and the
+    kernel's reference."""
+    return s8_epilogue_plain(conv3x3_s8_acc(x, w), deq, b, relu=relu,
+                             leaky=leaky, out_dtype=out_dtype)
+
+
+def s8_epilogue_plain(acc, deq, b=None, *, relu: bool = False,
+                      leaky: Optional[float] = None,
+                      out_dtype: torch.dtype = torch.bfloat16):
+    """The s8 body's epilogue on the f32 of the exact sums ``acc``: ``acc *
+    deq`` [+ b], the activation, the cast; each step rounded in f32."""
+    act = _act(relu, leaky)
+    y = acc * deq
+    if b is not None:
+        y = y + b
+    if act == "relu":
+        y = torch.clamp_min(y, 0.0)
+    elif act == "leaky":
+        y = torch.where(y >= 0, y, leaky * y)
+    return y.to(out_dtype)
+
+
+def conv3x3_small_s8(x, w, deq, b=None, *, relu: bool = False,
+                     leaky: Optional[float] = None,
+                     out_dtype: torch.dtype = torch.bfloat16):
+    """y = act(conv3x3_s8(x, w) * deq [+ b]) in ``out_dtype`` (bf16 or
+    f32), through the custom op ``torch.ops.gst.conv3x3_small_s8``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    act = _act(relu, leaky)
+    _build.check_conv3x3_s8(x, w, deq, b)
+    if out_dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"out_dtype must be float32 or bfloat16, got "
+                        f"{out_dtype}")
+    return torch.ops.gst.conv3x3_small_s8(x, w, deq, b, act,
+                                          float(leaky or 0.0),
+                                          out_dtype == torch.float32)
+
+
+conv3x3_small_s8.launches = 0  # the CUDA launches, counted in kernels/ops.py

@@ -1,6 +1,6 @@
-"""Launch plans of the tensor-core 3x3 convs: ``plan`` for the bf16 kernel
-(``csrc/conv3x3_tc.cuh``, kernels 1 and 2), ``plan_f32`` for the f32 3xTF32
-kernel (``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).
+"""Launch plans of the tensor-core 3x3 convs: ``plan`` for the bf16 and s8
+bodies (``csrc/conv3x3_tc.cuh``, kernels 1 and 2), ``plan_f32`` for the f32
+3xTF32 kernel (``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).
 
 Pure functions of the layer's shape, so the CPU tests can check every
 path shape's plan without a card.  The kernels validate the plan they are
@@ -17,7 +17,8 @@ given and compute their shared memory by the same formulas as
   bound by bytes; once for ``bn == 64``, where a warp's 32 x 64 tile reads
   half the shared memory per MMA of the 32 x 32 warps of a 128-pixel
   block), else 4.  ``bn == 64`` at ``wm == 4`` runs 2 warps along N.
-- ``ck``: input channels per pipeline stage, 16 for Cin <= 16, else 32.
+- ``ck``: input channels per pipeline stage, 16 for Cin <= 16, else 32;
+  with ``s8``, 32 for Cin <= 32, else 64 (the same 32 or 64 bytes a pixel).
 - ``tw``, ``th``, ``g``: the block's pixels as g images x th rows x tw
   columns at the same spatial tile (``tw * th * g == 32 * wm``).
 - ``splits``, ``cps``: split-K over Cin chunks (``cps`` chunks per split)
@@ -64,10 +65,10 @@ def _pow2ceil(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
-def pad_row(e: int) -> int:
-    """A row of ``e`` bf16 (a multiple of 8) padded to an odd number of
-    16-byte units (``pad_row`` in conv3x3_tc.cuh)."""
-    return e + 8 if (e // 8) % 2 == 0 else e
+def pad16(b: int) -> int:
+    """A row of ``b`` bytes (a multiple of 16) padded to an odd number of
+    16-byte units (``pad16`` in conv3x3_tc.cuh)."""
+    return b + 16 if (b // 16) % 2 == 0 else b
 
 
 @dataclass(frozen=True)
@@ -82,6 +83,7 @@ class Plan:
     cps: int
     stages: int
     noise: bool   # kernel 1: each stage also holds the item's noise
+    s8: bool      # the s8 body: ck counts s8 channels, taps [tap][BN][CK]
     tiles_x: int
     tiles_y: int
     groups: int
@@ -106,12 +108,14 @@ class Plan:
 
     @property
     def smem_bytes(self) -> int:
-        halo = self.g * (self.th + 2) * (self.tw + 2) * pad_row(self.ck)
-        stage = (halo + 9 * self.ck * pad_row(self.bn)
-                 + (2 * self.bm if self.noise else 0))
+        eb = 1 if self.s8 else 2
+        halo = self.g * (self.th + 2) * (self.tw + 2) * pad16(self.ck * eb)
+        taps = (9 * self.bn * pad16(self.ck) if self.s8
+                else 9 * self.ck * pad16(2 * self.bn))
+        stage = halo + taps + (4 * self.bm if self.noise else 0)
         epilogue = self.bm * (self.bn + 4) + 2 * max(self.threads,
                                                      self.g * self.bn)
-        return self.stages * stage * 2 + epilogue * 4
+        return self.stages * stage + epilogue * 4
 
     def args(self):
         """The int[9] the C entry points take."""
@@ -119,7 +123,8 @@ class Plan:
                 self.splits, self.cps, self.stages)
 
     def ws_elems(self, n: int, h: int, w: int, cout: int) -> int:
-        """f32 elements of the split-K workspace (0 without a split)."""
+        """f32 (s8: s32) elements of the split-K workspace (0 without a
+        split)."""
         return self.splits * n * h * w * cout if self.splits > 1 else 0
 
 
@@ -129,9 +134,9 @@ def _geometry(n, h, w, bm, tw, min_th=1):
     return th, g, _cdiv(w, tw), _cdiv(h, th), _cdiv(n, g)
 
 
-def _plan(n, h, w, cin, cout, wm, stages, noise=False):
+def _plan(n, h, w, cin, cout, wm, stages, noise=False, s8=False):
     bn = min(64, max(8, _pow2ceil(cout)))
-    ck = 16 if cin <= 16 else 32
+    ck = (32 if cin <= 32 else 64) if s8 else (16 if cin <= 16 else 32)
     tw = 4 if w <= 4 else (8 if w <= 8 else 16)
     cout_blocks = _cdiv(cout, bn)
     th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 32 * wm, tw)
@@ -144,14 +149,14 @@ def _plan(n, h, w, cin, cout, wm, stages, noise=False):
     splits = _cdiv(chunks, cps)
     return Plan(bn=bn, wm=wm, ck=ck, tw=tw, th=th, g=g, splits=splits,
                 cps=cps, stages=stages or (2 if cps <= 2 else 3), noise=noise,
-                tiles_x=tiles_x, tiles_y=tiles_y, groups=groups,
+                s8=s8, tiles_x=tiles_x, tiles_y=tiles_y, groups=groups,
                 cout_blocks=cout_blocks)
 
 
 def plan(n: int, h: int, w: int, cin: int, cout: int,
-         noise: bool = False) -> Plan:
+         noise: bool = False, s8: bool = False) -> Plan:
     """The plan of one call; ``noise`` for kernel 1 (its stages hold the
-    noise too)."""
+    noise too), ``s8`` for the s8 body."""
     tw = 4 if w <= 4 else (8 if w <= 8 else 16)
     bn = min(64, max(8, _pow2ceil(cout)))
     _, _, tx, ty, gr = _geometry(n, h, w, 256, tw)
@@ -159,7 +164,7 @@ def plan(n: int, h: int, w: int, cin: int, cout: int,
     wms = [8, 4] if tx * ty * gr * _cdiv(cout, bn) >= fill else [4]
     for wm in wms:
         for stages in (None, 2):
-            p = _plan(n, h, w, cin, cout, wm, stages, noise)
+            p = _plan(n, h, w, cin, cout, wm, stages, noise, s8)
             if p.smem_bytes <= MAX_SMEM:
                 return p
     return p

@@ -20,6 +20,11 @@ global batch of a data-parallel fit's processes with ``group``), leaky
 passes, or given as the uniform draws ``draw_dropout`` made before (the
 static inputs of the train step's CUDA graph; the same bits).
 
+Int8 (``forward_int8``, ``generate --quant``): every conv in s8 from the
+state of ``ops/quant.py::prepare_decoder_int8`` (kernel 2's s8 body for
+the 3x3 sites, an integer product for the shortcut), the JAX package's
+int8 decoder over this layout.
+
 The 1x1 shortcut and the residual add stay plain.  Parameters keep the JAX
 package's names (``cvt_0_conv``, ``main_0.bn_0``, ...); BatchNorm2d's
 momentum 0.1 is the JAX package's momentum 0.9.
@@ -36,6 +41,7 @@ from ..kernels.conv3x3_grad import Conv3x3
 from ..kernels.small_conv import conv3x3_small
 from ..ops.conv import conv2d
 from ..ops.dropout import dropout
+from ..ops import quant
 from ..ops.norm import batch_norm_train
 from ..ops.resize import upsample_nearest_2x
 from .layers import hwio
@@ -257,6 +263,42 @@ class Decoder(nn.Module):
                 pred = conv3x3_small(x, *folded[f"main_{i}_conv"])
             prev = pred
         return pred.float()
+
+    def forward_int8(self, inputs: List[torch.Tensor], q: "quant.QuantState",
+                     dtype: Optional[torch.dtype] = None):
+        """Eval forward with every conv in s8 (``q`` from
+        ``ops/quant.py::prepare_decoder_int8``); logits (N, H, W, classes)
+        f32.  Each conv's output is dequantized into ``dtype``, where the
+        leaky, concat and residual add run as on the float path.  A block
+        stage (``i >= q.first_block``) runs conv_0 on the coarse grid with
+        4 x Cout channels and one depth-to-space; the shortcut runs on the
+        coarse grid on conv_0's quantized input, then the nearest-2x
+        upsample (the same integers)."""
+        dtype = dtype or self.compute_dtype
+        last = len(self.in_channels) - 1
+        prev = None
+        for i in range(self.start_res, last + 1):
+            x = quant.qconv3x3(inputs[i].to(dtype), q[f"cvt_{i}"], "leaky",
+                               dtype)
+            if i > self.start_res:
+                x = torch.cat([prev, x], dim=-1)
+            if i == last:
+                return quant.qconv3x3(x, q[f"main_{i}_conv"], None,
+                                      dtype).float()
+            name = f"main_{i}"
+            k0 = q[f"{name}.conv_0"]
+            xq = quant.quantize_act(x, k0.inv)
+            if i >= q.first_block:
+                y = quant.depth_to_space(quant.qconv3x3(
+                    None, k0, "leaky", dtype, xq=xq))
+            else:
+                y = quant.qconv3x3(None, k0, "leaky", dtype,
+                                   xq=upsample_nearest_2x(xq))
+            y = quant.qconv3x3(y, q[f"{name}.conv_1"], "leaky", dtype)
+            sc = q.get(f"{name}.shortcut")
+            if sc is not None:  # conv_0's scale (check_shortcut_scales)
+                x = quant.qconv1x1(None, sc, dtype, xq=xq)
+            prev = upsample_nearest_2x(x) + y
 
     def _forward_train(self, inputs, dtype, generator, dropout_u=None,
                        group=None):

@@ -8,6 +8,14 @@ time, as in the JAX package, so ``core/params_bridge.py`` maps layouts only.
 Parameters are f32; each layer computes in its ``compute_dtype``.
 Random init mirrors the JAX init: dense N(0, 1/lr_mult), conv N(0, 1),
 biases, noise scales zero.
+
+Int8 (``ops/quant.py``): ``Conv2DW`` and ``Conv2DTransposeW`` take an
+optional ``q`` (the site's ``QConv``, the JAX package's ``quant``
+collection entry) and then run s8: the input quantized against its static
+scale, the kernel quantized from ``int8_kernel()`` (f32, the JAX package's
+orientation and composition).  Calibration records each conv input's
+absmax (``ops/quant.py::record_absmax``, the JAX package's ``qstats``
+sow).
 """
 
 import math
@@ -17,8 +25,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant
 from ..ops.blur import blur_3x3
-from ..ops.conv import conv2d, conv_transpose2d, upsample2x_conv2d
+from ..ops.conv import (_UP2, compose_kernel_2d, conv2d, conv_transpose2d,
+                        upsample2x_conv2d)
 from ..ops.norm import instance_norm, instance_norm_apply
 from ..ops.wscale import wscale_std
 
@@ -95,10 +105,25 @@ class Conv2DW(nn.Module):
         """The wscaled HWIO kernel in the compute dtype."""
         return hwio(self.weight * self.scale).to(self.compute_dtype)
 
-    def forward(self, x):
+    def int8_kernel(self):
+        """The f32 kernel the int8 site quantizes: the wscaled HWIO kernel,
+        with ``up2x`` composed with the nearest-2x filter into the 4x4
+        kernel over the zero-inserted input (the JAX package's
+        ``compose_kernel_2d(k_eff, _UP2)``)."""
+        k = hwio(self.weight * self.scale).float()
+        return compose_kernel_2d(k, _UP2) if self.up2x else k
+
+    def forward(self, x, q=None):
+        """``q``: the site's int8 state (``ops/quant.py::QConv``), or None
+        for the float conv."""
         cd = self.compute_dtype
-        b = None if self.bias is None else (self.bias * self.lr_mult).to(cd)
         x = x.to(cd)
+        if q is not None:  # up2x (sub-pixel) or to_rgb (1x1): conv_2's
+            # 3x3 runs kernel 1's s8 body in StyleBlock
+            if self.up2x:
+                return quant.qsubpixel(x, q, cd)
+            return quant.qconv1x1(x, q, cd)
+        b = None if self.bias is None else (self.bias * self.lr_mult).to(cd)
         if self.up2x:
             return upsample2x_conv2d(x, self.effective_weight(), b,
                                      padding=self.padding)
@@ -125,7 +150,17 @@ class Conv2DTransposeW(nn.Module):
         with torch.no_grad():
             self.weight.normal_(0.0, 1.0, generator=gen)
 
-    def forward(self, x):
+    def int8_kernel(self):
+        """The f32 kernel the int8 site quantizes: the JAX package's flipped
+        conv-equivalent HWIO kernel (k4 s2 p1: a 4x4 conv over the
+        2-dilated input, padding 2)."""
+        return (self.weight * self.scale).permute(2, 3, 0, 1).flip(0, 1)
+
+    def forward(self, x, q=None):
+        """``q``: the site's int8 state, or None for the float deconv."""
+        if q is not None:
+            return quant.qsubpixel(x.to(self.compute_dtype), q,
+                                   self.compute_dtype)
         # back to the JAX package's flipped conv-equivalent HWIO kernel
         w = (self.weight * self.scale).permute(2, 3, 0, 1).flip(0, 1)
         return conv_transpose2d(x.to(self.compute_dtype),

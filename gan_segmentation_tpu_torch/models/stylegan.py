@@ -12,6 +12,12 @@ The second half (conv_2 .. lrelu plus the AdaIN statistics) is ONE launch
 of kernel 1 (`kernels/conv_in_stats.py`); AdaIN then applies those
 statistics.  The first half stays plain PyTorch, because the blur sits
 between conv_1 and noise_1.  Layout is NHWC.
+
+Int8 (``generate --quant int8-full``, ``ops/quant.py``): ``forward(...,
+quant=state)`` runs every synthesis conv in s8 (conv_2 through kernel 1's
+s8 body, conv_1 / deconv_1 in sub-pixel form through kernel 2's, to_rgb
+as an integer product); ``absmax={}`` records each of their inputs'
+absmax (calibration).  The mapping network and the styles stay float.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -22,6 +28,7 @@ from torch import nn
 from ..core.config import GanConfig
 from ..kernels.conv_in_stats import conv3x3_noise_bias_lrelu_instats
 from ..ops.norm import pixel_norm
+from ..ops.quant import qconv3x3_in_stats, record_absmax
 from .layers import (AdaIN, AddNoise, Bias, Blur, Conv2DTransposeW, Conv2DW,
                      DenseW, leaky_relu)
 
@@ -73,23 +80,42 @@ class StyleBlock(nn.Module):
         self.bias_2 = Bias(c)
         self.adain_2 = AdaIN(c, cfg.latent_size, ws, cd)
 
+    @property
+    def up_name(self) -> str:
+        """The up-sampling conv's name: ``deconv_1`` from 128^2, else
+        ``conv_1``."""
+        return "deconv_1" if hasattr(self, "deconv_1") else "conv_1"
+
     def forward(self, x, w1, w2, noise=(None, None),
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, quant=None,
+                absmax=None, name: str = ""):
         """``noise``: explicit (N, H, W, 1) f32 noise for noise_1 and noise_2,
-        or None to draw it from ``generator``."""
+        or None to draw it from ``generator``.  ``quant`` (the generator's
+        int8 state) and ``absmax`` (calibration) by site, this block's
+        sites named ``{name}.conv_2`` etc.; a site the state lacks runs
+        float, as a JAX module without its ``quant`` entry."""
+        cd = self.conv_2.compute_dtype
         y = x
         if not self.first:
-            up = self.deconv_1 if hasattr(self, "deconv_1") else self.conv_1
-            y = self.blur_1(up(y))
+            site = f"{name}.{self.up_name}"
+            record_absmax(absmax, site, y.to(cd))
+            y = self.blur_1(getattr(self, self.up_name)(
+                y, None if quant is None else quant.get(site)))
         y = self.noise_1(y, noise[0], generator)
         y = leaky_relu(self.bias_1(y))
         y = self.adain_1(y, w1)
 
         n2 = noise[1] if noise[1] is not None else AddNoise.draw(y, generator)
-        y, mean, var = conv3x3_noise_bias_lrelu_instats(
-            y.contiguous(), self.conv_2.effective_weight().contiguous(),
-            n2[..., 0].contiguous(), self.noise_2.scale_factors,
-            self.bias_2.bias, leaky=0.2)
+        args = (n2[..., 0].contiguous(), self.noise_2.scale_factors,
+                self.bias_2.bias)
+        record_absmax(absmax, f"{name}.conv_2", y)
+        q2 = None if quant is None else quant.get(f"{name}.conv_2")
+        if q2 is not None:
+            y, mean, var = qconv3x3_in_stats(y, q2, *args, out_dtype=cd)
+        else:
+            y, mean, var = conv3x3_noise_bias_lrelu_instats(
+                y.contiguous(), self.conv_2.effective_weight().contiguous(),
+                *args, leaky=0.2)
         return self.adain_2.apply_stats(y, mean, var, w2)
 
 
@@ -161,10 +187,14 @@ class StyleGanGenerator(nn.Module):
         return latent_avg[None, :] * (1.0 - psi) + w * psi
 
     def forward(self, z, noise: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, quant=None,
+                absmax: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """``noise`` maps ``"block_{res}.noise_{1|2}"`` to (N, H, W, 1) f32
-        noise; any noise not given is drawn from ``generator``."""
+        noise; any noise not given is drawn from ``generator``.  ``quant``:
+        the int8 state (``ops/quant.py::quantize_generator``) or None for
+        the float path; ``absmax``: a dict that records every synthesis
+        conv input's absmax (calibration, float path)."""
         cfg, cd = self.cfg, self.compute_dtype
         noise = noise or {}
         w = self.mapping(z).float()
@@ -179,9 +209,13 @@ class StyleGanGenerator(nn.Module):
             y = getattr(self, f"block_{res}")(
                 y, w1, w2,
                 (noise.get(f"block_{res}.noise_1"),
-                 noise.get(f"block_{res}.noise_2")), generator)
+                 noise.get(f"block_{res}.noise_2")), generator, quant=quant,
+                absmax=absmax, name=f"block_{res}")
             features.append(y)
-        rgb = getattr(self, f"to_rgb_{cfg.max_res_log2}")(y)
+        site = f"to_rgb_{cfg.max_res_log2}"
+        record_absmax(absmax, site, y.to(cd))
+        rgb = getattr(self, site)(y, None if quant is None
+                                  else quant.get(site))
         return rgb, features
 
 

@@ -7,6 +7,8 @@ These ops were composed by XLA on the TPU (no Pallas kernel), so they run
 through ``F.conv2d`` / ``F.conv_transpose2d`` here.
 """
 
+import numpy as np
+import torch
 import torch.nn.functional as F
 
 from .resize import upsample_nearest_2x
@@ -77,3 +79,24 @@ def conv_transpose2d(x, w, b=None, *, stride: int = 2, padding: int = 1):
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def compose_kernel_2d(w, f):
+    """Compose a constant 2-D filter into an HWIO kernel (a copy of
+    ``gan_segmentation_tpu/ops/conv.py::compose_kernel_2d``, pinned to it by
+    ``tests/test_torch_quant.py``): ``correlate(correlate(x, w), f) ==
+    correlate(x, compose_kernel_2d(w, f))`` with the two paddings summed,
+    exact where the intermediate's zero padding is genuinely zero (the
+    nearest-2x upsample).  The full 2-D convolution ``C[m] = sum_{k+j=m}
+    w[k] * f[j]``, shape (kh+fh-1, kw+fw-1, ci, co)."""
+    kh, kw, ci, co = w.shape
+    f = torch.as_tensor(np.asarray(f), dtype=w.dtype, device=w.device)
+    fh, fw = f.shape
+    wb = w.permute(2, 3, 0, 1).reshape(ci * co, 1, kh, kw)
+    fk = f.flip(0, 1)[None, None]  # correlate with flipped f == convolve
+    out = F.conv2d(wb, fk, padding=(fh - 1, fw - 1))
+    return out.reshape(ci, co, kh + fh - 1, kw + fw - 1).permute(2, 3, 0, 1)
+
+
+# the nearest-2x upsample as a filter over the zero-inserted input
+_UP2 = np.ones((2, 2), np.float32)

@@ -20,7 +20,12 @@ replica of the batch's program and its own graph per part, and z and the
 noise are drawn once on the first device in the eager order and scattered:
 each part is what one device computes on it.  On a card that equals one
 device's batch only up to rounding, as kernels 1 and 2 split their sums
-by the part's size (ROADMAP Queue 3); on the CPU it is the same.
+by the part's size (as the JAX package's --dp promises: "up to bf16
+rounding"); on the CPU it is the same.
+
+``FusedPipeline(quant="int8" | "int8-full")`` (``generate --quant``) runs
+the decoder (and with ``int8-full`` the generator's synthesis convs) in
+s8, calibrated on a fixed stream of its own (``ops/quant.py``).
 """
 
 import copy
@@ -38,6 +43,7 @@ from ..core.config import GanConfig, gan_config
 from ..core.graphs import GraphedCall
 from ..core.mx_params import load_generator_params
 from ..models.stylegan import StyleGanGenerator, init_generator
+from ..ops import quant as q8
 
 log = logging.getLogger(__name__)
 
@@ -98,13 +104,18 @@ class FusedProgram(nn.Module):
     live and the exported programs are one body."""
 
     def __init__(self, model: StyleGanGenerator, decoder, folded,
-                 dtype: torch.dtype, pack: bool, imrange):
+                 dtype: torch.dtype, pack: bool, imrange, gen_quant=None,
+                 dec_quant=None):
         super().__init__()
         self.model = model
         self.decoder = decoder
         self.dtype = dtype
         self.pack = pack
         self.imrange = imrange
+        # int8 states (ops/quant.py::QuantState): the generator's under
+        # int8-full, the decoder's under both int8 modes
+        self.gen_quant = gen_quant
+        self.dec_quant = dec_quant
         self.fold = nn.Module()
         self.fold_names = tuple(folded)
         for name, (w, b) in folded.items():
@@ -121,8 +132,14 @@ class FusedProgram(nn.Module):
 
     def forward(self, z, noise: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None):
-        rgb, feats = self.model(z, noise=noise, generator=generator)
-        mask = class_mask(self.decoder(feats, self.folded(), self.dtype))
+        rgb, feats = self.model(z, noise=noise, generator=generator,
+                                quant=self.gen_quant)
+        if self.dec_quant is not None:
+            logits = self.decoder.forward_int8(feats, self.dec_quant,
+                                               self.dtype)
+        else:
+            logits = self.decoder(feats, self.folded(), self.dtype)
+        mask = class_mask(logits)
         return (_to_uint8(rgb, self.imrange),
                 pack_mask_bits(mask) if self.pack else mask)
 
@@ -267,9 +284,18 @@ class FusedPipeline:
     ``mesh``: a list of devices, the first the generator's, over which
     each batch is split in contiguous parts (``torch.tensor_split``), one
     replica of the program and one graph per part and device; the replicas
-    take the program's weights again whenever it refolds.  The JAX
-    package's space-to-depth decoder tail and int8 modes are not ported;
-    asking for one raises.
+    take the program's weights again whenever it refolds.
+
+    ``quant="int8"``: the decoder runs in s8 (``ops/quant.py``); its input
+    scales come from two fixed calibration batches of the generator
+    (``calibration_batches``: disjoint from the emission stream, so
+    ``generate --resume`` keeps its byte identity), computed once per
+    pipeline; the decoder is requantized whenever the solver's weights
+    change, into the tensors the graph reads.  ``quant="int8-full"``: the
+    generator's synthesis convs too, calibrated on its float path; the
+    decoder then calibrates on the quantized generator's pyramids.  The
+    JAX package's space-to-depth decoder tail is a TPU layout and is
+    refused.
     """
 
     def __init__(self, image_generator: ImageGenerator, solver,
@@ -289,8 +315,9 @@ class FusedPipeline:
         if s2d:
             raise NotImplementedError("the space-to-depth decoder tail is a "
                                       "TPU layout; the port does not use it")
-        if quant is not None:
-            raise NotImplementedError("int8 generation is not ported yet")
+        if quant not in (None, "int8", "int8-full"):
+            raise ValueError(f"unknown quant mode {quant!r}")
+        self.quant = quant
         self.gen = image_generator
         self.solver = solver
         self.dec_dtype = inference_dtype or solver.model.compute_dtype
@@ -299,27 +326,51 @@ class FusedPipeline:
         self._pack_masks = nclass == 2 and res % 8 == 0
         self._folded = None
         self._folded_at = None
+        self._gen_quant = self._calib = None
+        if quant is not None:
+            self._calibrate_generator()
         self._program = None
         self._graphs = {}  # batch size -> GraphedCall of the program
         self._replicas = []  # mesh[1:]'s copies of the program
         self._replicas_at = None
         self._parts = {}  # (batch size, part) -> (GraphedCall, z, noise)
 
+    def _calibrate_generator(self):
+        """int8: the calibration pyramids, once per pipeline (they depend
+        on the generator alone), from the fixed stream; under int8-full the
+        generator's int8 state first, and the pyramids from it."""
+        model = self.gen.model
+        with torch.inference_mode(False), torch.no_grad():
+            zs, gens = q8.calibration_batches(self.gen.cfg.latent_size,
+                                              self.gen.device)
+            noises = [model.draw_noise(len(z), g) for z, g in zip(zs, gens)]
+            if self.quant == "int8-full":
+                self._gen_quant = q8.quantize_generator(model, zs, noises)
+            self._calib = [model(z, noise=n, quant=self._gen_quant)[1]
+                           for z, n in zip(zs, noises)]
+
     def _prepared(self):
-        """The decoder's BN-folded kernels, folded again whenever the
-        solver's weights changed, into the same tensors (a captured graph
-        reads them).  PyTorch updates parameters in place, so their
-        identity does not tell; the solver counts its changes
-        (``SegSolver.weights_version``: ``fit``, ``load``, ``reinit``)."""
+        """The decoder's BN-folded kernels (int8: its ``QuantState``),
+        folded again whenever the solver's weights changed, into the same
+        tensors (a captured graph reads them).  PyTorch updates parameters
+        in place, so their identity does not tell; the solver counts its
+        changes (``SegSolver.weights_version``: ``fit``, ``load``,
+        ``reinit``)."""
         at = self.solver.weights_version
         if self._folded is not None and at == self._folded_at:
             return self._folded
         # plain tensors (not inference tensors), so that any mode may
         # refold them in place
         with torch.inference_mode(False), torch.no_grad():
-            folded = self.solver.model.fold_bn(self.dec_dtype)
+            if self.quant is not None:
+                folded = q8.prepare_decoder_int8(self.solver.model,
+                                                 self._calib, self.dec_dtype)
+            else:
+                folded = self.solver.model.fold_bn(self.dec_dtype)
             if self._folded is None:
                 self._folded = folded
+            elif self.quant is not None:
+                self._folded.copy_(folded)
             else:
                 for k, (w, b) in folded.items():
                     self._folded[k][0].copy_(w)
@@ -333,9 +384,12 @@ class FusedPipeline:
         weights moved)."""
         folded = self._prepared()
         if self._program is None:
+            int8 = self.quant is not None
             self._program = FusedProgram(
-                self.gen.model, self.solver.model, folded, self.dec_dtype,
-                self._pack_masks, self.gen.cfg.imrange)
+                self.gen.model, self.solver.model, {} if int8 else folded,
+                self.dec_dtype, self._pack_masks, self.gen.cfg.imrange,
+                gen_quant=self._gen_quant,
+                dec_quant=folded if int8 else None)
         return self._program
 
     def _fused(self, z, generator: Optional[torch.Generator] = None,

@@ -128,7 +128,7 @@ def test_run_generate_cv2_writer_masks(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [dict(spatial=2), dict(dp=2),
-                                dict(quant="int8")])
+                                dict(quant="int4")])
 def test_run_generate_refuses_what_is_not_ported(kw):
     with pytest.raises(SystemExit):
         app.run_generate(tconfig.AppConfig(), **kw)
@@ -235,7 +235,8 @@ def test_no_jax_on_the_import_path():
             f"{pkg}.examples.serving_demo",
             f"{pkg}.examples.full_pipeline_demo",
             f"{pkg}.data.feed", f"{pkg}.core.distributed",
-            f"{pkg}.core.mesh"} <= set(_modules())
+            f"{pkg}.core.mesh", f"{pkg}.ops.quant",
+            f"{pkg}.kernels.quantize"} <= set(_modules())
     code = f"""
 import importlib, sys
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "cv2",
@@ -264,7 +265,8 @@ _JAX_PACKAGE_IMPORT = re.compile(
 
 def test_sources_name_no_jax():
     pkg = gan_segmentation_tpu_torch.__name__
-    assert {f"{pkg}.core.distributed", f"{pkg}.core.mesh"} <= set(_modules())
+    assert {f"{pkg}.core.distributed", f"{pkg}.core.mesh",
+            f"{pkg}.ops.quant", f"{pkg}.kernels.quantize"} <= set(_modules())
     paths = [importlib.util.find_spec(m).origin for m in _modules()]
     for path in paths + [join(REPO, "chip_smoke.py")]:
         with open(path) as fh:

@@ -149,8 +149,9 @@ def test_launch_bookkeeping_adds_the_capture_delta_per_replay(counters):
     counter.  ``chip_smoke.ReplayTally`` adds the capture's delta per
     replay and takes the capture's recording back: what the card ran, to
     which ``chip_smoke.LaunchTrace`` holds the device trace."""
-    k1, k2, k3 = counters
-    per_call = {k1: 9, k2: 26, k3: 0}
+    k1, k2, k3 = counters[:3]  # the int8 wrappers launch nothing here
+    zero = dict.fromkeys(counters, 0)
+    per_call = {**zero, k1: 9, k2: 26, k3: 0}
 
     def fn():  # a call launching 9 + 26 kernels, as a generate batch does
         for w, n in per_call.items():
@@ -171,14 +172,16 @@ def test_launch_bookkeeping_adds_the_capture_delta_per_replay(counters):
         assert out is call.outputs
         assert (k1.launches, k2.launches, k3.launches) == (27, 78, 0)
         assert call.calls == 7 and call.replays == 5
-        assert tally.ran(graphs.launch_counts()) == {k1: 63, k2: 182, k3: 0}
+        assert tally.ran(graphs.launch_counts()) == {**zero, k1: 63,
+                                                     k2: 182}
 
         eager = graphs.GraphedCall(fn, CPU)  # the CPU runs fn at every call
         for _ in range(3):
             eager()
         assert eager.graph is None and eager.replays == 0
         assert (k1.launches, k2.launches) == (54, 156)
-        assert tally.ran(graphs.launch_counts()) == {k1: 90, k2: 260, k3: 0}
+        assert tally.ran(graphs.launch_counts()) == {**zero, k1: 90,
+                                                     k2: 260}
     assert graphs.GraphedCall.__call__ is REAL_CALL  # the spy is gone
 
 
@@ -201,7 +204,16 @@ def test_launch_bookkeeping_adds_the_capture_delta_per_replay(counters):
     ("void gst::tc::(anonymous namespace)::conv3x3_tc_finish_kernel(gst::tc"
      "::(anonymous namespace)::Args, int, int)", None),
     ("void wgrad_alg0_engine<float, 128, 5, 5, 3, 3, 3, false, 512>(int)",
-     None)])
+     None),
+    ("void gst::tc::(anonymous namespace)::conv3x3_tc_kernel<16, 8, 64, 4>"
+     "(gst::tc::(anonymous namespace)::Args)", "conv_in_stats_s8"),
+    ("void gst::tc::(anonymous namespace)::conv3x3_tc_kernel<64, 8, 32, 5>"
+     "(gst::tc::(anonymous namespace)::Args)", "small_conv_s8"),
+    ("void gst::tc::(anonymous namespace)::conv3x3_tc_finish_kernel<true>("
+     "gst::tc::(anonymous namespace)::Args, int, int)", None),
+    ("void gst::(anonymous namespace)::quantize_s8_kernel<__nv_bfloat16>("
+     "__nv_bfloat16 const*, float const*, signed char*, unsigned long, int)",
+     "quantize_s8")])
 def test_kernel_of_tells_the_three_kernels_apart(name, kernel):
     """A device trace's kernel names (as the card's profiler gives them)
     map to the hand-written kernel that launched them: one main kernel per

@@ -173,13 +173,16 @@ def test_generate_batches_trims_and_packs(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(s2d=True),
-                                dict(quant="int8")])
+                                dict(quant="int4")])
 def test_pipeline_refuses_what_is_not_ported(kw, tmp_path):
-    """The space-to-depth tail and int8 are not ported; a mesh is a list of
-    devices (``tests/test_torch_scale_out.py`` runs one), and anything else
-    is refused."""
+    """The space-to-depth tail is not ported; a mesh is a list of devices
+    (``tests/test_torch_scale_out.py`` runs one), and anything else is
+    refused; an unknown quant mode is refused, as the JAX package refuses
+    it (int8 runs in ``tests/test_torch_quant_pipeline.py``)."""
     solver = SegSolver(3, "", str(tmp_path), device=CPU)
-    with pytest.raises(TypeError if "mesh" in kw else NotImplementedError):
+    err = {"mesh": TypeError, "s2d": NotImplementedError,
+           "quant": ValueError}[next(iter(kw))]
+    with pytest.raises(err):
         tgen.FusedPipeline(_tiny_generator(), solver, **kw)
 
 
