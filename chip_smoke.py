@@ -54,6 +54,18 @@ Phases (any failure raises, so the exit code is non-zero):
    byte-identical, ``quant="int8-full"`` alone and with ``dp=2`` (two
    replicas on the one card).  Prints a ``{"int8": ...}`` line before the
    kernels'.
+4c. spatial — ``generate --spatial`` (``phase_spatial``, after 4b): the
+   row-band forms of kernels 1 and 2 against their plain twins at every
+   band shape of the grids below, bf16 and f32, repeats bit-identical, and
+   each band call's device time beside F.conv2d on the same band and its
+   bound; ``FusedPipeline(mesh=grid)`` at ffhq 1024^2, batch 8, bf16, on
+   grids that repeat the one card (N = 2 and 4, and 2 x 2), eager, its
+   launches traced, held to the one-device pipeline as ``check_bf16_slice``
+   holds a bf16 slice, with samples/s and batch-1 latency beside the
+   one-device eager and graph paths; a grid bundle served from a fresh
+   interpreter equal to the live grid pipeline, and a ``--platforms
+   cpu,cuda`` artifact exported on the CPU served on the card equal to one
+   exported there (ffhq cut to 64^2).  Prints a ``{"spatial": ...}`` line.
 5. train   — three fit steps at res 32 on the card agree with the CPU; then
    ``main train`` and ``main evaluate`` at ffhq 1024^2 with the defaults
    (24 epochs, batch 1, Adam 1e-4, dropout on) on 20 + 4 samples of the
@@ -170,7 +182,10 @@ Phases (any failure raises, so the exit code is non-zero):
 
 Not in the default run (it needs one card): ``phase_multi_card`` on a
 machine with several cards — ``generate --dp N`` over them against the
-one-device program on each part, then one process per card over NCCL (the
+one-device program on each part, with four cards or more ``generate
+--spatial 4`` and ``--spatial 2 --dp 2`` on the first four (held to one
+device as in phase 4c) and the 2 x 2 grid's bundle served from a fresh
+process on them, then one process per card over NCCL (the
 decoder fit, the DeepLab step as replays beside one card's, the runner's
 graphed training and ragged validation, ``generate``'s slices), each
 against one process:
@@ -308,16 +323,19 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 # A wrapper call launches one device kernel of its own (and with split-K a
 # finish kernel, not counted here).  The tensor-core kernels carry the
 # number of the entry point that launches them as their last template
-# argument (4 and 5: kernels 1 and 2's s8 bodies); kernel 3's bf16 body and
-# the quantize pass are kernels of their own.
+# argument (4 and 5: kernels 1 and 2's s8 bodies, 6 and 7 their row-band
+# forms); kernel 3's bf16 body and the quantize pass are kernels of their
+# own.
 KERNEL_NUMBERS = {"1": "conv_in_stats", "2": "small_conv", "3": "bil_conv",
-                  "4": "conv_in_stats_s8", "5": "small_conv_s8"}
+                  "4": "conv_in_stats_s8", "5": "small_conv_s8",
+                  "6": "conv_in_stats_rows", "7": "small_conv_rows"}
 S8_KERNELS = ("conv_in_stats_s8", "small_conv_s8", "quantize_s8")
 
 
 def kernel_of(name):
     """The hand-written kernel (1-3, by name; the s8 bodies and the quantize
-    pass of int8 generation) a device kernel is, or None."""
+    pass of int8 generation; the row-band forms of generate --spatial) a
+    device kernel is, or None."""
     m = re.search(r"conv3x3_(?:tc|tf32)_kernel<[^>]*,\s*(\d)>", name)
     if m:
         return KERNEL_NUMBERS[m.group(1)]
@@ -326,9 +344,9 @@ def kernel_of(name):
     return "bil_conv" if "conv3x3_bil_kernel<" in name else None
 
 
-def kernel_wrappers(s8=False):
+def kernel_wrappers(s8=False, rows=False):
     """{kernel: its wrapper}, whose ``launches`` counts its launches; with
-    ``s8`` the int8 kernels too."""
+    ``s8`` the int8 kernels too, with ``rows`` the row-band forms."""
     from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import quantize as kqm
@@ -339,6 +357,10 @@ def kernel_wrappers(s8=False):
         out.update(conv_in_stats_s8=k1m.conv3x3_noise_bias_lrelu_instats_s8,
                    small_conv_s8=k2m.conv3x3_small_s8,
                    quantize_s8=kqm.quantize_s8)
+    if rows:
+        out.update(
+            conv_in_stats_rows=k1m.conv3x3_noise_bias_lrelu_instats_rows,
+            small_conv_rows=k2m.conv3x3_small_rows)
     return out
 
 
@@ -414,11 +436,12 @@ class LaunchTrace:
     ``wrapper`` and the replays.  ``so_far()`` is that derived count at
     any point inside the span.  Without a card (the tests' CPU rehearsals
     of a phase) nothing is traced and ``device`` is that derived count.
-    ``s8``: the int8 kernels are counted too (int8 generation's spans)."""
+    ``s8``: the int8 kernels are counted too (int8 generation's spans);
+    ``rows``: the row-band forms (generate --spatial's spans)."""
 
-    def __init__(self, torch, s8=False):
+    def __init__(self, torch, s8=False, rows=False):
         self.torch = torch
-        self.fns = kernel_wrappers(s8)
+        self.fns = kernel_wrappers(s8, rows)
         self.prof = None
 
     def __enter__(self):
@@ -566,12 +589,15 @@ def bil_shapes(scfg):
     return out
 
 
-def library_ms(torch, x, wt, b=None):
+def library_ms(torch, x, wt, b=None, padding=1, **timing):
     """Device ms (graph replay) of F.conv2d alone on the same NHWC inputs
-    (cuDNN, channels-last): the library call beside a conv kernel."""
+    (cuDNN, channels-last): the library call beside a conv kernel; a row
+    band's takes ``padding=(0, 1)``."""
     xc, wc = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
     bc = None if b is None else b.to(x.dtype)
-    return graph_ms(lambda: torch.nn.functional.conv2d(xc, wc, bc, padding=1))
+    return graph_ms(lambda: torch.nn.functional.conv2d(xc, wc, bc,
+                                                       padding=padding),
+                    **timing)
 
 
 def device_times(torch, kernel, plain, x, wt, b=None):
@@ -5817,10 +5843,456 @@ def multi_card_int8(torch, solver, cards, gan_dir, batches=2):
     return equal, trace
 
 
+# ------------------------------------------------------ generate --spatial
+# (N, D): a D x N grid that repeats the one card (the default run); the
+# four-card phase runs --spatial 4 and --spatial 2 --dp 2 on real cards.
+SPATIAL_GRIDS = ((2, 1), (4, 1), (2, 2))
+SPATIAL_BATCHES = 2          # batches a grid, under the device trace
+SPATIAL_RATE_BATCHES = 3     # batches timed a pipeline
+SPATIAL_LATENCY_REPS = 3     # batch-1 calls timed a path
+SPATIAL_EXPORT_RES = 6       # the grid bundle and the --platforms artifact
+SPATIAL_EXPORT_BATCH = 2     # (ffhq at full width, depth cut to 64^2)
+BAND_TIMING = dict(reps=4, replays=3)
+
+SPATIAL_SERVE_WORKER = r"""
+import json, sys
+import torch
+from gan_segmentation_tpu_torch.core.export import draw_inputs, load_bundle
+bundle, out, seed, n, devices = sys.argv[1:]
+torch.backends.cudnn.allow_tf32 = False
+serve = load_bundle(bundle, devices=[torch.device(d)
+                                     for d in devices.split(",")])
+gen = torch.Generator(device=serve.device)
+outs = []
+for i in range(int(n)):
+    gen.manual_seed(int(seed) * 2 ** 32 + i)
+    outs.append([t.cpu() for t in serve(*draw_inputs(serve.meta, gen))])
+torch.save(outs, out)
+models = [m for m in sys.modules
+          if m.startswith("gan_segmentation_tpu_torch.models")
+          or m.split(".")[0] in ("jax", "gan_segmentation_tpu")]
+print(json.dumps({"grid": serve.meta["grid"], "model_modules": models}))
+"""
+
+
+def band_calls(gcfg, scfg, n, batch):
+    """(kernel, batch, band rows, w, cin, cout, leaky) of every row-band
+    kernel call of one spatial batch over ``n`` bands (``core/spatial.py``'s
+    band rule; heights below n run the full-image kernels)."""
+    from gan_segmentation_tpu_torch.core.spatial import BandPlan
+    plan = BandPlan.of(gcfg, n)
+    calls = []
+    for (b, h, w, cin, cout) in kernel1_shapes(gcfg, batch):
+        for s, e in plan.bounds(h) or ():
+            calls.append(("conv_in_stats_rows", b, e - s, w, cin, cout, True))
+    for (_, b, h, w, cin, cout, leaky) in kernel2_shapes(scfg, batch):
+        for s, e in plan.bounds(h) or ():
+            calls.append(("small_conv_rows", b, e - s, w, cin, cout, leaky))
+    return calls
+
+
+def phase_band_kernels(torch, gcfg, scfg):
+    """Kernels 1 and 2 in their row-band form at every band shape of the
+    phase's grids (N = 2 and 4 at batch 8, N = 2 at a row's batch of 4),
+    bf16 and f32, against their plain twins with the full-image tolerances
+    (kernel 1's band sums as band means), each repeat bit-identical; per
+    spatial batch of 8 at N = 2 and N = 4, the bf16 device time (graph
+    replay) of every band call beside its plain twin, F.conv2d alone on the
+    same band and the bound."""
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    shapes = {}
+    for n, d in SPATIAL_GRIDS:
+        for c in band_calls(gcfg, scfg, n, BATCH // d):
+            shapes[c] = None
+    errs = {k: {"f32": 0.0, "bf16": 0.0} for k in ("conv_in_stats_rows",
+                                                    "small_conv_rows")}
+    times = {}  # call -> (kernel, plain, library, bound) ms, bf16
+    timed = set(band_calls(gcfg, scfg, 2, BATCH)
+                + band_calls(gcfg, scfg, 4, BATCH))
+    for call in shapes:
+        kind, b, h, w, cin, cout, leaky = call
+        x32 = torch.randn((b, h + 2, w, cin), generator=g, device=dev)
+        w32 = torch.randn((3, 3, cin, cout), generator=g,
+                          device=dev) / (9 * cin) ** 0.5
+        bias = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        noise = torch.randn((b, h, w), generator=g, device=dev)
+        nscale = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        for tag, dt in dtypes.items():
+            x, wt = x32.to(dt), w32.to(dt)
+            name = f"{kind} {tag} {(b, h, w, cin, cout)}"
+            if kind == "conv_in_stats_rows":
+                args = (x, wt, noise, nscale, bias)
+                fn = functools.partial(
+                    k1m.conv3x3_noise_bias_lrelu_instats_rows, *args)
+                plain = functools.partial(
+                    k1m.conv3x3_noise_bias_lrelu_instats_rows_plain, *args)
+                got, want = fn(), plain()
+                check_close(name + " y", got[0], want[0], **TOL[tag])
+                for s, (a_, b_) in zip(("sum", "sum of squares"),
+                                       zip(got[1:], want[1:])):
+                    check_close(f"{name} band {s} / pixels", a_ / (h * w),
+                                b_ / (h * w), **STAT_TOL[tag])
+                again = fn()
+                y, yp = got[0], want[0]
+                extra = 4 * (b * h * w + 2 * cout + 2 * b * cout)
+            else:
+                kw = dict(leaky=0.2) if leaky else {}
+                fn = functools.partial(k2m.conv3x3_small_rows, x, wt, bias,
+                                       **kw)
+                plain = functools.partial(k2m.conv3x3_small_rows_plain, x,
+                                          wt, bias, **kw)
+                got, want = (fn(),), (plain(),)
+                check_close(name, got[0], want[0], **TOL[tag])
+                again = (fn(),)
+                y, yp = got[0], want[0]
+                extra = 4 * cout
+            assert all(torch.equal(a_, b_) for a_, b_ in zip(got, again)), (
+                f"{name}: a repeat differs")
+            errs[kind][tag] = max(errs[kind][tag], max_err(y, yp))
+            if tag == "bf16" and call in timed:
+                # the band's input (H + 2 rows) read once, its output written
+                # once; the conv's operations over the output rows
+                nbytes = 2 * (b * (h + 2) * w * cin + b * h * w * cout
+                              + 9 * cin * cout) + extra
+                floor = bound(nbytes, 18 * b * h * w * cin * cout,
+                              PEAK["bf16"])
+                times[call] = dict(kernel=graph_ms(fn, **BAND_TIMING),
+                                   plain=graph_ms(plain, **BAND_TIMING),
+                                   library=library_ms(
+                                       torch, x, wt, padding=(0, 1),
+                                       **BAND_TIMING),
+                                   bound=floor)
+        del x32, w32, x, wt, got, want, again, y, yp
+    per_batch = {}
+    for n in (2, 4):
+        acc = {k: {} for k in errs}
+        for call in band_calls(gcfg, scfg, n, BATCH):
+            add_times(acc[call[0]], {k: v for k, v in times[call].items()
+                                     if k != "bound"}, times[call]["bound"])
+        for kind, a in acc.items():
+            total, by = summed_bound(a.pop("bounds"))
+            a.update(bound=total, bound_by=by)
+            log(f"{kind}: per spatial batch of 8 at N = {n} (bf16, device "
+                f"time by graph replay, {len(band_calls(gcfg, scfg, n, 8))}"
+                f" band calls of both kernels): kernel {a['kernel']:.3f} ms,"
+                f" plain {a['plain']:.3f}, F.conv2d on the same bands "
+                f"{a['library']:.3f}, bound {total:.3f} ({by})")
+        per_batch[n] = acc
+    log(f"row-band kernels: {len(shapes)} band shapes, bf16 and f32, within "
+        f"the full-image tolerances of their plain twins, repeats "
+        f"bit-identical; max abs err {errs}")
+    return dict(errs=errs, per_batch=per_batch, shapes=len(shapes))
+
+
+def slice_floats(torch, program, z, noise):
+    """(uint8 images, f32 logits, masks) of the one-device program."""
+    from gan_segmentation_tpu_torch.train.generator import (_to_uint8,
+                                                            class_mask)
+    with torch.inference_mode():
+        rgb, feats = program.model(z, noise=noise)
+        logits = program.decoder(feats, program.folded(), program.dtype)
+        return (_to_uint8(rgb, program.imrange).cpu(), logits.cpu(),
+                class_mask(logits).cpu())
+
+
+def grid_floats(torch, grid, z, noise):
+    """The same of a ``GridProgram``: each row's bands gathered, the rows
+    concatenated on the host."""
+    from gan_segmentation_tpu_torch.core.spatial import band_rows, gather
+    from gan_segmentation_tpu_torch.train.generator import (_to_uint8,
+                                                            class_mask)
+    out = []
+    dev = z.device
+    with torch.inference_mode():
+        for row, (a, b) in zip(grid.rows, band_rows(len(z), len(grid.rows))):
+            rgb, logits = grid.floats(row, z[a:b], {k: v[a:b] for k, v in
+                                                    noise.items()})
+            rgb, logits = gather(rgb, dev), gather(logits, dev)
+            out.append((_to_uint8(rgb, grid.programs[0].imrange).cpu(),
+                        logits.cpu(), class_mask(logits).cpu()))
+    return tuple(torch.cat([o[i] for o in out]) for i in range(3))
+
+
+def batch_seconds(torch, step, n):
+    """Wall seconds per call of ``step`` over ``n`` calls after two warm
+    calls (a graphed path's eager first call and its capture), each call
+    ending in a sync (a latency, not a pipelined rate)."""
+    step()
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def spatial_pipelines(torch, smi, cards=None, grids=SPATIAL_GRIDS):
+    """``FusedPipeline(mesh=grid)`` at ffhq 1024^2, batch 8, bf16: each
+    grid's batches under a device trace, its (image, logits, mask) on the
+    same z and noise held to the one-device pipeline's as
+    ``check_bf16_slice`` holds the kernels' bf16 slice (the one-device bf16
+    slice's own distance from the f32 slice, measured here, is the scale),
+    samples/s against the one-device eager and graph paths, and batch-1
+    latency.  ``cards``: the grid's cards in row order (default: the grid
+    repeats the one card)."""
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator,
+                                                            _infer)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+
+    none = tempfile.mkdtemp()
+    out = {}
+    try:
+        solver = SegSolver(10, "", join(none, "no-checkpoints"))
+
+        def generator(batch=BATCH, dtype="bf16"):
+            gen = ImageGenerator(gan="ffhq", gan_dir=none, batch_size=batch,
+                                 seed=5, dtype=dtype)
+            perturb(torch, gen.model, 35)  # the noise inputs show
+            return gen
+
+        with tf32(torch, False):
+            one = FusedPipeline(generator(), solver)
+            ref = FusedPipeline(generator(dtype="fp32"), solver,
+                                inference_dtype=torch.float32)
+            z, noise = one.gen.draw_inputs(BATCH)
+            z, noise = z.clone(), {k: v.clone() for k, v in noise.items()}
+            plain = slice_floats(torch, one.program(), z, noise)
+            f32 = slice_floats(torch, ref.program(), z, noise)
+            del ref
+            eager_s = batch_seconds(
+                torch, lambda: _infer(one.program(), z, noise=noise),
+                SPATIAL_RATE_BATCHES)
+            graph_s = batch_seconds(torch, lambda: one._batch(BATCH),
+                                    SPATIAL_RATE_BATCHES)
+            one1 = FusedPipeline(generator(1), solver)
+            z1 = z[:1].clone()
+            n1 = {k: v[:1].clone() for k, v in noise.items()}
+            lat = dict(one_eager=batch_seconds(
+                torch, lambda: _infer(one1.program(), z1, noise=n1),
+                SPATIAL_LATENCY_REPS),
+                one_graph=batch_seconds(torch, lambda: one1._batch(1),
+                                        SPATIAL_LATENCY_REPS))
+            del one1
+            for n, d in grids:
+                rows = ([[cards[r * n + k] for k in range(n)]
+                         for r in range(d)] if cards is not None
+                        else [[torch.device("cuda", 0)] * n] * d)
+                tag = f"{d}x{n}"
+                sp = FusedPipeline(generator(), solver, mesh=rows)
+                with LaunchTrace(torch, rows=True) as trace:
+                    for _ in range(SPATIAL_BATCHES):
+                        sp.sample_batch()
+                got = grid_floats(torch, sp.grid_program(), z, noise)
+                reading = check_bf16_slice(f"spatial {tag}", got, plain, f32)
+                rate_s = batch_seconds(torch, lambda: sp._batch(BATCH),
+                                       SPATIAL_RATE_BATCHES)
+                rec = dict(launches=trace.device, reading=reading,
+                           samples_per_s=BATCH / rate_s)
+                if d == 1:
+                    sp1 = FusedPipeline(generator(1), solver,
+                                        mesh=[rows[0]])
+                    rec["batch1_latency_s"] = batch_seconds(
+                        torch, lambda: sp1.grid_program()(z1, n1),
+                        SPATIAL_LATENCY_REPS)
+                    del sp1
+                check_later(
+                    trace.device["conv_in_stats_rows"] > 0
+                    and trace.device["small_conv_rows"] > 0,
+                    f"spatial {tag}: row-band kernels not launched "
+                    f"{trace.device}")
+                log(f"generate --spatial {n} --dp {d} ({tag} grid on "
+                    f"{'the cards' if cards else 'the one card'}), ffhq "
+                    f"1024^2, batch 8, bf16, eager: {reading}; "
+                    f"{BATCH / rate_s:.3f} samples/s (one device: eager "
+                    f"{BATCH / eager_s:.3f}, graph {BATCH / graph_s:.3f}); "
+                    f"batch-1 latency "
+                    f"{rec.get('batch1_latency_s', float('nan')):.4f} s "
+                    f"(one device: eager {lat['one_eager']:.4f} s, graph "
+                    f"{lat['one_graph']:.4f} s); device trace "
+                    f"{trace.device} on {smi}")
+                out[tag] = rec
+                del sp
+                torch.cuda.empty_cache()
+        del one, solver
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(none, ignore_errors=True)
+    return dict(grids=out, one_device_eager_samples_per_s=BATCH / eager_s,
+                one_device_graph_samples_per_s=BATCH / graph_s,
+                one_device_batch1_latency_s=lat)
+
+
+def small_export_pipeline(torch, device, gan_dir, mesh=None):
+    """ffhq at full width cut to ``SPATIAL_EXPORT_RES`` (seeded generator,
+    noise scales moved off zero, seeded decoder) on ``device``."""
+    from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
+                                                            ImageGenerator)
+    from gan_segmentation_tpu_torch.train.solver import SegSolver
+    gen = ImageGenerator(gan="ffhq", gan_dir=gan_dir,
+                         batch_size=SPATIAL_EXPORT_BATCH, seed=6,
+                         max_res_log2=SPATIAL_EXPORT_RES, device=device)
+    perturb(torch, gen.model, 36)
+    solver = SegSolver(SPATIAL_EXPORT_RES, "", join(gan_dir, "none"),
+                       device=device)
+    return FusedPipeline(gen, solver, mesh=mesh)
+
+
+def serve_grid_fresh(torch, bundle, base, devices, n):
+    """Serve batches 0..n-1 from seed 6 with a grid bundle in a fresh
+    interpreter that imports only ``core.export``; -> its batches."""
+    out = join(base, "grid_served.pt")
+    proc = subprocess.run(
+        [sys.executable, "-c", SPATIAL_SERVE_WORKER, bundle, out, "6",
+         str(n), ",".join(str(d) for d in devices)],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert not rec["model_modules"], rec
+    return torch.load(out, weights_only=True)
+
+
+def spatial_exports(torch, smi, cards=None, grid=(2, 1), platforms=True):
+    """(a) The bundle of a grid pipeline (ffhq, full width, cut to 64^2;
+    D x N = ``grid``, on ``cards`` or repeating the one card) served from a
+    fresh interpreter equals the live grid pipeline bit for bit.  (b) A
+    ``--platforms cpu,cuda`` artifact exported on the CPU serves on the
+    card, bit for bit equal to one exported on the card (and to the live
+    pipeline there; skipped without ``platforms``)."""
+    from gan_segmentation_tpu_torch.core import export as tex
+
+    base = tempfile.mkdtemp()
+    try:
+        n, d = grid
+        dev = torch.device("cuda", 0)
+        devices = (cards[:n * d] if cards is not None else [dev] * (n * d))
+        rows = [devices[r * n:(r + 1) * n] for r in range(d)]
+        with tf32(torch, False):
+            pipe = small_export_pipeline(torch, dev, base, mesh=rows)
+            bdir = join(base, "grid.bundle")
+            t0 = time.perf_counter()
+            tex.export_fused_pipeline_bundle(pipe, SPATIAL_EXPORT_BATCH, bdir)
+            export_s = time.perf_counter() - t0
+            live = [[t.cpu() for t in pipe.sample_batch()] for _ in range(2)]
+            del pipe
+            torch.cuda.empty_cache()
+            served = serve_grid_fresh(torch, bdir, base, devices, 2)
+            grid_equal = same_batches(torch, served, live)
+            check_later(grid_equal, f"grid bundle {d}x{n} served from a "
+                                    f"fresh process differs from the live "
+                                    f"grid pipeline")
+            if not platforms:
+                log(f"the {d}x{n} grid's bundle ({export_s:.1f} s to "
+                    f"export) served from a fresh process on "
+                    f"{[str(x) for x in devices]} equal to the live grid "
+                    f"pipeline {grid_equal} on {smi}")
+                return dict(grid=[d, n], grid_bundle_fresh_equal=grid_equal,
+                            grid_export_s=export_s)
+
+            cpu_path, card_path = (join(base, "cpu.pt2"),
+                                   join(base, "card.pt2"))
+            cpu_pipe = small_export_pipeline(torch, torch.device("cpu"),
+                                             base)
+            tex.export_fused_pipeline(cpu_pipe, SPATIAL_EXPORT_BATCH,
+                                      cpu_path, platforms=("cpu", "cuda"))
+            folded = {k: (w.clone(), b.clone())
+                      for k, (w, b) in cpu_pipe._prepared().items()}
+            del cpu_pipe
+            card_pipe = small_export_pipeline(torch, dev, base)
+            # the decoder's batch norm is folded where the pipeline lives,
+            # and rsqrt on the CPU and on the card may differ in the last
+            # place: the card's pipeline takes the CPU's fold, so that both
+            # exports hold the same weights
+            with torch.no_grad():
+                for k, (w, b) in card_pipe._prepared().items():
+                    w.copy_(folded[k][0])
+                    b.copy_(folded[k][1])
+            tex.export_fused_pipeline(card_pipe, SPATIAL_EXPORT_BATCH,
+                                      card_path)
+            outs = {}
+            for tag, path in (("cpu", cpu_path), ("card", card_path)):
+                serve = tex.load_artifact(path, device=dev)
+                gen = torch.Generator(device=dev)
+                outs[tag] = []
+                for i in range(2):
+                    gen.manual_seed(6 * 2 ** 32 + i)
+                    outs[tag].append([t.cpu() for t in serve(
+                        *tex.draw_inputs(serve.meta, gen))])
+                outs[tag + "_platforms"] = serve.meta["platforms"]
+                del serve
+            want = [[t.cpu() for t in card_pipe.sample_batch()]
+                    for _ in range(2)]
+            del card_pipe
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    xplat_equal = same_batches(torch, outs["cpu"], outs["card"])
+    live_equal = same_batches(torch, outs["card"], want)
+    check_later(xplat_equal and live_equal
+                and outs["cpu_platforms"] == ["cpu", "cuda"],
+                f"--platforms cpu,cuda artifact exported on the CPU: equal "
+                f"to the card's export {xplat_equal}, to the live pipeline "
+                f"{live_equal}, platforms {outs['cpu_platforms']}")
+    log(f"spatial export (ffhq full width cut to {2 ** SPATIAL_EXPORT_RES}^2,"
+        f" batch {SPATIAL_EXPORT_BATCH}): the {d}x{n} grid's bundle "
+        f"({export_s:.1f} s to export) served from a fresh process equal to "
+        f"the live grid pipeline {grid_equal}; a --platforms cpu,cuda "
+        f"artifact exported on the CPU, served on the card, equal to one "
+        f"exported on the card {xplat_equal} (and to the live pipeline "
+        f"{live_equal}) on {smi}")
+    return dict(grid=[d, n], grid_bundle_fresh_equal=grid_equal,
+                grid_export_s=export_s,
+                platforms_cpu_export_equal_card_export=xplat_equal,
+                platforms_card_export_equal_live=live_equal)
+
+
+def phase_spatial(torch, gcfg, scfg, smi):
+    """``generate --spatial``: the row-band kernels at every band shape,
+    the grids of ``SPATIAL_GRIDS`` on the one card, the grid bundle and the
+    ``--platforms`` artifact."""
+    kern = phase_band_kernels(torch, gcfg, scfg)
+    pipes = spatial_pipelines(torch, smi)
+    exports = spatial_exports(torch, smi)
+    launches = {}
+    for tag, rec in pipes["grids"].items():
+        for k in ("conv_in_stats_rows", "small_conv_rows"):
+            launches.setdefault(k, {})[f"spatial_{tag}"] = \
+                rec["launches"][k]
+    return dict(kernels=kern, pipelines=pipes, exports=exports,
+                launches=launches)
+
+
+def multi_card_spatial(torch, n, smi):
+    """``generate --spatial 4`` and ``--spatial 2 --dp 2`` on the first four
+    cards, on the grids ``core/mesh.py::generate_devices`` gives, held to
+    the one-device pipeline as on one card (``spatial_pipelines``), then
+    the 2 x 2 grid's bundle served from a fresh process on those cards."""
+    from gan_segmentation_tpu_torch.core.mesh import generate_devices
+
+    assert n >= 4, f"--spatial 4 needs four cards, found {n}"
+    cards = [torch.device("cuda", i) for i in range(4)]
+    assert generate_devices(4, None, cards) == [cards]
+    assert generate_devices(2, 2, cards) == [cards[:2], cards[2:]]
+    pipes = spatial_pipelines(torch, smi, cards=cards,
+                              grids=((4, 1), (2, 2)))
+    exports = spatial_exports(torch, smi, cards=cards, grid=(2, 2),
+                              platforms=False)
+    return dict(pipelines=pipes, exports=exports)
+
+
 def phase_multi_card(torch, smi):
     """Scale-out across the machine's cards (two or more; not part of the
     script's default run, which needs one card): ``generate --dp`` in one
-    process, then one process per card over NCCL through the runner's
+    process, ``--spatial 4`` and ``--spatial 2 --dp 2`` with four cards or
+    more (``multi_card_spatial``), then one process per card over NCCL
+    through the runner's
     spawn entry: the decoder fit against one process at the global batch,
     the DeepLab step as replays across the cards beside one card's, the
     runner's graphed training and ragged validation (counters equal to
@@ -5841,6 +6313,7 @@ def phase_multi_card(torch, smi):
     base = tempfile.mkdtemp()
     try:
         dp = multi_card_dp(torch, n, smi)
+        spatial = multi_card_spatial(torch, n, smi) if n >= 4 else None
         gen = ImageGenerator(gan="ffhq", batch_size=BATCH, dtype="fp32",
                              gan_dir=join(base, "no-models"), seed=0)
         make_collection(gen, join(base, "data"), MC_SAMPLES)
@@ -5937,7 +6410,7 @@ def phase_multi_card(torch, smi):
         f"generate slices equal to one process by seed {same_files} on "
         f"{smi}")
     return dict(cards=n, processes_s=ranks_s, processes_ended=ended,
-                generate_dp=dp,
+                generate_dp=dp, generate_spatial=spatial,
                 fit=dict(loss_rel_dist=fit_dist, weights_worst=worst,
                          change_rel_l2=change,
                          launches=[r["fit"]["launches"] for r in ranks]),
@@ -5992,10 +6465,15 @@ def main():
                is not None for k in tc)
     assert n_s8 > 0, "no s8 tensor-core kernel"
     assert any("quantize_s8_kernel" in k for k in tc), "no quantize kernel"
+    # the row-band forms: the tensor-core kernels launched by entry 6 or 7
+    n_rows = sum(re.search(r"conv3x3_(?:tc|tf32)_kernel.*Li[67]EEEv", k)
+                 is not None for k in tc)
+    assert n_rows > 0, "no row-band kernel"
     bad = {k: v for k, v in tc.items() if v != (0, 0)}
     assert not bad, f"tensor-core kernels spill: {bad}"
     log(f"ptxas: {len(tc)} tensor-core and quantize kernels (bf16, 3xTF32, "
-        f"{n_s8} s8), 0 bytes of spill in each; spills elsewhere: "
+        f"{n_s8} s8, {n_rows} row-band), 0 bytes of spill in each; spills "
+        f"elsewhere: "
         f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
 
     # 3. kernels
@@ -6018,6 +6496,8 @@ def main():
     marks.append(("generate as graphs", time.perf_counter()))
     i8 = phase_int8(torch, smi)
     marks.append(("int8", time.perf_counter()))
+    sp = phase_spatial(torch, gcfg, scfg, smi)
+    marks.append(("spatial", time.perf_counter()))
 
     # 5. train and evaluate, 5b. the serving export of the trained decoder
     phase_small_train_reference(torch)
@@ -6219,6 +6699,41 @@ def main():
                                "bf16_body_ms: the bf16 body on the same "
                                "shapes")
         kernels.append(entry)
+    rows_design = ("the bf16 (conv3x3_tc.cuh) and f32 (conv3x3_tf32.cuh) "
+                   "bodies of the full-image kernel over one row band: x "
+                   "holds the band's rows and the halo row above and below "
+                   "(exchanged by core/spatial.py), the staging reads input "
+                   "row oy + ky with no pad in H; plans for the band's "
+                   "output rows")
+    rows_sources = {
+        "conv_in_stats_rows": (
+            "gan_segmentation_tpu_torch/csrc/conv_in_stats_rows.cu",
+            "experiments/pallas_archive/conv_in_stats.py:118",
+            rows_design + "; the band's sums of v and v^2 per (image, "
+            "channel), added over the bands in a fixed order"),
+        "small_conv_rows": (
+            "gan_segmentation_tpu_torch/csrc/small_conv_rows.cu",
+            "experiments/pallas_archive/small_conv.py:84", rows_design)}
+    for name, (src, replaces, design) in rows_sources.items():
+        k2 = sp["kernels"]["per_batch"][2][name]
+        k4 = sp["kernels"]["per_batch"][4][name]
+        by_path = sp["launches"][name]
+        assert all(n > 0 for n in by_path.values()), (name, by_path)
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            design=design, launches=sum(by_path.values()),
+            launches_by_path=by_path,
+            launches_counted_by="device traces (torch.profiler) of the "
+                                "spatial phase's grid pipelines",
+            max_abs_err=sp["kernels"]["errs"][name]["bf16"],
+            max_abs_err_f32=sp["kernels"]["errs"][name]["f32"],
+            ms=k2["kernel"], plain_ms=k2["plain"], bound_ms=k2["bound"],
+            bound_by=k2["bound_by"], library_ms=k2["library"],
+            n4_ms=k4["kernel"], n4_plain_ms=k4["plain"],
+            n4_bound_ms=k4["bound"], n4_library_ms=k4["library"],
+            timed="bf16, device time (graph replay) of every band call of "
+                  "one spatial batch of 8 at N = 2 (n4_*: N = 4); library: "
+                  "F.conv2d alone on the same bands (padding (0, 1))"))
     prof = tr["prof"]
     print(json.dumps({"graphs": {
         "generate": gg["gans"],
@@ -6234,6 +6749,8 @@ def main():
                                          "retrain_eager_s")}}}), flush=True)
     print(json.dumps({"int8": {k: v for k, v in i8.items()
                                if k != "kernels"}}), flush=True)
+    print(json.dumps({"spatial": {k: v for k, v in sp.items()
+                                  if k != "launches"}}), flush=True)
     print(json.dumps({"deeplab": dl}), flush=True)
     print(json.dumps({"export": ex}), flush=True)
     print(json.dumps({"step5": {k: v for k, v in s5.items()

@@ -13,7 +13,8 @@ reads ``config.yml`` (keys at reference `main.py:33-43`), seeds numpy with
   mean-iou and total-loss;
 - ``generate`` the synthetic-dataset emitter: z -> image and mask in one
   device pass, only uint8 crossing to the host; ``--dp D`` splits each
-  batch over D cards of this process (0: every card).
+  batch over D cards of this process (0: every card), ``--spatial N``
+  each image's height over N cards (a D x N grid with ``--dp``).
 
 Under a launcher (``torchrun --nproc-per-node N -m
 gan_segmentation_tpu_torch.apps.main train|evaluate|generate``) each
@@ -51,8 +52,13 @@ def parse_args(argv=None):
     parser.add_argument("--config", default="config.yml")
     parser.add_argument(
         "--spatial", type=int, default=1, metavar="N",
-        help="generate: spatial parallelism over N devices (not ported; "
-             "only 1 is accepted)")
+        help="generate: split each image's height into N row bands over N "
+             "cards of this process (spatial parallelism; the cards/N rows "
+             "of the grid run data-parallel, or --dp D of them).  Without "
+             "--dp, N must divide the card count.  For a lower per-sample "
+             "latency or images larger than one card holds; for throughput "
+             "use --dp.  The pairs match --spatial 1 up to the rounding of "
+             "the split sums; not with --quant")
     parser.add_argument(
         "--dp", type=int, default=1, metavar="D",
         help="generate: split each batch over D cards of this process "
@@ -170,14 +176,23 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
                  dp: int = 1):
     """Emit ``GENERATE_NUM`` pairs; under a launcher this process's slice
     of them, from its own z stream.  ``dp``: the cards of this process over
-    which each batch is split (``core/mesh.py::generate_devices``)."""
+    which each batch is split, ``spatial``: the cards over which each image's
+    height is split (``core/mesh.py::generate_devices``)."""
     if quant not in (None, "int8", "int8-full"):
         raise SystemExit(f"--quant: unknown mode {quant!r}")
+    pc, pi = dist_.process_count(), dist_.process_index()
+    if spatial > 1 and pc > 1:
+        # the grid's bands live in one process: a band exchange across
+        # processes is not there, and each process draws its own z stream
+        raise SystemExit(
+            "--spatial > 1 is a single-process capability; run spatial "
+            "generation in one process (it already uses every local "
+            "card), or drop --spatial for generation over several "
+            "processes")
     try:
         mesh = generate_devices(spatial, dp=None if dp == 1 else dp)
-    except (ValueError, NotImplementedError) as exc:
+    except ValueError as exc:
         raise SystemExit(str(exc))
-    pc, pi = dist_.process_count(), dist_.process_index()
     if mesh is not None and pc > 1:
         raise SystemExit("--dp splits the batches of one process over its "
                          "cards; under a launcher each process generates "
@@ -197,12 +212,20 @@ def run_generate(cfg, spatial: int = 1, writer: str = "auto",
     netG = ImageGenerator(gan=cfg.GAN, gan_dir=cfg.GAN_DIR,
                           batch_size=batch_size,
                           max_res_log2=cfg.MAX_RES_LOG2, seed=pi)
-    if mesh is not None:
+    if mesh is not None and spatial > 1:
+        log.info("generation grid (data=%d, space=%d): each batch of %d "
+                 "split over the rows, each image's height into %d row "
+                 "bands over a row's cards", len(mesh), spatial, batch_size,
+                 spatial)
+    elif mesh is not None:
         log.info("generate over %d cards: each batch of %d split over them",
                  len(mesh), batch_size)
     if quant is not None:
         log.info("int8 generation: %s", quant)
-    pipeline = FusedPipeline(netG, solver, mesh=mesh, quant=quant)
+    try:
+        pipeline = FusedPipeline(netG, solver, mesh=mesh, quant=quant)
+    except ValueError as exc:  # --quant with --spatial, too few rows
+        raise SystemExit(str(exc))
 
     dst_dir = join(cfg.BASE_DIR, "dataset", "train_generated")
     makedirs(dst_dir, exist_ok=True)

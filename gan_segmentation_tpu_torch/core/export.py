@@ -24,8 +24,25 @@ Serving, in a process that imports only this module::
 
 which is batch ``i`` of ``FusedPipeline`` from ``seed``.  On a CUDA
 artifact the callable replays one CUDA graph (``core/graphs.py``), the
-counterpart of the JAX artifact running under jit.  An artifact serves on
-the device type it was exported for; cross-device lowering is not ported.
+counterpart of the JAX artifact running under jit.
+
+Platforms (the JAX package's cross-platform lowering): a program is
+traced on one device, and its record lists the device types it serves on,
+by default that one.  ``platforms=("cpu", "cuda")`` lists both: the
+program holds ATen ops and the custom ops of kernels 1 and 2, which have a
+CPU implementation (the plain version) and a CUDA one (the kernel), so
+the loader moves it to the serving device
+(``torch.export.passes.move_to_device_pass``, its weights too) and it runs
+there.  So an artifact for the card can be exported on a host with no
+card.  A device type the record does not list is refused.
+
+Grids: a ``FusedPipeline`` with a mesh (``--dp``, ``--spatial`` or both)
+exports its ``GridProgram``, the whole grid's batch as one program whose
+weights hold one copy a distinct device; the record names the grid
+(``"grid": [D, N]``) and its devices.  ``load_bundle(dir, devices=[...])``
+serves it on D x N devices in row order (the program's devices map to the
+devices at their first positions in the grid), and refuses fewer.  A grid
+program is served eagerly.
 
 Two surfaces are exported: the fused z -> (uint8 image, uint8 mask)
 pipeline (``train/generator.py::FusedProgram``) and the DeepLab multi-scale
@@ -40,7 +57,7 @@ import logging
 import os
 import warnings
 import zipfile
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -82,9 +99,32 @@ def export_callable(module: nn.Module, example_args: Sequence):
     return program
 
 
-def _record(weights, device: torch.device, meta: Optional[dict]) -> dict:
+PLATFORMS = ("cpu", "cuda")
+
+
+def platforms_of(device: torch.device,
+                 platforms: Optional[Sequence[str]]) -> list:
+    """The device types a program traced on ``device`` is recorded for:
+    ``platforms`` (which must include ``device``'s type), or that type."""
+    if not platforms:
+        return [device.type]
+    out = list(dict.fromkeys(p.strip() for p in platforms))
+    bad = [p for p in out if p not in PLATFORMS]
+    if bad:
+        raise ValueError(f"platforms {bad}: the port serves on "
+                         f"{list(PLATFORMS)}")
+    if device.type not in out:
+        raise ValueError(f"platforms {out} leave out {device.type}, where "
+                         f"the program is traced")
+    return out
+
+
+def _record(weights, device: torch.device, meta: Optional[dict],
+            platforms: Optional[Sequence[str]] = None) -> dict:
     record = {"device": device.type, "torch": torch.__version__,
-              "kernels": _build._source_tag(), "n_weights": len(weights)}
+              "kernels": _build._source_tag(), "n_weights": len(weights),
+              "platforms": platforms_of(device, platforms),
+              "devices": [str(device)]}
     record.update(meta or {})
     return record
 
@@ -94,11 +134,15 @@ def _device_of(example_args) -> torch.device:
 
 
 def save_artifact(path: str, module: nn.Module, example_args: Sequence,
-                  meta: Optional[dict] = None):
+                  meta: Optional[dict] = None,
+                  platforms: Optional[Sequence[str]] = None):
     """Export ``module`` and write the hermetic artifact to ``path`` (the
-    weights and the record inside); returns the ``ExportedProgram``."""
+    weights and the record inside); returns the ``ExportedProgram``.
+    ``platforms``: the device types it serves on (default: the one it is
+    traced on)."""
     program = export_callable(module, example_args)
-    record = _record(program.state_dict, _device_of(example_args), meta)
+    record = _record(program.state_dict, _device_of(example_args), meta,
+                     platforms)
     with _archive():
         torch.export.save(program, path,
                           extra_files={META: json.dumps(record)})
@@ -122,7 +166,8 @@ class _WeightsAsInputs(nn.Module):
 
 
 def save_bundle(dir_path: str, module: nn.Module, example_args: Sequence,
-                meta: Optional[dict] = None):
+                meta: Optional[dict] = None,
+                platforms: Optional[Sequence[str]] = None):
     """Export ``module`` as a bundle directory: ``program.pt2`` takes the
     weights as its first input (a dict) and holds none of their bytes,
     ``weights.pt`` is ``module``'s state dict, ``meta.json`` the record
@@ -131,7 +176,7 @@ def save_bundle(dir_path: str, module: nn.Module, example_args: Sequence,
     weights = {k: v.detach() for k, v in module.state_dict().items()}
     program = export_callable(_WeightsAsInputs(module),
                               (weights, *example_args))
-    record = _record(weights, _device_of(example_args), meta)
+    record = _record(weights, _device_of(example_args), meta, platforms)
     record["weights"] = [[k, list(v.shape), str(v.dtype).replace(
         "torch.", "")] for k, v in weights.items()]
     os.makedirs(dir_path, exist_ok=True)
@@ -166,13 +211,16 @@ def _artifact_meta(path: str) -> dict:
 
 def _serving_device(meta: dict, device) -> torch.device:
     """The device to serve ``meta``'s program on: ``device`` or, when None,
-    the one it was exported for.  Raises for another device type."""
+    the one it was exported for.  Raises for a device type the record does
+    not list."""
     kind = meta.get("device")
+    listed = meta.get("platforms") or [kind]
     want = torch.device(device if device is not None else kind)
-    if want.type != kind:
-        raise ValueError(f"the program was exported for {kind} and serves "
-                         f"only there, not on {want.type} (cross-device "
-                         f"export is not ported)")
+    if want.type not in listed:
+        raise ValueError(f"the program was exported for "
+                         f"{' and '.join(listed)} and serves only there, "
+                         f"not on {want.type} (export it with --platforms "
+                         f"naming {want.type})")
     if want.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("the program was exported for cuda: no CUDA "
@@ -180,6 +228,47 @@ def _serving_device(meta: dict, device) -> torch.device:
         if want.index is None:
             want = torch.device("cuda", torch.cuda.current_device())
     return want
+
+
+def _placement(meta: dict, device, devices) -> Tuple[torch.device, dict]:
+    """(first serving device, {traced device: serving device}) of a
+    program: a grid program's devices map to ``devices`` (row order, at
+    least D x N of them, each checked as ``_serving_device``) at their
+    first positions in the grid; any other program's one device to
+    ``device``.  The map is empty where nothing moves."""
+    grid = meta.get("grid")
+    if grid is not None:
+        need = grid[0] * grid[1]
+        if devices is None:
+            devices = ([device] * need if device is not None
+                       else [torch.device(d) for d in meta["grid_devices"]])
+        devices = [_serving_device(meta, d) for d in devices]
+        if len(devices) < need:
+            raise ValueError(f"the program runs on a {grid[0]} x {grid[1]} "
+                             f"grid: it needs {need} devices, got "
+                             f"{len(devices)}")
+        flat = meta["grid_devices"]
+        where = {}
+        for pos, d in enumerate(flat):
+            where.setdefault(d, devices[pos])
+        moves = {k: str(v) for k, v in where.items() if k != str(v)}
+        return devices[0], moves
+    if devices is not None:
+        raise ValueError("devices= is for a grid program; pass device=")
+    dev = _serving_device(meta, device)
+    traced = meta.get("devices")
+    if traced is None or traced == [str(dev)]:
+        return dev, {}
+    return dev, {traced[0]: str(dev)}
+
+
+def _moved(program, moves: dict):
+    """``program`` with its devices moved by ``moves`` (``torch.export``'s
+    own pass: the graph's device arguments and its weights)."""
+    if not moves:
+        return program
+    from torch.export.passes import move_to_device_pass
+    return move_to_device_pass(program, moves)
 
 
 def _run(module, inputs):
@@ -208,7 +297,8 @@ class Served:
     def __call__(self, *inputs):
         inputs = pytree.tree_map(lambda t: torch.as_tensor(t).to(
             self.device), inputs)
-        if self.device.type == "cpu":
+        # a grid program runs eagerly: a CUDA graph captures one card
+        if self.device.type == "cpu" or self.meta.get("grid"):
             return _run(self.module, (*self.bound, *inputs))
         if self.call is None:
             self._static = pytree.tree_map(torch.empty_like, inputs)
@@ -225,23 +315,31 @@ class Served:
 
 
 def load_artifact(path: str, device=None) -> Served:
-    """Load a :func:`save_artifact` file; returns its serving callable."""
+    """Load a :func:`save_artifact` file; returns its serving callable on
+    ``device`` (default: the device type it was exported for), any type
+    its record lists."""
     meta = _artifact_meta(path)
-    dev = _serving_device(meta, device)
+    dev, moves = _placement(meta, device, None)
     with _archive():
-        program = torch.export.load(path)
+        program = _moved(torch.export.load(path), moves)
     return Served(program, meta, dev)
 
 
-def read_bundle(dir_path: str, device=None):
+def read_bundle(dir_path: str, device=None, devices=None):
     """-> (program, weights, meta, device) of a :func:`save_bundle`
-    directory: ``weights`` (on the serving device, in the program's order)
-    is checked against the record's names, shapes and dtypes."""
+    directory: ``weights`` (on the serving devices, in the program's
+    order) is checked against the record's names, shapes and dtypes.
+    ``devices``: a grid program's D x N serving devices in row order."""
     meta = load_bundle_meta(dir_path)
-    dev = _serving_device(meta, device)
+    dev, moves = _placement(meta, device, devices)
     with _archive():
-        program = torch.export.load(os.path.join(dir_path, PROGRAM))
-    weights = torch.load(os.path.join(dir_path, WEIGHTS), map_location=dev,
+        program = _moved(torch.export.load(os.path.join(dir_path, PROGRAM)),
+                         moves)
+    if meta.get("grid") is None:
+        where = dev  # one device (older records name no "devices")
+    else:
+        where = {d: moves.get(d, d) for d in meta["devices"]}
+    weights = torch.load(os.path.join(dir_path, WEIGHTS), map_location=where,
                          weights_only=True)
     want = {k: (shape, dtype) for k, shape, dtype in meta["weights"]}
     if set(weights) != set(want):
@@ -255,10 +353,12 @@ def read_bundle(dir_path: str, device=None):
     return program, {k: weights[k] for k in want}, meta, dev
 
 
-def load_bundle(dir_path: str, device=None) -> Served:
+def load_bundle(dir_path: str, device=None, devices=None) -> Served:
     """Load a :func:`save_bundle` directory; returns its serving callable
-    with the weights of ``weights.pt`` bound (no model code needed)."""
-    program, weights, meta, dev = read_bundle(dir_path, device)
+    with the weights of ``weights.pt`` bound (no model code needed).  A
+    grid program serves on ``devices`` (D x N of them, row order), by
+    default those it was exported on."""
+    program, weights, meta, dev = read_bundle(dir_path, device, devices)
     return Served(program, meta, dev, weights)
 
 
@@ -274,7 +374,8 @@ def draw_inputs(meta: dict, generator: torch.Generator):
 
 
 def _fused_inputs(pipeline, batch_size: Optional[int]):
-    """(program, example inputs, record) of a ``FusedPipeline`` batch."""
+    """(program, example inputs, record) of a ``FusedPipeline`` batch: with
+    a mesh, its ``GridProgram``."""
     b = batch_size or pipeline.gen.batch_size
     gen = pipeline.gen
     z = torch.zeros((b, gen.cfg.latent_size), device=gen.device)
@@ -288,30 +389,40 @@ def _fused_inputs(pipeline, batch_size: Optional[int]):
             "masks_packed": pipeline._pack_masks,
             "quant": pipeline.quant,
             "resolution": 2 ** gen.cfg.max_res_log2}
-    return pipeline.program(), (z, noise), meta
+    if pipeline.mesh is None:
+        return pipeline.program(), (z, noise), meta
+    grid = pipeline.grid_program()
+    meta.update(grid=list(grid.shape),
+                grid_devices=[str(grid.devices[j]) for r in grid.rows
+                              for j in r],
+                devices=[str(d) for d in grid.devices])
+    return grid, (z, noise), meta
 
 
 def export_fused_pipeline(pipeline, batch_size: Optional[int] = None,
-                          path: Optional[str] = None):
+                          path: Optional[str] = None,
+                          platforms: Optional[Sequence[str]] = None):
     """Freeze a trained ``FusedPipeline`` (generator weights and the
     decoder's folded kernels inside).  Signature of the program:
     ``(z (B, latent) f32, noise {name: (B, H, W, 1) f32}) -> (images (B,
     H, W, 3) u8, masks u8)``, masks in the pipeline's wire format
     (bit-packed 8 px/byte along W when binary).  With ``path`` the
-    artifact is written there.  Returns the ``ExportedProgram``."""
+    artifact is written there, for ``platforms``.  Returns the
+    ``ExportedProgram``."""
     program, args, meta = _fused_inputs(pipeline, batch_size)
     if path is None:
         return export_callable(program, args)
-    return save_artifact(path, program, args, meta)
+    return save_artifact(path, program, args, meta, platforms)
 
 
 def export_fused_pipeline_bundle(pipeline, batch_size: Optional[int] = None,
-                                 dir_path: str = "generate.bundle"):
+                                 dir_path: str = "generate.bundle",
+                                 platforms: Optional[Sequence[str]] = None):
     """Bundle form of :func:`export_fused_pipeline` (program + weights
     directory), the form for the full-size generator's ~10^8 bytes of
-    weights."""
+    weights, and for a pipeline with a mesh the whole grid's program."""
     program, args, meta = _fused_inputs(pipeline, batch_size)
-    return save_bundle(dir_path, program, args, meta)
+    return save_bundle(dir_path, program, args, meta, platforms)
 
 
 class _EvalProgram(nn.Module):
@@ -327,7 +438,8 @@ class _EvalProgram(nn.Module):
 
 
 def export_eval_model(eval_model, batch: int, height: int, width: int,
-                      channels: int, path: Optional[str] = None):
+                      channels: int, path: Optional[str] = None,
+                      platforms: Optional[Sequence[str]] = None):
     """Freeze a ``MultiEvalModel`` for one input shape: ``images (B, H, W,
     C) f32 normalised -> scores (B, H, W, nclass) f32``, the whole
     multi-scale + flip sliding-window protocol with the DeepLab weights
@@ -342,4 +454,4 @@ def export_eval_model(eval_model, batch: int, height: int, width: int,
     module = _EvalProgram(eval_model)
     if path is None:
         return export_callable(module, (images,))
-    return save_artifact(path, module, (images,), meta)
+    return save_artifact(path, module, (images,), meta, platforms)

@@ -8,19 +8,15 @@ per card inside one process for ``generate --dp``.
   ``--ngpus`` / ``--no-cuda`` flags -> the cards of a training run
   (``kvstore_to_mesh``).
 - ``generate_devices``: ``generate --spatial N --dp D`` -> the cards of one
-  generating process, or None for one device (``spatial_mesh``).  Spatial
-  (image-height) sharding is not ported.
+  generating process, or None for one device (``spatial_mesh``): a list of
+  cards (``--dp``), or with N > 1 the ``(data, space)`` grid, a list of D
+  rows of N cards each, whose rows split each image's height into bands
+  (``core/spatial.py``).
 """
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
-
-SPATIAL_NOT_PORTED = ("--spatial > 1 (image-height sharding over several "
-                      "cards) is not ported: ROADMAP.md, Queue 1, item 4 "
-                      "keeps it queued until one 80 GB card is shown to "
-                      "need it")
-
 
 def kvstore_devices(kvstore: str = "device", gpus: str = "",
                     ngpus: Optional[int] = None,
@@ -56,25 +52,44 @@ def kvstore_devices(kvstore: str = "device", gpus: str = "",
 
 def generate_devices(spatial: int = 1, dp: Optional[int] = None,
                      devices: Optional[Sequence[torch.device]] = None
-                     ) -> Optional[List[torch.device]]:
-    """The cards over which one process splits each generate batch, or
-    None for one device.  ``dp`` None or 1: one device; ``0``: every card
-    (None when that is one); ``D``: the first D cards.  ``spatial > 1``
-    raises ``NotImplementedError``; a ``dp`` beyond the cards, or below 0,
-    ``ValueError``."""
-    if spatial > 1:
-        raise NotImplementedError(SPATIAL_NOT_PORTED)
-    if dp is None or dp == 1:
+                     ) -> Union[None, List[torch.device],
+                                List[List[torch.device]]]:
+    """The cards of one generating process, by the JAX package's
+    ``spatial_mesh`` rules, rule by rule:
+
+    - ``spatial <= 1`` and ``dp`` None or 1: None (one device);
+    - ``spatial > 1``, ``dp`` None: every card, in ``ndev / N`` rows of N
+      (``ValueError`` unless N divides the card count);
+    - ``dp == 0``: ``ndev // N`` rows (``--dp 0`` alone: every card);
+    - an explicit ``dp``: the first ``dp * N`` cards; a grid larger than
+      the cards, or ``dp < 1``, raises ``ValueError``.
+
+    With N = 1 the result is today's ``--dp`` list of cards (one graphed
+    replica each); with N > 1 it is the ``(data, space)`` grid as a list of
+    ``dp`` rows of N cards.  ``devices`` defaults to every CUDA card; a
+    grid may repeat a device (the tests' CPU grids, or one card)."""
+    if spatial <= 1 and (dp is None or dp == 1):
         return None
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     devices = list(devices)
-    if dp == 0:
-        dp = len(devices)
-        if dp <= 1:
-            return None
-    if dp < 1 or dp > len(devices):
-        raise ValueError(f"--dp {dp} needs {dp} devices, but only "
-                         f"{len(devices)} are available")
-    return devices[:dp]
+    if dp is None:
+        if len(devices) % spatial:
+            raise ValueError(f"--spatial {spatial} must divide the device "
+                             f"count ({len(devices)})")
+        dp = len(devices) // spatial
+    elif dp == 0:
+        dp = len(devices) // max(1, spatial)
+        if spatial <= 1:
+            dp = max(dp, 1)  # no card at all: one device, as on one card
+    spatial = max(1, spatial)
+    if dp == 1 and spatial == 1:
+        return None  # e.g. --dp 0 on a single-device host
+    if dp < 1 or dp * spatial > len(devices):
+        raise ValueError(f"--dp {dp} x --spatial {spatial} needs "
+                         f"{dp * spatial} devices, but only {len(devices)} "
+                         f"are available")
+    if spatial == 1:
+        return devices[:dp]
+    return [devices[r * spatial:(r + 1) * spatial] for r in range(dp)]

@@ -76,6 +76,15 @@
 // its f32 values are those of the plain version's ops in the same order.
 // y is stored in bf16, or in f32 where the caller asks (the f32 compute
 // dtype, and the exactness check with deq = 1).
+//
+// Row bands (entry points 6 and 7: kernels 1 and 2 in bf16 over one band
+// of an image's rows, generate --spatial).  x carries the band's rows and
+// one halo row above and below it, which the caller placed there (a
+// neighbour's edge row, or zeros at the image's top and bottom): H_in =
+// H_out + 2, no zero pad in H, the zero pad in W as before.  Only the
+// staging's input row differs (output row oy reads input rows oy..oy+2 of
+// x); the tiles, the plan, the epilogue and kernel 1's statistics run over
+// the H_out output rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -97,9 +106,13 @@ enum Act { NONE = 0, RELU = 1, LEAKY = 2 };
 
 // The entry point that launches a body (the kernels' last template
 // argument, which a profile shows): 1 conv_in_stats and 2 small_conv in
-// bf16, 4 and 5 the same two in s8.
+// bf16, 4 and 5 the same two in s8, 6 and 7 the same two in bf16 over a
+// row band.
 __host__ __device__ constexpr bool is_s8(int kernel) {
   return kernel == 4 || kernel == 5;
+}
+__host__ __device__ constexpr bool is_rows(int kernel) {
+  return kernel == 6 || kernel == 7;
 }
 
 // x's and w's element and the accumulator of each body.
@@ -333,7 +346,7 @@ __device__ __forceinline__ float epilogue(const Args& a, int acc, float nz,
 // Stage chunk `chunk` of Cin: the halo of G images, the taps (unless
 // resident) and, on the item's last chunk in kernel 1, the noise of its bm
 // pixels, so the epilogue reads it from shared memory.
-template <int BN, int CK, bool S8>
+template <int BN, int CK, bool S8, bool ROWS>
 __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
                                            unsigned char* st, int chunk,
                                            const Item& it, bool taps,
@@ -347,6 +360,9 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
   const T* w = static_cast<const T*>(a.w);
   const int c0 = chunk * CK;
   const int hpx = a.g * L.hp * L.wp;
+  // a row band's x holds the halo rows: no pad above, H_out + 2 rows
+  constexpr int PAD_Y = ROWS ? 0 : 1;
+  const int h_in = ROWS ? a.h + 2 : a.h;
   if (a.vec_x) {
     constexpr int U = CK / E16;
     for (int i = tid; i < hpx * U; i += threads) {
@@ -357,11 +373,12 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
       const int gi = a.fd_hp.div(r);
       const int hy = r - gi * L.hp;
       const int nn = it.n0 + gi;
-      const int iy = it.ty0 - 1 + hy, ix = it.tx0 - 1 + hx, c = c0 + u * E16;
-      const bool ok = nn < a.n && iy >= 0 && iy < a.h && ix >= 0 &&
+      const int iy = it.ty0 - PAD_Y + hy, ix = it.tx0 - 1 + hx,
+                c = c0 + u * E16;
+      const bool ok = nn < a.n && iy >= 0 && iy < h_in && ix >= 0 &&
                       ix < a.wd && c < a.cin;
       const T* src =
-          ok ? x + (((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c : x;
+          ok ? x + (((size_t)nn * h_in + iy) * a.wd + ix) * a.cin + c : x;
       cp_async16(st + px * PS + u * 16, src, ok);
     }
   } else {
@@ -373,11 +390,11 @@ __device__ __forceinline__ void load_stage(const Args& a, const Layout& L,
       const int gi = a.fd_hp.div(r);
       const int hy = r - gi * L.hp;
       const int nn = it.n0 + gi;
-      const int iy = it.ty0 - 1 + hy, ix = it.tx0 - 1 + hx, c = c0 + ci;
+      const int iy = it.ty0 - PAD_Y + hy, ix = it.tx0 - 1 + hx, c = c0 + ci;
       T v = zero<T>();
-      if (nn < a.n && iy >= 0 && iy < a.h && ix >= 0 && ix < a.wd &&
+      if (nn < a.n && iy >= 0 && iy < h_in && ix >= 0 && ix < a.wd &&
           c < a.cin)
-        v = x[(((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c];
+        v = x[(((size_t)nn * h_in + iy) * a.wd + ix) * a.cin + c];
       reinterpret_cast<T*>(st + px * PS)[ci] = v;
     }
   }
@@ -542,7 +559,7 @@ __device__ __forceinline__ void store_tile(const Args& a, float* vs,
 
 // Load position q of the block's (item, chunk) sequence into stage q % ns.
 // With resident taps, a stage's taps are loaded on its first fill only.
-template <int BN, int CK, bool S8, int THREADS, int BM>
+template <int BN, int CK, bool S8, bool ROWS, int THREADS, int BM>
 __device__ __forceinline__ void load_pos(const Args& a, const Layout& L,
                                          unsigned char* ring, int q, int nc,
                                          int ns, int first, int step,
@@ -550,7 +567,7 @@ __device__ __forceinline__ void load_pos(const Args& a, const Layout& L,
   const int j = q / nc;
   const int c = q - j * nc;
   const Item it = item(a, first + j * step, BN);
-  load_stage<BN, CK, S8>(a, L, ring + (q % ns) * L.stage_bytes,
+  load_stage<BN, CK, S8, ROWS>(a, L, ring + (q % ns) * L.stage_bytes,
                          it.split * a.cps + c, it, !a.b_resident || q < ns,
                          a.noise != nullptr && a.splits == 1 && c == nc - 1,
                          BM, tid, THREADS);
@@ -587,6 +604,7 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
                                   min_blocks<BN, CK, KERNEL>())
     conv3x3_tc_kernel(const Args a) {
   constexpr bool S8 = is_s8(KERNEL);
+  constexpr bool ROWS = is_rows(KERNEL);
   using Acc = typename Elem<S8>::Acc;
   constexpr int EB = Elem<S8>::BYTES;
   constexpr int WN = Warps<BN, WM>::WN;
@@ -638,8 +656,8 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
   const int NS = a.stages;
   for (int s = 0; s < NS - 1; ++s) {
     if (s < total)
-      load_pos<BN, CK, S8, THREADS, BM>(a, L, ring, s, nc, NS, first, step,
-                                        tid);
+      load_pos<BN, CK, S8, ROWS, THREADS, BM>(a, L, ring, s, nc, NS, first,
+                                              step, tid);
     cp_async_commit();
   }
 
@@ -651,8 +669,8 @@ __global__ void __launch_bounds__(WM * Warps<BN, WM>::WN * 32,
       cp_async_wait<0>();
     __syncthreads();  // chunk q landed; stage (q - 1) % NS is free
     if (q + NS - 1 < total)
-      load_pos<BN, CK, S8, THREADS, BM>(a, L, ring, q + NS - 1, nc, NS,
-                                        first, step, tid);
+      load_pos<BN, CK, S8, ROWS, THREADS, BM>(a, L, ring, q + NS - 1, nc,
+                                              NS, first, step, tid);
     cp_async_commit();
 
     const int j = q / nc;
@@ -846,12 +864,14 @@ static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
 // plan = {bn, wm, ck, tw, th, g, splits, cps, stages} from
 // kernels/tc_plan.py.  Fills the plan's fields of `a` after checking them;
 // returns a CUDA error code (cudaErrorInvalidValue for a plan this header
-// does not take).  KERNEL: 1 or 2 (bf16), 4 or 5 (s8), the caller's number
+// does not take).  KERNEL: 1 or 2 (bf16), 4 or 5 (s8), 6 or 7 (bf16 row
+// bands: a.h counts the output rows, x holds a.h + 2), the caller's number
 // (see the kernel).
 template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
-  static_assert(KERNEL == 1 || KERNEL == 2 || is_s8(KERNEL),
-                "kernel 1, 2, 4 or 5");
+  static_assert(KERNEL == 1 || KERNEL == 2 || is_s8(KERNEL) ||
+                    is_rows(KERNEL),
+                "kernel 1, 2, 4, 5, 6 or 7");
   constexpr bool S8 = is_s8(KERNEL);
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const int bn = plan[0], wm = plan[1], ck = plan[2];

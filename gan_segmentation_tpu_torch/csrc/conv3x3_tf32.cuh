@@ -5,6 +5,11 @@
 //
 // Layout: x is NHWC, w is HWIO (3, 3, Cin, Cout), stride 1, zero pad 1.
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x Cin.
+// Row bands (KERNEL 6 and 7: kernels 1 and 2 over one band of an image's
+// rows, generate --spatial): x holds the band's H_out rows and the halo
+// row above and below that the caller placed there, H_in = H_out + 2, with
+// no zero pad in H; only the staging's input row differs, as in
+// conv3x3_tc.cuh.
 //
 // Why 3xTF32.  The train step is f32 and its checks hold the kernel to
 // f32 (atol 1e-4 / rtol 1e-4 against cuDNN with TF32 off).  One TF32 pass
@@ -230,7 +235,7 @@ __device__ __forceinline__ Pix pixel(const Args& a, int p, const Item& it) {
 }
 
 // The halo of chunk `chunk` of Cin for the item's G images.
-template <int CK>
+template <int CK, bool ROWS>
 __device__ __forceinline__ void load_halo(const Args& a, const Layout& L,
                                           float* st, int chunk,
                                           const Item& it, int tid,
@@ -238,6 +243,9 @@ __device__ __forceinline__ void load_halo(const Args& a, const Layout& L,
   constexpr int PS = pad_px(CK);
   const int c0 = chunk * CK;
   const int hpx = a.g * L.hp * L.wp;
+  // a row band's x holds the halo rows: no pad above, H_out + 2 rows
+  constexpr int PAD_Y = ROWS ? 0 : 1;
+  const int h_in = ROWS ? a.h + 2 : a.h;
   if (a.vec_x) {
     constexpr int P4 = CK / 4;
     for (int i = tid; i < hpx * P4; i += threads) {
@@ -248,11 +256,13 @@ __device__ __forceinline__ void load_halo(const Args& a, const Layout& L,
       const int gi = a.fd_hp.div(r);
       const int hy = r - gi * L.hp;
       const int nn = it.n0 + gi;
-      const int iy = it.ty0 - 1 + hy, ix = it.tx0 - 1 + hx, c = c0 + c4 * 4;
-      const bool ok = nn < a.n && iy >= 0 && iy < a.h && ix >= 0 &&
+      const int iy = it.ty0 - PAD_Y + hy, ix = it.tx0 - 1 + hx,
+                c = c0 + c4 * 4;
+      const bool ok = nn < a.n && iy >= 0 && iy < h_in && ix >= 0 &&
                       ix < a.wd && c < a.cin;
       const float* src =
-          ok ? a.x + (((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c : a.x;
+          ok ? a.x + (((size_t)nn * h_in + iy) * a.wd + ix) * a.cin + c
+             : a.x;
       cp_async16(st + px * PS + c4 * 4, src, ok);
     }
   } else {
@@ -264,11 +274,11 @@ __device__ __forceinline__ void load_halo(const Args& a, const Layout& L,
       const int gi = a.fd_hp.div(r);
       const int hy = r - gi * L.hp;
       const int nn = it.n0 + gi;
-      const int iy = it.ty0 - 1 + hy, ix = it.tx0 - 1 + hx, c = c0 + ci;
+      const int iy = it.ty0 - PAD_Y + hy, ix = it.tx0 - 1 + hx, c = c0 + ci;
       float v = 0.f;
-      if (nn < a.n && iy >= 0 && iy < a.h && ix >= 0 && ix < a.wd &&
+      if (nn < a.n && iy >= 0 && iy < h_in && ix >= 0 && ix < a.wd &&
           c < a.cin)
-        v = a.x[(((size_t)nn * a.h + iy) * a.wd + ix) * a.cin + c];
+        v = a.x[(((size_t)nn * h_in + iy) * a.wd + ix) * a.cin + c];
       st[px * PS + ci] = v;
     }
   }
@@ -311,7 +321,7 @@ __device__ __forceinline__ void load_taps(const Args& a, float* wt, int chunk,
 
 // Load position q of the block's (item, chunk) sequence, nc chunks an item,
 // into stage q % stages.
-template <int BN, int CK>
+template <int BN, int CK, bool ROWS>
 __device__ __forceinline__ void load_pos(const Args& a, const Layout& L,
                                          float* ring, int q, int nc,
                                          int first, int step, int tid,
@@ -320,7 +330,7 @@ __device__ __forceinline__ void load_pos(const Args& a, const Layout& L,
   const Item it = item(a, first + j * step, BN);
   const int c = it.split * a.cps + q - j * nc;
   float* st = ring + (q % a.stages) * L.stage;
-  load_halo<CK>(a, L, st, c, it, tid, threads);
+  load_halo<CK, ROWS>(a, L, st, c, it, tid, threads);
   if (!a.resident) load_taps<BN, CK>(a, st + L.halo, c, it.co0, tid, threads);
 }
 
@@ -358,12 +368,14 @@ struct Cfg {
 // flattened (item, chunk) sequence, so the next item's first chunks load
 // while this item multiplies and stores.  KERNEL is the number of the
 // kernel whose entry point launches it (1 conv_in_stats, 2 small_conv, 3
-// bil_conv), so that a profile tells them apart by name; kernel 1 has its
-// own epilogue (STATS: noise and the statistics' partial sums).
+// bil_conv, 6 and 7 kernels 1 and 2 over a row band), so that a profile
+// tells them apart by name; kernel 1 has its own epilogue (STATS: noise and
+// the statistics' partial sums).
 template <int BN, int WM, int MI, int CK, int KERNEL>
 __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
     conv3x3_tf32_kernel(const Args a) {
-  constexpr bool STATS = KERNEL == 1;
+  constexpr bool STATS = KERNEL == 1 || KERNEL == 6;
+  constexpr bool ROWS = KERNEL == 6 || KERNEL == 7;
   constexpr int THREADS = WM * 32;
   constexpr int NJ = BN / 8;  // n8 fragments per warp
   constexpr int PS = pad_px(CK);
@@ -405,7 +417,7 @@ __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
       load_taps<BN, CK>(a, resident + c * L.taps, c, 0, tid, THREADS);
   for (int s = 0; s < NS - 1; ++s) {
     if (s < total)
-      load_pos<BN, CK>(a, L, smem, s, nc, first, step, tid, THREADS);
+      load_pos<BN, CK, ROWS>(a, L, smem, s, nc, first, step, tid, THREADS);
     cp_async_commit();
   }
 
@@ -419,7 +431,8 @@ __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
       cp_async_wait<0>();
     __syncthreads();  // chunk q landed; stage (q - 1) % NS is free
     if (q + NS - 1 < total)
-      load_pos<BN, CK>(a, L, smem, q + NS - 1, nc, first, step, tid, THREADS);
+      load_pos<BN, CK, ROWS>(a, L, smem, q + NS - 1, nc, first, step, tid,
+                             THREADS);
     cp_async_commit();
 
     const int j = q / nc;
@@ -645,7 +658,7 @@ __global__ void __launch_bounds__(FINISH_THREADS)
 
 template <int BN, int WM, int MI, int CK, int KERNEL>
 static int launch(const Args& a, cudaStream_t st) {
-  constexpr bool STATS = KERNEL == 1;
+  constexpr bool STATS = KERNEL == 1 || KERNEL == 6;
   constexpr int THREADS = WM * 32;
   constexpr int BM = 16 * MI * WM;
   const Layout L = layout(BN, CK, a.g, a.th, a.tw, a.stages, a.resident,
@@ -696,11 +709,13 @@ static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
 // kernels/tc_plan.py::plan_f32.  Fills the plan's fields of `a` after
 // checking them; returns a CUDA error code (cudaErrorInvalidValue for a
 // plan this header does not take).  KERNEL 1 is given noise, nscale and
-// partial; kernels 2 and 3 none of them.
+// partial; kernels 2 and 3 none of them.  6 and 7 are 1 and 2 over a row
+// band (a.h counts the output rows, x holds a.h + 2).
 template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
-  static_assert(KERNEL >= 1 && KERNEL <= 3, "kernel 1, 2 or 3");
-  constexpr bool STATS = KERNEL == 1;
+  static_assert((KERNEL >= 1 && KERNEL <= 3) || KERNEL == 6 || KERNEL == 7,
+                "kernel 1, 2, 3, 6 or 7");
+  constexpr bool STATS = KERNEL == 1 || KERNEL == 6;
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const bool k1 =
       a.noise != nullptr && a.nscale != nullptr && a.partial != nullptr;

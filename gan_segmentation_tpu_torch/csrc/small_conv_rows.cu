@@ -1,0 +1,70 @@
+// Kernel 2 (small_conv.cu) over one row band of its images: the decoder's
+// 3x3 convs under generate --spatial, where each card holds a band of every
+// activation's rows (core/spatial.py).
+//
+// Replaces, in the band form the port's spatial path needs, the TPU kernel
+//   experiments/pallas_archive/small_conv.py::conv3x3_small
+// (body _kernel, pl.pallas_call at its line 84).  The JAX package's
+// spatial mode let XLA pad the sharded H and exchange the halos; here the
+// caller exchanges them and the kernel takes
+//
+//   x  (N, H + 2, W, Cin): the band's H rows with the row above and the row
+//      below it (a neighbour's edge row, or zeros at the image's top and
+//      bottom);
+//   y  (N, H, W, Cout) = act(conv3x3(x, w) + b), the conv with no pad in H
+//      and a zero pad of one in W.
+//
+// The bodies are kernel 2's (conv3x3_tc.cuh in bf16, conv3x3_tf32.cuh in
+// f32, with the launch plans of kernels/tc_plan.py for the band's H), each
+// instantiated as entry 7 so that a profile tells the band form apart.  The
+// one change is the staging's input row (ROWS in both headers).
+#include "conv3x3_core.cuh"  // DType, valid_dims
+#include "conv3x3_tc.cuh"
+#include "conv3x3_tf32.cuh"
+
+extern "C" {
+
+// h is the band's output rows; x holds h + 2.  Otherwise the arguments of
+// gst_conv3x3_small (small_conv.cu), with the plans for the output shape.
+int gst_conv3x3_small_rows(const void* x, const void* w, const float* bias,
+                           void* y, float* ws, int n, int h, int wd, int cin,
+                           int cout, int dtype, int act, float slope,
+                           const int* plan, void* stream) {
+  if (h < 1 || !gst::valid_dims(n, h + 2, wd, cin, cout) || act < 0 ||
+      act > 2)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == gst::F32) {
+    gst::tf32::Args a = {};
+    a.x = static_cast<const float*>(x);
+    a.w = static_cast<const float*>(w);
+    a.bias = bias;
+    a.y = static_cast<float*>(y);
+    a.ws = ws;
+    a.n = n;
+    a.h = h;
+    a.wd = wd;
+    a.cin = cin;
+    a.cout = cout;
+    a.act = act;
+    a.slope = slope;
+    return gst::tf32::run<7>(a, plan, st);
+  }
+  if (dtype != gst::BF16) return (int)cudaErrorInvalidValue;
+  gst::tc::Args a = {};
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.bias = bias;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.ws = ws;
+  a.n = n;
+  a.h = h;
+  a.wd = wd;
+  a.cin = cin;
+  a.cout = cout;
+  a.act = act;
+  a.slope = slope;
+  return gst::tc::run<7>(a, plan, st);
+}
+
+}  // extern "C"

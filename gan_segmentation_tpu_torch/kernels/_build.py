@@ -215,6 +215,11 @@ def library():
     lib.gst_conv3x3_small.restype = i
     lib.gst_conv3x3_small.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
                                       f, vp, vp]
+    lib.gst_conv3x3_in_stats_rows.restype = i
+    lib.gst_conv3x3_in_stats_rows.argtypes = \
+        lib.gst_conv3x3_in_stats.argtypes
+    lib.gst_conv3x3_small_rows.restype = i
+    lib.gst_conv3x3_small_rows.argtypes = lib.gst_conv3x3_small.argtypes
     lib.gst_conv3x3_in_stats_s8.restype = i
     lib.gst_conv3x3_in_stats_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                             vp, i, i, i, i, i, i, f, vp, vp]

@@ -19,6 +19,13 @@ generation, ``torch.ops.gst.conv3x3_in_stats_s8``): x s8, w s8 laid out
 + bias``, leaky, the statistics from the f32 v, y in bf16 or f32.  The
 JAX package casts the dequantized conv to the compute dtype before the
 noise; here, as in the bf16 body, the epilogue stays f32.
+
+``conv3x3_noise_bias_lrelu_instats_rows`` is its row-band form
+(``generate --spatial``, ``torch.ops.gst.conv3x3_in_stats_rows``, CUDA
+source ``csrc/conv_in_stats_rows.cu``; bf16 and f32): x carries the band's
+rows and one halo row above and below them, so the conv pads W only; it
+returns the band's sums of v and v^2, which ``core/spatial.py`` adds over
+the bands.
 """
 
 import torch
@@ -74,6 +81,55 @@ def conv3x3_noise_bias_lrelu_instats(x, w, noise, nscale, bias, *,
 
 
 conv3x3_noise_bias_lrelu_instats.launches = 0  # counted in kernels/ops.py
+
+
+def conv3x3_noise_bias_lrelu_instats_rows_plain(x, w, noise, nscale, bias, *,
+                                                leaky: float = 0.2):
+    """The plain version of the row-band form: ``F.conv2d`` with padding
+    (0, 1) over x's H_out + 2 rows, then kernel 1's f32 epilogue; -> (y,
+    sum of v, sum of v^2) over the band's pixels, (N, Cout) f32 each."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 padding=(0, 1))
+    y = y.permute(0, 2, 3, 1).float()
+    y = y + noise.float()[..., None] * nscale.float() + bias.float()
+    y = torch.where(y >= 0, y, leaky * y)
+    return y.to(x.dtype), y.sum(dim=(1, 2)), (y * y).sum(dim=(1, 2))
+
+
+def check_args_rows(x, w, noise, nscale, bias):
+    """``check_args`` of the row-band form: x holds the band's rows and a
+    halo row above and below them, noise the band's rows; -> (n, h_out,
+    w, cin, cout)."""
+    if x.dim() != 4 or x.shape[1] < 3:
+        raise ValueError(f"x must be NHWC with the band's rows and two halo "
+                         f"rows, got shape {tuple(x.shape)}")
+    n, h_in, wd, cin = x.shape
+    h = h_in - 2
+    if noise.dim() != 3 or tuple(noise.shape) != (n, h, wd):
+        raise ValueError(f"noise has shape {tuple(noise.shape)}, expected "
+                         f"{(n, h, wd)}")
+    _, _, _, _, cout = _build.check_conv3x3(x, w, None)
+    dev = x.device
+    _build.check(noise, "noise", (n, h, wd), torch.float32, dev)
+    _build.check(nscale, "nscale", (cout,), torch.float32, dev)
+    _build.check(bias, "bias", (cout,), torch.float32, dev)
+    return n, h, wd, cin, cout
+
+
+def conv3x3_noise_bias_lrelu_instats_rows(x, w, noise, nscale, bias, *,
+                                          leaky: float = 0.2):
+    """Kernel 1 over one row band (``generate --spatial``,
+    ``core/spatial.py``): x (N, H_out + 2, W, Cin) carries the halo rows
+    (no pad in H), noise (N, H_out, W); -> (y (N, H_out, W, Cout), sum of
+    v, sum of v^2 over the band), through the custom op
+    ``torch.ops.gst.conv3x3_in_stats_rows``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    check_args_rows(x, w, noise, nscale, bias)
+    return torch.ops.gst.conv3x3_in_stats_rows(x, w, noise, nscale, bias,
+                                               float(leaky))
+
+
+conv3x3_noise_bias_lrelu_instats_rows.launches = 0  # counted in kernels/ops.py
 
 
 def conv3x3_noise_bias_lrelu_instats_s8_plain(

@@ -2,16 +2,18 @@
 pass as ``torch.library`` custom ops, so that a tracer (``torch.export``,
 ``core/export.py``) can pass through them and a saved program names them:
 ``torch.ops.gst.conv3x3_small``, ``torch.ops.gst.conv3x3_in_stats``,
-``torch.ops.gst.conv3x3_small_s8``, ``torch.ops.gst.conv3x3_in_stats_s8``
-and ``torch.ops.gst.quantize_s8``.
+``torch.ops.gst.conv3x3_small_s8``, ``torch.ops.gst.conv3x3_in_stats_s8``,
+``torch.ops.gst.quantize_s8``, and the row-band forms of kernels 1 and 2
+(``generate --spatial``) ``torch.ops.gst.conv3x3_small_rows`` and
+``torch.ops.gst.conv3x3_in_stats_rows``.
 
 - CPU: the plain PyTorch version (``*_plain`` beside each wrapper).
 - CUDA: the hand-written kernel through the ``ctypes`` library of
   ``_build``, launched on the current stream; it raises when the launch
   fails and never falls back to the plain version.  Each launch adds one
   to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
-  ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``, the ``_s8`` twins,
-  ``quantize.quantize_s8``), the one counter a run reads whether the call came through the wrapper or from an exported
+  ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``, the ``_s8`` and
+  ``_rows`` twins, ``quantize.quantize_s8``), the one counter a run reads whether the call came through the wrapper or from an exported
   program.
 - Fake (``register_fake``): the output shapes and dtypes, from the inputs'
   alone; the library is not touched.
@@ -110,6 +112,80 @@ def _(x, w, noise, nscale, bias, leaky):
     mean = sums[:, 0] / (h * wd)
     var = sums[:, 1] / (h * wd) - mean * mean
     return y, mean, var
+
+
+@torch.library.custom_op("gst::conv3x3_small_rows", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_small_rows_op(x: Tensor, w: Tensor, b: Optional[Tensor], act: str,
+                          leaky: float) -> Tensor:
+    """Kernel 2 over a row band: x (N, H + 2, W, Cin) with its halo rows ->
+    y (N, H, W, Cout), the conv padded in W only."""
+    return small_conv.conv3x3_small_rows_plain(
+        x, w, b, relu=act == "relu", leaky=leaky if act == "leaky" else None)
+
+
+@conv3x3_small_rows_op.register_fake
+def _(x, w, b, act, leaky):
+    return x.new_empty((x.shape[0], x.shape[1] - 2, x.shape[2], w.shape[3]))
+
+
+@conv3x3_small_rows_op.register_kernel("cuda")
+def _(x, w, b, act, leaky):
+    n, h, wd, cin, cout = small_conv.check_args_rows(x, w, b)
+    dev = x.device
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
+    with torch.cuda.device(dev):
+        rc = _build.library().gst_conv3x3_small_rows(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
+            cin, cout, _build.DTYPE_CODES[x.dtype],
+            small_conv._ACT_CODES[act], float(leaky), plan, _stream(dev))
+    _build.check_launch(rc, "conv3x3_small_rows")
+    small_conv.conv3x3_small_rows.launches += 1
+    return y
+
+
+@torch.library.custom_op("gst::conv3x3_in_stats_rows", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_in_stats_rows_op(x: Tensor, w: Tensor, noise: Tensor,
+                             nscale: Tensor, bias: Tensor, leaky: float
+                             ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Kernel 1 over a row band: x (N, H + 2, W, Cin) with its halo rows,
+    noise (N, H, W) -> (y, sum of v, sum of v^2 over the band), the sums
+    (N, Cout) f32."""
+    return conv_in_stats.conv3x3_noise_bias_lrelu_instats_rows_plain(
+        x, w, noise, nscale, bias, leaky=leaky)
+
+
+@conv3x3_in_stats_rows_op.register_fake
+def _(x, w, noise, nscale, bias, leaky):
+    n, cout = x.shape[0], w.shape[3]
+    return (x.new_empty((n, x.shape[1] - 2, x.shape[2], cout)),
+            x.new_empty((n, cout), dtype=torch.float32),
+            x.new_empty((n, cout), dtype=torch.float32))
+
+
+@conv3x3_in_stats_rows_op.register_kernel("cuda")
+def _(x, w, noise, nscale, bias, leaky):
+    n, h, wd, cin, cout = conv_in_stats.check_args_rows(x, w, noise, nscale,
+                                                        bias)
+    dev = x.device
+    plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
+                                             noise=True)
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        rc = _build.library().gst_conv3x3_in_stats_rows(
+            x.data_ptr(), w.data_ptr(), noise.data_ptr(), nscale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            None if ws is None else ws.data_ptr(), n, h, wd, cin, cout,
+            _build.DTYPE_CODES[x.dtype], float(leaky), plan_c, _stream(dev))
+    _build.check_launch(rc, "conv3x3_noise_bias_lrelu_instats_rows")
+    conv_in_stats.conv3x3_noise_bias_lrelu_instats_rows.launches += 1
+    sums = partial.sum(dim=1)  # the tile axis, in a fixed order
+    return y, sums[:, 0].clone(), sums[:, 1].clone()  # no aliased outputs
 
 
 def _stream(dev):

@@ -16,6 +16,11 @@ Cin), exact s32 sums, then ``float(acc) * deq + b`` and the activation in
 f32, y in bf16 or f32.  Its plain version is the exact integer
 convolution (a float64 ``F.conv2d`` of the s8 values: every sum is an
 integer below 2^53) followed by the same f32 ops in the same order.
+
+``conv3x3_small_rows`` is its row-band form (``generate --spatial``,
+``torch.ops.gst.conv3x3_small_rows``, CUDA source
+``csrc/small_conv_rows.cu``; bf16 and f32): x carries the band's rows and
+one halo row above and below them, so the conv pads W only.
 """
 
 from typing import Optional
@@ -61,6 +66,51 @@ def conv3x3_small(x, w, b=None, *, relu: bool = False,
 
 
 conv3x3_small.launches = 0  # the CUDA launches, counted in kernels/ops.py
+
+
+def conv3x3_small_rows_plain(x, w, b=None, *, relu: bool = False,
+                             leaky: Optional[float] = None):
+    """The plain version of the row-band form: ``F.conv2d`` with padding
+    (0, 1) over x's H_out + 2 rows, then the bias and activation."""
+    act = _act(relu, leaky)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 padding=(0, 1))
+    y = y.permute(0, 2, 3, 1).to(acc)
+    if b is not None:
+        y = y + b.to(acc)
+    if act == "relu":
+        y = torch.clamp_min(y, 0.0)
+    elif act == "leaky":
+        y = torch.where(y >= 0, y, leaky * y)
+    return y.to(x.dtype)
+
+
+def check_args_rows(x, w, b):
+    """``_build.check_conv3x3`` of the row-band form (x holds the band's
+    rows and a halo row above and below them); -> (n, h_out, w, cin,
+    cout)."""
+    if x.dim() != 4 or x.shape[1] < 3:
+        raise ValueError(f"x must be NHWC with the band's rows and two halo "
+                         f"rows, got shape {tuple(x.shape)}")
+    n, h_in, wd, cin, cout = _build.check_conv3x3(x, w, b)
+    return n, h_in - 2, wd, cin, cout
+
+
+def conv3x3_small_rows(x, w, b=None, *, relu: bool = False,
+                       leaky: Optional[float] = None):
+    """Kernel 2 over one row band (``generate --spatial``,
+    ``core/spatial.py``): x (N, H_out + 2, W, Cin) carries the halo rows
+    (no pad in H) -> y (N, H_out, W, Cout), through the custom op
+    ``torch.ops.gst.conv3x3_small_rows``.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    act = _act(relu, leaky)
+    check_args_rows(x, w, b)
+    return torch.ops.gst.conv3x3_small_rows(x, w, b, act,
+                                            float(leaky or 0.0))
+
+
+conv3x3_small_rows.launches = 0  # counted in kernels/ops.py
 
 
 def conv3x3_s8_acc(x, w):

@@ -3,7 +3,12 @@ bodies (``csrc/conv3x3_tc.cuh``, kernels 1 and 2), ``plan_f32`` for the f32
 3xTF32 kernel (``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).
 
 Pure functions of the layer's shape, so the CPU tests can check every
-path shape's plan without a card.  The kernels validate the plan they are
+path shape's plan without a card.  ``h`` is always the OUTPUT rows: the
+row-band forms of kernels 1 and 2 (``generate --spatial``) read ``h + 2``
+input rows (the band's halo), and plan, tile, split and size kernel 1's
+partial axis (``tiles``) by the band's output rows alone; the halo staged
+per tile is ``th + 2`` rows either way.  A band's split-K may differ from
+the whole image's, so a band's bf16 sums round differently.  The kernels validate the plan they are
 given and compute their shared memory by the same formulas as
 ``smem_bytes``.
 

@@ -240,3 +240,34 @@ class Blur(nn.Module):
 
     def forward(self, x):
         return blur_3x3(x)
+
+
+def minibatch_std_layer(x, group_size: int):
+    """`networks_stylegan.py:327-345` (discriminator-side): append a feature
+    map holding the per-group mean feature stddev, NHWC (the JAX package's
+    ``minibatch_std_layer``, on no path of the port)."""
+    n, h, w, c = x.shape
+    if n % group_size:
+        raise ValueError(f"batch {n} is not a multiple of the group size "
+                         f"{group_size}")
+    y = x.float().reshape(group_size, n // group_size, h, w, c)
+    y = y - y.mean(dim=0, keepdim=True)
+    y = (y * y).mean(dim=0)
+    y = torch.sqrt(y + 1e-8)
+    y = y.mean(dim=(1, 2, 3), keepdim=True)            # (M, 1, 1, 1)
+    y = y.repeat(group_size, h, w, 1).to(x.dtype)      # (N, H, W, 1)
+    return torch.cat([x, y], dim=-1)
+
+
+def normal_with_l2_norm(sigma: float = 0.01):
+    """`networks_stylegan.py:548-555`: an initializer drawing N(0, sigma),
+    then scaling the whole array to unit L2 norm.  ``init(generator, shape,
+    dtype)``: the draws come from the ``torch.Generator`` given (the JAX
+    package's takes a PRNG key)."""
+
+    def init(generator: torch.Generator, shape, dtype=torch.float32):
+        arr = sigma * torch.randn(shape, generator=generator,
+                                  device=generator.device, dtype=dtype)
+        return arr / (torch.linalg.vector_norm(arr) + 1e-12)
+
+    return init

@@ -60,6 +60,16 @@ def upsample_nearest_2x(x):
     return x.reshape(n, 2 * h, 2 * w, c)
 
 
+def upsample_nearest(x, scale: int):
+    """(N,H,W,C) -> (N,scale*H,scale*W,C), nearest neighbour, any integer
+    factor (``gan_segmentation_tpu/ops/resize.py::upsample_nearest``)."""
+    if scale == 1:
+        return x
+    n, h, w, c = x.shape
+    x = x[:, :, None, :, None, :].expand(n, h, scale, w, scale, c)
+    return x.reshape(n, scale * h, scale * w, c)
+
+
 def bilinear_resize(x, out_h: int, out_w: int):
     """Align-corners bilinear resize, (N,H,W,C) -> (N,out_h,out_w,C),
     computed in f32 and cast back; the identity when the size stays."""

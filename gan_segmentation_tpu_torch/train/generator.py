@@ -23,9 +23,20 @@ device's batch only up to rounding, as kernels 1 and 2 split their sums
 by the part's size (as the JAX package's --dp promises: "up to bf16
 rounding"); on the CPU it is the same.
 
+``FusedPipeline(mesh=[[dev, ...], ...])`` (``generate --spatial N [--dp
+D]``, the JAX package's ``(data, space)`` mesh) takes a grid of D rows of
+N devices: each batch is split over the rows as with ``--dp``, and each
+row splits every image's height into N bands, one a device
+(``core/spatial.py``: the band rule, the halo exchange, the cross-band
+instance-norm statistics; kernels 1 and 2 in their row-band form).  That
+body runs eagerly in this version (a CUDA graph captures one card); its
+images and masks equal one device's up to the rounding of the statistics'
+sums and of the kernels' split-K over a band's shape.
+
 ``FusedPipeline(quant="int8" | "int8-full")`` (``generate --quant``) runs
 the decoder (and with ``int8-full`` the generator's synthesis convs) in
-s8, calibrated on a fixed stream of its own (``ops/quant.py``).
+s8, calibrated on a fixed stream of its own (``ops/quant.py``); not with a
+spatial grid.
 """
 
 import copy
@@ -39,6 +50,7 @@ import torch
 from torch import nn
 
 from ..core import dtypes
+from ..core import spatial
 from ..core.config import GanConfig, gan_config
 from ..core.graphs import GraphedCall
 from ..core.mx_params import load_generator_params
@@ -144,10 +156,99 @@ class FusedProgram(nn.Module):
                 pack_mask_bits(mask) if self.pack else mask)
 
 
+class GridProgram(nn.Module):
+    """One batch z -> (uint8 images, uint8 masks) over a grid of devices:
+    ``rows`` lists each row's devices as indices into ``devices`` (distinct
+    devices; ``programs[j]``, a ``FusedProgram``, lives on ``devices[j]``).
+    The batch is split over the rows in contiguous parts (the sizes of
+    ``torch.tensor_split``); a row of one device runs its ``FusedProgram``
+    on its part, a row of N runs the banded body of ``core/spatial.py``
+    under ``plan`` (a ``spatial.BandPlan``).  ``forward(z, noise)`` takes
+    the batch's z and noise on the first device and returns the outputs
+    there, in ``FusedProgram``'s wire format.  The live pipeline runs it
+    for a spatial grid and the export traces it for any grid: one body."""
+
+    def __init__(self, programs, devices, rows, plan=None):
+        super().__init__()
+        self.programs = nn.ModuleList(programs)
+        self.devices = [torch.device(d) for d in devices]
+        self.rows = [list(r) for r in rows]
+        self.plan = plan
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        """(D, N): rows, and devices a row."""
+        return len(self.rows), len(self.rows[0])
+
+    def forward(self, z, noise: Dict[str, torch.Tensor]):
+        dev0 = z.device
+        imgs, masks = [], []
+        for row, (a, b) in zip(self.rows, spatial.band_rows(len(z),
+                                                            len(self.rows))):
+            if a == b:
+                continue
+            i, m = self.run_row(row, z[a:b],
+                                {k: v[a:b] for k, v in noise.items()})
+            imgs.append(i.to(dev0))
+            masks.append(m.to(dev0))
+        return torch.cat(imgs), torch.cat(masks)
+
+    def floats(self, row, z, noise):
+        """(rgb, logits) of a row of N > 1 devices on its part z / noise, as
+        ``core/spatial.py`` bands (the f32 logits before the class mask)."""
+        progs = [self.programs[j] for j in row]
+        devs = [self.devices[j] for j in row]
+        z = z.to(devs[0])
+        noise = {k: v.to(devs[0]) for k, v in noise.items()}
+        rgb, feats = spatial.synthesize([p.model for p in progs], devs, z,
+                                        noise, self.plan)
+        logits = spatial.decode([p.decoder for p in progs],
+                                [p.folded() for p in progs], devs, feats,
+                                progs[0].dtype, self.plan)
+        return rgb, logits
+
+    def run_row(self, row, z, noise):
+        """(uint8 images, masks) of one row's part, on the row's first
+        device."""
+        p0, dev = self.programs[row[0]], self.devices[row[0]]
+        if len(row) == 1:
+            return p0(z.to(dev), noise={k: v.to(dev)
+                                        for k, v in noise.items()})
+        rgb, logits = self.floats(row, z, noise)
+        masks = [class_mask(t) for t in logits.parts]
+        if p0.pack:
+            masks = [pack_mask_bits(m) for m in masks]
+        return (spatial.gather(spatial.Bands(
+                    [_to_uint8(t, p0.imrange) for t in rgb.parts],
+                    rgb.bounds), dev),
+                spatial.gather(spatial.Bands(masks, logits.bounds), dev))
+
+
 def _infer(program, *args, **kwargs):
     """``program(*args, **kwargs)`` in inference mode (a batch's body)."""
     with torch.inference_mode():
         return program(*args, **kwargs)
+
+
+def _mesh_rows(mesh):
+    """-> (a ``--dp`` list of devices, 1) or (rows of N devices, N > 1)
+    from a ``FusedPipeline`` mesh: a list of devices, or a list of equal
+    rows (rows of one device are a ``--dp`` list)."""
+    def devices(seq):
+        if (not isinstance(seq, (list, tuple)) or not seq
+                or not all(isinstance(d, (torch.device, str)) for d in seq)):
+            raise TypeError(f"mesh: a list of devices or of rows of "
+                            f"devices, got {mesh!r}")
+        return [torch.device(d) for d in seq]
+
+    if isinstance(mesh, (list, tuple)) and mesh and all(
+            isinstance(r, (list, tuple)) for r in mesh):
+        rows = [devices(r) for r in mesh]
+        n = len(rows[0])
+        if any(len(r) != n for r in rows):
+            raise ValueError(f"mesh: rows of unequal length {mesh!r}")
+        return ([r[0] for r in rows], 1) if n == 1 else (rows, n)
+    return devices(mesh), 1
 
 
 class ImageGenerator:
@@ -284,7 +385,13 @@ class FusedPipeline:
     ``mesh``: a list of devices, the first the generator's, over which
     each batch is split in contiguous parts (``torch.tensor_split``), one
     replica of the program and one graph per part and device; the replicas
-    take the program's weights again whenever it refolds.
+    take the program's weights again whenever it refolds.  Or a grid, a
+    list of rows of N devices each (``core/mesh.py::generate_devices``):
+    with N > 1 each batch runs eagerly through ``grid_program()``, every
+    row's part split into N row bands; with N = 1 it is the list of the
+    rows' devices.  ``grid_program()`` is the whole grid's body as one
+    module (the bundle's program), with one copy of the weights a distinct
+    device, refreshed whenever the program refolds.
 
     ``quant="int8"``: the decoder runs in s8 (``ops/quant.py``); its input
     scales come from two fixed calibration batches of the generator
@@ -301,17 +408,21 @@ class FusedPipeline:
     def __init__(self, image_generator: ImageGenerator, solver,
                  inference_dtype: Optional[torch.dtype] = torch.bfloat16,
                  s2d: bool = False, mesh=None, quant: Optional[str] = None):
+        self.spatial = 1
         if mesh is not None:
-            if (not isinstance(mesh, (list, tuple)) or not mesh
-                    or not all(isinstance(d, (torch.device, str))
-                               for d in mesh)):
-                raise TypeError(f"mesh: a list of devices, got {mesh!r}")
-            mesh = [torch.device(d) for d in mesh]
-            if mesh[0] != image_generator.device:
-                raise ValueError(f"mesh[0] ({mesh[0]}) must be the "
-                                 f"generator's device "
+            mesh, self.spatial = _mesh_rows(mesh)
+            first = mesh[0] if self.spatial == 1 else mesh[0][0]
+            if first != image_generator.device:
+                raise ValueError(f"the grid's first device ({first}) must "
+                                 f"be the generator's device "
                                  f"({image_generator.device})")
         self.mesh = mesh
+        if quant is not None and self.spatial > 1:
+            raise ValueError("quant with a spatial grid: the int8 convs have "
+                             "no row-band form (the JAX package's int8 path "
+                             "rides the s2d decoder tail, which spatial "
+                             "parallelism replaces); drop --quant or "
+                             "--spatial")
         if s2d:
             raise NotImplementedError("the space-to-depth decoder tail is a "
                                       "TPU layout; the port does not use it")
@@ -334,6 +445,10 @@ class FusedPipeline:
         self._replicas = []  # mesh[1:]'s copies of the program
         self._replicas_at = None
         self._parts = {}  # (batch size, part) -> (GraphedCall, z, noise)
+        self._grid = None  # grid_program()'s module
+        self._grid_at = None
+        self._plan = (spatial.BandPlan.of(image_generator.cfg, self.spatial)
+                      if self.spatial > 1 else None)
 
     def _calibrate_generator(self):
         """int8: the calibration pyramids, once per pipeline (they depend
@@ -392,6 +507,28 @@ class FusedPipeline:
                 dec_quant=folded if int8 else None)
         return self._program
 
+    def grid_program(self) -> GridProgram:
+        """The whole grid's body (``GridProgram``) of a pipeline with a
+        mesh: the program on the generator's device and a copy on every
+        other distinct device of the grid, which takes the program's
+        weights again whenever it refolds."""
+        program = self.program()
+        rows = [[d] for d in self.mesh] if self.spatial == 1 else self.mesh
+        if self._grid is None:
+            devices = list(dict.fromkeys(d for r in rows for d in r))
+            with torch.inference_mode(False):
+                copies = [copy.deepcopy(program).to(d) for d in devices[1:]]
+            self._grid = GridProgram(
+                [program, *copies], devices,
+                [[devices.index(d) for d in r] for r in rows], self._plan)
+            self._grid_at = self._folded_at
+        elif self._grid_at != self._folded_at:
+            state = program.state_dict()
+            for r in self._grid.programs[1:]:
+                r.load_state_dict(state)
+            self._grid_at = self._folded_at
+        return self._grid
+
     def _fused(self, z, generator: Optional[torch.Generator] = None,
                noise=None):
         """One batch, eagerly: the noise from ``noise`` or drawn from
@@ -404,6 +541,8 @@ class FusedPipeline:
         part's graph, which the next batch overwrites."""
         z, noise = self.gen.draw_inputs(batch_size)
         program = self.program()  # refolds first, if the weights moved
+        if self.spatial > 1:  # eagerly: a CUDA graph captures one card
+            return [_infer(self.grid_program(), z, noise)]
         if self.mesh is not None:
             return self._mesh_batch(program, z, noise)
         call = self._graphs.get(batch_size)

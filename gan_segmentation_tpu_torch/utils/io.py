@@ -1,15 +1,20 @@
-"""Filesystem helpers.
+"""Filesystem helpers (`utils.py:18-66` in the reference).
 
-``list_files_with_ext`` is a copy of
-``gan_segmentation_tpu/utils/io.py::list_files_with_ext`` (the JAX package's
-``utils`` is importable without jax, but the port imports nothing of that
-package except ``native``); ``tests/test_torch_data.py`` pins the two
-together.
+``list_subdirs``, ``list_files_with_ext`` and ``list_images`` are copies of
+``gan_segmentation_tpu/utils/io.py``'s (that module imports no jax, but the
+port imports nothing of the JAX package); ``tests/test_torch_data.py`` and
+``tests/test_torch_helpers.py`` pin them together.
 """
 
-from os import walk
+from os import listdir, walk
 from os.path import isdir, isfile, islink, join, sep, splitext
 from typing import List, Sequence
+
+
+def list_subdirs(base_dir: str) -> List[str]:
+    """The names of ``base_dir``'s subdirectories, in ``listdir``'s order
+    (`utils.py:9-15`)."""
+    return [f for f in listdir(base_dir) if isdir(join(base_dir, f))]
 
 
 def list_files_with_ext(base_dir: str, valid_exts: Sequence[str],
@@ -29,3 +34,10 @@ def list_files_with_ext(base_dir: str, valid_exts: Sequence[str],
                 continue
             out.append(join(rel_root, fname) if rel_root else fname)
     return out
+
+
+def list_images(base_dir: str,
+                valid_exts=(".jpg", ".jpeg", ".png", ".bmp", ".ppm")
+                ) -> List[str]:
+    """``list_files_with_ext`` over the image extensions."""
+    return list_files_with_ext(base_dir, valid_exts)

@@ -133,7 +133,9 @@ def test_kvstore_devices_refusals(monkeypatch):
 def test_generate_devices_follow_spatial_mesh():
     """``--dp`` as the JAX ``spatial_mesh(dp=...)``: None for one device,
     0 = every card, a subset is fine, past the cards or below 0 raises;
-    ``--spatial > 1`` is not ported and names the ROADMAP."""
+    ``--spatial N`` gives the (data, space) grid as rows of N cards
+    (``tests/test_torch_spatial.py`` holds it to ``spatial_mesh`` case by
+    case), and N must divide the cards without ``--dp``."""
     cards = [torch.device("cuda", i) for i in range(3)]
     assert tmesh.generate_devices(1, None, cards) is None
     assert tmesh.generate_devices(1, 1, cards) is None
@@ -143,8 +145,11 @@ def test_generate_devices_follow_spatial_mesh():
     for dp in (4, -1):
         with pytest.raises(ValueError):
             tmesh.generate_devices(1, dp, cards)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="divide"):
         tmesh.generate_devices(2, None, cards)
+    assert tmesh.generate_devices(3, None, cards) == [cards]
+    assert tmesh.generate_devices(2, 1, cards) == [cards[:2]]
+    assert tmesh.generate_devices(2, 0, cards) == [cards[:2]]
 
 
 # ------------------------------------------------------ two processes

@@ -345,6 +345,86 @@ def test_serves_in_fresh_process(tmp_path):
             assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1]), kind
 
 
+GRID_WORKER = r"""
+import sys
+import torch
+from gan_segmentation_tpu_torch.core.export import draw_inputs, load_bundle
+bundle, out, n = sys.argv[1:]
+serve = load_bundle(bundle, devices=[torch.device("cpu")] * int(n))
+outs = []
+for i in range(2):
+    g = torch.Generator().manual_seed(4 * 2 ** 32 + i)
+    outs.append(serve(*draw_inputs(serve.meta, g)))
+torch.save(outs, out)
+bad = [m for m in sys.modules
+       if m.startswith("gan_segmentation_tpu_torch.models")
+       or m.split(".")[0] in ("jax", "flax", "gan_segmentation_tpu")]
+assert not bad, bad
+print("serve-ok")
+"""
+
+
+@pytest.mark.parametrize("grid", [[[CPU, CPU], [CPU, CPU]],
+                                  [[CPU] * 3], [CPU, CPU]],
+                         ids=["2x2", "1x3", "dp2"])
+def test_grid_bundle_is_the_live_grid_pipeline(tmp_path, grid):
+    """A pipeline with a grid (``--spatial`` rows, or a ``--dp`` list)
+    exports one bundle of the grid's program, ``"grid": [D, N]`` in its
+    record; served on D x N CPU devices, in this process and from a fresh
+    interpreter that imports only core.export, it equals the live grid
+    pipeline bit for bit; fewer devices are refused."""
+    pipe = small_pipeline(tmp_path, seed=4)
+    pipe = tgen.FusedPipeline(pipe.gen, pipe.solver, mesh=grid)
+    d, n = (len(grid), 1) if isinstance(grid[0], torch.device) else (
+        len(grid), len(grid[0]))
+    bdir = str(tmp_path / "grid.bundle")
+    texport.export_fused_pipeline_bundle(pipe, 2, bdir)
+    meta = texport.load_bundle_meta(bdir)
+    assert meta["grid"] == [d, n] and meta["grid_devices"] == ["cpu"] * (
+        d * n)
+    want = [pipe.sample_batch() for _ in range(2)]
+    serve = texport.load_bundle(bdir, devices=[CPU] * (d * n))
+    for i, w in enumerate(want):
+        got = serve(*_seeded(meta, 4, i))
+        assert torch.equal(got[0], w[0]) and torch.equal(got[1], w[1])
+    with pytest.raises(ValueError, match="needs %d devices" % (d * n)):
+        texport.load_bundle(bdir, devices=[CPU] * (d * n - 1))
+    out = str(tmp_path / "out.pt")
+    r = subprocess.run([sys.executable, "-c", GRID_WORKER, bdir, out,
+                        str(d * n)], capture_output=True, text=True,
+                       timeout=300, env={**os.environ, "PYTHONPATH": REPO},
+                       cwd=str(tmp_path))
+    assert r.returncode == 0 and "serve-ok" in r.stdout, \
+        (r.stdout + r.stderr)[-3000:]
+    for g, w in zip(torch.load(out, weights_only=True), want):
+        assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+
+
+def test_platforms_artifact_serves_on_each_listed_type(tmp_path):
+    """``platforms=("cpu", "cuda")``: the record lists both, the CPU serves
+    it equal to the live pipeline, a type not listed is refused, and so is
+    a list that leaves out the device it is traced on."""
+    pipe = small_pipeline(tmp_path, seed=2)
+    path = str(tmp_path / "xplat.pt2")
+    texport.export_fused_pipeline(pipe, 2, path, platforms=("cpu", "cuda"))
+    serve = texport.load_artifact(path)
+    assert serve.meta["platforms"] == ["cpu", "cuda"]
+    assert serve.meta["devices"] == ["cpu"]
+    want = pipe.sample_batch()
+    got = serve(*_seeded(serve.meta, 2, 0))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="exported for cpu and cuda"):
+        texport.load_artifact(path, device="meta")
+    with pytest.raises(ValueError, match="leave out cpu"):
+        texport.export_fused_pipeline(pipe, 2, str(tmp_path / "x.pt2"),
+                                      platforms=("cuda",))
+    bdir = str(tmp_path / "xplat.bundle")
+    texport.export_fused_pipeline_bundle(pipe, 2, bdir, ("cpu", "cuda"))
+    assert texport.load_bundle_meta(bdir)["platforms"] == ["cpu", "cuda"]
+    with pytest.raises(ValueError, match="devices= is for a grid"):
+        texport.load_bundle(bdir, devices=[CPU])
+
+
 def _jax_gen_params(tpp):
     """test_torch_pipeline.py's narrow JAX generator parameters: conv and
     dense weights drawn with numpy, noise scales and biases zero."""
@@ -459,9 +539,19 @@ def test_export_cli_generate(tmp_path, monkeypatch):
         imgs, masks = serve(*_seeded(serve.meta, 0, 0))
         assert imgs.shape == (2, 32, 32, 3) and imgs.dtype == torch.uint8
         assert torch.equal(imgs, want[0]) and torch.equal(masks, want[1])
+    # --platforms cpu,cuda: traced on the CPU here (no card), recorded for
+    # both types, served on the CPU equal to the pipeline; an unknown type
+    # is refused
+    xplat = str(tmp_path / "xplat.pt2")
+    export_cli.main(["generate", "--config", config, "-o", xplat,
+                     "--batch", "2", "--platforms", "cpu,cuda"])
+    serve = texport.load_artifact(xplat)
+    assert serve.meta["platforms"] == ["cpu", "cuda"]
+    imgs, masks = serve(*_seeded(serve.meta, 0, 0))
+    assert torch.equal(imgs, want[0]) and torch.equal(masks, want[1])
     with pytest.raises(SystemExit, match="--platforms"):
         export_cli.main(["generate", "--config", config, "-o", out,
-                         "--platforms", "cpu,cuda"])
+                         "--platforms", "cpu,tpu"])
 
 
 def test_export_cli_refuses_an_untrained_decoder(tmp_path, monkeypatch):
@@ -500,9 +590,17 @@ def test_export_cli_deeplab(tmp_path, monkeypatch):
                                  flip=True, scales=(0.75, 1.0))
     imgs = _images(1, 40, 40, seed=5)
     assert torch.equal(serve(imgs), ev.device_scores_batch(list(imgs)))
+    assert serve.meta["platforms"] == ["cpu"]
+    xplat = str(tmp_path / "xplat.pt2")
+    export_cli.main(["deeplab", "--weights", ckpt, "-o", xplat, "--shape",
+                     "1,40,40,3", "--crop-size", "32", "--base-size", "40",
+                     "--scales", "0.75,1.0", "--platforms", "cpu,cuda"])
+    serve = texport.load_artifact(xplat)
+    assert serve.meta["platforms"] == ["cpu", "cuda"]
+    assert torch.equal(serve(imgs), ev.device_scores_batch(list(imgs)))
     with pytest.raises(SystemExit, match="--platforms"):
         export_cli.main(["deeplab", "--weights", ckpt, "-o", out,
-                         "--platforms", "cpu,cuda"])
+                         "--platforms", "tpu"])
 
 
 def test_serving_demo_on_the_cpu(tmp_path, monkeypatch):

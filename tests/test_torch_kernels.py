@@ -33,9 +33,12 @@ from gan_segmentation_tpu_torch.kernels.bil_conv import (  # noqa: E402
 from gan_segmentation_tpu_torch.kernels.conv3x3_grad import (  # noqa: E402
     Conv3x3, conv3x3)
 from gan_segmentation_tpu_torch.kernels.conv_in_stats import (  # noqa: E402
-    conv3x3_noise_bias_lrelu_instats, conv3x3_noise_bias_lrelu_instats_plain)
+    conv3x3_noise_bias_lrelu_instats, conv3x3_noise_bias_lrelu_instats_plain,
+    conv3x3_noise_bias_lrelu_instats_rows,
+    conv3x3_noise_bias_lrelu_instats_rows_plain)
 from gan_segmentation_tpu_torch.kernels.small_conv import (  # noqa: E402
-    conv3x3_small, conv3x3_small_plain)
+    conv3x3_small, conv3x3_small_plain, conv3x3_small_rows,
+    conv3x3_small_rows_plain)
 from gan_segmentation_tpu_torch.ops.norm import instance_norm_apply  # noqa: E402
 
 torch.set_num_threads(2)  # the test workers share the host's cores
@@ -195,8 +198,9 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 def test_build_cache_key_covers_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
     assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv3x3_tc.cuh",
-                     "conv3x3_tf32.cuh", "conv_in_stats.cu", "quantize_s8.cu",
-                     "sm90_util.cuh", "small_conv.cu"]
+                     "conv3x3_tf32.cuh", "conv_in_stats.cu",
+                     "conv_in_stats_rows.cu", "quantize_s8.cu",
+                     "sm90_util.cuh", "small_conv.cu", "small_conv_rows.cu"]
     assert _build._source_tag() == _build._source_tag()
 
 
@@ -329,6 +333,157 @@ def test_tc_plan_fits_every_path_shape(batch):
         p = tc_plan.plan(8, res, res, 512, 512)
         assert p.splits > 1
         assert p.blocks >= min(tc_plan.NUM_SMS, p.blocks // p.splits * 16)
+
+
+# ------------------------------------------------------------ row bands
+def _band_inputs(x, a, b):
+    """Rows a..b-1 of x with the row above and below (zeros outside the
+    image), as ``core/spatial.py::with_halo`` gives a band."""
+    padded = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 1))
+    return padded[:, a:b + 2].contiguous()
+
+
+# (n, h, w, cin, cout, tile_h, bands): the Pallas kernels' tile_h, then the
+# band split held to the full image's rows (an odd split of 13 rows, one
+# row a band, bands that no tile divides)
+BAND_SHAPES = [(2, 16, 16, 16, 16, 8, 2), (1, 8, 12, 8, 4, 8, 8),
+               (2, 16, 8, 20, 3, 8, 3), (1, 8, 13, 32, 8, 8, 4)]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,tile_h,bands", BAND_SHAPES)
+def test_band_forms_are_the_full_images_rows(pallas_k1, pallas_k2, rng, n, h,
+                                             w, cin, cout, tile_h, bands):
+    """The row-band forms' plain twins over each band (with its halo rows)
+    equal the full-image kernels' rows exactly, kernel 1's band sums equal
+    the plain sums of those rows, and the full-image outputs are the
+    Pallas kernels' (interpret mode) within this file's tolerance."""
+    from gan_segmentation_tpu_torch.core.spatial import band_rows
+    x, wt = _conv_inputs(rng, n, h, w, cin, cout)
+    noise = rng.randn(n, h, w).astype(np.float32)
+    nscale = (0.1 * rng.randn(cout)).astype(np.float32)
+    bias = (0.1 * rng.randn(cout)).astype(np.float32)
+    xt, wtt, nt, st, bt = map(torch.from_numpy, (x, wt, noise, nscale, bias))
+    y1, _, _ = conv3x3_noise_bias_lrelu_instats(xt, wtt, nt, st, bt)
+    y2 = conv3x3_small(xt, wtt, bt, leaky=0.2)
+    np.testing.assert_allclose(
+        y1.numpy(), np.asarray(pallas_k1(x, wt, noise, nscale, bias,
+                                         tile_h=tile_h)[0]),
+        rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(
+        y2.numpy(), np.asarray(pallas_k2(x, wt, bias, tile_h=tile_h,
+                                         leaky=0.2)), rtol=RTOL, atol=ATOL)
+    for a, b in band_rows(h, bands):
+        xb = _band_inputs(xt, a, b)
+        yb, s1, s2 = conv3x3_noise_bias_lrelu_instats_rows(
+            xb, wtt, nt[:, a:b].contiguous(), st, bt)
+        assert yb.shape == (n, b - a, w, cout)
+        assert torch.equal(yb, y1[:, a:b])
+        assert torch.equal(s1, y1[:, a:b].sum(dim=(1, 2)))
+        assert torch.equal(s2, (y1[:, a:b] * y1[:, a:b]).sum(dim=(1, 2)))
+        assert torch.equal(conv3x3_small_rows(xb, wtt, bt, leaky=0.2),
+                           y2[:, a:b])
+        assert torch.equal(conv3x3_small_rows(xb, wtt, None, relu=True),
+                           conv3x3_small(xt, wtt, relu=True)[:, a:b])
+
+
+@pytest.mark.parametrize("bad", ["rows", "noise", "dtype"])
+def test_band_wrappers_refuse_what_the_kernels_do_not_take(bad):
+    x = torch.zeros(1, 6, 4, 8)
+    w = torch.zeros(3, 3, 8, 4)
+    noise, v = torch.zeros(1, 4, 4), torch.zeros(4)
+    if bad == "rows":
+        x = torch.zeros(1, 2, 4, 8)
+    elif bad == "noise":
+        noise = torch.zeros(1, 6, 4)
+    else:
+        x = x.double()
+    with pytest.raises((ValueError, TypeError)):
+        conv3x3_noise_bias_lrelu_instats_rows(x, w, noise, v, v)
+    if bad != "noise":
+        with pytest.raises((ValueError, TypeError)):
+            conv3x3_small_rows(x, w, v)
+    assert conv3x3_small_rows.launches == 0
+    assert conv3x3_noise_bias_lrelu_instats_rows.launches == 0
+
+
+def band_path_shapes(batch, n, gan="ffhq"):
+    """(n, h_out, w, cin, cout) of every band of every kernel-1 and kernel-2
+    call of ``gan``'s generate path over ``n`` bands (``core/spatial.py``'s
+    band rule: heights below n run whole, with the full-image kernels)."""
+    from gan_segmentation_tpu_torch.core.spatial import BandPlan
+    from gan_segmentation_tpu_torch.core.config import gan_config
+    plan = BandPlan.of(gan_config(gan), n)
+    out = set()
+    for (b, h, w, cin, cout) in _path_shapes(batch, gan):
+        bounds = plan.bounds(h)
+        if bounds is not None:
+            out |= {(b, stop - start, w, cin, cout) for start, stop in bounds}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("batch", [8, 1])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_tc_plan_fits_every_band_shape(batch, n):
+    """The bf16 and f32 plans of every band of the ffhq generate path at N
+    in {2, 4, 8}: planned for the band's output rows (its input holds two
+    more), within a block's shared memory, every Cin chunk in one split,
+    kernel 1's partial extent covering every output pixel once."""
+    shapes = band_path_shapes(batch, n)
+    # the first banded height: 4 rows in 2 bands, 4 (or 8) in one-row bands
+    assert min(s[1] for s in shapes) == (2 if n == 2 else 1)
+    for (b, h, w, cin, cout), noise in itertools.product(shapes,
+                                                         (False, True)):
+        p = tc_plan.plan(b, h, w, cin, cout, noise)
+        assert p.smem_bytes <= tc_plan.MAX_SMEM, (b, h, w, cin, cout, p)
+        assert p.tw * p.th * p.g == p.bm == 32 * p.wm, p
+        chunks = -(-cin // p.ck)
+        assert (p.splits - 1) * p.cps < chunks <= p.splits * p.cps, p
+        assert p.tiles == p.tiles_x * -(-h // p.th)
+        if b * h * w <= 4096:
+            hits = _covered(p, b, h, w)
+            assert len(hits) == b * h * w
+            assert all(len(v) == 1 for v in hits.values())
+        f = tc_plan.plan_f32(b, h, w, cin, cout, stats=noise)
+        assert f.smem_bytes <= tc_plan.MAX_SMEM, (b, h, w, cin, cout, f)
+        assert (f.splits - 1) * f.cps < f.chunks <= f.splits * f.cps, f
+        assert f.cps <= tc_plan.MAX_CPS_F32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_band_forms_match_plain(cuda, dtype, tol):
+    """The row-band forms of kernels 1 and 2 on the card against their
+    plain twins at band shapes (a split-K band of Cin 512, one-row bands,
+    ragged tiles), each launch counted once, repeats bit-identical."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for (n, h, w, cin, cout) in [(8, 1, 8, 512, 512), (8, 2, 16, 512, 512),
+                                 (2, 3, 20, 32, 16), (1, 64, 64, 64, 16),
+                                 (2, 5, 6, 40, 2), (8, 16, 64, 64, 32)]:
+        x = torch.randn((n, h + 2, w, cin), generator=g,
+                        device=cuda).to(dtype)
+        wt = (torch.randn((3, 3, cin, cout), generator=g, device=cuda)
+              / (9 * cin) ** 0.5).to(dtype)
+        noise = torch.randn((n, h, w), generator=g, device=cuda)
+        b = 0.1 * torch.randn((cout,), generator=g, device=cuda)
+        k1 = conv3x3_noise_bias_lrelu_instats_rows
+        launches = k1.launches
+        got = k1(x, wt, noise, b, b)
+        assert k1.launches == launches + 1
+        want = conv3x3_noise_bias_lrelu_instats_rows_plain(x, wt, noise, b,
+                                                           b)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   rtol=tol, atol=tol)
+        for g_, w_ in zip(got[1:], want[1:]):  # sums over h * w pixels
+            torch.testing.assert_close(g_, w_, rtol=tol,
+                                       atol=tol * h * w)
+        assert all(torch.equal(a_, b_) for a_, b_ in zip(
+            got, k1(x, wt, noise, b, b)))
+        y = conv3x3_small_rows(x, wt, b, leaky=0.2)
+        torch.testing.assert_close(
+            y.float(), conv3x3_small_rows_plain(x, wt, b, leaky=0.2).float(),
+            rtol=tol, atol=tol)
+        assert torch.equal(y, conv3x3_small_rows(x, wt, b, leaky=0.2))
 
 
 # (n, h, w, cin, cout, tile_h) of kernel 3: its design case B*C = 128, a
