@@ -258,9 +258,10 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_report(path):
-    """ptxas -v's report: registers per kernel (printed) and {mangled
-    kernel name: (spill store bytes, spill load bytes)}."""
+def ptxas_report(path, registers=None):
+    """ptxas -v's report: registers per kernel (printed, and into the dict
+    ``registers`` where given) and {mangled kernel name: (spill store
+    bytes, spill load bytes)}."""
     spills, name = {}, None
     with open(path) as fh:
         for line in fh:
@@ -271,6 +272,9 @@ def ptxas_report(path):
                           r"loads", line)
             if m and name is not None:
                 spills[name] = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name is not None and registers is not None:
+                registers[name] = int(m.group(1))
             if "registers" in line:
                 log(f"  ptxas: {name}: {line.strip()}")
     return spills
@@ -336,12 +340,48 @@ def kernel_of(name):
     """The hand-written kernel (1-3, by name; the s8 bodies and the quantize
     pass of int8 generation; the row-band forms of generate --spatial) a
     device kernel is, or None."""
-    m = re.search(r"conv3x3_(?:tc|tf32)_kernel<[^>]*,\s*(\d)>", name)
+    m = re.search(r"conv3x3_(?:tc|tf32|sm90)_kernel<[^>]*,\s*(\d)>", name)
     if m:
         return KERNEL_NUMBERS[m.group(1)]
     if "quantize_s8_kernel<" in name:
         return "quantize_s8"
     return "bil_conv" if "conv3x3_bil_kernel<" in name else None
+
+
+def body_of(name):
+    """The body a tensor-core kernel of kernels 1 and 2 runs: "sm90" (the
+    bf16 Hopper body, conv3x3_sm90.cuh), "mma_sync" (conv3x3_tc.cuh: bf16
+    or s8), "3xtf32" (conv3x3_tf32.cuh), else None."""
+    for key, body in (("conv3x3_sm90_kernel<", "sm90"),
+                      ("conv3x3_tc_kernel<", "mma_sync"),
+                      ("conv3x3_tf32_kernel<", "3xtf32")):
+        if key in name:
+            return body
+    return None
+
+
+# {(kernel, body): launches} over every counted trace of the run
+# (LaunchTrace): which body each main path's launches of kernels 1 and 2
+# went through
+BODY_LAUNCHES = {}
+
+
+@contextlib.contextmanager
+def mma_sync_body():
+    """bf16 kernels 1 and 2 on the mma.sync body (conv3x3_tc.cuh) inside:
+    the rule's Hopper plan (tc_plan.plan_sm90) swapped out, as
+    phase_split_sweep swaps the f32 plan, so that one timing can set the
+    two bodies side by side on the same inputs."""
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+    _build._tc_plan_c.cache_clear()
+    try:
+        with mock.patch.object(tc_plan, "plan_sm90",
+                               lambda *args, **kw: None):
+            yield
+    finally:
+        _build._tc_plan_c.cache_clear()
 
 
 def kernel_wrappers(s8=False, rows=False):
@@ -430,7 +470,8 @@ class LaunchTrace:
     ran them.  On entry every wrapper's counter is set to 0 and a device
     trace starts (``torch.profiler``, kernels only: CUPTI records each
     kernel node of a replayed CUDA graph).  On exit ``device`` = {kernel:
-    its runs in the trace} and ``wrapper`` = {kernel: its wrapper's count,
+    its runs in the trace} (by body too, into ``BODY_LAUNCHES``) and
+    ``wrapper`` = {kernel: its wrapper's count,
     i.e. eager launches plus the launches each capture recorded}; the exit
     fails unless ``device`` equals what ``ReplayTally`` derives from
     ``wrapper`` and the replays.  ``so_far()`` is that derived count at
@@ -478,6 +519,8 @@ class LaunchTrace:
             k = kernel_of(name)
             if k is not None:
                 self.device[k] = self.device.get(k, 0) + 1
+                key = (k, body_of(name))
+                BODY_LAUNCHES[key] = BODY_LAUNCHES.get(key, 0) + 1
         assert self.device == expected, (
             f"the trace ran {self.device}, the wrappers' counts "
             f"{self.wrapper} with the replays give {expected}")
@@ -614,10 +657,19 @@ def add_times(acc, times, floor):
 
 
 def times_line(times, floor):
-    return (f"  device: kernel {times['kernel']:.4f} ms, plain "
+    old = (f", mma.sync body {times['mma_sync']:.4f}" if "mma_sync" in times
+           else "")
+    return (f"  device: kernel {times['kernel']:.4f} ms{old}, plain "
             f"{times['plain']:.4f}, F.conv2d {times['library']:.4f}; floor "
             f"{floor[0]:.4f} ({floor[1]}), share "
             f"{floor[0] / times['kernel']:.3f}")
+
+
+def bf16_plan(n, h, w, cin, cout, noise):
+    """The bf16 plan the rule gives (tc_plan.plan_bf16), as a log field."""
+    from gan_segmentation_tpu_torch.kernels.tc_plan import plan_bf16
+    p = plan_bf16(n, h, w, cin, cout, noise)
+    return f"{'sm90' if p.sm90 else 'mma.sync'} plan {p.args()}"
 
 
 def conv_inputs(torch, g):
@@ -674,6 +726,11 @@ def phase_kernels(torch, gcfg, scfg):
                 4 * (n * h * w + 2 * cout + 2 * n * cout))
             floor = (bound(nbytes, flop, PEAK["bf16"]) if tag == "bf16"
                      else bound(nbytes, 3 * flop, PEAK["tf32"]))
+            if tag == "bf16":
+                with mma_sync_body():
+                    times["mma_sync"] = graph_ms(
+                        lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args))
+                line += "; " + bf16_plan(n, h, w, cin, cout, True)
             add_times(dev_t[tag], times, floor)
             if tag == "f32":
                 line += (f" splits "
@@ -703,10 +760,14 @@ def phase_kernels(torch, gcfg, scfg):
                 times = device_times(
                     torch, lambda: k2m.conv3x3_small(x, wt, b, **kw),
                     lambda: k2m.conv3x3_small_plain(x, wt, b, **kw), x, wt, b)
+                with mma_sync_body():
+                    times["mma_sync"] = graph_ms(
+                        lambda: k2m.conv3x3_small(x, wt, b, **kw))
                 floor = bound(*conv_floors(n, h, w, cin, cout, 2, 4 * cout),
                               PEAK["bf16"])
                 add_times(dev_t, times, floor)
-                line += ";" + times_line(times, floor)
+                line += ("; " + bf16_plan(n, h, w, cin, cout, False) + ";"
+                         + times_line(times, floor))
             log(line)
         del x32, w32, x, wt, y, yp
     # evaluate runs every decoder conv through kernel 2 at batch 1 in f32
@@ -748,9 +809,11 @@ def phase_kernels(torch, gcfg, scfg):
         log(f"{k}: max abs err f32 {r['errs']['f32']:.3g}, bf16 "
             f"{r['errs']['bf16']:.3g}; bf16 per batch of 8 over the path's "
             f"shapes, device time (graph replay): kernel "
-            f"{r['dev']['kernel']:.3f} ms, plain {r['dev']['plain']:.3f}, "
-            f"F.conv2d {r['dev']['library']:.3f}, floor {fl[0]:.3f} "
-            f"({fl[1]})")
+            f"{r['dev']['kernel']:.3f} ms (the mma.sync body on the same "
+            f"inputs {r['dev']['mma_sync']:.3f}), plain "
+            f"{r['dev']['plain']:.3f}, F.conv2d {r['dev']['library']:.3f}, "
+            f"floor {fl[0]:.3f} ({fl[1]}), share "
+            f"{fl[0] / r['dev']['kernel']:.3f}")
     k1_f32 = rec["conv_in_stats"]["f32_dev"]
     fl = summed_bound(k1_f32["bounds"])
     log(f"conv_in_stats: f32 per batch of 8 over the path's 9 shapes, device "
@@ -816,8 +879,90 @@ def phase_split_sweep(torch, gcfg, scfg, g, inputs):
         del x, wt
 
 
+# The Hopper body's plan sweeps (phase_sm90_sweep, not in the default run):
+# the narrow layers' ring (Cin per stage, stages) and the wide split
+# layers' splits, ffhq shapes at batch 8
+SM90_RING_SWEEP = [("conv_in_stats", (8, 1024, 1024, 16, 16)),
+                   ("small_conv", (8, 1024, 1024, 16, 16)),
+                   ("small_conv", (8, 1024, 1024, 64, 16)),
+                   ("conv_in_stats", (8, 512, 512, 32, 32)),
+                   ("small_conv", (8, 512, 512, 32, 32))]
+SM90_SPLIT_SWEEP = [(8, 4, 4, 512, 512), (8, 8, 8, 512, 512),
+                    (8, 16, 16, 512, 512)]
+
+
+def phase_sm90_sweep(torch):
+    """Device time (graph replay) of bf16 kernels 1 and 2 on the Hopper body
+    with its plan varied, the rule's first: at SM90_RING_SWEEP every Cin
+    per stage (16, 32) and stage count that fits, at SM90_SPLIT_SWEEP the
+    wide tiles' split at 16-channel chunks (32, 16 and 8 splits) beside the
+    rule's.  The evidence behind tc_plan.plan_sm90's choices; not in the
+    default run (~1 min after the build): python3 -c "import chip_smoke as
+    c, torch; c.phase_sm90_sweep(torch)"."""
+    import dataclasses
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    inputs = conv_inputs(torch, g)
+
+    def call(kernel, shape):
+        n, h, w, cin, cout = shape
+        x, wt = (t.to(torch.bfloat16) for t in inputs(*shape))
+        noise = torch.randn((n, h, w), generator=g, device=dev)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        if kernel == "conv_in_stats":
+            return lambda: k1m.conv3x3_noise_bias_lrelu_instats(
+                x, wt, noise, b, b)
+        return lambda: k2m.conv3x3_small(x, wt, b, leaky=0.2)
+
+    def timed(fn, p):
+        _build._tc_plan_c.cache_clear()
+        try:
+            with mock.patch.object(tc_plan, "plan_sm90",
+                                   lambda *args, **kw: p):
+                return graph_ms(fn)
+        finally:
+            _build._tc_plan_c.cache_clear()
+
+    for kernel, shape in SM90_RING_SWEEP:
+        fn = call(kernel, shape)
+        rule = tc_plan.plan_sm90(*shape, noise=kernel == "conv_in_stats")
+        cells = [f"rule (ck {rule.ck}, {rule.stages} stages) "
+                 f"{timed(fn, rule):.4f}"]
+        for ck in (16, 32):
+            chunks = -(-shape[3] // ck)
+            for stages in range(2, 8):
+                p = dataclasses.replace(rule, ck=ck, chunks=chunks,
+                                        cps=chunks, stages=stages)
+                if p.smem_bytes <= tc_plan.MAX_SMEM and p != rule:
+                    cells.append(f"ck {ck} x {stages} ({p.smem_bytes} B) "
+                                 f"{timed(fn, p):.4f}")
+        log(f"  sm90 ring {kernel} {shape}: " + "; ".join(cells) + " ms")
+    for shape in SM90_SPLIT_SWEEP:
+        fn = call("conv_in_stats", shape)
+        rule = tc_plan.plan_sm90(*shape, noise=True)
+        cells = [f"rule ({rule.splits} splits of {rule.cps} x ck "
+                 f"{rule.ck}) {timed(fn, rule):.4f}"]
+        chunks = -(-shape[3] // 16)
+        for splits in (32, 16, 8):
+            cps = -(-chunks // splits)
+            p = dataclasses.replace(rule, ck=16, chunks=chunks, cps=cps,
+                                    splits=-(-chunks // cps))
+            if p.smem_bytes <= tc_plan.MAX_SMEM:
+                cells.append(f"{p.splits} splits of {cps} x ck 16 "
+                             f"{timed(fn, p):.4f}")
+        log(f"  sm90 split conv_in_stats {shape}: " + "; ".join(cells)
+            + " ms")
+
+
 # Edge cases of the tensor-core kernels (n, h, w, cin, cout), run in bf16
-# and f32: 4^2 tiles spanning images with Cin 512 (split-K), ragged 12 x 20
+# (on both bodies) and f32: 4^2 tiles spanning images with Cin 512
+# (split-K), ragged 12 x 20
 # tiles, Cout = 2, Cin = 3 (scalar staging), batch 1, 256-pixel blocks of 64
 # channels with a ragged W; then the f32 split's own: a ragged 13 x 21 with
 # Cin 512, three 4^2 images in a tile of eight, Cin 40 -> Cout 24 (masked
@@ -832,48 +977,63 @@ F32_EDGES = [(2, 2, 2, 8, 8), (1, 1, 1, 4, 4)]
 
 
 def phase_tc_edges(torch, g, inputs):
-    """Kernels 1 and 2 in bf16 and f32 at the tensor-core kernels' edge
-    cases, against the plain versions: kernel 1's y and statistics, kernel 2
-    with its three epilogues, and a repeat of each call bit-identical."""
+    """Kernels 1 and 2 at the tensor-core kernels' edge cases, against the
+    plain versions: kernel 1's y and statistics, kernel 2 with its three
+    epilogues, and a repeat of each call bit-identical; bf16 on both bodies
+    (the rule's, Hopper where TMA's rules take the shape, then the mma.sync
+    body everywhere), then f32."""
+    runs = (("bf16", torch.bfloat16, contextlib.nullcontext),
+            ("bf16 mma.sync body", torch.bfloat16, mma_sync_body),
+            ("f32", torch.float32, contextlib.nullcontext))
+    for tag, dt, body in runs:
+        with body():
+            edge_cases(torch, g, inputs, tag, dt)
+
+
+def edge_cases(torch, g, inputs, tag, dt):
+    """phase_tc_edges' checks in one dtype, on the body the plan picks."""
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
 
     dev = torch.device("cuda")
-    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
-        worst = 0.0
-        shapes = TC_EDGES + (F32_EDGES if tag == "f32" else [])
-        for (n, h, w, cin, cout) in shapes:
-            x, wt = (t.to(dt) for t in inputs(n, h, w, cin, cout))
-            noise = torch.randn((n, h, w), generator=g, device=dev)
-            b = 0.1 * torch.randn((cout,), generator=g, device=dev)
-            args = (x, wt, noise, b, b)
-            got = k1m.conv3x3_noise_bias_lrelu_instats(*args)
-            want = k1m.conv3x3_noise_bias_lrelu_instats_plain(*args)
-            again = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+    f32 = dt == torch.float32
+    tol, stat_tol = TOL["f32" if f32 else "bf16"], STAT_TOL[
+        "f32" if f32 else "bf16"]
+    worst = 0.0
+    shapes = TC_EDGES + (F32_EDGES if f32 else [])
+    for (n, h, w, cin, cout) in shapes:
+        x, wt = (t.to(dt) for t in inputs(n, h, w, cin, cout))
+        noise = torch.randn((n, h, w), generator=g, device=dev)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        args = (x, wt, noise, b, b)
+        got = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+        want = k1m.conv3x3_noise_bias_lrelu_instats_plain(*args)
+        again = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+        torch.cuda.synchronize()
+        name = f"tensor-core edge {tag} {(n, h, w, cin, cout)}"
+        check_close(name + " conv_in_stats y", got[0], want[0], **tol)
+        for what, a, r in zip(("mean", "var"), got[1:], want[1:]):
+            check_close(f"{name} conv_in_stats {what}", a, r, **stat_tol)
+        assert all(torch.equal(a, r) for a, r in zip(got, again)), \
+            name + ": conv_in_stats repeat differs"
+        err = max_err(got[0], want[0])
+        for kw in (dict(leaky=0.2), dict(relu=True), {}):
+            ys = k2m.conv3x3_small(x, wt, b, **kw)
+            ysp = k2m.conv3x3_small_plain(x, wt, b, **kw)
             torch.cuda.synchronize()
-            name = f"tensor-core edge {tag} {(n, h, w, cin, cout)}"
-            check_close(name + " conv_in_stats y", got[0], want[0],
-                        **TOL[tag])
-            for what, a, r in zip(("mean", "var"), got[1:], want[1:]):
-                check_close(f"{name} conv_in_stats {what}", a, r,
-                            **STAT_TOL[tag])
-            assert all(torch.equal(a, r) for a, r in zip(got, again)), \
-                name + ": conv_in_stats repeat differs"
-            err = max_err(got[0], want[0])
-            for kw in (dict(leaky=0.2), dict(relu=True), {}):
-                ys = k2m.conv3x3_small(x, wt, b, **kw)
-                ysp = k2m.conv3x3_small_plain(x, wt, b, **kw)
-                torch.cuda.synchronize()
-                check_close(f"{name} small_conv {kw}", ys, ysp, **TOL[tag])
-                assert torch.equal(ys, k2m.conv3x3_small(x, wt, b, **kw)), \
-                    name + ": small_conv repeat differs"
-                err = max(err, max_err(ys, ysp))
-            worst = max(worst, err)
-            log(f"  {name}: max|y err| {err:.3g} (tol {TOL[tag]}, stats "
-                f"{STAT_TOL[tag]}), repeats bit-identical")
-        log(f"tensor-core edge cases {tag}: {len(shapes)} shapes, kernel 1 "
-            f"with statistics and kernel 2 x 3 epilogues, max |err| "
-            f"{worst:.3g}")
+            check_close(f"{name} small_conv {kw}", ys, ysp, **tol)
+            assert torch.equal(ys, k2m.conv3x3_small(x, wt, b, **kw)), \
+                name + ": small_conv repeat differs"
+            err = max(err, max_err(ys, ysp))
+        worst = max(worst, err)
+        body = "3xtf32" if f32 else (
+            f"kernel 1 {bf16_plan(n, h, w, cin, cout, True)}, kernel 2 "
+            f"{bf16_plan(n, h, w, cin, cout, False)}")
+        log(f"  {name}: max|y err| {err:.3g} (tol {tol}, stats "
+            f"{stat_tol}), repeats bit-identical; {body}")
+    log(f"tensor-core edge cases {tag}: {len(shapes)} shapes, kernel 1 "
+        f"with statistics and kernel 2 x 3 epilogues, max |err| "
+        f"{worst:.3g}")
 
 
 def phase_annotation_shapes(torch, gcfg, scfg, g, inputs):
@@ -882,7 +1042,7 @@ def phase_annotation_shapes(torch, gcfg, scfg, g, inputs):
     the launch plan depends on the batch), against the plain versions."""
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
-    from gan_segmentation_tpu_torch.kernels.tc_plan import plan
+    from gan_segmentation_tpu_torch.kernels.tc_plan import plan_bf16
 
     dev, dt = torch.device("cuda"), torch.bfloat16
     worst = {"conv_in_stats": 0.0, "small_conv": 0.0}
@@ -902,7 +1062,7 @@ def phase_annotation_shapes(torch, gcfg, scfg, g, inputs):
             check_close(f"{name} {what}", a, r, **STAT_TOL["bf16"])
         worst["conv_in_stats"] = max(worst["conv_in_stats"],
                                      max_err(got[0], want[0]))
-        if plan(n, h, w, cin, cout, True).splits > 1:
+        if plan_bf16(n, h, w, cin, cout, True).splits > 1:
             split.append((n, h, w, cin, cout))
         del x, wt, got, want
     for (cname, n, h, w, cin, cout, leaky) in kernel2_shapes(
@@ -916,7 +1076,7 @@ def phase_annotation_shapes(torch, gcfg, scfg, g, inputs):
         check_close(f"small_conv bf16 {cname} {(n, h, w, cin, cout)}", y, yp,
                     **TOL["bf16"])
         worst["small_conv"] = max(worst["small_conv"], max_err(y, yp))
-        if plan(n, h, w, cin, cout, False).splits > 1:
+        if plan_bf16(n, h, w, cin, cout, False).splits > 1:
             split.append((n, h, w, cin, cout))
         del x, wt, y, yp
     log(f"annotation run's shapes (bf16, batch {ANN_BATCH}): kernel 1 at "
@@ -5961,12 +6121,18 @@ def phase_band_kernels(torch, gcfg, scfg):
                               + 9 * cin * cout) + extra
                 floor = bound(nbytes, 18 * b * h * w * cin * cout,
                               PEAK["bf16"])
+                with mma_sync_body():
+                    old = graph_ms(fn, **BAND_TIMING)
                 times[call] = dict(kernel=graph_ms(fn, **BAND_TIMING),
+                                   mma_sync=old,
                                    plain=graph_ms(plain, **BAND_TIMING),
                                    library=library_ms(
                                        torch, x, wt, padding=(0, 1),
                                        **BAND_TIMING),
                                    bound=floor)
+                stats = kind == "conv_in_stats_rows"
+                log(f"  {name}: {bf16_plan(b, h, w, cin, cout, stats)};"
+                    + times_line(times[call], floor))
         del x32, w32, x, wt, got, want, again, y, yp
     per_batch = {}
     for n in (2, 4):
@@ -5979,8 +6145,9 @@ def phase_band_kernels(torch, gcfg, scfg):
             a.update(bound=total, bound_by=by)
             log(f"{kind}: per spatial batch of 8 at N = {n} (bf16, device "
                 f"time by graph replay, {len(band_calls(gcfg, scfg, n, 8))}"
-                f" band calls of both kernels): kernel {a['kernel']:.3f} ms,"
-                f" plain {a['plain']:.3f}, F.conv2d on the same bands "
+                f" band calls of both kernels): kernel {a['kernel']:.3f} ms"
+                f" (the mma.sync body {a['mma_sync']:.3f}), plain "
+                f"{a['plain']:.3f}, F.conv2d on the same bands "
                 f"{a['library']:.3f}, bound {total:.3f} ({by})")
         per_batch[n] = acc
     log(f"row-band kernels: {len(shapes)} band shapes, bf16 and f32, within "
@@ -6454,11 +6621,25 @@ def main():
     so = _build.build_library()
     _build.library()
     log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(so)}")
-    spills = ptxas_report(so + ".ptxas.txt")
+    regs = {}
+    spills = ptxas_report(so + ".ptxas.txt", regs)
     tc = {k: v for k, v in spills.items()
           if "conv3x3_tc" in k or "conv3x3_tf32" in k
-          or "quantize_s8_kernel" in k}
+          or "conv3x3_sm90" in k or "quantize_s8_kernel" in k}
     assert any("conv3x3_tc" in k for k in tc), "no bf16 tensor-core kernel"
+    # the bf16 Hopper body, launched by entries 1, 2, 6 and 7; its wide
+    # tiles (BN 64, 128) hand registers from the loader warpgroup to the
+    # consumers (setmaxnreg 56 / 224), which balances only at the 168
+    # registers a thread of __launch_bounds__(384, 1) launches with
+    sm90 = {k: v for k, v in regs.items() if "conv3x3_sm90_kernel" in k}
+    for entry in "1267":
+        assert any(re.search(rf"Li{entry}EEEv", k) for k in sm90), (
+            f"no Hopper-body kernel of entry {entry}")
+    wide = {k: v for k, v in sm90.items()
+            if re.search(r"sm90_kernelILi(64|128)E", k)}
+    assert wide and all(v == 168 for v in wide.values()), (
+        f"the wide Hopper-body kernels launch with {set(wide.values())} "
+        f"registers, not 168")
     assert any("conv3x3_tf32" in k for k in tc), "no 3xTF32 kernel"
     # the s8 bodies: the tensor-core kernel launched by entry 4 or 5
     n_s8 = sum("conv3x3_tc_kernel" in k and re.search(r"Li[45]EEEv", k)
@@ -6466,13 +6647,15 @@ def main():
     assert n_s8 > 0, "no s8 tensor-core kernel"
     assert any("quantize_s8_kernel" in k for k in tc), "no quantize kernel"
     # the row-band forms: the tensor-core kernels launched by entry 6 or 7
-    n_rows = sum(re.search(r"conv3x3_(?:tc|tf32)_kernel.*Li[67]EEEv", k)
+    n_rows = sum(re.search(r"conv3x3_(?:tc|tf32|sm90)_kernel.*Li[67]EEEv",
+                           k)
                  is not None for k in tc)
     assert n_rows > 0, "no row-band kernel"
     bad = {k: v for k, v in tc.items() if v != (0, 0)}
     assert not bad, f"tensor-core kernels spill: {bad}"
-    log(f"ptxas: {len(tc)} tensor-core and quantize kernels (bf16, 3xTF32, "
-        f"{n_s8} s8, {n_rows} row-band), 0 bytes of spill in each; spills "
+    log(f"ptxas: {len(tc)} tensor-core and quantize kernels (bf16 "
+        f"mma.sync, {len(sm90)} bf16 Hopper-body, 3xTF32, {n_s8} s8, "
+        f"{n_rows} row-band), 0 bytes of spill in each; spills "
         f"elsewhere: "
         f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
 
@@ -6588,9 +6771,27 @@ def main():
         for name, n in counted.items():
             assert n > 0, f"{path}: {name} was not launched"
             launches[name][path] = n
-    tc_design = ("bf16: mma.sync m16n8k16 implicit GEMM fed by a 2- or "
-                 "3-stage cp.async ring, split-K for Cin 512 at 4^2-16^2 "
-                 "(conv3x3_tc.cuh); f32: 3xTF32 mma.sync m16n8k8 implicit "
+    # every main path's launches of kernels 1 and 2 went through the Hopper
+    # body (bf16) or the 3xTF32 body (f32); the mma.sync body only where
+    # TMA's rules refuse a shape, none of them a path's
+    for name in ("conv_in_stats", "small_conv", "conv_in_stats_rows",
+                 "small_conv_rows"):
+        assert BODY_LAUNCHES.get((name, "sm90"), 0) > 0, (
+            f"{name}: no traced launch of the Hopper body")
+
+    def by_body(name):
+        return {body: n for (k, body), n in sorted(BODY_LAUNCHES.items())
+                if k == name}
+
+    tc_design = ("bf16: the Hopper body (conv3x3_sm90.cuh): one TMA box "
+                 "per halo stage into an mbarrier ring filled by a producer "
+                 "warp, taps by TMA or resident, wgmma m64nBNk16 (A from "
+                 "registers by ldmatrix of the swizzled halo, B by "
+                 "descriptor; BN 128 for Cout >= 128), the epilogue from "
+                 "the accumulators and y by TMA store, split-K for Cin 512 "
+                 "at 4^2-16^2; the mma.sync body (conv3x3_tc.cuh) where "
+                 "TMA's rules refuse a shape; f32: 3xTF32 mma.sync m16n8k8 "
+                 "implicit "
                  "GEMM fed by a cp.async ring, taps resident or per stage, "
                  "split-K with a fixed-order finish kernel where the items "
                  "are fewer than the SMs (conv3x3_tf32.cuh)")
@@ -6618,6 +6819,8 @@ def main():
             launches_by_path=launches[name],
             launches_counted_by="device traces (torch.profiler) of the "
                                 "main path's runs")
+        if name != "bil_conv":
+            entry["traced_launches_by_body"] = by_body(name)
         if name == "bil_conv":  # the train path runs f32
             entry.update(max_abs_err=r["errs"]["f32"],
                          max_abs_err_bf16=r["errs"]["bf16"],
@@ -6635,9 +6838,12 @@ def main():
                          ms=dev["kernel"], plain_ms=dev["plain"],
                          bound_ms=total, bound_by=by,
                          library_ms=dev["library"],
+                         mma_sync_ms=dev["mma_sync"],
                          timed="bf16, device time (graph replay) per "
-                               "generate batch of 8; library: F.conv2d "
-                               "alone, without the epilogue")
+                               "generate batch of 8 on the Hopper body; "
+                               "mma_sync_ms: the mma.sync body on the same "
+                               "inputs; library: F.conv2d alone, without "
+                               "the epilogue")
             if name == "small_conv":
                 b1 = r["b1_dev"]
                 entry.update(eval_sample_ms_f32=b1["kernel"],
@@ -6699,12 +6905,13 @@ def main():
                                "bf16_body_ms: the bf16 body on the same "
                                "shapes")
         kernels.append(entry)
-    rows_design = ("the bf16 (conv3x3_tc.cuh) and f32 (conv3x3_tf32.cuh) "
+    rows_design = ("the bf16 (conv3x3_sm90.cuh; conv3x3_tc.cuh where "
+                   "TMA's rules refuse the band) and f32 (conv3x3_tf32.cuh) "
                    "bodies of the full-image kernel over one row band: x "
                    "holds the band's rows and the halo row above and below "
-                   "(exchanged by core/spatial.py), the staging reads input "
-                   "row oy + ky with no pad in H; plans for the band's "
-                   "output rows")
+                   "(exchanged by core/spatial.py), the halo box starts at "
+                   "the band's first input row, no pad in H; plans for the "
+                   "band's output rows")
     rows_sources = {
         "conv_in_stats_rows": (
             "gan_segmentation_tpu_torch/csrc/conv_in_stats_rows.cu",
@@ -6729,11 +6936,16 @@ def main():
             max_abs_err_f32=sp["kernels"]["errs"][name]["f32"],
             ms=k2["kernel"], plain_ms=k2["plain"], bound_ms=k2["bound"],
             bound_by=k2["bound_by"], library_ms=k2["library"],
+            mma_sync_ms=k2["mma_sync"],
             n4_ms=k4["kernel"], n4_plain_ms=k4["plain"],
             n4_bound_ms=k4["bound"], n4_library_ms=k4["library"],
+            n4_mma_sync_ms=k4["mma_sync"],
+            traced_launches_by_body=by_body(name),
             timed="bf16, device time (graph replay) of every band call of "
-                  "one spatial batch of 8 at N = 2 (n4_*: N = 4); library: "
-                  "F.conv2d alone on the same bands (padding (0, 1))"))
+                  "one spatial batch of 8 at N = 2 (n4_*: N = 4) on the "
+                  "Hopper body; mma_sync_ms: the mma.sync body on the "
+                  "same bands; library: F.conv2d alone on the same bands "
+                  "(padding (0, 1))"))
     prof = tr["prof"]
     print(json.dumps({"graphs": {
         "generate": gg["gans"],

@@ -1,0 +1,901 @@
+// The bf16 body of kernels 1 and 2 written for Hopper (sm_90a): TMA loads
+// into an mbarrier ring, wgmma, and the epilogue and statistics from the
+// accumulators.  It serves entries 1 and 2 (conv_in_stats.cu,
+// small_conv.cu) and their row-band forms 6 and 7 (*_rows.cu) wherever
+// kernels/tc_plan.py::plan_sm90 takes the shape; the mma.sync body of
+// conv3x3_tc.cuh keeps what TMA's rules refuse (Cin % 8 != 0, an unaligned
+// view, a ragged noise row) and the s8 entries.
+//
+// Replaces the TPU kernels
+//   experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats
+//   (pl.pallas_call at its line 118), bf16: conv3x3 + noise * nscale + bias
+//   + leaky, with the per-(image, channel) sums of v and v^2;
+//   experiments/pallas_archive/small_conv.py::conv3x3_small
+//   (pl.pallas_call at its line 84), bf16: conv3x3 + bias + relu / leaky.
+//
+// Layout: x NHWC, w HWIO (3, 3, Cin, Cout), stride 1, zero pad 1 (a row
+// band: x holds H_out + 2 rows, no pad in H).  GEMM view: M = output
+// pixels, N = output channels, K = 9 taps x Cin.
+//
+// What bounds it on this card.  The wide layers (kernel 1 at 16^2-128^2,
+// Cout 128-512, ~400-2,300 flop per byte) are bound by the multiply rate;
+// everything from 256^2 up (Cout 2-64, 17-284 flop per byte) by bytes.
+// The mma.sync body reached 0.10-0.33 of those bounds.  Its ablations on
+// the card (PERF_SHAPES.md) showed where the time went: at 1024^2 16 -> 16
+// (kernel 1) its loads, its MMAs and its epilogue each cost 0.17-0.25 ms of
+// 0.77 and did not overlap (every thread computed load addresses, then
+// multiplied, then stored through shared memory behind two block barriers);
+// at 32^2 512 -> 512 loads and MMAs cost 0.06 ms each of 0.15, again
+// serialised.  This body separates the three:
+//
+// - Loads.  One producer warp (lane 0) walks the block's (item, Cin chunk)
+//   sequence and fills a ring of `stages` stages, each guarded by a
+//   full / empty mbarrier pair.  A stage's halo is ONE TMA box over NHWC x,
+//   (CK, TW + 2, TH + 2, G) at (c0, tx0 - 1, ty0 - 1, n0): the start may
+//   be negative at the top and left edges and the box may run past the
+//   bottom and right ones, and TMA's zero fill is the conv's zero pad (a
+//   row band starts at its first input row, ty0, which holds the caller's
+//   halo row).  Cin past the end and images past N read zeros too.  The
+//   tap slice [9][CK][BN] comes by TMA as well, or stays resident for the
+//   block (one Cout block, no split: loaded once, by every thread, before
+//   the loop); kernel 1's noise, (TW, TH, G) f32, rides in the item's last
+//   stage.  The consumers never compute a load address.  Depth: stages
+//   keep ~24 KB a block in flight (3.35 TB/s x ~1 us over 132 SMs, by
+//   Little's law), within the shared memory (tc_plan.plan_sm90).
+// - Swizzle.  The halo box lands with TMA's swizzle for its row of CK
+//   channels (32 B for CK = 16, 64 B for CK = 32): 16-byte chunk j of
+//   pixel p sits at chunk j ^ ((p * CK * 2 >> 7) & mask).  A lane's
+//   ldmatrix address applies the same XOR, so a tap's one-pixel shift
+//   stays a per-lane address and the 8 rows of an ldmatrix (8 neighbouring
+//   pixels) fall in 8 bank groups (a 4-wide tile, 4^2 images only, in 4).
+// - MMA.  wgmma.mma_async m64nBNk16, A from registers (ldmatrix.x4 from the
+//   tap-shifted halo, the mma.sync m16n8k16 A fragment per warp), B the tap
+//   slice from shared memory through a descriptor (N-major, the swizzle of
+//   its BN-channel rows; BN = 128 as two 64-channel atoms).  Two consumer
+//   warpgroups each own MI m64 tiles of the block's 128 * MI pixels and
+//   all BN channels; in the wide tiles A's registers are double-buffered
+//   so the next ldmatrix overlaps the wgmma in flight.  BN rises to 128 for
+//   Cout >= 128,
+//   so an input halo is staged once for 128 output channels (64 before).
+//   The narrow layers take wgmma too (n16 / n32 / n64): one body, no B
+//   fragments in registers, and at 256^2 and up the time is in the loads
+//   and the epilogue, not in the multiply (the ablations above).
+// - Epilogue from registers.  noise * nscale + bias and the activation are
+//   applied to the accumulators.  Kernel 1's sums of v and v^2 come from
+//   these f32 values before the bf16 rounding: each thread adds its two
+//   rows of a 16-row fragment, three xor-shuffles add the fragment's 8
+//   row pairs, and one slot per (fragment, channel) lands in shared
+//   memory; the slots of an image are added in fragment order, one partial
+//   per (image, tile), so repeats are bit-identical (a fragment lies in one
+//   image: a tile keeps >= 16 pixels per image).  y goes in bf16 to a
+//   shared tile (the store box's swizzle) and out by a TMA store, which
+//   clips a ragged edge and runs while the next item multiplies.  TMA's
+//   16-byte stride rule forbids it at Cout % 8 != 0 (main_8_conv, Cout 2):
+//   there y is stored from registers, a channel pair (4 bytes) per pixel.
+// - Persistent blocks walk the items (spatial tile, Cout block, image
+//   group, Cin split), Cout block fastest.  Split-K (the Cin-512 layers at
+//   4^2-16^2) writes f32 sums to a workspace and conv3x3_tc.cuh's finish
+//   kernel adds the splits in a fixed order and runs the epilogue: no
+//   float atomics.
+//
+// Tensor maps are encoded on the host for every call
+// (cuTensorMapEncodeTiled through cudaGetDriverEntryPointByVersion, so the
+// library links only against the runtime, as before) and passed by value as
+// a __grid_constant__ kernel argument.  A CUDA graph captures them by value
+// with that call's addresses; the graphed paths replay fixed addresses, so
+// a replay reads the tensors the capture saw, as for any kernel argument.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "conv3x3_tc.cuh"  // the split-K finish kernel
+#include "sm90_util.cuh"
+
+namespace gst {
+namespace sm90 {
+// internal linkage: each including file gets its own copy of the kernels
+namespace {
+
+constexpr int MAX_SMEM = 232448;       // a block's shared-memory limit
+constexpr int CONSUMERS = 256;         // two warpgroups multiply
+constexpr int MAX_STAGES = 8;
+// The wide tiles (BN >= 64) run one block an SM whose accumulators need
+// more than the 168 registers a thread that 288 or 384 threads leave: their
+// loader is a whole warpgroup that drops to PRODUCER_REGS so that the
+// consumers rise to CONSUMER_REGS (4 x 56 + 8 x 224 = 12 x 168, the
+// registers a thread of __launch_bounds__(384, 1) launches with; at 40 /
+// 232 kernel 1's wide tiles spilled).  The narrow tiles run two blocks an
+// SM with one loader warp.
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = 224;
+
+__host__ __device__ constexpr bool wide(int bn) { return bn >= 64; }
+__host__ __device__ constexpr int threads(int bn) {
+  return CONSUMERS + (wide(bn) ? 128 : 32);
+}
+
+// The entry point that launches the body (the kernel's last template
+// argument): 1 conv_in_stats, 2 small_conv, 6 and 7 the same over a row
+// band.
+__host__ __device__ constexpr bool is_rows(int k) { return k == 6 || k == 7; }
+__host__ __device__ constexpr bool has_stats(int k) {
+  return k == 1 || k == 6;
+}
+
+__host__ __device__ constexpr int align_up(int v, int a) {
+  return (v + a - 1) / a * a;
+}
+
+// The y tile and the statistics' slots: two of each for the narrow tiles,
+// so that one block barrier an item suffices and the TMA store of one item
+// reads its tile while the next item writes the other; one for the wide
+// tiles, whose 64 KB tile leaves no room for a second (and whose items are
+// long enough that a second barrier costs nothing).
+__host__ __device__ constexpr int out_bufs(int bn) { return wide(bn) ? 1 : 2; }
+
+// Shared memory of one launch, in bytes from a 1024-aligned base: the ring
+// (each stage: halo box, tap slice unless resident, kernel 1's noise), the
+// resident taps, the output tile (TMA store), the statistics' slots, the
+// barriers.  kernels/tc_plan.py::PlanSM90.smem_bytes mirrors it.
+struct Layout {
+  int halo;       // bytes of a stage's halo box (the TMA transaction)
+  int taps;       // bytes of one chunk's tap slice [atom][9][CK][BNA]
+  int tap_off;    // in a stage
+  int noise_off;  // in a stage
+  int stage;
+  int res_off, out_off, slot_off, bar_off, smem;
+};
+
+__host__ __device__ inline Layout layout(int bn, int bm, int ck, int g,
+                                         int th, int tw, int stages,
+                                         int resident, int chunks,
+                                         bool noise, int tma_y, bool stats) {
+  Layout L;
+  L.halo = g * (th + 2) * (tw + 2) * ck * 2;
+  L.taps = 9 * ck * bn * 2;
+  L.tap_off = align_up(L.halo, 1024);
+  L.noise_off = L.tap_off + (resident ? 0 : align_up(L.taps, 1024));
+  L.stage = align_up(L.noise_off + (noise ? bm * 4 : 0), 1024);
+  L.res_off = stages * L.stage;
+  L.out_off = L.res_off + (resident ? align_up(chunks * L.taps, 1024) : 0);
+  L.slot_off = L.out_off + (tma_y ? out_bufs(bn) * bm * bn * 2 : 0);
+  L.bar_off = L.slot_off + (stats ? out_bufs(bn) * (bm / 16) * bn * 2 * 4 : 0);
+  L.smem = L.bar_off + 2 * stages * 8 + 1024;  // + the base's alignment
+  return L;
+}
+
+// Everything a launch reads; passed by value (__grid_constant__, so TMA
+// reads the maps in the kernel's parameter space).
+struct Args {
+  CUtensorMap tm_x;      // NHWC x: box (CK, TW + 2, TH + 2, G)
+  CUtensorMap tm_w;      // HWIO w as (Cout, Cin, 9): box (BNA, CK, 9)
+  CUtensorMap tm_noise;  // (N, H, W) f32 as (W, H, N): box (TW, TH, G)
+  CUtensorMap tm_y;      // NHWC y: box (BNA, TW, TH, G)
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* w;  // resident taps are read through it
+  const float* bias;       // (Cout,) or null
+  const float* noise;      // kernel 1: (N, H, W)
+  const float* nscale;     // kernel 1: (Cout,)
+  __nv_bfloat16* y;
+  float* partial;  // kernel 1: (N, tiles, 2, Cout)
+  float* ws;       // (splits, N*H*W, Cout) f32 when splits > 1
+  int n, h, wd, cin, cout;  // h: output rows (a band's x holds h + 2)
+  int act;
+  float slope;
+  // the plan and what follows from it (run() fills these)
+  int tw, th, g, splits, cps, stages, resident, tma_y;
+  int chunks, tiles_x, tiles, cout_blocks, items;
+  int vec_w;  // resident taps by 16-byte loads
+  FastDiv fd_per, fd_tw;
+};
+
+// One work item: a spatial tile of G images for BN output channels and one
+// Cin split (conv3x3_tc.cuh's order: Cout block fastest).
+struct Item {
+  int tile, ty0, tx0, co0, n0, split;
+};
+
+__device__ __forceinline__ Item item(const Args& a, int w, int bn) {
+  Item t;
+  const int rest = w / a.cout_blocks;
+  t.co0 = (w - rest * a.cout_blocks) * bn;
+  const int z = rest / a.tiles;
+  t.tile = rest - z * a.tiles;
+  const int ty = t.tile / a.tiles_x;
+  t.ty0 = ty * a.th;
+  t.tx0 = (t.tile - ty * a.tiles_x) * a.tw;
+  t.split = z % a.splits;
+  t.n0 = (z / a.splits) * a.g;
+  return t;
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2],
+                                      const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (BN == 16)
+    wgmma_m64n16k16(d, a, desc);
+  else if constexpr (BN == 32)
+    wgmma_m64n32k16(d, a, desc);
+  else if constexpr (BN == 64)
+    wgmma_m64n64k16(d, a, desc);
+  else
+    wgmma_m64n128k16(d, a, desc);
+}
+
+// The byte offset `off` (from a base aligned to the pattern) under TMA's
+// swizzle of rows of `mask + 1` 16-byte chunks: chunk bits [4, 7) xor
+// address bits [7, 10).
+__host__ __device__ constexpr uint32_t swizzle(uint32_t off, uint32_t mask) {
+  return off ^ (((off >> 7) & mask) << 4);
+}
+
+// One Cin chunk: 9 taps x CK / 16 k16 steps, each MI wgmmas of 64 x BN x
+// 16.  hb: the stage's halo, tb: the chunk's tap slice.  A's rows: the BN
+// 64 tiles (registers to spare) keep every lane's swizzled row per m64
+// tile and tap in asw[i][t] (the second k16 step of a 32-channel chunk is
+// the next 32 bytes: chunk bit 1, which the swizzle's xor leaves alone);
+// the others compute the row from aoff[i] (tap (0, 0)) and row (a halo
+// row in bytes) at each step, from the stage's offset soff so that no
+// address stays live across the loop (BN 128 has 128 accumulators a
+// thread, the narrow tiles 96 registers).  The wide tiles double-buffer A,
+// so the next ldmatrix overlaps the wgmma in flight; the narrow ones
+// (bound by bytes) wait for each step.
+template <int BN, int MI, int CK>
+__device__ __forceinline__ void mma_chunk(float (&acc)[MI][BN / 2],
+                                          uint32_t hb, uint32_t soff,
+                                          uint32_t tb,
+                                          const uint32_t (&asw)[MI][9],
+                                          const uint32_t (&aoff)[MI],
+                                          uint32_t row) {
+  constexpr int KS = CK / 16;
+  constexpr int PS = CK * 2;                    // halo pixel, bytes
+  constexpr uint32_t XSW = CK == 16 ? 1 : 3;    // halo swizzle: 32 B, 64 B
+  constexpr int BNA = BN < 64 ? BN : 64;        // channels of a B atom
+  constexpr int RB = BNA * 2;                   // a tap row of an atom
+  constexpr int BSW = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
+  constexpr int NBUF = wide(BN) ? 2 : 1;        // A's register buffers
+  // N-major B: LBO = the stride of 64-channel atoms, SBO = 8 k rows
+  const uint64_t d0 = gmma_desc(tb, 9 * CK * RB, 8 * RB, BSW);
+  const uint32_t base = hb - soff;  // the shared memory's base
+  uint32_t af[NBUF][MI][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const int b = (t * KS + kk) % NBUF;
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        uint32_t addr;
+        if constexpr (BN == 64)
+          addr = hb + (asw[i][t] ^ (kk * 32));
+        else
+          addr = base + swizzle(soff + aoff[i] + (t / 3) * row +
+                                    (t % 3) * PS + kk * 32,
+                                XSW);
+        ldsm_x4(af[b][i], addr);
+      }
+      wgmma_fence();
+      const uint64_t d = d0 + (((t * CK + kk * 16) * RB) >> 4);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) wgmma<BN>(acc[i], af[b][i], d);
+      wgmma_commit();
+      // the step before (wide) or this one (narrow) is done: its A
+      // buffer is free
+      wgmma_wait<NBUF - 1>();
+    }
+  }
+  wgmma_wait<0>();
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Blocks per SM asked of ptxas: 2 for the narrow tiles (288 threads: at
+// most 96 registers; 3 blocks of BN 16, at most 72, spilled kernel 1 and
+// ran it slower), but 1 for kernel 1's BN 32 tiles, which spilled at 96 and
+// need ~100 (two blocks of that still share an SM), and 1 for the wide.
+__host__ __device__ constexpr int min_blocks(int bn, int kernel) {
+  return wide(bn) || (bn == 32 && has_stats(kernel)) ? 1 : 2;
+}
+
+// Warps 0-7 (two warpgroups) multiply, warp 8 loads (with warps 9-11 idle
+// beside it in the wide tiles).  KERNEL is the number of the entry point
+// that launches it (kernel 1 or 6 takes the noise and the statistics, 6
+// and 7 a row band), so a profile tells them apart.
+template <int BN, int MI, int CK, int KERNEL>
+__global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
+    conv3x3_sm90_kernel(const __grid_constant__ Args a) {
+  constexpr bool ROWS = is_rows(KERNEL);
+  constexpr bool STATS = has_stats(KERNEL);
+  constexpr int BM = 128 * MI;
+  constexpr int NF = BN / 2;                   // accumulators per m64 tile
+  constexpr int BNA = BN < 64 ? BN : 64;
+  constexpr int NATOM = BN / BNA;
+  constexpr int RB = BNA * 2;
+  constexpr uint32_t OSW = RB == 128 ? 7 : (RB == 64 ? 3 : 1);
+  constexpr int ATOM = 9 * CK * RB;            // bytes of a tap-slice atom
+  constexpr int PS = CK * 2;
+  constexpr int THREADS = threads(BN);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const bool noise = STATS && a.splits == 1;
+  const Layout L = layout(BN, BM, CK, a.g, a.th, a.tw, a.stages, a.resident,
+                          a.chunks, noise, a.tma_y, STATS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
+  uint64_t* empty = full + a.stages;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS / 32);
+    }
+    fence_barrier_init();
+  }
+  if (a.resident) {  // every chunk's taps: [chunk][atom][tap][ci][BNA]
+    unsigned char* res = smem + L.res_off;
+    if (a.vec_w) {
+      constexpr int N8 = BN / 8;
+      for (int i = tid; i < a.chunks * 9 * CK * N8; i += THREADS) {
+        const int j8 = i % N8, r = i / N8;
+        const int ci = r % CK, ct = r / CK;
+        const int tap = ct % 9, chunk = ct / 9;
+        const int c = chunk * CK + ci, o = j8 * 8;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (c < a.cin && o < a.cout)
+          v = *reinterpret_cast<const uint4*>(
+              a.w + ((size_t)tap * a.cin + c) * a.cout + o);
+        const uint32_t off = chunk * L.taps + (o / BNA) * ATOM +
+                             (tap * CK + ci) * RB + (o % BNA) * 2;
+        *reinterpret_cast<uint4*>(res + swizzle(off, OSW)) = v;
+      }
+    } else {
+      for (int i = tid; i < a.chunks * 9 * CK * BN; i += THREADS) {
+        const int o = i % BN, r = i / BN;
+        const int ci = r % CK, ct = r / CK;
+        const int tap = ct % 9, chunk = ct / 9;
+        const int c = chunk * CK + ci;
+        __nv_bfloat16 v = __float2bfloat16(0.f);
+        if (c < a.cin && o < a.cout)
+          v = a.w[((size_t)tap * a.cin + c) * a.cout + o];
+        const uint32_t off = chunk * L.taps + (o / BNA) * ATOM +
+                             (tap * CK + ci) * RB + (o % BNA) * 2;
+        *reinterpret_cast<__nv_bfloat16*>(res + swizzle(off, OSW)) = v;
+      }
+    }
+    fence_proxy_async();  // the generic stores, seen by wgmma
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {
+    // ---- the producer: warp 8's lane 0 keeps the ring full
+    if constexpr (wide(BN)) setmaxnreg_dec<PRODUCER_REGS>();
+    if (warp == CONSUMERS / 32 && lane == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      const uint32_t tx = L.halo + (a.resident ? 0 : L.taps);
+      for (int w = blockIdx.x; w < a.items; w += gridDim.x) {
+        const Item it = item(a, w, BN);
+        const int c0 = it.split * a.cps;
+        const int nc = min(a.chunks - c0, a.cps);
+        for (int c = 0; c < nc; ++c) {
+          mbar_wait(empty + s, ph ^ 1);
+          unsigned char* st = smem + s * L.stage;
+          const bool nz = noise && c == nc - 1;
+          mbar_expect_tx(full + s, tx + (nz ? BM * 4 : 0));
+          const int ch = (c0 + c) * CK;
+          tma_load_4d(st, &a.tm_x, full + s, ch, it.tx0 - 1,
+                      ROWS ? it.ty0 : it.ty0 - 1, it.n0);
+          if (!a.resident)
+            for (int t = 0; t < NATOM; ++t)
+              tma_load_3d(st + L.tap_off + t * ATOM, &a.tm_w, full + s,
+                          it.co0 + t * BNA, ch, 0);
+          if (nz)
+            tma_load_3d(st + L.noise_off, &a.tm_noise, full + s, it.tx0,
+                        it.ty0, it.n0);
+          if (++s == a.stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup wg, warp wq of it
+  if constexpr (wide(BN)) setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = warp / 4, wq = warp % 4;
+  const int per = a.th * a.tw;
+  const int wp = a.tw + 2;
+  // this lane's ldmatrix row of each m64 tile at tap (0, 0), and (wide
+  // tiles) at every tap, swizzled
+  uint32_t aoff[MI], asw[MI][9];
+#pragma unroll
+  for (int i = 0; i < MI; ++i) {
+    const int m = (wg * MI + i) * 64 + wq * 16 + lane % 8 + 8 * ((lane / 8) % 2);
+    const int gi = a.fd_per.div(m), rem = m - gi * per;
+    const int ty = a.fd_tw.div(rem), tx = rem - ty * a.tw;
+    aoff[i] = ((gi * (a.th + 2) + ty) * wp + tx) * PS + 16 * (lane / 16);
+    if constexpr (BN == 64) {
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        asw[i][t] = swizzle(aoff[i] + ((t / 3) * wp + t % 3) * PS,
+                            CK == 16 ? 1 : 3);
+    }
+  }
+  const uint32_t row = wp * PS;
+  const uint32_t base = smem_u32(smem);
+  const int lr = lane / 4, lc = (lane % 4) * 2;
+  constexpr int NB = out_bufs(BN);
+  int nitem = 0;  // this block's items so far: the y tile and slots in use
+
+  float acc[MI][NF];
+  float nzr[MI][2];
+  int s = 0;
+  uint32_t ph = 0;
+  for (int w = blockIdx.x; w < a.items; w += gridDim.x) {
+    const Item it = item(a, w, BN);
+    const int c0 = it.split * a.cps;
+    const int nc = min(a.chunks - c0, a.cps);
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int f = 0; f < NF; ++f) acc[i][f] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      mbar_wait(full + s, ph);
+      unsigned char* st = smem + s * L.stage;
+      if (noise && c == nc - 1) {
+        const float* sn = reinterpret_cast<const float*>(st + L.noise_off);
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            nzr[i][hf] = sn[(wg * MI + i) * 64 + wq * 16 + lr + 8 * hf];
+      }
+      const uint32_t tb =
+          a.resident ? smem_u32(smem + L.res_off + (c0 + c) * L.taps)
+                     : smem_u32(st + L.tap_off);
+      mma_chunk<BN, MI, CK>(acc, base + s * L.stage, s * L.stage, tb, asw,
+                            aoff, row);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + s);
+      if (++s == a.stages) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+
+    // ---- the item's epilogue, from the accumulators.  This thread holds
+    // rows m = (wg * MI + i) * 64 + wq * 16 + lr + 8 * hf, columns j * 8 +
+    // lc + e, in acc[i][j * 4 + hf * 2 + e].
+    bool ok[MI][2];
+    int pix[MI][2];  // (image, row, column) as one index
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int m = (wg * MI + i) * 64 + wq * 16 + lr + 8 * hf;
+        const int gi = a.fd_per.div(m), rem = m - gi * per;
+        const int ty = a.fd_tw.div(rem);
+        const int nn = it.n0 + gi, oy = it.ty0 + ty,
+                  ox = it.tx0 + rem - ty * a.tw;
+        ok[i][hf] = nn < a.n && oy < a.h && ox < a.wd;
+        pix[i][hf] = (nn * a.h + oy) * a.wd + ox;
+      }
+    if (a.splits > 1) {  // the finish kernel adds the splits in order
+      float* ws = a.ws + (size_t)it.split * a.n * a.h * a.wd * a.cout;
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int co = it.co0 + j * 8 + lc + e;
+              if (ok[i][hf] && co < a.cout)
+                ws[(size_t)pix[i][hf] * a.cout + co] =
+                    acc[i][j * 4 + hf * 2 + e];
+            }
+      continue;
+    }
+    const bool shared_out = STATS || a.tma_y;
+    const int ob = NB == 2 ? (nitem++ & 1) : 0;
+    float* slots = reinterpret_cast<float*>(smem + L.slot_off) +
+                   ob * (BM / 16) * BN * 2;
+    unsigned char* out = smem + L.out_off + ob * BM * BN * 2;
+    if (NB == 1 && shared_out) {
+      // the last item's TMA store has read the tile, and every thread has
+      // read the last item's slots
+      if (tid == 0 && a.tma_y) bulk_wait_read<0>();
+      named_bar_sync(1, CONSUMERS);
+    }
+    // kernel 1: where the block holds one image (g == 1, every layer from
+    // 16^2 up) a warp adds its m64 tiles' rows in registers first and
+    // keeps one slot (of 8); else one slot per 16-row fragment
+    const bool one = a.g == 1;
+    // one 8-channel column block at a time: v = acc [+ noise * nscale]
+    // [+ bias] and the activation, kernel 1's slots, y
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      // keep each block's nscale and bias loads in it: hoisted, the wide
+      // tiles' 64 of each spilled beside 128 accumulators
+      asm volatile("" ::: "memory");
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = it.co0 + j * 8 + lc + e;
+        const bool cok = co < a.cout;
+        const float ns = (STATS && cok) ? __ldg(a.nscale + co) : 0.f;
+        const float bb = (a.bias != nullptr && cok) ? __ldg(a.bias + co) : 0.f;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            float v = acc[i][j * 4 + hf * 2 + e];
+            if (STATS) v += nzr[i][hf] * ns;
+            if (a.bias != nullptr) v += bb;
+            if (a.act == tc::RELU)
+              v = fmaxf(v, 0.f);
+            else if (a.act == tc::LEAKY)
+              v = v >= 0.f ? v : a.slope * v;
+            acc[i][j * 4 + hf * 2 + e] = v;
+          }
+      }
+      if (STATS) {  // slots of the sums of v and v^2 per channel
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            if (one && i > 0) break;
+            float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+            for (int k = 0; k < MI; ++k) {
+              if (!one && k != i) continue;
+              const float v0 = ok[k][0] ? acc[k][j * 4 + e] : 0.f;
+              const float v1 = ok[k][1] ? acc[k][j * 4 + 2 + e] : 0.f;
+              s1 += v0 + v1;
+              s2 += v0 * v0 + v1 * v1;
+            }
+#pragma unroll
+            for (int sh = 4; sh < 32; sh *= 2) {
+              s1 += __shfl_xor_sync(0xffffffffu, s1, sh);
+              s2 += __shfl_xor_sync(0xffffffffu, s2, sh);
+            }
+            if (lr == 0) {
+              const int f = one ? wg * 4 + wq : (wg * MI + i) * 4 + wq;
+              float* sl = slots + (f * BN + j * 8 + lc + e) * 2;
+              sl[0] = s1;
+              sl[1] = s2;
+            }
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float v0 = acc[i][j * 4 + hf * 2];
+          const float v1 = acc[i][j * 4 + hf * 2 + 1];
+          if (a.tma_y) {  // to the tile [atom][BM][BNA], swizzled
+            const int m = (wg * MI + i) * 64 + wq * 16 + lr + 8 * hf;
+            const int col = j * 8 + lc;
+            const uint32_t off =
+                (col / BNA) * BM * RB + m * RB + (col % BNA) * 2;
+            *reinterpret_cast<uint32_t*>(out + swizzle(off, OSW)) =
+                pack2(v0, v1);
+          } else if (ok[i][hf]) {  // Cout % 8 != 0: a channel pair a store
+            const int co = it.co0 + j * 8 + lc;
+            __nv_bfloat16* yp = a.y + (size_t)pix[i][hf] * a.cout + co;
+            if (a.cout % 2 == 0 && co + 1 < a.cout) {
+              *reinterpret_cast<uint32_t*>(yp) = pack2(v0, v1);
+            } else {
+              if (co < a.cout) yp[0] = __float2bfloat16(v0);
+              if (co + 1 < a.cout) yp[1] = __float2bfloat16(v1);
+            }
+          }
+        }
+    }
+    if (a.tma_y) fence_proxy_async();  // the tile, seen by the TMA store
+    if (shared_out) {
+      // with two tiles: the store issued an item ago has read its tile,
+      // which the next item writes
+      if (NB == 2 && tid == 0 && a.tma_y) bulk_wait_read<0>();
+      named_bar_sync(1, CONSUMERS);
+    }
+    if (a.tma_y && tid == 0) {
+      for (int t = 0; t < NATOM; ++t)
+        tma_store_4d(&a.tm_y, out + t * BM * RB, it.co0 + t * BNA, it.tx0,
+                     it.ty0, it.n0);
+      bulk_commit();
+    }
+    if (STATS) {  // per (image, channel): its slots in order
+      const int fpi = one ? CONSUMERS / 32 : per / 16;
+      for (int e = tid; e < a.g * BN; e += CONSUMERS) {
+        const int gi = e / BN, cc = e - gi * BN;
+        const int nn = it.n0 + gi, co = it.co0 + cc;
+        if (nn >= a.n || co >= a.cout) continue;
+        float s1 = 0.f, s2 = 0.f;
+        for (int f = gi * fpi; f < (gi + 1) * fpi; ++f) {
+          s1 += slots[(f * BN + cc) * 2];
+          s2 += slots[(f * BN + cc) * 2 + 1];
+        }
+        float* o = a.partial + ((size_t)nn * a.tiles + it.tile) * 2 * a.cout +
+                   co;
+        o[0] = s1;
+        o[a.cout] = s2;
+      }
+    }
+  }
+  if (tid == 0 && a.tma_y) bulk_wait_all();
+}
+
+// ---------------------------------------------------------------- host ----
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (rc == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tiled map of `rank` dims (innermost first), byte strides of dims 1..,
+// the box, TMA's swizzle for the box's inner row (32, 64, 128 bytes; none
+// else); zero fill out of bounds.
+inline bool encode(CUtensorMap* m, CUtensorMapDataType dt, int rank,
+                   const void* base, const cuuint64_t* dims,
+                   const cuuint64_t* strides, const cuuint32_t* box,
+                   int row_bytes) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return fn(m, dt, rank, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN, int MI, int CK, int KERNEL>
+static int launch(const Args& a, cudaStream_t st) {
+  constexpr int BM = 128 * MI;
+  const Layout L = layout(BN, BM, CK, a.g, a.th, a.tw, a.stages, a.resident,
+                          a.chunks, has_stats(KERNEL) && a.splits == 1,
+                          a.tma_y, has_stats(KERNEL));
+  if (L.smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
+  auto kern = conv3x3_sm90_kernel<BN, MI, CK, KERNEL>;
+  int rc = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.smem);
+  if (rc) return rc;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((rc = (int)cudaGetDevice(&dev)) ||
+      (rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                        dev)) ||
+      (rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, threads(BN), L.smem)))
+    return rc;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = (long long)per_sm * sms < a.items ? per_sm * sms : a.items;
+  kern<<<grid, threads(BN), L.smem, st>>>(a);
+  rc = (int)cudaGetLastError();
+  if (rc || a.splits == 1) return rc;
+  // split-K: conv3x3_tc.cuh's finish kernel adds the splits in order and
+  // runs the epilogue (and kernel 1's partials) in blocks of FINISH_BN
+  // channels over the same tiles
+  tc::Args f = {};
+  f.bias = a.bias;
+  f.noise = a.noise;
+  f.nscale = a.nscale;
+  f.y = a.y;
+  f.partial = a.partial;
+  f.ws = a.ws;
+  f.n = a.n;
+  f.h = a.h;
+  f.wd = a.wd;
+  f.cin = a.cin;
+  f.cout = a.cout;
+  f.act = a.act;
+  f.slope = a.slope;
+  f.tw = a.tw;
+  f.th = a.th;
+  f.g = a.g;
+  f.splits = a.splits;
+  f.tiles_x = a.tiles_x;
+  f.tiles = a.tiles;
+  f.fd_per = a.fd_per;
+  f.fd_tw = a.fd_tw;
+  f.vec_y = a.cout % 8 == 0 && aligned(a.y, 16);
+  const int fsmem = (BM * (tc::FINISH_BN + 4) +
+                     tc::red_floats(tc::FINISH_THREADS, a.g, tc::FINISH_BN)) *
+                    4;
+  auto fin = tc::conv3x3_tc_finish_kernel<false>;
+  rc = tc::set_smem(fin, fsmem);
+  if (rc) return rc;
+  const dim3 fgrid(a.tiles, (a.cout + tc::FINISH_BN - 1) / tc::FINISH_BN,
+                   (a.n + a.g - 1) / a.g);
+  fin<<<fgrid, tc::FINISH_THREADS, fsmem, st>>>(f, BM, tc::FINISH_BN);
+  return (int)cudaGetLastError();
+}
+
+template <int BN, int MI, int KERNEL>
+static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
+  return ck == 16 ? launch<BN, MI, 16, KERNEL>(a, st)
+                  : launch<BN, MI, 32, KERNEL>(a, st);
+}
+
+// plan = {bn, mi, ck, tw, th, g, splits, cps, stages, resident, tma_y}
+// from kernels/tc_plan.py::plan_sm90.  Checks the plan and TMA's rules
+// (16-byte strides and bases, boxes <= 256), encodes the tensor maps and
+// launches; returns a CUDA error code (cudaErrorInvalidValue for a plan or
+// a tensor this body does not take).  KERNEL: 1, 2, 6 or 7 (a row band: h
+// counts the output rows, x holds h + 2).
+template <int KERNEL>
+inline int run(Args a, const int* plan, cudaStream_t st) {
+  static_assert(KERNEL == 1 || KERNEL == 2 || is_rows(KERNEL),
+                "kernel 1, 2, 6 or 7");
+  constexpr bool STATS = has_stats(KERNEL);
+  if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  const int bn = plan[0], mi = plan[1], ck = plan[2];
+  a.tw = plan[3];
+  a.th = plan[4];
+  a.g = plan[5];
+  a.splits = plan[6];
+  a.cps = plan[7];
+  a.stages = plan[8];
+  a.resident = plan[9];
+  a.tma_y = plan[10];
+  const bool shape_ok =
+      (bn == 16 || bn == 32 || bn == 64 || bn == 128) &&
+      (mi == 1 || mi == 2) && (ck == 16 || ck == 32) &&
+      (a.tw == 4 || a.tw == 8 || a.tw == 16) && a.th >= 1 &&
+      a.th + 2 <= 256 && a.g >= 1 && a.g <= 256 &&
+      a.tw * a.th * a.g == 128 * mi && (a.th * a.tw) % 16 == 0 &&
+      a.stages >= 2 && a.stages <= MAX_STAGES;
+  if (!shape_ok || a.splits < 1 || a.cps < 1 || a.n < 1 || a.h < 1 ||
+      a.wd < 1 || a.cin < 1 || a.cout < 1)
+    return (int)cudaErrorInvalidValue;
+  a.chunks = (a.cin + ck - 1) / ck;
+  if ((long long)(a.splits - 1) * a.cps >= a.chunks ||
+      (long long)a.splits * a.cps < a.chunks)
+    return (int)cudaErrorInvalidValue;
+  if (a.splits > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
+  a.tiles_x = (a.wd + a.tw - 1) / a.tw;
+  a.cout_blocks = (a.cout + bn - 1) / bn;
+  const long long tiles = (long long)a.tiles_x * ((a.h + a.th - 1) / a.th);
+  const long long groups = (a.n + a.g - 1) / a.g;
+  const long long items = tiles * a.cout_blocks * groups * a.splits;
+  if (items >= (1LL << 31) ||
+      (a.splits > 1 &&
+       (a.cout + tc::FINISH_BN - 1) / tc::FINISH_BN > 65535))
+    return (int)cudaErrorInvalidValue;
+  a.tiles = (int)tiles;
+  a.items = (int)items;
+  a.fd_per.set(a.th * a.tw);
+  a.fd_tw.set(a.tw);
+  // TMA's rules: global strides multiples of 16 bytes, 16-byte bases
+  const bool noise = STATS && a.splits == 1;
+  if (a.cin % 8 != 0 || !aligned(a.x, 16) ||
+      (a.resident && (a.splits != 1 || a.cout_blocks != 1)) ||
+      (!a.resident && (a.cout % 8 != 0 || !aligned(a.w, 16))) ||
+      (a.tma_y && (a.cout % 8 != 0 || !aligned(a.y, 16))) ||
+      (noise && (a.wd % 4 != 0 || !aligned(a.noise, 16))))
+    return (int)cudaErrorInvalidValue;
+  a.vec_w = a.cout % 8 == 0 && aligned(a.w, 16);
+  const int h_in = is_rows(KERNEL) ? a.h + 2 : a.h;
+  const int bna = bn < 64 ? bn : 64;
+  const cuuint64_t n = a.n, h = a.h, hi = h_in, wd = a.wd, cin = a.cin,
+                   cout = a.cout;
+  {
+    const cuuint64_t dims[4] = {cin, wd, hi, n};
+    const cuuint64_t strides[3] = {cin * 2, wd * cin * 2, hi * wd * cin * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)ck, (cuuint32_t)a.tw + 2,
+                               (cuuint32_t)a.th + 2, (cuuint32_t)a.g};
+    if (!encode(&a.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.x, dims,
+                strides, box, ck * 2))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (!a.resident) {
+    const cuuint64_t dims[3] = {cout, cin, 9};
+    const cuuint64_t strides[2] = {cout * 2, cin * cout * 2};
+    const cuuint32_t box[3] = {(cuuint32_t)bna, (cuuint32_t)ck, 9};
+    if (!encode(&a.tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.w, dims,
+                strides, box, bna * 2))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (noise) {
+    const cuuint64_t dims[3] = {wd, h, n};
+    const cuuint64_t strides[2] = {wd * 4, h * wd * 4};
+    const cuuint32_t box[3] = {(cuuint32_t)a.tw, (cuuint32_t)a.th,
+                               (cuuint32_t)a.g};
+    if (!encode(&a.tm_noise, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a.noise,
+                dims, strides, box, 0))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (a.tma_y) {
+    const cuuint64_t dims[4] = {cout, wd, h, n};
+    const cuuint64_t strides[3] = {cout * 2, wd * cout * 2, h * wd * cout * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)bna, (cuuint32_t)a.tw,
+                               (cuuint32_t)a.th, (cuuint32_t)a.g};
+    if (!encode(&a.tm_y, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.y, dims,
+                strides, box, bna * 2))
+      return (int)cudaErrorInvalidValue;
+  }
+  switch (bn * 10 + mi) {
+    case 161:
+      return dispatch_ck<16, 1, KERNEL>(a, ck, st);
+    case 162:
+      return dispatch_ck<16, 2, KERNEL>(a, ck, st);
+    case 321:
+      return dispatch_ck<32, 1, KERNEL>(a, ck, st);
+    case 322:
+      return dispatch_ck<32, 2, KERNEL>(a, ck, st);
+    case 641:
+      return dispatch_ck<64, 1, KERNEL>(a, ck, st);
+    case 642:
+      return dispatch_ck<64, 2, KERNEL>(a, ck, st);
+    case 1281:
+      return dispatch_ck<128, 1, KERNEL>(a, ck, st);
+    default:
+      return dispatch_ck<128, 2, KERNEL>(a, ck, st);
+  }
+}
+
+// An entry point's arguments (the bf16 ones of conv_in_stats.cu,
+// small_conv.cu and their *_rows.cu forms) into Args.
+inline Args args(const void* x, const void* w, const float* noise,
+                 const float* nscale, const float* bias, void* y,
+                 float* partial, float* ws, int n, int h, int wd, int cin,
+                 int cout, int act, float slope) {
+  Args a;
+  memset(&a, 0, sizeof(a));
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.noise = noise;
+  a.nscale = nscale;
+  a.bias = bias;
+  a.y = static_cast<__nv_bfloat16*>(y);
+  a.partial = partial;
+  a.ws = ws;
+  a.n = n;
+  a.h = h;
+  a.wd = wd;
+  a.cin = cin;
+  a.cout = cout;
+  a.act = act;
+  a.slope = slope;
+  return a;
+}
+
+}  // namespace
+}  // namespace sm90
+}  // namespace gst

@@ -18,8 +18,13 @@
 // no float atomics) and the wrapper reduces the tile axis in a second pass.
 // The whole kernel is deterministic.
 //
-// bf16 (generate, batch 8) runs the tensor-core implicit GEMM of
-// conv3x3_tc.cuh.  What bounds it: at 256^2-1024^2 (16-64 channels, 68-284
+// bf16 (generate, batch 8) runs the Hopper body of conv3x3_sm90.cuh (TMA
+// halo boxes into an mbarrier ring, wgmma, the epilogue and the statistics
+// from the accumulators; gst_conv3x3_in_stats_sm90) wherever
+// kernels/tc_plan.py::plan_sm90 takes the shape, which is every generate
+// path shape; the mma.sync body of conv3x3_tc.cuh below keeps the rest
+// (Cin % 8 != 0, W % 4 != 0, an unaligned view).  The mma.sync body's
+// design, as it was measured before the Hopper body.  What bounds it: at 256^2-1024^2 (16-64 channels, 68-284
 // flop per byte) the layers sit below the bf16 ridge of ~295 flop/byte and
 // are bound by bytes, so the design reads each input pixel from HBM once
 // (N spans Cout up to 64), keeps the halo in bf16 and keeps two stages of
@@ -60,6 +65,7 @@
 // (xor-shuffles over a warp's rows, then the slots of an image added in
 // order), one partial per (image, tile) as in bf16.
 #include "conv3x3_core.cuh"  // DType, valid_dims
+#include "conv3x3_sm90.cuh"
 #include "conv3x3_tc.cuh"
 #include "conv3x3_tf32.cuh"
 
@@ -115,6 +121,23 @@ int gst_conv3x3_in_stats(const void* x, const void* w, const float* noise,
   a.act = gst::tc::LEAKY;
   a.slope = slope;
   return gst::tc::run<1>(a, plan, st);
+}
+
+// The Hopper body (bf16 only; conv3x3_sm90.cuh): the arguments of
+// gst_conv3x3_in_stats with plan = int[11] from
+// kernels/tc_plan.py::plan_sm90(noise=True).
+int gst_conv3x3_in_stats_sm90(const void* x, const void* w,
+                              const float* noise, const float* nscale,
+                              const float* bias, void* y, float* partial,
+                              float* ws, int n, int h, int wd, int cin,
+                              int cout, int dtype, float slope,
+                              const int* plan, void* stream) {
+  if (!gst::valid_dims(n, h, wd, cin, cout) || dtype != gst::BF16)
+    return (int)cudaErrorInvalidValue;
+  return gst::sm90::run<1>(
+      gst::sm90::args(x, w, noise, nscale, bias, y, partial, ws, n, h, wd,
+                      cin, cout, gst::tc::LEAKY, slope),
+      plan, static_cast<cudaStream_t>(stream));
 }
 
 // The s8 body: x s8 NHWC, w s8 [tap][Cout][Cin], deq (Cout,) f32; y in

@@ -19,11 +19,15 @@
 //          over the bands in a fixed order, for the whole image's mean and
 //          variance.
 //
-// The bodies are kernel 1's (conv3x3_tc.cuh in bf16, conv3x3_tf32.cuh in
-// f32, with the launch plans of kernels/tc_plan.py for the band's H), each
-// instantiated as entry 6 so that a profile tells the band form apart.  The
-// one change is the staging's input row (ROWS in both headers).
+// The bodies are kernel 1's (in bf16 conv3x3_sm90.cuh where
+// tc_plan.plan_sm90 takes the band's shape, else conv3x3_tc.cuh;
+// conv3x3_tf32.cuh in f32, with the launch plans of kernels/tc_plan.py for
+// the band's H), each instantiated as entry 6 so that a profile tells the
+// band form apart.  The one change is the halo's input row (ROWS in the
+// mma.sync headers; the Hopper body's box starts at the band's first input
+// row).
 #include "conv3x3_core.cuh"  // DType, valid_dims
+#include "conv3x3_sm90.cuh"
 #include "conv3x3_tc.cuh"
 #include "conv3x3_tf32.cuh"
 
@@ -79,6 +83,24 @@ int gst_conv3x3_in_stats_rows(const void* x, const void* w,
   a.act = gst::tc::LEAKY;
   a.slope = slope;
   return gst::tc::run<6>(a, plan, st);
+}
+
+// The Hopper body over a band: plan = int[11] from
+// tc_plan.plan_sm90(noise=True) for the output shape.
+int gst_conv3x3_in_stats_rows_sm90(const void* x, const void* w,
+                                   const float* noise, const float* nscale,
+                                   const float* bias, void* y,
+                                   float* partial, float* ws, int n, int h,
+                                   int wd, int cin, int cout, int dtype,
+                                   float slope, const int* plan,
+                                   void* stream) {
+  if (h < 1 || !gst::valid_dims(n, h + 2, wd, cin, cout) ||
+      dtype != gst::BF16)
+    return (int)cudaErrorInvalidValue;
+  return gst::sm90::run<6>(
+      gst::sm90::args(x, w, noise, nscale, bias, y, partial, ws, n, h, wd,
+                      cin, cout, gst::tc::LEAKY, slope),
+      plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
 // PTX wrappers, index and alignment helpers shared by the tensor-core 3x3
-// convolutions (conv3x3_tc.cuh, bf16; conv3x3_tf32.cuh, f32 as 3xTF32).
+// convolutions (conv3x3_tc.cuh, bf16 and s8 on mma.sync; conv3x3_tf32.cuh,
+// f32 as 3xTF32; conv3x3_sm90.cuh, bf16 on Hopper's TMA, mbarriers and
+// wgmma).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,5 +59,248 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
 }
+
+// ------------------------------------------------ Hopper (sm_90a) ----
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarrier: init with an arrival count; arrive; arrive and expect `tx`
+// bytes of asynchronous copies; wait until the phase of parity `parity`
+// has completed (a fresh barrier's phase of parity 1 counts as completed)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t tx) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(tx)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the barriers' initialisation, made visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (a TMA store or a wgmma reading them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// a barrier among `count` threads (a multiple of 32) under id `id` (1-15)
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// TMA: a box of the tensor `map` (a __grid_constant__ CUtensorMap) at the
+// coordinates (innermost first; negative or past the end is zero-filled)
+// into shared memory, completing `tx` bytes on `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA store of a box from shared memory; the box is clipped at the
+// tensor's edges.  commit closes a bulk group; wait_read<N> waits until at
+// most N groups still read shared memory, wait_all until all completed.
+__device__ __forceinline__ void tma_store_4d(const void* map, const void* src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// wgmma: fence (before a wgmma that reads registers written since the last
+// one), commit the issued wgmmas as a group, wait until at most N groups
+// are in flight
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Hand registers back (dec) or take them (inc), a warpgroup at a time: a
+// producer warpgroup that only issues TMA keeps few, and the consumers'
+// share of the block's registers rises by what it frees
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// A shared-memory matrix descriptor of wgmma: start address, leading and
+// stride byte offsets (LBO, SBO) and the swizzle (1 128B, 2 64B, 3 32B)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo,
+                                              uint32_t sbo, int swizzle) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+// D[64 x 16] += A[64 x 16] (registers) * B[16 x 16] (shared memory,
+// N-major through desc_b); f32 accumulators, bf16 operands
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 16] (registers) * B[16 x 32] (shared memory,
+// N-major through desc_b); f32 accumulators, bf16 operands
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] (registers) * B[16 x 64] (shared memory,
+// N-major through desc_b); f32 accumulators, bf16 operands
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 16] (registers) * B[16 x 128] (shared memory,
+// N-major through desc_b); f32 accumulators, bf16 operands
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 
 }  // namespace gst

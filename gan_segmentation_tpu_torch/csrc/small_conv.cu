@@ -13,8 +13,12 @@
 // accumulated in f32, stored once in x's dtype.  Pallas required
 // H % tile_h == 0; here ragged tiles are masked, so H = 4 and Cout = 2 run.
 //
-// bf16 (generate, batch 8) runs the tensor-core implicit GEMM of
-// conv3x3_tc.cuh.  What bounds it: from 256^2 up the decoder's layers carry
+// bf16 (generate, batch 8) runs the Hopper body of conv3x3_sm90.cuh
+// (gst_conv3x3_small_sm90) wherever kernels/tc_plan.py::plan_sm90 takes
+// the shape, which is every generate path shape (main_8_conv, Cout 2, with
+// resident taps and stores from registers); the mma.sync body of
+// conv3x3_tc.cuh keeps the rest (Cin % 8 != 0, an unaligned view).  The
+// mma.sync body's design, as it was measured before.  What bounds it: from 256^2 up the decoder's layers carry
 // 16-64 channels at 17-192 flop per byte (main_8_conv 32 -> 2 at 17,
 // main_7.conv_0 64 -> 16 at 115), below the bf16 ridge of ~295, so they are
 // bound by bytes: the design reads each input pixel from HBM once (N spans
@@ -49,6 +53,7 @@
 // each: the plan splits K there and a finish kernel adds the splits in a
 // fixed order.
 #include "conv3x3_core.cuh"  // DType, valid_dims
+#include "conv3x3_sm90.cuh"
 #include "conv3x3_tc.cuh"
 #include "conv3x3_tf32.cuh"
 
@@ -98,6 +103,21 @@ int gst_conv3x3_small(const void* x, const void* w, const float* bias,
   a.act = act;
   a.slope = slope;
   return gst::tc::run<2>(a, plan, st);
+}
+
+// The Hopper body (bf16 only; conv3x3_sm90.cuh): the arguments of
+// gst_conv3x3_small with plan = int[11] from kernels/tc_plan.py::plan_sm90.
+int gst_conv3x3_small_sm90(const void* x, const void* w, const float* bias,
+                           void* y, float* ws, int n, int h, int wd, int cin,
+                           int cout, int dtype, int act, float slope,
+                           const int* plan, void* stream) {
+  if (!gst::valid_dims(n, h, wd, cin, cout) || act < 0 || act > 2 ||
+      dtype != gst::BF16)
+    return (int)cudaErrorInvalidValue;
+  return gst::sm90::run<2>(
+      gst::sm90::args(x, w, nullptr, nullptr, bias, y, nullptr, ws, n, h,
+                      wd, cin, cout, act, slope),
+      plan, static_cast<cudaStream_t>(stream));
 }
 
 // The s8 body: x s8 NHWC, w s8 [tap][Cout][Cin], deq (Cout,) f32, bias

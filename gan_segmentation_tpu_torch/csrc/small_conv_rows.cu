@@ -14,11 +14,15 @@
 //   y  (N, H, W, Cout) = act(conv3x3(x, w) + b), the conv with no pad in H
 //      and a zero pad of one in W.
 //
-// The bodies are kernel 2's (conv3x3_tc.cuh in bf16, conv3x3_tf32.cuh in
-// f32, with the launch plans of kernels/tc_plan.py for the band's H), each
-// instantiated as entry 7 so that a profile tells the band form apart.  The
-// one change is the staging's input row (ROWS in both headers).
+// The bodies are kernel 2's (in bf16 conv3x3_sm90.cuh where
+// tc_plan.plan_sm90 takes the band's shape, else conv3x3_tc.cuh;
+// conv3x3_tf32.cuh in f32, with the launch plans of kernels/tc_plan.py for
+// the band's H), each instantiated as entry 7 so that a profile tells the
+// band form apart.  The one change is the halo's input row (ROWS in the
+// mma.sync headers; the Hopper body's box starts at the band's first input
+// row).
 #include "conv3x3_core.cuh"  // DType, valid_dims
+#include "conv3x3_sm90.cuh"
 #include "conv3x3_tc.cuh"
 #include "conv3x3_tf32.cuh"
 
@@ -65,6 +69,22 @@ int gst_conv3x3_small_rows(const void* x, const void* w, const float* bias,
   a.act = act;
   a.slope = slope;
   return gst::tc::run<7>(a, plan, st);
+}
+
+// The Hopper body over a band: plan = int[11] from tc_plan.plan_sm90 for
+// the output shape.
+int gst_conv3x3_small_rows_sm90(const void* x, const void* w,
+                                const float* bias, void* y, float* ws, int n,
+                                int h, int wd, int cin, int cout, int dtype,
+                                int act, float slope, const int* plan,
+                                void* stream) {
+  if (h < 1 || !gst::valid_dims(n, h + 2, wd, cin, cout) || act < 0 ||
+      act > 2 || dtype != gst::BF16)
+    return (int)cudaErrorInvalidValue;
+  return gst::sm90::run<7>(
+      gst::sm90::args(x, w, nullptr, nullptr, bias, y, nullptr, ws, n, h,
+                      wd, cin, cout, act, slope),
+      plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -163,23 +163,29 @@ def check_conv3x3_s8(x, w, deq, b):
 
 
 @functools.lru_cache(maxsize=None)
-def _tc_plan_c(dtype, n, h, w, cin, cout, noise):
-    p = (tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
-         if dtype == torch.float32
-         else tc_plan.plan(n, h, w, cin, cout, noise,
-                           s8=dtype == torch.int8))
+def _tc_plan_c(dtype, n, h, w, cin, cout, noise, aligned=True):
+    if dtype == torch.float32:
+        p = tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
+    elif dtype == torch.int8:
+        p = tc_plan.plan(n, h, w, cin, cout, noise, s8=True)
+    else:
+        p = tc_plan.plan_bf16(n, h, w, cin, cout, noise, aligned)
     args = p.args()
     return p, (ctypes.c_int * len(args))(*args)
 
 
-def tc_launch_args(x, n, h, w, cin, cout, noise=False):
+def tc_launch_args(x, n, h, w, cin, cout, noise=False, tensors=()):
     """For a call of kernel 1 (``noise``) or 2: (plan, plan as a C int
-    array, split-K workspace or None).  bf16 and s8 take ``tc_plan.plan``
-    (int[9], conv3x3_tc.cuh), f32 ``tc_plan.plan_f32`` (int[11],
-    conv3x3_tf32.cuh).  The plan is cached per shape: the host's time per
-    launch is what bounds the small layers.  The s8 body's workspace holds
-    s32 partials."""
-    p, plan_c = _tc_plan_c(x.dtype, n, h, w, cin, cout, noise)
+    array, split-K workspace or None).  bf16 takes ``tc_plan.plan_bf16``:
+    the Hopper body's ``PlanSM90`` (int[11], conv3x3_sm90.cuh; ``plan.sm90``
+    names its entry points ``gst_*_sm90``) where TMA's rules let it, given
+    whether x and ``tensors`` start on 16 bytes, else the mma.sync body's
+    ``Plan`` (int[9], conv3x3_tc.cuh); s8 ``tc_plan.plan`` (int[9]), f32
+    ``tc_plan.plan_f32`` (int[11], conv3x3_tf32.cuh).  The plan is cached
+    per shape: the host's time per launch is what bounds the small layers.
+    The s8 body's workspace holds s32 partials."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *tensors))
+    p, plan_c = _tc_plan_c(x.dtype, n, h, w, cin, cout, noise, aligned)
     ws = None
     if p.splits > 1:
         ws = torch.empty(p.ws_elems(n, h, w, cout),
@@ -220,6 +226,12 @@ def library():
         lib.gst_conv3x3_in_stats.argtypes
     lib.gst_conv3x3_small_rows.restype = i
     lib.gst_conv3x3_small_rows.argtypes = lib.gst_conv3x3_small.argtypes
+    # the Hopper body's entries take the same arguments
+    for name in ("gst_conv3x3_in_stats", "gst_conv3x3_in_stats_rows",
+                 "gst_conv3x3_small", "gst_conv3x3_small_rows"):
+        fn = getattr(lib, name + "_sm90")
+        fn.restype = i
+        fn.argtypes = getattr(lib, name).argtypes
     lib.gst_conv3x3_in_stats_s8.restype = i
     lib.gst_conv3x3_in_stats_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                             vp, i, i, i, i, i, i, f, vp, vp]

@@ -9,7 +9,9 @@ pass as ``torch.library`` custom ops, so that a tracer (``torch.export``,
 
 - CPU: the plain PyTorch version (``*_plain`` beside each wrapper).
 - CUDA: the hand-written kernel through the ``ctypes`` library of
-  ``_build``, launched on the current stream; it raises when the launch
+  ``_build``, launched on the current stream (bf16 kernels 1 and 2 on the
+  body ``tc_plan.plan_bf16`` picks: the Hopper body's ``gst_*_sm90``
+  entries or the mma.sync body's); it raises when the launch
   fails and never falls back to the plain version.  Each launch adds one
   to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
   ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``, the ``_s8`` and
@@ -53,9 +55,10 @@ def _(x, w, b, act, leaky):
     dev = x.device
     lib = _build.library()
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
-    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
+    p, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
+                                        tensors=(w,))
     with torch.cuda.device(dev):
-        rc = lib.gst_conv3x3_small(
+        rc = _entry(lib, "gst_conv3x3_small", p)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
             cin, cout, _build.DTYPE_CODES[x.dtype],
@@ -92,13 +95,14 @@ def _(x, w, noise, nscale, bias, leaky):
     dev = x.device
     lib = _build.library()
     plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
-                                             noise=True)
+                                             noise=True,
+                                             tensors=(w, noise))
     # the partial axis is the plan's tile count
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
-        rc = lib.gst_conv3x3_in_stats(
+        rc = _entry(lib, "gst_conv3x3_in_stats", plan)(
             x.data_ptr(), w.data_ptr(), noise.data_ptr(), nscale.data_ptr(),
             bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
             None if ws is None else ws.data_ptr(), n, h, wd, cin, cout,
@@ -134,9 +138,10 @@ def _(x, w, b, act, leaky):
     n, h, wd, cin, cout = small_conv.check_args_rows(x, w, b)
     dev = x.device
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
-    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
+    p, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
+                                        tensors=(w,))
     with torch.cuda.device(dev):
-        rc = _build.library().gst_conv3x3_small_rows(
+        rc = _entry(_build.library(), "gst_conv3x3_small_rows", p)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
             cin, cout, _build.DTYPE_CODES[x.dtype],
@@ -172,12 +177,13 @@ def _(x, w, noise, nscale, bias, leaky):
                                                         bias)
     dev = x.device
     plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
-                                             noise=True)
+                                             noise=True,
+                                             tensors=(w, noise))
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
-        rc = _build.library().gst_conv3x3_in_stats_rows(
+        rc = _entry(_build.library(), "gst_conv3x3_in_stats_rows", plan)(
             x.data_ptr(), w.data_ptr(), noise.data_ptr(), nscale.data_ptr(),
             bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
             None if ws is None else ws.data_ptr(), n, h, wd, cin, cout,
@@ -190,6 +196,12 @@ def _(x, w, noise, nscale, bias, leaky):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _entry(lib, name, plan):
+    """The C entry point of the body the plan names: ``name`` (mma.sync,
+    3xTF32) or ``name_sm90`` (the bf16 Hopper body), same arguments."""
+    return getattr(lib, name + "_sm90" if plan.sm90 else name)
 
 
 @torch.library.custom_op("gst::quantize_s8", mutates_args=(),

@@ -1,6 +1,9 @@
-"""Launch plans of the tensor-core 3x3 convs: ``plan`` for the bf16 and s8
-bodies (``csrc/conv3x3_tc.cuh``, kernels 1 and 2), ``plan_f32`` for the f32
-3xTF32 kernel (``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).
+"""Launch plans of the tensor-core 3x3 convs: ``plan_sm90`` for the bf16
+Hopper body (``csrc/conv3x3_sm90.cuh``, kernels 1 and 2 and their row-band
+forms), ``plan`` for the mma.sync bf16 and s8 bodies
+(``csrc/conv3x3_tc.cuh``), ``plan_f32`` for the f32 3xTF32 kernel
+(``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).  ``plan_bf16`` is the one
+rule that picks a bf16 call's body.
 
 Pure functions of the layer's shape, so the CPU tests can check every
 path shape's plan without a card.  ``h`` is always the OUTPUT rows: the
@@ -54,8 +57,8 @@ reserves the statistics' slots and keeps a tile's pixels per image a
 multiple of 16, so that an m16 fragment lies in one image.
 """
 
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, replace
+from typing import Optional, Union
 
 MAX_SMEM = 232448        # a block's shared-memory limit on sm_90
 SM_SMEM = 233472         # an SM's shared memory; each block reserves 1 KB
@@ -78,6 +81,7 @@ def pad16(b: int) -> int:
 
 @dataclass(frozen=True)
 class Plan:
+    sm90 = False  # the mma.sync body (entries gst_conv3x3_*)
     bn: int
     wm: int
     ck: int
@@ -199,6 +203,7 @@ MAX_CPS_F32 = 8
 
 @dataclass(frozen=True)
 class PlanF32:
+    sm90 = False  # the 3xTF32 body (entries gst_conv3x3_*)
     bn: int
     wm: int
     ck: int
@@ -324,3 +329,223 @@ def plan_f32(n: int, h: int, w: int, cin: int, cout: int,
             return p
     raise ValueError(f"no f32 tensor-core plan fits ({n}, {h}, {w}, {cin}, "
                      f"{cout})")
+
+
+# ---------------------------------------------------------------------------
+# The bf16 Hopper body (csrc/conv3x3_sm90.cuh)
+
+SM90_MAX_STAGES = 8
+SM90_INFLIGHT = 24 * 1024  # bytes a block keeps loading: Little's law,
+#                           3.35 TB/s x ~1 us over 132 SMs is ~25 KB an SM
+SM90_RESIDENT_MAX = 96 * 1024  # a block's resident taps, at most
+TMA_BOX_MAX = 256          # elements along any box dimension
+
+
+def _align(v: int, a: int) -> int:
+    return _cdiv(v, a) * a
+
+
+@dataclass(frozen=True)
+class PlanSM90:
+    """A call's plan on the Hopper body; ``smem_bytes`` mirrors
+    ``layout()`` in conv3x3_sm90.cuh."""
+    sm90 = True  # entries gst_conv3x3_*_sm90
+    bn: int
+    mi: int
+    ck: int
+    tw: int
+    th: int
+    g: int
+    splits: int
+    cps: int
+    stages: int
+    resident: bool
+    tma_y: bool
+    noise: bool   # kernel 1 (statistics; the noise when splits == 1)
+    chunks: int
+    tiles_x: int
+    tiles_y: int
+    groups: int
+    cout_blocks: int
+
+    @property
+    def bm(self) -> int:
+        return 128 * self.mi
+
+    @property
+    def bna(self) -> int:
+        """Channels of one swizzle atom of the tap slice and the y tile."""
+        return min(self.bn, 64)
+
+    @property
+    def tiles(self) -> int:
+        """Spatial tiles per image: the extent of kernel 1's partial axis."""
+        return self.tiles_x * self.tiles_y
+
+    @property
+    def blocks(self) -> int:
+        """Items: (spatial tile, Cout block, image group, split)."""
+        return self.tiles * self.cout_blocks * self.groups * self.splits
+
+    @property
+    def min_blocks(self) -> int:
+        """Blocks per SM the kernel's launch bounds ask of ptxas: 2 for the
+        narrow tiles (288 threads), 1 for the wide ones (BN >= 64, 384
+        threads: a loader warpgroup that hands its registers over)."""
+        return 2 if self.bn <= 32 else 1
+
+    @property
+    def out_bufs(self) -> int:
+        """y tiles and statistics slots: two for the narrow tiles (one
+        block barrier an item), one for the wide."""
+        return 2 if self.bn <= 32 else 1
+
+    @property
+    def halo_bytes(self) -> int:
+        """One stage's halo box: the TMA transaction."""
+        return self.g * (self.th + 2) * (self.tw + 2) * self.ck * 2
+
+    @property
+    def tap_bytes(self) -> int:
+        """One Cin chunk's tap slice [9][ck][bn]."""
+        return 9 * self.ck * self.bn * 2
+
+    @property
+    def stage_load_bytes(self) -> int:
+        """Bytes TMA brings into one stage (the noise on an item's last)."""
+        return (self.halo_bytes + (0 if self.resident else self.tap_bytes)
+                + (4 * self.bm if self.noise and self.splits == 1 else 0))
+
+    @property
+    def smem_bytes(self) -> int:
+        halo = _align(self.halo_bytes, 1024)
+        taps = 0 if self.resident else _align(self.tap_bytes, 1024)
+        noise = 4 * self.bm if self.noise and self.splits == 1 else 0
+        stage = _align(halo + taps + noise, 1024)
+        res = _align(self.chunks * self.tap_bytes, 1024) if self.resident \
+            else 0
+        out = self.out_bufs * self.bm * self.bn * 2 if self.tma_y else 0
+        slots = (self.out_bufs * (self.bm // 16) * self.bn * 2 * 4
+                 if self.noise else 0)
+        return self.stages * stage + res + out + slots + 16 * self.stages \
+            + 1024
+
+    def boxes(self):
+        """The TMA boxes of x, w, the noise and y, innermost first."""
+        return {"x": (self.ck, self.tw + 2, self.th + 2, self.g),
+                "w": (self.bna, self.ck, 9),
+                "noise": (self.tw, self.th, self.g),
+                "y": (self.bna, self.tw, self.th, self.g)}
+
+    def args(self):
+        """The int[11] the C entry points take."""
+        return (self.bn, self.mi, self.ck, self.tw, self.th, self.g,
+                self.splits, self.cps, self.stages, int(self.resident),
+                int(self.tma_y))
+
+    def ws_elems(self, n: int, h: int, w: int, cout: int) -> int:
+        """f32 elements of the split-K workspace (0 without a split)."""
+        return self.splits * n * h * w * cout if self.splits > 1 else 0
+
+
+def tma_refuses(cin: int, w: int, noise: bool,
+                aligned: bool = True) -> Optional[str]:
+    """Why TMA's rules keep a call off the Hopper body, or None.  Global
+    strides are multiples of 16 bytes (x's rows of Cin bf16, the noise's
+    rows of W f32) and bases 16-byte aligned; w's and y's rows of Cout
+    bf16 too, unless the taps are resident and y is stored from registers
+    (``plan_sm90`` decides that)."""
+    if not aligned:
+        return "a base not 16-byte aligned"
+    if cin % 8:
+        return "Cin % 8 != 0 (x's row stride)"
+    if noise and w % 4:
+        return "W % 4 != 0 (the noise's row stride)"
+    return None
+
+
+def plan_sm90(n: int, h: int, w: int, cin: int, cout: int,
+              noise: bool = False, aligned: bool = True
+              ) -> Optional[PlanSM90]:
+    """The Hopper body's plan of one call (``noise``: kernel 1), or None
+    where TMA's rules refuse it (``tma_refuses``, or Cout % 8 != 0 with
+    taps too many to stay resident).  ``h`` is the output rows.
+
+    - ``bn``: 128 for Cout > 64 (an input halo staged once for 128 output
+      channels, wgmma n128 as two 64-channel atoms), else Cout rounded up
+      to a power of two, at least 16 (Cout 2 runs n16 on zero taps).
+    - ``mi``: m64 tiles per consumer warpgroup: 2 (256-pixel blocks, half
+      the tap-slice traffic per pixel of 128) where that grid still fills
+      7/8 of the SMs (32^2 x 512: 128 items, one wave), else 1.
+    - ``ck``: Cin per stage, 16 for Cin <= 16 and for ``bn`` 128 (a stage of
+      128 channels' taps stays 37 KB), else 32; 32 for a split ``bn`` 128
+      (no y tile then: half the splits, each twice the chunk); 16 for
+      kernel 1 at ``bn`` 32 (at 32 its kernel needs 120 registers, and two
+      blocks of that do not share an SM).
+    - ``tw``, ``th``, ``g``: as ``plan``, with >= 16 pixels per image in a
+      tile (a 16-row fragment lies in one image: kernel 1's statistics).
+    - ``splits``, ``cps``: split-K where the items fill less than 7/8 of
+      the SMs, as ``plan``; a wide split keeps >= 2 chunks (64 channels)
+      per split (fewer, longer splits measured faster at 4^2 and 8^2).
+    - ``resident``: one Cout block and no split, and every chunk's taps
+      within ``SM90_RESIDENT_MAX``: the taps load once per block.
+    - ``tma_y``: y leaves by TMA store (Cout % 8 == 0, no split), else from
+      registers (Cout 2) or by the split's finish kernel.
+    - ``stages``: enough that ``stages - 1`` stages in flight hold
+      ``SM90_INFLIGHT`` bytes, 2 to ``SM90_MAX_STAGES``, fewer where the
+      shared memory would not let ``min_blocks`` blocks share an SM (on
+      the card more blocks beat a deeper ring: 2 stages in two blocks an
+      SM ran 512^2 32 -> 32 in 0.300 ms, 3 in one 0.332).
+    """
+    if tma_refuses(cin, w, noise, aligned):
+        return None
+    bn = 128 if cout > 64 else max(16, _pow2ceil(cout))
+    ck = 16 if cin <= 16 or bn == 128 or (noise and bn == 32) else 32
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    min_th = 16 // tw
+    cout_blocks = _cdiv(cout, bn)
+    chunks = _cdiv(cin, ck)
+    _, _, tx, ty, gr = _geometry(n, h, w, 256, tw, min_th)
+    fill = NUM_SMS - NUM_SMS // 8
+    mi = 2 if tx * ty * gr * cout_blocks >= fill else 1
+    th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 128 * mi, tw,
+                                                min_th)
+    blocks = tiles_x * tiles_y * groups * cout_blocks
+    splits = 1
+    if blocks < fill:
+        if bn == 128:
+            ck, chunks = 32, _cdiv(cin, 32)
+        splits = min(max(1, chunks // 2) if bn == 128 else chunks,
+                     _cdiv(2 * NUM_SMS, blocks))
+    cps = _cdiv(chunks, splits)
+    splits = _cdiv(chunks, cps)
+    resident = (cout_blocks == 1 and splits == 1
+                and chunks * 9 * ck * bn * 2 <= SM90_RESIDENT_MAX)
+    if cout % 8 and not resident:
+        return None
+    p = PlanSM90(bn=bn, mi=mi, ck=ck, tw=tw, th=th, g=g, splits=splits,
+                 cps=cps, stages=2, resident=resident,
+                 tma_y=cout % 8 == 0 and splits == 1, noise=noise,
+                 chunks=chunks, tiles_x=tiles_x, tiles_y=tiles_y,
+                 groups=groups, cout_blocks=cout_blocks)
+    want = min(SM90_MAX_STAGES,
+               max(2, 1 + _cdiv(SM90_INFLIGHT, p.stage_load_bytes)))
+    budget = min(MAX_SMEM, SM_SMEM // p.min_blocks - 1024)
+    for stages in range(want, 1, -1):
+        q = replace(p, stages=stages)
+        if q.smem_bytes <= budget:
+            return q
+    q = replace(p, stages=2)
+    return q if q.smem_bytes <= MAX_SMEM else None
+
+
+def plan_bf16(n: int, h: int, w: int, cin: int, cout: int,
+              noise: bool = False, aligned: bool = True
+              ) -> Union[PlanSM90, Plan]:
+    """The body of a bf16 call of kernel 1 (``noise``) or 2, full image or
+    row band, by one rule: the Hopper body wherever ``plan_sm90`` takes
+    the shape (every generate path shape at ffhq, cars and bedrooms and
+    every band shape of N = 2 and 4), the mma.sync body (``plan``) where
+    TMA's rules refuse it."""
+    return plan_sm90(n, h, w, cin, cout, noise, aligned) or plan(
+        n, h, w, cin, cout, noise)

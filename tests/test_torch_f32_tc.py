@@ -192,9 +192,11 @@ def test_plan_f32_splits_where_the_design_says():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_wrappers_get_a_plan_and_a_workspace_in_both_dtypes(dtype):
-    """``tc_launch_args`` serves both bodies: int[9] from ``plan`` for bf16,
-    int[11] from ``plan_f32`` for f32 (``stats`` for kernel 1), the
-    workspace sized by the plan's split, the plan cached per shape."""
+    """``tc_launch_args`` serves every body: for bf16 int[11] from
+    ``plan_sm90`` (the Hopper body, ``plan_bf16``'s rule) and, for a view
+    TMA refuses, int[9] from ``plan``; int[11] from ``plan_f32`` for f32
+    (``stats`` for kernel 1); the workspace sized by the plan's split, the
+    plan cached per shape."""
     n, h, w, cin, cout = 1, 4, 4, 512, 32
     x = torch.zeros((n, h, w, cin), dtype=dtype)
     for noise in (False, True):
@@ -204,11 +206,17 @@ def test_wrappers_get_a_plan_and_a_workspace_in_both_dtypes(dtype):
             assert len(c) == 11 and isinstance(p, tc_plan.PlanF32)
             assert p == tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
         else:
-            assert len(c) == 9 and isinstance(p, tc_plan.Plan)
+            assert len(c) == 11 and isinstance(p, tc_plan.PlanSM90)
+            assert p == tc_plan.plan_sm90(n, h, w, cin, cout, noise)
         assert p.splits > 1 and ws.dtype == torch.float32
         assert ws.numel() == p.splits * n * h * w * cout
         assert _build.tc_launch_args(x, n, h, w, cin, cout,
                                      noise=noise)[1] is c
+    if dtype == torch.bfloat16:  # a view 2 bytes off 16: the mma.sync body
+        view = torch.zeros(n * h * w * cin + 1, dtype=dtype)[1:].view(
+            n, h, w, cin)
+        p, c, _ = _build.tc_launch_args(view, n, h, w, cin, cout)
+        assert len(c) == 9 and isinstance(p, tc_plan.Plan)
     x = torch.zeros((8, 64, 64, 16), dtype=dtype)
     assert _build.tc_launch_args(x, 8, 64, 64, 16, 16)[2] is None
 

@@ -213,7 +213,15 @@ def test_launch_bookkeeping_adds_the_capture_delta_per_replay(counters):
      "gst::tc::(anonymous namespace)::Args, int, int)", None),
     ("void gst::(anonymous namespace)::quantize_s8_kernel<__nv_bfloat16>("
      "__nv_bfloat16 const*, float const*, signed char*, unsigned long, int)",
-     "quantize_s8")])
+     "quantize_s8"),
+    ("void gst::sm90::(anonymous namespace)::conv3x3_sm90_kernel<128, 2, "
+     "16, 1>(gst::sm90::(anonymous namespace)::Args)", "conv_in_stats"),
+    ("void gst::sm90::(anonymous namespace)::conv3x3_sm90_kernel<16, 2, 16, "
+     "2>(gst::sm90::(anonymous namespace)::Args)", "small_conv"),
+    ("void gst::sm90::(anonymous namespace)::conv3x3_sm90_kernel<32, 2, 32, "
+     "6>(gst::sm90::(anonymous namespace)::Args)", "conv_in_stats_rows"),
+    ("void gst::sm90::(anonymous namespace)::conv3x3_sm90_kernel<16, 1, 32, "
+     "7>(gst::sm90::(anonymous namespace)::Args)", "small_conv_rows")])
 def test_kernel_of_tells_the_three_kernels_apart(name, kernel):
     """A device trace's kernel names (as the card's profiler gives them)
     map to the hand-written kernel that launched them: one main kernel per

@@ -9,10 +9,12 @@ The CUDA kernels themselves are compared with the plain versions by the
 tests marked ``cuda``, which skip without a card, and by chip_smoke.py.
 """
 
+import contextlib
 import functools
 import itertools
 import sys
 from os.path import dirname, join
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -197,15 +199,16 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 def test_build_cache_key_covers_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
-    assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv3x3_tc.cuh",
-                     "conv3x3_tf32.cuh", "conv_in_stats.cu",
+    assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv3x3_sm90.cuh",
+                     "conv3x3_tc.cuh", "conv3x3_tf32.cuh", "conv_in_stats.cu",
                      "conv_in_stats_rows.cu", "quantize_s8.cu",
                      "sm90_util.cuh", "small_conv.cu", "small_conv_rows.cu"]
     assert _build._source_tag() == _build._source_tag()
 
 
-# Edge cases of the tensor-core kernels, bf16 (conv3x3_tc.cuh) and f32
-# (conv3x3_tf32.cuh, 3xTF32): 4^2 images with Cin 512 (a tile spanning
+# Edge cases of the tensor-core kernels, bf16 (conv3x3_sm90.cuh where TMA's
+# rules take the shape, and conv3x3_tc.cuh) and f32 (conv3x3_tf32.cuh,
+# 3xTF32): 4^2 images with Cin 512 (a tile spanning
 # images, split-K), W = 20 / H = 12 (ragged tiles), Cout = 2 (N padded to
 # 8), Cin = 3 (scalar staging), batch 1, Cout 24 (N = 32 with masked
 # channels), 256-pixel blocks of 64 channels with a ragged W, one 4^2 image
@@ -217,10 +220,36 @@ TC_EDGE_SHAPES = [(8, 4, 4, 512, 512), (8, 4, 4, 512, 32), (3, 12, 20, 32, 16),
                   (1, 13, 21, 512, 32)]
 
 
+@contextlib.contextmanager
+def _mma_sync_body():
+    """bf16 kernels 1 and 2 on the mma.sync body (conv3x3_tc.cuh) inside:
+    the rule's Hopper plan swapped out."""
+    _build._tc_plan_c.cache_clear()
+    try:
+        with mock.patch.object(tc_plan, "plan_sm90",
+                               lambda *args, **kw: None):
+            yield
+    finally:
+        _build._tc_plan_c.cache_clear()
+
+
+def _bodies(dtype):
+    """The bodies a dtype's calls can take: bf16 the Hopper body (where
+    TMA's rules take the shape) and the mma.sync body, f32 its one."""
+    return ((contextlib.nullcontext, _mma_sync_body)
+            if dtype == torch.bfloat16 else (contextlib.nullcontext,))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_kernels_match_plain(cuda, dtype, tol):
+    for body in _bodies(dtype):
+        with body():
+            _kernels_match_plain(cuda, dtype, tol)
+
+
+def _kernels_match_plain(cuda, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(0)
     shapes = [s[:5] for s in SHAPES] + [(2, 64, 64, 64, 2)] + TC_EDGE_SHAPES
     for (n, h, w, cin, cout) in shapes:
@@ -455,7 +484,14 @@ def test_tc_plan_fits_every_band_shape(batch, n):
 def test_cuda_band_forms_match_plain(cuda, dtype, tol):
     """The row-band forms of kernels 1 and 2 on the card against their
     plain twins at band shapes (a split-K band of Cin 512, one-row bands,
-    ragged tiles), each launch counted once, repeats bit-identical."""
+    ragged tiles), each launch counted once, repeats bit-identical; bf16
+    on both bodies."""
+    for body in _bodies(dtype):
+        with body():
+            _band_forms_match_plain(cuda, dtype, tol)
+
+
+def _band_forms_match_plain(cuda, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(0)
     for (n, h, w, cin, cout) in [(8, 1, 8, 512, 512), (8, 2, 16, 512, 512),
                                  (2, 3, 20, 32, 16), (1, 64, 64, 64, 16),
