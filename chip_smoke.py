@@ -10,8 +10,11 @@ Phases (any failure raises, so the exit code is non-zero):
    power limit (nvidia-smi).
 2. build   — compiles the CUDA kernels of ``gan_segmentation_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints ptxas's registers and
-   spills; every tensor-core kernel (``conv3x3_tc.cuh``, bf16, and
-   ``conv3x3_tf32.cuh``, 3xTF32) must spill 0 bytes.
+   spills; every tensor-core kernel (``conv3x3_tc.cuh``, bf16 and s8;
+   ``conv3x3_tf32.cuh``, 3xTF32; ``conv3x3_sm90.cuh``, bf16 and s8) must
+   spill 0 bytes, every s8 Hopper-body tile ``tc_plan.plan_s8`` can return
+   must be built, and the wide Hopper tiles must launch with 168
+   registers.
 3. kernels — each kernel against its plain PyTorch version, with the error
    and the tolerance, and per call its device time by CUDA-graph replay
    beside the plain version's, ``F.conv2d`` alone (the library call) and
@@ -37,23 +40,28 @@ Phases (any failure raises, so the exit code is non-zero):
    the same slice on the CPU (plain versions); samples/s beside the
    generator's and the decoder's stage times per batch (CUDA events).
 4b. int8  — int8 generation (``generate --quant``) at ffhq 1024^2, batch 8,
-   bf16, after the generate-as-graphs checks: each s8 body of kernels 1
+   bf16, after the generate-as-graphs checks: each s8 entry of kernels 1
    and 2 at every s8 3x3 shape of an int8-full batch (split-K ones among
-   them) equals the exact integer product bit for bit (deq 1, f32 out),
-   and with real scales, bias, noise and activation equals its plain twin
-   on >= 99.99% of the elements and within 1 bf16 ulp elsewhere (kernel
-   1's statistics within the bf16 body's tolerance); the quantize pass
-   equals its twin (ties at .5, saturation); device times beside the bf16
-   bodies' on the same shapes and the bound at 1,979 int8 TOPS;
-   ``FusedPipeline(quant="int8" | "int8-full")`` with seeded random
-   weights as CUDA graphs equal to the eager path bit for bit, a replay
-   repeated equal to itself, the s8 kernels' launches traced, masks and
-   image against the bf16 pipeline on the same z and noise (each mode held
-   just under its repeatable reading, ``INT8_MIN_AGREEMENT``), samples/s
-   of the three in turns; ``run_generate(quant="int8")`` and ``--resume``
-   byte-identical, ``quant="int8-full"`` alone and with ``dp=2`` (two
-   replicas on the one card).  Prints a ``{"int8": ...}`` line before the
-   kernels'.
+   them), on the Hopper body the rule picks and on the mma.sync s8 body
+   (``mma_sync_s8_body``) on the same inputs, equals the exact integer
+   product bit for bit (deq 1, f32 out), and with real scales, bias, noise
+   and activation gives y bit-equal between the bodies and to its plain
+   twin (kernel 1's statistics within ``STAT_TOL``), repeats and graph
+   replays bit-identical; the s8 edge cases on both bodies (phase 3); the
+   quantize pass equals its twin (ties at .5, saturation); device times of
+   both bodies beside the bf16 Hopper body on the same shapes and the
+   bound at 1,979 int8 TOPS; ``FusedPipeline(quant="int8" |
+   "int8-full")`` with seeded random weights as CUDA graphs equal to the
+   eager path bit for bit, a replay repeated equal to itself, the s8
+   kernels' launches traced, every one on the Hopper body, batches against
+   the same z and noise with the s8 calls on the mma.sync body (int8 bit
+   for bit, int8-full's logits within bf16's own distance from f32), masks
+   and image against the bf16 pipeline on the same z and noise (each mode
+   held just under its repeatable reading, ``INT8_MIN_AGREEMENT``),
+   samples/s of the three in turns; ``run_generate(quant="int8")`` and
+   ``--resume`` byte-identical, ``quant="int8-full"`` alone and with
+   ``dp=2`` (two replicas on the one card).  Prints a ``{"int8": ...}``
+   line before the kernels'.
 4c. spatial — ``generate --spatial`` (``phase_spatial``, after 4b): the
    row-band forms of kernels 1 and 2 against their plain twins at every
    band shape of the grids below, bf16 and f32, repeats bit-identical, and
@@ -295,11 +303,9 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
-    """Device time of one ``fn()``: ``reps`` calls captured in a CUDA graph,
-    replayed ``replays`` times between CUDA events, after a warm-up call
-    outside the graph.  The host's time per call (the wrappers' ctypes and
-    checks, 30-180 us) is not in it."""
+def captured(fn, reps: int = 1):
+    """-> (a CUDA graph of ``reps`` calls of ``fn``, the last call's
+    outputs), after a warm-up call on a side stream."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -309,7 +315,17 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):
-            fn()
+            outs = fn()
+    return graph, outs
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in a CUDA graph,
+    replayed ``replays`` times between CUDA events, after a warm-up call
+    outside the graph.  The host's time per call (the wrappers' ctypes and
+    checks, 30-180 us) is not in it."""
+    import torch
+    graph, _ = captured(fn, reps)
     graph.replay()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
@@ -368,8 +384,8 @@ BODY_LAUNCHES = {}
 
 @contextlib.contextmanager
 def mma_sync_body():
-    """bf16 kernels 1 and 2 on the mma.sync body (conv3x3_tc.cuh) inside:
-    the rule's Hopper plan (tc_plan.plan_sm90) swapped out, as
+    """bf16 and s8 kernels 1 and 2 on the mma.sync bodies (conv3x3_tc.cuh)
+    inside: the rule's Hopper plan (tc_plan.plan_sm90) swapped out, as
     phase_split_sweep swaps the f32 plan, so that one timing can set the
     two bodies side by side on the same inputs."""
     from unittest import mock
@@ -379,6 +395,26 @@ def mma_sync_body():
     try:
         with mock.patch.object(tc_plan, "plan_sm90",
                                lambda *args, **kw: None):
+            yield
+    finally:
+        _build._tc_plan_c.cache_clear()
+
+
+@contextlib.contextmanager
+def mma_sync_s8_body():
+    """The s8 calls of kernels 1 and 2 alone on the mma.sync s8 body
+    inside (tc_plan.plan_s8 swapped for tc_plan.plan(s8=True)); the bf16
+    calls keep their body, so that an int8 pipeline's float path (its
+    generator under int8, its calibration) runs as outside."""
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+
+    def plan_s8(n, h, w, cin, cout, noise=False, aligned=True):
+        return tc_plan.plan(n, h, w, cin, cout, noise, s8=True)
+    _build._tc_plan_c.cache_clear()
+    try:
+        with mock.patch.object(tc_plan, "plan_s8", plan_s8):
             yield
     finally:
         _build._tc_plan_c.cache_clear()
@@ -960,6 +996,99 @@ def phase_sm90_sweep(torch):
             + " ms")
 
 
+# The s8 calls whose tile the s8 rule sets apart from bf16's (tc_plan.
+# plan_sm90(s8=True)): 32-channel tiles at Cin <= 64, kernel 1's BN 32 in
+# 128-pixel blocks, Cin 16 in tap pairs
+S8_SWEEP = [("small_conv_s8", (8, 512, 512, 64, 64)),
+            ("small_conv_s8", (8, 512, 512, 32, 64)),
+            ("small_conv_s8", (8, 256, 256, 64, 128)),
+            ("small_conv_s8", (8, 1024, 1024, 16, 16)),
+            ("conv_in_stats_s8", (8, 1024, 1024, 16, 16)),
+            ("conv_in_stats_s8", (8, 512, 512, 32, 32)),
+            ("conv_in_stats_s8", (8, 256, 256, 64, 64))]
+
+
+def s8_tile_plan(shape, noise, bn, mi, ck, stages):
+    """The s8 Hopper plan of ``shape`` with its tile set by hand: (bn, mi,
+    ck, stages), the geometry, blocks and resident taps as the rule derives
+    them, no split."""
+    from gan_segmentation_tpu_torch.kernels import tc_plan
+    n, h, w, cin, cout = shape
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    th, g, tiles_x, tiles_y, groups = tc_plan._geometry(n, h, w, 128 * mi,
+                                                        tw, 16 // tw)
+    cout_blocks, chunks = -(-cout // bn), -(-cin // ck)
+    return tc_plan.PlanSM90(
+        bn=bn, mi=mi, ck=ck, tw=tw, th=th, g=g, splits=1, cps=chunks,
+        stages=stages, resident=(cout_blocks == 1 and chunks * 9 * ck * bn
+                                 <= tc_plan.SM90_RESIDENT_MAX),
+        tma_y=cout % 8 == 0, noise=noise, chunks=chunks, tiles_x=tiles_x,
+        tiles_y=tiles_y, groups=groups, cout_blocks=cout_blocks, s8=True)
+
+
+def phase_s8_sweep(torch):
+    """Device time (graph replay) of the s8 calls of ``S8_SWEEP`` on the
+    Hopper body with the tile varied, the rule's first: every built tile
+    (``tc_plan.S8_SM90_TILES``) of BN up to the bf16 rule's (Cin 16 also
+    in 32-byte stages, half of each empty) and 2-4 stages that fit beside
+    the blocks an SM the tile asks for.  The
+    evidence behind plan_sm90's s8 rules; not in the default run (~1 min
+    after the build): python3 -c "import chip_smoke as c, torch;
+    c.phase_s8_sweep(torch)"."""
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+
+    def timed(fn, p):
+        _build._tc_plan_c.cache_clear()
+        try:
+            with mock.patch.object(tc_plan, "plan_s8",
+                                   lambda *args, **kw: p):
+                return graph_ms(fn)
+        finally:
+            _build._tc_plan_c.cache_clear()
+
+    for kernel, shape in S8_SWEEP:
+        n, h, w, cin, cout = shape
+        k1 = kernel == "conv_in_stats_s8"
+        x = torch.randint(-127, 128, (n, h, w, cin), dtype=torch.int8,
+                          device=dev, generator=g)
+        wq = torch.randint(-127, 128, (3, 3, cout, cin), dtype=torch.int8,
+                           device=dev, generator=g)
+        deq = torch.rand(cout, device=dev, generator=g) * 1e-4
+        b = torch.randn(cout, device=dev, generator=g)
+        noise = torch.randn((n, h, w), device=dev, generator=g)
+        if k1:
+            def fn():
+                return k1m.conv3x3_noise_bias_lrelu_instats_s8(
+                    x, wq, deq, noise, b, b)
+        else:
+            def fn():
+                return k2m.conv3x3_small_s8(x, wq, deq, b, leaky=0.2)
+        rule = tc_plan.plan_s8(*shape, noise=k1)
+        cells = [f"rule {rule.bn}/{rule.mi}/{rule.ck}/{rule.stages} "
+                 f"{timed(fn, rule):.4f}"]
+        top = 128 if cout > 64 else max(16, 1 << (cout - 1).bit_length())
+        for bn, mi, ck in sorted(tc_plan.S8_SM90_TILES[k1]):
+            if bn > top or (ck == 16 and cin != 16) or ck > 2 * cin:
+                continue
+            for stages in (2, 3, 4):
+                p = s8_tile_plan(shape, k1, bn, mi, ck, stages)
+                if (p.pairs and not p.resident or p.smem_bytes > min(
+                        tc_plan.MAX_SMEM,
+                        tc_plan.SM_SMEM // p.min_blocks - 1024)
+                        or p == rule):
+                    continue
+                cells.append(f"{bn}/{mi}/{ck}/{stages} {timed(fn, p):.4f}")
+        log(f"  s8 tiles {kernel} {shape} (bn/mi/ck/stages ms): "
+            + "; ".join(cells))
+
+
 # Edge cases of the tensor-core kernels (n, h, w, cin, cout), run in bf16
 # (on both bodies) and f32: 4^2 tiles spanning images with Cin 512
 # (split-K), ragged 12 x 20
@@ -974,6 +1103,18 @@ TC_EDGES = [(8, 4, 4, 512, 512), (8, 4, 4, 512, 32), (3, 12, 20, 32, 16),
             (8, 64, 72, 64, 64), (1, 13, 21, 512, 32), (3, 4, 4, 64, 64),
             (2, 5, 6, 40, 24), (1, 32, 32, 500, 32)]
 F32_EDGES = [(2, 2, 2, 8, 8), (1, 1, 1, 4, 4)]
+# The s8 bodies' edge cases (tests/test_torch_sm90_s8.py plans them):
+# tiles spanning images, split-K, ragged tiles, Cout 2 and 24 (masked
+# channels, stores from registers), Cin 48 (a short chunk), 496 (a short
+# last split), Cin 3, 40 and 8 (refused: rows not a multiple of 16 bytes),
+# W 6 and 7 (kernel 1 refused: the noise's rows), Cout 200 (two
+# 128-channel blocks, the second ragged)
+S8_EDGES = [(8, 4, 4, 512, 512), (3, 12, 20, 32, 16), (2, 12, 20, 64, 64),
+            (4, 64, 64, 32, 2), (2, 9, 7, 3, 16), (1, 64, 64, 64, 16),
+            (1, 16, 16, 512, 512), (8, 64, 72, 64, 64), (1, 13, 21, 512, 32),
+            (3, 4, 4, 64, 64), (2, 5, 6, 48, 24), (1, 32, 32, 496, 32),
+            (2, 33, 40, 32, 2), (2, 8, 8, 16, 200), (2, 5, 6, 40, 24),
+            (1, 8, 8, 8, 8)]
 
 
 def phase_tc_edges(torch, g, inputs):
@@ -981,13 +1122,77 @@ def phase_tc_edges(torch, g, inputs):
     plain versions: kernel 1's y and statistics, kernel 2 with its three
     epilogues, and a repeat of each call bit-identical; bf16 on both bodies
     (the rule's, Hopper where TMA's rules take the shape, then the mma.sync
-    body everywhere), then f32."""
+    body everywhere), then f32; then the s8 entries on both bodies, y
+    bit-equal to the plain epilogue."""
     runs = (("bf16", torch.bfloat16, contextlib.nullcontext),
             ("bf16 mma.sync body", torch.bfloat16, mma_sync_body),
             ("f32", torch.float32, contextlib.nullcontext))
     for tag, dt, body in runs:
         with body():
             edge_cases(torch, g, inputs, tag, dt)
+    for tag, body in (("s8", contextlib.nullcontext),
+                      ("s8 mma.sync body", mma_sync_s8_body)):
+        with body():
+            s8_edge_cases(torch, g, tag)
+
+
+def s8_edge_cases(torch, g, tag):
+    """The s8 entries at ``S8_EDGES`` on the body the plan picks: the s32
+    sums exact (deq 1, f32 out), kernel 1's y bit-equal to its plain twin
+    and its statistics within ``STAT_TOL``, kernel 2 with its three
+    epilogues bit-equal, each call's repeat bit-identical."""
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels import small_conv as k2m
+    from gan_segmentation_tpu_torch.kernels import tc_plan
+
+    dev = torch.device("cuda")
+    bodies = {}
+    for (n, h, w, cin, cout) in S8_EDGES:
+        xq = torch.randint(-127, 128, (n, h, w, cin), dtype=torch.int8,
+                           device=dev, generator=g)
+        wq = torch.randint(-127, 128, (3, 3, cout, cin), dtype=torch.int8,
+                           device=dev, generator=g)
+        deq = (torch.rand(cout, device=dev, generator=g) + 0.5) / (
+            127.0 * (9 * cin) ** 0.5)
+        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+        noise = torch.randn((n, h, w), generator=g, device=dev)
+        ones = torch.ones(cout, device=dev)
+        zeros = torch.zeros(cout, device=dev)
+        acc = k2m.conv3x3_s8_acc(xq, wq)
+        name = f"s8 edge {tag} {(n, h, w, cin, cout)}"
+        ex = (k2m.conv3x3_small_s8(xq, wq, ones, out_dtype=torch.float32),
+              k1m.conv3x3_noise_bias_lrelu_instats_s8(
+                  xq, wq, ones, torch.zeros_like(noise), zeros, zeros,
+                  leaky=1.0, out_dtype=torch.float32)[0])
+        check_later(all(torch.equal(e, acc) for e in ex),
+                    f"{name}: the s32 sums differ from the exact product")
+        args = (xq, wq, deq, noise, b, b)
+        got = k1m.conv3x3_noise_bias_lrelu_instats_s8(*args)
+        want = k1m.conv3x3_noise_bias_lrelu_instats_s8_plain(*args)
+        again = k1m.conv3x3_noise_bias_lrelu_instats_s8(*args)
+        torch.cuda.synchronize()
+        check_later(torch.equal(got[0], want[0]),
+                    f"{name} conv_in_stats_s8: y differs from plain, max "
+                    f"{max_err(got[0], want[0]):.3g}")
+        for what, a, r in zip(("mean", "var"), got[1:], want[1:]):
+            check_close(f"{name} conv_in_stats_s8 {what}", a, r,
+                        **STAT_TOL["bf16"])
+        check_later(all(torch.equal(a, r) for a, r in zip(got, again)),
+                    f"{name}: conv_in_stats_s8 repeat differs")
+        for kw in (dict(leaky=0.2), dict(relu=True), {}):
+            ys = k2m.conv3x3_small_s8(xq, wq, deq, b, **kw)
+            ysp = k2m.conv3x3_small_s8_plain(xq, wq, deq, b, **kw)
+            check_later(torch.equal(ys, ysp) and torch.equal(
+                ys, k2m.conv3x3_small_s8(xq, wq, deq, b, **kw)),
+                f"{name} small_conv_s8 {kw}: y differs from plain or a "
+                f"repeat differs")
+        for k1 in (True, False):
+            body = "sm90" if tc_plan.plan_s8(n, h, w, cin, cout,
+                                             k1).sm90 else "mma_sync"
+            bodies[body] = bodies.get(body, 0) + 1
+    log(f"tensor-core edge cases {tag}: {len(S8_EDGES)} shapes, kernel 1 "
+        f"with statistics and kernel 2 x 3 epilogues, y bit-equal to the "
+        f"plain epilogue; calls by body {bodies}")
 
 
 def edge_cases(torch, g, inputs, tag, dt):
@@ -2835,14 +3040,6 @@ INT8_MIN_AGREEMENT = {"int8": 0.96, "int8-full": 0.91}
 INT8_MIN_PSNR = 19.5
 
 
-def bf16_ulp(torch, v):
-    """One bf16 ulp at each value of ``v`` (f32): 2^(e - 8) for |v| =
-    m * 2^e, m in [0.5, 1); the smallest normal's where v is 0."""
-    _, e = torch.frexp(v.float())
-    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8).clamp(
-        min=2.0 ** -133)
-
-
 def s8_bytes_ops(n, h, w, cin, cout, kernel1):
     """(bytes, int8 operations) of one s8 3x3 call: x and w once in s8, y
     once in bf16, deq and bias (kernel 1: the noise scale, the noise and
@@ -2872,11 +3069,31 @@ def quantize_calls(torch, pipe):
     return seen
 
 
+def graph_replays_equal(torch, fn, want, replays=2):
+    """``fn`` captured in a CUDA graph and replayed ``replays`` times:
+    whether every replay's outputs (a tuple of tensors) equal ``want`` bit
+    for bit."""
+    graph, outs = captured(fn)
+    same = True
+    for _ in range(replays):
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= all(torch.equal(a, b) for a, b in zip(outs, want))
+    del graph, outs
+    return same
+
+
 def phase_s8_kernels(torch, gcfg, scfg, pipe):
-    """(i) and (ii) of the int8 phase, and the device times: each s8 body
-    at every s8 3x3 shape of an int8-full batch at ffhq 1024^2, batch 8 (the
-    split-K shapes among them), and the quantize pass at every input an
-    int8-full batch quantizes (``pipe``'s calls)."""
+    """(i) and (ii) of the int8 phase, and the device times: each s8 entry
+    at every s8 3x3 shape of an int8-full batch at ffhq 1024^2, batch 8
+    (the split-K shapes among them), on the body the rule picks
+    (``tc_plan.plan_s8``: the Hopper body at every one of them) and on the
+    mma.sync s8 body (``mma_sync_s8_body``), on the same inputs: the s32
+    sums exact on both, y bit-equal between them and to the plain
+    epilogue, kernel 1's statistics within ``STAT_TOL``, repeats and graph
+    replays bit-identical; device times of both beside the bf16 Hopper
+    body on the same shapes and the bound; then the quantize pass at every
+    input an int8-full batch quantizes (``pipe``'s calls)."""
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import quantize as kqm
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
@@ -2896,8 +3113,9 @@ def phase_s8_kernels(torch, gcfg, scfg, pipe):
             check_later(torch.equal(kqm.quantize_s8(t, one),
                                     kqm.quantize_s8_plain(t, one)),
                         f"quantize_s8 {dt}: ties or saturation differ")
-    out = {k: dict(ms=0.0, plain_ms=0.0, bf16_ms=0.0, bounds=[], shapes=0,
-                   exact=True, equal_min=1.0, ulps_max=0.0, err=0.0)
+    out = {k: dict(ms=0.0, mma_sync_ms=0.0, plain_ms=0.0, bf16_ms=0.0,
+                   bounds=[], shapes=0, sm90_shapes=0, exact=True,
+                   equal=True, repeats=True, err=0.0, per_shape=[])
            for k in ("conv_in_stats_s8", "small_conv_s8")}
     shapes = q8.conv3x3_s8_shapes(gcfg, scfg, BATCH)
     stat_err = 0.0
@@ -2918,17 +3136,14 @@ def phase_s8_kernels(torch, gcfg, scfg, pipe):
             bias = 0.1 * torch.randn(cout, device=dev, generator=g)
             noise = torch.randn((n, h, w), device=dev, generator=g)
             ns = 0.1 * torch.randn(cout, device=dev, generator=g)
-            # (i) exactness: deq = 1, no bias, no activation, f32 out
+            wb = (torch.randn((3, 3, cin, cout), device=dev, generator=g)
+                  / (9 * cin) ** 0.5).bfloat16()
             if kernel1:
-                y = k1m.conv3x3_noise_bias_lrelu_instats_s8(
-                    xq, wq, ones, torch.zeros_like(noise), zeros, zeros,
-                    leaky=1.0, out_dtype=torch.float32)[0]
-            else:
-                y = k2m.conv3x3_small_s8(xq, wq, ones,
-                                         out_dtype=torch.float32)
-            exact = torch.equal(y, acc)
-            # (ii) the real epilogue against its twin
-            if kernel1:
+                def exact():  # deq = 1, no bias, no activation, f32 out
+                    return k1m.conv3x3_noise_bias_lrelu_instats_s8(
+                        xq, wq, ones, torch.zeros_like(noise), zeros, zeros,
+                        leaky=1.0, out_dtype=torch.float32)[0]
+
                 def run():
                     return k1m.conv3x3_noise_bias_lrelu_instats_s8(
                         xq, wq, deq, noise, ns, bias)
@@ -2936,64 +3151,97 @@ def phase_s8_kernels(torch, gcfg, scfg, pipe):
                 def plain():
                     return k1m.conv3x3_noise_bias_lrelu_instats_s8_plain(
                         xq, wq, deq, noise, ns, bias)
-                got, mean, var = run()
-                want, pm, pv = k1m.s8_in_stats_epilogue_plain(
-                    acc, deq, noise, ns, bias)
-                check_close(f"{key} {n}x{h}x{w}x{cin}->{cout} mean", mean,
-                            pm, **STAT_TOL["bf16"])
-                check_close(f"{key} {n}x{h}x{w}x{cin}->{cout} var", var, pv,
-                            **STAT_TOL["bf16"])
-                stat_err = max(stat_err, max_err(mean, pm), max_err(var, pv))
-                wb = (torch.randn((3, 3, cin, cout), device=dev,
-                                  generator=g) / (9 * cin) ** 0.5).bfloat16()
 
                 def bf16_body():
                     return k1m.conv3x3_noise_bias_lrelu_instats(
                         xb, wb, noise, ns, bias)
+                want, pm, pv = k1m.s8_in_stats_epilogue_plain(
+                    acc, deq, noise, ns, bias)
             else:
+                def exact():
+                    return k2m.conv3x3_small_s8(xq, wq, ones,
+                                                out_dtype=torch.float32)
+
                 def run():
-                    return k2m.conv3x3_small_s8(xq, wq, deq, bias, leaky=0.2)
+                    return (k2m.conv3x3_small_s8(xq, wq, deq, bias,
+                                                 leaky=0.2),)
 
                 def plain():
                     return k2m.conv3x3_small_s8_plain(xq, wq, deq, bias,
                                                       leaky=0.2)
-                got = run()
-                want = k2m.s8_epilogue_plain(acc, deq, bias, leaky=0.2)
-                wb = (torch.randn((3, 3, cin, cout), device=dev,
-                                  generator=g) / (9 * cin) ** 0.5).bfloat16()
 
                 def bf16_body():
                     return k2m.conv3x3_small(xb, wb, bias, leaky=0.2)
-            diff = (got.float() - want.float()).abs()
-            equal = float((diff == 0).float().mean())
-            ulps = float((diff / bf16_ulp(torch, want)).max())
+                want = k2m.s8_epilogue_plain(acc, deq, bias, leaky=0.2)
             tag = f"{key} {n}x{h}x{w}x{cin}->{cout}"
-            check_later(exact, f"{tag}: the s8 sums differ from the exact "
-                               f"integer product")
-            check_later(equal >= 0.9999 and ulps <= 1.0,
-                        f"{tag}: y equal on {equal:.6f} of the elements, "
-                        f"{ulps:.2f} bf16 ulps at most")
-            r["exact"] &= exact
-            r["equal_min"] = min(r["equal_min"], equal)
-            r["ulps_max"] = max(r["ulps_max"], ulps)
-            r["err"] = max(r["err"], float(diff.max()))
-            r["ms"] += graph_ms(run)
-            r["plain_ms"] += graph_ms(plain, reps=1, replays=2)
-            r["bf16_ms"] += graph_ms(bf16_body)
-            r["bounds"].append(bound(*s8_bytes_ops(n, h, w, cin, cout,
-                                                   kernel1), PEAK["int8"]))
+            plan = tc_plan.plan_s8(n, h, w, cin, cout, kernel1)
+            check_later(plan.sm90, f"{tag}: the rule keeps the s8 call off "
+                                   f"the Hopper body")
+            got, again = run(), run()
+            exact_h = torch.equal(exact(), acc)
+            replays = graph_replays_equal(torch, run, got)
+            with mma_sync_s8_body():
+                ref = run()
+                exact_m = torch.equal(exact(), acc)
+                mma_ms = graph_ms(run)
+            torch.cuda.synchronize()
+            equal = (torch.equal(got[0], ref[0])
+                     and torch.equal(got[0], want))
+            repeats = all(torch.equal(a, b) for a, b in zip(got, again)) \
+                and replays
+            check_later(exact_h and exact_m, f"{tag}: the s32 sums differ "
+                        f"from the exact integer product (Hopper body "
+                        f"{exact_h}, mma.sync body {exact_m})")
+            check_later(equal, f"{tag}: y differs between the bodies or "
+                               f"from the plain epilogue, max "
+                               f"{max_err(got[0], want):.3g}")
+            check_later(repeats, f"{tag}: a repeat or a graph replay "
+                                 f"differs")
+            if kernel1:
+                for what, a, b in (("mean", got[1], pm), ("var", got[2], pv),
+                                   ("mean (mma.sync)", ref[1], pm),
+                                   ("var (mma.sync)", ref[2], pv)):
+                    check_close(f"{tag} {what}", a, b, **STAT_TOL["bf16"])
+                    stat_err = max(stat_err, max_err(a, b))
+            ms = graph_ms(run)
+            plain_ms = graph_ms(plain, reps=1, replays=2)
+            bf16_ms = graph_ms(bf16_body)
+            b = bound(*s8_bytes_ops(n, h, w, cin, cout, kernel1),
+                      PEAK["int8"])
+            r["exact"] &= exact_h and exact_m
+            r["equal"] &= equal
+            r["repeats"] &= repeats
+            r["err"] = max(r["err"], max_err(got[0], want))
+            r["ms"] += ms
+            r["mma_sync_ms"] += mma_ms
+            r["plain_ms"] += plain_ms
+            r["bf16_ms"] += bf16_ms
+            r["bounds"].append(b)
             r["shapes"] += 1
-            if tc_plan.plan(n, h, w, cin, cout, kernel1, s8=True).splits > 1:
+            r["sm90_shapes"] += int(plan.sm90)
+            r["per_shape"].append(dict(
+                shape=[n, h, w, cin, cout], ms=ms, mma_sync_ms=mma_ms,
+                bf16_ms=bf16_ms, plain_ms=plain_ms, bound_ms=b[0],
+                bound_by=b[1], plan=list(plan.args())))
+            if plan.splits > 1:
                 r["split"] = r.get("split", 0) + 1
-            del x, xb, xq, wq, acc, got, want, diff
+            log(f"  {tag}: Hopper body {ms:.4f} ms, mma.sync s8 body "
+                f"{mma_ms:.4f}, bf16 Hopper body {bf16_ms:.4f}, plain "
+                f"{plain_ms:.3f}, bound {b[0]:.4f} ({b[1]}); exact "
+                f"{exact_h and exact_m}, y bit-equal {equal}, repeats and "
+                f"replays {repeats}; plan {plan.args()}")
+            del x, xb, xq, wq, wb, acc, got, again, ref, want
         r["bound_ms"], r["bound_by"] = summed_bound(r.pop("bounds"))
         log(f"{key} at the {r['shapes']} s8 shapes of an int8-full ffhq "
-            f"1024^2 batch of {BATCH} ({r.get('split', 0)} split-K): exact "
-            f"s32 sums {r['exact']}; real epilogue y equal on >= "
-            f"{r['equal_min']:.6f} of the elements, <= {r['ulps_max']:.2f} "
-            f"bf16 ulp; device ms per batch {r['ms']:.4f} (bf16 body on the "
-            f"same shapes {r['bf16_ms']:.4f}, plain {r['plain_ms']:.3f}), "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']})")
+            f"1024^2 batch of {BATCH} ({r.get('split', 0)} split-K, "
+            f"{r['sm90_shapes']} on the Hopper body): exact s32 sums on "
+            f"both bodies {r['exact']}; y bit-equal between the bodies and "
+            f"to the plain epilogue {r['equal']}; repeats and graph replays "
+            f"bit-identical {r['repeats']}; device ms per batch "
+            f"{r['ms']:.4f} (mma.sync s8 body {r['mma_sync_ms']:.4f}, bf16 "
+            f"Hopper body on the same shapes {r['bf16_ms']:.4f}, plain "
+            f"{r['plain_ms']:.3f}), bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
     out["conv_in_stats_s8"]["stat_err"] = stat_err
     # the quantize pass at every input an int8-full batch quantizes
     q = dict(ms=0.0, plain_ms=0.0, bounds=[], calls=0, exact=True)
@@ -3020,6 +3268,22 @@ def phase_s8_kernels(torch, gcfg, scfg, pipe):
     return out
 
 
+# bf16's own mean |logit error| from f32 through the ffhq 1024^2 stack, as
+# check_bf16_slice reads it in phase_spatial (0.04749 in the card runs of
+# the Hopper body's bf16 form): the scale below which two int8-full runs
+# that differ only in their statistics' summation order must stay
+BF16_FROM_F32_LOGITS = 0.047
+
+
+def int8_logits(torch, program, z, noise):
+    """The f32 logits of an int8 ``FusedProgram`` on z and the noise: its
+    forward up to the class mask."""
+    with torch.inference_mode():
+        _, feats = program.model(z, noise=noise, quant=program.gen_quant)
+        return program.decoder.forward_int8(feats, program.dec_quant,
+                                            program.dtype).float()
+
+
 def masks_of(batch):
     """A batch's masks as (N, H, W) {0, 1}, unpacked where bit-packed."""
     import numpy as np
@@ -3034,11 +3298,14 @@ def phase_int8(torch, smi):
     versions (``phase_s8_kernels``); (iii) ``FusedPipeline(quant="int8")``
     and ``"int8-full"`` with seeded random weights as CUDA graphs: batches
     0-3 equal the eager path's bit for bit, a replay repeated equals
-    itself, the s8 kernels' launches in device traces, the masks against
-    the bf16 pipeline's on the same z and noise, the int8-full image's
-    PSNR, samples/s of the three in turns; (iv) ``run_generate(quant=
-    "int8")`` writes pairs and ``--resume`` rewrites a lost tail byte for
-    byte."""
+    itself, the s8 kernels' launches in device traces, every one of them
+    on the Hopper body, batches 0-3 against the same z and noise with the
+    s8 calls on the mma.sync s8 body (int8 bit for bit; int8-full, whose
+    statistics differ by summation order: logits distance and masks), the
+    masks against the bf16 pipeline's on the same z and noise, the
+    int8-full image's PSNR, samples/s of the three in turns; (iv)
+    ``run_generate(quant="int8")`` writes pairs and ``--resume`` rewrites
+    a lost tail byte for byte."""
     import numpy as np
 
     from gan_segmentation_tpu_torch.apps.main import run_generate
@@ -3053,6 +3320,7 @@ def phase_int8(torch, smi):
     t0 = time.perf_counter()
     gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
     launched = {k: {} for k in S8_KERNELS}
+    traced_before = dict(BODY_LAUNCHES)
     with tempfile.TemporaryDirectory() as base:
         none = join(base, "none")
         solver = SegSolver(10, "", none, cfg=scfg)
@@ -3131,6 +3399,39 @@ def phase_int8(torch, smi):
         check_later(quality["int8"]["images_equal"],
                     "int8: the images differ from bf16's (the generator is "
                     "float under int8)")
+        # the s8 Hopper body against the mma.sync s8 body on the path: a
+        # twin of the eager pipeline above (its draws, its calibration)
+        # with its s8 calls forced onto the mma.sync body, its float calls
+        # as before; logits of both programs on one more batch's inputs
+        bodies = {}
+        for q in ("int8", "int8-full"):
+            with mma_sync_s8_body():
+                alt = FusedPipeline(fresh(), solver, quant=q)
+                alt._batch = lambda b, p=alt: [p._fused(
+                    *p.gen.next_inputs(b))]
+                alt.program()
+                got = [[t.cpu() for t in alt._batch(BATCH)[0]]
+                       for _ in range(INT8_BATCHES)]
+                z, nz = alt.gen.draw_inputs(BATCH)
+                lm = int8_logits(torch, alt.program(), z, nz)
+            lh = int8_logits(torch, pipes[q].program(), z, nz)
+            d = (lh - lm).abs()
+            bodies[q] = dict(
+                batches_equal=all(torch.equal(a, b) for x, y in zip(
+                    runs[q], got) for a, b in zip(x, y)),
+                mask_agreement=float(np.mean([
+                    (masks_of(a) == masks_of(b)).mean()
+                    for a, b in zip(runs[q], got)])),
+                logits_mean=float(d.mean()), logits_max=float(d.max()))
+            del alt, got, z, nz, lh, lm, d
+        check_later(bodies["int8"]["batches_equal"],
+                    f"int8: batches on the Hopper s8 body differ from the "
+                    f"mma.sync s8 body's {bodies['int8']}")
+        check_later(bodies["int8-full"]["logits_mean"]
+                    < BF16_FROM_F32_LOGITS,
+                    f"int8-full: logits on the two s8 bodies "
+                    f"{bodies['int8-full']}, not within bf16's own "
+                    f"{BF16_FROM_F32_LOGITS} from f32")
         rates = {k: [] for k in ("bf16", "int8", "int8-full")}
         for tag in ("bf16", "int8", "int8-full", "int8-full", "int8",
                     "bf16"):
@@ -3224,6 +3525,15 @@ def phase_int8(torch, smi):
     for k in S8_KERNELS:
         check_later(sum(launched[k].values()) > 0,
                     f"int8: {k} was not launched on the main path")
+    # every traced s8 launch of the phase's main paths ran the Hopper body
+    by_body = {k: {body: n - traced_before.get((kk, body), 0)
+                   for (kk, body), n in sorted(BODY_LAUNCHES.items())
+                   if kk == k and n > traced_before.get((kk, body), 0)}
+               for k in ("conv_in_stats_s8", "small_conv_s8")}
+    for k, by in by_body.items():
+        check_later(set(by) == {"sm90"},
+                    f"int8: {k}'s traced launches by body {by}, not all on "
+                    f"the Hopper body")
     seconds = time.perf_counter() - t0
     log(f"int8 generation at ffhq 1024^2, batch {BATCH} (bf16 compute): "
         f"graphs equal eager (batches 0-{INT8_BATCHES - 1}); launches per "
@@ -3231,6 +3541,8 @@ def phase_int8(torch, smi):
         f"{quality}; device pipeline samples/s "
         + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)}"
                     for k, vs in rates.items())
+        + f"; traced s8 launches by body {by_body}; against the mma.sync "
+        f"s8 body on the same z and noise {bodies}"
         + f"; --dp 2 parts = the one-device int8-full program on each "
         f"half {dp_equal}; run_generate --quant int8: {INT8_GENERATE} "
         f"pairs, --resume byte-identical {resume}, --quant int8-full "
@@ -3238,7 +3550,8 @@ def phase_int8(torch, smi):
         f"{t_kernels:.1f} s) on {smi}")
     return dict(kernels=kern, launches=launched, per_batch=per_batch,
                 quality=quality, rates=rates, resume=resume,
-                dp_parts_equal=dp_equal, seconds=seconds)
+                dp_parts_equal=dp_equal, traced_launches_by_body=by_body,
+                s8_bodies=bodies, seconds=seconds)
 
 
 # --------------------------------------------------- foreign checkpoints
@@ -6589,6 +6902,65 @@ def phase_multi_card(torch, smi):
                               launches=[r["generate"] for r in ranks]))
 
 
+def phase_build(torch):
+    """Phase 2: build the kernels (timed) and hold ptxas's report to the
+    rules the tensor-core kernels keep: no spill, every Hopper-body kernel
+    of entries 1, 2, 6 and 7 and every s8 tile ``tc_plan.plan_s8`` can
+    return, the wide Hopper tiles at 168 registers."""
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+
+    t0 = time.perf_counter()
+    so = _build.build_library()
+    _build.library()
+    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(so)}")
+    regs = {}
+    spills = ptxas_report(so + ".ptxas.txt", regs)
+    tc = {k: v for k, v in spills.items()
+          if "conv3x3_tc" in k or "conv3x3_tf32" in k
+          or "conv3x3_sm90" in k or "quantize_s8_kernel" in k}
+    assert any("conv3x3_tc" in k for k in tc), "no bf16 tensor-core kernel"
+    # the bf16 Hopper body, launched by entries 1, 2, 6 and 7; its wide
+    # tiles (BN 64, 128) hand registers from the loader warpgroup to the
+    # consumers (setmaxnreg 56 / 224), which balances only at the 168
+    # registers a thread of __launch_bounds__(384, 1) launches with
+    sm90 = {k: v for k, v in regs.items() if "conv3x3_sm90_kernel" in k}
+    for entry in "1267":
+        assert any(re.search(rf"Li{entry}EEEv", k) for k in sm90), (
+            f"no Hopper-body kernel of entry {entry}")
+    # the s8 entries 4 and 5: every (BN, MI, CK) tc_plan.plan_s8 can return
+    s8_tiles = [(*t, 4 if k1 else 5)
+                for k1, tiles in tc_plan.S8_SM90_TILES.items()
+                for t in sorted(tiles)]
+    missing = [t for t in s8_tiles if not any(re.search(
+        r"sm90_kernelILi%dELi%dELi%dELi%dEEEv" % t, k) for k in sm90)]
+    assert not missing, f"s8 Hopper-body kernels missing: {missing}"
+    wide = {k: v for k, v in sm90.items()
+            if re.search(r"sm90_kernelILi(64|128)E", k)}
+    assert wide and all(v == 168 for v in wide.values()), (
+        f"the wide Hopper-body kernels launch with {set(wide.values())} "
+        f"registers, not 168")
+    assert any("conv3x3_tf32" in k for k in tc), "no 3xTF32 kernel"
+    # the mma.sync s8 body: the tensor-core kernel launched by entry 4 or 5
+    n_s8 = sum("conv3x3_tc_kernel" in k and re.search(r"Li[45]EEEv", k)
+               is not None for k in tc)
+    assert n_s8 > 0, "no mma.sync s8 tensor-core kernel"
+    assert any("quantize_s8_kernel" in k for k in tc), "no quantize kernel"
+    # the row-band forms: the tensor-core kernels launched by entry 6 or 7
+    n_rows = sum(re.search(r"conv3x3_(?:tc|tf32|sm90)_kernel.*Li[67]EEEv",
+                           k)
+                 is not None for k in tc)
+    assert n_rows > 0, "no row-band kernel"
+    bad = {k: v for k, v in tc.items() if v != (0, 0)}
+    assert not bad, f"tensor-core kernels spill: {bad}"
+    log(f"ptxas: {len(tc)} tensor-core and quantize kernels (bf16 "
+        f"mma.sync, {len(sm90)} Hopper-body of which "
+        f"{len(s8_tiles)} s8, 3xTF32, {n_s8} mma.sync s8, {n_rows} "
+        f"row-band), 0 bytes of spill in each, the wide Hopper tiles at 168 "
+        f"registers ({len(wide)}); spills "
+        f"elsewhere: "
+        f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
+
+
 def main():
     import torch
 
@@ -6597,7 +6969,7 @@ def main():
     try:
         from gan_segmentation_tpu_torch.core.config import (SolverConfig,
                                                             gan_config)
-        from gan_segmentation_tpu_torch.kernels import _build
+        from gan_segmentation_tpu_torch.kernels import _build  # noqa: F401
     except ImportError as exc:
         sys.exit(f"chip_smoke: run from the repository root ({exc})")
 
@@ -6617,47 +6989,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # 2. build
-    t0 = time.perf_counter()
-    so = _build.build_library()
-    _build.library()
-    log(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.basename(so)}")
-    regs = {}
-    spills = ptxas_report(so + ".ptxas.txt", regs)
-    tc = {k: v for k, v in spills.items()
-          if "conv3x3_tc" in k or "conv3x3_tf32" in k
-          or "conv3x3_sm90" in k or "quantize_s8_kernel" in k}
-    assert any("conv3x3_tc" in k for k in tc), "no bf16 tensor-core kernel"
-    # the bf16 Hopper body, launched by entries 1, 2, 6 and 7; its wide
-    # tiles (BN 64, 128) hand registers from the loader warpgroup to the
-    # consumers (setmaxnreg 56 / 224), which balances only at the 168
-    # registers a thread of __launch_bounds__(384, 1) launches with
-    sm90 = {k: v for k, v in regs.items() if "conv3x3_sm90_kernel" in k}
-    for entry in "1267":
-        assert any(re.search(rf"Li{entry}EEEv", k) for k in sm90), (
-            f"no Hopper-body kernel of entry {entry}")
-    wide = {k: v for k, v in sm90.items()
-            if re.search(r"sm90_kernelILi(64|128)E", k)}
-    assert wide and all(v == 168 for v in wide.values()), (
-        f"the wide Hopper-body kernels launch with {set(wide.values())} "
-        f"registers, not 168")
-    assert any("conv3x3_tf32" in k for k in tc), "no 3xTF32 kernel"
-    # the s8 bodies: the tensor-core kernel launched by entry 4 or 5
-    n_s8 = sum("conv3x3_tc_kernel" in k and re.search(r"Li[45]EEEv", k)
-               is not None for k in tc)
-    assert n_s8 > 0, "no s8 tensor-core kernel"
-    assert any("quantize_s8_kernel" in k for k in tc), "no quantize kernel"
-    # the row-band forms: the tensor-core kernels launched by entry 6 or 7
-    n_rows = sum(re.search(r"conv3x3_(?:tc|tf32|sm90)_kernel.*Li[67]EEEv",
-                           k)
-                 is not None for k in tc)
-    assert n_rows > 0, "no row-band kernel"
-    bad = {k: v for k, v in tc.items() if v != (0, 0)}
-    assert not bad, f"tensor-core kernels spill: {bad}"
-    log(f"ptxas: {len(tc)} tensor-core and quantize kernels (bf16 "
-        f"mma.sync, {len(sm90)} bf16 Hopper-body, 3xTF32, {n_s8} s8, "
-        f"{n_rows} row-band), 0 bytes of spill in each; spills "
-        f"elsewhere: "
-        f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
+    phase_build(torch)
 
     # 3. kernels
     gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
@@ -6855,22 +7187,28 @@ def main():
                              batch_plain_ms_f32=f32["plain"],
                              batch_library_ms_f32=f32["library"])
         kernels.append(entry)
-    s8_design = ("s8 body of conv3x3_tc.cuh: mma.sync m16n8k32 s8 x s8 -> "
-                 "s32 implicit GEMM fed by a 2- or 3-stage cp.async ring of "
-                 "32 or 64 channels, w laid out [tap][Cout][Cin] for "
-                 "non-transposed ldmatrix, split-K in exact s32 with a "
-                 "fixed-order finish kernel; epilogue float(acc) * deq "
-                 "(+ bias) rounded step by step")
+    s8_design = ("s8: the Hopper body (conv3x3_sm90.cuh, entries 4 and 5): "
+                 "one TMA box of s8 (as u8) per halo stage and the K-major "
+                 "tap slice [9][BN][CK] as one box (or resident) into an "
+                 "mbarrier ring filled by a producer warp, wgmma m64nBNk32 "
+                 "s32 (A from registers by ldmatrix of the swizzled halo, "
+                 "B by a K-major descriptor), split-K in exact s32 with a "
+                 "fixed-order finish kernel, the epilogue from the "
+                 "accumulators: float(acc) * deq (+ bias) rounded step by "
+                 "step, y by TMA store; the mma.sync s8 body "
+                 "(conv3x3_tc.cuh: m16n8k32 fed by a cp.async ring) where "
+                 "TMA's rules refuse a shape (Cin % 16, kernel 1 at W % 4, "
+                 "an unaligned view)")
     s8_sources = {
         "conv_in_stats_s8": (
-            "gan_segmentation_tpu_torch/csrc/conv_in_stats.cu",
+            "gan_segmentation_tpu_torch/csrc/conv_in_stats_s8.cu",
             "experiments/pallas_archive/conv_in_stats.py:118",
-            s8_design + ", + noise * nscale, leaky, statistics from the "
+            s8_design + "; + noise * nscale, leaky, statistics from the "
             "f32 values"),
         "small_conv_s8": (
-            "gan_segmentation_tpu_torch/csrc/small_conv.cu",
+            "gan_segmentation_tpu_torch/csrc/small_conv_s8.cu",
             "experiments/pallas_archive/small_conv.py:84",
-            s8_design + ", none / relu / leaky; Cout up to 4 x 512 (the "
+            s8_design + "; none / relu / leaky; Cout up to 4 x 512 (the "
             "sub-pixel up-sampling convs)"),
         "quantize_s8": (
             "gan_segmentation_tpu_torch/csrc/quantize_s8.cu",
@@ -6894,16 +7232,21 @@ def main():
                                "quantize of an int8-full generate batch of "
                                "8; library: none")
         else:
-            entry.update(exact_s32=r["exact"],
-                         equal_share_min=r["equal_min"],
-                         bf16_ulps_max=r["ulps_max"],
+            entry.update(exact_s32=r["exact"], y_bit_equal=r["equal"],
+                         repeats_and_replays=r["repeats"],
+                         mma_sync_ms=r["mma_sync_ms"],
                          bf16_body_ms=r["bf16_ms"],
+                         traced_launches_by_body=i8[
+                             "traced_launches_by_body"][name],
+                         shapes_on_hopper_body=r["sm90_shapes"],
                          timed="bf16 out, device time (graph replay) per "
-                               "int8-full generate batch of 8, bound at "
-                               "1,979 int8 TOPS; library: none (no single "
+                               "int8-full generate batch of 8 on the Hopper "
+                               "body, bound at 1,979 int8 TOPS; "
+                               "mma_sync_ms: the mma.sync s8 body on the "
+                               "same inputs; library: none (no single "
                                "PyTorch call computes an s8 3x3 conv); "
-                               "bf16_body_ms: the bf16 body on the same "
-                               "shapes")
+                               "bf16_body_ms: the bf16 Hopper body on the "
+                               "same shapes")
         kernels.append(entry)
     rows_design = ("the bf16 (conv3x3_sm90.cuh; conv3x3_tc.cuh where "
                    "TMA's rules refuse the band) and f32 (conv3x3_tf32.cuh) "

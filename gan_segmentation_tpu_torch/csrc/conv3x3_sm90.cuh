@@ -1,17 +1,19 @@
-// The bf16 body of kernels 1 and 2 written for Hopper (sm_90a): TMA loads
-// into an mbarrier ring, wgmma, and the epilogue and statistics from the
-// accumulators.  It serves entries 1 and 2 (conv_in_stats.cu,
-// small_conv.cu) and their row-band forms 6 and 7 (*_rows.cu) wherever
+// The bf16 and s8 body of kernels 1 and 2 written for Hopper (sm_90a): TMA
+// loads into an mbarrier ring, wgmma, and the epilogue and statistics from
+// the accumulators.  It serves entries 1 and 2 (conv_in_stats.cu,
+// small_conv.cu), their row-band forms 6 and 7 (*_rows.cu) and their s8
+// forms 4 and 5 (conv_in_stats_s8.cu, small_conv_s8.cu) wherever
 // kernels/tc_plan.py::plan_sm90 takes the shape; the mma.sync body of
-// conv3x3_tc.cuh keeps what TMA's rules refuse (Cin % 8 != 0, an unaligned
-// view, a ragged noise row) and the s8 entries.
+// conv3x3_tc.cuh keeps what TMA's rules refuse (x's rows not a multiple of
+// 16 bytes, an unaligned view, a ragged noise row).
 //
 // Replaces the TPU kernels
 //   experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats
 //   (pl.pallas_call at its line 118), bf16: conv3x3 + noise * nscale + bias
 //   + leaky, with the per-(image, channel) sums of v and v^2;
 //   experiments/pallas_archive/small_conv.py::conv3x3_small
-//   (pl.pallas_call at its line 84), bf16: conv3x3 + bias + relu / leaky.
+//   (pl.pallas_call at its line 84), bf16: conv3x3 + bias + relu / leaky;
+// and their int8 forms (entries 4 and 5, below).
 //
 // Layout: x NHWC, w HWIO (3, 3, Cin, Cout), stride 1, zero pad 1 (a row
 // band: x holds H_out + 2 rows, no pad in H).  GEMM view: M = output
@@ -78,6 +80,38 @@
 //   kernel adds the splits in a fixed order and runs the epilogue: no
 //   float atomics.
 //
+// s8 (entries 4 and 5, generate --quant int8 | int8-full).  x and w are s8
+// and the MMA is wgmma.mma_async m64nBNk32.s32.s8.s8: exact integer sums in
+// s32 accumulators (as many registers as f32's), so a split-K adds its s32
+// partials exactly.  A k32 step is 32 bytes a pixel, like bf16's k16: a
+// stage holds CK = 32 or 64 channels, the same bytes as bf16's 16 or 32,
+// so the halo box, its swizzle and A's ldmatrix rows are the bf16 body's
+// counted in bytes (the 8-bit A fragment of wgmma is mma.sync m16n8k32's,
+// which ldmatrix.x4 gives from 16-byte rows).  B differs: wgmma transposes
+// only 16-bit operands, so both are K-major.  w comes as [tap][Cout][Cin]
+// (the host lays it out once per quantization), so a chunk's tap slice is
+// [9][BN][CK], ONE TMA box (CK, BN, 9) swizzled by its CK-byte rows (32 B
+// or 64 B), read through a K-major descriptor (SBO = 8 rows, a k32 step
+// inside a 64-byte row by the start address).  TMA has no s8 type: x and w
+// travel as u8, whose zero fill is s8's zero pad.  Cin 16 (the 1024^2
+// layers) would leave half of each k32 step zero: there a stage holds the
+// 16 channels (16-byte pixels, no swizzle: 8 neighbouring pixels are 128
+// contiguous bytes) and a k32 step takes two taps, lanes 0-15 of each
+// ldmatrix.x4 pointing at tap 2j's shifted pixel (k bytes 0-15) and lanes
+// 16-31 at tap 2j + 1's (bytes 16-31): 5 steps instead of 9, over taps
+// kept resident as [5 pairs][BN][32] (tap 9 zero).  The epilogue
+// dequantizes first, v = float(acc) * deq[c], and rounds every step on its
+// own (__int2float_rn, __fmul_rn, __fadd_rn: never a fused multiply-add;
+// |acc| reaches 127^2 x 9 x 512 > 2^24, so the int -> float rounding is
+// part of the function), so y equals the mma.sync s8 body's and the plain
+// version's bit for bit.  y is bf16 (TMA store as above), or f32 where the
+// caller asks (the f32 compute dtype, the exactness check with deq = 1),
+// then stored from registers.  The s8 layers from 256^2 up are bound by
+// bytes and their MMAs run at int8's rate, so one wide block an SM left
+// the epilogue exposed: the s8 plan takes 32-channel tiles where Cin <= 64,
+// two blocks an SM, one block's epilogue beside the other's loads and MMAs
+// (tc_plan.plan_sm90).
+//
 // Tensor maps are encoded on the host for every call
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPointByVersion, so the
 // library links only against the runtime, as before) and passed by value as
@@ -119,12 +153,30 @@ __host__ __device__ constexpr int threads(int bn) {
 }
 
 // The entry point that launches the body (the kernel's last template
-// argument): 1 conv_in_stats, 2 small_conv, 6 and 7 the same over a row
-// band.
+// argument): 1 conv_in_stats, 2 small_conv, 4 and 5 the same in s8, 6 and
+// 7 the same over a row band.
+__host__ __device__ constexpr bool is_s8(int k) { return k == 4 || k == 5; }
 __host__ __device__ constexpr bool is_rows(int k) { return k == 6 || k == 7; }
 __host__ __device__ constexpr bool has_stats(int k) {
-  return k == 1 || k == 6;
+  return k == 1 || k == 4 || k == 6;
 }
+// bytes of an element of x and w
+__host__ __device__ constexpr int elem_bytes(int k) { return is_s8(k) ? 1 : 2; }
+
+// The accumulators: f32 (bf16 operands) or s32 (s8)
+template <bool S8>
+struct Accum {
+  using T = float;
+};
+template <>
+struct Accum<true> {
+  using T = int;
+};
+
+// An accumulator register's f32 value once the epilogue has run (s8 keeps
+// the f32 bits in its s32 registers)
+__device__ __forceinline__ float as_f32(float v) { return v; }
+__device__ __forceinline__ float as_f32(int v) { return __int_as_float(v); }
 
 __host__ __device__ constexpr int align_up(int v, int a) {
   return (v + a - 1) / a * a;
@@ -139,24 +191,27 @@ __host__ __device__ constexpr int out_bufs(int bn) { return wide(bn) ? 1 : 2; }
 
 // Shared memory of one launch, in bytes from a 1024-aligned base: the ring
 // (each stage: halo box, tap slice unless resident, kernel 1's noise), the
-// resident taps, the output tile (TMA store), the statistics' slots, the
-// barriers.  kernels/tc_plan.py::PlanSM90.smem_bytes mirrors it.
+// resident taps, the output tile (TMA store, bf16), the statistics' slots,
+// the barriers.  eb: bytes of an element of x and w (2 bf16, 1 s8).
+// kernels/tc_plan.py::PlanSM90.smem_bytes mirrors it.
 struct Layout {
   int halo;       // bytes of a stage's halo box (the TMA transaction)
-  int taps;       // bytes of one chunk's tap slice [atom][9][CK][BNA]
+  int taps;       // bytes of one chunk's tap slice: bf16 [atom][9][CK][BNA],
+                  // s8 [9][BN][CK] (CK 16: [5][BN][32], taps in pairs)
   int tap_off;    // in a stage
   int noise_off;  // in a stage
   int stage;
   int res_off, out_off, slot_off, bar_off, smem;
 };
 
-__host__ __device__ inline Layout layout(int bn, int bm, int ck, int g,
-                                         int th, int tw, int stages,
+__host__ __device__ inline Layout layout(int bn, int bm, int ck, int eb,
+                                         int g, int th, int tw, int stages,
                                          int resident, int chunks,
                                          bool noise, int tma_y, bool stats) {
   Layout L;
-  L.halo = g * (th + 2) * (tw + 2) * ck * 2;
-  L.taps = 9 * ck * bn * 2;
+  L.halo = g * (th + 2) * (tw + 2) * ck * eb;
+  // 16-byte pixels (s8 Cin 16): the taps in pairs, [5][BN][32]
+  L.taps = ck * eb == 16 ? 5 * 32 * bn : 9 * ck * bn * eb;
   L.tap_off = align_up(L.halo, 1024);
   L.noise_off = L.tap_off + (resident ? 0 : align_up(L.taps, 1024));
   L.stage = align_up(L.noise_off + (noise ? bm * 4 : 0), 1024);
@@ -172,17 +227,21 @@ __host__ __device__ inline Layout layout(int bn, int bm, int ck, int g,
 // reads the maps in the kernel's parameter space).
 struct Args {
   CUtensorMap tm_x;      // NHWC x: box (CK, TW + 2, TH + 2, G)
-  CUtensorMap tm_w;      // HWIO w as (Cout, Cin, 9): box (BNA, CK, 9)
+  CUtensorMap tm_w;      // bf16: HWIO w as (Cout, Cin, 9), box (BNA, CK, 9);
+                         // s8: [tap][Cout][Cin] as (Cin, Cout, 9), box
+                         // (CK, BN, 9)
   CUtensorMap tm_noise;  // (N, H, W) f32 as (W, H, N): box (TW, TH, G)
-  CUtensorMap tm_y;      // NHWC y: box (BNA, TW, TH, G)
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* w;  // resident taps are read through it
+  CUtensorMap tm_y;      // NHWC y (bf16): box (BNA, TW, TH, G)
+  const void* x;           // NHWC: bf16, or s8
+  const void* w;           // resident taps are read through it
+  const float* deq;        // s8: (Cout,) dequantization multipliers
   const float* bias;       // (Cout,) or null
   const float* noise;      // kernel 1: (N, H, W)
   const float* nscale;     // kernel 1: (Cout,)
-  __nv_bfloat16* y;
+  void* y;                 // NHWC: bf16, or f32 where y_f32 (s8)
+  int y_f32;
   float* partial;  // kernel 1: (N, tiles, 2, Cout)
-  float* ws;       // (splits, N*H*W, Cout) f32 when splits > 1
+  void* ws;        // (splits, N*H*W, Cout) f32 (s8: s32) when splits > 1
   int n, h, wd, cin, cout;  // h: output rows (a band's x holds h + 2)
   int act;
   float slope;
@@ -226,6 +285,19 @@ __device__ __forceinline__ void wgmma(float (&d)[BN / 2],
     wgmma_m64n128k16(d, a, desc);
 }
 
+template <int BN>
+__device__ __forceinline__ void wgmma(int (&d)[BN / 2],
+                                      const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (BN == 16)
+    wgmma_m64n16k32(d, a, desc);
+  else if constexpr (BN == 32)
+    wgmma_m64n32k32(d, a, desc);
+  else if constexpr (BN == 64)
+    wgmma_m64n64k32(d, a, desc);
+  else
+    wgmma_m64n128k32(d, a, desc);
+}
+
 // The byte offset `off` (from a base aligned to the pattern) under TMA's
 // swizzle of rows of `mask + 1` 16-byte chunks: chunk bits [4, 7) xor
 // address bits [7, 10).
@@ -233,53 +305,72 @@ __host__ __device__ constexpr uint32_t swizzle(uint32_t off, uint32_t mask) {
   return off ^ (((off >> 7) & mask) << 4);
 }
 
-// One Cin chunk: 9 taps x CK / 16 k16 steps, each MI wgmmas of 64 x BN x
-// 16.  hb: the stage's halo, tb: the chunk's tap slice.  A's rows: the BN
-// 64 tiles (registers to spare) keep every lane's swizzled row per m64
-// tile and tap in asw[i][t] (the second k16 step of a 32-channel chunk is
-// the next 32 bytes: chunk bit 1, which the swizzle's xor leaves alone);
-// the others compute the row from aoff[i] (tap (0, 0)) and row (a halo
-// row in bytes) at each step, from the stage's offset soff so that no
-// address stays live across the loop (BN 128 has 128 accumulators a
-// thread, the narrow tiles 96 registers).  The wide tiles double-buffer A,
-// so the next ldmatrix overlaps the wgmma in flight; the narrow ones
-// (bound by bytes) wait for each step.
-template <int BN, int MI, int CK>
-__device__ __forceinline__ void mma_chunk(float (&acc)[MI][BN / 2],
+// One Cin chunk: 9 taps x (CK bytes / 32) k steps (bf16 k16, s8 k32), each
+// MI wgmmas of 64 x BN x 32 bytes; s8 at CK 16: 5 steps of a tap pair (a
+// lane's tap by its half of the warp).  hb: the stage's halo, tb: the chunk's
+// tap slice.  A's rows: the BN 64 tiles (registers to spare) keep every
+// lane's swizzled row per m64 tile and tap in asw[i][t] (the second k step
+// of a 64-byte chunk is the next 32 bytes: chunk bit 1, which the
+// swizzle's xor leaves alone); the others compute the row from aoff[i]
+// (tap (0, 0)) and row (a halo row in bytes) at each step, from the
+// stage's offset soff so that no address stays live across the loop (BN
+// 128 has 128 accumulators a thread, the narrow tiles 96 registers).  The
+// wide tiles double-buffer A, so the next ldmatrix overlaps the wgmma in
+// flight; the narrow ones (bound by bytes) wait for each step.
+template <int BN, int MI, int CK, bool S8, typename Acc>
+__device__ __forceinline__ void mma_chunk(Acc (&acc)[MI][BN / 2],
                                           uint32_t hb, uint32_t soff,
                                           uint32_t tb,
                                           const uint32_t (&asw)[MI][9],
                                           const uint32_t (&aoff)[MI],
                                           uint32_t row) {
-  constexpr int KS = CK / 16;
-  constexpr int PS = CK * 2;                    // halo pixel, bytes
-  constexpr uint32_t XSW = CK == 16 ? 1 : 3;    // halo swizzle: 32 B, 64 B
+  constexpr int PS = CK * (S8 ? 1 : 2);         // halo pixel, bytes
+  constexpr bool PAIRS = PS == 16;              // two taps a k32 step
+  constexpr int TAPS = PAIRS ? 5 : 9;           // steps of the outer loop
+  constexpr int KS = PAIRS ? 1 : PS / 32;       // k steps of 32 bytes a tap
+  // halo swizzle: 32 B, 64 B (16-byte pixels: none)
+  constexpr uint32_t XSW = PS == 16 ? 0 : (PS == 32 ? 1 : 3);
   constexpr int BNA = BN < 64 ? BN : 64;        // channels of a B atom
   constexpr int RB = BNA * 2;                   // a tap row of an atom
   constexpr int BSW = RB == 128 ? 1 : (RB == 64 ? 2 : 3);
   constexpr int NBUF = wide(BN) ? 2 : 1;        // A's register buffers
-  // N-major B: LBO = the stride of 64-channel atoms, SBO = 8 k rows
-  const uint64_t d0 = gmma_desc(tb, 9 * CK * RB, 8 * RB, BSW);
+  // bf16, N-major B: LBO = the stride of 64-channel atoms, SBO = 8 k rows.
+  // s8, K-major B: rows of CK bytes (tap pairs: 32) under that width's
+  // swizzle, SBO = 8 rows (channels); LBO unused.
+  constexpr int KROW = PAIRS ? 32 : CK;         // s8: a B row, bytes
+  const uint64_t d0 = S8 ? gmma_desc(tb, 16, 8 * KROW, KROW == 32 ? 3 : 2)
+                         : gmma_desc(tb, 9 * CK * RB, 8 * RB, BSW);
+  const bool hi = PAIRS && (threadIdx.x & 16);  // the pair's second tap
   const uint32_t base = hb - soff;  // the shared memory's base
   uint32_t af[NBUF][MI][4];
 #pragma unroll
-  for (int t = 0; t < 9; ++t) {
+  for (int t = 0; t < TAPS; ++t) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const int b = (t * KS + kk) % NBUF;
 #pragma unroll
       for (int i = 0; i < MI; ++i) {
         uint32_t addr;
-        if constexpr (BN == 64)
+        if constexpr (PAIRS) {  // taps 2t and 2t + 1 (tap 9: B is zero)
+          const int t0 = 2 * t, t1 = 2 * t + 1 < 9 ? 2 * t + 1 : 8;
+          addr = base + soff + aoff[i] +
+                 (hi ? (t1 / 3) * row + (t1 % 3) * PS
+                     : (t0 / 3) * row + (t0 % 3) * PS);
+        } else if constexpr (BN == 64) {
           addr = hb + (asw[i][t] ^ (kk * 32));
-        else
+        } else {
           addr = base + swizzle(soff + aoff[i] + (t / 3) * row +
                                     (t % 3) * PS + kk * 32,
                                 XSW);
+        }
         ldsm_x4(af[b][i], addr);
       }
       wgmma_fence();
-      const uint64_t d = d0 + (((t * CK + kk * 16) * RB) >> 4);
+      // the step's B: tap t's slice (s8 at CK 16: pair t's), k step kk
+      // (s8: 32 bytes into the row)
+      const uint64_t d =
+          d0 + ((S8 ? t * BN * KROW + kk * 32 : (t * CK + kk * 16) * RB) >>
+                4);
 #pragma unroll
       for (int i = 0; i < MI; ++i) wgmma<BN>(acc[i], af[b][i], d);
       wgmma_commit();
@@ -297,22 +388,28 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 }
 
 // Blocks per SM asked of ptxas: 2 for the narrow tiles (288 threads: at
-// most 96 registers; 3 blocks of BN 16, at most 72, spilled kernel 1 and
-// ran it slower), but 1 for kernel 1's BN 32 tiles, which spilled at 96 and
-// need ~100 (two blocks of that still share an SM), and 1 for the wide.
+// most 96 registers; 3 blocks of bf16 BN 16, at most 72, spilled kernel 1
+// and ran it slower), but 3 for s8 kernel 1 at BN 16 (72 registers, no
+// spill: a third block's loads and MMAs beside two blocks' statistics),
+// 1 for kernel 1's BN 32 tiles, which spilled at 96 and need ~100 (two
+// blocks of that still share an SM), and 1 for the wide.
 __host__ __device__ constexpr int min_blocks(int bn, int kernel) {
-  return wide(bn) || (bn == 32 && has_stats(kernel)) ? 1 : 2;
+  return wide(bn) || (bn == 32 && has_stats(kernel))        ? 1
+         : (is_s8(kernel) && has_stats(kernel) && bn == 16) ? 3
+                                                            : 2;
 }
 
 // Warps 0-7 (two warpgroups) multiply, warp 8 loads (with warps 9-11 idle
 // beside it in the wide tiles).  KERNEL is the number of the entry point
-// that launches it (kernel 1 or 6 takes the noise and the statistics, 6
-// and 7 a row band), so a profile tells them apart.
+// that launches it (kernel 1, 4 or 6 takes the noise and the statistics, 4
+// and 5 run s8, 6 and 7 a row band), so a profile tells them apart.
 template <int BN, int MI, int CK, int KERNEL>
 __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
     conv3x3_sm90_kernel(const __grid_constant__ Args a) {
   constexpr bool ROWS = is_rows(KERNEL);
   constexpr bool STATS = has_stats(KERNEL);
+  constexpr bool S8 = is_s8(KERNEL);
+  using Acc = typename Accum<S8>::T;
   constexpr int BM = 128 * MI;
   constexpr int NF = BN / 2;                   // accumulators per m64 tile
   constexpr int BNA = BN < 64 ? BN : 64;
@@ -320,15 +417,19 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
   constexpr int RB = BNA * 2;
   constexpr uint32_t OSW = RB == 128 ? 7 : (RB == 64 ? 3 : 1);
   constexpr int ATOM = 9 * CK * RB;            // bytes of a tap-slice atom
-  constexpr int PS = CK * 2;
+  constexpr int PS = CK * elem_bytes(KERNEL);  // halo pixel, bytes
+  // its swizzle (s8 taps too): 32 B, 64 B; 16-byte pixels none (their
+  // tap pairs' 32-byte rows: 32 B)
+  constexpr uint32_t XSW = PS == 16 ? 0 : (PS == 32 ? 1 : 3);
   constexpr int THREADS = threads(BN);
 
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const bool noise = STATS && a.splits == 1;
-  const Layout L = layout(BN, BM, CK, a.g, a.th, a.tw, a.stages, a.resident,
-                          a.chunks, noise, a.tma_y, STATS);
+  const Layout L = layout(BN, BM, CK, elem_bytes(KERNEL), a.g, a.th, a.tw,
+                          a.stages, a.resident, a.chunks, noise, a.tma_y,
+                          STATS);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
   uint64_t* empty = full + a.stages;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -340,9 +441,41 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
     }
     fence_barrier_init();
   }
-  if (a.resident) {  // every chunk's taps: [chunk][atom][tap][ci][BNA]
+  if (a.resident) {
     unsigned char* res = smem + L.res_off;
-    if (a.vec_w) {
+    if constexpr (S8 && PS == 16) {
+      // Cin 16, one chunk: the taps in pairs, [5][BN][32] under the 32-byte
+      // swizzle, row (j, o) = w[2j][o][:] then w[2j + 1][o][:] (tap 9 zero)
+      const int8_t* w = static_cast<const int8_t*>(a.w);
+      for (int i = tid; i < 5 * BN * 2; i += THREADS) {
+        const int hf = i % 2, r = i / 2;
+        const int o = r % BN, j = r / BN, tap = 2 * j + hf;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (tap < 9 && o < a.cout)
+          v = *reinterpret_cast<const uint4*>(
+              w + ((size_t)tap * a.cout + o) * a.cin);
+        const uint32_t off = (j * BN + o) * 32 + hf * 16;
+        *reinterpret_cast<uint4*>(res + swizzle(off, 1)) = v;
+      }
+    } else if constexpr (S8) {
+      // every chunk's taps: [chunk][tap][BN][CK], w's [tap][Cout][Cin] rows
+      // under the CK-byte swizzle (run() asks Cin % 16 and a 16-byte w)
+      constexpr int U = CK / 16;
+      const int8_t* w = static_cast<const int8_t*>(a.w);
+      for (int i = tid; i < a.chunks * 9 * BN * U; i += THREADS) {
+        const int u = i % U, r = i / U;
+        const int o = r % BN, ct = r / BN;
+        const int tap = ct % 9, chunk = ct / 9;
+        const int c = chunk * CK + u * 16;
+        uint4 v = make_uint4(0, 0, 0, 0);
+        if (c < a.cin && o < a.cout)
+          v = *reinterpret_cast<const uint4*>(
+              w + ((size_t)tap * a.cout + o) * a.cin + c);
+        const uint32_t off = chunk * L.taps + (tap * BN + o) * CK + u * 16;
+        *reinterpret_cast<uint4*>(res + swizzle(off, XSW)) = v;
+      }
+    } else if (a.vec_w) {  // [chunk][atom][tap][ci][BNA]
+      const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
       constexpr int N8 = BN / 8;
       for (int i = tid; i < a.chunks * 9 * CK * N8; i += THREADS) {
         const int j8 = i % N8, r = i / N8;
@@ -352,12 +485,13 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
         uint4 v = make_uint4(0, 0, 0, 0);
         if (c < a.cin && o < a.cout)
           v = *reinterpret_cast<const uint4*>(
-              a.w + ((size_t)tap * a.cin + c) * a.cout + o);
+              w + ((size_t)tap * a.cin + c) * a.cout + o);
         const uint32_t off = chunk * L.taps + (o / BNA) * ATOM +
                              (tap * CK + ci) * RB + (o % BNA) * 2;
         *reinterpret_cast<uint4*>(res + swizzle(off, OSW)) = v;
       }
     } else {
+      const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(a.w);
       for (int i = tid; i < a.chunks * 9 * CK * BN; i += THREADS) {
         const int o = i % BN, r = i / BN;
         const int ci = r % CK, ct = r / CK;
@@ -365,7 +499,7 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
         const int c = chunk * CK + ci;
         __nv_bfloat16 v = __float2bfloat16(0.f);
         if (c < a.cin && o < a.cout)
-          v = a.w[((size_t)tap * a.cin + c) * a.cout + o];
+          v = w[((size_t)tap * a.cin + c) * a.cout + o];
         const uint32_t off = chunk * L.taps + (o / BNA) * ATOM +
                              (tap * CK + ci) * RB + (o % BNA) * 2;
         *reinterpret_cast<__nv_bfloat16*>(res + swizzle(off, OSW)) = v;
@@ -394,10 +528,14 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
           const int ch = (c0 + c) * CK;
           tma_load_4d(st, &a.tm_x, full + s, ch, it.tx0 - 1,
                       ROWS ? it.ty0 : it.ty0 - 1, it.n0);
-          if (!a.resident)
-            for (int t = 0; t < NATOM; ++t)
-              tma_load_3d(st + L.tap_off + t * ATOM, &a.tm_w, full + s,
-                          it.co0 + t * BNA, ch, 0);
+          if (!a.resident) {
+            if constexpr (S8)  // one box: [9][BN][CK]
+              tma_load_3d(st + L.tap_off, &a.tm_w, full + s, ch, it.co0, 0);
+            else
+              for (int t = 0; t < NATOM; ++t)
+                tma_load_3d(st + L.tap_off + t * ATOM, &a.tm_w, full + s,
+                            it.co0 + t * BNA, ch, 0);
+          }
           if (nz)
             tma_load_3d(st + L.noise_off, &a.tm_noise, full + s, it.tx0,
                         it.ty0, it.n0);
@@ -424,12 +562,14 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
     const int m = (wg * MI + i) * 64 + wq * 16 + lane % 8 + 8 * ((lane / 8) % 2);
     const int gi = a.fd_per.div(m), rem = m - gi * per;
     const int ty = a.fd_tw.div(rem), tx = rem - ty * a.tw;
-    aoff[i] = ((gi * (a.th + 2) + ty) * wp + tx) * PS + 16 * (lane / 16);
+    // lanes 16-31 give k bytes 16-31: the pixel's next 16 bytes (16-byte
+    // pixels: the same pixel, in the pair's second tap, mma_chunk)
+    aoff[i] = ((gi * (a.th + 2) + ty) * wp + tx) * PS +
+              (PS == 16 ? 0 : 16 * (lane / 16));
     if constexpr (BN == 64) {
 #pragma unroll
       for (int t = 0; t < 9; ++t)
-        asw[i][t] = swizzle(aoff[i] + ((t / 3) * wp + t % 3) * PS,
-                            CK == 16 ? 1 : 3);
+        asw[i][t] = swizzle(aoff[i] + ((t / 3) * wp + t % 3) * PS, XSW);
     }
   }
   const uint32_t row = wp * PS;
@@ -438,7 +578,7 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
   constexpr int NB = out_bufs(BN);
   int nitem = 0;  // this block's items so far: the y tile and slots in use
 
-  float acc[MI][NF];
+  Acc acc[MI][NF];
   float nzr[MI][2];
   int s = 0;
   uint32_t ph = 0;
@@ -449,7 +589,7 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int f = 0; f < NF; ++f) acc[i][f] = 0.f;
+      for (int f = 0; f < NF; ++f) acc[i][f] = Acc(0);
     for (int c = 0; c < nc; ++c) {
       mbar_wait(full + s, ph);
       unsigned char* st = smem + s * L.stage;
@@ -464,8 +604,8 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
       const uint32_t tb =
           a.resident ? smem_u32(smem + L.res_off + (c0 + c) * L.taps)
                      : smem_u32(st + L.tap_off);
-      mma_chunk<BN, MI, CK>(acc, base + s * L.stage, s * L.stage, tb, asw,
-                            aoff, row);
+      mma_chunk<BN, MI, CK, S8>(acc, base + s * L.stage, s * L.stage, tb,
+                                asw, aoff, row);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + s);
       if (++s == a.stages) {
@@ -492,7 +632,8 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
         pix[i][hf] = (nn * a.h + oy) * a.wd + ox;
       }
     if (a.splits > 1) {  // the finish kernel adds the splits in order
-      float* ws = a.ws + (size_t)it.split * a.n * a.h * a.wd * a.cout;
+      Acc* ws = static_cast<Acc*>(a.ws) +
+                (size_t)it.split * a.n * a.h * a.wd * a.cout;
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -524,7 +665,9 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
     // keeps one slot (of 8); else one slot per 16-row fragment
     const bool one = a.g == 1;
     // one 8-channel column block at a time: v = acc [+ noise * nscale]
-    // [+ bias] and the activation, kernel 1's slots, y
+    // [+ bias] and the activation (s8: v = float(acc) * deq first, every
+    // step rounded on its own, conv3x3_tc.cuh's s8 epilogue), kernel 1's
+    // slots, y.  s8 keeps v's f32 bits in the s32 registers.
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       // keep each block's nscale and bias loads in it: hoisted, the wide
@@ -536,18 +679,31 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
         const bool cok = co < a.cout;
         const float ns = (STATS && cok) ? __ldg(a.nscale + co) : 0.f;
         const float bb = (a.bias != nullptr && cok) ? __ldg(a.bias + co) : 0.f;
+        const float dq = (S8 && cok) ? __ldg(a.deq + co) : 0.f;
 #pragma unroll
         for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
-            float v = acc[i][j * 4 + hf * 2 + e];
-            if (STATS) v += nzr[i][hf] * ns;
-            if (a.bias != nullptr) v += bb;
-            if (a.act == tc::RELU)
-              v = fmaxf(v, 0.f);
-            else if (a.act == tc::LEAKY)
-              v = v >= 0.f ? v : a.slope * v;
-            acc[i][j * 4 + hf * 2 + e] = v;
+            Acc& r = acc[i][j * 4 + hf * 2 + e];
+            if constexpr (S8) {
+              float v = __fmul_rn(__int2float_rn(r), dq);
+              if (STATS) v = __fadd_rn(v, __fmul_rn(nzr[i][hf], ns));
+              if (a.bias != nullptr) v = __fadd_rn(v, bb);
+              if (a.act == tc::RELU)
+                v = fmaxf(v, 0.f);
+              else if (a.act == tc::LEAKY)
+                v = v >= 0.f ? v : __fmul_rn(a.slope, v);
+              r = __float_as_int(v);
+            } else {
+              float v = r;
+              if (STATS) v += nzr[i][hf] * ns;
+              if (a.bias != nullptr) v += bb;
+              if (a.act == tc::RELU)
+                v = fmaxf(v, 0.f);
+              else if (a.act == tc::LEAKY)
+                v = v >= 0.f ? v : a.slope * v;
+              r = v;
+            }
           }
       }
       if (STATS) {  // slots of the sums of v and v^2 per channel
@@ -560,8 +716,9 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
 #pragma unroll
             for (int k = 0; k < MI; ++k) {
               if (!one && k != i) continue;
-              const float v0 = ok[k][0] ? acc[k][j * 4 + e] : 0.f;
-              const float v1 = ok[k][1] ? acc[k][j * 4 + 2 + e] : 0.f;
+              const float v0 = ok[k][0] ? as_f32(acc[k][j * 4 + e]) : 0.f;
+              const float v1 =
+                  ok[k][1] ? as_f32(acc[k][j * 4 + 2 + e]) : 0.f;
               s1 += v0 + v1;
               s2 += v0 * v0 + v1 * v1;
             }
@@ -582,8 +739,8 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          const float v0 = acc[i][j * 4 + hf * 2];
-          const float v1 = acc[i][j * 4 + hf * 2 + 1];
+          const float v0 = as_f32(acc[i][j * 4 + hf * 2]);
+          const float v1 = as_f32(acc[i][j * 4 + hf * 2 + 1]);
           if (a.tma_y) {  // to the tile [atom][BM][BNA], swizzled
             const int m = (wg * MI + i) * 64 + wq * 16 + lr + 8 * hf;
             const int col = j * 8 + lc;
@@ -591,14 +748,27 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
                 (col / BNA) * BM * RB + m * RB + (col % BNA) * 2;
             *reinterpret_cast<uint32_t*>(out + swizzle(off, OSW)) =
                 pack2(v0, v1);
-          } else if (ok[i][hf]) {  // Cout % 8 != 0: a channel pair a store
+          } else if (ok[i][hf]) {
+            // Cout % 8 != 0 or an f32 y: a channel pair a store
             const int co = it.co0 + j * 8 + lc;
-            __nv_bfloat16* yp = a.y + (size_t)pix[i][hf] * a.cout + co;
-            if (a.cout % 2 == 0 && co + 1 < a.cout) {
-              *reinterpret_cast<uint32_t*>(yp) = pack2(v0, v1);
+            const size_t off = (size_t)pix[i][hf] * a.cout + co;
+            const bool pair = a.cout % 2 == 0 && co + 1 < a.cout;
+            if (S8 && a.y_f32) {
+              float* yp = static_cast<float*>(a.y) + off;
+              if (pair) {
+                *reinterpret_cast<float2*>(yp) = make_float2(v0, v1);
+              } else {
+                if (co < a.cout) yp[0] = v0;
+                if (co + 1 < a.cout) yp[1] = v1;
+              }
             } else {
-              if (co < a.cout) yp[0] = __float2bfloat16(v0);
-              if (co + 1 < a.cout) yp[1] = __float2bfloat16(v1);
+              __nv_bfloat16* yp = static_cast<__nv_bfloat16*>(a.y) + off;
+              if (pair) {
+                *reinterpret_cast<uint32_t*>(yp) = pack2(v0, v1);
+              } else {
+                if (co < a.cout) yp[0] = __float2bfloat16(v0);
+                if (co + 1 < a.cout) yp[1] = __float2bfloat16(v1);
+              }
             }
           }
         }
@@ -689,9 +859,10 @@ inline bool encode(CUtensorMap* m, CUtensorMapDataType dt, int rank,
 template <int BN, int MI, int CK, int KERNEL>
 static int launch(const Args& a, cudaStream_t st) {
   constexpr int BM = 128 * MI;
-  const Layout L = layout(BN, BM, CK, a.g, a.th, a.tw, a.stages, a.resident,
-                          a.chunks, has_stats(KERNEL) && a.splits == 1,
-                          a.tma_y, has_stats(KERNEL));
+  const Layout L = layout(BN, BM, CK, elem_bytes(KERNEL), a.g, a.th, a.tw,
+                          a.stages, a.resident, a.chunks,
+                          has_stats(KERNEL) && a.splits == 1, a.tma_y,
+                          has_stats(KERNEL));
   if (L.smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
   auto kern = conv3x3_sm90_kernel<BN, MI, CK, KERNEL>;
   int rc = (int)cudaFuncSetAttribute(
@@ -709,16 +880,18 @@ static int launch(const Args& a, cudaStream_t st) {
   kern<<<grid, threads(BN), L.smem, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc || a.splits == 1) return rc;
-  // split-K: conv3x3_tc.cuh's finish kernel adds the splits in order and
-  // runs the epilogue (and kernel 1's partials) in blocks of FINISH_BN
-  // channels over the same tiles
+  // split-K: conv3x3_tc.cuh's finish kernel adds the splits in order (s8:
+  // the s32 partials, exactly) and runs the epilogue (and kernel 1's
+  // partials) in blocks of FINISH_BN channels over the same tiles
   tc::Args f = {};
+  f.deq = a.deq;
   f.bias = a.bias;
   f.noise = a.noise;
   f.nscale = a.nscale;
   f.y = a.y;
+  f.y_f32 = a.y_f32;
   f.partial = a.partial;
-  f.ws = a.ws;
+  f.ws = static_cast<float*>(a.ws);
   f.n = a.n;
   f.h = a.h;
   f.wd = a.wd;
@@ -738,7 +911,7 @@ static int launch(const Args& a, cudaStream_t st) {
   const int fsmem = (BM * (tc::FINISH_BN + 4) +
                      tc::red_floats(tc::FINISH_THREADS, a.g, tc::FINISH_BN)) *
                     4;
-  auto fin = tc::conv3x3_tc_finish_kernel<false>;
+  auto fin = tc::conv3x3_tc_finish_kernel<is_s8(KERNEL)>;
   rc = tc::set_smem(fin, fsmem);
   if (rc) return rc;
   const dim3 fgrid(a.tiles, (a.cout + tc::FINISH_BN - 1) / tc::FINISH_BN,
@@ -747,23 +920,55 @@ static int launch(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The s8 tiles tc_plan.plan_sm90(s8=True) can return, and so the only s8
+// kernels built (tc_plan.S8_SM90_TILES lists them): BN 16 and 32 at 16-
+// (Cin 16, tap pairs), 32- or 64-byte stages (kernel 1 at BN 32 in 16- or
+// 32-byte stages and 128-pixel blocks), BN 64 at 64 (Cin > 64 only), BN
+// 128 at 32, or at 64 in one m64 tile a warpgroup (a split).
+__host__ __device__ constexpr bool s8_tile(int bn, int mi, int ck,
+                                           int kernel) {
+  return bn <= 32 ? !(has_stats(kernel) && bn == 32 && (ck == 64 || mi == 2))
+                  : (ck != 16 &&
+                     (bn == 64 ? ck == 64 : (ck == 32 || mi == 1)));
+}
+
+// ck: a stage of 32 or 64 bytes a pixel (bf16 16 or 32 channels, s8 32 or
+// 64).
 template <int BN, int MI, int KERNEL>
 static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
-  return ck == 16 ? launch<BN, MI, 16, KERNEL>(a, st)
-                  : launch<BN, MI, 32, KERNEL>(a, st);
+  if constexpr (is_s8(KERNEL)) {
+    if (ck == 16) {
+      if constexpr (s8_tile(BN, MI, 16, KERNEL))
+        return launch<BN, MI, 16, KERNEL>(a, st);
+    } else if (ck == 32) {
+      if constexpr (s8_tile(BN, MI, 32, KERNEL))
+        return launch<BN, MI, 32, KERNEL>(a, st);
+    } else {
+      if constexpr (s8_tile(BN, MI, 64, KERNEL))
+        return launch<BN, MI, 64, KERNEL>(a, st);
+    }
+    return (int)cudaErrorInvalidValue;  // a tile the rule never returns
+  } else {
+    return ck == 16 ? launch<BN, MI, 16, KERNEL>(a, st)
+                    : launch<BN, MI, 32, KERNEL>(a, st);
+  }
 }
 
 // plan = {bn, mi, ck, tw, th, g, splits, cps, stages, resident, tma_y}
 // from kernels/tc_plan.py::plan_sm90.  Checks the plan and TMA's rules
 // (16-byte strides and bases, boxes <= 256), encodes the tensor maps and
 // launches; returns a CUDA error code (cudaErrorInvalidValue for a plan or
-// a tensor this body does not take).  KERNEL: 1, 2, 6 or 7 (a row band: h
-// counts the output rows, x holds h + 2).
+// a tensor this body does not take).  KERNEL: 1, 2, 6 or 7 (bf16; a row
+// band: h counts the output rows, x holds h + 2), 4 or 5 (s8: deq given, y
+// in f32 where y_f32, then from registers whatever the plan's tma_y).
 template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
-  static_assert(KERNEL == 1 || KERNEL == 2 || is_rows(KERNEL),
-                "kernel 1, 2, 6 or 7");
+  static_assert(KERNEL == 1 || KERNEL == 2 || is_s8(KERNEL) ||
+                    is_rows(KERNEL),
+                "kernel 1, 2, 4, 5, 6 or 7");
   constexpr bool STATS = has_stats(KERNEL);
+  constexpr bool S8 = is_s8(KERNEL);
+  constexpr int EB = elem_bytes(KERNEL);
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
   const int bn = plan[0], mi = plan[1], ck = plan[2];
   a.tw = plan[3];
@@ -773,16 +978,22 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   a.cps = plan[7];
   a.stages = plan[8];
   a.resident = plan[9];
-  a.tma_y = plan[10];
+  a.tma_y = plan[10] && !a.y_f32;
   const bool shape_ok =
       (bn == 16 || bn == 32 || bn == 64 || bn == 128) &&
-      (mi == 1 || mi == 2) && (ck == 16 || ck == 32) &&
+      (mi == 1 || mi == 2) &&
+      (ck * EB == 32 || ck * EB == 64 || (S8 && ck == 16)) &&
       (a.tw == 4 || a.tw == 8 || a.tw == 16) && a.th >= 1 &&
       a.th + 2 <= 256 && a.g >= 1 && a.g <= 256 &&
       a.tw * a.th * a.g == 128 * mi && (a.th * a.tw) % 16 == 0 &&
       a.stages >= 2 && a.stages <= MAX_STAGES;
   if (!shape_ok || a.splits < 1 || a.cps < 1 || a.n < 1 || a.h < 1 ||
       a.wd < 1 || a.cin < 1 || a.cout < 1)
+    return (int)cudaErrorInvalidValue;
+  if (S8 ? a.deq == nullptr : (a.deq != nullptr || a.y_f32))
+    return (int)cudaErrorInvalidValue;
+  // s8 at 16-byte stages: Cin 16 exactly, its tap pairs resident
+  if (ck * EB == 16 && (a.cin != 16 || !a.resident))
     return (int)cudaErrorInvalidValue;
   a.chunks = (a.cin + ck - 1) / ck;
   if ((long long)(a.splits - 1) * a.cps >= a.chunks ||
@@ -802,34 +1013,46 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   a.items = (int)items;
   a.fd_per.set(a.th * a.tw);
   a.fd_tw.set(a.tw);
-  // TMA's rules: global strides multiples of 16 bytes, 16-byte bases
+  // TMA's rules: global strides multiples of 16 bytes, 16-byte bases.  x's
+  // rows are Cin elements; bf16 w's rows Cout (unless resident), s8 w's
+  // Cin (always 16-byte loads, by TMA or resident)
   const bool noise = STATS && a.splits == 1;
-  if (a.cin % 8 != 0 || !aligned(a.x, 16) ||
+  if ((a.cin * EB) % 16 != 0 || !aligned(a.x, 16) ||
+      (S8 && !aligned(a.w, 16)) ||
       (a.resident && (a.splits != 1 || a.cout_blocks != 1)) ||
-      (!a.resident && (a.cout % 8 != 0 || !aligned(a.w, 16))) ||
+      (!S8 && !a.resident && (a.cout % 8 != 0 || !aligned(a.w, 16))) ||
       (a.tma_y && (a.cout % 8 != 0 || !aligned(a.y, 16))) ||
+      (a.y_f32 && !aligned(a.y, 8)) ||
       (noise && (a.wd % 4 != 0 || !aligned(a.noise, 16))))
     return (int)cudaErrorInvalidValue;
   a.vec_w = a.cout % 8 == 0 && aligned(a.w, 16);
   const int h_in = is_rows(KERNEL) ? a.h + 2 : a.h;
   const int bna = bn < 64 ? bn : 64;
   const cuuint64_t n = a.n, h = a.h, hi = h_in, wd = a.wd, cin = a.cin,
-                   cout = a.cout;
+                   cout = a.cout, eb = EB;
+  // TMA has no s8 type: u8 moves the same bytes, and its zero fill is s8's
+  const CUtensorMapDataType xw =
+      S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   {
     const cuuint64_t dims[4] = {cin, wd, hi, n};
-    const cuuint64_t strides[3] = {cin * 2, wd * cin * 2, hi * wd * cin * 2};
+    const cuuint64_t strides[3] = {cin * eb, wd * cin * eb,
+                                   hi * wd * cin * eb};
     const cuuint32_t box[4] = {(cuuint32_t)ck, (cuuint32_t)a.tw + 2,
                                (cuuint32_t)a.th + 2, (cuuint32_t)a.g};
-    if (!encode(&a.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, a.x, dims,
-                strides, box, ck * 2))
+    if (!encode(&a.tm_x, xw, 4, a.x, dims, strides, box, ck * EB))
       return (int)cudaErrorInvalidValue;
   }
-  if (!a.resident) {
+  if (!a.resident && S8) {  // [tap][Cout][Cin]: box (CK, BN, 9)
+    const cuuint64_t dims[3] = {cin, cout, 9};
+    const cuuint64_t strides[2] = {cin, cout * cin};
+    const cuuint32_t box[3] = {(cuuint32_t)ck, (cuuint32_t)bn, 9};
+    if (!encode(&a.tm_w, xw, 3, a.w, dims, strides, box, ck))
+      return (int)cudaErrorInvalidValue;
+  } else if (!a.resident) {  // HWIO: box (BNA, CK, 9)
     const cuuint64_t dims[3] = {cout, cin, 9};
     const cuuint64_t strides[2] = {cout * 2, cin * cout * 2};
     const cuuint32_t box[3] = {(cuuint32_t)bna, (cuuint32_t)ck, 9};
-    if (!encode(&a.tm_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, a.w, dims,
-                strides, box, bna * 2))
+    if (!encode(&a.tm_w, xw, 3, a.w, dims, strides, box, bna * 2))
       return (int)cudaErrorInvalidValue;
   }
   if (noise) {
@@ -870,20 +1093,24 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   }
 }
 
-// An entry point's arguments (the bf16 ones of conv_in_stats.cu,
-// small_conv.cu and their *_rows.cu forms) into Args.
-inline Args args(const void* x, const void* w, const float* noise,
-                 const float* nscale, const float* bias, void* y,
-                 float* partial, float* ws, int n, int h, int wd, int cin,
-                 int cout, int act, float slope) {
+// An entry point's arguments into Args: the bf16 ones of conv_in_stats.cu,
+// small_conv.cu and their *_rows.cu forms (deq null, y_f32 0), the s8 ones
+// of conv_in_stats_s8.cu and small_conv_s8.cu (deq (Cout,), y_f32 for an
+// f32 y; ws holds s32).
+inline Args args(const void* x, const void* w, const float* deq,
+                 const float* noise, const float* nscale, const float* bias,
+                 void* y, int y_f32, float* partial, void* ws, int n, int h,
+                 int wd, int cin, int cout, int act, float slope) {
   Args a;
   memset(&a, 0, sizeof(a));
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.x = x;
+  a.w = w;
+  a.deq = deq;
   a.noise = noise;
   a.nscale = nscale;
   a.bias = bias;
-  a.y = static_cast<__nv_bfloat16*>(y);
+  a.y = y;
+  a.y_f32 = y_f32;
   a.partial = partial;
   a.ws = ws;
   a.n = n;

@@ -1,6 +1,8 @@
 // Tensor-core implicit GEMM for the bf16 and s8 3x3 convolutions of kernels
-// 1 and 2 (conv_in_stats.cu, small_conv.cu).  The f32 calls run the 3xTF32
-// kernel of conv3x3_tf32.cuh.
+// 1 and 2 (conv_in_stats.cu, small_conv.cu, their *_s8.cu and *_rows.cu
+// forms) where TMA's rules keep a call off the Hopper body of
+// conv3x3_sm90.cuh (kernels/tc_plan.py::plan_bf16 and plan_s8 pick the
+// body).  The f32 calls run the 3xTF32 kernel of conv3x3_tf32.cuh.
 //
 // Layout: x is NHWC, w is HWIO (3, 3, Cin, Cout), stride 1, zero pad 1.
 // GEMM view: M = output pixels, N = output channels, K = 9 taps x Cin.
@@ -62,7 +64,9 @@
 // f32 values before the bf16 rounding; a block spanning G images writes one
 // partial per image.
 //
-// s8 body (int8 generation; the s8 entry points of both kernels).  x and w
+// s8 body (int8 generation; the s8 entry points of both kernels where
+// tc_plan.plan_s8 refuses the Hopper body: Cin % 16 != 0, kernel 1 at W % 4
+// != 0, an unaligned view).  x and w
 // are s8 and the MMA is mma.sync.m16n8k32.s32.s8.s8.s32: exact integer
 // sums, in any order, so a split-K adds its s32 partials exactly too.  A
 // stage holds CK = 32 or 64 channels, the same 32 or 64 bytes a pixel as

@@ -47,11 +47,9 @@
 // needs the statistics of the whole image, so it would run as the next
 // conv's prologue).
 //
-// s8 (generate --quant int8-full): the s8 body of conv3x3_tc.cuh behind
-// gst_conv3x3_in_stats_s8, with this kernel's epilogue after the
-// dequantization: v = float(acc) * deq[c] + noise * nscale + bias, leaky,
-// the statistics from the f32 v as in bf16.  x comes quantized by
-// quantize_s8.cu, w is s8 [tap][Cout][Cin].
+// s8 (generate --quant int8-full): conv_in_stats_s8.cu, this kernel's
+// epilogue after the dequantization on the Hopper body (entry 4) or the
+// mma.sync body.
 //
 // f32 (the generator with dtype fp32: the sample collection and the
 // annotation side, batch 8) runs the 3xTF32 tensor-core implicit GEMM of
@@ -135,43 +133,9 @@ int gst_conv3x3_in_stats_sm90(const void* x, const void* w,
   if (!gst::valid_dims(n, h, wd, cin, cout) || dtype != gst::BF16)
     return (int)cudaErrorInvalidValue;
   return gst::sm90::run<1>(
-      gst::sm90::args(x, w, noise, nscale, bias, y, partial, ws, n, h, wd,
-                      cin, cout, gst::tc::LEAKY, slope),
+      gst::sm90::args(x, w, nullptr, noise, nscale, bias, y, 0, partial,
+                      ws, n, h, wd, cin, cout, gst::tc::LEAKY, slope),
       plan, static_cast<cudaStream_t>(stream));
-}
-
-// The s8 body: x s8 NHWC, w s8 [tap][Cout][Cin], deq (Cout,) f32; y in
-// out_dtype (0 f32, 1 bf16); plan = int[9] from
-// kernels/tc_plan.py::plan(noise=True, s8=True); ws the split-K workspace
-// (s32); partial as above.
-int gst_conv3x3_in_stats_s8(const void* x, const void* w, const float* deq,
-                            const float* noise, const float* nscale,
-                            const float* bias, void* y, float* partial,
-                            float* ws, int n, int h, int wd, int cin,
-                            int cout, int out_dtype, float slope,
-                            const int* plan, void* stream) {
-  if (!gst::valid_dims(n, h, wd, cin, cout) ||
-      (out_dtype != gst::F32 && out_dtype != gst::BF16) || deq == nullptr)
-    return (int)cudaErrorInvalidValue;
-  gst::tc::Args a = {};
-  a.x = x;
-  a.w = w;
-  a.deq = deq;
-  a.bias = bias;
-  a.noise = noise;
-  a.nscale = nscale;
-  a.y = y;
-  a.y_f32 = out_dtype == gst::F32;
-  a.partial = partial;
-  a.ws = ws;
-  a.n = n;
-  a.h = h;
-  a.wd = wd;
-  a.cin = cin;
-  a.cout = cout;
-  a.act = gst::tc::LEAKY;
-  a.slope = slope;
-  return gst::tc::run<4>(a, plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -98,8 +98,8 @@ int gst_conv3x3_in_stats_rows_sm90(const void* x, const void* w,
       dtype != gst::BF16)
     return (int)cudaErrorInvalidValue;
   return gst::sm90::run<6>(
-      gst::sm90::args(x, w, noise, nscale, bias, y, partial, ws, n, h, wd,
-                      cin, cout, gst::tc::LEAKY, slope),
+      gst::sm90::args(x, w, nullptr, noise, nscale, bias, y, 0, partial,
+                      ws, n, h, wd, cin, cout, gst::tc::LEAKY, slope),
       plan, static_cast<cudaStream_t>(stream));
 }
 

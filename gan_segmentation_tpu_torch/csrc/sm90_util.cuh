@@ -1,7 +1,7 @@
 // PTX wrappers, index and alignment helpers shared by the tensor-core 3x3
 // convolutions (conv3x3_tc.cuh, bf16 and s8 on mma.sync; conv3x3_tf32.cuh,
-// f32 as 3xTF32; conv3x3_sm90.cuh, bf16 on Hopper's TMA, mbarriers and
-// wgmma).
+// f32 as 3xTF32; conv3x3_sm90.cuh, bf16 and s8 on Hopper's TMA, mbarriers
+// and wgmma).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -200,7 +200,12 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // A shared-memory matrix descriptor of wgmma: start address, leading and
-// stride byte offsets (LBO, SBO) and the swizzle (1 128B, 2 64B, 3 32B)
+// stride byte offsets (LBO, SBO) and the swizzle (1 128B, 2 64B, 3 32B).
+// N-major (bf16's B): LBO the stride of 64-element atoms along N, SBO of
+// 8-row groups along K.  K-major with a swizzle (s8's B): rows of the
+// swizzle's width, SBO the stride of 8-row groups along N, LBO unused (a
+// k32 step of 32 bytes stays inside one row); a step along K inside the
+// row advances the start address.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo,
                                               uint32_t sbo, int swizzle) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
@@ -302,5 +307,97 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// D[64 x 16] += A[64 x 32] (registers) * B[32 x 16] (shared memory,
+// K-major through desc_b); s32 accumulators, s8 operands
+__device__ __forceinline__ void wgmma_m64n16k32(int (&d)[8],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 32] (registers) * B[32 x 32] (shared memory,
+// K-major through desc_b); s32 accumulators, s8 operands
+__device__ __forceinline__ void wgmma_m64n32k32(int (&d)[16],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 32] (registers) * B[32 x 64] (shared memory,
+// K-major through desc_b); s32 accumulators, s8 operands
+__device__ __forceinline__ void wgmma_m64n64k32(int (&d)[32],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 32] (registers) * B[32 x 128] (shared memory,
+// K-major through desc_b); s32 accumulators, s8 operands
+__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
 
 }  // namespace gst

@@ -32,16 +32,9 @@
 // epilogue), not HBM latency: an L2 bulk prefetch two items ahead made them
 // 5-10% slower.
 //
-// s8 (int8 generation, generate --quant): the s8 body of conv3x3_tc.cuh
-// (mma.sync m16n8k32, s32 accumulators) behind gst_conv3x3_small_s8, at
-// every 3x3 site of the int8 decoder (Cout up to 4 x 32 for a block
-// stage's conv_0 over the coarse grid, the four output parities as
-// channels) and of the int8-full generator's up-sampling convs in sub-pixel
-// form (the same, 4 x Cout).  x comes quantized by quantize_s8.cu; the
-// epilogue dequantizes (float(acc) * deq[c]), adds the bias and applies the
-// activation.  What bounds it: bytes from 256^2 up, as in bf16; s8 halves
-// the input's bytes, and the separate quantize pass reads the bf16 tensor
-// once more and writes the s8 one.
+// s8 (int8 generation, generate --quant): small_conv_s8.cu, this kernel's
+// epilogue after the dequantization on the Hopper body (entry 5) or the
+// mma.sync body.
 //
 // f32 (evaluate at batch 1, train's cvt_0..4 forward, generate with
 // dtype fp32 at batch 8) runs the 3xTF32 tensor-core implicit GEMM of
@@ -115,37 +108,9 @@ int gst_conv3x3_small_sm90(const void* x, const void* w, const float* bias,
       dtype != gst::BF16)
     return (int)cudaErrorInvalidValue;
   return gst::sm90::run<2>(
-      gst::sm90::args(x, w, nullptr, nullptr, bias, y, nullptr, ws, n, h,
-                      wd, cin, cout, act, slope),
+      gst::sm90::args(x, w, nullptr, nullptr, nullptr, bias, y, 0, nullptr,
+                      ws, n, h, wd, cin, cout, act, slope),
       plan, static_cast<cudaStream_t>(stream));
-}
-
-// The s8 body: x s8 NHWC, w s8 [tap][Cout][Cin], deq (Cout,) f32, bias
-// (Cout,) f32 or null; y in out_dtype (0 f32, 1 bf16); plan = int[9] from
-// kernels/tc_plan.py::plan(s8=True); ws the split-K workspace (s32).
-int gst_conv3x3_small_s8(const void* x, const void* w, const float* deq,
-                         const float* bias, void* y, float* ws, int n, int h,
-                         int wd, int cin, int cout, int out_dtype, int act,
-                         float slope, const int* plan, void* stream) {
-  if (!gst::valid_dims(n, h, wd, cin, cout) || act < 0 || act > 2 ||
-      (out_dtype != gst::F32 && out_dtype != gst::BF16) || deq == nullptr)
-    return (int)cudaErrorInvalidValue;
-  gst::tc::Args a = {};
-  a.x = x;
-  a.w = w;
-  a.deq = deq;
-  a.bias = bias;
-  a.y = y;
-  a.y_f32 = out_dtype == gst::F32;
-  a.ws = ws;
-  a.n = n;
-  a.h = h;
-  a.wd = wd;
-  a.cin = cin;
-  a.cout = cout;
-  a.act = act;
-  a.slope = slope;
-  return gst::tc::run<5>(a, plan, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

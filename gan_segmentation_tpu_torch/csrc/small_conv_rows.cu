@@ -82,8 +82,8 @@ int gst_conv3x3_small_rows_sm90(const void* x, const void* w,
       act > 2 || dtype != gst::BF16)
     return (int)cudaErrorInvalidValue;
   return gst::sm90::run<7>(
-      gst::sm90::args(x, w, nullptr, nullptr, bias, y, nullptr, ws, n, h,
-                      wd, cin, cout, act, slope),
+      gst::sm90::args(x, w, nullptr, nullptr, nullptr, bias, y, 0, nullptr,
+                      ws, n, h, wd, cin, cout, act, slope),
       plan, static_cast<cudaStream_t>(stream));
 }
 

@@ -167,7 +167,7 @@ def _tc_plan_c(dtype, n, h, w, cin, cout, noise, aligned=True):
     if dtype == torch.float32:
         p = tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
     elif dtype == torch.int8:
-        p = tc_plan.plan(n, h, w, cin, cout, noise, s8=True)
+        p = tc_plan.plan_s8(n, h, w, cin, cout, noise, aligned)
     else:
         p = tc_plan.plan_bf16(n, h, w, cin, cout, noise, aligned)
     args = p.args()
@@ -176,14 +176,14 @@ def _tc_plan_c(dtype, n, h, w, cin, cout, noise, aligned=True):
 
 def tc_launch_args(x, n, h, w, cin, cout, noise=False, tensors=()):
     """For a call of kernel 1 (``noise``) or 2: (plan, plan as a C int
-    array, split-K workspace or None).  bf16 takes ``tc_plan.plan_bf16``:
-    the Hopper body's ``PlanSM90`` (int[11], conv3x3_sm90.cuh; ``plan.sm90``
-    names its entry points ``gst_*_sm90``) where TMA's rules let it, given
-    whether x and ``tensors`` start on 16 bytes, else the mma.sync body's
-    ``Plan`` (int[9], conv3x3_tc.cuh); s8 ``tc_plan.plan`` (int[9]), f32
+    array, split-K workspace or None).  bf16 takes ``tc_plan.plan_bf16``
+    and s8 ``tc_plan.plan_s8``: the Hopper body's ``PlanSM90`` (int[11],
+    conv3x3_sm90.cuh; ``plan.sm90`` names its entry points ``gst_*_sm90``)
+    where TMA's rules let it, given whether x and ``tensors`` start on 16
+    bytes, else the mma.sync body's ``Plan`` (int[9], conv3x3_tc.cuh); f32
     ``tc_plan.plan_f32`` (int[11], conv3x3_tf32.cuh).  The plan is cached
     per shape: the host's time per launch is what bounds the small layers.
-    The s8 body's workspace holds s32 partials."""
+    The s8 bodies' workspace holds s32 partials."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *tensors))
     p, plan_c = _tc_plan_c(x.dtype, n, h, w, cin, cout, noise, aligned)
     ws = None
@@ -238,6 +238,10 @@ def library():
     lib.gst_conv3x3_small_s8.restype = i
     lib.gst_conv3x3_small_s8.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i,
                                          i, i, i, f, vp, vp]
+    for name in ("gst_conv3x3_in_stats_s8", "gst_conv3x3_small_s8"):
+        fn = getattr(lib, name + "_sm90")
+        fn.restype = i
+        fn.argtypes = getattr(lib, name).argtypes
     lib.gst_quantize_s8.restype = i
     lib.gst_quantize_s8.argtypes = [vp, vp, vp, ctypes.c_longlong, i, vp]
     lib.gst_conv3x3_bil.restype = i

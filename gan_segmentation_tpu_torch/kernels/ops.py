@@ -9,9 +9,10 @@ pass as ``torch.library`` custom ops, so that a tracer (``torch.export``,
 
 - CPU: the plain PyTorch version (``*_plain`` beside each wrapper).
 - CUDA: the hand-written kernel through the ``ctypes`` library of
-  ``_build``, launched on the current stream (bf16 kernels 1 and 2 on the
-  body ``tc_plan.plan_bf16`` picks: the Hopper body's ``gst_*_sm90``
-  entries or the mma.sync body's); it raises when the launch
+  ``_build``, launched on the current stream (bf16 and s8 kernels 1 and 2
+  on the body ``tc_plan.plan_bf16`` or ``tc_plan.plan_s8`` picks: the
+  Hopper body's ``gst_*_sm90`` entries or the mma.sync body's); it raises
+  when the launch
   fails and never falls back to the plain version.  Each launch adds one
   to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
   ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``, the ``_s8`` and
@@ -200,7 +201,8 @@ def _stream(dev):
 
 def _entry(lib, name, plan):
     """The C entry point of the body the plan names: ``name`` (mma.sync,
-    3xTF32) or ``name_sm90`` (the bf16 Hopper body), same arguments."""
+    3xTF32) or ``name_sm90`` (the Hopper body, bf16 or s8), same
+    arguments."""
     return getattr(lib, name + "_sm90" if plan.sm90 else name)
 
 
@@ -257,9 +259,10 @@ def _(x, w, deq, b, act, leaky, out_f32):
     dev = x.device
     out = _out_dtype(out_f32)
     y = torch.empty((n, h, wd, cout), dtype=out, device=dev)
-    _, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout)
+    p, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
+                                        tensors=(w,))
     with torch.cuda.device(dev):
-        rc = _build.library().gst_conv3x3_small_s8(
+        rc = _entry(_build.library(), "gst_conv3x3_small_s8", p)(
             x.data_ptr(), w.data_ptr(), deq.data_ptr(),
             None if b is None else b.data_ptr(), y.data_ptr(),
             None if ws is None else ws.data_ptr(), n, h, wd, cin, cout,
@@ -297,12 +300,13 @@ def _(x, w, deq, noise, nscale, bias, leaky, out_f32):
     dev = x.device
     out = _out_dtype(out_f32)
     plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
-                                             noise=True)
+                                             noise=True,
+                                             tensors=(w, noise))
     y = torch.empty((n, h, wd, cout), dtype=out, device=dev)
     partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
                           device=dev)
     with torch.cuda.device(dev):
-        rc = _build.library().gst_conv3x3_in_stats_s8(
+        rc = _entry(_build.library(), "gst_conv3x3_in_stats_s8", plan)(
             x.data_ptr(), w.data_ptr(), deq.data_ptr(), noise.data_ptr(),
             nscale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             partial.data_ptr(), None if ws is None else ws.data_ptr(), n, h,

@@ -1,9 +1,9 @@
 """Launch plans of the tensor-core 3x3 convs: ``plan_sm90`` for the bf16
-Hopper body (``csrc/conv3x3_sm90.cuh``, kernels 1 and 2 and their row-band
-forms), ``plan`` for the mma.sync bf16 and s8 bodies
+and s8 Hopper body (``csrc/conv3x3_sm90.cuh``, kernels 1 and 2, their
+row-band and their s8 forms), ``plan`` for the mma.sync bf16 and s8 bodies
 (``csrc/conv3x3_tc.cuh``), ``plan_f32`` for the f32 3xTF32 kernel
-(``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).  ``plan_bf16`` is the one
-rule that picks a bf16 call's body.
+(``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).  ``plan_bf16`` and
+``plan_s8`` are the rules that pick a bf16 or s8 call's body.
 
 Pure functions of the layer's shape, so the CPU tests can check every
 path shape's plan without a card.  ``h`` is always the OUTPUT rows: the
@@ -332,13 +332,26 @@ def plan_f32(n: int, h: int, w: int, cin: int, cout: int,
 
 
 # ---------------------------------------------------------------------------
-# The bf16 Hopper body (csrc/conv3x3_sm90.cuh)
+# The Hopper body (csrc/conv3x3_sm90.cuh), bf16 and s8
 
 SM90_MAX_STAGES = 8
 SM90_INFLIGHT = 24 * 1024  # bytes a block keeps loading: Little's law,
 #                           3.35 TB/s x ~1 us over 132 SMs is ~25 KB an SM
 SM90_RESIDENT_MAX = 96 * 1024  # a block's resident taps, at most
 TMA_BOX_MAX = 256          # elements along any box dimension
+
+
+# The s8 tiles (bn, mi, ck) plan_sm90(s8=True) can return, by kernel (True:
+# kernel 1): the s8 kernels conv3x3_sm90.cuh builds (its s8_tile)
+_S8_NARROW = {(bn, mi, ck) for bn in (16, 32) for mi in (1, 2)
+              for ck in (16, 32, 64)}
+_S8_WIDE = {(64, 1, 64), (64, 2, 64), (128, 1, 32), (128, 1, 64),
+            (128, 2, 32)}
+S8_SM90_TILES = {False: frozenset(_S8_NARROW | _S8_WIDE),
+                 True: frozenset({t for t in _S8_NARROW
+                                  if t[0] == 16 or t[1:] in ((1, 16),
+                                                             (1, 32))}
+                                 | _S8_WIDE)}
 
 
 def _align(v: int, a: int) -> int:
@@ -348,7 +361,10 @@ def _align(v: int, a: int) -> int:
 @dataclass(frozen=True)
 class PlanSM90:
     """A call's plan on the Hopper body; ``smem_bytes`` mirrors
-    ``layout()`` in conv3x3_sm90.cuh."""
+    ``layout()`` in conv3x3_sm90.cuh.  ``s8``: x and w are s8 (entries 4
+    and 5), ``ck`` counts s8 channels (the same 32 or 64 bytes a pixel as
+    bf16's 16 or 32; or Cin 16's 16 bytes, ``pairs``) and the taps come
+    K-major, [9][bn][ck] (``pairs``: [5][bn][32])."""
     sm90 = True  # entries gst_conv3x3_*_sm90
     bn: int
     mi: int
@@ -367,6 +383,12 @@ class PlanSM90:
     tiles_y: int
     groups: int
     cout_blocks: int
+    s8: bool = False
+
+    @property
+    def eb(self) -> int:
+        """Bytes of an element of x and w."""
+        return 1 if self.s8 else 2
 
     @property
     def bm(self) -> int:
@@ -390,9 +412,12 @@ class PlanSM90:
     @property
     def min_blocks(self) -> int:
         """Blocks per SM the kernel's launch bounds ask of ptxas: 2 for the
-        narrow tiles (288 threads), 1 for the wide ones (BN >= 64, 384
-        threads: a loader warpgroup that hands its registers over)."""
-        return 2 if self.bn <= 32 else 1
+        narrow tiles (288 threads), 3 for s8 kernel 1 at ``bn`` 16, 1 for
+        the wide ones (BN >= 64, 384 threads: a loader warpgroup that hands
+        its registers over)."""
+        if self.bn > 32:
+            return 1
+        return 3 if self.s8 and self.noise and self.bn == 16 else 2
 
     @property
     def out_bufs(self) -> int:
@@ -403,12 +428,19 @@ class PlanSM90:
     @property
     def halo_bytes(self) -> int:
         """One stage's halo box: the TMA transaction."""
-        return self.g * (self.th + 2) * (self.tw + 2) * self.ck * 2
+        return self.g * (self.th + 2) * (self.tw + 2) * self.ck * self.eb
+
+    @property
+    def pairs(self) -> bool:
+        """s8 at Cin 16: 16-byte pixels, a k32 step over two taps."""
+        return self.ck * self.eb == 16
 
     @property
     def tap_bytes(self) -> int:
-        """One Cin chunk's tap slice [9][ck][bn]."""
-        return 9 * self.ck * self.bn * 2
+        """One Cin chunk's tap slice: bf16 [9][ck][bn], s8 [9][bn][ck], s8
+        in pairs [5][bn][32]."""
+        return 5 * 32 * self.bn if self.pairs else \
+            9 * self.ck * self.bn * self.eb
 
     @property
     def stage_load_bytes(self) -> int:
@@ -431,9 +463,11 @@ class PlanSM90:
             + 1024
 
     def boxes(self):
-        """The TMA boxes of x, w, the noise and y, innermost first."""
+        """The TMA boxes of x, w, the noise and y, innermost first (s8's w
+        is one K-major box of all ``bn`` channels)."""
         return {"x": (self.ck, self.tw + 2, self.th + 2, self.g),
-                "w": (self.bna, self.ck, 9),
+                "w": (self.ck, self.bn, 9) if self.s8
+                else (self.bna, self.ck, 9),
                 "noise": (self.tw, self.th, self.g),
                 "y": (self.bna, self.tw, self.th, self.g)}
 
@@ -444,19 +478,23 @@ class PlanSM90:
                 int(self.tma_y))
 
     def ws_elems(self, n: int, h: int, w: int, cout: int) -> int:
-        """f32 elements of the split-K workspace (0 without a split)."""
+        """f32 (s8: s32) elements of the split-K workspace (0 without a
+        split)."""
         return self.splits * n * h * w * cout if self.splits > 1 else 0
 
 
-def tma_refuses(cin: int, w: int, noise: bool,
-                aligned: bool = True) -> Optional[str]:
+def tma_refuses(cin: int, w: int, noise: bool, aligned: bool = True,
+                s8: bool = False) -> Optional[str]:
     """Why TMA's rules keep a call off the Hopper body, or None.  Global
-    strides are multiples of 16 bytes (x's rows of Cin bf16, the noise's
-    rows of W f32) and bases 16-byte aligned; w's and y's rows of Cout
-    bf16 too, unless the taps are resident and y is stored from registers
-    (``plan_sm90`` decides that)."""
+    strides are multiples of 16 bytes (x's rows of Cin elements, the
+    noise's rows of W f32) and bases 16-byte aligned.  bf16: w's and y's
+    rows of Cout bf16 too, unless the taps are resident and y is stored
+    from registers (``plan_sm90`` decides that).  s8: w's rows are Cin
+    bytes ([tap][Cout][Cin]), so Cin % 16 covers x and w."""
     if not aligned:
         return "a base not 16-byte aligned"
+    if s8 and cin % 16:
+        return "Cin % 16 != 0 (x's and w's row strides)"
     if cin % 8:
         return "Cin % 8 != 0 (x's row stride)"
     if noise and w % 4:
@@ -465,23 +503,37 @@ def tma_refuses(cin: int, w: int, noise: bool,
 
 
 def plan_sm90(n: int, h: int, w: int, cin: int, cout: int,
-              noise: bool = False, aligned: bool = True
+              noise: bool = False, aligned: bool = True, s8: bool = False
               ) -> Optional[PlanSM90]:
-    """The Hopper body's plan of one call (``noise``: kernel 1), or None
-    where TMA's rules refuse it (``tma_refuses``, or Cout % 8 != 0 with
-    taps too many to stay resident).  ``h`` is the output rows.
+    """The Hopper body's plan of one call (``noise``: kernel 1; ``s8``: x
+    and w s8), or None where TMA's rules refuse it (``tma_refuses``, or, in
+    bf16, Cout % 8 != 0 with taps too many to stay resident).  ``h`` is the
+    output rows.  s8 takes bf16's plan in bytes (a stage of 32 or 64 bytes
+    a pixel: ``ck`` 32 or 64 s8 channels; the same splits and ring) but for
+    the two tile rules marked s8 below.
 
     - ``bn``: 128 for Cout > 64 (an input halo staged once for 128 output
       channels, wgmma n128 as two 64-channel atoms), else Cout rounded up
-      to a power of two, at least 16 (Cout 2 runs n16 on zero taps).
+      to a power of two, at least 16 (Cout 2 runs n16 on zero taps).  s8
+      at Cin <= 64 (a pixel's channels in one 64-byte stage: the layers
+      bound by bytes) caps it at 32: two blocks an SM, one block's
+      epilogue beside the other's loads and MMAs, beat one wide block by
+      26-42% at 256^2 64 -> 128 and 512^2 64 -> 64 and 32 -> 64
+      (chip_smoke.phase_s8_sweep), though each halo is staged once per 32
+      channels (from L2).
     - ``mi``: m64 tiles per consumer warpgroup: 2 (256-pixel blocks, half
       the tap-slice traffic per pixel of 128) where that grid still fills
-      7/8 of the SMs (32^2 x 512: 128 items, one wave), else 1.
+      7/8 of the SMs (32^2 x 512: 128 items, one wave), else 1.  s8 kernel
+      1 at ``bn`` 32 keeps 1 (128-pixel blocks; 256-pixel ones, 111
+      registers a thread, ran slower at 512^2 32 -> 32 and are not built).
     - ``ck``: Cin per stage, 16 for Cin <= 16 and for ``bn`` 128 (a stage of
       128 channels' taps stays 37 KB), else 32; 32 for a split ``bn`` 128
       (no y tile then: half the splits, each twice the chunk); 16 for
       kernel 1 at ``bn`` 32 (at 32 its kernel needs 120 registers, and two
-      blocks of that do not share an SM).
+      blocks of that do not share an SM).  s8: twice these, in channels;
+      but Cin 16 with resident taps (Cout <= 32) takes 16 (16-byte pixels,
+      a k32 step over two taps: 5 steps instead of 9 half-empty ones,
+      8-14% less at 1024^2 16 -> 16).
     - ``tw``, ``th``, ``g``: as ``plan``, with >= 16 pixels per image in a
       tile (a 16-row fragment lies in one image: kernel 1's statistics).
     - ``splits``, ``cps``: split-K where the items fill less than 7/8 of
@@ -497,10 +549,17 @@ def plan_sm90(n: int, h: int, w: int, cin: int, cout: int,
       the card more blocks beat a deeper ring: 2 stages in two blocks an
       SM ran 512^2 32 -> 32 in 0.300 ms, 3 in one 0.332).
     """
-    if tma_refuses(cin, w, noise, aligned):
+    if tma_refuses(cin, w, noise, aligned, s8):
         return None
+    eb = 1 if s8 else 2     # bytes of an element of x and w
+    per16 = 2 // eb         # channels in a bf16's two bytes
     bn = 128 if cout > 64 else max(16, _pow2ceil(cout))
-    ck = 16 if cin <= 16 or bn == 128 or (noise and bn == 32) else 32
+    if s8 and cin <= 64:
+        bn = min(bn, 32)
+    ck = per16 * (16 if cin <= 16 * per16 or bn == 128 or (noise and bn == 32)
+                  else 32)
+    if s8 and cin <= 16 and cout <= bn:  # the taps in pairs, resident
+        ck = 16
     tw = 4 if w <= 4 else (8 if w <= 8 else 16)
     min_th = 16 // tw
     cout_blocks = _cdiv(cout, bn)
@@ -508,26 +567,29 @@ def plan_sm90(n: int, h: int, w: int, cin: int, cout: int,
     _, _, tx, ty, gr = _geometry(n, h, w, 256, tw, min_th)
     fill = NUM_SMS - NUM_SMS // 8
     mi = 2 if tx * ty * gr * cout_blocks >= fill else 1
+    if s8 and noise and bn == 32:
+        mi = 1
     th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 128 * mi, tw,
                                                 min_th)
     blocks = tiles_x * tiles_y * groups * cout_blocks
     splits = 1
     if blocks < fill:
         if bn == 128:
-            ck, chunks = 32, _cdiv(cin, 32)
+            ck = 32 * per16
+            chunks = _cdiv(cin, ck)
         splits = min(max(1, chunks // 2) if bn == 128 else chunks,
                      _cdiv(2 * NUM_SMS, blocks))
     cps = _cdiv(chunks, splits)
     splits = _cdiv(chunks, cps)
     resident = (cout_blocks == 1 and splits == 1
-                and chunks * 9 * ck * bn * 2 <= SM90_RESIDENT_MAX)
-    if cout % 8 and not resident:
+                and chunks * 9 * ck * bn * eb <= SM90_RESIDENT_MAX)
+    if cout % 8 and not resident and not s8:
         return None
     p = PlanSM90(bn=bn, mi=mi, ck=ck, tw=tw, th=th, g=g, splits=splits,
                  cps=cps, stages=2, resident=resident,
                  tma_y=cout % 8 == 0 and splits == 1, noise=noise,
                  chunks=chunks, tiles_x=tiles_x, tiles_y=tiles_y,
-                 groups=groups, cout_blocks=cout_blocks)
+                 groups=groups, cout_blocks=cout_blocks, s8=s8)
     want = min(SM90_MAX_STAGES,
                max(2, 1 + _cdiv(SM90_INFLIGHT, p.stage_load_bytes)))
     budget = min(MAX_SMEM, SM_SMEM // p.min_blocks - 1024)
@@ -549,3 +611,16 @@ def plan_bf16(n: int, h: int, w: int, cin: int, cout: int,
     TMA's rules refuse it."""
     return plan_sm90(n, h, w, cin, cout, noise, aligned) or plan(
         n, h, w, cin, cout, noise)
+
+
+def plan_s8(n: int, h: int, w: int, cin: int, cout: int,
+            noise: bool = False, aligned: bool = True
+            ) -> Union[PlanSM90, Plan]:
+    """The body of an s8 call of kernel 1 (``noise``) or 2, by one rule as
+    in bf16: the Hopper body wherever ``plan_sm90(s8=True)`` takes the
+    shape (every int8 and int8-full shape of ffhq, cars and bedrooms), the
+    mma.sync s8 body (``plan(s8=True)``) where TMA's rules refuse it
+    (``tma_refuses``: Cin % 16 != 0, kernel 1 at W % 4 != 0, an unaligned
+    view).  The Hopper body's y equals the mma.sync body's bit for bit."""
+    return plan_sm90(n, h, w, cin, cout, noise, aligned, s8=True) or plan(
+        n, h, w, cin, cout, noise, s8=True)

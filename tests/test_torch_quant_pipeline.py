@@ -18,7 +18,9 @@ quantize pass on the card against their plain versions) runs on the
 card's machine.
 """
 
+import contextlib
 import os
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from gan_segmentation_tpu_torch.core import dtypes
 from gan_segmentation_tpu_torch.core import export as texport
 from gan_segmentation_tpu_torch.core.config import (GanConfig, SolverConfig,
                                                     gan_config)
+from gan_segmentation_tpu_torch.kernels import _build
 from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
 from gan_segmentation_tpu_torch.kernels import quantize as kqm
 from gan_segmentation_tpu_torch.kernels import small_conv as k2m
@@ -248,14 +251,30 @@ def cuda():
     return torch.device("cuda")
 
 
+@contextlib.contextmanager
+def _mma_sync_s8_body():
+    """The s8 calls on the mma.sync s8 body inside: the rule's Hopper plan
+    swapped for ``tc_plan.plan(s8=True)``."""
+    _build._tc_plan_c.cache_clear()
+    try:
+        with mock.patch.object(
+                tc_plan, "plan_s8",
+                lambda n, h, w, cin, cout, noise=False, aligned=True:
+                tc_plan.plan(n, h, w, cin, cout, noise, s8=True)):
+            yield
+    finally:
+        _build._tc_plan_c.cache_clear()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 4, 4, 512, 512), (8, 8, 8, 512, 2048),
                                    (2, 64, 64, 64, 128), (3, 12, 20, 3, 5),
                                    (8, 128, 128, 32, 2)])
 def test_cuda_s8_bodies_are_exact(cuda, shape):
-    """Both s8 bodies and the quantize pass on the card equal their plain
+    """Both s8 entries and the quantize pass on the card equal their plain
     versions bit for bit (deq = 1, f32 out), split-K and ragged shapes
-    included; with real scales, bias and activation y is equal."""
+    included; with real scales, bias and activation y is equal, on the
+    Hopper body the rule picks and on the mma.sync s8 body alike."""
     n, h, w, cin, cout = shape
     g = torch.Generator(cuda).manual_seed(0)
     x = torch.randn((n, h, w, cin), device=cuda, generator=g).bfloat16()
@@ -265,19 +284,23 @@ def test_cuda_s8_bodies_are_exact(cuda, shape):
     wq = torch.randint(-127, 128, (3, 3, cout, cin), dtype=torch.int8,
                        device=cuda, generator=g)
     one = torch.ones(cout, device=cuda)
-    assert torch.equal(
-        k2m.conv3x3_small_s8(xq, wq, one, out_dtype=torch.float32),
-        k2m.conv3x3_small_s8_plain(xq, wq, one, out_dtype=torch.float32))
     deq = torch.rand(cout, device=cuda, generator=g) * 1e-4
     b = torch.randn(cout, device=cuda, generator=g)
     noise = torch.randn((n, h, w), device=cuda, generator=g)
-    got = k2m.conv3x3_small_s8(xq, wq, deq, b, leaky=0.2)
-    want = k2m.conv3x3_small_s8_plain(xq, wq, deq, b, leaky=0.2)
-    assert float((got == want).float().mean()) >= 0.9999
-    y, mean, var = k1m.conv3x3_noise_bias_lrelu_instats_s8(
-        xq, wq, deq, noise, b, b)
-    yp, mp, vp = k1m.conv3x3_noise_bias_lrelu_instats_s8_plain(
-        xq, wq, deq, noise, b, b)
-    assert float((y == yp).float().mean()) >= 0.9999
-    torch.testing.assert_close(mean, mp, atol=1e-2, rtol=1e-2)
-    torch.testing.assert_close(var, vp, atol=1e-2, rtol=1e-2)
+    assert tc_plan.plan_s8(n, h, w, cin, cout).sm90 == (cin % 16 == 0)
+    for body in (contextlib.nullcontext, _mma_sync_s8_body):
+        with body():
+            assert torch.equal(
+                k2m.conv3x3_small_s8(xq, wq, one, out_dtype=torch.float32),
+                k2m.conv3x3_small_s8_plain(xq, wq, one,
+                                           out_dtype=torch.float32))
+            got = k2m.conv3x3_small_s8(xq, wq, deq, b, leaky=0.2)
+            want = k2m.conv3x3_small_s8_plain(xq, wq, deq, b, leaky=0.2)
+            assert torch.equal(got, want)
+            y, mean, var = k1m.conv3x3_noise_bias_lrelu_instats_s8(
+                xq, wq, deq, noise, b, b)
+            yp, mp, vp = k1m.conv3x3_noise_bias_lrelu_instats_s8_plain(
+                xq, wq, deq, noise, b, b)
+            assert torch.equal(y, yp)
+            torch.testing.assert_close(mean, mp, atol=1e-2, rtol=1e-2)
+            torch.testing.assert_close(var, vp, atol=1e-2, rtol=1e-2)
