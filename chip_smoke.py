@@ -11,10 +11,10 @@ Phases (any failure raises, so the exit code is non-zero):
 2. build   — compiles the CUDA kernels of ``gan_segmentation_tpu_torch/csrc``
    (one nvcc per source, in parallel) and prints ptxas's registers and
    spills; every tensor-core kernel (``conv3x3_tc.cuh``, bf16 and s8;
-   ``conv3x3_tf32.cuh``, 3xTF32; ``conv3x3_sm90.cuh``, bf16 and s8) must
-   spill 0 bytes, every s8 Hopper-body tile ``tc_plan.plan_s8`` can return
-   must be built, and the wide Hopper tiles must launch with 168
-   registers.
+   ``conv3x3_tf32.cuh``, 3xTF32; ``conv3x3_sm90.cuh``, bf16, s8 and f32 as
+   3xTF32) must spill 0 bytes, every s8 Hopper-body tile ``tc_plan.plan_s8``
+   and every tf32 one ``tc_plan.plan_tf32`` can return must be built, and
+   the wide Hopper tiles must launch with 168 registers.
 3. kernels — each kernel against its plain PyTorch version, with the error
    and the tolerance, and per call its device time by CUDA-graph replay
    beside the plain version's, ``F.conv2d`` alone (the library call) and
@@ -22,17 +22,23 @@ Phases (any failure raises, so the exit code is non-zero):
    as 3xTF32): kernel 1 at every shape the ffhq 1024^2 generator gives it
    at batch 8, in f32 (TF32 off on the plain side) and bf16, both timed;
    kernel 2 at every decoder conv at batch 8 in f32 and bf16 (bf16 timed)
-   and at batch 1 in f32 (evaluate, timed); kernel 3 (bil_conv) in f32 at
-   every call of a train step at batch 1 (forward and input gradient),
-   timed beside ``F.conv2d`` with TF32 on too, and at its edge cases, with
-   bit-identical repeats; kernel 3's bf16 body at generate's 16 -> 16
+   and at batch 1 in f32 (evaluate, timed on both f32 bodies: the rule's,
+   the tf32 Hopper body wherever ``tc_plan.plan_tf32`` takes the call, and
+   the mma.sync 3xTF32 body, ``mma_sync_tf32_body``); kernel 3 (bil_conv)
+   in f32 at every call of a train step at batch 1 (forward and input
+   gradient) on both f32 bodies, timed beside ``F.conv2d`` with TF32 on
+   too, and at its edge cases, with bit-identical repeats; how wgmma
+   rounds the f32 accumulator at the longest chain (``tf32_rounding``:
+   against truncating and round-to-nearest emulations); kernel 3's bf16
+   body at generate's 16 -> 16
    convs at batch 8; Conv3x3's output, dX, dW and db against
    torch.autograd at every train shape.  Kernels 1 and 2 run the bf16
-   tensor-core kernel in bf16 and the 3xTF32 one in f32; both are also
+   tensor-core kernel in bf16 and the 3xTF32 ones in f32; both are also
    checked at their edge cases (4^2 tiles spanning images with Cin 512 and
    split-K, ragged tiles, Cout = 2, Cin = 3, batch 1; kernel 2 with its
-   three epilogues, kernel 1 with its statistics) and for bit-identical
-   repeats; every f32 path shape that splits K is timed beside one split.
+   three epilogues, kernel 1 with its statistics; bf16 and f32 on both
+   bodies) and for bit-identical repeats; every f32 path shape that splits
+   K is timed beside one split.
 4. generate — ``run_generate`` at ffhq 1024^2, batch 8, 24 pairs, with a
    seeded random generator and a seeded decoder checkpoint; a device trace
    must show that it went through kernels 1 and 2; a repeated
@@ -82,7 +88,8 @@ Phases (any failure raises, so the exit code is non-zero):
    and once traced for its launch counts per step; falling loss,
    checkpoint, metrics above the untrained decoder's; the fit loop's rate,
    the step time by CUDA events, host vs device time, and the device time
-   by kernel family, eager and as replays; a 2-epoch graphed fit equal to
+   by kernel family, eager and as replays, the replays also with the f32
+   calls on the mma.sync 3xTF32 body; a 2-epoch graphed fit equal to
    the per-step fit bit for bit in cuDNN's deterministic mode.
 5b. export — the serving export (``core/export.py``) of the decoder that
    phase 5 trained, with the seeded ffhq generator, bf16, batch 8: the
@@ -344,11 +351,12 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 # finish kernel, not counted here).  The tensor-core kernels carry the
 # number of the entry point that launches them as their last template
 # argument (4 and 5: kernels 1 and 2's s8 bodies, 6 and 7 their row-band
-# forms); kernel 3's bf16 body and the quantize pass are kernels of their
-# own.
+# forms, 8 kernel 2's f32 form of the Hopper body); kernel 3's bf16 body
+# and the quantize pass are kernels of their own.
 KERNEL_NUMBERS = {"1": "conv_in_stats", "2": "small_conv", "3": "bil_conv",
                   "4": "conv_in_stats_s8", "5": "small_conv_s8",
-                  "6": "conv_in_stats_rows", "7": "small_conv_rows"}
+                  "6": "conv_in_stats_rows", "7": "small_conv_rows",
+                  "8": "small_conv"}
 S8_KERNELS = ("conv_in_stats_s8", "small_conv_s8", "quantize_s8")
 
 
@@ -365,9 +373,12 @@ def kernel_of(name):
 
 
 def body_of(name):
-    """The body a tensor-core kernel of kernels 1 and 2 runs: "sm90" (the
-    bf16 Hopper body, conv3x3_sm90.cuh), "mma_sync" (conv3x3_tc.cuh: bf16
-    or s8), "3xtf32" (conv3x3_tf32.cuh), else None."""
+    """The body a tensor-core kernel of kernels 1-3 runs: "sm90" (the bf16
+    or s8 Hopper body, conv3x3_sm90.cuh), "sm90_tf32" (its f32 form, entries
+    3 and 8), "mma_sync" (conv3x3_tc.cuh: bf16 or s8), "3xtf32"
+    (conv3x3_tf32.cuh), else None."""
+    if re.search(r"conv3x3_sm90_kernel<[^>]*,\s*[38]>", name):
+        return "sm90_tf32"
     for key, body in (("conv3x3_sm90_kernel<", "sm90"),
                       ("conv3x3_tc_kernel<", "mma_sync"),
                       ("conv3x3_tf32_kernel<", "3xtf32")):
@@ -398,6 +409,28 @@ def mma_sync_body():
             yield
     finally:
         _build._tc_plan_c.cache_clear()
+
+
+@contextlib.contextmanager
+def mma_sync_tf32_body():
+    """The f32 calls of kernels 3 and 2 on the mma.sync 3xTF32 body
+    (conv3x3_tf32.cuh) inside: the f32 rule's Hopper plan
+    (tc_plan.plan_tf32) swapped out, so that one timing can set the two f32
+    bodies side by side on the same inputs."""
+    from unittest import mock
+
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+
+    def clear():
+        _build._tc_plan_c.cache_clear()
+        _build._bil_plan_c.cache_clear()
+    clear()
+    try:
+        with mock.patch.object(tc_plan, "plan_tf32",
+                               lambda *args, **kw: None):
+            yield
+    finally:
+        clear()
 
 
 @contextlib.contextmanager
@@ -551,11 +584,13 @@ class LaunchTrace:
             self.device = expected
             return False
         self.device = dict.fromkeys(self.fns, 0)
+        self.by_body = {}
         for name in device_kernel_names(self.prof):
             k = kernel_of(name)
             if k is not None:
                 self.device[k] = self.device.get(k, 0) + 1
                 key = (k, body_of(name))
+                self.by_body[key] = self.by_body.get(key, 0) + 1
                 BODY_LAUNCHES[key] = BODY_LAUNCHES.get(key, 0) + 1
         assert self.device == expected, (
             f"the trace ran {self.device}, the wrappers' counts "
@@ -708,6 +743,15 @@ def bf16_plan(n, h, w, cin, cout, noise):
     return f"{'sm90' if p.sm90 else 'mma.sync'} plan {p.args()}"
 
 
+def f32_plan(n, h, w, cin, cout, kernel3=False):
+    """The f32 plan the rule gives (tc_plan.plan_f32_body), as a log
+    field."""
+    from gan_segmentation_tpu_torch.kernels.tc_plan import plan_f32_body
+    p = plan_f32_body(n, h, w, cin, cout, kernel3=kernel3)
+    return (f"{'sm90 tf32' if p.sm90 else 'mma.sync 3xTF32'} plan "
+            f"{p.args()}")
+
+
 def conv_inputs(torch, g):
     """inputs(n, h, w, cin, cout) -> x ~ N(0, 1) NHWC and w ~ N(0, 1) /
     sqrt(9 Cin) HWIO on the card, from the seeded generator g."""
@@ -820,20 +864,31 @@ def phase_kernels(torch, gcfg, scfg):
         kw = dict(leaky=0.2) if leaky else {}
         y = k2m.conv3x3_small(x, wt, b, **kw)
         yp = k2m.conv3x3_small_plain(x, wt, b, **kw)
+        again = k2m.conv3x3_small(x, wt, b, **kw)
+        with mma_sync_tf32_body():
+            yo = k2m.conv3x3_small(x, wt, b, **kw)
+            oagain = k2m.conv3x3_small(x, wt, b, **kw)
         torch.cuda.synchronize()
         name = f"small_conv f32 {cname} {(n, h, w, cin, cout)}"
         check_close(name, y, yp, **TOL["f32"])
-        b1_err = max(b1_err, max_err(y, yp))
+        check_close(name + " (mma.sync body)", yo, yp, **TOL["f32"])
+        assert torch.equal(y, again) and torch.equal(yo, oagain), (
+            name + ": a repeat differs")
+        b1_err = max(b1_err, max_err(y, yp), max_err(yo, yp))
         times = device_times(
             torch, lambda: k2m.conv3x3_small(x, wt, b, **kw),
             lambda: k2m.conv3x3_small_plain(x, wt, b, **kw), x, wt, b)
+        with mma_sync_tf32_body():
+            times["mma_sync"] = graph_ms(
+                lambda: k2m.conv3x3_small(x, wt, b, **kw))
         nbytes, flop = conv_floors(n, h, w, cin, cout, 4, 4 * cout)
         floor = bound(nbytes, 3 * flop, PEAK["tf32"])
         add_times(b1_dev, times, floor)
-        log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']});"
-            + times_line(times, floor)
-            + f"; splits {plan_f32(n, h, w, cin, cout).splits}")
-        del x, wt, y, yp
+        log(f"  {name}: max|err| {max_err(y, yp):.3g}, mma.sync body "
+            f"{max_err(yo, yp):.3g} (tol {TOL['f32']}), repeats "
+            f"bit-identical;" + times_line(times, floor)
+            + f"; {f32_plan(n, h, w, cin, cout)}")
+        del x, wt, y, yp, yo
     errs["f32"] = max(errs["f32"], b1_err)
     # the relu epilogue is not on the path; check it once
     x, wt = inputs(2, 16, 16, 16, 16)
@@ -859,7 +914,8 @@ def phase_kernels(torch, gcfg, scfg):
         f"{fl[0] / k1_f32['kernel']:.3f}")
     fl = summed_bound(b1_dev["bounds"])
     log(f"small_conv: f32 per evaluate sample (batch 1, its 26 convs), "
-        f"device time (graph replay): kernel {b1_dev['kernel']:.3f} ms, "
+        f"device time (graph replay): kernel {b1_dev['kernel']:.3f} ms (the "
+        f"mma.sync 3xTF32 body on the same inputs {b1_dev['mma_sync']:.3f}), "
         f"plain {b1_dev['plain']:.3f}, F.conv2d {b1_dev['library']:.3f}, "
         f"floor {fl[0]:.3f} ({fl[1]}, 3xTF32), share "
         f"{fl[0] / b1_dev['kernel']:.3f}; max abs err {b1_err:.3g}")
@@ -1089,6 +1145,154 @@ def phase_s8_sweep(torch):
             + "; ".join(cells))
 
 
+# The tf32 Hopper body's sweep (phase_tf32_sweep, not in the default run):
+# kernel 3's entry built from patched copies of csrc (what each part of the
+# body costs), and the rule's plan beside the variants it turned down, at
+# train-step shapes (batch 1)
+TF32_ABLATIONS = {
+    # the MMAs left out: the loads, A's split and the epilogue alone
+    "no_mma": [("        wgmma_tf32<2 * BN>(acc[i], ah[b], d);\n", ""),
+               ("        wgmma_tf32<BN>(reinterpret_cast<float(&)[BN / 2]>"
+                "(acc[i][0]), al[b],\n                       d);\n", "")],
+    # A_lo B_hi left out: what its narrow wgmma costs
+    "no_lo_hi": [("        wgmma_tf32<BN>(reinterpret_cast<float(&)[BN / 2]>"
+                  "(acc[i][0]), al[b],\n                       d);\n", "")],
+    # A split as the mma.sync body splits it, both parts masked (3 ops a
+    # value instead of 2; the same operands as the MMA reads them)
+    "mask_both": [("          al[b][e] = __float_as_uint(__uint_as_float("
+                   "ah[b][e]) -\n                                     "
+                   "__uint_as_float(ah[b][e] & 0xFFFFE000u));",
+                   "          tf32_split(ah[b][e], ah[b][e], al[b][e]);")],
+    # y's stores left out
+    "no_store": [("          } else if (ok[i][hf]) {",
+                  "          } else if (ok[i][hf] && a.n < 0) {")],
+}
+TF32_SWEEP = [(1, 1024, 1024, 16, 16), (1, 1024, 1024, 64, 16),
+              (1, 1024, 1024, 16, 64), (1, 1024, 1024, 32, 2),
+              (1, 512, 512, 32, 32), (1, 512, 512, 64, 32),
+              (1, 512, 512, 32, 64), (1, 256, 256, 64, 32),
+              (1, 256, 256, 32, 64), (1, 128, 128, 64, 32),
+              (1, 128, 128, 128, 32), (1, 128, 128, 32, 32),
+              (1, 128, 128, 32, 64), (1, 64, 64, 64, 32),
+              (1, 64, 64, 32, 64), (1, 64, 64, 32, 32),
+              (1, 32, 32, 64, 32), (1, 16, 16, 64, 32),
+              (1, 16, 16, 32, 64), (1, 16, 16, 32, 32),
+              (1, 8, 8, 32, 32)]
+
+
+def tf32_plan_variants(p, shape):
+    """What plan_tf32 turned down at ``shape``: other BN (taps resident,
+    one block an SM where two do not fit), the other MI, each also in two
+    Cin splits where Cin has 4 chunks or more, other stages."""
+    import dataclasses
+
+    from gan_segmentation_tpu_torch.kernels import tc_plan
+    n, h, w, cin, cout = shape
+    out = []
+    for bn in (8, 16, 32, 64):
+        for mi in (1, 2):
+            if (bn, mi, 16) not in tc_plan.TF32_SM90_TILES or bn > max(
+                    8, 1 << (cout - 1).bit_length()):
+                continue
+            th, g, tx, ty, gr = tc_plan._geometry(n, h, w, 128 * mi, p.tw,
+                                                  16 // p.tw)
+            q = dataclasses.replace(
+                p, bn=bn, mi=mi, th=th, g=g, tiles_x=tx, tiles_y=ty,
+                groups=gr, cout_blocks=-(-cout // bn), splits=1,
+                cps=p.chunks, stages=3)
+            if q.smem_bytes <= tc_plan.MAX_SMEM and (bn, mi) != (p.bn, p.mi):
+                out.append(q)
+            if q.chunks >= 4 and q.smem_bytes <= tc_plan.MAX_SMEM:
+                # the same in two Cin splits (the finish kernel adds them)
+                out.append(dataclasses.replace(
+                    q, splits=2, cps=-(-q.chunks // 2)))
+    for stages in (2, 3, 4):
+        q = dataclasses.replace(p, stages=stages)
+        if stages != p.stages and q.smem_bytes <= tc_plan.MAX_SMEM:
+            out.append(q)
+    return out
+
+
+def phase_tf32_sweep(torch):
+    """Device time (graph replay) of kernel 3's tf32 Hopper entry at
+    ``TF32_SWEEP``: the rule's plan beside ``tf32_plan_variants``, then
+    the entry built from copies of csrc patched as ``TF32_ABLATIONS`` says
+    (each variant's y against the body's: the split variant must be
+    bit-equal).  The evidence behind plan_tf32's choices and the body's
+    split; not in the default run (~2 min after the build): python3 -c
+    "import chip_smoke as c, torch; c.phase_tf32_sweep(torch)"."""
+    import ctypes
+
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+
+    base = _build.build_library()
+    root = tempfile.mkdtemp()
+    libs, jobs = {"body": ctypes.CDLL(base)}, []
+    for name, patches in TF32_ABLATIONS.items():
+        d = join(root, name)
+        shutil.copytree(_build.CSRC, d)
+        path = join(d, "conv3x3_sm90.cuh")
+        with open(path) as fh:
+            text = fh.read()
+        for old, new in patches:
+            assert old in text, (name, old)
+            text = text.replace(old, new)
+        with open(path, "w") as fh:
+            fh.write(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-shared",
+               join(d, "bil_conv_sm90.cu"), "-o", join(d, "lib.so")]
+        jobs.append((name, d, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for name, d, proc in jobs:
+        _, err = proc.communicate()
+        assert proc.returncode == 0, f"{name}: nvcc failed\n{err[-2000:]}"
+        libs[name] = ctypes.CDLL(join(d, "lib.so"))
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for lib in libs.values():
+        lib.gst_conv3x3_bil_sm90.restype = i
+        lib.gst_conv3x3_bil_sm90.argtypes = [vp, vp, vp, vp, vp, i, i, i, i,
+                                             i, i, i, f, vp, vp]
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    for shape in TF32_SWEEP:
+        n, h, w, cin, cout = shape
+        x = torch.randn((n, h, w, cin), device="cuda", generator=g)
+        wt = torch.randn((3, 3, cin, cout), device="cuda", generator=g) / (
+            9 * cin) ** 0.5
+        y = torch.empty((n, h, w, cout), device="cuda")
+        rule = tc_plan.plan_tf32(*shape)
+        runs = [("rule", libs["body"], rule)]
+        runs += [("", libs["body"], q) for q in tf32_plan_variants(rule,
+                                                                   shape)]
+        runs += [(name, libs[name], rule) for name in TF32_ABLATIONS]
+        cells, ref = [], None
+        for name, lib, p in runs:
+            ws = (torch.empty(p.ws_elems(n, h, w, cout), device="cuda")
+                  if p.splits > 1 else None)
+            plan = (ctypes.c_int * 11)(*p.args())
+
+            def call(lib=lib, plan=plan, ws=ws):
+                rc = lib.gst_conv3x3_bil_sm90(
+                    x.data_ptr(), wt.data_ptr(), None, y.data_ptr(),
+                    None if ws is None else ws.data_ptr(), n, h, w, cin,
+                    cout, 0, 0, 0.0, plan,
+                    torch.cuda.current_stream().cuda_stream)
+                assert rc == 0, (name, p, rc)
+            call()
+            torch.cuda.synchronize()
+            tag = name or (f"bn {p.bn} mi {p.mi} x {p.stages}"
+                           + (f" / {p.splits}" if p.splits > 1 else ""))
+            same = ""
+            if ref is None:
+                ref = y.clone()
+            elif name not in ("no_mma", "no_lo_hi", "no_store"):
+                same = " =" if torch.equal(y, ref) else " !="
+            cells.append(f"{tag}{same} {graph_ms(call):.4f}")
+        log(f"  tf32 sweep {shape} (rule bn {rule.bn} mi {rule.mi} x "
+            f"{rule.stages}, {rule.splits} splits; '=' y bit-equal to the "
+            f"rule's): " + "; ".join(cells) + " ms")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 # Edge cases of the tensor-core kernels (n, h, w, cin, cout), run in bf16
 # (on both bodies) and f32: 4^2 tiles spanning images with Cin 512
 # (split-K), ragged 12 x 20
@@ -1120,13 +1324,14 @@ S8_EDGES = [(8, 4, 4, 512, 512), (3, 12, 20, 32, 16), (2, 12, 20, 64, 64),
 def phase_tc_edges(torch, g, inputs):
     """Kernels 1 and 2 at the tensor-core kernels' edge cases, against the
     plain versions: kernel 1's y and statistics, kernel 2 with its three
-    epilogues, and a repeat of each call bit-identical; bf16 on both bodies
-    (the rule's, Hopper where TMA's rules take the shape, then the mma.sync
-    body everywhere), then f32; then the s8 entries on both bodies, y
+    epilogues, and a repeat of each call bit-identical; bf16 and f32 on
+    both bodies (the rule's, Hopper where its rules take the shape, then
+    the mma.sync body everywhere); then the s8 entries on both bodies, y
     bit-equal to the plain epilogue."""
     runs = (("bf16", torch.bfloat16, contextlib.nullcontext),
             ("bf16 mma.sync body", torch.bfloat16, mma_sync_body),
-            ("f32", torch.float32, contextlib.nullcontext))
+            ("f32", torch.float32, contextlib.nullcontext),
+            ("f32 mma.sync body", torch.float32, mma_sync_tf32_body))
     for tag, dt, body in runs:
         with body():
             edge_cases(torch, g, inputs, tag, dt)
@@ -1231,9 +1436,9 @@ def edge_cases(torch, g, inputs, tag, dt):
                 name + ": small_conv repeat differs"
             err = max(err, max_err(ys, ysp))
         worst = max(worst, err)
-        body = "3xtf32" if f32 else (
+        body = (f"kernel 2 {f32_plan(n, h, w, cin, cout)}" if f32 else (
             f"kernel 1 {bf16_plan(n, h, w, cin, cout, True)}, kernel 2 "
-            f"{bf16_plan(n, h, w, cin, cout, False)}")
+            f"{bf16_plan(n, h, w, cin, cout, False)}"))
         log(f"  {name}: max|y err| {err:.3g} (tol {tol}, stats "
             f"{stat_tol}), repeats bit-identical; {body}")
     log(f"tensor-core edge cases {tag}: {len(shapes)} shapes, kernel 1 "
@@ -1292,12 +1497,16 @@ def phase_annotation_shapes(torch, gcfg, scfg, g, inputs):
 
 
 def phase_bil(torch, scfg, g, inputs):
-    """Kernel 3 in f32 (the 3xTF32 tensor-core body) at every call of a
-    train step (batch 1, forward and input gradient): against its plain
-    version, a repeat bit-identical, and device time by graph replay beside
-    F.conv2d with TF32 off (the library call) and on, and plain, with the
-    call's floors; then the edge cases, and the bf16 body (FFMA, on no path)
-    at generate's design case."""
+    """Kernel 3 in f32 at every call of a train step (batch 1, forward and
+    input gradient) on both f32 bodies, the rule's (the Hopper body's
+    3xTF32 form wherever tc_plan.plan_tf32 takes the call) and the
+    mma.sync 3xTF32 body (``mma_sync_tf32_body``) on the same inputs:
+    against its plain version, repeats bit-identical, and device time by
+    graph replay of both beside F.conv2d with TF32 off (the library call)
+    and on, and plain, with the call's floors; the accumulator's rounding
+    at the longest chain (``tf32_rounding``); then the edge cases on both
+    bodies, and the bf16 body (FFMA, on no path) at generate's design
+    case."""
     from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
 
@@ -1305,7 +1514,7 @@ def phase_bil(torch, scfg, g, inputs):
     err = 0.0
     tot = {}
     floors = {"hbm": 0.0, "tf32x3": 0.0, "ffma": 0.0}
-    bounds, losses = [], []
+    bounds, losses, refused, same = [], [], [], 0
     for (label, n, h, w, cin, cout, bias) in bil_shapes(scfg):
         x, wt = inputs(n, h, w, cin, cout)
         b = 0.1 * torch.randn((cout,), generator=g, device=dev)
@@ -1314,14 +1523,22 @@ def phase_bil(torch, scfg, g, inputs):
         yp = k3m.conv3x3_bil_plain(*args)
         ys = k2m.conv3x3_small(*args)
         again = k3m.conv3x3_bil(*args)
+        with mma_sync_tf32_body():
+            yo = k3m.conv3x3_bil(*args)
+            oagain = k3m.conv3x3_bil(*args)
         torch.cuda.synchronize()
         name = f"bil_conv f32 {label} {(n, h, w, cin, cout)}"
         check_close(name, y, yp, **TOL["f32"])
+        check_close(name + " (mma.sync body)", yo, yp, **TOL["f32"])
         check_close(f"small_conv f32 {label}", ys, yp, **TOL["f32"])
         assert torch.equal(y, again), name + ": repeat differs"
-        err = max(err, max_err(y, yp))
+        assert torch.equal(yo, oagain), name + ": mma.sync repeat differs"
+        err = max(err, max_err(y, yp), max_err(yo, yp))
+        same += bool(torch.equal(y, yo))
         times = device_times(torch, lambda: k3m.conv3x3_bil(*args),
                              lambda: k3m.conv3x3_bil_plain(*args), *args)
+        with mma_sync_tf32_body():
+            times["mma_sync"] = graph_ms(lambda: k3m.conv3x3_bil(*args))
         torch.backends.cudnn.allow_tf32 = True
         try:
             times["library_tf32"] = library_ms(torch, *args)
@@ -1338,41 +1555,58 @@ def phase_bil(torch, scfg, g, inputs):
             tot[k] = tot.get(k, 0.0) + v
         if times["kernel"] > times["library"]:
             losses.append(label)
-        log(f"  {name}: max|err| {max_err(y, yp):.3g} (tol {TOL['f32']}), "
-            f"repeat bit-identical; device ms: kernel {times['kernel']:.4f}, "
-            f"F.conv2d "
+        plan = f32_plan(n, h, w, cin, cout, kernel3=True)
+        if not plan.startswith("sm90"):
+            refused.append(label)
+        log(f"  {name}: max|err| {max_err(y, yp):.3g}, mma.sync body "
+            f"{max_err(yo, yp):.3g} (tol {TOL['f32']}), repeats "
+            f"bit-identical; device ms: kernel {times['kernel']:.4f}, "
+            f"mma.sync body {times['mma_sync']:.4f}, F.conv2d "
             f"{times['library']:.4f} (TF32 on {times['library_tf32']:.4f}), "
             f"plain {times['plain']:.4f}; floor {floor[0]:.4f} ({floor[1]}, "
-            f"3xTF32), share {floor[0] / times['kernel']:.3f}")
-        del x, wt, y, yp, ys, again
+            f"3xTF32), share {floor[0] / times['kernel']:.3f}; {plan}")
+        del x, wt, y, yp, ys, again, yo, oagain
     n_calls = len(bil_shapes(scfg))
     log(f"bil_conv: f32 per train step over its {n_calls} calls, device "
-        f"time (graph replay): kernel {tot['kernel']:.3f} ms, F.conv2d "
+        f"time (graph replay): kernel {tot['kernel']:.3f} ms (the mma.sync "
+        f"3xTF32 body on the same inputs {tot['mma_sync']:.3f}), F.conv2d "
         f"TF32 off "
         f"{tot['library']:.3f}, TF32 on {tot['library_tf32']:.3f}, plain "
         f"{tot['plain']:.3f}; floors: HBM {floors['hbm']:.3f}, 3xTF32 "
         f"{floors['tf32x3']:.3f} (share "
-        f"{floors['tf32x3'] / tot['kernel']:.3f}), "
-        f"FFMA {floors['ffma']:.3f}; max abs err {err:.3g}; slower than "
-        f"F.conv2d TF32 off at: {', '.join(losses) or 'none'}")
+        f"{floors['tf32x3'] / tot['kernel']:.3f}, mma.sync body "
+        f"{floors['tf32x3'] / tot['mma_sync']:.3f}), "
+        f"FFMA {floors['ffma']:.3f}; max abs err {err:.3g}; y bit-equal "
+        f"between the bodies at {same} of {n_calls} calls; on the "
+        f"mma.sync body by the rule: {', '.join(refused) or 'none'}; "
+        f"slower than F.conv2d TF32 off at: {', '.join(losses) or 'none'}")
+    rounding = tf32_rounding(torch, g, inputs)
 
     edge_err = 0.0
-    for (n, h, w, cin, cout) in k3m.EDGE_SHAPES:
-        x, wt = inputs(n, h, w, cin, cout)
-        b = 0.1 * torch.randn((cout,), generator=g, device=dev)
-        for kw in ({}, dict(leaky=0.2), dict(relu=True)):
-            got = k3m.conv3x3_bil(x, wt, b, **kw)
-            again = k3m.conv3x3_bil(x, wt, b, **kw)
-            want = k3m.conv3x3_bil_plain(x, wt, b, **kw)
-            torch.cuda.synchronize()
-            name = f"bil_conv f32 edge {(n, h, w, cin, cout)} {kw}"
-            check_close(name, got, want, **TOL["f32"])
-            assert torch.equal(got, again), name + ": repeat differs"
-            edge_err = max(edge_err, max_err(got, want))
-        del x, wt, got, again, want
+    for tag, body in (("", contextlib.nullcontext),
+                      (" (mma.sync body)", mma_sync_tf32_body)):
+        with body():
+            for (n, h, w, cin, cout) in k3m.EDGE_SHAPES:
+                x, wt = inputs(n, h, w, cin, cout)
+                b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+                for kw in ({}, dict(leaky=0.2), dict(relu=True)):
+                    got = k3m.conv3x3_bil(x, wt, b, **kw)
+                    again = k3m.conv3x3_bil(x, wt, b, **kw)
+                    want = k3m.conv3x3_bil_plain(x, wt, b, **kw)
+                    torch.cuda.synchronize()
+                    name = (f"bil_conv f32 edge {(n, h, w, cin, cout)} "
+                            f"{kw}{tag}")
+                    check_close(name, got, want, **TOL["f32"])
+                    assert torch.equal(got, again), name + ": repeat differs"
+                    edge_err = max(edge_err, max_err(got, want))
+                del x, wt, got, again, want
+    bodies = [f32_plan(*s, kernel3=True).split(" plan")[0]
+              for s in k3m.EDGE_SHAPES]
     log(f"bil_conv f32 edge cases: {len(k3m.EDGE_SHAPES)} shapes x 3 "
-        f"epilogues, "
-        f"max |err| {edge_err:.3g} (tol {TOL['f32']}), repeats bit-identical")
+        f"epilogues on both bodies (the rule's: "
+        f"{ {b: bodies.count(b) for b in sorted(set(bodies))} }), "
+        f"max |err| {edge_err:.3g} (tol {TOL['f32']}), repeats "
+        f"bit-identical")
 
     # bf16 stays on the FFMA core (on no path): generate's design case
     x, wt = (t.to(torch.bfloat16) for t in inputs(BATCH, 1024, 1024, 16, 16))
@@ -1388,10 +1622,99 @@ def phase_bil(torch, scfg, g, inputs):
     del x, wt, y, yp
     total, by = summed_bound(bounds)
     return dict(errs={"f32": max(err, edge_err), "bf16": bf16_err},
-                ms=tot["kernel"], plain_ms=tot["plain"],
-                library_ms=tot["library"],
+                ms=tot["kernel"], mma_sync_ms=tot["mma_sync"],
+                plain_ms=tot["plain"], library_ms=tot["library"],
                 library_tf32_ms=tot["library_tf32"], bound_ms=total,
-                bound_by=by)
+                bound_by=by, rounding=rounding,
+                on_mma_sync_body=refused, bit_equal_bodies=same)
+
+
+def tf32_chain(torch, x, w, cps, trunc):
+    """The 3xTF32 sum of a 3x3 conv as the Hopper body orders it (chunks of
+    16 Cin, then taps, then 8 channels a k8 step: A_hi B_hi and A_hi B_lo
+    into two f32 accumulators, then A_lo B_hi into the first, each added
+    with one rounding of the accumulator, toward zero (``trunc``) or to
+    nearest, of products of truncated tf32 operands; the two accumulators
+    added to nearest at the end of a chain of ``cps`` chunks, the chains in
+    order); x NHWC, w HWIO on the card, -> (pixels, Cout) f32.
+    tests/test_torch_sm90_tf32.py emulates the same on the CPU."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, ky:ky + h, kx:kx + wd]
+                        for ky in range(3) for kx in range(3)], 3)
+    cols = cols.reshape(-1, 9, cin)
+
+    def split(v):
+        hi = (v.view(torch.int32) & -8192).view(torch.float32)
+        return hi, ((v - hi).view(torch.int32) & -8192).view(torch.float32)
+
+    def mma(acc, a, b):
+        s = acc.double() + a.double() @ b.double()
+        r = s.float()
+        if trunc:
+            over = r.double().abs() > s.abs()
+            r = torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+        return r
+
+    wk = w.reshape(9, cin, cout)
+    chunks = -(-cin // 16)
+    total = torch.zeros((cols.shape[0], cout), device=x.device)
+    for c0 in range(0, chunks, cps):
+        hh, hl = torch.zeros_like(total), torch.zeros_like(total)
+        for c in range(c0, min(chunks, c0 + cps)):
+            for t in range(9):
+                for kk in (0, 8):
+                    ch = slice(c * 16 + kk, min(cin, c * 16 + kk + 8))
+                    (ah, al), (bh, bl) = split(cols[:, t, ch]), split(wk[t, ch])
+                    hh, hl = mma(hh, ah, bh), mma(hl, ah, bl)
+                    hh = mma(hh, al, bh)
+        total = total + (hh + hl)
+    return total
+
+
+def tf32_rounding(torch, g, inputs):
+    """How the Hopper body's wgmma rounds its f32 accumulator: kernel 3 at
+    the longest chain a train step makes (cvt_5, 128^2, Cin 128 -> 32: one
+    chain of 8 chunks, 72 k8 steps) against the f64 sum, and against the
+    3xTF32 chain emulated with each step's sum truncated (as mma.sync
+    does, tests/test_torch_f32_tc.py) and rounded to nearest
+    (``tf32_chain``): the share of
+    outputs each emulation gives bit for bit, and the signed mean error
+    relative to the f64 sum (truncation biases it toward zero)."""
+    from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
+    from gan_segmentation_tpu_torch.kernels.tc_plan import plan_tf32
+
+    shape = (1, 128, 128, 128, 32)
+    p = plan_tf32(*shape)
+    x, wt = inputs(*shape)
+    y = k3m.conv3x3_bil(x, wt).reshape(-1, shape[4])
+    ref = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), wt.double().permute(3, 2, 0, 1),
+        padding=1).permute(0, 2, 3, 1).reshape(-1, shape[4])
+    out = {"shape": shape, "plan": p.args(),
+           "max_abs_err": float((y.double() - ref).abs().max()),
+           "bias": float(((y.double() - ref) * ref.sign()).mean())}
+    for tag, trunc in (("truncating", True), ("nearest", False)):
+        e = tf32_chain(torch, x, wt, p.cps, trunc)
+        out[tag] = dict(
+            bit_equal=float((e == y).double().mean()),
+            max_abs_err=float((e.double() - ref).abs().max()),
+            bias=float(((e.double() - ref) * ref.sign()).mean()))
+    matches = max(("truncating", "nearest"),
+                  key=lambda k: out[k]["bit_equal"])
+    out["matches"] = matches
+    log(f"tf32 accumulator rounding at {shape} (plan {p.args()}: one chain "
+        f"of {p.cps} chunks): kernel max |err| {out['max_abs_err']:.3g}, "
+        f"signed mean error toward |y| {out['bias']:.3g}; emulated "
+        f"truncating: bit-equal share {out['truncating']['bit_equal']:.4f}, "
+        f"max |err| {out['truncating']['max_abs_err']:.3g}, bias "
+        f"{out['truncating']['bias']:.3g}; to nearest: bit-equal share "
+        f"{out['nearest']['bit_equal']:.4f}, max |err| "
+        f"{out['nearest']['max_abs_err']:.3g}, bias "
+        f"{out['nearest']['bias']:.3g}; wgmma matches the {matches} "
+        f"emulation")
+    return out
 
 
 # Conv3x3's output and gradients against torch.autograd through the plain
@@ -1798,12 +2121,16 @@ def decoder_family(name):
     low = name.lower()
     # the 3xTF32 kernels carry their kernel's number as the last template
     # argument; only kernels 1 and 2 split K (finish kernel)
-    tf32 = re.search(r"conv3x3_tf32_kernel<[^>]*,\s*(\d)>", name)
+    tf32 = re.search(r"conv3x3_(?:tf32|sm90)_kernel<[^>]*,\s*(\d)>", name)
     if tf32:
-        return {"1": "conv_in_stats", "2": "small_conv",
-                "3": "bil_conv"}[tf32.group(1)]
+        return {"1": "conv_in_stats", "2": "small_conv", "3": "bil_conv",
+                "8": "small_conv"}[tf32.group(1)]
     if "conv3x3_tf32_finish" in low:
         return "small_conv"
+    # a train step's Hopper-body split-K finish: kernel 3's (its kernel-2
+    # calls, Cin 512 / 256, stay on the mma.sync body)
+    if "conv3x3_tc_finish" in low:
+        return "bil_conv"
     if "conv3x3_bil" in low:
         return "bil_conv"
     if "wgrad" in low:
@@ -1904,9 +2231,17 @@ def profile_train_step(torch, base, scfg, steps=5):
         log(f"    {t / steps:8.3f} ms/step  {name[:110]}")
     del solver, opt, feats, mask
     torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, windows=windows, families=fam, busy_ms=busy,
+                **profile_graphed_step(torch, base, scfg))
 
-    # the same step as replays of its CUDA graph: three epochs of 20 steps
-    # (wall, host enqueue and process CPU per step), then a profiled epoch
+
+def profile_graphed_step(torch, base, scfg, tag=""):
+    """The train step as replays of its CUDA graph: three epochs of 20
+    steps (wall, host enqueue and process CPU per step), then a profiled
+    epoch: its device time by kernel family, its launches per replay
+    against the trace's."""
+    from torch.profiler import ProfilerActivity, profile
+
     gsolver, run = graph_fit_runner(torch, base, scfg)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1951,7 +2286,7 @@ def profile_train_step(torch, base, scfg, steps=5):
     gfam = families(gby_name, n)
     gbusy = sum(gfam.values())
     graph_ms = min(w for w, _, _ in gwindows)
-    log("train step as CUDA-graph replays, windows of one epoch of "
+    log(f"train step as CUDA-graph replays{tag}, windows of one epoch of "
         f"{TRAIN_SAMPLES} steps (ms per step: wall / host enqueue / "
         "process CPU): " + "; ".join(
             f"{w:.3f} / {e:.3f} / {c:.3f}" for w, e, c in gwindows)
@@ -1967,8 +2302,7 @@ def profile_train_step(torch, base, scfg, steps=5):
             f"device time)")
     del gsolver, run
     torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, windows=windows, families=fam, busy_ms=busy,
-                graph_windows=gwindows, graph_ms=graph_ms,
+    return dict(graph_windows=gwindows, graph_ms=graph_ms,
                 graph_busy_ms=gbusy, graph_families=gfam, pool_gib=pool_gb)
 
 
@@ -2216,6 +2550,17 @@ def phase_train(torch, keep_dir):
         assert n_bil == BIL_PER_STEP * steps, n_bil
         assert n_small == SMALL_PER_STEP * steps, n_small
         assert trace.device["conv_in_stats"] == 0, trace.device
+        # by body: all of a step's kernel-3 calls on the tf32 Hopper body
+        # but main_8_conv's input gradient (Cin 2); kernel 2's five (Cin
+        # 512 / 256) on the mma.sync 3xTF32 body
+        by_body = {f"{k} {b}": v for (k, b), v in sorted(
+            getattr(trace, "by_body", {}).items())}
+        log(f"train launches by body (device trace): {by_body}")
+        if torch.cuda.is_available():
+            assert by_body == {
+                "bil_conv 3xtf32": steps,
+                "bil_conv sm90_tf32": (BIL_PER_STEP - 1) * steps,
+                "small_conv 3xtf32": SMALL_PER_STEP * steps}, by_body
         epoch_loss = lines.floats("Train-total-loss")
         epoch_acc = lines.floats("Train-accuracy")
         cost = lines.floats("Time cost")
@@ -2251,6 +2596,16 @@ def phase_train(torch, keep_dir):
         assert all(math.isfinite(v) for v in metrics.values()), metrics
         assert n_eval == SMALL_PER_EVAL_SAMPLE * EVAL_SAMPLES, n_eval
         assert etrace.device["bil_conv"] == 0, etrace.device
+        # by body: an evaluate sample's kernel-2 calls on the tf32 Hopper
+        # body but cvt_0..4 (Cin 512 / 256)
+        eval_by_body = {f"{k} {b}": v for (k, b), v in sorted(
+            getattr(etrace, "by_body", {}).items())}
+        log(f"evaluate launches by body (device trace): {eval_by_body}")
+        if torch.cuda.is_available():
+            assert eval_by_body == {
+                "small_conv 3xtf32": 5 * EVAL_SAMPLES,
+                "small_conv sm90_tf32": (SMALL_PER_EVAL_SAMPLE - 5)
+                * EVAL_SAMPLES}, eval_by_body
 
         untrained = SegSolver(scfg.max_res_log2, "",
                               join(base, "no-checkpoints"), cfg=scfg)
@@ -2260,15 +2615,27 @@ def phase_train(torch, keep_dir):
             f"{before['mean-iou']:.4f}, accuracy {before['accuracy']:.4f}")
         assert metrics["mean-iou"] > before["mean-iou"], (metrics, before)
         prof = profile_train_step(torch, base, scfg)
+        # the same graphed step with kernel 3's (and kernel 2's) f32 calls
+        # on the mma.sync 3xTF32 body, in the same run
+        with mma_sync_tf32_body():
+            old = profile_graphed_step(torch, base, scfg,
+                                       " (f32 on the mma.sync 3xTF32 body)")
+        log(f"train step as graph replays, fastest window: "
+            f"{prof['graph_ms']:.3f} ms on the rule's f32 bodies against "
+            f"{old['graph_ms']:.3f} on the mma.sync 3xTF32 body; kernel 3 "
+            f"{prof['graph_families'].get('bil_conv', 0.0):.3f} against "
+            f"{old['graph_families'].get('bil_conv', 0.0):.3f} ms a step "
+            f"(profiler)")
         versus = train_graph_vs_eager(torch, base, scfg)
     return dict(launches={"bil_conv": n_bil, "small_conv": n_small},
+                launches_by_body=by_body, eval_launches_by_body=eval_by_body,
                 eval_launches=n_eval, versus=versus,
                 wrapper=dict(collection=ctrace.wrapper, train=trace.wrapper,
                              evaluate=etrace.wrapper),
                 collection_launches=n_k1, steps=steps,
                 step_ms=fit_s / fit_steps * 1e3, sps=fit_steps / fit_s,
                 traced_fit_s=traced_fit_s, fit_s=fit_s, metrics=metrics,
-                prof=prof)
+                prof=prof, prof_mma_sync=old)
 
 
 # ------------------------------------------------- serving export (phase 5b)
@@ -6905,8 +7272,9 @@ def phase_multi_card(torch, smi):
 def phase_build(torch):
     """Phase 2: build the kernels (timed) and hold ptxas's report to the
     rules the tensor-core kernels keep: no spill, every Hopper-body kernel
-    of entries 1, 2, 6 and 7 and every s8 tile ``tc_plan.plan_s8`` can
-    return, the wide Hopper tiles at 168 registers."""
+    of entries 1, 2, 6 and 7, every s8 tile ``tc_plan.plan_s8`` can return
+    and every tf32 tile ``tc_plan.plan_tf32`` can (entries 3 and 8), the
+    wide Hopper tiles at 168 registers."""
     from gan_segmentation_tpu_torch.kernels import _build, tc_plan
 
     t0 = time.perf_counter()
@@ -6934,6 +7302,13 @@ def phase_build(torch):
     missing = [t for t in s8_tiles if not any(re.search(
         r"sm90_kernelILi%dELi%dELi%dELi%dEEEv" % t, k) for k in sm90)]
     assert not missing, f"s8 Hopper-body kernels missing: {missing}"
+    # the f32 (3xTF32) entries 3 and 8: every (BN, MI, CK) of
+    # tc_plan.TF32_SM90_TILES
+    tf32_tiles = [(*t, k) for k in (3, 8)
+                  for t in sorted(tc_plan.TF32_SM90_TILES)]
+    missing = [t for t in tf32_tiles if not any(re.search(
+        r"sm90_kernelILi%dELi%dELi%dELi%dEEEv" % t, k) for k in sm90)]
+    assert not missing, f"tf32 Hopper-body kernels missing: {missing}"
     wide = {k: v for k, v in sm90.items()
             if re.search(r"sm90_kernelILi(64|128)E", k)}
     assert wide and all(v == 168 for v in wide.values()), (
@@ -6954,9 +7329,12 @@ def phase_build(torch):
     assert not bad, f"tensor-core kernels spill: {bad}"
     log(f"ptxas: {len(tc)} tensor-core and quantize kernels (bf16 "
         f"mma.sync, {len(sm90)} Hopper-body of which "
-        f"{len(s8_tiles)} s8, 3xTF32, {n_s8} mma.sync s8, {n_rows} "
+        f"{len(s8_tiles)} s8 and {len(tf32_tiles)} tf32, 3xTF32, {n_s8} "
+        f"mma.sync s8, {n_rows} "
         f"row-band), 0 bytes of spill in each, the wide Hopper tiles at 168 "
-        f"registers ({len(wide)}); spills "
+        f"registers ({len(wide)}); tf32 Hopper-body registers "
+        f"{sorted(v for k, v in sm90.items() if re.search('Li[38]EEEv', k))}"
+        f"; spills "
         f"elsewhere: "
         f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
 
@@ -7110,6 +7488,11 @@ def main():
                  "small_conv_rows"):
         assert BODY_LAUNCHES.get((name, "sm90"), 0) > 0, (
             f"{name}: no traced launch of the Hopper body")
+    # f32: kernel 3's calls on the Hopper body's tf32 form (phase 5 holds
+    # a train step's to 37 of 38), kernel 2's evaluate calls too
+    for name in ("bil_conv", "small_conv"):
+        assert BODY_LAUNCHES.get((name, "sm90_tf32"), 0) > 0, (
+            f"{name}: no traced launch of the tf32 Hopper body")
 
     def by_body(name):
         return {body: n for (k, body), n in sorted(BODY_LAUNCHES.items())
@@ -7127,6 +7510,14 @@ def main():
                  "GEMM fed by a cp.async ring, taps resident or per stage, "
                  "split-K with a fixed-order finish kernel where the items "
                  "are fewer than the SMs (conv3x3_tf32.cuh)")
+    tf32_design = ("f32: the Hopper body's 3xTF32 form (conv3x3_sm90.cuh, "
+                   "entries 3 and 8): TMA boxes of the f32 halo into the "
+                   "mbarrier ring, the block's taps split into resident "
+                   "K-major tf32 hi and lo, per k8 step wgmma A_hi [B_hi | "
+                   "B_lo] then A_lo B_hi (A by ldmatrix, its lo computed in "
+                   "registers), 8-channel blocks on small grids, y from "
+                   "registers, where tc_plan.plan_tf32 takes the call; else "
+                   "the mma.sync 3xTF32 body (conv3x3_tf32.cuh)")
     k1_design = (tc_design + "; statistics from the accumulators by "
                  "xor-shuffles and per-slot sums in a fixed order, one "
                  "partial per (image, tile)")
@@ -7135,12 +7526,13 @@ def main():
         "experiments/pallas_archive/conv_in_stats.py:118", k1_design),
         "small_conv": ("gan_segmentation_tpu_torch/csrc/small_conv.cu",
                        "experiments/pallas_archive/small_conv.py:84",
-                       tc_design),
-        "bil_conv": ("gan_segmentation_tpu_torch/csrc/bil_conv.cu",
+                       tc_design + "; " + tf32_design
+                       + " (csrc/small_conv_f32.cu; Cin > 128 on the "
+                       "mma.sync body)"),
+        "bil_conv": ("gan_segmentation_tpu_torch/csrc/bil_conv_sm90.cu",
                      "experiments/pallas_archive/bil_conv.py:115",
-                     "f32: 3xTF32 mma.sync m16n8k8 implicit GEMM fed by a "
-                     "cp.async ring, taps resident (conv3x3_tf32.cuh); "
-                     "bf16 (on no path): FFMA (conv3x3_core.cuh)")}
+                     tf32_design + " (csrc/bil_conv.cu, no split); bf16 "
+                     "(on no path): FFMA (conv3x3_core.cuh)")}
     kernels = []
     for name, (src, replaces, design) in sources.items():
         r = rec[name]
@@ -7151,8 +7543,7 @@ def main():
             launches_by_path=launches[name],
             launches_counted_by="device traces (torch.profiler) of the "
                                 "main path's runs")
-        if name != "bil_conv":
-            entry["traced_launches_by_body"] = by_body(name)
+        entry["traced_launches_by_body"] = by_body(name)
         if name == "bil_conv":  # the train path runs f32
             entry.update(max_abs_err=r["errs"]["f32"],
                          max_abs_err_bf16=r["errs"]["bf16"],
@@ -7160,8 +7551,15 @@ def main():
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"],
                          library_tf32_ms=r["library_tf32_ms"],
+                         mma_sync_ms=r["mma_sync_ms"],
+                         on_mma_sync_body=r["on_mma_sync_body"],
+                         train_launches_by_body=tr["launches_by_body"],
+                         accumulator_rounding=r["rounding"],
                          timed="f32, device time (graph replay) per train "
-                               "step at batch 1, 38 calls; bound 3xTF32")
+                               "step at batch 1, 38 calls, on the rule's "
+                               "body; mma_sync_ms: every call on the "
+                               "mma.sync 3xTF32 body on the same inputs; "
+                               "bound 3xTF32")
         else:
             dev = r["dev"]
             total, by = summed_bound(dev["bounds"])
@@ -7178,9 +7576,14 @@ def main():
                                "the epilogue")
             if name == "small_conv":
                 b1 = r["b1_dev"]
-                entry.update(eval_sample_ms_f32=b1["kernel"],
+                entry.update(eval_launches_by_body=tr[
+                                 "eval_launches_by_body"],
+                             eval_sample_ms_f32=b1["kernel"],
+                             eval_sample_mma_sync_ms_f32=b1["mma_sync"],
                              eval_sample_plain_ms_f32=b1["plain"],
-                             eval_sample_library_ms_f32=b1["library"])
+                             eval_sample_library_ms_f32=b1["library"],
+                             eval_sample_bound_ms_f32=summed_bound(
+                                 b1["bounds"])[0])
             else:  # the f32 generator's batch of 8 (the collection)
                 f32 = r["f32_dev"]
                 entry.update(batch_ms_f32=f32["kernel"],
@@ -7299,7 +7702,14 @@ def main():
                       graph_ms=prof["graph_ms"],
                       eager_ms=prof["step_ms"], fit_step_ms=tr["step_ms"],
                       fit_s=tr["fit_s"], traced_fit_s=tr["traced_fit_s"],
-                      pool_gib=prof["pool_gib"], versus=tr["versus"]),
+                      pool_gib=prof["pool_gib"], versus=tr["versus"],
+                      mma_sync_tf32=dict(
+                          graph_windows=tr["prof_mma_sync"]["graph_windows"],
+                          graph_ms=tr["prof_mma_sync"]["graph_ms"],
+                          graph_busy_ms=tr["prof_mma_sync"]["graph_busy_ms"],
+                          graph_families=tr["prof_mma_sync"][
+                              "graph_families"]),
+                      graph_families=prof["graph_families"]),
         "retrain_s": {k: an[k] for k in ("retrain_s", "retrain_warm_s",
                                          "retrain_eager_s")}}}), flush=True)
     print(json.dumps({"int8": {k: v for k, v in i8.items()

@@ -23,12 +23,16 @@
 // (kernels/conv3x3_grad.py): 38 calls per train step, all f32, C 2-128 at
 // 8^2-1024^2, 102.7 GFLOP and 1.91 GB per step.
 //
-// f32: the tensor-core implicit GEMM of conv3x3_tf32.cuh in the 3xTF32
-// split, which keeps the f32 contract (its header says why one TF32 pass
-// does not).  What bounds it on the H100: the three MMAs per product,
-// 3 x FLOP / 495 TFLOP/s = 0.725 ms per train step, above the 0.570 ms
-// that the bytes take at 3.35 TB/s and below the 1.581 ms that the same
-// FLOP take at the FFMA peak, which bounded the FFMA body before it.
+// f32: the 3xTF32 split, which keeps the f32 contract (conv3x3_tf32.cuh
+// says why one TF32 pass does not), on the body kernels/tc_plan.py::
+// plan_f32_body picks: the Hopper body's f32 form (bil_conv_sm90.cu, entry
+// gst_conv3x3_bil_sm90) wherever TMA's rules take the call, else this
+// file's entry, the mma.sync implicit GEMM of conv3x3_tf32.cuh without a
+// split (main_8_conv's input gradient, Cin 2).  What bounds them on the
+// H100: the three MMAs per product, 3 x FLOP / 495 TFLOP/s = 0.725 ms per
+// train step, above the 0.570 ms that the bytes take at 3.35 TB/s and
+// below the 1.581 ms that the same FLOP take at the FFMA peak, which
+// bounded the FFMA body before them.
 //
 // bf16 is on no path (generate's convs run kernel 2, train is f32) and
 // stays on the FFMA core of conv3x3_core.cuh: one block owns a th x TW
@@ -150,7 +154,7 @@ static int dispatch_ct(const void* x, const void* w, const float* bias,
 extern "C" {
 
 // bias may be null.  act: 0 none, 1 relu, 2 leaky(slope).  f32 runs the
-// 3xTF32 tensor-core kernel with plan = int[11] from
+// mma.sync 3xTF32 kernel with plan = int[11] from
 // kernels/tc_plan.py::plan_f32 (no split); bf16 the FFMA core (plan unused).
 // Returns cudaGetLastError() after the launch (0 on success).
 int gst_conv3x3_bil(const void* x, const void* w, const float* bias, void* y,

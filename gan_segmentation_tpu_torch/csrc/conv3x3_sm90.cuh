@@ -1,11 +1,14 @@
-// The bf16 and s8 body of kernels 1 and 2 written for Hopper (sm_90a): TMA
-// loads into an mbarrier ring, wgmma, and the epilogue and statistics from
-// the accumulators.  It serves entries 1 and 2 (conv_in_stats.cu,
-// small_conv.cu), their row-band forms 6 and 7 (*_rows.cu) and their s8
-// forms 4 and 5 (conv_in_stats_s8.cu, small_conv_s8.cu) wherever
-// kernels/tc_plan.py::plan_sm90 takes the shape; the mma.sync body of
-// conv3x3_tc.cuh keeps what TMA's rules refuse (x's rows not a multiple of
-// 16 bytes, an unaligned view, a ragged noise row).
+// The bf16, s8 and f32 (3xTF32) body of kernels 1, 2 and 3 written for
+// Hopper (sm_90a): TMA loads into an mbarrier ring, wgmma, and the epilogue
+// and statistics from the accumulators.  It serves entries 1 and 2
+// (conv_in_stats.cu, small_conv.cu), their row-band forms 6 and 7
+// (*_rows.cu) and their s8 forms 4 and 5 (conv_in_stats_s8.cu,
+// small_conv_s8.cu) wherever kernels/tc_plan.py::plan_sm90 takes the shape,
+// and the f32 calls of kernel 3 and kernel 2 (entries 3 and 8:
+// bil_conv_sm90.cu, small_conv_f32.cu) wherever tc_plan.plan_tf32 does; the
+// mma.sync bodies of conv3x3_tc.cuh and conv3x3_tf32.cuh keep what the
+// rules refuse (x's rows not a multiple of 16 bytes, an unaligned view, a
+// ragged noise row; in f32, Cin > 128 and kernel 1).
 //
 // Replaces the TPU kernels
 //   experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats
@@ -13,7 +16,9 @@
 //   + leaky, with the per-(image, channel) sums of v and v^2;
 //   experiments/pallas_archive/small_conv.py::conv3x3_small
 //   (pl.pallas_call at its line 84), bf16: conv3x3 + bias + relu / leaky;
-// and their int8 forms (entries 4 and 5, below).
+// their int8 forms (entries 4 and 5, below); and in f32 (entries 3 and 8,
+// below) experiments/pallas_archive/bil_conv.py::conv3x3_bil (pl.pallas_call
+// at its line 115) and kernel 2's f32 calls.
 //
 // Layout: x NHWC, w HWIO (3, 3, Cin, Cout), stride 1, zero pad 1 (a row
 // band: x holds H_out + 2 rows, no pad in H).  GEMM view: M = output
@@ -112,6 +117,36 @@
 // two blocks an SM, one block's epilogue beside the other's loads and MMAs
 // (tc_plan.plan_sm90).
 //
+// f32 (entries 3 and 8: kernel 3's train-step convs and their input
+// gradients, kernel 2's evaluate and predict convs), as 3xTF32: the train
+// step holds them to f32 (conv3x3_tf32.cuh says why one TF32 pass does
+// not), so each product is lo*hi + hi*lo + hi*hi of tf32 operands, split by
+// truncation (tf32_split, the split of conv3x3_tf32.cuh).  A k8 tf32 step
+// is 32 bytes, like s8's k32: a stage holds CK = 16 f32 (64-byte pixels),
+// so the halo box (FLOAT32), its 64-byte swizzle and A's ldmatrix rows are
+// the s8 body's counted in bytes (a pair of b16 is one tf32 element, and
+// ldmatrix.x4 gives the m16n8k8 tf32 A fragment, which is wgmma m64k8's per
+// warp).  A is split in registers after each ldmatrix: lo = v - trunc(v);
+// hi is v itself, whose low 13 bits the MMA does not read.  B
+// is K-major, as s8's (wgmma transposes only 16-bit operands), and both its
+// hi and lo must sit in shared memory; TMA cannot transpose HWIO's
+// Cout-contiguous rows, so the consumers split the block's taps themselves,
+// once: w (HWIO f32) for the block's Cout block and Cin split into [chunk]
+// [9][hi, lo][BN][16] tf32 under the 64-byte swizzle (split_taps; a block
+// whose next item has another Cout block or split splits again, which the
+// host's grid, a multiple of the Cout blocks, avoids without a split).
+// tc_plan.plan_tf32 keeps a split's taps within SM90_RESIDENT_MAX by its BN
+// (or, for a narrow BN on a grid that fills the card, within 160 KB at one
+// block an SM: 64 -> 32 from 256^2 up, cvt_5).  Each k8 step
+// issues two wgmmas per m64 tile: A_hi [B_hi | B_lo] (m64n(2 BN)k8) and
+// A_lo B_hi (m64nBNk8) into the first half of its accumulators; the
+// epilogue adds the halves.  Split-K, where a plan asks for it, stores f32
+// partials and conv3x3_tc.cuh's finish kernel adds them in a fixed order,
+// to nearest (plan_tf32 asks for none: at the small layers 8-channel
+// blocks beat it on the card).  y is f32, stored from registers
+// (two channels a store).  What bounds it: 3 x FLOP at 495 TFLOP/s, or the
+// bytes at the 1024^2 16-channel layers.
+//
 // Tensor maps are encoded on the host for every call
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPointByVersion, so the
 // library links only against the runtime, as before) and passed by value as
@@ -154,14 +189,17 @@ __host__ __device__ constexpr int threads(int bn) {
 
 // The entry point that launches the body (the kernel's last template
 // argument): 1 conv_in_stats, 2 small_conv, 4 and 5 the same in s8, 6 and
-// 7 the same over a row band.
+// 7 the same over a row band, 3 bil_conv and 8 small_conv in f32 (3xTF32).
 __host__ __device__ constexpr bool is_s8(int k) { return k == 4 || k == 5; }
 __host__ __device__ constexpr bool is_rows(int k) { return k == 6 || k == 7; }
+__host__ __device__ constexpr bool is_tf32(int k) { return k == 3 || k == 8; }
 __host__ __device__ constexpr bool has_stats(int k) {
   return k == 1 || k == 4 || k == 6;
 }
 // bytes of an element of x and w
-__host__ __device__ constexpr int elem_bytes(int k) { return is_s8(k) ? 1 : 2; }
+__host__ __device__ constexpr int elem_bytes(int k) {
+  return is_s8(k) ? 1 : (is_tf32(k) ? 4 : 2);
+}
 
 // The accumulators: f32 (bf16 operands) or s32 (s8)
 template <bool S8>
@@ -192,12 +230,14 @@ __host__ __device__ constexpr int out_bufs(int bn) { return wide(bn) ? 1 : 2; }
 // Shared memory of one launch, in bytes from a 1024-aligned base: the ring
 // (each stage: halo box, tap slice unless resident, kernel 1's noise), the
 // resident taps, the output tile (TMA store, bf16), the statistics' slots,
-// the barriers.  eb: bytes of an element of x and w (2 bf16, 1 s8).
+// the barriers.  eb: bytes of an element of x and w (2 bf16, 1 s8, 4 f32).
+// chunks: the resident taps' chunks (a split's, in f32).
 // kernels/tc_plan.py::PlanSM90.smem_bytes mirrors it.
 struct Layout {
   int halo;       // bytes of a stage's halo box (the TMA transaction)
   int taps;       // bytes of one chunk's tap slice: bf16 [atom][9][CK][BNA],
-                  // s8 [9][BN][CK] (CK 16: [5][BN][32], taps in pairs)
+                  // s8 [9][BN][CK] (CK 16: [5][BN][32], taps in pairs),
+                  // f32 [9][hi, lo][BN][CK] tf32
   int tap_off;    // in a stage
   int noise_off;  // in a stage
   int stage;
@@ -211,7 +251,7 @@ __host__ __device__ inline Layout layout(int bn, int bm, int ck, int eb,
   Layout L;
   L.halo = g * (th + 2) * (tw + 2) * ck * eb;
   // 16-byte pixels (s8 Cin 16): the taps in pairs, [5][BN][32]
-  L.taps = ck * eb == 16 ? 5 * 32 * bn : 9 * ck * bn * eb;
+  L.taps = ck * eb == 16 ? 5 * 32 * bn : 9 * ck * bn * eb * (eb == 4 ? 2 : 1);
   L.tap_off = align_up(L.halo, 1024);
   L.noise_off = L.tap_off + (resident ? 0 : align_up(L.taps, 1024));
   L.stage = align_up(L.noise_off + (noise ? bm * 4 : 0), 1024);
@@ -233,12 +273,13 @@ struct Args {
   CUtensorMap tm_noise;  // (N, H, W) f32 as (W, H, N): box (TW, TH, G)
   CUtensorMap tm_y;      // NHWC y (bf16): box (BNA, TW, TH, G)
   const void* x;           // NHWC: bf16, or s8
-  const void* w;           // resident taps are read through it
+  const void* w;           // resident taps are read through it (f32: HWIO,
+                           // split by the block)
   const float* deq;        // s8: (Cout,) dequantization multipliers
   const float* bias;       // (Cout,) or null
   const float* noise;      // kernel 1: (N, H, W)
   const float* nscale;     // kernel 1: (Cout,)
-  void* y;                 // NHWC: bf16, or f32 where y_f32 (s8)
+  void* y;                 // NHWC: bf16, or f32 where y_f32 (s8, f32)
   int y_f32;
   float* partial;  // kernel 1: (N, tiles, 2, Cout)
   void* ws;        // (splits, N*H*W, Cout) f32 (s8: s32) when splits > 1
@@ -296,6 +337,22 @@ __device__ __forceinline__ void wgmma(int (&d)[BN / 2],
     wgmma_m64n64k32(d, a, desc);
   else
     wgmma_m64n128k32(d, a, desc);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  if constexpr (N == 8)
+    wgmma_m64n8k8_tf32(d, a, desc);
+  else if constexpr (N == 16)
+    wgmma_m64n16k8_tf32(d, a, desc);
+  else if constexpr (N == 32)
+    wgmma_m64n32k8_tf32(d, a, desc);
+  else if constexpr (N == 64)
+    wgmma_m64n64k8_tf32(d, a, desc);
+  else
+    wgmma_m64n128k8_tf32(d, a, desc);
 }
 
 // The byte offset `off` (from a base aligned to the pattern) under TMA's
@@ -382,6 +439,131 @@ __device__ __forceinline__ void mma_chunk(Acc (&acc)[MI][BN / 2],
   wgmma_wait<0>();
 }
 
+// f32 (3xTF32): one Cin chunk of 16 f32, 9 taps x 2 k8 steps of 32 bytes.
+// A: ldmatrix.x4 of the 64-byte halo pixels (the bf16 body's CK 32 rows,
+// its swizzle and its wide tiles' per-tap rows asw), split into hi and lo
+// in registers (hi is read truncated by the MMA itself).  B: the chunk's
+// resident slice tb, [9][hi, lo][BN][16] K-major under the 64-byte swizzle
+// (s8's descriptor: SBO = 8 rows of 64 bytes, a k step 32 bytes into the
+// row by the start address), a tap's hi and lo rows one 2 BN-row matrix.
+// The three products of a m64 tile's step take two wgmmas: A_hi [B_hi |
+// B_lo] (m64n(2 BN)k8) into the accumulators' two halves, then A_lo B_hi
+// (m64nBNk8) into the first half, whose registers hold its columns
+// (acc[i][0 .. BN/2)); the epilogue adds the halves.  The narrow tf32
+// wgmmas cost per instruction more than per column (on the card an n16
+// one took ~80% of an n32's time), so two instead of three a step.  The
+// unit of issue is one m64 tile's step (one commit group), and A's
+// registers alternate between two buffers unit by unit: the next unit's
+// ldmatrix and split overlap the wgmmas in flight, for as many registers
+// as one step of two m64 tiles.
+template <int BN, int MI>
+__device__ __forceinline__ void mma_chunk_tf32(float (&acc)[MI][BN],
+                                               uint32_t hb, uint32_t soff,
+                                               uint32_t tb,
+                                               const uint32_t (&asw)[MI][9],
+                                               const uint32_t (&aoff)[MI],
+                                               uint32_t row) {
+  constexpr int PS = 64;       // halo pixel: 16 f32
+  constexpr uint32_t XSW = 3;  // its swizzle: 64 B
+  const uint64_t d0 = gmma_desc(tb, 16, 8 * PS, 2);
+  const uint32_t base = hb - soff;  // the shared memory's base
+  uint32_t ah[2][4], al[2][4];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        const int b = ((t * 2 + kk) * MI + i) % 2;
+        uint32_t addr;
+        if constexpr (BN == 64)
+          addr = hb + (asw[i][t] ^ (kk * 32));
+        else
+          addr = base + swizzle(soff + aoff[i] + (t / 3) * row +
+                                    (t % 3) * PS + kk * 32,
+                                XSW);
+        ldsm_x4(ah[b], addr);
+        // A_hi is the f32 itself: a tf32 operand's low 13 bits are not
+        // read (truncation, the split's own), so only lo = v - hi is
+        // computed (bit-identical to tf32_split's operands on the card,
+        // 10-15% less time at the narrow layers)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          al[b][e] = __float_as_uint(__uint_as_float(ah[b][e]) -
+                                     __uint_as_float(ah[b][e] & 0xFFFFE000u));
+        wgmma_fence();
+        const uint64_t d = d0 + ((t * 2 * BN * PS + kk * 32) >> 4);
+        wgmma_tf32<2 * BN>(acc[i], ah[b], d);
+        wgmma_tf32<BN>(reinterpret_cast<float(&)[BN / 2]>(acc[i][0]), al[b],
+                       d);
+        wgmma_commit();
+        // the unit before is done: its buffer is the next unit's
+        wgmma_wait<1>();
+      }
+    }
+  }
+  wgmma_wait<0>();
+}
+
+// f32: the block's resident taps, w (HWIO f32) for output channels co0 ..
+// co0 + BN - 1 and the nc Cin chunks from chunk c0, split into tf32 hi and
+// lo and stored K-major, [chunk][9][hi, lo][BN][16] under the 64-byte
+// swizzle (one chunk every `taps` bytes, a tap's lo rows LO bytes after its
+// hi rows), by the CONSUMERS threads; zero past Cin and Cout.  w's reads
+// go along Cout (16 bytes where vec_w: Cout % 4 == 0, a 16-byte w), U of
+// them issued before their stores, so that a block's split costs a few L2
+// round trips, not one a value (the small layers' blocks run one item).
+template <int BN>
+__device__ __forceinline__ void split_taps(const Args& a, unsigned char* res,
+                                           int taps, int co0, int c0,
+                                           int nc, int tid) {
+  constexpr int CK = 16, U = 4;
+  constexpr uint32_t LO = BN * CK * 4;
+  const float* w = static_cast<const float*>(a.w);
+  // element j of w's reads: (chunk, tap, ci, o) with o fastest; a vector
+  // read covers 4 channels
+  const int V = a.vec_w ? 4 : 1;
+  const int nv = BN / V, total = nc * 9 * CK * nv;
+  for (int i0 = tid; i0 < total; i0 += U * CONSUMERS) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * CONSUMERS;
+      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (i >= total) continue;
+      const int o = (i % nv) * V, r = i / nv;
+      const int ci = r % CK, ct = r / CK;
+      const int c = (c0 + ct / 9) * CK + ci, co = co0 + o;
+      if (c >= a.cin || co >= a.cout) continue;
+      const float* src = w + ((size_t)(ct % 9) * a.cin + c) * a.cout + co;
+      if (V == 4)
+        v[u] = __ldg(reinterpret_cast<const float4*>(src));
+      else
+        v[u].x = __ldg(src);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * CONSUMERS;
+      if (i >= total) continue;
+      const int o = (i % nv) * V, r = i / nv;
+      const int ci = r % CK, ct = r / CK;
+      const int tap = ct % 9, chunk = ct / 9;
+      const float vals[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (e >= V) break;
+        uint32_t hi, lo;
+        tf32_split(__float_as_uint(vals[e]), hi, lo);
+        const uint32_t off =
+            chunk * taps +
+            swizzle((tap * 2 * BN + o + e) * CK * 4 + ci * 4, 3);
+        *reinterpret_cast<uint32_t*>(res + off) = hi;
+        *reinterpret_cast<uint32_t*>(res + off + LO) = lo;
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -402,16 +584,19 @@ __host__ __device__ constexpr int min_blocks(int bn, int kernel) {
 // Warps 0-7 (two warpgroups) multiply, warp 8 loads (with warps 9-11 idle
 // beside it in the wide tiles).  KERNEL is the number of the entry point
 // that launches it (kernel 1, 4 or 6 takes the noise and the statistics, 4
-// and 5 run s8, 6 and 7 a row band), so a profile tells them apart.
+// and 5 run s8, 6 and 7 a row band, 3 and 8 f32 as 3xTF32), so a profile
+// tells them apart.
 template <int BN, int MI, int CK, int KERNEL>
 __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
     conv3x3_sm90_kernel(const __grid_constant__ Args a) {
   constexpr bool ROWS = is_rows(KERNEL);
   constexpr bool STATS = has_stats(KERNEL);
   constexpr bool S8 = is_s8(KERNEL);
+  constexpr bool TF32 = is_tf32(KERNEL);
   using Acc = typename Accum<S8>::T;
   constexpr int BM = 128 * MI;
-  constexpr int NF = BN / 2;                   // accumulators per m64 tile
+  // accumulators per m64 tile (f32: the two halves of [B_hi | B_lo])
+  constexpr int NF = TF32 ? BN : BN / 2;
   constexpr int BNA = BN < 64 ? BN : 64;
   constexpr int NATOM = BN / BNA;
   constexpr int RB = BNA * 2;
@@ -428,7 +613,7 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const bool noise = STATS && a.splits == 1;
   const Layout L = layout(BN, BM, CK, elem_bytes(KERNEL), a.g, a.th, a.tw,
-                          a.stages, a.resident, a.chunks, noise, a.tma_y,
+                          a.stages, a.resident, a.cps, noise, a.tma_y,
                           STATS);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bar_off);
   uint64_t* empty = full + a.stages;
@@ -441,7 +626,9 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
     }
     fence_barrier_init();
   }
-  if (a.resident) {
+  // bf16 and s8: every thread loads the resident taps (f32: the consumers
+  // split them, below, while the producer's first loads fly)
+  if (!TF32 && a.resident) {
     unsigned char* res = smem + L.res_off;
     if constexpr (S8 && PS == 16) {
       // Cin 16, one chunk: the taps in pairs, [5][BN][32] under the 32-byte
@@ -528,7 +715,7 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
           const int ch = (c0 + c) * CK;
           tma_load_4d(st, &a.tm_x, full + s, ch, it.tx0 - 1,
                       ROWS ? it.ty0 : it.ty0 - 1, it.n0);
-          if (!a.resident) {
+          if (!TF32 && !a.resident) {
             if constexpr (S8)  // one box: [9][BN][CK]
               tma_load_3d(st + L.tap_off, &a.tm_w, full + s, ch, it.co0, 0);
             else
@@ -582,10 +769,23 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
   float nzr[MI][2];
   int s = 0;
   uint32_t ph = 0;
+  int taps_co = -1, taps_split = -1;  // f32: whose taps are resident
   for (int w = blockIdx.x; w < a.items; w += gridDim.x) {
     const Item it = item(a, w, BN);
     const int c0 = it.split * a.cps;
     const int nc = min(a.chunks - c0, a.cps);
+    if constexpr (TF32) {
+      if (it.co0 != taps_co || it.split != taps_split) {
+        // the last item's wgmmas have read the taps (each warpgroup waited
+        // for its own); split this item's
+        if (taps_co >= 0) named_bar_sync(2, CONSUMERS);
+        split_taps<BN>(a, smem + L.res_off, L.taps, it.co0, c0, nc, tid);
+        fence_proxy_async();  // the generic stores, seen by wgmma
+        named_bar_sync(2, CONSUMERS);
+        taps_co = it.co0;
+        taps_split = it.split;
+      }
+    }
 #pragma unroll
     for (int i = 0; i < MI; ++i)
 #pragma unroll
@@ -601,11 +801,17 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
           for (int hf = 0; hf < 2; ++hf)
             nzr[i][hf] = sn[(wg * MI + i) * 64 + wq * 16 + lr + 8 * hf];
       }
+      // resident: every chunk (bf16, s8: c0 is 0) or the split's (f32)
       const uint32_t tb =
-          a.resident ? smem_u32(smem + L.res_off + (c0 + c) * L.taps)
-                     : smem_u32(st + L.tap_off);
-      mma_chunk<BN, MI, CK, S8>(acc, base + s * L.stage, s * L.stage, tb,
-                                asw, aoff, row);
+          a.resident
+              ? smem_u32(smem + L.res_off + (TF32 ? c : c0 + c) * L.taps)
+              : smem_u32(st + L.tap_off);
+      if constexpr (TF32)
+        mma_chunk_tf32<BN, MI>(acc, base + s * L.stage, s * L.stage, tb, asw,
+                               aoff, row);
+      else
+        mma_chunk<BN, MI, CK, S8>(acc, base + s * L.stage, s * L.stage, tb,
+                                  asw, aoff, row);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + s);
       if (++s == a.stages) {
@@ -614,6 +820,13 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
       }
     }
 
+    // f32: A_hi B_lo's half added to the other (A_hi B_hi + A_lo B_hi)
+    if constexpr (TF32) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int f = 0; f < BN / 2; ++f) acc[i][f] += acc[i][f + BN / 2];
+    }
     // ---- the item's epilogue, from the accumulators.  This thread holds
     // rows m = (wg * MI + i) * 64 + wq * 16 + lr + 8 * hf, columns j * 8 +
     // lc + e, in acc[i][j * 4 + hf * 2 + e].
@@ -753,7 +966,7 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
             const int co = it.co0 + j * 8 + lc;
             const size_t off = (size_t)pix[i][hf] * a.cout + co;
             const bool pair = a.cout % 2 == 0 && co + 1 < a.cout;
-            if (S8 && a.y_f32) {
+            if ((S8 || TF32) && a.y_f32) {
               float* yp = static_cast<float*>(a.y) + off;
               if (pair) {
                 *reinterpret_cast<float2*>(yp) = make_float2(v0, v1);
@@ -860,7 +1073,7 @@ template <int BN, int MI, int CK, int KERNEL>
 static int launch(const Args& a, cudaStream_t st) {
   constexpr int BM = 128 * MI;
   const Layout L = layout(BN, BM, CK, elem_bytes(KERNEL), a.g, a.th, a.tw,
-                          a.stages, a.resident, a.chunks,
+                          a.stages, a.resident, a.cps,
                           has_stats(KERNEL) && a.splits == 1, a.tma_y,
                           has_stats(KERNEL));
   if (L.smem > MAX_SMEM) return (int)cudaErrorInvalidConfiguration;
@@ -876,13 +1089,18 @@ static int launch(const Args& a, cudaStream_t st) {
            &per_sm, kern, threads(BN), L.smem)))
     return rc;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = (long long)per_sm * sms < a.items ? per_sm * sms : a.items;
+  int grid = (long long)per_sm * sms < a.items ? per_sm * sms : a.items;
+  // f32: a grid of whole Cout blocks keeps each block on one Cout block
+  // (item w's is w % cout_blocks), so its split taps stay valid
+  if (is_tf32(KERNEL) && grid < a.items && grid > a.cout_blocks)
+    grid -= grid % a.cout_blocks;
   kern<<<grid, threads(BN), L.smem, st>>>(a);
   rc = (int)cudaGetLastError();
   if (rc || a.splits == 1) return rc;
   // split-K: conv3x3_tc.cuh's finish kernel adds the splits in order (s8:
-  // the s32 partials, exactly) and runs the epilogue (and kernel 1's
-  // partials) in blocks of FINISH_BN channels over the same tiles
+  // the s32 partials, exactly; f32 to nearest, y in f32) and runs the
+  // epilogue (and kernel 1's partials) in blocks of FINISH_BN channels over
+  // the same tiles
   tc::Args f = {};
   f.deq = a.deq;
   f.bias = a.bias;
@@ -932,11 +1150,25 @@ __host__ __device__ constexpr bool s8_tile(int bn, int mi, int ck,
                      (bn == 64 ? ck == 64 : (ck == 32 || mi == 1)));
 }
 
+// The f32 tiles tc_plan.plan_tf32 can return (tc_plan.TF32_SM90_TILES):
+// BN 8 to 64 in one or two m64 tiles a warpgroup, CK 16; not BN 32 in two
+// (its 96 registers a thread spilled; the rule gives the 32-channel
+// layers 128-pixel blocks, whose resident taps leave two blocks an SM).
+__host__ __device__ constexpr bool tf32_tile(int bn, int mi) {
+  return bn >= 8 && bn <= 64 && (mi == 1 || (mi == 2 && bn != 32));
+}
+
 // ck: a stage of 32 or 64 bytes a pixel (bf16 16 or 32 channels, s8 32 or
-// 64).
+// 64, f32 16).
 template <int BN, int MI, int KERNEL>
 static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
-  if constexpr (is_s8(KERNEL)) {
+  if constexpr (is_tf32(KERNEL)) {
+    if constexpr (tf32_tile(BN, MI))
+      if (ck == 16) return launch<BN, MI, 16, KERNEL>(a, st);
+    return (int)cudaErrorInvalidValue;
+  } else if constexpr (BN == 8) {  // f32 only
+    return (int)cudaErrorInvalidValue;
+  } else if constexpr (is_s8(KERNEL)) {
     if (ck == 16) {
       if constexpr (s8_tile(BN, MI, 16, KERNEL))
         return launch<BN, MI, 16, KERNEL>(a, st);
@@ -960,16 +1192,19 @@ static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
 // launches; returns a CUDA error code (cudaErrorInvalidValue for a plan or
 // a tensor this body does not take).  KERNEL: 1, 2, 6 or 7 (bf16; a row
 // band: h counts the output rows, x holds h + 2), 4 or 5 (s8: deq given, y
-// in f32 where y_f32, then from registers whatever the plan's tma_y).
+// in f32 where y_f32, then from registers whatever the plan's tma_y), 3 or
+// 8 (f32: resident taps split by the blocks, y in f32 from registers).
 template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
   static_assert(KERNEL == 1 || KERNEL == 2 || is_s8(KERNEL) ||
-                    is_rows(KERNEL),
-                "kernel 1, 2, 4, 5, 6 or 7");
+                    is_rows(KERNEL) || is_tf32(KERNEL),
+                "kernel 1 to 8");
   constexpr bool STATS = has_stats(KERNEL);
   constexpr bool S8 = is_s8(KERNEL);
+  constexpr bool TF32 = is_tf32(KERNEL);
   constexpr int EB = elem_bytes(KERNEL);
   if (plan == nullptr) return (int)cudaErrorInvalidValue;
+  if (TF32) a.y_f32 = 1;
   const int bn = plan[0], mi = plan[1], ck = plan[2];
   a.tw = plan[3];
   a.th = plan[4];
@@ -980,8 +1215,9 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   a.resident = plan[9];
   a.tma_y = plan[10] && !a.y_f32;
   const bool shape_ok =
-      (bn == 16 || bn == 32 || bn == 64 || bn == 128) &&
-      (mi == 1 || mi == 2) &&
+      (TF32 ? tf32_tile(bn, mi) && ck == 16
+            : (bn == 16 || bn == 32 || bn == 64 || bn == 128) &&
+                  (mi == 1 || mi == 2)) &&
       (ck * EB == 32 || ck * EB == 64 || (S8 && ck == 16)) &&
       (a.tw == 4 || a.tw == 8 || a.tw == 16) && a.th >= 1 &&
       a.th + 2 <= 256 && a.g >= 1 && a.g <= 256 &&
@@ -990,8 +1226,10 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   if (!shape_ok || a.splits < 1 || a.cps < 1 || a.n < 1 || a.h < 1 ||
       a.wd < 1 || a.cin < 1 || a.cout < 1)
     return (int)cudaErrorInvalidValue;
-  if (S8 ? a.deq == nullptr : (a.deq != nullptr || a.y_f32))
+  if (S8 ? a.deq == nullptr : (a.deq != nullptr || (a.y_f32 && !TF32)))
     return (int)cudaErrorInvalidValue;
+  // f32: the taps always resident (a block's Cout block and split)
+  if (TF32 && !a.resident) return (int)cudaErrorInvalidValue;
   // s8 at 16-byte stages: Cin 16 exactly, its tap pairs resident
   if (ck * EB == 16 && (a.cin != 16 || !a.resident))
     return (int)cudaErrorInvalidValue;
@@ -1019,20 +1257,23 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   const bool noise = STATS && a.splits == 1;
   if ((a.cin * EB) % 16 != 0 || !aligned(a.x, 16) ||
       (S8 && !aligned(a.w, 16)) ||
-      (a.resident && (a.splits != 1 || a.cout_blocks != 1)) ||
+      (!TF32 && a.resident && (a.splits != 1 || a.cout_blocks != 1)) ||
       (!S8 && !a.resident && (a.cout % 8 != 0 || !aligned(a.w, 16))) ||
       (a.tma_y && (a.cout % 8 != 0 || !aligned(a.y, 16))) ||
       (a.y_f32 && !aligned(a.y, 8)) ||
       (noise && (a.wd % 4 != 0 || !aligned(a.noise, 16))))
     return (int)cudaErrorInvalidValue;
-  a.vec_w = a.cout % 8 == 0 && aligned(a.w, 16);
+  // 16-byte reads of resident taps: 8 bf16 channels, 4 f32 (tf32's split)
+  a.vec_w = a.cout % (TF32 ? 4 : 8) == 0 && aligned(a.w, 16);
   const int h_in = is_rows(KERNEL) ? a.h + 2 : a.h;
   const int bna = bn < 64 ? bn : 64;
   const cuuint64_t n = a.n, h = a.h, hi = h_in, wd = a.wd, cin = a.cin,
                    cout = a.cout, eb = EB;
   // TMA has no s8 type: u8 moves the same bytes, and its zero fill is s8's
   const CUtensorMapDataType xw =
-      S8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+      S8     ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+      : TF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   {
     const cuuint64_t dims[4] = {cin, wd, hi, n};
     const cuuint64_t strides[3] = {cin * eb, wd * cin * eb,
@@ -1074,6 +1315,10 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
       return (int)cudaErrorInvalidValue;
   }
   switch (bn * 10 + mi) {
+    case 81:
+      return dispatch_ck<8, 1, KERNEL>(a, ck, st);
+    case 82:
+      return dispatch_ck<8, 2, KERNEL>(a, ck, st);
     case 161:
       return dispatch_ck<16, 1, KERNEL>(a, ck, st);
     case 162:
@@ -1096,7 +1341,8 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
 // An entry point's arguments into Args: the bf16 ones of conv_in_stats.cu,
 // small_conv.cu and their *_rows.cu forms (deq null, y_f32 0), the s8 ones
 // of conv_in_stats_s8.cu and small_conv_s8.cu (deq (Cout,), y_f32 for an
-// f32 y; ws holds s32).
+// f32 y; ws holds s32), the f32 ones of bil_conv_sm90.cu and
+// small_conv_f32.cu (deq null; run() sets y_f32).
 inline Args args(const void* x, const void* w, const float* deq,
                  const float* noise, const float* nscale, const float* bias,
                  void* y, int y_f32, float* partial, void* ws, int n, int h,

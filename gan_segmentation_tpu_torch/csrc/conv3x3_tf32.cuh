@@ -175,15 +175,6 @@ struct Args {
 
 // ---------------------------------------------------------------- PTX ----
 
-// v = hi + lo with hi = v truncated to tf32 and lo = (v - hi), exact in
-// f32, truncated to tf32 too: |v - hi - lo| < 2^-20 |v|.
-__device__ __forceinline__ void split(uint32_t v, uint32_t& hi,
-                                      uint32_t& lo) {
-  hi = v & 0xFFFFE000u;
-  lo = __float_as_uint(__uint_as_float(v) - __uint_as_float(hi)) &
-       0xFFFFE000u;
-}
-
 // c += a * b on a 16 x 8 x 8 tile; a pure register op, so not volatile
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -461,14 +452,14 @@ __global__ void __launch_bounds__(WM * 32, Cfg<BN, WM, MI>::MIN_BLOCKS)
           uint32_t r[4];
           ldsm_x4(r, sa + a_off[i] + shift + kk * 32);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) split(r[e], ah[i][e], al[i][e]);
+          for (int e = 0; e < 4; ++e) tf32_split(r[e], ah[i][e], al[i][e]);
         }
         const float* wk = wb + (tap * CK + kk * 8) * BNP;
 #pragma unroll
         for (int jj = 0; jj < NJ; ++jj) {
           uint32_t bh0, bl0, bh1, bl1;
-          split(__float_as_uint(wk[jj * 8]), bh0, bl0);
-          split(__float_as_uint(wk[4 * BNP + jj * 8]), bh1, bl1);
+          tf32_split(__float_as_uint(wk[jj * 8]), bh0, bl0);
+          tf32_split(__float_as_uint(wk[4 * BNP + jj * 8]), bh1, bl1);
 #pragma unroll
           for (int i = 0; i < MI; ++i) {  // small terms first, then hi * hi
             mma_tf32(acc[i][jj], al[i], bh0, bh1);

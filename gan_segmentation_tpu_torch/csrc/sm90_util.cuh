@@ -1,7 +1,7 @@
 // PTX wrappers, index and alignment helpers shared by the tensor-core 3x3
 // convolutions (conv3x3_tc.cuh, bf16 and s8 on mma.sync; conv3x3_tf32.cuh,
-// f32 as 3xTF32; conv3x3_sm90.cuh, bf16 and s8 on Hopper's TMA, mbarriers
-// and wgmma).
+// f32 as 3xTF32; conv3x3_sm90.cuh, bf16, s8 and f32 as 3xTF32 on Hopper's
+// TMA, mbarriers and wgmma).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -202,10 +202,10 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // A shared-memory matrix descriptor of wgmma: start address, leading and
 // stride byte offsets (LBO, SBO) and the swizzle (1 128B, 2 64B, 3 32B).
 // N-major (bf16's B): LBO the stride of 64-element atoms along N, SBO of
-// 8-row groups along K.  K-major with a swizzle (s8's B): rows of the
-// swizzle's width, SBO the stride of 8-row groups along N, LBO unused (a
-// k32 step of 32 bytes stays inside one row); a step along K inside the
-// row advances the start address.
+// 8-row groups along K.  K-major with a swizzle (s8's and tf32's B): rows of
+// the swizzle's width, SBO the stride of 8-row groups along N, LBO unused
+// (a k step of 32 bytes, s8 k32 or tf32 k8, stays inside one row); a step
+// along K inside the row advances the start address.
 __device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr, uint32_t lbo,
                                               uint32_t sbo, int swizzle) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
@@ -397,6 +397,123 @@ __device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64],
         "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// v = hi + lo with hi = v truncated to tf32 (its low 13 mantissa bits
+// cleared) and lo = (v - hi), exact in f32, truncated too: every operand a
+// tf32 MMA then sees is a valid tf32 value, and |v - hi - lo| < 2^-20 |v|.
+__device__ __forceinline__ void tf32_split(uint32_t v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = v & 0xFFFFE000u;
+  lo = __float_as_uint(__uint_as_float(v) - __uint_as_float(hi)) &
+       0xFFFFE000u;
+}
+
+// D[64 x 8] += A[64 x 8] (registers) * B[8 x 8] (shared memory, K-major
+// through desc_b); f32 accumulators, tf32 operands
+__device__ __forceinline__ void wgmma_m64n8k8_tf32(float (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 16] += A[64 x 8] (registers) * B[8 x 16] (shared memory, K-major
+// through desc_b); f32 accumulators, tf32 operands
+__device__ __forceinline__ void wgmma_m64n16k8_tf32(float (&d)[8],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 32] += A[64 x 8] (registers) * B[8 x 32] (shared memory, K-major
+// through desc_b); f32 accumulators, tf32 operands
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 8] (registers) * B[8 x 64] (shared memory, K-major
+// through desc_b); f32 accumulators, tf32 operands
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// D[64 x 128] += A[64 x 8] (registers) * B[8 x 128] (shared memory, K-major
+// through desc_b); f32 accumulators, tf32 operands
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 

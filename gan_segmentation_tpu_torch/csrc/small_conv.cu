@@ -37,9 +37,12 @@
 // mma.sync body.
 //
 // f32 (evaluate at batch 1, train's cvt_0..4 forward, generate with
-// dtype fp32 at batch 8) runs the 3xTF32 tensor-core implicit GEMM of
-// conv3x3_tf32.cuh, which keeps the f32 contract (card = CPU to six
-// decimals in the train checks; one TF32 pass would break it).  What bounds
+// dtype fp32 at batch 8) runs the 3xTF32 split, which keeps the f32
+// contract (card = CPU to six decimals in the train checks; one TF32 pass
+// would break it): on the Hopper body's f32 form (small_conv_f32.cu)
+// wherever kernels/tc_plan.py::plan_tf32 takes the call, else on the
+// mma.sync implicit GEMM of conv3x3_tf32.cuh (gst_conv3x3_small; Cin >
+// 128, an unaligned view, Cin % 4 != 0).  What bounds
 // it: three MMAs per product, 3 x FLOP / 495 TFLOP/s (0.415 ms over an
 // evaluate sample's 26 convs).  cvt_0..4 at batch 1 (Cin 512 / 256 at
 // 4^2-64^2) have 1-32 items of 128 pixels for 132 SMs and 16-32 Cin chunks

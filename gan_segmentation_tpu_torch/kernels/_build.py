@@ -163,9 +163,13 @@ def check_conv3x3_s8(x, w, deq, b):
 
 
 @functools.lru_cache(maxsize=None)
-def _tc_plan_c(dtype, n, h, w, cin, cout, noise, aligned=True):
+def _tc_plan_c(dtype, n, h, w, cin, cout, noise, aligned=True, rows=False):
     if dtype == torch.float32:
-        p = tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
+        # kernel 2's full-image f32 calls by the f32 rule; kernel 1 and the
+        # row bands keep the mma.sync 3xTF32 body
+        p = (tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
+             if noise or rows else
+             tc_plan.plan_f32_body(n, h, w, cin, cout, aligned))
     elif dtype == torch.int8:
         p = tc_plan.plan_s8(n, h, w, cin, cout, noise, aligned)
     else:
@@ -174,18 +178,23 @@ def _tc_plan_c(dtype, n, h, w, cin, cout, noise, aligned=True):
     return p, (ctypes.c_int * len(args))(*args)
 
 
-def tc_launch_args(x, n, h, w, cin, cout, noise=False, tensors=()):
-    """For a call of kernel 1 (``noise``) or 2: (plan, plan as a C int
-    array, split-K workspace or None).  bf16 takes ``tc_plan.plan_bf16``
-    and s8 ``tc_plan.plan_s8``: the Hopper body's ``PlanSM90`` (int[11],
-    conv3x3_sm90.cuh; ``plan.sm90`` names its entry points ``gst_*_sm90``)
-    where TMA's rules let it, given whether x and ``tensors`` start on 16
-    bytes, else the mma.sync body's ``Plan`` (int[9], conv3x3_tc.cuh); f32
-    ``tc_plan.plan_f32`` (int[11], conv3x3_tf32.cuh).  The plan is cached
-    per shape: the host's time per launch is what bounds the small layers.
-    The s8 bodies' workspace holds s32 partials."""
+def tc_launch_args(x, n, h, w, cin, cout, noise=False, tensors=(),
+                   rows=False):
+    """For a call of kernel 1 (``noise``) or 2 (``rows``: a row band):
+    (plan, plan as a C int array, split-K workspace or None).  bf16 takes
+    ``tc_plan.plan_bf16`` and s8 ``tc_plan.plan_s8``: the Hopper body's
+    ``PlanSM90`` (int[11], conv3x3_sm90.cuh; ``plan.sm90`` names its entry
+    points ``gst_*_sm90``) where TMA's rules let it, given whether x and
+    ``tensors`` start on 16 bytes, else the mma.sync body's ``Plan``
+    (int[9], conv3x3_tc.cuh); f32 kernel 2 ``tc_plan.plan_f32_body`` (the
+    Hopper body's 3xTF32 form, ``PlanSM90`` with ``tf32``, entry
+    ``gst_conv3x3_small_f32_sm90``; else ``plan_f32``), kernel 1 and the
+    row bands ``tc_plan.plan_f32`` (int[11], conv3x3_tf32.cuh).  The plan
+    is cached per shape: the host's time per launch is what bounds the
+    small layers.  The s8 bodies' workspace holds s32 partials."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *tensors))
-    p, plan_c = _tc_plan_c(x.dtype, n, h, w, cin, cout, noise, aligned)
+    p, plan_c = _tc_plan_c(x.dtype, n, h, w, cin, cout, noise, aligned,
+                           rows)
     ws = None
     if p.splits > 1:
         ws = torch.empty(p.ws_elems(n, h, w, cout),
@@ -196,11 +205,34 @@ def tc_launch_args(x, n, h, w, cin, cout, noise=False, tensors=()):
 
 @functools.lru_cache(maxsize=None)
 def tf32_plan_c(n, h, w, cin, cout):
-    """For an f32 call of kernel 3: its 3xTF32 plan (no split) as a C
-    int[11], cached per shape (the host's time per launch bounds the small
-    layers)."""
+    """For an f32 call of kernel 3 on the mma.sync body: its 3xTF32 plan
+    (no split) as a C int[11], cached per shape (the host's time per launch
+    bounds the small layers)."""
     args = tc_plan.plan_f32(n, h, w, cin, cout, splits=1).args()
     return (ctypes.c_int * len(args))(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _bil_plan_c(n, h, w, cin, cout, aligned):
+    p = tc_plan.plan_f32_body(n, h, w, cin, cout, aligned, kernel3=True)
+    return p, (tf32_plan_c(n, h, w, cin, cout) if not p.sm90 else
+               (ctypes.c_int * 11)(*p.args()))
+
+
+def bil_launch_args(x, n, h, w, cin, cout, tensors=()):
+    """For an f32 call of kernel 3: (plan, plan as a C int[11], split-K
+    workspace or None) by ``tc_plan.plan_f32_body(kernel3=True)``: the
+    Hopper body's 3xTF32 form (entry ``gst_conv3x3_bil_sm90``) where
+    ``plan_tf32`` takes the shape, given whether x and ``tensors`` start on
+    16 bytes, else the mma.sync body without a split (``tf32_plan_c``,
+    entry ``gst_conv3x3_bil``); cached per shape."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *tensors))
+    p, plan_c = _bil_plan_c(n, h, w, cin, cout, aligned)
+    ws = None
+    if p.splits > 1:
+        ws = torch.empty(p.ws_elems(n, h, w, cout), dtype=torch.float32,
+                         device=x.device)
+    return p, plan_c, ws
 
 
 def check_launch(rc: int, what: str) -> None:
@@ -226,12 +258,15 @@ def library():
         lib.gst_conv3x3_in_stats.argtypes
     lib.gst_conv3x3_small_rows.restype = i
     lib.gst_conv3x3_small_rows.argtypes = lib.gst_conv3x3_small.argtypes
-    # the Hopper body's entries take the same arguments
+    # the Hopper body's entries take the same arguments (its f32 form of
+    # kernel 2 too)
     for name in ("gst_conv3x3_in_stats", "gst_conv3x3_in_stats_rows",
-                 "gst_conv3x3_small", "gst_conv3x3_small_rows"):
+                 "gst_conv3x3_small", "gst_conv3x3_small_rows",
+                 "gst_conv3x3_small_f32"):
         fn = getattr(lib, name + "_sm90")
         fn.restype = i
-        fn.argtypes = getattr(lib, name).argtypes
+        fn.argtypes = getattr(lib, "gst_conv3x3_small" if name.endswith(
+            "f32") else name).argtypes
     lib.gst_conv3x3_in_stats_s8.restype = i
     lib.gst_conv3x3_in_stats_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                             vp, i, i, i, i, i, i, f, vp, vp]
@@ -247,5 +282,8 @@ def library():
     lib.gst_conv3x3_bil.restype = i
     lib.gst_conv3x3_bil.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f,
                                     vp, vp]
+    # kernel 3 on the Hopper body: kernel 2's arguments (a workspace)
+    lib.gst_conv3x3_bil_sm90.restype = i
+    lib.gst_conv3x3_bil_sm90.argtypes = lib.gst_conv3x3_small.argtypes
     _LIB = lib
     return lib

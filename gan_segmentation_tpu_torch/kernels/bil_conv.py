@@ -1,9 +1,14 @@
 """Kernel 3: 3x3 conv of a small batch (the train step's 38 f32 convs).
 
-CUDA source: ``csrc/bil_conv.cu``: f32 runs the 3xTF32 tensor-core
-implicit GEMM of ``csrc/conv3x3_tf32.cuh`` (launch plan:
-``tc_plan.plan_f32``), bf16 the FFMA core of ``csrc/conv3x3_core.cuh``,
-one block serving every sample.  Replaces the TPU kernel
+CUDA sources: ``csrc/bil_conv_sm90.cu`` and ``csrc/bil_conv.cu``, bound as
+the custom op ``torch.ops.gst.conv3x3_bil`` (``kernels/ops.py``).  f32
+runs the body ``tc_plan.plan_f32_body(kernel3=True)`` picks: the Hopper
+body's 3xTF32 form (``csrc/conv3x3_sm90.cuh``, plan ``tc_plan.plan_tf32``:
+TMA halos, resident K-major tf32 taps, wgmma, split-K) wherever TMA's
+rules take the shape, else the mma.sync 3xTF32 implicit GEMM of
+``csrc/conv3x3_tf32.cuh`` (``tc_plan.plan_f32``, no split); bf16 the FFMA
+core of ``csrc/conv3x3_core.cuh``, one block serving every sample.
+Replaces the TPU kernel
 ``experiments/pallas_archive/bil_conv.py::conv3x3_bil`` and keeps its
 contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's
 dtype, ``b`` optional (Cout,) f32, relu or leaky epilogue, and
@@ -18,7 +23,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .small_conv import _ACT_CODES, _act, conv3x3_small_plain
+from .small_conv import _act, conv3x3_small_plain
 
 MAX_LANES = 128
 
@@ -49,33 +54,25 @@ def conv3x3_bil_plain(x, w, b=None, *, relu: bool = False,
     return conv3x3_small_plain(x, w, b, relu=relu, leaky=leaky)
 
 
-def conv3x3_bil(x, w, b=None, *, relu: bool = False,
-                leaky: Optional[float] = None):
-    """y = conv3x3(x, w) [+ b] [relu | leaky] for ``B*Cin, B*Cout <= 128``.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
-    act = _act(relu, leaky)
+def check_args(x, w, b):
+    """``_build.check_conv3x3`` and the contract; -> (n, h, w, cin,
+    cout)."""
     n, h, wd, cin, cout = _build.check_conv3x3(x, w, b)
     if not fits(n, cin, cout):
         raise ValueError(f"conv3x3_bil needs B*Cin <= {MAX_LANES} and "
                          f"B*Cout <= {MAX_LANES}; got B={n}, Cin={cin}, "
                          f"Cout={cout}")
-    if x.device.type == "cpu":
-        return conv3x3_bil_plain(x, w, b, relu=relu, leaky=leaky)
-    dev = x.device
-    lib = _build.library()
-    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
-    plan = (_build.tf32_plan_c(n, h, wd, cin, cout)
-            if x.dtype == torch.float32 else None)
-    with torch.cuda.device(dev):
-        rc = lib.gst_conv3x3_bil(
-            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            y.data_ptr(), n, h, wd, cin, cout, _build.DTYPE_CODES[x.dtype],
-            _ACT_CODES[act], float(leaky or 0.0), plan,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch(rc, "conv3x3_bil")
-    conv3x3_bil.launches += 1
-    return y
+    return n, h, wd, cin, cout
 
 
-conv3x3_bil.launches = 0
+def conv3x3_bil(x, w, b=None, *, relu: bool = False,
+                leaky: Optional[float] = None):
+    """y = conv3x3(x, w) [+ b] [relu | leaky] for ``B*Cin, B*Cout <= 128``,
+    through the custom op ``torch.ops.gst.conv3x3_bil``.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises."""
+    act = _act(relu, leaky)
+    check_args(x, w, b)
+    return torch.ops.gst.conv3x3_bil(x, w, b, act, float(leaky or 0.0))
+
+
+conv3x3_bil.launches = 0  # the CUDA launches, counted in kernels/ops.py

@@ -1,30 +1,31 @@
-"""Kernels 1 and 2 (bf16 / f32 and their s8 bodies) and the s8 quantize
+"""Kernels 1, 2 and 3 (bf16 / f32 and their s8 bodies) and the s8 quantize
 pass as ``torch.library`` custom ops, so that a tracer (``torch.export``,
 ``core/export.py``) can pass through them and a saved program names them:
 ``torch.ops.gst.conv3x3_small``, ``torch.ops.gst.conv3x3_in_stats``,
-``torch.ops.gst.conv3x3_small_s8``, ``torch.ops.gst.conv3x3_in_stats_s8``,
-``torch.ops.gst.quantize_s8``, and the row-band forms of kernels 1 and 2
-(``generate --spatial``) ``torch.ops.gst.conv3x3_small_rows`` and
+``torch.ops.gst.conv3x3_bil``, ``torch.ops.gst.conv3x3_small_s8``,
+``torch.ops.gst.conv3x3_in_stats_s8``, ``torch.ops.gst.quantize_s8``, and
+the row-band forms of kernels 1 and 2 (``generate --spatial``)
+``torch.ops.gst.conv3x3_small_rows`` and
 ``torch.ops.gst.conv3x3_in_stats_rows``.
 
 - CPU: the plain PyTorch version (``*_plain`` beside each wrapper).
 - CUDA: the hand-written kernel through the ``ctypes`` library of
-  ``_build``, launched on the current stream (bf16 and s8 kernels 1 and 2
-  on the body ``tc_plan.plan_bf16`` or ``tc_plan.plan_s8`` picks: the
-  Hopper body's ``gst_*_sm90`` entries or the mma.sync body's); it raises
+  ``_build``, launched on the current stream on the body its rule picks
+  (``tc_plan.plan_bf16``, ``plan_s8``, ``plan_f32_body``: the Hopper
+  body's ``gst_*_sm90`` entries, or the mma.sync bodies'); it raises
   when the launch
   fails and never falls back to the plain version.  Each launch adds one
   to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
-  ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``, the ``_s8`` and
-  ``_rows`` twins, ``quantize.quantize_s8``), the one counter a run reads whether the call came through the wrapper or from an exported
-  program.
+  ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``,
+  ``bil_conv.conv3x3_bil``, the ``_s8`` and ``_rows`` twins,
+  ``quantize.quantize_s8``), the one counter a run reads whether the call
+  came through the wrapper or from an exported program.
 - Fake (``register_fake``): the output shapes and dtypes, from the inputs'
   alone; the library is not touched.
 
 The wrappers check their arguments before they call the op.  A program
 loaded from a file calls the op directly, so the CUDA implementations
-check again: the kernels index raw pointers.  Kernel 3 (``bil_conv``, the
-train path only) is still a plain ``ctypes`` wrapper.
+check again: the kernels index raw pointers.
 """
 
 from typing import Optional, Tuple
@@ -32,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from . import _build, conv_in_stats, quantize, small_conv
+from . import _build, bil_conv, conv_in_stats, quantize, small_conv
 
 
 @torch.library.custom_op("gst::conv3x3_small", mutates_args=(),
@@ -58,8 +59,11 @@ def _(x, w, b, act, leaky):
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     p, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
                                         tensors=(w,))
+    # f32 on the Hopper body: its own entry (the f32 form, entry 8)
+    name = ("gst_conv3x3_small_f32" if p.sm90 and x.dtype == torch.float32
+            else "gst_conv3x3_small")
     with torch.cuda.device(dev):
-        rc = _entry(lib, "gst_conv3x3_small", p)(
+        rc = _entry(lib, name, p)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
             cin, cout, _build.DTYPE_CODES[x.dtype],
@@ -140,7 +144,7 @@ def _(x, w, b, act, leaky):
     dev = x.device
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     p, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
-                                        tensors=(w,))
+                                        tensors=(w,), rows=True)
     with torch.cuda.device(dev):
         rc = _entry(_build.library(), "gst_conv3x3_small_rows", p)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
@@ -179,7 +183,7 @@ def _(x, w, noise, nscale, bias, leaky):
     dev = x.device
     plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
                                              noise=True,
-                                             tensors=(w, noise))
+                                             tensors=(w, noise), rows=True)
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
                           device=dev)
@@ -195,14 +199,56 @@ def _(x, w, noise, nscale, bias, leaky):
     return y, sums[:, 0].clone(), sums[:, 1].clone()  # no aliased outputs
 
 
+@torch.library.custom_op("gst::conv3x3_bil", mutates_args=(),
+                         device_types="cpu")
+def conv3x3_bil_op(x: Tensor, w: Tensor, b: Optional[Tensor], act: str,
+                   leaky: float) -> Tensor:
+    """Kernel 3: y = conv3x3(x, w) [+ b] then ``act`` for B*Cin, B*Cout <=
+    128; NHWC / HWIO, y in x's dtype."""
+    return bil_conv.conv3x3_bil_plain(
+        x, w, b, relu=act == "relu", leaky=leaky if act == "leaky" else None)
+
+
+@conv3x3_bil_op.register_fake
+def _(x, w, b, act, leaky):
+    return x.new_empty((*x.shape[:3], w.shape[3]))
+
+
+@conv3x3_bil_op.register_kernel("cuda")
+def _(x, w, b, act, leaky):
+    n, h, wd, cin, cout = bil_conv.check_args(x, w, b)
+    dev = x.device
+    lib = _build.library()
+    y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
+    # f32: the body plan_f32_body picks (the Hopper body's entry takes a
+    # workspace); bf16: the FFMA core, no plan
+    p, plan, ws = (_build.bil_launch_args(x, n, h, wd, cin, cout)
+                   if x.dtype == torch.float32 else (None, None, None))
+    with torch.cuda.device(dev):
+        common = (None if b is None else b.data_ptr(), y.data_ptr())
+        if p is not None and p.sm90:
+            rc = lib.gst_conv3x3_bil_sm90(
+                x.data_ptr(), w.data_ptr(), *common, ws.data_ptr()
+                if ws is not None else None, n, h, wd, cin, cout,
+                _build.DTYPE_CODES[x.dtype], small_conv._ACT_CODES[act],
+                float(leaky), plan, _stream(dev))
+        else:
+            rc = lib.gst_conv3x3_bil(
+                x.data_ptr(), w.data_ptr(), *common, n, h, wd, cin, cout,
+                _build.DTYPE_CODES[x.dtype], small_conv._ACT_CODES[act],
+                float(leaky), plan, _stream(dev))
+    _build.check_launch(rc, "conv3x3_bil")
+    bil_conv.conv3x3_bil.launches += 1
+    return y
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _entry(lib, name, plan):
     """The C entry point of the body the plan names: ``name`` (mma.sync,
-    3xTF32) or ``name_sm90`` (the Hopper body, bf16 or s8), same
-    arguments."""
+    3xTF32) or ``name_sm90`` (the Hopper body), same arguments."""
     return getattr(lib, name + "_sm90" if plan.sm90 else name)
 
 

@@ -1,10 +1,12 @@
 """Kernel 2: direct 3x3 conv with a fused bias and relu / leaky epilogue.
 
 CUDA source: ``csrc/small_conv.cu``, bound as the custom op
-``torch.ops.gst.conv3x3_small`` (``kernels/ops.py``): bf16 runs the
-tensor-core implicit GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan:
-``tc_plan.plan``), f32 the 3xTF32 one of ``csrc/conv3x3_tf32.cuh``
-(``tc_plan.plan_f32``).  Replaces
+``torch.ops.gst.conv3x3_small`` (``kernels/ops.py``): bf16 runs the Hopper
+body of ``csrc/conv3x3_sm90.cuh`` or the tensor-core implicit GEMM of
+``csrc/conv3x3_tc.cuh`` (rule: ``tc_plan.plan_bf16``), f32 the Hopper
+body's 3xTF32 form (``csrc/small_conv_f32.cu``, ``tc_plan.plan_tf32``) or
+the mma.sync 3xTF32 one of ``csrc/conv3x3_tf32.cuh``
+(``tc_plan.plan_f32``; rule: ``tc_plan.plan_f32_body``).  Replaces
 the TPU kernel
 ``experiments/pallas_archive/small_conv.py::conv3x3_small`` and keeps its
 contract: NHWC / HWIO, stride 1, pad 1, f32 accumulation, output in x's

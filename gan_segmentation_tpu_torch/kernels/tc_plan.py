@@ -1,9 +1,11 @@
 """Launch plans of the tensor-core 3x3 convs: ``plan_sm90`` for the bf16
 and s8 Hopper body (``csrc/conv3x3_sm90.cuh``, kernels 1 and 2, their
-row-band and their s8 forms), ``plan`` for the mma.sync bf16 and s8 bodies
-(``csrc/conv3x3_tc.cuh``), ``plan_f32`` for the f32 3xTF32 kernel
-(``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).  ``plan_bf16`` and
-``plan_s8`` are the rules that pick a bf16 or s8 call's body.
+row-band and their s8 forms), ``plan_tf32`` for its f32 (3xTF32) form
+(kernels 3 and 2), ``plan`` for the mma.sync bf16 and s8 bodies
+(``csrc/conv3x3_tc.cuh``), ``plan_f32`` for the mma.sync f32 3xTF32
+kernel (``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).  ``plan_bf16``,
+``plan_s8`` and ``plan_f32_body`` are the rules that pick a bf16, s8 or
+f32 call's body.
 
 Pure functions of the layer's shape, so the CPU tests can check every
 path shape's plan without a card.  ``h`` is always the OUTPUT rows: the
@@ -338,6 +340,8 @@ SM90_MAX_STAGES = 8
 SM90_INFLIGHT = 24 * 1024  # bytes a block keeps loading: Little's law,
 #                           3.35 TB/s x ~1 us over 132 SMs is ~25 KB an SM
 SM90_RESIDENT_MAX = 96 * 1024  # a block's resident taps, at most
+# ... and a narrow tf32 block's that runs one to an SM instead
+TF32_RESIDENT_ONE_BLOCK = 160 * 1024
 TMA_BOX_MAX = 256          # elements along any box dimension
 
 
@@ -384,11 +388,12 @@ class PlanSM90:
     groups: int
     cout_blocks: int
     s8: bool = False
+    tf32: bool = False
 
     @property
     def eb(self) -> int:
         """Bytes of an element of x and w."""
-        return 1 if self.s8 else 2
+        return 4 if self.tf32 else (1 if self.s8 else 2)
 
     @property
     def bm(self) -> int:
@@ -415,7 +420,7 @@ class PlanSM90:
         narrow tiles (288 threads), 3 for s8 kernel 1 at ``bn`` 16, 1 for
         the wide ones (BN >= 64, 384 threads: a loader warpgroup that hands
         its registers over)."""
-        if self.bn > 32:
+        if self.bn >= 64:
             return 1
         return 3 if self.s8 and self.noise and self.bn == 16 else 2
 
@@ -438,9 +443,11 @@ class PlanSM90:
     @property
     def tap_bytes(self) -> int:
         """One Cin chunk's tap slice: bf16 [9][ck][bn], s8 [9][bn][ck], s8
-        in pairs [5][bn][32]."""
-        return 5 * 32 * self.bn if self.pairs else \
-            9 * self.ck * self.bn * self.eb
+        in pairs [5][bn][32], tf32 [9][2][bn][ck] (a tap's hi rows, then its
+        lo rows)."""
+        if self.pairs:
+            return 5 * 32 * self.bn
+        return 9 * self.ck * self.bn * self.eb * (2 if self.tf32 else 1)
 
     @property
     def stage_load_bytes(self) -> int:
@@ -454,7 +461,8 @@ class PlanSM90:
         taps = 0 if self.resident else _align(self.tap_bytes, 1024)
         noise = 4 * self.bm if self.noise and self.splits == 1 else 0
         stage = _align(halo + taps + noise, 1024)
-        res = _align(self.chunks * self.tap_bytes, 1024) if self.resident \
+        # resident: a block's chunks (all of them without a split)
+        res = _align(self.cps * self.tap_bytes, 1024) if self.resident \
             else 0
         out = self.out_bufs * self.bm * self.bn * 2 if self.tma_y else 0
         slots = (self.out_bufs * (self.bm // 16) * self.bn * 2 * 4
@@ -464,7 +472,7 @@ class PlanSM90:
 
     def boxes(self):
         """The TMA boxes of x, w, the noise and y, innermost first (s8's w
-        is one K-major box of all ``bn`` channels)."""
+        is one K-major box of all ``bn`` channels; tf32 loads only x's)."""
         return {"x": (self.ck, self.tw + 2, self.th + 2, self.g),
                 "w": (self.ck, self.bn, 9) if self.s8
                 else (self.bna, self.ck, 9),
@@ -484,15 +492,19 @@ class PlanSM90:
 
 
 def tma_refuses(cin: int, w: int, noise: bool, aligned: bool = True,
-                s8: bool = False) -> Optional[str]:
+                s8: bool = False, tf32: bool = False) -> Optional[str]:
     """Why TMA's rules keep a call off the Hopper body, or None.  Global
     strides are multiples of 16 bytes (x's rows of Cin elements, the
     noise's rows of W f32) and bases 16-byte aligned.  bf16: w's and y's
     rows of Cout bf16 too, unless the taps are resident and y is stored
     from registers (``plan_sm90`` decides that).  s8: w's rows are Cin
-    bytes ([tap][Cout][Cin]), so Cin % 16 covers x and w."""
+    bytes ([tap][Cout][Cin]), so Cin % 16 covers x and w.  tf32: only x
+    travels by TMA (the taps are split into the block, y leaves from
+    registers), rows of Cin f32."""
     if not aligned:
         return "a base not 16-byte aligned"
+    if tf32:
+        return "Cin % 4 != 0 (x's row stride)" if cin % 4 else None
     if s8 and cin % 16:
         return "Cin % 16 != 0 (x's and w's row strides)"
     if cin % 8:
@@ -624,3 +636,107 @@ def plan_s8(n: int, h: int, w: int, cin: int, cout: int,
     view).  The Hopper body's y equals the mma.sync body's bit for bit."""
     return plan_sm90(n, h, w, cin, cout, noise, aligned, s8=True) or plan(
         n, h, w, cin, cout, noise, s8=True)
+
+
+# The tf32 tiles (bn, mi, ck) plan_tf32 can return: the only tf32 kernels
+# conv3x3_sm90.cuh builds (its tf32_tile), for entries 3 and 8; BN 32 only
+# in 128-pixel blocks (in 256 its kernel spilled at 96 registers a thread)
+TF32_SM90_TILES = frozenset((bn, mi, 16) for bn in (8, 16, 32, 64)
+                            for mi in (1, 2) if (bn, mi) != (32, 2))
+
+
+def plan_tf32(n: int, h: int, w: int, cin: int, cout: int,
+              aligned: bool = True) -> Optional[PlanSM90]:
+    """The Hopper body's plan of one f32 call of kernel 3 or kernel 2 in
+    its 3xTF32 form (entries 3 and 8 of conv3x3_sm90.cuh), or None where
+    the rule refuses it: TMA's rules (``tma_refuses(tf32=True)``: Cin % 4,
+    an unaligned view) and Cin > 16 * MAX_CPS_F32 (the long-K layers,
+    cvt_0..4 at 4^2-64^2, which need split-K for their chains' sake and
+    stay on the mma.sync 3xTF32 body with its 16-way splits).
+
+    - ``ck``: 16 f32 (a 64-byte pixel, two k8 steps a tap).
+    - ``bn``: Cout rounded up to a power of two in 8..64, but the widest
+      whose grid of 128-pixel blocks fills the SMs, else 8: on the card
+      the 8^2-64^2 layers took 0.0055-0.0093 ms in 8-channel blocks
+      against 0.0094-0.0155 in one or two wide ones (split or not), and
+      128^2 32 -> 32 0.0092 in 16-channel blocks against 0.0099
+      (``chip_smoke.phase_tf32_sweep``).
+    - No split-K: Cin <= 128 keeps every chain within MAX_CPS_F32, and two
+      Cin splits lost to one wherever the sweep tried them (16^2 64 -> 32
+      in 8-channel blocks: 0.0103 against 0.0086 ms).
+    - The taps are always resident: each block splits its own Cout
+      block's w, HWIO f32, into K-major tf32 hi and lo, [9][2][bn][16] a
+      chunk, once, beside the ring (a block whose next item has another
+      Cout block splits again).  ``bn`` halves while the taps would exceed
+      ``SM90_RESIDENT_MAX``; but a narrow ``bn`` (<= 32) keeps taps up to
+      ``TF32_RESIDENT_ONE_BLOCK`` and runs one block an SM (512^2 64 ->
+      32 took 0.139 ms so against 0.156 in two 16-channel blocks two an
+      SM, cvt_5 0.0333 at ``bn`` 16 against 0.0379 in four blocks of 8).
+      So 64 -> 32 takes ``bn`` 32 from 256^2 up and two blocks of 16 at
+      128^2, 32 -> 64 two of 32.
+    - ``mi``: 2 (256-pixel blocks) where their grid fills two blocks an
+      SM (1024^2 16 -> 16: 0.0914 ms against 0.0978), else 1 (64^2 32 ->
+      32 in 8-channel blocks: 0.0061 against 0.0079), and never at ``bn``
+      32 (that tile spilled in 256-pixel blocks); ``tw``, ``th``, ``g``,
+      ``stages`` as ``plan_sm90``, the ring one stage shallower where the
+      blocks would not share an SM as they ask.
+    - y leaves from registers, a channel pair a store (no y tile)."""
+    if tma_refuses(cin, w, False, aligned, tf32=True):
+        return None
+    ck = 16
+    chunks = _cdiv(cin, ck)
+    if chunks > MAX_CPS_F32:
+        return None
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    min_th = 16 // tw
+    _, _, tx1, ty1, gr1 = _geometry(n, h, w, 128, tw, min_th)
+    bn = min(64, max(8, _pow2ceil(cout)))
+    while bn > 8 and tx1 * ty1 * gr1 * _cdiv(cout, bn) < NUM_SMS:
+        bn //= 2
+    plans = []
+    while bn >= 8:
+        cout_blocks = _cdiv(cout, bn)
+        _, _, tx, ty, gr = _geometry(n, h, w, 256, tw, min_th)
+        wide_ok = tx * ty * gr * cout_blocks >= 2 * NUM_SMS and bn != 32
+        for mi in ((2, 1) if wide_ok else (1,)):
+            th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 128 * mi,
+                                                        tw, min_th)
+            p = PlanSM90(bn=bn, mi=mi, ck=ck, tw=tw, th=th, g=g, splits=1,
+                         cps=chunks, stages=2, resident=True, tma_y=False,
+                         noise=False, chunks=chunks, tiles_x=tiles_x,
+                         tiles_y=tiles_y, groups=groups,
+                         cout_blocks=cout_blocks, tf32=True)
+            taps = chunks * p.tap_bytes
+            if taps <= SM90_RESIDENT_MAX:
+                plans.append((p, False))
+            elif (bn <= 32 and p.blocks >= NUM_SMS
+                  and taps <= TF32_RESIDENT_ONE_BLOCK):
+                plans.append((p, True))
+        bn //= 2
+    # the first whose blocks share an SM as they ask (or run one an SM)
+    for p, one in plans:
+        want = min(SM90_MAX_STAGES,
+                   max(2, 1 + _cdiv(SM90_INFLIGHT, p.stage_load_bytes)))
+        budget = MAX_SMEM if one else min(MAX_SMEM,
+                                          SM_SMEM // p.min_blocks - 1024)
+        for stages in range(want, 1, -1):
+            q = replace(p, stages=stages)
+            if q.smem_bytes <= budget:
+                return q
+    for p, _ in plans:
+        if p.smem_bytes <= MAX_SMEM:
+            return p
+    return None
+
+
+def plan_f32_body(n: int, h: int, w: int, cin: int, cout: int,
+                  aligned: bool = True, kernel3: bool = False
+                  ) -> Union[PlanSM90, PlanF32]:
+    """The body of an f32 call of kernel 2 or (``kernel3``) kernel 3, by
+    one rule as in bf16 and s8: the Hopper body's 3xTF32 form wherever
+    ``plan_tf32`` takes the shape (every kernel-3 call of a train step but
+    main_8_conv's input gradient, Cin 2; every kernel-2 call of evaluate
+    but cvt_0..4), else the mma.sync 3xTF32 body (``plan_f32``; kernel 3
+    without a split)."""
+    return plan_tf32(n, h, w, cin, cout, aligned) or plan_f32(
+        n, h, w, cin, cout, splits=1 if kernel3 else None)

@@ -199,10 +199,11 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 def test_build_cache_key_covers_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
-    assert names == ["bil_conv.cu", "conv3x3_core.cuh", "conv3x3_sm90.cuh",
-                     "conv3x3_tc.cuh", "conv3x3_tf32.cuh", "conv_in_stats.cu",
-                     "conv_in_stats_rows.cu", "conv_in_stats_s8.cu",
-                     "quantize_s8.cu", "sm90_util.cuh", "small_conv.cu",
+    assert names == ["bil_conv.cu", "bil_conv_sm90.cu", "conv3x3_core.cuh",
+                     "conv3x3_sm90.cuh", "conv3x3_tc.cuh", "conv3x3_tf32.cuh",
+                     "conv_in_stats.cu", "conv_in_stats_rows.cu",
+                     "conv_in_stats_s8.cu", "quantize_s8.cu", "sm90_util.cuh",
+                     "small_conv.cu", "small_conv_f32.cu",
                      "small_conv_rows.cu", "small_conv_s8.cu"]
     assert _build._source_tag() == _build._source_tag()
 
