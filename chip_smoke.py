@@ -13,14 +13,19 @@ Phases (any failure raises, so the exit code is non-zero):
    spills; every tensor-core kernel (``conv3x3_tc.cuh``, bf16 and s8;
    ``conv3x3_tf32.cuh``, 3xTF32; ``conv3x3_sm90.cuh``, bf16, s8 and f32 as
    3xTF32) must spill 0 bytes, every s8 Hopper-body tile ``tc_plan.plan_s8``
-   and every tf32 one ``tc_plan.plan_tf32`` can return must be built, and
-   the wide Hopper tiles must launch with 168 registers.
+   and every tf32 one ``tc_plan.plan_tf32`` and ``plan_tf32_in_stats``
+   (kernel 1, entry 9) can return must be built, and the wide Hopper tiles
+   must launch with 168 registers.
 3. kernels — each kernel against its plain PyTorch version, with the error
    and the tolerance, and per call its device time by CUDA-graph replay
    beside the plain version's, ``F.conv2d`` alone (the library call) and
    the floor (bytes once over HBM or operations over the type's peak; f32
    as 3xTF32): kernel 1 at every shape the ffhq 1024^2 generator gives it
-   at batch 8, in f32 (TF32 off on the plain side) and bf16, both timed;
+   at batch 8, in f32 (TF32 off on the plain side; on the rule's body, the
+   tf32 Hopper body's entry 9 wherever ``tc_plan.plan_tf32_in_stats`` takes
+   the call, and on the mma.sync 3xTF32 body, both held to plain and
+   timed, the rule's repeats and graph replays bit-identical) and bf16,
+   both timed;
    kernel 2 at every decoder conv at batch 8 in f32 and bf16 (bf16 timed)
    and at batch 1 in f32 (evaluate, timed on both f32 bodies: the rule's,
    the tf32 Hopper body wherever ``tc_plan.plan_tf32`` takes the call, and
@@ -28,8 +33,9 @@ Phases (any failure raises, so the exit code is non-zero):
    in f32 at every call of a train step at batch 1 (forward and input
    gradient) on both f32 bodies, timed beside ``F.conv2d`` with TF32 on
    too, and at its edge cases, with bit-identical repeats; how wgmma
-   rounds the f32 accumulator at the longest chain (``tf32_rounding``:
-   against truncating and round-to-nearest emulations); kernel 3's bf16
+   rounds the f32 accumulator at the longest chain and at a split kernel-1
+   call (``tf32_rounding``: against truncating and round-to-nearest
+   emulations); kernel 3's bf16
    body at generate's 16 -> 16
    convs at batch 8; Conv3x3's output, dX, dW and db against
    torch.autograd at every train shape.  Kernels 1 and 2 run the bf16
@@ -83,7 +89,8 @@ Phases (any failure raises, so the exit code is non-zero):
 5. train   — three fit steps at res 32 on the card agree with the CPU; then
    ``main train`` and ``main evaluate`` at ffhq 1024^2 with the defaults
    (24 epochs, batch 1, Adam 1e-4, dropout on) on 20 + 4 samples of the
-   seeded f32 generator (kernel 1 in f32, 9 launches per batch of 8):
+   seeded f32 generator (kernel 1 in f32, 9 launches per batch of 8,
+   counted by body in its device trace):
    ``main train`` runs each step as a replay of a CUDA graph, once timed
    and once traced for its launch counts per step; falling loss,
    checkpoint, metrics above the untrained decoder's; the fit loop's rate,
@@ -351,12 +358,13 @@ def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
 # finish kernel, not counted here).  The tensor-core kernels carry the
 # number of the entry point that launches them as their last template
 # argument (4 and 5: kernels 1 and 2's s8 bodies, 6 and 7 their row-band
-# forms, 8 kernel 2's f32 form of the Hopper body); kernel 3's bf16 body
-# and the quantize pass are kernels of their own.
+# forms, 8 and 9 kernels 2 and 1's f32 forms of the Hopper body); kernel
+# 3's bf16 body and the quantize pass are kernels of their own (and so is
+# entry 9's K-major tap layout, tf32_taps_kernel, not counted either).
 KERNEL_NUMBERS = {"1": "conv_in_stats", "2": "small_conv", "3": "bil_conv",
                   "4": "conv_in_stats_s8", "5": "small_conv_s8",
                   "6": "conv_in_stats_rows", "7": "small_conv_rows",
-                  "8": "small_conv"}
+                  "8": "small_conv", "9": "conv_in_stats"}
 S8_KERNELS = ("conv_in_stats_s8", "small_conv_s8", "quantize_s8")
 
 
@@ -375,9 +383,9 @@ def kernel_of(name):
 def body_of(name):
     """The body a tensor-core kernel of kernels 1-3 runs: "sm90" (the bf16
     or s8 Hopper body, conv3x3_sm90.cuh), "sm90_tf32" (its f32 form, entries
-    3 and 8), "mma_sync" (conv3x3_tc.cuh: bf16 or s8), "3xtf32"
+    3, 8 and 9), "mma_sync" (conv3x3_tc.cuh: bf16 or s8), "3xtf32"
     (conv3x3_tf32.cuh), else None."""
-    if re.search(r"conv3x3_sm90_kernel<[^>]*,\s*[38]>", name):
+    if re.search(r"conv3x3_sm90_kernel<[^>]*,\s*[389]>", name):
         return "sm90_tf32"
     for key, body in (("conv3x3_sm90_kernel<", "sm90"),
                       ("conv3x3_tc_kernel<", "mma_sync"),
@@ -413,10 +421,11 @@ def mma_sync_body():
 
 @contextlib.contextmanager
 def mma_sync_tf32_body():
-    """The f32 calls of kernels 3 and 2 on the mma.sync 3xTF32 body
-    (conv3x3_tf32.cuh) inside: the f32 rule's Hopper plan
-    (tc_plan.plan_tf32) swapped out, so that one timing can set the two f32
-    bodies side by side on the same inputs."""
+    """The f32 calls of kernels 3, 2 and 1 on the mma.sync 3xTF32 body
+    (conv3x3_tf32.cuh) inside: the f32 rules' Hopper plans
+    (tc_plan.plan_tf32, and kernel 1's tc_plan.plan_tf32_in_stats) swapped
+    out, so that one timing can set the two f32 bodies side by side on the
+    same inputs."""
     from unittest import mock
 
     from gan_segmentation_tpu_torch.kernels import _build, tc_plan
@@ -427,7 +436,9 @@ def mma_sync_tf32_body():
     clear()
     try:
         with mock.patch.object(tc_plan, "plan_tf32",
-                               lambda *args, **kw: None):
+                               lambda *args, **kw: None), \
+                mock.patch.object(tc_plan, "plan_tf32_in_stats",
+                                  lambda *args, **kw: None):
             yield
     finally:
         clear()
@@ -743,11 +754,11 @@ def bf16_plan(n, h, w, cin, cout, noise):
     return f"{'sm90' if p.sm90 else 'mma.sync'} plan {p.args()}"
 
 
-def f32_plan(n, h, w, cin, cout, kernel3=False):
-    """The f32 plan the rule gives (tc_plan.plan_f32_body), as a log
-    field."""
+def f32_plan(n, h, w, cin, cout, kernel3=False, noise=False):
+    """The f32 plan the rule gives (tc_plan.plan_f32_body; ``noise``:
+    kernel 1's), as a log field."""
     from gan_segmentation_tpu_torch.kernels.tc_plan import plan_f32_body
-    p = plan_f32_body(n, h, w, cin, cout, kernel3=kernel3)
+    p = plan_f32_body(n, h, w, cin, cout, kernel3=kernel3, noise=noise)
     return (f"{'sm90 tf32' if p.sm90 else 'mma.sync 3xTF32'} plan "
             f"{p.args()}")
 
@@ -765,7 +776,6 @@ def conv_inputs(torch, g):
 def phase_kernels(torch, gcfg, scfg):
     from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
     from gan_segmentation_tpu_torch.kernels import small_conv as k2m
-    from gan_segmentation_tpu_torch.kernels.tc_plan import plan_f32
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1234)
@@ -775,6 +785,7 @@ def phase_kernels(torch, gcfg, scfg):
 
     # kernel 1
     errs = {"f32": 0.0, "bf16": 0.0}
+    f32_err = {"rule": 0.0, "mma_sync": 0.0}  # y, f32, by body
     dev_t = {"f32": {}, "bf16": {}}
     for (n, h, w, cin, cout) in kernel1_shapes(gcfg):
         x32, w32 = inputs(n, h, w, cin, cout)
@@ -811,13 +822,40 @@ def phase_kernels(torch, gcfg, scfg):
                     times["mma_sync"] = graph_ms(
                         lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args))
                 line += "; " + bf16_plan(n, h, w, cin, cout, True)
+            else:
+                # the rule's f32 body (entry 9 of the Hopper body wherever
+                # plan_tf32_in_stats takes the call) beside the mma.sync
+                # 3xTF32 body on the same inputs, both held to plain; the
+                # rule's repeats and graph replays bit-identical
+                again = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+                same = all(torch.equal(a, b) for a, b in
+                           zip((y, mean, var), again))
+                same &= graph_replays_equal(
+                    torch, lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args),
+                    (y, mean, var))
+                with mma_sync_tf32_body():
+                    old = k1m.conv3x3_noise_bias_lrelu_instats(*args)
+                    times["mma_sync"] = graph_ms(
+                        lambda: k1m.conv3x3_noise_bias_lrelu_instats(*args))
+                for what, a, r, tol in zip(
+                        ("y", "mean", "var"), old, (yp, meanp, varp),
+                        (TOL[tag], STAT_TOL[tag], STAT_TOL[tag])):
+                    check_close(f"{name} {what} (mma.sync 3xTF32 body)", a, r,
+                                **tol)
+                check_later(same, f"{name}: a repeat or a graph replay "
+                                  f"differs")
+                f32_err["rule"] = max(f32_err["rule"], max_err(y, yp))
+                f32_err["mma_sync"] = max(f32_err["mma_sync"],
+                                          max_err(old[0], yp))
+                errs[tag] = max(errs[tag], f32_err["mma_sync"])
+                line += (f", mma.sync body {max_err(old[0], yp):.3g}; repeats "
+                         f"and replays bit-identical {same}; "
+                         + f32_plan(n, h, w, cin, cout, noise=True))
+                del again, old
             add_times(dev_t[tag], times, floor)
-            if tag == "f32":
-                line += (f" splits "
-                         f"{plan_f32(n, h, w, cin, cout, stats=True).splits}")
             log(line + ";" + times_line(times, floor))
         del x32, w32, x, wt, y, yp
-    rec["conv_in_stats"] = dict(errs=errs, dev=dev_t["bf16"],
+    rec["conv_in_stats"] = dict(errs=errs, f32_err=f32_err, dev=dev_t["bf16"],
                                 f32_dev=dev_t["f32"])
 
     # kernel 2
@@ -908,10 +946,12 @@ def phase_kernels(torch, gcfg, scfg):
     k1_f32 = rec["conv_in_stats"]["f32_dev"]
     fl = summed_bound(k1_f32["bounds"])
     log(f"conv_in_stats: f32 per batch of 8 over the path's 9 shapes, device "
-        f"time (graph replay): kernel {k1_f32['kernel']:.3f} ms, plain "
-        f"{k1_f32['plain']:.3f}, F.conv2d {k1_f32['library']:.3f}, floor "
-        f"{fl[0]:.3f} ({fl[1]}, 3xTF32), share "
-        f"{fl[0] / k1_f32['kernel']:.3f}")
+        f"time (graph replay): kernel {k1_f32['kernel']:.3f} ms on the "
+        f"rule's body (the mma.sync 3xTF32 body on the same inputs "
+        f"{k1_f32['mma_sync']:.3f}), plain {k1_f32['plain']:.3f}, F.conv2d "
+        f"{k1_f32['library']:.3f}, floor {fl[0]:.3f} ({fl[1]}, 3xTF32), "
+        f"share {fl[0] / k1_f32['kernel']:.3f} (mma.sync body "
+        f"{fl[0] / k1_f32['mma_sync']:.3f})")
     fl = summed_bound(b1_dev["bounds"])
     log(f"small_conv: f32 per evaluate sample (batch 1, its 26 convs), "
         f"device time (graph replay): kernel {b1_dev['kernel']:.3f} ms (the "
@@ -928,10 +968,13 @@ def phase_kernels(torch, gcfg, scfg):
 
 
 def phase_split_sweep(torch, gcfg, scfg, g, inputs):
-    """Every f32 path shape of kernels 1 and 2 whose plan splits K: device
-    time (graph replay) with the plan's split beside the same body with one
-    split (the plan function swapped for that launch only), so that the
-    record shows where the split wins and what the chain cap costs."""
+    """Every f32 path shape of kernels 1 and 2 whose mma.sync 3xTF32 plan
+    splits K: device time (graph replay) on that body with the plan's split
+    beside one split (the plan function swapped for that launch only), so
+    that the record shows where the split wins and what the chain cap
+    costs.  Kernel 1's calls run inside ``mma_sync_tf32_body`` (its rule
+    takes them to the Hopper body; ``tf32_k1_sweep`` times its splits
+    there)."""
     from unittest import mock
 
     from gan_segmentation_tpu_torch.kernels import _build, tc_plan
@@ -957,15 +1000,18 @@ def phase_split_sweep(torch, gcfg, scfg, g, inputs):
         else:
             def call():
                 return k2m.conv3x3_small(x, wt, b, leaky=0.2)
-        planned = graph_ms(call)
-        one = functools.partial(tc_plan.plan_f32, splits=1)
-        _build._tc_plan_c.cache_clear()
-        try:
-            with mock.patch.object(tc_plan, "plan_f32", one):
-                unsplit = graph_ms(call)
-        finally:
+        body = mma_sync_tf32_body if stats else contextlib.nullcontext
+        with body():
+            planned = graph_ms(call)
+            one = functools.partial(tc_plan.plan_f32, splits=1)
             _build._tc_plan_c.cache_clear()
-        log(f"  split-K {kernel} f32 {(n, h, w, cin, cout)}: {p.splits} "
+            try:
+                with mock.patch.object(tc_plan, "plan_f32", one):
+                    unsplit = graph_ms(call)
+            finally:
+                _build._tc_plan_c.cache_clear()
+        log(f"  split-K {kernel} f32 {(n, h, w, cin, cout)}"
+            f"{' (mma.sync 3xTF32 body)' if stats else ''}: {p.splits} "
             f"splits of {p.cps} chunks, {p.blocks} blocks: {planned:.4f} ms; "
             f"one split, {p.blocks // p.splits} blocks: {unsplit:.4f} ms")
         del x, wt
@@ -1213,40 +1259,112 @@ def tf32_plan_variants(p, shape):
     return out
 
 
-def phase_tf32_sweep(torch):
-    """Device time (graph replay) of kernel 3's tf32 Hopper entry at
-    ``TF32_SWEEP``: the rule's plan beside ``tf32_plan_variants``, then
-    the entry built from copies of csrc patched as ``TF32_ABLATIONS`` says
-    (each variant's y against the body's: the split variant must be
-    bit-equal).  The evidence behind plan_tf32's choices and the body's
-    split; not in the default run (~2 min after the build): python3 -c
-    "import chip_smoke as c, torch; c.phase_tf32_sweep(torch)"."""
+def tf32_k1_variants(p, shape):
+    """What plan_tf32_in_stats turned down at ``shape`` (kernel 1's rule,
+    plan ``p``): every built tile (``tc_plan.TF32_K1_SM90_TILES``) of BN up
+    to Cout's, each with the rule's splits for it, half and twice as many
+    within the chain cap, its taps resident (where they fit) and streamed;
+    each with the deepest ring that fits."""
+    from gan_segmentation_tpu_torch.kernels import tc_plan
+    cout = shape[4]
+    top = max(16, 1 << (cout - 1).bit_length())
+    out = []
+    for bn, mi, _ in sorted(tc_plan.TF32_K1_SM90_TILES):
+        base = tc_plan.tf32_in_stats_plan(*shape, bn, mi)
+        if bn > top or base is None:
+            continue
+        for splits in sorted({base.splits, max(1, base.splits // 2),
+                              min(base.chunks, 2 * base.splits)}):
+            for resident in (False, True):
+                q = tc_plan.tf32_in_stats_plan(*shape, bn, mi, splits=splits,
+                                               resident=resident)
+                if q is not None and q != p and q not in out:
+                    out.append(q)
+    return out
+
+
+# Kernel 1's entry 9 (phase_tf32_sweep's kernel-1 part) built from patched
+# copies of csrc: what each part of the call costs at the path's shapes
+TF32_K1_ABLATIONS = {
+    "no_mma": TF32_ABLATIONS["no_mma"],
+    "no_lo_hi": TF32_ABLATIONS["no_lo_hi"],
+    # the streamed taps' TMA box left out (the MMAs read a stale stage)
+    "no_tap_box": [("              tma_load_4d(st + L.tap_off, &a.tm_w, "
+                    "full + s, 0, it.co0, 0,\n                          (c0 "
+                    "+ c) * 9);", "              {}"),
+                   ("      const uint32_t tx = L.halo + (a.resident ? 0 : "
+                    "L.taps);", "      const uint32_t tx = L.halo + "
+                    "(a.resident || TF32 ? 0 : L.taps);")],
+    # the statistics' slots and partials left out
+    "no_stats": [("      if (STATS) {  // slots of the sums",
+                  "      if (STATS && a.n < 0) {  // slots of the sums"),
+                 ("    if (STATS) {  // per (image, channel)",
+                  "    if (STATS && a.n < 0) {  // per (image, channel)")],
+    # the split-K finish kernel not launched
+    "no_finish": [("  if (rc || a.splits == 1) return rc;\n  // split-K: "
+                   "conv3x3_tc.cuh's finish kernel",
+                   "  if (rc || a.splits >= 1) return rc;\n  // split-K: "
+                   "conv3x3_tc.cuh's finish kernel")],
+    # the K-major layout not made (the taps stream from stale memory)
+    "no_layout": [("    gst::tf32_taps_kernel<<<grid, gst::TAPS_THREADS, 0, "
+                   "st>>>(\n        static_cast<const float*>(w), ws, cin, "
+                   "cout);", "    (void)grid;")],
+}
+
+
+def patched_libs(torch, ablations, source):
+    """{name: ctypes library} of ``source`` (a csrc/*.cu) built alone from
+    copies of csrc patched as ``ablations`` says (each (old, new) replaced
+    in the one csrc file that holds ``old``), all nvcc runs at once; and
+    the directory to remove."""
     import ctypes
 
-    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
-
-    base = _build.build_library()
+    from gan_segmentation_tpu_torch.kernels import _build
     root = tempfile.mkdtemp()
-    libs, jobs = {"body": ctypes.CDLL(base)}, []
-    for name, patches in TF32_ABLATIONS.items():
+    libs, jobs = {}, []
+    for name, patches in ablations.items():
         d = join(root, name)
         shutil.copytree(_build.CSRC, d)
-        path = join(d, "conv3x3_sm90.cuh")
-        with open(path) as fh:
-            text = fh.read()
         for old, new in patches:
-            assert old in text, (name, old)
-            text = text.replace(old, new)
-        with open(path, "w") as fh:
-            fh.write(text)
+            hits = [f for f in os.listdir(d)
+                    if old in open(join(d, f)).read()]
+            assert len(hits) == 1, (name, old, hits)
+            path = join(d, hits[0])
+            with open(path) as fh:
+                text = fh.read()
+            with open(path, "w") as fh:
+                fh.write(text.replace(old, new))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", d, "-shared",
-               join(d, "bil_conv_sm90.cu"), "-o", join(d, "lib.so")]
+               join(d, source), "-o", join(d, "lib.so")]
         jobs.append((name, d, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     for name, d, proc in jobs:
         _, err = proc.communicate()
         assert proc.returncode == 0, f"{name}: nvcc failed\n{err[-2000:]}"
         libs[name] = ctypes.CDLL(join(d, "lib.so"))
+    return libs, root
+
+
+def phase_tf32_sweep(torch, kernel3=True, kernel1=True):
+    """Device time (graph replay) of the tf32 Hopper entries: kernel 3's
+    (entry 3) at ``TF32_SWEEP``, the rule's plan beside
+    ``tf32_plan_variants``, then the entry built from copies of csrc patched
+    as ``TF32_ABLATIONS`` says (each variant's y against the body's: the
+    split variant must be bit-equal); kernel 1's (entry 9,
+    ``tf32_k1_sweep``) at the f32 generator's 9 shapes.  The evidence
+    behind plan_tf32's and plan_tf32_in_stats's choices and the body's
+    split; not in the default run (~4 min after the build): python3 -c
+    "import chip_smoke as c, torch; c.phase_tf32_sweep(torch)"."""
+    import ctypes
+
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+
+    if kernel1:
+        tf32_k1_sweep(torch)
+    if not kernel3:
+        return
+    libs, root = patched_libs(torch, TF32_ABLATIONS, "bil_conv_sm90.cu")
+    libs["body"] = ctypes.CDLL(_build.build_library())
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for lib in libs.values():
         lib.gst_conv3x3_bil_sm90.restype = i
@@ -1290,6 +1408,109 @@ def phase_tf32_sweep(torch):
         log(f"  tf32 sweep {shape} (rule bn {rule.bn} mi {rule.mi} x "
             f"{rule.stages}, {rule.splits} splits; '=' y bit-equal to the "
             f"rule's): " + "; ".join(cells) + " ms")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def k1_f32_parts(torch, fn):
+    """Device ms of one call of ``fn`` by part, from a profiler trace of
+    five eager calls: the body (conv3x3_*_kernel), the K-major layout
+    (tf32_taps_kernel), the split-K finish, the rest (the wrapper's second
+    pass over the tile axis)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"body": 0.0, "layout": 0.0, "finish": 0.0, "rest": 0.0}
+    for name, ms in kernel_times(prof).items():
+        key = ("finish" if "finish_kernel" in name else
+               "layout" if "tf32_taps_kernel" in name else
+               "body" if kernel_of(name) == "conv_in_stats" else "rest")
+        parts[key] += ms / 5
+    return parts
+
+
+def tf32_k1_sweep(torch):
+    """Kernel 1's f32 entry (entry 9) at the f32 generator's 9 ffhq shapes
+    (batch 8), device time by graph replay of the C entry alone: the rule's
+    plan beside ``tf32_k1_variants`` (its taps streamed against resident,
+    its splits, BN, MI; each variant's y against the rule's: "=" bit-equal,
+    else its largest difference), the entry built from copies of csrc
+    patched as ``TF32_K1_ABLATIONS`` says; then the wrapper's call on the
+    rule's body and on the mma.sync 3xTF32 body, and its device time by
+    part (``k1_f32_parts``)."""
+    import ctypes
+
+    from gan_segmentation_tpu_torch.core.config import gan_config
+    from gan_segmentation_tpu_torch.kernels import _build, tc_plan
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+
+    libs, root = patched_libs(torch, TF32_K1_ABLATIONS,
+                              "conv_in_stats_f32.cu")
+    libs["body"] = ctypes.CDLL(_build.build_library())
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for lib in libs.values():
+        lib.gst_conv3x3_in_stats_f32_sm90.restype = i
+        lib.gst_conv3x3_in_stats_f32_sm90.argtypes = [
+            vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, f, vp, vp]
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1234)
+    for shape in kernel1_shapes(gan_config("ffhq")):
+        n, h, w, cin, cout = shape
+        x = torch.randn((n, h, w, cin), device=dev, generator=g)
+        wt = torch.randn((3, 3, cin, cout), device=dev, generator=g) / (
+            9 * cin) ** 0.5
+        noise = torch.randn((n, h, w), device=dev, generator=g)
+        b = 0.1 * torch.randn((cout,), device=dev, generator=g)
+        y = torch.empty((n, h, w, cout), device=dev)
+        rule = tc_plan.plan_tf32_in_stats(*shape)
+        runs = [("rule", libs["body"], rule)]
+        runs += [("", libs["body"], q) for q in tf32_k1_variants(rule,
+                                                                 shape)]
+        runs += [(name, libs[name], rule) for name in TF32_K1_ABLATIONS]
+        cells, ref = [], None
+        for name, lib, p in runs:
+            nws = p.ws_elems(n, h, w, cout)
+            ws = torch.empty(nws, device=dev) if nws else None
+            partial = torch.empty((n, p.tiles, 2, cout), device=dev)
+            plan = (ctypes.c_int * 11)(*p.args())
+
+            def call(lib=lib, plan=plan, ws=ws, partial=partial, p=p):
+                rc = lib.gst_conv3x3_in_stats_f32_sm90(
+                    x.data_ptr(), wt.data_ptr(), noise.data_ptr(),
+                    b.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    partial.data_ptr(), None if ws is None else ws.data_ptr(),
+                    n, h, w, cin, cout, 0, 0.2, plan,
+                    torch.cuda.current_stream().cuda_stream)
+                assert rc == 0, (name, p, rc)
+            call()
+            torch.cuda.synchronize()
+            tag = name or (f"bn {p.bn} mi {p.mi} / {p.splits} "
+                           f"{'res' if p.resident else 'str'} x {p.stages}")
+            same = ""
+            if ref is None:
+                ref = y.clone()
+            elif not name:
+                same = (" =" if torch.equal(y, ref) else
+                        f" ({float((y - ref).abs().max()):.2g})")
+            cells.append(f"{tag}{same} {graph_ms(call):.4f}")
+        args = (x, wt, noise, b, b)
+
+        def wrapped():
+            return k1m.conv3x3_noise_bias_lrelu_instats(*args)
+        op, parts = graph_ms(wrapped), k1_f32_parts(torch, wrapped)
+        with mma_sync_tf32_body():
+            old, old_parts = graph_ms(wrapped), k1_f32_parts(torch, wrapped)
+        log(f"  tf32 k1 sweep {shape} (rule bn {rule.bn} mi {rule.mi} / "
+            f"{rule.splits} {'res' if rule.resident else 'str'} x "
+            f"{rule.stages}; the op {op:.4f} ms, parts "
+            f"{ {k: round(v, 4) for k, v in parts.items()} }; mma.sync "
+            f"3xTF32 body {old:.4f}, parts "
+            f"{ {k: round(v, 4) for k, v in old_parts.items()} }): "
+            + "; ".join(cells) + " ms")
+        del x, wt, y, ref
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1436,9 +1657,10 @@ def edge_cases(torch, g, inputs, tag, dt):
                 name + ": small_conv repeat differs"
             err = max(err, max_err(ys, ysp))
         worst = max(worst, err)
-        body = (f"kernel 2 {f32_plan(n, h, w, cin, cout)}" if f32 else (
-            f"kernel 1 {bf16_plan(n, h, w, cin, cout, True)}, kernel 2 "
-            f"{bf16_plan(n, h, w, cin, cout, False)}"))
+        body = (f"kernel 1 {f32_plan(n, h, w, cin, cout, noise=True)}, "
+                f"kernel 2 {f32_plan(n, h, w, cin, cout)}" if f32 else (
+                    f"kernel 1 {bf16_plan(n, h, w, cin, cout, True)}, "
+                    f"kernel 2 {bf16_plan(n, h, w, cin, cout, False)}"))
         log(f"  {name}: max|y err| {err:.3g} (tol {tol}, stats "
             f"{stat_tol}), repeats bit-identical; {body}")
     log(f"tensor-core edge cases {tag}: {len(shapes)} shapes, kernel 1 "
@@ -1676,44 +1898,59 @@ def tf32_chain(torch, x, w, cps, trunc):
 def tf32_rounding(torch, g, inputs):
     """How the Hopper body's wgmma rounds its f32 accumulator: kernel 3 at
     the longest chain a train step makes (cvt_5, 128^2, Cin 128 -> 32: one
-    chain of 8 chunks, 72 k8 steps) against the f64 sum, and against the
-    3xTF32 chain emulated with each step's sum truncated (as mma.sync
-    does, tests/test_torch_f32_tc.py) and rounded to nearest
-    (``tf32_chain``): the share of
-    outputs each emulation gives bit for bit, and the signed mean error
-    relative to the f64 sum (truncation biases it toward zero)."""
+    chain of 8 chunks, 72 k8 steps), and kernel 1 at a split path shape
+    (8^2 512 -> 512 at batch 8: 4 chains of 8 chunks added by the finish
+    kernel; noise, nscale and bias 0, leaky slope 1, so y is the sum),
+    against the f64 sum, and against the 3xTF32 chain emulated with each
+    step's sum truncated (as mma.sync does, tests/test_torch_f32_tc.py) and
+    rounded to nearest (``tf32_chain``; the chains added in order, to
+    nearest, in both): the share of outputs each emulation gives bit for
+    bit, and the signed mean error relative to the f64 sum (truncation
+    biases it toward zero)."""
     from gan_segmentation_tpu_torch.kernels import bil_conv as k3m
-    from gan_segmentation_tpu_torch.kernels.tc_plan import plan_tf32
+    from gan_segmentation_tpu_torch.kernels import conv_in_stats as k1m
+    from gan_segmentation_tpu_torch.kernels.tc_plan import (plan_tf32,
+                                                            plan_tf32_in_stats)
 
-    shape = (1, 128, 128, 128, 32)
-    p = plan_tf32(*shape)
-    x, wt = inputs(*shape)
-    y = k3m.conv3x3_bil(x, wt).reshape(-1, shape[4])
-    ref = torch.nn.functional.conv2d(
-        x.double().permute(0, 3, 1, 2), wt.double().permute(3, 2, 0, 1),
-        padding=1).permute(0, 2, 3, 1).reshape(-1, shape[4])
-    out = {"shape": shape, "plan": p.args(),
-           "max_abs_err": float((y.double() - ref).abs().max()),
-           "bias": float(((y.double() - ref) * ref.sign()).mean())}
-    for tag, trunc in (("truncating", True), ("nearest", False)):
-        e = tf32_chain(torch, x, wt, p.cps, trunc)
-        out[tag] = dict(
-            bit_equal=float((e == y).double().mean()),
-            max_abs_err=float((e.double() - ref).abs().max()),
-            bias=float(((e.double() - ref) * ref.sign()).mean()))
-    matches = max(("truncating", "nearest"),
-                  key=lambda k: out[k]["bit_equal"])
-    out["matches"] = matches
-    log(f"tf32 accumulator rounding at {shape} (plan {p.args()}: one chain "
-        f"of {p.cps} chunks): kernel max |err| {out['max_abs_err']:.3g}, "
-        f"signed mean error toward |y| {out['bias']:.3g}; emulated "
-        f"truncating: bit-equal share {out['truncating']['bit_equal']:.4f}, "
-        f"max |err| {out['truncating']['max_abs_err']:.3g}, bias "
-        f"{out['truncating']['bias']:.3g}; to nearest: bit-equal share "
-        f"{out['nearest']['bit_equal']:.4f}, max |err| "
-        f"{out['nearest']['max_abs_err']:.3g}, bias "
-        f"{out['nearest']['bias']:.3g}; wgmma matches the {matches} "
-        f"emulation")
+    def measure(shape, y, p):
+        x, wt = shape_inputs[shape]
+        y = y.reshape(-1, shape[4])
+        ref = torch.nn.functional.conv2d(
+            x.double().permute(0, 3, 1, 2), wt.double().permute(3, 2, 0, 1),
+            padding=1).permute(0, 2, 3, 1).reshape(-1, shape[4])
+        out = {"shape": shape, "plan": p.args(),
+               "max_abs_err": float((y.double() - ref).abs().max()),
+               "bias": float(((y.double() - ref) * ref.sign()).mean())}
+        for tag, trunc in (("truncating", True), ("nearest", False)):
+            e = tf32_chain(torch, x, wt, p.cps, trunc)
+            out[tag] = dict(
+                bit_equal=float((e == y).double().mean()),
+                max_abs_err=float((e.double() - ref).abs().max()),
+                bias=float(((e.double() - ref) * ref.sign()).mean()))
+        out["matches"] = max(("truncating", "nearest"),
+                             key=lambda k: out[k]["bit_equal"])
+        log(f"tf32 accumulator rounding at {shape} (plan {p.args()}: "
+            f"{p.splits} chain(s) of {p.cps} chunks): kernel max |err| "
+            f"{out['max_abs_err']:.3g}, signed mean error toward |y| "
+            f"{out['bias']:.3g}; emulated truncating: bit-equal share "
+            f"{out['truncating']['bit_equal']:.4f}, max |err| "
+            f"{out['truncating']['max_abs_err']:.3g}, bias "
+            f"{out['truncating']['bias']:.3g}; to nearest: bit-equal share "
+            f"{out['nearest']['bit_equal']:.4f}, max |err| "
+            f"{out['nearest']['max_abs_err']:.3g}, bias "
+            f"{out['nearest']['bias']:.3g}; wgmma matches the "
+            f"{out['matches']} emulation")
+        return out
+
+    k3, k1 = (1, 128, 128, 128, 32), (BATCH, 8, 8, 512, 512)
+    shape_inputs = {s: inputs(*s) for s in (k3, k1)}
+    out = measure(k3, k3m.conv3x3_bil(*shape_inputs[k3]), plan_tf32(*k3))
+    n, h, w, _, cout = k1
+    zn, zc = (torch.zeros((n, h, w), device="cuda"),
+              torch.zeros((cout,), device="cuda"))
+    y1 = k1m.conv3x3_noise_bias_lrelu_instats(*shape_inputs[k1], zn, zc, zc,
+                                              leaky=1.0)[0]
+    out["kernel1"] = measure(k1, y1, plan_tf32_in_stats(*k1))
     return out
 
 
@@ -2520,6 +2757,21 @@ def phase_train(torch, keep_dir):
             f"batches of {BATCH} (device trace; the wrapper counted "
             f"{ctrace.wrapper['conv_in_stats']})")
         assert n_k1 == 9 * batches, "conv_in_stats must run 9x per batch"
+        # by body: kernel 1's f32 calls on the Hopper body's tf32 form
+        # (entry 9) wherever plan_tf32_in_stats takes the shape
+        coll_by_body = {f"{k} {b}": v for (k, b), v in sorted(
+            getattr(ctrace, "by_body", {}).items()) if k == "conv_in_stats"}
+        log(f"collection launches by body (device trace): {coll_by_body}")
+        if torch.cuda.is_available():
+            from gan_segmentation_tpu_torch.core.config import gan_config
+            from gan_segmentation_tpu_torch.kernels.tc_plan import \
+                plan_f32_body
+            on = sum(plan_f32_body(*s, noise=True).sm90
+                     for s in kernel1_shapes(gan_config("ffhq")))
+            want = {"conv_in_stats sm90_tf32": on * batches,
+                    "conv_in_stats 3xtf32": (9 - on) * batches}
+            assert coll_by_body == {k: v for k, v in want.items() if v}, (
+                coll_by_body)
         steps = scfg.train_epochs * (TRAIN_SAMPLES // scfg.train_batch_size)
 
         def main_train():
@@ -2629,6 +2881,7 @@ def phase_train(torch, keep_dir):
         versus = train_graph_vs_eager(torch, base, scfg)
     return dict(launches={"bil_conv": n_bil, "small_conv": n_small},
                 launches_by_body=by_body, eval_launches_by_body=eval_by_body,
+                collection_launches_by_body=coll_by_body,
                 eval_launches=n_eval, versus=versus,
                 wrapper=dict(collection=ctrace.wrapper, train=trace.wrapper,
                              evaluate=etrace.wrapper),
@@ -7273,8 +7526,9 @@ def phase_build(torch):
     """Phase 2: build the kernels (timed) and hold ptxas's report to the
     rules the tensor-core kernels keep: no spill, every Hopper-body kernel
     of entries 1, 2, 6 and 7, every s8 tile ``tc_plan.plan_s8`` can return
-    and every tf32 tile ``tc_plan.plan_tf32`` can (entries 3 and 8), the
-    wide Hopper tiles at 168 registers."""
+    and every tf32 tile ``tc_plan.plan_tf32`` can (entries 3 and 8) and
+    ``plan_tf32_in_stats`` (entry 9, with its tap layout kernel), the wide
+    Hopper tiles at 168 registers."""
     from gan_segmentation_tpu_torch.kernels import _build, tc_plan
 
     t0 = time.perf_counter()
@@ -7285,7 +7539,8 @@ def phase_build(torch):
     spills = ptxas_report(so + ".ptxas.txt", regs)
     tc = {k: v for k, v in spills.items()
           if "conv3x3_tc" in k or "conv3x3_tf32" in k
-          or "conv3x3_sm90" in k or "quantize_s8_kernel" in k}
+          or "conv3x3_sm90" in k or "quantize_s8_kernel" in k
+          or "tf32_taps_kernel" in k}
     assert any("conv3x3_tc" in k for k in tc), "no bf16 tensor-core kernel"
     # the bf16 Hopper body, launched by entries 1, 2, 6 and 7; its wide
     # tiles (BN 64, 128) hand registers from the loader warpgroup to the
@@ -7303,12 +7558,18 @@ def phase_build(torch):
         r"sm90_kernelILi%dELi%dELi%dELi%dEEEv" % t, k) for k in sm90)]
     assert not missing, f"s8 Hopper-body kernels missing: {missing}"
     # the f32 (3xTF32) entries 3 and 8: every (BN, MI, CK) of
-    # tc_plan.TF32_SM90_TILES
+    # tc_plan.TF32_SM90_TILES; entry 9 (kernel 1) every one of
+    # tc_plan.TF32_K1_SM90_TILES, and its K-major tap layout
     tf32_tiles = [(*t, k) for k in (3, 8)
                   for t in sorted(tc_plan.TF32_SM90_TILES)]
+    tf32_tiles += [(*t, 9) for t in sorted(tc_plan.TF32_K1_SM90_TILES)]
     missing = [t for t in tf32_tiles if not any(re.search(
         r"sm90_kernelILi%dELi%dELi%dELi%dEEEv" % t, k) for k in sm90)]
     assert not missing, f"tf32 Hopper-body kernels missing: {missing}"
+    assert any("tf32_taps_kernel" in k for k in tc), "no tf32 tap layout"
+    k1_regs = {"/".join(map(str, t[:2])): v for k, v in sm90.items()
+               for t in tf32_tiles if t[3] == 9 and re.search(
+                   r"sm90_kernelILi%dELi%dELi%dELi%dEEEv" % t, k)}
     wide = {k: v for k, v in sm90.items()
             if re.search(r"sm90_kernelILi(64|128)E", k)}
     assert wide and all(v == 168 for v in wide.values()), (
@@ -7334,7 +7595,7 @@ def phase_build(torch):
         f"row-band), 0 bytes of spill in each, the wide Hopper tiles at 168 "
         f"registers ({len(wide)}); tf32 Hopper-body registers "
         f"{sorted(v for k, v in sm90.items() if re.search('Li[38]EEEv', k))}"
-        f"; spills "
+        f", kernel 1's (entry 9, BN/MI) {k1_regs}; spills "
         f"elsewhere: "
         f"{ {k: v for k, v in spills.items() if v != (0, 0)} or 'none'}")
 
@@ -7498,6 +7759,10 @@ def main():
         return {body: n for (k, body), n in sorted(BODY_LAUNCHES.items())
                 if k == name}
 
+    # kernel 1 in f32 on entry 9 (phase 5 holds the collection's count)
+    k1_f32_launches = BODY_LAUNCHES.get(("conv_in_stats", "sm90_tf32"), 0)
+    assert k1_f32_launches > 0, "conv_in_stats: no traced f32 Hopper launch"
+
     tc_design = ("bf16: the Hopper body (conv3x3_sm90.cuh): one TMA box "
                  "per halo stage into an mbarrier ring filled by a producer "
                  "warp, taps by TMA or resident, wgmma m64nBNk16 (A from "
@@ -7520,7 +7785,21 @@ def main():
                    "the mma.sync 3xTF32 body (conv3x3_tf32.cuh)")
     k1_design = (tc_design + "; statistics from the accumulators by "
                  "xor-shuffles and per-slot sums in a fixed order, one "
-                 "partial per (image, tile)")
+                 "partial per (image, tile); f32 on the Hopper body's "
+                 "3xTF32 form (entry 9, the next entry of this line)")
+    k1_f32_design = (
+        "f32: the Hopper body's 3xTF32 form with kernel 1's epilogue "
+        "(conv3x3_sm90.cuh entry 9): TMA boxes of the f32 halo and the "
+        "noise into the mbarrier ring, the taps streamed as one TMA box "
+        "(16, BN, 2, 9) a stage from a K-major tf32 (hi, lo) layout of w "
+        "made by tf32_taps_kernel each call (resident, split by the blocks, "
+        "where one wave holds every item), per k8 step wgmma A_hi [B_hi | "
+        "B_lo] then A_lo B_hi, split-K within 8 chunks a chain (Cin 512: 4 "
+        "splits, 256: 2) with conv3x3_tc.cuh's fixed-order finish, the "
+        "halves added, then noise * nscale + bias, leaky and the "
+        "statistics' slots from the f32 values, y from registers; where "
+        "tc_plan.plan_tf32_in_stats takes the call, else the mma.sync "
+        "3xTF32 body (conv3x3_tf32.cuh)")
     sources = {"conv_in_stats": (
         "gan_segmentation_tpu_torch/csrc/conv_in_stats.cu",
         "experiments/pallas_archive/conv_in_stats.py:118", k1_design),
@@ -7588,8 +7867,34 @@ def main():
                 f32 = r["f32_dev"]
                 entry.update(batch_ms_f32=f32["kernel"],
                              batch_plain_ms_f32=f32["plain"],
-                             batch_library_ms_f32=f32["library"])
+                             batch_library_ms_f32=f32["library"],
+                             batch_mma_sync_ms_f32=f32["mma_sync"])
         kernels.append(entry)
+        if name == "conv_in_stats":  # its f32 entry on the Hopper body
+            f32 = r["f32_dev"]
+            total, by = summed_bound(f32["bounds"])
+            kernels.append(dict(
+                name="conv_in_stats_f32", route="cuda",
+                source="gan_segmentation_tpu_torch/csrc/conv_in_stats_f32.cu",
+                replaces="experiments/pallas_archive/conv_in_stats.py:118",
+                design=k1_f32_design, launches=k1_f32_launches,
+                launches_by_path={"collection": tr[
+                    "collection_launches_by_body"].get(
+                        "conv_in_stats sm90_tf32", 0)},
+                launches_counted_by="device traces (torch.profiler) of the "
+                                    "main path's runs: kernel 1's launches "
+                                    "of entry 9",
+                max_abs_err=r["f32_err"]["rule"],
+                mma_sync_max_abs_err=r["f32_err"]["mma_sync"],
+                ms=f32["kernel"], plain_ms=f32["plain"], bound_ms=total,
+                bound_by=by, library_ms=f32["library"],
+                mma_sync_ms=f32["mma_sync"],
+                traced_launches_by_body=by_body(name),
+                timed="f32, device time (graph replay) per batch of 8 of "
+                      "the f32 generator, its 9 calls, on the rule's body; "
+                      "mma_sync_ms: every call on the mma.sync 3xTF32 body "
+                      "on the same inputs; bound 3xTF32; library: F.conv2d "
+                      "alone (TF32 off), without the epilogue"))
     s8_design = ("s8: the Hopper body (conv3x3_sm90.cuh, entries 4 and 5): "
                  "one TMA box of s8 (as u8) per halo stage and the K-major "
                  "tap slice [9][BN][CK] as one box (or resident) into an "

@@ -4,11 +4,13 @@
 // (conv_in_stats.cu, small_conv.cu), their row-band forms 6 and 7
 // (*_rows.cu) and their s8 forms 4 and 5 (conv_in_stats_s8.cu,
 // small_conv_s8.cu) wherever kernels/tc_plan.py::plan_sm90 takes the shape,
-// and the f32 calls of kernel 3 and kernel 2 (entries 3 and 8:
-// bil_conv_sm90.cu, small_conv_f32.cu) wherever tc_plan.plan_tf32 does; the
-// mma.sync bodies of conv3x3_tc.cuh and conv3x3_tf32.cuh keep what the
-// rules refuse (x's rows not a multiple of 16 bytes, an unaligned view, a
-// ragged noise row; in f32, Cin > 128 and kernel 1).
+// the f32 calls of kernel 3 and kernel 2 (entries 3 and 8:
+// bil_conv_sm90.cu, small_conv_f32.cu) wherever tc_plan.plan_tf32 does, and
+// kernel 1's f32 calls (entry 9: conv_in_stats_f32.cu) wherever
+// tc_plan.plan_tf32_in_stats does; the mma.sync bodies of conv3x3_tc.cuh and
+// conv3x3_tf32.cuh keep what the rules refuse (x's rows not a multiple of 16
+// bytes, an unaligned view, a ragged noise row; in f32, kernels 2 and 3 at
+// Cin > 128).
 //
 // Replaces the TPU kernels
 //   experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats
@@ -16,9 +18,9 @@
 //   + leaky, with the per-(image, channel) sums of v and v^2;
 //   experiments/pallas_archive/small_conv.py::conv3x3_small
 //   (pl.pallas_call at its line 84), bf16: conv3x3 + bias + relu / leaky;
-// their int8 forms (entries 4 and 5, below); and in f32 (entries 3 and 8,
-// below) experiments/pallas_archive/bil_conv.py::conv3x3_bil (pl.pallas_call
-// at its line 115) and kernel 2's f32 calls.
+// their int8 forms (entries 4 and 5, below); and in f32 (entries 3, 8 and
+// 9, below) experiments/pallas_archive/bil_conv.py::conv3x3_bil
+// (pl.pallas_call at its line 115), kernel 2's and kernel 1's f32 calls.
 //
 // Layout: x NHWC, w HWIO (3, 3, Cin, Cout), stride 1, zero pad 1 (a row
 // band: x holds H_out + 2 rows, no pad in H).  GEMM view: M = output
@@ -118,7 +120,8 @@
 // (tc_plan.plan_sm90).
 //
 // f32 (entries 3 and 8: kernel 3's train-step convs and their input
-// gradients, kernel 2's evaluate and predict convs), as 3xTF32: the train
+// gradients, kernel 2's evaluate and predict convs; entry 9: kernel 1 in
+// the f32 generator, with its noise and statistics), as 3xTF32: the train
 // step holds them to f32 (conv3x3_tf32.cuh says why one TF32 pass does
 // not), so each product is lo*hi + hi*lo + hi*hi of tf32 operands, split by
 // truncation (tf32_split, the split of conv3x3_tf32.cuh).  A k8 tf32 step
@@ -130,22 +133,36 @@
 // hi is v itself, whose low 13 bits the MMA does not read.  B
 // is K-major, as s8's (wgmma transposes only 16-bit operands), and both its
 // hi and lo must sit in shared memory; TMA cannot transpose HWIO's
-// Cout-contiguous rows, so the consumers split the block's taps themselves,
-// once: w (HWIO f32) for the block's Cout block and Cin split into [chunk]
-// [9][hi, lo][BN][16] tf32 under the 64-byte swizzle (split_taps; a block
-// whose next item has another Cout block or split splits again, which the
-// host's grid, a multiple of the Cout blocks, avoids without a split).
-// tc_plan.plan_tf32 keeps a split's taps within SM90_RESIDENT_MAX by its BN
-// (or, for a narrow BN on a grid that fills the card, within 160 KB at one
-// block an SM: 64 -> 32 from 256^2 up, cvt_5).  Each k8 step
+// Cout-contiguous rows.  So either the consumers split the block's taps
+// themselves, once: w (HWIO f32) for the block's Cout block and Cin split
+// into [chunk][9][hi, lo][BN][16] tf32 under the 64-byte swizzle
+// (resident, split_taps; a block whose next item has another Cout block or
+// split splits again, which the host's grid, a multiple of the Cout blocks,
+// avoids without a split); tc_plan.plan_tf32 keeps a split's taps within
+// SM90_RESIDENT_MAX by its BN (or, for a narrow BN on a grid that fills the
+// card, within 160 KB at one block an SM: 64 -> 32 from 256^2 up, cvt_5).
+// Or (streamed: kernel 1's layers but 4^2, where one wave holds every item
+// and the taps stay resident) the
+// entry first lays w out K-major in device memory, [chunk][9][hi, lo][Cout]
+// [16] (conv_in_stats_f32.cu's tf32_taps_kernel: hi the f32 itself, lo = v -
+// (v & 0xFFFFE000)), and the producer loads each stage's taps as ONE TMA box
+// (16, BN, 2, 9) beside the halo, under the 64-byte swizzle: the resident
+// slice's layout, so the consumers read both alike and never split B.
+// Each k8 step
 // issues two wgmmas per m64 tile: A_hi [B_hi | B_lo] (m64n(2 BN)k8) and
 // A_lo B_hi (m64nBNk8) into the first half of its accumulators; the
 // epilogue adds the halves.  Split-K, where a plan asks for it, stores f32
 // partials and conv3x3_tc.cuh's finish kernel adds them in a fixed order,
-// to nearest (plan_tf32 asks for none: at the small layers 8-channel
-// blocks beat it on the card).  y is f32, stored from registers
-// (two channels a store).  What bounds it: 3 x FLOP at 495 TFLOP/s, or the
-// bytes at the 1024^2 16-channel layers.
+// to nearest, and runs the epilogue (plan_tf32 asks for none: at the small
+// layers 8-channel blocks beat it on the card; kernel 1 splits Cin 512 at
+// least 4 ways and Cin 256 2, so that no chain passes 8 chunks: the
+// tensor cores truncate the f32 accumulator).  Kernel 1's epilogue adds
+// the two halves first, then noise * nscale + bias and the leaky relu, and
+// takes its sums of v and v^2 from those f32 values by the bf16 body's
+// slots; split, the finish kernel takes them, one partial per (image,
+// tile) either way.  y is f32, stored from registers (two channels a
+// store).  What bounds it: 3 x FLOP at 495 TFLOP/s, or the bytes at the
+// 1024^2 16-channel layers.
 //
 // Tensor maps are encoded on the host for every call
 // (cuTensorMapEncodeTiled through cudaGetDriverEntryPointByVersion, so the
@@ -189,12 +206,15 @@ __host__ __device__ constexpr int threads(int bn) {
 
 // The entry point that launches the body (the kernel's last template
 // argument): 1 conv_in_stats, 2 small_conv, 4 and 5 the same in s8, 6 and
-// 7 the same over a row band, 3 bil_conv and 8 small_conv in f32 (3xTF32).
+// 7 the same over a row band, 3 bil_conv, 8 small_conv and 9 conv_in_stats
+// in f32 (3xTF32).
 __host__ __device__ constexpr bool is_s8(int k) { return k == 4 || k == 5; }
 __host__ __device__ constexpr bool is_rows(int k) { return k == 6 || k == 7; }
-__host__ __device__ constexpr bool is_tf32(int k) { return k == 3 || k == 8; }
+__host__ __device__ constexpr bool is_tf32(int k) {
+  return k == 3 || k == 8 || k == 9;
+}
 __host__ __device__ constexpr bool has_stats(int k) {
-  return k == 1 || k == 4 || k == 6;
+  return k == 1 || k == 4 || k == 6 || k == 9;
 }
 // bytes of an element of x and w
 __host__ __device__ constexpr int elem_bytes(int k) {
@@ -215,6 +235,9 @@ struct Accum<true> {
 // the f32 bits in its s32 registers)
 __device__ __forceinline__ float as_f32(float v) { return v; }
 __device__ __forceinline__ float as_f32(int v) { return __int_as_float(v); }
+// ... and its 32 bits as they are (a split's partial in the workspace)
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ uint32_t bits(int v) { return (uint32_t)v; }
 
 __host__ __device__ constexpr int align_up(int v, int a) {
   return (v + a - 1) / a * a;
@@ -269,12 +292,15 @@ struct Args {
   CUtensorMap tm_x;      // NHWC x: box (CK, TW + 2, TH + 2, G)
   CUtensorMap tm_w;      // bf16: HWIO w as (Cout, Cin, 9), box (BNA, CK, 9);
                          // s8: [tap][Cout][Cin] as (Cin, Cout, 9), box
-                         // (CK, BN, 9)
+                         // (CK, BN, 9); f32 streamed: wk as (16, Cout, 2,
+                         // 9 x chunks), box (16, BN, 2, 9)
   CUtensorMap tm_noise;  // (N, H, W) f32 as (W, H, N): box (TW, TH, G)
   CUtensorMap tm_y;      // NHWC y (bf16): box (BNA, TW, TH, G)
   const void* x;           // NHWC: bf16, or s8
   const void* w;           // resident taps are read through it (f32: HWIO,
                            // split by the block)
+  const void* wk;          // f32 streamed: the K-major taps, [chunk][9]
+                           // [hi, lo][Cout][16] (the tm_w of its TMA boxes)
   const float* deq;        // s8: (Cout,) dequantization multipliers
   const float* bias;       // (Cout,) or null
   const float* noise;      // kernel 1: (N, H, W)
@@ -715,8 +741,11 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
           const int ch = (c0 + c) * CK;
           tma_load_4d(st, &a.tm_x, full + s, ch, it.tx0 - 1,
                       ROWS ? it.ty0 : it.ty0 - 1, it.n0);
-          if (!TF32 && !a.resident) {
-            if constexpr (S8)  // one box: [9][BN][CK]
+          if (!a.resident) {
+            if constexpr (TF32)  // one box: [9][hi, lo][BN][16]
+              tma_load_4d(st + L.tap_off, &a.tm_w, full + s, 0, it.co0, 0,
+                          (c0 + c) * 9);
+            else if constexpr (S8)  // one box: [9][BN][CK]
               tma_load_3d(st + L.tap_off, &a.tm_w, full + s, ch, it.co0, 0);
             else
               for (int t = 0; t < NATOM; ++t)
@@ -769,13 +798,14 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
   float nzr[MI][2];
   int s = 0;
   uint32_t ph = 0;
-  int taps_co = -1, taps_split = -1;  // f32: whose taps are resident
+  // f32: whose taps are resident (streamed ones come in each stage)
+  int taps_co = -1, taps_split = -1;
   for (int w = blockIdx.x; w < a.items; w += gridDim.x) {
     const Item it = item(a, w, BN);
     const int c0 = it.split * a.cps;
     const int nc = min(a.chunks - c0, a.cps);
     if constexpr (TF32) {
-      if (it.co0 != taps_co || it.split != taps_split) {
+      if (a.resident && (it.co0 != taps_co || it.split != taps_split)) {
         // the last item's wgmmas have read the taps (each warpgroup waited
         // for its own); split this item's
         if (taps_co >= 0) named_bar_sync(2, CONSUMERS);
@@ -852,14 +882,19 @@ __global__ void __launch_bounds__(threads(BN), min_blocks(BN, KERNEL))
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int co = it.co0 + j * 8 + lc + e;
-              if (ok[i][hf] && co < a.cout)
-                ws[(size_t)pix[i][hf] * a.cout + co] =
-                    acc[i][j * 4 + hf * 2 + e];
+          for (int j = 0; j < BN / 8; ++j) {
+            const int co = it.co0 + j * 8 + lc;
+            if (!ok[i][hf] || co >= a.cout) continue;
+            Acc* wp = ws + (size_t)pix[i][hf] * a.cout + co;
+            const Acc v0 = acc[i][j * 4 + hf * 2];
+            const Acc v1 = acc[i][j * 4 + hf * 2 + 1];
+            if (a.cout % 2 == 0) {  // the channel pair, 8 bytes at once
+              *reinterpret_cast<uint2*>(wp) = make_uint2(bits(v0), bits(v1));
+            } else {
+              wp[0] = v0;
+              if (co + 1 < a.cout) wp[1] = v1;
             }
+          }
       continue;
     }
     const bool shared_out = STATS || a.tma_y;
@@ -1090,9 +1125,10 @@ static int launch(const Args& a, cudaStream_t st) {
     return rc;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   int grid = (long long)per_sm * sms < a.items ? per_sm * sms : a.items;
-  // f32: a grid of whole Cout blocks keeps each block on one Cout block
-  // (item w's is w % cout_blocks), so its split taps stay valid
-  if (is_tf32(KERNEL) && grid < a.items && grid > a.cout_blocks)
+  // f32, resident: a grid of whole Cout blocks keeps each block on one Cout
+  // block (item w's is w % cout_blocks), so its split taps stay valid
+  if (is_tf32(KERNEL) && a.resident && grid < a.items &&
+      grid > a.cout_blocks)
     grid -= grid % a.cout_blocks;
   kern<<<grid, threads(BN), L.smem, st>>>(a);
   rc = (int)cudaGetLastError();
@@ -1154,8 +1190,12 @@ __host__ __device__ constexpr bool s8_tile(int bn, int mi, int ck,
 // BN 8 to 64 in one or two m64 tiles a warpgroup, CK 16; not BN 32 in two
 // (its 96 registers a thread spilled; the rule gives the 32-channel
 // layers 128-pixel blocks, whose resident taps leave two blocks an SM).
-__host__ __device__ constexpr bool tf32_tile(int bn, int mi) {
-  return bn >= 8 && bn <= 64 && (mi == 1 || (mi == 2 && bn != 32));
+// Kernel 1 (entry 9, tc_plan.TF32_K1_SM90_TILES): BN 16 to 64 in one or
+// two, BN 32 too (one block an SM, min_blocks).
+__host__ __device__ constexpr bool tf32_tile(int bn, int mi, int kernel) {
+  return kernel == 9
+             ? bn >= 16 && bn <= 64 && (mi == 1 || mi == 2)
+             : bn >= 8 && bn <= 64 && (mi == 1 || (mi == 2 && bn != 32));
 }
 
 // ck: a stage of 32 or 64 bytes a pixel (bf16 16 or 32 channels, s8 32 or
@@ -1163,7 +1203,7 @@ __host__ __device__ constexpr bool tf32_tile(int bn, int mi) {
 template <int BN, int MI, int KERNEL>
 static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
   if constexpr (is_tf32(KERNEL)) {
-    if constexpr (tf32_tile(BN, MI))
+    if constexpr (tf32_tile(BN, MI, KERNEL))
       if (ck == 16) return launch<BN, MI, 16, KERNEL>(a, st);
     return (int)cudaErrorInvalidValue;
   } else if constexpr (BN == 8) {  // f32 only
@@ -1192,13 +1232,14 @@ static int dispatch_ck(const Args& a, int ck, cudaStream_t st) {
 // launches; returns a CUDA error code (cudaErrorInvalidValue for a plan or
 // a tensor this body does not take).  KERNEL: 1, 2, 6 or 7 (bf16; a row
 // band: h counts the output rows, x holds h + 2), 4 or 5 (s8: deq given, y
-// in f32 where y_f32, then from registers whatever the plan's tma_y), 3 or
-// 8 (f32: resident taps split by the blocks, y in f32 from registers).
+// in f32 where y_f32, then from registers whatever the plan's tma_y), 3, 8
+// or 9 (f32: resident taps split by the blocks, or streamed from wk; y in
+// f32 from registers).
 template <int KERNEL>
 inline int run(Args a, const int* plan, cudaStream_t st) {
   static_assert(KERNEL == 1 || KERNEL == 2 || is_s8(KERNEL) ||
                     is_rows(KERNEL) || is_tf32(KERNEL),
-                "kernel 1 to 8");
+                "kernel 1 to 9");
   constexpr bool STATS = has_stats(KERNEL);
   constexpr bool S8 = is_s8(KERNEL);
   constexpr bool TF32 = is_tf32(KERNEL);
@@ -1215,7 +1256,7 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   a.resident = plan[9];
   a.tma_y = plan[10] && !a.y_f32;
   const bool shape_ok =
-      (TF32 ? tf32_tile(bn, mi) && ck == 16
+      (TF32 ? tf32_tile(bn, mi, KERNEL) && ck == 16
             : (bn == 16 || bn == 32 || bn == 64 || bn == 128) &&
                   (mi == 1 || mi == 2)) &&
       (ck * EB == 32 || ck * EB == 64 || (S8 && ck == 16)) &&
@@ -1228,8 +1269,10 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
     return (int)cudaErrorInvalidValue;
   if (S8 ? a.deq == nullptr : (a.deq != nullptr || (a.y_f32 && !TF32)))
     return (int)cudaErrorInvalidValue;
-  // f32: the taps always resident (a block's Cout block and split)
-  if (TF32 && !a.resident) return (int)cudaErrorInvalidValue;
+  // f32: the taps resident (a block's Cout block and split), or streamed
+  // from the K-major layout wk
+  if (TF32 && !a.resident && (a.wk == nullptr || !aligned(a.wk, 16)))
+    return (int)cudaErrorInvalidValue;
   // s8 at 16-byte stages: Cin 16 exactly, its tap pairs resident
   if (ck * EB == 16 && (a.cin != 16 || !a.resident))
     return (int)cudaErrorInvalidValue;
@@ -1258,7 +1301,8 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
   if ((a.cin * EB) % 16 != 0 || !aligned(a.x, 16) ||
       (S8 && !aligned(a.w, 16)) ||
       (!TF32 && a.resident && (a.splits != 1 || a.cout_blocks != 1)) ||
-      (!S8 && !a.resident && (a.cout % 8 != 0 || !aligned(a.w, 16))) ||
+      (!S8 && !TF32 && !a.resident &&
+       (a.cout % 8 != 0 || !aligned(a.w, 16))) ||
       (a.tma_y && (a.cout % 8 != 0 || !aligned(a.y, 16))) ||
       (a.y_f32 && !aligned(a.y, 8)) ||
       (noise && (a.wd % 4 != 0 || !aligned(a.noise, 16))))
@@ -1283,7 +1327,13 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
     if (!encode(&a.tm_x, xw, 4, a.x, dims, strides, box, ck * EB))
       return (int)cudaErrorInvalidValue;
   }
-  if (!a.resident && S8) {  // [tap][Cout][Cin]: box (CK, BN, 9)
+  if (!a.resident && TF32) {  // wk: box (16, BN, 2, 9), 64-byte rows
+    const cuuint64_t dims[4] = {16, cout, 2, 9 * (cuuint64_t)a.chunks};
+    const cuuint64_t strides[3] = {64, cout * 64, 2 * cout * 64};
+    const cuuint32_t box[4] = {16, (cuuint32_t)bn, 2, 9};
+    if (!encode(&a.tm_w, xw, 4, a.wk, dims, strides, box, 64))
+      return (int)cudaErrorInvalidValue;
+  } else if (!a.resident && S8) {  // [tap][Cout][Cin]: box (CK, BN, 9)
     const cuuint64_t dims[3] = {cin, cout, 9};
     const cuuint64_t strides[2] = {cin, cout * cin};
     const cuuint32_t box[3] = {(cuuint32_t)ck, (cuuint32_t)bn, 9};
@@ -1341,8 +1391,9 @@ inline int run(Args a, const int* plan, cudaStream_t st) {
 // An entry point's arguments into Args: the bf16 ones of conv_in_stats.cu,
 // small_conv.cu and their *_rows.cu forms (deq null, y_f32 0), the s8 ones
 // of conv_in_stats_s8.cu and small_conv_s8.cu (deq (Cout,), y_f32 for an
-// f32 y; ws holds s32), the f32 ones of bil_conv_sm90.cu and
-// small_conv_f32.cu (deq null; run() sets y_f32).
+// f32 y; ws holds s32), the f32 ones of bil_conv_sm90.cu,
+// small_conv_f32.cu and conv_in_stats_f32.cu (deq null; run() sets y_f32;
+// conv_in_stats_f32.cu sets wk where the taps stream).
 inline Args args(const void* x, const void* w, const float* deq,
                  const float* noise, const float* nscale, const float* bias,
                  void* y, int y_f32, float* partial, void* ws, int n, int h,

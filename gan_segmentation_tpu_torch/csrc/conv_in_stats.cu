@@ -52,16 +52,20 @@
 // mma.sync body.
 //
 // f32 (the generator with dtype fp32: the sample collection and the
-// annotation side, batch 8) runs the 3xTF32 tensor-core implicit GEMM of
-// conv3x3_tf32.cuh, which keeps the f32 contract.  What bounds it: three
-// MMAs per product, 3 x FLOP / 495 TFLOP/s (1.58 ms over a batch's 9
-// calls; the 512 -> 512 layers run 8 Cout blocks of 64 with taps per
-// stage).  The plan splits K where the items are fewer than the SMs (4^2,
-// 8^2) and wherever one accumulator chain would pass 8 Cin chunks (Cin 512
-// and 256: the tensor cores round the accumulator toward zero).  The
-// noise is read in the epilogue; the statistics come from the accumulators
-// (xor-shuffles over a warp's rows, then the slots of an image added in
-// order), one partial per (image, tile) as in bf16.
+// annotation side, batch 8) runs the Hopper body's 3xTF32 form with this
+// kernel's epilogue (entry 9: gst_conv3x3_in_stats_f32_sm90 in
+// conv_in_stats_f32.cu) wherever kernels/tc_plan.py::plan_tf32_in_stats
+// takes the call, which is every kernel-1 call of the f32 generator; the
+// 3xTF32 mma.sync implicit GEMM of conv3x3_tf32.cuh below keeps what TMA's
+// rules refuse (Cin % 4 != 0, W % 4 != 0, an unaligned view).  Both keep
+// the f32 contract.  What bounds them: three MMAs per product, 3 x FLOP /
+// 495 TFLOP/s (1.58 ms over a batch's 9 calls).  Both split K where the
+// items are fewer than the SMs (4^2, 8^2) and wherever one accumulator
+// chain would pass 8 Cin chunks (Cin 512 and 256: the tensor cores round
+// the accumulator toward zero).  The mma.sync body reads the noise in the
+// epilogue; the statistics come from the accumulators (xor-shuffles over a
+// warp's rows, then the slots of an image added in order), one partial per
+// (image, tile) as in bf16.
 #include "conv3x3_core.cuh"  // DType, valid_dims
 #include "conv3x3_sm90.cuh"
 #include "conv3x3_tc.cuh"
@@ -69,11 +73,11 @@
 
 extern "C" {
 
-// f32 runs the 3xTF32 tensor-core kernel with plan = int[11] from
-// kernels/tc_plan.py::plan_f32, bf16 the bf16 tensor-core kernel with
-// plan = int[9] from kernels/tc_plan.py::plan; ws is the plan's split-K
-// workspace (null without a split).  partial is (n, tiles, 2, cout) with
-// the plan's tile count.
+// The mma.sync bodies: f32 runs the 3xTF32 tensor-core kernel with plan =
+// int[11] from kernels/tc_plan.py::plan_f32, bf16 the bf16 tensor-core
+// kernel with plan = int[9] from kernels/tc_plan.py::plan; ws is the plan's
+// split-K workspace (null without a split).  partial is (n, tiles, 2, cout)
+// with the plan's tile count.
 // Returns a CUDA error code (0 on success).
 int gst_conv3x3_in_stats(const void* x, const void* w, const float* noise,
                          const float* nscale, const float* bias, void* y,

@@ -165,11 +165,10 @@ def check_conv3x3_s8(x, w, deq, b):
 @functools.lru_cache(maxsize=None)
 def _tc_plan_c(dtype, n, h, w, cin, cout, noise, aligned=True, rows=False):
     if dtype == torch.float32:
-        # kernel 2's full-image f32 calls by the f32 rule; kernel 1 and the
+        # the full-image f32 calls of kernels 1 and 2 by the f32 rule; the
         # row bands keep the mma.sync 3xTF32 body
-        p = (tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
-             if noise or rows else
-             tc_plan.plan_f32_body(n, h, w, cin, cout, aligned))
+        p = (tc_plan.plan_f32(n, h, w, cin, cout, stats=noise) if rows else
+             tc_plan.plan_f32_body(n, h, w, cin, cout, aligned, noise=noise))
     elif dtype == torch.int8:
         p = tc_plan.plan_s8(n, h, w, cin, cout, noise, aligned)
     else:
@@ -186,21 +185,34 @@ def tc_launch_args(x, n, h, w, cin, cout, noise=False, tensors=(),
     ``PlanSM90`` (int[11], conv3x3_sm90.cuh; ``plan.sm90`` names its entry
     points ``gst_*_sm90``) where TMA's rules let it, given whether x and
     ``tensors`` start on 16 bytes, else the mma.sync body's ``Plan``
-    (int[9], conv3x3_tc.cuh); f32 kernel 2 ``tc_plan.plan_f32_body`` (the
-    Hopper body's 3xTF32 form, ``PlanSM90`` with ``tf32``, entry
-    ``gst_conv3x3_small_f32_sm90``; else ``plan_f32``), kernel 1 and the
-    row bands ``tc_plan.plan_f32`` (int[11], conv3x3_tf32.cuh).  The plan
-    is cached per shape: the host's time per launch is what bounds the
-    small layers.  The s8 bodies' workspace holds s32 partials."""
+    (int[9], conv3x3_tc.cuh); f32 kernels 1 and 2
+    ``tc_plan.plan_f32_body`` (the Hopper body's 3xTF32 form, ``PlanSM90``
+    with ``tf32``, entries ``gst_conv3x3_in_stats_f32_sm90`` by
+    ``plan_tf32_in_stats`` and ``gst_conv3x3_small_f32_sm90`` by
+    ``plan_tf32``; else ``plan_f32``, int[11], conv3x3_tf32.cuh), the row
+    bands ``tc_plan.plan_f32``.  The plan is cached per shape: the host's
+    time per launch is what bounds the small layers.  The workspace holds
+    a streamed tf32 plan's K-major tap layout, then the split-K partials
+    (``plan.ws_elems``; s32 in the s8 bodies)."""
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, *tensors))
     p, plan_c = _tc_plan_c(x.dtype, n, h, w, cin, cout, noise, aligned,
                            rows)
     ws = None
-    if p.splits > 1:
+    if p.ws_elems(n, h, w, cout):
         ws = torch.empty(p.ws_elems(n, h, w, cout),
                          dtype=torch.int32 if x.dtype == torch.int8
                          else torch.float32, device=x.device)
     return p, plan_c, ws
+
+
+def entry_name(name, plan):
+    """The C entry of ``name`` (``gst_conv3x3_in_stats``, ...) on the body
+    ``plan`` names: the mma.sync bodies' ``name``, the Hopper body's
+    ``name_sm90``, its f32 form's ``name_f32_sm90`` (kernels 1 and 2:
+    entries 9 and 8); all take the same arguments."""
+    if not plan.sm90:
+        return name
+    return name + ("_f32_sm90" if plan.tf32 else "_sm90")
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,15 +270,14 @@ def library():
         lib.gst_conv3x3_in_stats.argtypes
     lib.gst_conv3x3_small_rows.restype = i
     lib.gst_conv3x3_small_rows.argtypes = lib.gst_conv3x3_small.argtypes
-    # the Hopper body's entries take the same arguments (its f32 form of
-    # kernel 2 too)
+    # the Hopper body's entries take the same arguments (its f32 forms of
+    # kernels 1 and 2 too)
     for name in ("gst_conv3x3_in_stats", "gst_conv3x3_in_stats_rows",
                  "gst_conv3x3_small", "gst_conv3x3_small_rows",
-                 "gst_conv3x3_small_f32"):
+                 "gst_conv3x3_small_f32", "gst_conv3x3_in_stats_f32"):
         fn = getattr(lib, name + "_sm90")
         fn.restype = i
-        fn.argtypes = getattr(lib, "gst_conv3x3_small" if name.endswith(
-            "f32") else name).argtypes
+        fn.argtypes = getattr(lib, name.replace("_f32", "")).argtypes
     lib.gst_conv3x3_in_stats_s8.restype = i
     lib.gst_conv3x3_in_stats_s8.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                             vp, i, i, i, i, i, i, f, vp, vp]

@@ -1,10 +1,15 @@
 """Kernel 1: conv3x3 + noise + bias + leaky-relu with instance-norm statistics.
 
-CUDA source: ``csrc/conv_in_stats.cu``, bound as the custom op
-``torch.ops.gst.conv3x3_in_stats`` (``kernels/ops.py``): bf16 runs the
-tensor-core implicit GEMM of ``csrc/conv3x3_tc.cuh`` (launch plan:
-``tc_plan.plan``), f32 the 3xTF32 one of ``csrc/conv3x3_tf32.cuh``
-(``tc_plan.plan_f32``).  Replaces
+CUDA sources: ``csrc/conv_in_stats.cu`` and ``csrc/conv_in_stats_f32.cu``,
+bound as the custom op ``torch.ops.gst.conv3x3_in_stats``
+(``kernels/ops.py``), each dtype on the body its rule picks: bf16 the
+Hopper body of ``csrc/conv3x3_sm90.cuh`` (``tc_plan.plan_bf16``), else the
+tensor-core implicit GEMM of ``csrc/conv3x3_tc.cuh`` (``tc_plan.plan``);
+f32 the Hopper body's 3xTF32 form with this kernel's epilogue (entry 9:
+taps streamed by TMA from a K-major layout of w made each call, split-K
+within 8 chunks a chain; ``tc_plan.plan_f32_body(noise=True)`` over
+``plan_tf32_in_stats``), else the 3xTF32 one of ``csrc/conv3x3_tf32.cuh``
+(``tc_plan.plan_f32``) where TMA's rules refuse the call.  Replaces
 the TPU kernel
 ``experiments/pallas_archive/conv_in_stats.py::conv3x3_noise_bias_lrelu_instats``
 and keeps its contract: NHWC / HWIO, stride 1, pad 1, ``w`` the effective

@@ -12,7 +12,8 @@ the row-band forms of kernels 1 and 2 (``generate --spatial``)
 - CUDA: the hand-written kernel through the ``ctypes`` library of
   ``_build``, launched on the current stream on the body its rule picks
   (``tc_plan.plan_bf16``, ``plan_s8``, ``plan_f32_body``: the Hopper
-  body's ``gst_*_sm90`` entries, or the mma.sync bodies'); it raises
+  body's ``gst_*_sm90`` entries, its f32 forms ``gst_*_f32_sm90``, or the
+  mma.sync bodies'); it raises
   when the launch
   fails and never falls back to the plain version.  Each launch adds one
   to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
@@ -59,11 +60,8 @@ def _(x, w, b, act, leaky):
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     p, plan, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
                                         tensors=(w,))
-    # f32 on the Hopper body: its own entry (the f32 form, entry 8)
-    name = ("gst_conv3x3_small_f32" if p.sm90 and x.dtype == torch.float32
-            else "gst_conv3x3_small")
     with torch.cuda.device(dev):
-        rc = _entry(lib, name, p)(
+        rc = _entry(lib, "gst_conv3x3_small", p)(
             x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
             y.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
             cin, cout, _build.DTYPE_CODES[x.dtype],
@@ -102,7 +100,9 @@ def _(x, w, noise, nscale, bias, leaky):
     plan, plan_c, ws = _build.tc_launch_args(x, n, h, wd, cin, cout,
                                              noise=True,
                                              tensors=(w, noise))
-    # the partial axis is the plan's tile count
+    # the partial axis is the plan's tile count (f32 on the Hopper body:
+    # the workspace holds the K-major taps it streams, then its split-K
+    # partials)
     y = torch.empty((n, h, wd, cout), dtype=x.dtype, device=dev)
     partial = torch.empty((n, plan.tiles, 2, cout), dtype=torch.float32,
                           device=dev)
@@ -247,9 +247,9 @@ def _stream(dev):
 
 
 def _entry(lib, name, plan):
-    """The C entry point of the body the plan names: ``name`` (mma.sync,
-    3xTF32) or ``name_sm90`` (the Hopper body), same arguments."""
-    return getattr(lib, name + "_sm90" if plan.sm90 else name)
+    """The C entry point of the body the plan names
+    (``_build.entry_name``)."""
+    return getattr(lib, _build.entry_name(name, plan))
 
 
 @torch.library.custom_op("gst::quantize_s8", mutates_args=(),

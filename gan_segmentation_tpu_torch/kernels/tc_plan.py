@@ -1,9 +1,10 @@
 """Launch plans of the tensor-core 3x3 convs: ``plan_sm90`` for the bf16
 and s8 Hopper body (``csrc/conv3x3_sm90.cuh``, kernels 1 and 2, their
 row-band and their s8 forms), ``plan_tf32`` for its f32 (3xTF32) form
-(kernels 3 and 2), ``plan`` for the mma.sync bf16 and s8 bodies
-(``csrc/conv3x3_tc.cuh``), ``plan_f32`` for the mma.sync f32 3xTF32
-kernel (``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).  ``plan_bf16``,
+(kernels 3 and 2) and ``plan_tf32_in_stats`` for kernel 1's, ``plan``
+for the mma.sync bf16 and s8 bodies (``csrc/conv3x3_tc.cuh``),
+``plan_f32`` for the mma.sync f32 3xTF32 kernel
+(``csrc/conv3x3_tf32.cuh``, kernels 1, 2 and 3).  ``plan_bf16``,
 ``plan_s8`` and ``plan_f32_body`` are the rules that pick a bf16, s8 or
 f32 call's body.
 
@@ -450,6 +451,18 @@ class PlanSM90:
         return 9 * self.ck * self.bn * self.eb * (2 if self.tf32 else 1)
 
     @property
+    def streamed(self) -> bool:
+        """tf32 taps by TMA, one box a stage from the K-major (hi, lo)
+        layout of w that the entry lays out first (kernel 1's plans); else
+        the blocks split their taps into shared memory (resident)."""
+        return self.tf32 and not self.resident
+
+    def layout_elems(self, cout: int) -> int:
+        """f32 words of the K-major tap layout, [chunk][9][hi, lo][cout]
+        [16] (0 unless ``streamed``)."""
+        return self.chunks * 9 * 2 * cout * 16 if self.streamed else 0
+
+    @property
     def stage_load_bytes(self) -> int:
         """Bytes TMA brings into one stage (the noise on an item's last)."""
         return (self.halo_bytes + (0 if self.resident else self.tap_bytes)
@@ -472,9 +485,11 @@ class PlanSM90:
 
     def boxes(self):
         """The TMA boxes of x, w, the noise and y, innermost first (s8's w
-        is one K-major box of all ``bn`` channels; tf32 loads only x's)."""
+        is one K-major box of all ``bn`` channels, tf32's the (hi, lo) rows
+        of the K-major layout where ``streamed``)."""
         return {"x": (self.ck, self.tw + 2, self.th + 2, self.g),
                 "w": (self.ck, self.bn, 9) if self.s8
+                else (self.ck, self.bn, 2, 9) if self.tf32
                 else (self.bna, self.ck, 9),
                 "noise": (self.tw, self.th, self.g),
                 "y": (self.bna, self.tw, self.th, self.g)}
@@ -486,9 +501,11 @@ class PlanSM90:
                 int(self.tma_y))
 
     def ws_elems(self, n: int, h: int, w: int, cout: int) -> int:
-        """f32 (s8: s32) elements of the split-K workspace (0 without a
+        """f32 (s8: s32) elements of the workspace: the K-major tap layout
+        where ``streamed``, then the split-K partials (none without a
         split)."""
-        return self.splits * n * h * w * cout if self.splits > 1 else 0
+        return self.layout_elems(cout) + (
+            self.splits * n * h * w * cout if self.splits > 1 else 0)
 
 
 def tma_refuses(cin: int, w: int, noise: bool, aligned: bool = True,
@@ -498,13 +515,18 @@ def tma_refuses(cin: int, w: int, noise: bool, aligned: bool = True,
     noise's rows of W f32) and bases 16-byte aligned.  bf16: w's and y's
     rows of Cout bf16 too, unless the taps are resident and y is stored
     from registers (``plan_sm90`` decides that).  s8: w's rows are Cin
-    bytes ([tap][Cout][Cin]), so Cin % 16 covers x and w.  tf32: only x
-    travels by TMA (the taps are split into the block, y leaves from
-    registers), rows of Cin f32."""
+    bytes ([tap][Cout][Cin]), so Cin % 16 covers x and w.  tf32: x's rows
+    of Cin f32 and kernel 1's noise rows (the taps are split into the
+    block or come from the entry's own K-major layout, 64-byte rows; y
+    leaves from registers)."""
     if not aligned:
         return "a base not 16-byte aligned"
     if tf32:
-        return "Cin % 4 != 0 (x's row stride)" if cin % 4 else None
+        if cin % 4:
+            return "Cin % 4 != 0 (x's row stride)"
+        if noise and w % 4:
+            return "W % 4 != 0 (the noise's row stride)"
+        return None
     if s8 and cin % 16:
         return "Cin % 16 != 0 (x's and w's row strides)"
     if cin % 8:
@@ -729,14 +751,114 @@ def plan_tf32(n: int, h: int, w: int, cin: int, cout: int,
     return None
 
 
+# Kernel 1's tf32 tiles (bn, mi, ck): the only entry-9 kernels
+# conv3x3_sm90.cuh builds (its tf32_tile for kernel 9).  BN 32 in 256-pixel
+# blocks is built here: kernel 1's BN 32 kernels run one block an SM
+# (min_blocks), so its registers are not held to 112.
+TF32_K1_SM90_TILES = frozenset((bn, mi, 16) for bn in (16, 32, 64)
+                               for mi in (1, 2))
+
+
+def tf32_in_stats_plan(n: int, h: int, w: int, cin: int, cout: int,
+                       bn: int, mi: int, splits: Optional[int] = None,
+                       resident: Optional[bool] = None
+                       ) -> Optional[PlanSM90]:
+    """Kernel 1's plan on the Hopper body's 3xTF32 form (entry 9) with its
+    tile set, (``bn``, ``mi``): ``splits`` Cin splits (None: as many as
+    ``_splits_f32`` asks, at least enough that no chain passes
+    ``MAX_CPS_F32`` chunks); taps ``resident`` (split by the blocks from
+    HWIO w) or streamed (one TMA box a stage from the entry's K-major
+    layout; None: resident where one wave holds every item and a split's
+    taps fit in ``TF32_RESIDENT_ONE_BLOCK``); the deepest ring, 2 to
+    ``SM90_MAX_STAGES`` stages, that lets ``min_blocks`` blocks share an
+    SM, else one block an SM.  None where a chain would pass the cap or
+    nothing fits."""
+    ck = 16
+    chunks = _cdiv(cin, ck)
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    th, g, tiles_x, tiles_y, groups = _geometry(n, h, w, 128 * mi, tw,
+                                                16 // tw)
+    cout_blocks = _cdiv(cout, bn)
+    want = splits or _splits_f32(tiles_x * tiles_y * groups * cout_blocks,
+                                 chunks)
+    cps = _cdiv(chunks, want)
+    if cps > MAX_CPS_F32:
+        return None
+    p = PlanSM90(bn=bn, mi=mi, ck=ck, tw=tw, th=th, g=g,
+                 splits=_cdiv(chunks, cps), cps=cps, stages=2, resident=True,
+                 tma_y=False, noise=True, chunks=chunks, tiles_x=tiles_x,
+                 tiles_y=tiles_y, groups=groups, cout_blocks=cout_blocks,
+                 tf32=True)
+    if resident is None:  # resident where a wave holds every item (each
+        # block's taps are its one item's, so the layout pass would buy
+        # nothing) and they fit at one block an SM; else streamed
+        resident = (p.blocks <= NUM_SMS
+                    and cps * p.tap_bytes <= TF32_RESIDENT_ONE_BLOCK)
+    p = replace(p, resident=resident)
+    want = min(SM90_MAX_STAGES,
+               max(2, 1 + _cdiv(SM90_INFLIGHT, p.stage_load_bytes)))
+    for budget in (min(MAX_SMEM, SM_SMEM // p.min_blocks - 1024), MAX_SMEM):
+        for stages in range(want, 1, -1):
+            q = replace(p, stages=stages)
+            if q.smem_bytes <= budget:
+                return q
+    return None
+
+
+def plan_tf32_in_stats(n: int, h: int, w: int, cin: int, cout: int,
+                       aligned: bool = True) -> Optional[PlanSM90]:
+    """Kernel 1's plan on the Hopper body's 3xTF32 form (entry 9:
+    csrc/conv_in_stats_f32.cu), or None where TMA's rules refuse the call
+    (``tma_refuses(noise=True, tf32=True)``: Cin % 4, W % 4 (the noise's
+    rows), an unaligned view).
+
+    - ``bn``: 64 for Cout > 32 (the 512-channel layers run 8 Cout blocks),
+      else Cout rounded up to a power of two, at least 16; 32 where 64
+      would take more than 8 splits to fill the card (4^2: 0.0238 ms in 8
+      splits of 32 channels against 0.0271-0.0310 in 16 of 64 on an H100
+      80GB HBM3 at 700 W, ``chip_smoke.phase_tf32_sweep``).
+    - ``mi``: 2 (256-pixel blocks: half the tap bytes per pixel) where
+      their grid fills 7/8 of the SMs, else 1.
+    - ``splits``: ``_splits_f32``'s fill rule within the chain cap (Cin 512
+      >= 4 splits, Cin 256 >= 2); the finish kernel of conv3x3_tc.cuh adds
+      them in order, to nearest, and runs the noise, bias, leaky and the
+      statistics.
+    - ``resident`` where one wave holds every item and a split's hi and
+      lo fit in ``TF32_RESIDENT_ONE_BLOCK`` (4^2: no layout pass, 0.0238
+      ms against 0.0270 streamed), else streamed: the entry lays w out once
+      a call as [chunk][9][hi, lo][Cout][16] and each stage takes its (16,
+      bn, 2, 9) box beside the halo (where the taps would fit, at 512^2 and
+      1024^2, the two routes measured within 1-3% of each other, the sign
+      changing from run to run).
+    - ``tw``, ``th``, ``g`` as ``plan_sm90`` (>= 16 pixels per image in a
+      tile: a fragment lies in one image), y from registers."""
+    if tma_refuses(cin, w, True, aligned, tf32=True):
+        return None
+    bn = 64 if cout > 32 else max(16, _pow2ceil(cout))
+    tw = 4 if w <= 4 else (8 if w <= 8 else 16)
+    _, _, tx, ty, gr = _geometry(n, h, w, 256, tw, 16 // tw)
+    mi = 2 if tx * ty * gr * _cdiv(cout, bn) >= NUM_SMS - NUM_SMS // 8 else 1
+    p = tf32_in_stats_plan(n, h, w, cin, cout, bn, mi)
+    if p is not None and bn == 64 and p.splits > MAX_CPS_F32:
+        # more Cout blocks instead of more splits (4^2: 8 splits of
+        # 32-channel blocks, resident, against 16 of 64 streamed)
+        p = tf32_in_stats_plan(n, h, w, cin, cout, 32, mi)
+    return p
+
+
 def plan_f32_body(n: int, h: int, w: int, cin: int, cout: int,
-                  aligned: bool = True, kernel3: bool = False
-                  ) -> Union[PlanSM90, PlanF32]:
-    """The body of an f32 call of kernel 2 or (``kernel3``) kernel 3, by
-    one rule as in bf16 and s8: the Hopper body's 3xTF32 form wherever
-    ``plan_tf32`` takes the shape (every kernel-3 call of a train step but
-    main_8_conv's input gradient, Cin 2; every kernel-2 call of evaluate
-    but cvt_0..4), else the mma.sync 3xTF32 body (``plan_f32``; kernel 3
-    without a split)."""
+                  aligned: bool = True, kernel3: bool = False,
+                  noise: bool = False) -> Union[PlanSM90, PlanF32]:
+    """The body of an f32 call of kernel 1 (``noise``), 2 or (``kernel3``)
+    kernel 3, by one rule as in bf16 and s8: the Hopper body's 3xTF32 form
+    wherever ``plan_tf32`` (kernel 1: ``plan_tf32_in_stats``) takes the
+    shape (every kernel-3 call of a train step but main_8_conv's input
+    gradient, Cin 2; every kernel-2 call of evaluate but cvt_0..4; every
+    kernel-1 call of the f32 generator), else the mma.sync 3xTF32 body
+    (``plan_f32``; kernel 3 without a split, kernel 1 with its
+    statistics)."""
+    if noise:
+        return plan_tf32_in_stats(n, h, w, cin, cout, aligned) or plan_f32(
+            n, h, w, cin, cout, stats=True)
     return plan_tf32(n, h, w, cin, cout, aligned) or plan_f32(
         n, h, w, cin, cout, splits=1 if kernel3 else None)

@@ -194,17 +194,23 @@ def test_plan_f32_splits_where_the_design_says():
 def test_wrappers_get_a_plan_and_a_workspace_in_both_dtypes(dtype):
     """``tc_launch_args`` serves every body: for bf16 int[11] from
     ``plan_sm90`` (the Hopper body, ``plan_bf16``'s rule) and, for a view
-    TMA refuses, int[9] from ``plan``; int[11] from ``plan_f32`` for f32
-    (``stats`` for kernel 1); the workspace sized by the plan's split, the
-    plan cached per shape."""
+    TMA refuses, int[9] from ``plan``; int[11] for f32 from
+    ``plan_f32_body``: ``plan_f32`` for kernel 2 at Cin 512, kernel 1's
+    Hopper plan (``plan_tf32_in_stats``, its taps resident here); the
+    workspace sized by the plan's split, the plan cached per shape."""
     n, h, w, cin, cout = 1, 4, 4, 512, 32
     x = torch.zeros((n, h, w, cin), dtype=dtype)
     for noise in (False, True):
         p, c, ws = _build.tc_launch_args(x, n, h, w, cin, cout, noise=noise)
         assert isinstance(c, ctypes.Array) and tuple(c) == p.args()
         if dtype == torch.float32:
-            assert len(c) == 11 and isinstance(p, tc_plan.PlanF32)
-            assert p == tc_plan.plan_f32(n, h, w, cin, cout, stats=noise)
+            assert len(c) == 11 and p == tc_plan.plan_f32_body(
+                n, h, w, cin, cout, noise=noise)
+            if noise:
+                assert p == tc_plan.plan_tf32_in_stats(n, h, w, cin, cout)
+                assert p.resident and p.layout_elems(cout) == 0
+            else:
+                assert p == tc_plan.plan_f32(n, h, w, cin, cout)
         else:
             assert len(c) == 11 and isinstance(p, tc_plan.PlanSM90)
             assert p == tc_plan.plan_sm90(n, h, w, cin, cout, noise)

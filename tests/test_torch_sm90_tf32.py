@@ -637,14 +637,16 @@ def test_kernel3_launch_args_name_the_body_and_its_workspace():
 
 def test_kernel2_f32_launch_args_take_the_rule_but_not_for_bands():
     """Kernel 2's full-image f32 calls get ``plan_f32_body``'s plan; its
-    row bands and kernel 1 keep ``plan_f32``."""
+    row bands keep ``plan_f32``; kernel 1 takes its own rule
+    (``plan_tf32_in_stats``, tests/test_torch_sm90_tf32_k1.py)."""
     x = torch.zeros((1, 64, 64, 32))
     p, c, ws = _build.tc_launch_args(x, 1, 64, 64, 32, 32)
     assert p.sm90 and p.tf32 and tuple(c) == p.args() and ws is None
     p, _, _ = _build.tc_launch_args(x, 1, 62, 64, 32, 32, rows=True)
     assert isinstance(p, tc_plan.PlanF32)
     p, _, _ = _build.tc_launch_args(x, 1, 64, 64, 32, 32, noise=True)
-    assert isinstance(p, tc_plan.PlanF32) and p.stats
+    assert p.sm90 and p.tf32 and p.noise
+    assert p == tc_plan.plan_tf32_in_stats(1, 64, 64, 32, 32)
 
 
 @pytest.mark.parametrize("name,kernel,body", [
