@@ -3433,18 +3433,10 @@ def pipeline_rate(torch, pipe, n):
 
 def pipeline_busy(torch, pipe):
     """(kernel ms per batch, wall ms per batch, busy share) of a profiled
-    window of ``GRAPH_PROFILE_BATCHES`` batches of ``generate_batches``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in pipe.generate_batches(GRAPH_PROFILE_BATCHES * BATCH):
-            pass
-        wall = (time.perf_counter() - t0) * 1e3 / GRAPH_PROFILE_BATCHES
-    kern = sum(kernel_times(prof).values()) / GRAPH_PROFILE_BATCHES
-    return kern, wall, kern / wall
+    window of ``GRAPH_PROFILE_BATCHES`` batches of ``generate_batches``
+    (``pipeline_profile``)."""
+    prof = pipeline_profile(torch, pipe)
+    return prof["kernel_ms"], prof["wall_ms"], prof["busy"]
 
 
 def sampler_f32_vs_eager(torch, state, gan_dir):
@@ -6940,12 +6932,14 @@ def multi_card_int8(torch, solver, cards, gan_dir, batches=2):
 # (N, D): a D x N grid that repeats the one card (the default run); the
 # four-card phase runs --spatial 4 and --spatial 2 --dp 2 on real cards.
 SPATIAL_GRIDS = ((2, 1), (4, 1), (2, 2))
-SPATIAL_BATCHES = 2          # batches a grid, under the device trace
+SPATIAL_BATCHES = 3          # batches a grid under the device trace: the
+                             # eager first, the capture's replay, a replay
 SPATIAL_RATE_BATCHES = 3     # batches timed a pipeline
 SPATIAL_LATENCY_REPS = 3     # batch-1 calls timed a path
 SPATIAL_EXPORT_RES = 6       # the grid bundle and the --platforms artifact
 SPATIAL_EXPORT_BATCH = 2     # (ffhq at full width, depth cut to 64^2)
 BAND_TIMING = dict(reps=4, replays=3)
+PROFILE_TOP = 6              # kernels by device time a grid's profile names
 
 SPATIAL_SERVE_WORKER = r"""
 import json, sys
@@ -6964,7 +6958,9 @@ torch.save(outs, out)
 models = [m for m in sys.modules
           if m.startswith("gan_segmentation_tpu_torch.models")
           or m.split(".")[0] in ("jax", "gan_segmentation_tpu")]
-print(json.dumps({"grid": serve.meta["grid"], "model_modules": models}))
+print(json.dumps({"grid": serve.meta["grid"], "model_modules": models,
+                  "replays": serve.call.replays,
+                  "spans": [str(d) for d in serve.call.spans]}))
 """
 
 
@@ -7100,9 +7096,9 @@ def slice_floats(torch, program, z, noise):
                 class_mask(logits).cpu())
 
 
-def grid_floats(torch, grid, z, noise):
+def grid_floats(torch, grid, z, noise, host=True):
     """The same of a ``GridProgram``: each row's bands gathered, the rows
-    concatenated on the host."""
+    concatenated (on the host, or with ``host`` False on z's device)."""
     from gan_segmentation_tpu_torch.core.spatial import band_rows, gather
     from gan_segmentation_tpu_torch.train.generator import (_to_uint8,
                                                             class_mask)
@@ -7113,9 +7109,116 @@ def grid_floats(torch, grid, z, noise):
             rgb, logits = grid.floats(row, z[a:b], {k: v[a:b] for k, v in
                                                     noise.items()})
             rgb, logits = gather(rgb, dev), gather(logits, dev)
-            out.append((_to_uint8(rgb, grid.programs[0].imrange).cpu(),
-                        logits.cpu(), class_mask(logits).cpu()))
-    return tuple(torch.cat([o[i] for o in out]) for i in range(3))
+            out.append((_to_uint8(rgb, grid.programs[0].imrange), logits,
+                        class_mask(logits)))
+        got = tuple(torch.cat([o[i] for o in out]) for i in range(3))
+    return tuple(t.cpu() for t in got) if host else got
+
+
+def graphed_grid_floats(torch, grid, z, noise):
+    """``grid_floats`` on ``z`` and ``noise`` as one graph spanning the
+    grid's cards (``GraphedCall(spans=...)``, the pipeline's mechanism):
+    -> (the outputs of its 3 calls, the eager first, the capture's replay
+    and a replay, on the host; the call)."""
+    from gan_segmentation_tpu_torch.core.graphs import GraphedCall
+
+    with torch.inference_mode(False):
+        zs = z.clone()
+        ns = {k: v.clone() for k, v in noise.items()}
+    call = GraphedCall(lambda: grid_floats(torch, grid, zs, ns, host=False),
+                       z.device, spans=grid.devices)
+    return [tuple(t.cpu() for t in call()) for _ in range(3)], call
+
+
+def spatial_family(name):
+    """The family of a device kernel of a generate batch, spatial or not."""
+    low = name.lower()
+    if kernel_of(name) is not None:
+        return "kernels 1-2"
+    if "memcpy" in low or "cat" in low or "copy" in low or "memset" in low:
+        return "copies and cats (halo rows, bands, gathers, casts)"
+    if any(k in low for k in ("conv", "gemm", "xmma", "cudnn", "cutlass",
+                              "nhwc", "nchw", "sm90_", "sm80_")):
+        return "cuDNN / cuBLAS (up convs, blur, 1x1 convs, mapping)"
+    return "elementwise and reductions"
+
+
+def pipeline_profile(torch, pipe):
+    """A profiled window of ``GRAPH_PROFILE_BATCHES`` batches of
+    ``pipe.generate_batches``: kernel ms and wall ms a batch, the busy
+    share (kernel time over wall time; over several cards, their kernel
+    time summed), the kernels' launches a batch, their ms a batch by
+    ``spatial_family`` and the ``PROFILE_TOP`` costliest kernels (name, ms
+    and launches a batch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in pipe.generate_batches(GRAPH_PROFILE_BATCHES * BATCH):
+            pass
+        wall = (time.perf_counter() - t0) * 1e3 / GRAPH_PROFILE_BATCHES
+    by_name = kernel_times(prof)
+    kern = sum(by_name.values()) / GRAPH_PROFILE_BATCHES
+    calls = {}
+    for evt in prof.events():
+        if (evt.device_type == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            calls[evt.name] = calls.get(evt.name, 0) + 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+    return dict(kernel_ms=kern, wall_ms=wall, busy=kern / wall,
+                launches_per_batch=sum(calls.values())
+                / GRAPH_PROFILE_BATCHES,
+                families_ms=families(by_name, GRAPH_PROFILE_BATCHES,
+                                     spatial_family),
+                top_kernels=[[name[:120], t / GRAPH_PROFILE_BATCHES,
+                              calls[name] / GRAPH_PROFILE_BATCHES]
+                             for name, t in top])
+
+
+def halo_cat_ms(torch):
+    """Device time (graph replay) of ``core/spatial.py::with_halo``'s cat
+    for one band of a 1 x 2 grid at 1024^2, batch 8, bf16 (the generator's
+    16 channels, the decoder's 32): the band between its neighbours' edge
+    rows taken as strided views (what a copy within one card gives) and
+    made contiguous first (what ``with_halo`` does), beside the bound of
+    reading the band and writing it with its two rows."""
+    out = {}
+    dev = torch.device("cuda")
+    for c in (16, 32):
+        band = torch.randn((BATCH, 512, 1024, c), device=dev).to(
+            torch.bfloat16)
+        other = torch.randn_like(band)
+        strided = (other[:, -1:], band, other[:, :1])
+        contig = tuple(t.contiguous() for t in strided)
+        nbytes = 2 * 2 * BATCH * 1024 * c * (512 + 1)
+        out[f"c{c}"] = dict(
+            strided_ms=graph_ms(lambda: torch.cat(strided, dim=1), reps=5),
+            contiguous_ms=graph_ms(lambda: torch.cat(contig, dim=1),
+                                   reps=5),
+            bound_ms=nbytes / HBM_RATE * 1e3)
+        del band, other, strided, contig
+    return out
+
+
+@contextlib.contextmanager
+def eager_grid(torch, pipe):
+    """Inside, ``pipe``'s batches run its ``GridProgram`` eagerly on the
+    pipeline's own draws (the eager twin of the graphed grid)."""
+    from gan_segmentation_tpu_torch.train.generator import _infer
+
+    def batch(b):
+        z, noise = pipe.gen.draw_inputs(b)
+        pipe.program()
+        return [_infer(pipe.grid_program(), z, noise)]
+
+    pipe._batch = batch
+    try:
+        yield pipe
+    finally:
+        del pipe._batch
 
 
 def batch_seconds(torch, step, n):
@@ -7133,14 +7236,20 @@ def batch_seconds(torch, step, n):
 
 
 def spatial_pipelines(torch, smi, cards=None, grids=SPATIAL_GRIDS):
-    """``FusedPipeline(mesh=grid)`` at ffhq 1024^2, batch 8, bf16: each
-    grid's batches under a device trace, its (image, logits, mask) on the
-    same z and noise held to the one-device pipeline's as
+    """``FusedPipeline(mesh=grid)`` at ffhq 1024^2, batch 8, bf16, each
+    grid's batch one CUDA graph over the grid's cards (``GraphedCall(spans=
+    ...)``): its first batches under a device trace (the eager first, the
+    capture's replay, a replay: the row-band launches a replay), each
+    equal bit for bit to the eager grid (``GridProgram`` called directly)
+    on the same draws, a replay repeated equal to itself; the grid's (image,
+    logits, mask) on the one-device pipeline's z and noise, eagerly and as
+    a graph (equal bit for bit), held to the one-device pipeline's as
     ``check_bf16_slice`` holds the kernels' bf16 slice (the one-device bf16
-    slice's own distance from the f32 slice, measured here, is the scale),
-    samples/s against the one-device eager and graph paths, and batch-1
-    latency.  ``cards``: the grid's cards in row order (default: the grid
-    repeats the one card)."""
+    slice's own distance from the f32 slice, measured here, is the scale);
+    samples/s, batch-1 latency, the device's busy share and the host's
+    enqueue time a batch, graphed and eager, beside one device's eager and
+    graph paths.  ``cards``: the grid's cards in row order (default: the
+    grid repeats the one card)."""
     from gan_segmentation_tpu_torch.train.generator import (FusedPipeline,
                                                             ImageGenerator,
                                                             _infer)
@@ -7157,6 +7266,9 @@ def spatial_pipelines(torch, smi, cards=None, grids=SPATIAL_GRIDS):
             perturb(torch, gen.model, 35)  # the noise inputs show
             return gen
 
+        def host(batch):
+            return [t.cpu() for t in batch]
+
         with tf32(torch, False):
             one = FusedPipeline(generator(), solver)
             ref = FusedPipeline(generator(dtype="fp32"), solver,
@@ -7171,6 +7283,9 @@ def spatial_pipelines(torch, smi, cards=None, grids=SPATIAL_GRIDS):
                 SPATIAL_RATE_BATCHES)
             graph_s = batch_seconds(torch, lambda: one._batch(BATCH),
                                     SPATIAL_RATE_BATCHES)
+            one_prof = pipeline_profile(torch, one)
+            one_prof["enqueue_ms"] = enqueue_ms(
+                torch, lambda: one._enqueue(BATCH))
             one1 = FusedPipeline(generator(1), solver)
             z1 = z[:1].clone()
             n1 = {k: v[:1].clone() for k, v in noise.items()}
@@ -7186,39 +7301,116 @@ def spatial_pipelines(torch, smi, cards=None, grids=SPATIAL_GRIDS):
                         else [[torch.device("cuda", 0)] * n] * d)
                 tag = f"{d}x{n}"
                 sp = FusedPipeline(generator(), solver, mesh=rows)
+                grid = sp.grid_program()
+                static = sp.gen._inputs
+                batches, drawn = [], []
                 with LaunchTrace(torch, rows=True) as trace:
                     for _ in range(SPATIAL_BATCHES):
-                        sp.sample_batch()
-                got = grid_floats(torch, sp.grid_program(), z, noise)
+                        batches.append(host(sp.sample_batch()))
+                        zs, ns = static[BATCH]
+                        drawn.append((zs.clone(), {k: v.clone()
+                                                   for k, v in ns.items()}))
+                call = sp._graphs[BATCH]
+                per_replay = {k: call.deltas[fn] for k, fn in
+                              kernel_wrappers(rows=True).items()
+                              if call.deltas.get(fn)}
+                eager = [host(_infer(grid, zi, ni)) for zi, ni in drawn]
+                graphed_equal = same_batches(torch, batches, eager)
+                # the last batch's draws again: a replay equal to itself
+                zs, ns = static[BATCH]
+                zs.copy_(drawn[-1][0])
+                for k, v in ns.items():
+                    v.copy_(drawn[-1][1][k])
+                again = host(call())
+                repeat_equal = same_batches(torch, [again], batches[-1:])
+                # the traced batches' replays (the first batch is eager)
+                # and the repeat's
+                replays = call.replays
+                check_later(replays == SPATIAL_BATCHES
+                            and graphed_equal and repeat_equal,
+                            f"spatial {tag}: the graphed grid ({replays}"
+                            f" replays) equal to the eager grid "
+                            f"{graphed_equal}, a replay repeated equal "
+                            f"{repeat_equal}")
+                got = grid_floats(torch, grid, z, noise)
                 reading = check_bf16_slice(f"spatial {tag}", got, plain, f32)
+                floats, fcall = graphed_grid_floats(torch, grid, z, noise)
+                floats_equal = (fcall.replays == 2 and same_batches(
+                    torch, floats, [got] * 3))
+                check_later(floats_equal, f"spatial {tag}: the grid's floats "
+                                          f"as a graph differ from eager")
+                reading_graphed = check_bf16_slice(f"spatial {tag} graphed",
+                                                   floats[-1], plain, f32)
+                del floats, fcall
                 rate_s = batch_seconds(torch, lambda: sp._batch(BATCH),
                                        SPATIAL_RATE_BATCHES)
-                rec = dict(launches=trace.device, reading=reading,
-                           samples_per_s=BATCH / rate_s)
+                prof = pipeline_profile(torch, sp)
+                prof["enqueue_ms"] = enqueue_ms(
+                    torch, lambda: sp._enqueue(BATCH))
+                with eager_grid(torch, sp):
+                    eager_rate_s = batch_seconds(
+                        torch, lambda: sp._batch(BATCH), SPATIAL_RATE_BATCHES)
+                    eager_prof = pipeline_profile(torch, sp)
+                    eager_prof["enqueue_ms"] = enqueue_ms(
+                        torch, lambda: sp._enqueue(BATCH))
+                rec = dict(launches=trace.device,
+                           launches_per_replay=per_replay,
+                           replays=replays,
+                           graphed_equal_eager=graphed_equal,
+                           replay_repeat_equal=repeat_equal,
+                           floats_graph_equal_eager=floats_equal,
+                           reading=reading, reading_graphed=reading_graphed,
+                           samples_per_s=BATCH / rate_s,
+                           eager_samples_per_s=BATCH / eager_rate_s,
+                           profile=prof, eager_profile=eager_prof)
                 if d == 1:
                     sp1 = FusedPipeline(generator(1), solver,
                                         mesh=[rows[0]])
                     rec["batch1_latency_s"] = batch_seconds(
-                        torch, lambda: sp1.grid_program()(z1, n1),
+                        torch, lambda: sp1._batch(1), SPATIAL_LATENCY_REPS)
+                    rec["eager_batch1_latency_s"] = batch_seconds(
+                        torch, lambda: _infer(sp1.grid_program(), z1, n1),
                         SPATIAL_LATENCY_REPS)
                     del sp1
                 check_later(
                     trace.device["conv_in_stats_rows"] > 0
-                    and trace.device["small_conv_rows"] > 0,
+                    and trace.device["small_conv_rows"] > 0
+                    and per_replay.get("conv_in_stats_rows", 0) > 0
+                    and per_replay.get("small_conv_rows", 0) > 0,
                     f"spatial {tag}: row-band kernels not launched "
-                    f"{trace.device}")
+                    f"{trace.device}, a replay's {per_replay}")
                 log(f"generate --spatial {n} --dp {d} ({tag} grid on "
                     f"{'the cards' if cards else 'the one card'}), ffhq "
-                    f"1024^2, batch 8, bf16, eager: {reading}; "
-                    f"{BATCH / rate_s:.3f} samples/s (one device: eager "
+                    f"1024^2, batch 8, bf16, graphed: {replays} replays"
+                    f" equal to the eager grid {graphed_equal}, a replay "
+                    f"repeated {repeat_equal}, floats as a graph "
+                    f"{floats_equal}; eager {reading}; graphed "
+                    f"{reading_graphed}; {BATCH / rate_s:.3f} samples/s "
+                    f"(eager {BATCH / eager_rate_s:.3f}; one device: eager "
                     f"{BATCH / eager_s:.3f}, graph {BATCH / graph_s:.3f}); "
                     f"batch-1 latency "
                     f"{rec.get('batch1_latency_s', float('nan')):.4f} s "
-                    f"(one device: eager {lat['one_eager']:.4f} s, graph "
-                    f"{lat['one_graph']:.4f} s); device trace "
-                    f"{trace.device} on {smi}")
+                    f"(eager "
+                    f"{rec.get('eager_batch1_latency_s', float('nan')):.4f}"
+                    f" s; one device: eager {lat['one_eager']:.4f} s, graph "
+                    f"{lat['one_graph']:.4f} s); busy {prof['busy']:.3f} "
+                    f"({prof['kernel_ms']:.3f} ms of kernels in "
+                    f"{prof['wall_ms']:.3f}, enqueue {prof['enqueue_ms']:.3f}"
+                    f" ms a batch; eager busy {eager_prof['busy']:.3f}, "
+                    f"{eager_prof['kernel_ms']:.3f} in "
+                    f"{eager_prof['wall_ms']:.3f}, enqueue "
+                    f"{eager_prof['enqueue_ms']:.3f}; one device's graph "
+                    f"busy {one_prof['busy']:.3f}, {one_prof['kernel_ms']:.3f}"
+                    f" in {one_prof['wall_ms']:.3f}, enqueue "
+                    f"{one_prof['enqueue_ms']:.3f}); by family, graphed "
+                    f"{prof['families_ms']}, one device "
+                    f"{one_prof['families_ms']}; {prof['launches_per_batch']}"
+                    f" kernels a batch (one device "
+                    f"{one_prof['launches_per_batch']}); row-band launches a "
+                    f"replay {per_replay}; device trace {trace.device} on "
+                    f"{smi}")
                 out[tag] = rec
-                del sp
+                del sp, grid, call, static, batches, drawn, eager, again
                 torch.cuda.empty_cache()
         del one, solver
         torch.cuda.empty_cache()
@@ -7226,7 +7418,8 @@ def spatial_pipelines(torch, smi, cards=None, grids=SPATIAL_GRIDS):
         shutil.rmtree(none, ignore_errors=True)
     return dict(grids=out, one_device_eager_samples_per_s=BATCH / eager_s,
                 one_device_graph_samples_per_s=BATCH / graph_s,
-                one_device_batch1_latency_s=lat)
+                one_device_batch1_latency_s=lat,
+                one_device_graph_profile=one_prof)
 
 
 def small_export_pipeline(torch, device, gan_dir, mesh=None):
@@ -7246,7 +7439,8 @@ def small_export_pipeline(torch, device, gan_dir, mesh=None):
 
 def serve_grid_fresh(torch, bundle, base, devices, n):
     """Serve batches 0..n-1 from seed 6 with a grid bundle in a fresh
-    interpreter that imports only ``core.export``; -> its batches."""
+    interpreter that imports only ``core.export``; -> (its batches, its
+    record: the served graph's replays and the other cards it spans)."""
     out = join(base, "grid_served.pt")
     proc = subprocess.run(
         [sys.executable, "-c", SPATIAL_SERVE_WORKER, bundle, out, "6",
@@ -7256,13 +7450,15 @@ def serve_grid_fresh(torch, bundle, base, devices, n):
     assert proc.returncode == 0, (proc.stdout + proc.stderr)[-4000:]
     rec = json.loads(proc.stdout.strip().splitlines()[-1])
     assert not rec["model_modules"], rec
-    return torch.load(out, weights_only=True)
+    return torch.load(out, weights_only=True), rec
 
 
 def spatial_exports(torch, smi, cards=None, grid=(2, 1), platforms=True):
     """(a) The bundle of a grid pipeline (ffhq, full width, cut to 64^2;
     D x N = ``grid``, on ``cards`` or repeating the one card) served from a
-    fresh interpreter equals the live grid pipeline bit for bit.  (b) A
+    fresh interpreter, as one CUDA graph over its cards (3 batches: the
+    eager first, the capture's replay, a replay), equals the live graphed
+    grid pipeline bit for bit.  (b) A
     ``--platforms cpu,cuda`` artifact exported on the CPU serves on the
     card, bit for bit equal to one exported on the card (and to the live
     pipeline there; skipped without ``platforms``)."""
@@ -7280,20 +7476,27 @@ def spatial_exports(torch, smi, cards=None, grid=(2, 1), platforms=True):
             t0 = time.perf_counter()
             tex.export_fused_pipeline_bundle(pipe, SPATIAL_EXPORT_BATCH, bdir)
             export_s = time.perf_counter() - t0
-            live = [[t.cpu() for t in pipe.sample_batch()] for _ in range(2)]
+            live = [[t.cpu() for t in pipe.sample_batch()] for _ in range(3)]
+            live_replays = pipe._graphs[SPATIAL_EXPORT_BATCH].replays
             del pipe
             torch.cuda.empty_cache()
-            served = serve_grid_fresh(torch, bdir, base, devices, 2)
+            served, srec = serve_grid_fresh(torch, bdir, base, devices, 3)
             grid_equal = same_batches(torch, served, live)
-            check_later(grid_equal, f"grid bundle {d}x{n} served from a "
-                                    f"fresh process differs from the live "
-                                    f"grid pipeline")
+            spans = [str(x) for x in dict.fromkeys(devices) if x != dev]
+            check_later(grid_equal and live_replays == 2
+                        and srec["replays"] == 2 and srec["spans"] == spans,
+                        f"grid bundle {d}x{n} served from a fresh process "
+                        f"equal to the live graphed grid pipeline "
+                        f"{grid_equal} (replays: live {live_replays}, served "
+                        f"{srec['replays']}, spanning {srec['spans']})")
             if not platforms:
                 log(f"the {d}x{n} grid's bundle ({export_s:.1f} s to "
                     f"export) served from a fresh process on "
-                    f"{[str(x) for x in devices]} equal to the live grid "
-                    f"pipeline {grid_equal} on {smi}")
+                    f"{[str(x) for x in devices]} as a graph ({srec}) equal "
+                    f"to the live graphed grid pipeline {grid_equal} on "
+                    f"{smi}")
                 return dict(grid=[d, n], grid_bundle_fresh_equal=grid_equal,
+                            served_replays=srec["replays"],
                             grid_export_s=export_s)
 
             cpu_path, card_path = (join(base, "cpu.pt2"),
@@ -7342,13 +7545,14 @@ def spatial_exports(torch, smi, cards=None, grid=(2, 1), platforms=True):
                 f"{live_equal}, platforms {outs['cpu_platforms']}")
     log(f"spatial export (ffhq full width cut to {2 ** SPATIAL_EXPORT_RES}^2,"
         f" batch {SPATIAL_EXPORT_BATCH}): the {d}x{n} grid's bundle "
-        f"({export_s:.1f} s to export) served from a fresh process equal to "
-        f"the live grid pipeline {grid_equal}; a --platforms cpu,cuda "
+        f"({export_s:.1f} s to export) served from a fresh process as a "
+        f"graph ({srec}) equal to the live graphed grid pipeline "
+        f"{grid_equal}; a --platforms cpu,cuda "
         f"artifact exported on the CPU, served on the card, equal to one "
         f"exported on the card {xplat_equal} (and to the live pipeline "
         f"{live_equal}) on {smi}")
     return dict(grid=[d, n], grid_bundle_fresh_equal=grid_equal,
-                grid_export_s=export_s,
+                served_replays=srec["replays"], grid_export_s=export_s,
                 platforms_cpu_export_equal_card_export=xplat_equal,
                 platforms_card_export_equal_live=live_equal)
 
@@ -7359,6 +7563,9 @@ def phase_spatial(torch, gcfg, scfg, smi):
     ``--platforms`` artifact."""
     kern = phase_band_kernels(torch, gcfg, scfg)
     pipes = spatial_pipelines(torch, smi)
+    pipes["halo_cat_ms"] = halo_cat_ms(torch)
+    log(f"with_halo's cat of a 1x2 band at 1024^2, batch 8, bf16: "
+        f"{pipes['halo_cat_ms']} on {smi}")
     exports = spatial_exports(torch, smi)
     launches = {}
     for tag, rec in pipes["grids"].items():
@@ -7982,7 +8189,8 @@ def main():
             design=design, launches=sum(by_path.values()),
             launches_by_path=by_path,
             launches_counted_by="device traces (torch.profiler) of the "
-                                "spatial phase's grid pipelines",
+                                "spatial phase's graphed grid pipelines "
+                                "(an eager first batch, then replays)",
             max_abs_err=sp["kernels"]["errs"][name]["bf16"],
             max_abs_err_f32=sp["kernels"]["errs"][name]["f32"],
             ms=k2["kernel"], plain_ms=k2["plain"], bound_ms=k2["bound"],

@@ -41,8 +41,9 @@ exports its ``GridProgram``, the whole grid's batch as one program whose
 weights hold one copy a distinct device; the record names the grid
 (``"grid": [D, N]``) and its devices.  ``load_bundle(dir, devices=[...])``
 serves it on D x N devices in row order (the program's devices map to the
-devices at their first positions in the grid), and refuses fewer.  A grid
-program is served eagerly.
+devices at their first positions in the grid), and refuses fewer.  On
+cards a grid program is served as one CUDA graph over all its devices, as
+the live grid runs (``GraphedCall(spans=...)``).
 
 Two surfaces are exported: the fused z -> (uint8 image, uint8 mask)
 pipeline (``train/generator.py::FusedProgram``) and the DeepLab multi-scale
@@ -262,6 +263,14 @@ def _placement(meta: dict, device, devices) -> Tuple[torch.device, dict]:
     return dev, {traced[0]: str(dev)}
 
 
+def _spans(meta: dict, moves: dict) -> list:
+    """The serving devices of a grid program (each distinct device of the
+    record's, moved by ``moves``); none for any other program."""
+    if meta.get("grid") is None:
+        return []
+    return [torch.device(moves.get(d, d)) for d in meta["devices"]]
+
+
 def _moved(program, moves: dict):
     """``program`` with its devices moved by ``moves`` (``torch.export``'s
     own pass: the graph's device arguments and its weights)."""
@@ -279,16 +288,19 @@ def _run(module, inputs):
 class Served:
     """The serving callable of an artifact or bundle: ``serve(*inputs)``
     -> the program's outputs; ``meta`` is its record.  Inputs are copied
-    to the serving device.  On a CUDA device every call copies them into
-    static tensors and runs one ``GraphedCall`` (the first call eagerly,
-    the second captures, later calls replay), and returns copies of its
-    outputs that the next call does not overwrite.  A bundle's program
-    takes ``weights`` (resident on the device) before the inputs."""
+    to the serving device.  Every call copies them into static tensors and
+    runs one ``GraphedCall`` (on a CUDA device the first call eagerly, the
+    second captures, later calls replay; on the CPU every call runs
+    eagerly), and returns copies of its outputs that the next call does
+    not overwrite.  A bundle's program
+    takes ``weights`` (resident on the device) before the inputs.  A grid
+    program's graph spans its other serving devices, ``spans``."""
 
     def __init__(self, program, meta: dict, device: torch.device,
-                 weights: Optional[dict] = None):
+                 weights: Optional[dict] = None, spans: Sequence = ()):
         self.meta = meta
         self.device = device
+        self.spans = list(spans)
         self.module = program.module()
         self.bound = () if weights is None else (weights,)
         self.call: Optional[GraphedCall] = None
@@ -297,14 +309,11 @@ class Served:
     def __call__(self, *inputs):
         inputs = pytree.tree_map(lambda t: torch.as_tensor(t).to(
             self.device), inputs)
-        # a grid program runs eagerly: a CUDA graph captures one card
-        if self.device.type == "cpu" or self.meta.get("grid"):
-            return _run(self.module, (*self.bound, *inputs))
         if self.call is None:
             self._static = pytree.tree_map(torch.empty_like, inputs)
             self.call = GraphedCall(functools.partial(
                 _run, self.module, (*self.bound, *self._static)),
-                self.device)
+                self.device, spans=self.spans)
         for s, t in zip(pytree.tree_leaves(self._static),
                         pytree.tree_leaves(inputs)):
             if s.shape != t.shape or s.dtype != t.dtype:
@@ -322,14 +331,15 @@ def load_artifact(path: str, device=None) -> Served:
     dev, moves = _placement(meta, device, None)
     with _archive():
         program = _moved(torch.export.load(path), moves)
-    return Served(program, meta, dev)
+    return Served(program, meta, dev, spans=_spans(meta, moves))
 
 
 def read_bundle(dir_path: str, device=None, devices=None):
-    """-> (program, weights, meta, device) of a :func:`save_bundle`
+    """-> (program, weights, meta, device, spans) of a :func:`save_bundle`
     directory: ``weights`` (on the serving devices, in the program's
     order) is checked against the record's names, shapes and dtypes.
-    ``devices``: a grid program's D x N serving devices in row order."""
+    ``devices``: a grid program's D x N serving devices in row order;
+    ``spans`` its distinct serving devices (none for another program)."""
     meta = load_bundle_meta(dir_path)
     dev, moves = _placement(meta, device, devices)
     with _archive():
@@ -350,7 +360,8 @@ def read_bundle(dir_path: str, device=None, devices=None):
         if list(v.shape) != shape or str(v.dtype) != f"torch.{dtype}":
             raise ValueError(f"{WEIGHTS}: {k} is {tuple(v.shape)} {v.dtype},"
                              f" the program takes {tuple(shape)} {dtype}")
-    return program, {k: weights[k] for k in want}, meta, dev
+    return (program, {k: weights[k] for k in want}, meta, dev,
+            _spans(meta, moves))
 
 
 def load_bundle(dir_path: str, device=None, devices=None) -> Served:
@@ -358,8 +369,9 @@ def load_bundle(dir_path: str, device=None, devices=None) -> Served:
     with the weights of ``weights.pt`` bound (no model code needed).  A
     grid program serves on ``devices`` (D x N of them, row order), by
     default those it was exported on."""
-    program, weights, meta, dev = read_bundle(dir_path, device, devices)
-    return Served(program, meta, dev, weights)
+    program, weights, meta, dev, spans = read_bundle(dir_path, device,
+                                                     devices)
+    return Served(program, meta, dev, weights, spans)
 
 
 def draw_inputs(meta: dict, generator: torch.Generator):

@@ -23,8 +23,15 @@ and returns its outputs (a tensor, or lists, tuples and dicts of them).
   launches of each wrapper the capture recorded and ``replays`` how often
   the graph ran; what the card ran is read from a device trace
   (``chip_smoke.py``).
+- ``spans``: the other cards on which ``fn`` also runs work (a spatial
+  grid's, ``train/generator.py::GridProgram``).  The capture takes their
+  work into the same graph (``_spanning``), so one replay on ``device``'s
+  stream runs the whole grid's batch, and the next replay on that stream
+  starts only after every card's part of this one has ended.  A grid that
+  repeats one card spans no other card and runs the same code.
 """
 
+import contextlib
 import functools
 from typing import Callable, Dict, Sequence
 
@@ -32,15 +39,19 @@ import torch
 
 from ..kernels.bil_conv import conv3x3_bil
 from ..kernels.conv_in_stats import (conv3x3_noise_bias_lrelu_instats,
+                                     conv3x3_noise_bias_lrelu_instats_rows,
                                      conv3x3_noise_bias_lrelu_instats_s8)
 from ..kernels.quantize import quantize_s8
-from ..kernels.small_conv import conv3x3_small, conv3x3_small_s8
+from ..kernels.small_conv import (conv3x3_small, conv3x3_small_rows,
+                                  conv3x3_small_s8)
 
 # the kernel wrappers whose launches a capture records (``deltas``): kernels
-# 1-3, then int8 generation's s8 bodies and quantize pass
+# 1-3, int8 generation's s8 bodies and quantize pass, then the row-band
+# forms of kernels 1 and 2 (a spatial grid's)
 COUNTED = (conv3x3_noise_bias_lrelu_instats, conv3x3_small, conv3x3_bil,
            conv3x3_noise_bias_lrelu_instats_s8, conv3x3_small_s8,
-           quantize_s8)
+           quantize_s8, conv3x3_noise_bias_lrelu_instats_rows,
+           conv3x3_small_rows)
 
 # eager steps of a train step's ``GraphedCall`` before its capture: they
 # create the optimizer's state and cuDNN's plans (real steps)
@@ -73,9 +84,11 @@ def _tensors(out):
 
 class GraphedCall:
     """``pool``: a ``torch.cuda.graph_pool_handle()`` that the capture
-    shares with other graphs (default: a private pool)."""
+    shares with other graphs (default: a private pool).  ``spans``: the
+    other devices ``fn`` runs work on (``device`` itself is left out)."""
 
-    def __init__(self, fn: Callable, device, warmup: int = 1, pool=None):
+    def __init__(self, fn: Callable, device, warmup: int = 1, pool=None,
+                 spans: Sequence = ()):
         self.fn = fn
         self.pool = pool
         self.device = torch.device(device)
@@ -87,6 +100,12 @@ class GraphedCall:
         self.graph = None
         self.outputs = None
         self.deltas: Dict[Callable, int] = {}
+        self.spans = [d for d in dict.fromkeys(map(torch.device, spans))
+                      if d != self.device]
+        if any(d.type != self.device.type for d in self.spans):
+            raise ValueError(f"a call on {self.device} cannot span "
+                             f"{self.spans}")
+        self._pools = []  # the spanned devices' memory pools (a capture's)
 
     def __call__(self):
         if self.device.type == "cpu":
@@ -118,8 +137,42 @@ class GraphedCall:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), \
                 torch.cuda.graph(self.graph, pool=self.pool,
-                                 stream=_capture_stream(self.device)):
+                                 stream=_capture_stream(self.device)), \
+                self._spanning():
             return self.fn()
+
+    @contextlib.contextmanager
+    def _spanning(self):
+        """Inside the capture on ``device``: each device of ``spans`` works
+        on its own capture stream, forked from the capturing stream by an
+        event and joined back by one at the end, so that its kernels and
+        copies land in the same graph; between them, the events that
+        PyTorch's cross-device copies record on both devices' current
+        streams become the graph's edges.  ``torch.cuda.graph`` routes only
+        the capturing device's allocations into the graph's pool: each
+        spanned device allocates from a pool of its own (``MemPool``), kept
+        as long as the graph."""
+        main = torch.cuda.current_stream(self.device)
+        prev = [torch.cuda.current_stream(d) for d in self.spans]
+        sides = [_capture_stream(d) for d in self.spans]
+        self._pools = []
+        for d in self.spans:
+            with torch.cuda.device(d):
+                self._pools.append(torch.cuda.MemPool())
+        with contextlib.ExitStack() as stack:
+            try:
+                for d, side, pool in zip(self.spans, sides, self._pools):
+                    stack.enter_context(torch.cuda.use_mem_pool(pool, d))
+                    side.wait_stream(main)
+                    torch.cuda.set_stream(side)  # may switch the device
+                torch.cuda.set_device(main.device)
+                yield
+                for side in sides:
+                    main.wait_stream(side)
+            finally:
+                for p in prev:
+                    torch.cuda.set_stream(p)
+                torch.cuda.set_device(main.device)
 
     def _replay(self):
         self.graph.replay()

@@ -136,9 +136,14 @@ def with_halo(x: Bands, bounds: Bounds, devices) -> List[torch.Tensor]:
     last = len(parts) - 1
     for k, (p, d) in enumerate(zip(parts, devices)):
         edge = (p.shape[0], 1, *p.shape[2:])
-        top = parts[k - 1][:, -1:].to(d) if k > 0 else p.new_zeros(edge)
-        bottom = parts[k + 1][:, :1].to(d) if k < last else p.new_zeros(edge)
-        out.append(torch.cat([top, p, bottom], dim=1))
+        # contiguous edge rows: given a strided row (a view within one
+        # card), torch.cat takes its generic kernel, 4x slower on the card
+        # than the vectorized one (chip_smoke.halo_cat_ms)
+        top = (parts[k - 1][:, -1:].to(d).contiguous() if k > 0
+               else p.new_zeros(edge))
+        bottom = (parts[k + 1][:, :1].to(d).contiguous() if k < last
+                  else p.new_zeros(edge))
+        out.append(torch.cat([top, p.contiguous(), bottom], dim=1))
     return out
 
 
@@ -188,27 +193,50 @@ def blur_rows(x):
     return conv_rows(x, _cached_kernel(c, x.dtype, x.device), groups=c)
 
 
-def up_rows(block, x):
+def up_weights(block):
+    """(kernel, bias) of the block's up-sampling conv as ``up_rows`` takes
+    them: the nearest-2x conv's effective HWIO kernel and scaled bias, or
+    the deconv's kernel in PyTorch's (Cin, Cout, kh, kw) and no bias (its
+    module adds none)."""
+    conv = getattr(block, block.up_name)
+    cd = conv.compute_dtype
+    if block.up_name == "conv_1":
+        return conv.effective_weight(), (
+            None if conv.bias is None else (conv.bias * conv.lr_mult).to(cd))
+    # Conv2DTransposeW.forward's kernel
+    wt = (conv.weight * conv.scale).permute(2, 3, 0, 1).flip(0, 1)
+    return wt.to(cd).flip(0, 1).permute(2, 3, 0, 1), None
+
+
+def up_rows(block, x, weights=None):
     """The block's up-sampling conv over one band: ``x`` holds the band's
     rows of the coarser grid with a halo row on either side (rows a-1 ..
     b of the input for output rows 2a .. 2b-1) -> the band's rows.  The
     nearest-2x conv (8^2-64^2) drops the upsampled halo's outer rows and
     pads W only; the k4 s2 p1 deconv (from 128^2) pads H by 3, the rows
-    whose outputs lie outside the band."""
+    whose outputs lie outside the band.  ``weights``: ``up_weights(block)``
+    (made here when None)."""
     conv = getattr(block, block.up_name)
-    cd = conv.compute_dtype
-    x = x.to(cd)
+    w, b = up_weights(block) if weights is None else weights
+    x = x.to(conv.compute_dtype)
     if block.up_name == "conv_1":
-        b = (None if conv.bias is None
-             else (conv.bias * conv.lr_mult).to(cd))
-        return conv_rows(upsample_nearest_2x(x)[:, 1:-1],
-                         conv.effective_weight(), b)
-    # Conv2DTransposeW.forward's kernel, in PyTorch's (Cin, Cout, kh, kw)
-    wt = (conv.weight * conv.scale).permute(2, 3, 0, 1).flip(0, 1)
-    wt = wt.to(cd).flip(0, 1).permute(2, 3, 0, 1)
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), wt, stride=conv.stride,
+        return conv_rows(upsample_nearest_2x(x)[:, 1:-1], w, b)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=conv.stride,
                            padding=(conv.padding + 2, conv.padding))
     return y.permute(0, 2, 3, 1)
+
+
+def block_weights(blocks, up: bool) -> List[tuple]:
+    """Per band, the block's kernels that it derives from its parameters:
+    (``up_weights`` where ``up``, else None; conv_2's effective kernel),
+    made once a distinct module, so a grid that repeats a card makes them
+    once a batch, not once a band."""
+    made: Dict[int, tuple] = {}
+    for blk in blocks:
+        if id(blk) not in made:
+            made[id(blk)] = (up_weights(blk) if up else None,
+                             blk.conv_2.effective_weight().contiguous())
+    return [made[id(blk)] for blk in blocks]
 
 
 def noise_rows(noise: Optional[torch.Tensor], bounds: Bounds, devices):
@@ -223,6 +251,8 @@ def banded_block(blocks, devices, x: Bands, w1, w2, noise1, noise2,
     ``w2[k]`` on ``devices[k]``; ``noise1`` and ``noise2`` the block's
     whole (N, H, W, 1) noise on the first card."""
     b0 = blocks[0]
+    kernels = block_weights(blocks, up=not b0.first
+                            and x.bounds is not None)
     if b0.first:  # the constant: cut into bands
         y = as_bands(x, bounds, devices).parts
     else:
@@ -230,8 +260,8 @@ def banded_block(blocks, devices, x: Bands, w1, w2, noise1, noise2,
             up = whole(getattr(b0, b0.up_name)(x.parts[0]))
         else:
             coarse = tuple((a // 2, b // 2) for a, b in bounds)
-            up = Bands([up_rows(blk, t) for blk, t in zip(
-                blocks, with_halo(x, coarse, devices))], bounds)
+            up = Bands([up_rows(blk, t, k[0]) for blk, t, k in zip(
+                blocks, with_halo(x, coarse, devices), kernels)], bounds)
         y = [blur_rows(t) for t in with_halo(up, bounds, devices)]
     y = [leaky_relu(blk.bias_1(blk.noise_1(t, n)))
          for blk, t, n in zip(blocks, y, noise_rows(noise1, bounds,
@@ -241,12 +271,11 @@ def banded_block(blocks, devices, x: Bands, w1, w2, noise1, noise2,
     y = [blk.adain_1.apply_stats(t, m, v, s)
          for blk, t, (m, v), s in zip(blocks, y, stats, w1)]
     outs = [conv3x3_noise_bias_lrelu_instats_rows(
-        t, blk.conv_2.effective_weight().contiguous(),
-        n[..., 0].contiguous(), blk.noise_2.scale_factors, blk.bias_2.bias,
-        leaky=0.2)
-        for blk, t, n in zip(blocks, with_halo(Bands(y, bounds), bounds,
-                                               devices),
-                             noise_rows(noise2, bounds, devices))]
+        t, k[1], n[..., 0].contiguous(), blk.noise_2.scale_factors,
+        blk.bias_2.bias, leaky=0.2)
+        for blk, t, n, k in zip(blocks, with_halo(Bands(y, bounds), bounds,
+                                                  devices),
+                                noise_rows(noise2, bounds, devices), kernels)]
     stats = band_moments([(s1, s2) for _, s1, s2 in outs], h * w, devices)
     return Bands([blk.adain_2.apply_stats(t, m, v, s)
                   for blk, (t, _, _), (m, v), s in zip(blocks, outs, stats,

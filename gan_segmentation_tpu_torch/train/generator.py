@@ -28,10 +28,15 @@ D]``, the JAX package's ``(data, space)`` mesh) takes a grid of D rows of
 N devices: each batch is split over the rows as with ``--dp``, and each
 row splits every image's height into N bands, one a device
 (``core/spatial.py``: the band rule, the halo exchange, the cross-band
-instance-norm statistics; kernels 1 and 2 in their row-band form).  That
-body runs eagerly in this version (a CUDA graph captures one card); its
-images and masks equal one device's up to the rounding of the statistics'
-sums and of the kernels' split-K over a band's shape.
+instance-norm statistics; kernels 1 and 2 in their row-band form).  On a
+card the whole grid's batch is one CUDA graph per batch size, the
+counterpart of the JAX package's one jitted ``(data, space)`` program: the
+capture on the first card takes every card's kernels and halo copies
+(``GraphedCall(spans=...)``), after one eager batch, and replays from the
+second; the same code runs a grid that repeats one card.  Its images and
+masks equal one device's up to the rounding of the statistics' sums and of
+the kernels' split-K over a band's shape, and the eager grid's bit for
+bit.
 
 ``FusedPipeline(quant="int8" | "int8-full")`` (``generate --quant``) runs
 the decoder (and with ``int8-full`` the generator's synthesis convs) in
@@ -387,11 +392,12 @@ class FusedPipeline:
     replica of the program and one graph per part and device; the replicas
     take the program's weights again whenever it refolds.  Or a grid, a
     list of rows of N devices each (``core/mesh.py::generate_devices``):
-    with N > 1 each batch runs eagerly through ``grid_program()``, every
-    row's part split into N row bands; with N = 1 it is the list of the
-    rows' devices.  ``grid_program()`` is the whole grid's body as one
-    module (the bundle's program), with one copy of the weights a distinct
-    device, refreshed whenever the program refolds.
+    with N > 1 each batch runs ``grid_program()``, every row's part split
+    into N row bands, on a card as one graph per batch size over all the
+    grid's cards; with N = 1 it is the list of the rows' devices.
+    ``grid_program()`` is the whole grid's body as one module (the bundle's
+    program), with one copy of the weights a distinct device, refreshed in
+    place whenever the program refolds.
 
     ``quant="int8"``: the decoder runs in s8 (``ops/quant.py``); its input
     scales come from two fixed calibration batches of the generator
@@ -541,14 +547,16 @@ class FusedPipeline:
         part's graph, which the next batch overwrites."""
         z, noise = self.gen.draw_inputs(batch_size)
         program = self.program()  # refolds first, if the weights moved
-        if self.spatial > 1:  # eagerly: a CUDA graph captures one card
-            return [_infer(self.grid_program(), z, noise)]
-        if self.mesh is not None:
+        if self.spatial == 1 and self.mesh is not None:
             return self._mesh_batch(program, z, noise)
+        if self.spatial > 1:  # the whole grid's batch; its copies refold
+            program = self.grid_program()
         call = self._graphs.get(batch_size)
         if call is None:  # reads the program, not self: no reference cycle
-            call = self._graphs[batch_size] = GraphedCall(functools.partial(
-                _infer, program, z, noise=noise), self.gen.device)
+            call = self._graphs[batch_size] = GraphedCall(
+                functools.partial(_infer, program, z, noise),
+                self.gen.device,
+                spans=program.devices if self.spatial > 1 else ())
         return [call()]
 
     def _mesh_batch(self, program, z, noise):

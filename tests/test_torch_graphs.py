@@ -106,11 +106,13 @@ class StandInGraph(graphs.GraphedCall):
     """A capture stand-in that needs no card: ``_capture`` runs ``fn`` and
     keeps its outputs as the static ones, and ``_replay`` overwrites them
     in place with a new run of ``fn`` whose launches it takes back (a
-    replay runs no wrapper), as a CUDA graph's replays do."""
+    replay runs no wrapper), as a CUDA graph's replays do.  ``spans``
+    (a grid's devices) is kept as asked, in ``spans_asked``."""
 
-    def __init__(self, fn, device=None, warmup=1):
-        super().__init__(fn, "cuda", warmup)
+    def __init__(self, fn, device=None, warmup=1, pool=None, spans=()):
+        super().__init__(fn, "cuda", warmup, pool)
         self.captured_at = None
+        self.spans_asked = list(spans)
 
     def _warm(self):
         return self.fn()
