@@ -23,6 +23,9 @@ and returns its outputs (a tensor, or lists, tuples and dicts of them).
   launches of each wrapper the capture recorded and ``replays`` how often
   the graph ran; what the card ran is read from a device trace
   (``chip_smoke.py``).
+- Spans (``utils/profiling.py``): a call runs inside ``gst.graph.eager``
+  (on a CPU device, and the warm-up calls), ``gst.graph.capture`` or
+  ``gst.graph.replay``.
 - ``spans``: the other cards on which ``fn`` also runs work (a spatial
   grid's, ``train/generator.py::GridProgram``).  The capture takes their
   work into the same graph (``_spanning``), so one replay on ``device``'s
@@ -44,6 +47,7 @@ from ..kernels.conv_in_stats import (conv3x3_noise_bias_lrelu_instats,
 from ..kernels.quantize import quantize_s8
 from ..kernels.small_conv import (conv3x3_small, conv3x3_small_rows,
                                   conv3x3_small_s8)
+from ..utils.profiling import span
 
 # the kernel wrappers whose launches a capture records (``deltas``): kernels
 # 1-3, int8 generation's s8 bodies and quantize pass, then the row-band
@@ -109,15 +113,19 @@ class GraphedCall:
 
     def __call__(self):
         if self.device.type == "cpu":
-            return self.fn()
+            with span("gst.graph.eager"):
+                return self.fn()
         if self.calls < self.warmup:
             self.calls += 1
-            return self._warm()
+            with span("gst.graph.eager"):
+                return self._warm()
         if self.graph is None:
             before = launch_counts()
-            self.outputs = self._capture()
+            with span("gst.graph.capture"):
+                self.outputs = self._capture()
             self.deltas = {fn: fn.launches - n for fn, n in before.items()}
-        self._replay()
+        with span("gst.graph.replay"):
+            self._replay()
         self.calls += 1
         self.replays += 1
         return self.outputs

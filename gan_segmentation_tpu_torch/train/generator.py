@@ -61,6 +61,7 @@ from ..core.graphs import GraphedCall
 from ..core.mx_params import load_generator_params
 from ..models.stylegan import StyleGanGenerator, init_generator
 from ..ops import quant as q8
+from ..utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -545,7 +546,8 @@ class FusedPipeline:
         """[(uint8 images, uint8 masks)] of the next batch, one pair per
         part (one without a mesh); on a card the static outputs of the
         part's graph, which the next batch overwrites."""
-        z, noise = self.gen.draw_inputs(batch_size)
+        with span("gst.pipe.draw"):
+            z, noise = self.gen.draw_inputs(batch_size)
         program = self.program()  # refolds first, if the weights moved
         if self.spatial == 1 and self.mesh is not None:
             return self._mesh_batch(program, z, noise)
@@ -617,23 +619,27 @@ class FusedPipeline:
         marks its end, so waiting for batch i does not wait for batch i+1
         enqueued after it on the same stream.  The copy reads the graph's
         static outputs before the next replay, which is enqueued after
-        it."""
-        parts = self._batch(batch_size)
-        if parts[0][0].device.type != "cuda":
-            return (*(torch.cat([p[i] for p in parts]) for i in (0, 1)),
-                    [])
-        host = [torch.empty((batch_size, *t.shape[1:]), dtype=t.dtype,
-                            pin_memory=True) for t in parts[0]]
-        done, start = [], 0
-        for imgs, masks in parts:
-            n = len(imgs)
-            for h, t in zip(host, (imgs, masks)):
-                h[start:start + n].copy_(t, non_blocking=True)
-            with torch.cuda.device(imgs.device):
-                done.append(torch.cuda.Event())
-                done[-1].record()
-            start += n
-        return host[0], host[1], done
+        it.  Spans: ``gst.pipe.enqueue`` around it all, ``gst.pipe.draw``
+        and the graph's inside, then ``gst.pipe.copy``."""
+        with span("gst.pipe.enqueue"):
+            parts = self._batch(batch_size)
+            with span("gst.pipe.copy"):
+                if parts[0][0].device.type != "cuda":
+                    return (*(torch.cat([p[i] for p in parts])
+                              for i in (0, 1)), [])
+                host = [torch.empty((batch_size, *t.shape[1:]),
+                                    dtype=t.dtype, pin_memory=True)
+                        for t in parts[0]]
+                done, start = [], 0
+                for imgs, masks in parts:
+                    n = len(imgs)
+                    for h, t in zip(host, (imgs, masks)):
+                        h[start:start + n].copy_(t, non_blocking=True)
+                    with torch.cuda.device(imgs.device):
+                        done.append(torch.cuda.Event())
+                        done[-1].record()
+                    start += n
+                return host[0], host[1], done
 
     def generate_batches(self, n: int
                          ) -> Iterator[Tuple[np.ndarray, np.ndarray, bool]]:
@@ -650,8 +656,9 @@ class FusedPipeline:
             take = min(b, n - produced)
             if produced + take < n:
                 pending = self._enqueue(b)
-            for event in done:
-                event.synchronize()
+            with span("gst.pipe.wait"):
+                for event in done:
+                    event.synchronize()
             yield (imgs.numpy()[:take], masks.numpy()[:take],
                    self._pack_masks)
             produced += take

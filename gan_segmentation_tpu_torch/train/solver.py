@@ -81,6 +81,7 @@ from ..metrics.seg_metrics import SegmentationMetric
 from ..models.decoder import decoder_from_config
 from ..ops.losses import weighted_softmax_ce
 from ..utils.io import list_files_with_ext
+from ..utils.profiling import span
 from .generator import class_mask
 
 log = logging.getLogger(__name__)
@@ -383,7 +384,10 @@ class SegSolver:
         (loss, accuracy), returned once the epoch is enqueued: its steps as
         replays of the train step's graph (its first ``GRAPH_WARMUP_STEPS``
         calls run eagerly) in ``_epoch_batches``' order, each on ``part``
-        of its batch.  It is overwritten by the next epoch."""
+        of its batch.  It is overwritten by the next epoch.  Spans:
+        ``gst.fit.epoch`` around ``run``, holding ``gst.fit.stage`` (the
+        order and its indices to the card) and one ``gst.fit.step`` a step
+        (rate, indices, dropout draws, the graph's call)."""
         cfg, dev = self.cfg, self.device
         n_max = len(cached[1]) // cfg.train_batch_size
         b = len(range(cfg.train_batch_size)[part])
@@ -411,22 +415,26 @@ class SegSolver:
         call = GraphedCall(step, dev, warmup=GRAPH_WARMUP_STEPS)
 
         def run(epoch, first_step):
-            steps = [idx[part] for idx in self._epoch_orders(len(masks_all),
-                                                             epoch)]
-            n = len(steps)
-            if n == 0:
-                return series[:0]
-            # the previous epoch's series was copied to the host, which
-            # waited for its steps: the pinned buffer is free
-            idx_host[:n].copy_(torch.from_numpy(np.stack(steps)))
-            idx_all[:n].copy_(idx_host[:n], non_blocking=True)
-            for k in range(n):
-                _set_rate(optimizer, lr(first_step + k))
-                idx.copy_(idx_all[k])
-                if dropout_u is not None:
-                    self.model.draw_dropout(None, dropout_gen, out=dropout_u)
-                series[k].copy_(call())
-            return series[:n]
+            with span("gst.fit.epoch"):
+                with span("gst.fit.stage"):
+                    steps = [idx[part] for idx in self._epoch_orders(
+                        len(masks_all), epoch)]
+                    n = len(steps)
+                    if n == 0:
+                        return series[:0]
+                    # the previous epoch's series was copied to the host,
+                    # which waited for its steps: the pinned buffer is free
+                    idx_host[:n].copy_(torch.from_numpy(np.stack(steps)))
+                    idx_all[:n].copy_(idx_host[:n], non_blocking=True)
+                for k in range(n):
+                    with span("gst.fit.step"):
+                        _set_rate(optimizer, lr(first_step + k))
+                        idx.copy_(idx_all[k])
+                        if dropout_u is not None:
+                            self.model.draw_dropout(None, dropout_gen,
+                                                    out=dropout_u)
+                        series[k].copy_(call())
+                return series[:n]
 
         run.call = call  # its graph and launch deltas
         return run

@@ -1,12 +1,12 @@
-"""The port's twins of six JAX-package helpers that no path of either
+"""The port's twins of five JAX-package helpers that no path of either
 package runs but the JAX tests cover, each held to its original on the
 CPU: ``ops/resize.py::upsample_nearest``, ``utils/io.py::{list_subdirs,
-list_images}``, ``models/layers.py::{minibatch_std_layer,
-normal_with_l2_norm}`` and ``utils/profiling.py::Speedometer``.  The
-copies of modules that import no jax (``utils/io.py``) and the meter run
-the same code, so they agree exactly; the tensor ops agree to f32
-rounding (1e-6), and the initializer's draws differ by generator, so its
-contract is held instead (shape, unit norm, the draws' scale)."""
+list_images}`` and ``models/layers.py::{minibatch_std_layer,
+normal_with_l2_norm}``.  The copies of modules that import no jax
+(``utils/io.py``) run the same code, so they agree exactly; the tensor
+ops agree to f32 rounding (1e-6), and the initializer's draws differ by
+generator, so its contract is held instead (shape, unit norm, the draws'
+scale)."""
 
 import os
 
@@ -19,12 +19,10 @@ import torch
 from gan_segmentation_tpu.models import layers as jlayers
 from gan_segmentation_tpu.ops import resize as jresize
 from gan_segmentation_tpu.utils import io as jio
-from gan_segmentation_tpu.utils import profiling as jprof
 
 from gan_segmentation_tpu_torch.models import layers as tlayers
 from gan_segmentation_tpu_torch.ops import resize as tresize
 from gan_segmentation_tpu_torch.utils import io as tio
-from gan_segmentation_tpu_torch.utils import profiling as tprof
 
 
 @pytest.mark.parametrize("scale", [1, 2, 3, 4])
@@ -89,23 +87,3 @@ def test_normal_with_l2_norm(sigma):
     # the entries' spread: 1 / sqrt(numel) for both, whatever sigma
     assert abs(float(got.std()) * np.sqrt(got.numel()) - 1) < 0.05
     assert abs(float(want.std()) * np.sqrt(want.size) - 1) < 0.05
-
-
-def test_speedometer_matches(monkeypatch):
-    """Both meters read the same clock: the same rates at the same calls."""
-    clock = iter(np.arange(0.0, 100.0, 0.25))
-    now = {"t": 0.0}
-
-    def tick():
-        return now["t"]
-
-    monkeypatch.setattr(jprof.time, "time", tick)
-    monkeypatch.setattr(tprof.time, "time", tick)
-    a, b = jprof.Speedometer(4, n_chips=2), tprof.Speedometer(4, n_chips=2)
-    out = []
-    for _ in range(12):
-        now["t"] = next(clock)
-        out.append((a.update(8), b.update(8)))
-    assert [x for x, _ in out] == [y for _, y in out]
-    assert [x is not None for x, _ in out] == [i % 4 == 3 for i in range(12)]
-    assert tprof.Speedometer(n_chips=0).n_chips == 1
