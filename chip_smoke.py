@@ -967,6 +967,104 @@ def phase_kernels(torch, gcfg, scfg):
     return rec
 
 
+# the widest synthesis blocks (H = W, C), where the per-pixel passes move
+# most of their bytes
+ADAIN_SHAPES = ((1024, 16), (512, 32), (256, 64))
+
+
+def adain_bytes(n, h, w, c, elem):
+    """(pass A, pass B) bytes, each moved once: pass A reads x and the f32
+    noise and writes y (and its parameters and sums), pass B reads x and
+    writes y (and the statistics and styles)."""
+    act = n * h * w * c * elem
+    return (2 * act + 4 * n * h * w + 8 * c + 8 * n * c,
+            2 * act + 8 * n * c + 2 * n * c * elem)
+
+
+def eager_chain(torch, x, noise, nscale, bias, ys, yb):
+    """The block's chain as PyTorch ops, one at a time, as it ran before
+    the two passes (AddNoise, Bias, leaky_relu, instance_norm, the
+    affine's modulation), from the blur's output to AdaIN 1's, and AdaIN
+    2's apply on the same tensor: what the passes replace."""
+    dt = x.dtype
+    y = x + (noise[..., None] * nscale).to(dt)
+    y = y + bias.to(dt)
+    y = torch.where(y >= 0, y, 0.2 * y)
+    yf = y.float()
+    mean = yf.mean(dim=(1, 2))
+    var = (yf * yf).mean(dim=(1, 2)) - mean * mean
+
+    def apply(t, m, v):
+        v = torch.clamp_min(v, 0.0)[:, None, None, :]
+        t = ((t.float() - m[:, None, None, :]) * torch.rsqrt(v + 1e-5)).to(dt)
+        return (t * (ys + 1.0)[:, None, None, :]
+                + yb[:, None, None, :]).to(dt)
+    y = apply(y, mean, var)
+    return apply(y, mean, var)
+
+
+def phase_adain(torch, smi=None):
+    """The synthesis block's two per-pixel passes (kernels/adain_fused.py)
+    at the widest blocks of ffhq (bf16, batch 8): each checked against its
+    plain version (y bit for bit, the sums to f32 rounding), then timed by
+    graph replay beside its byte floor, the plain version and the chain
+    of PyTorch ops it replaced (one pass A and two pass B a block, as a
+    block runs them)."""
+    from gan_segmentation_tpu_torch.kernels import adain_fused as af
+    smi = smi or smi_line()
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(23)
+    n, dt, recs = BATCH, torch.bfloat16, []
+    for hw, c in ADAIN_SHAPES:
+        x = (1.5 * torch.randn(n, hw, hw, c, generator=g, device=dev)
+             + 0.3).to(dt)
+        noise = torch.randn(n, hw, hw, generator=g, device=dev)
+        nscale, bias = (0.5 * torch.randn(c, generator=g, device=dev)
+                        for _ in range(2))
+        st = torch.randn(n, 2 * c, generator=g, device=dev).to(dt)
+        ys, yb = st[:, :c], st[:, c:]
+        y, s1, s2 = af.noise_bias_lrelu_stats(x, noise, nscale, bias)
+        out = af.adain_apply(y, s1, s2, ys, yb, count=hw * hw)
+        cpu = [t.cpu() for t in (x, noise, nscale, bias, ys, yb)]
+        want = af.noise_bias_lrelu_stats_plain(*cpu[:4])
+        assert torch.equal(y.cpu(), want[0]), f"pass A y at {hw}^2 x {c}"
+        yf = want[0].float()
+        for got, ref, scale in ((s1, want[1], yf.abs().sum(dim=(1, 2))),
+                                (s2, want[2], (yf * yf).sum(dim=(1, 2)))):
+            err = float(((got.cpu() - ref).abs() / (scale + 1e-6)).max())
+            assert err <= 1e-6, f"pass A sums at {hw}^2 x {c}: {err:.3g}"
+        ref = af.adain_apply_plain(want[0], s1.cpu(), s2.cpu(), *cpu[4:],
+                                   count=hw * hw)
+        assert torch.equal(out.cpu(), ref), f"pass B y at {hw}^2 x {c}"
+        ba, bb = adain_bytes(n, hw, hw, c, 2)
+        rec = {"shape": [n, hw, hw, c], "bytes": [ba, bb],
+               "bound_ms": [ba / HBM_RATE * 1e3, bb / HBM_RATE * 1e3]}
+        rec["a_ms"] = graph_ms(lambda: af.noise_bias_lrelu_stats(
+            x, noise, nscale, bias))
+        rec["b_ms"] = graph_ms(lambda: af.adain_apply(y, s1, s2, ys, yb,
+                                                      count=hw * hw))
+        rec["a_plain_ms"] = graph_ms(lambda: af.noise_bias_lrelu_stats_plain(
+            x, noise, nscale, bias))
+        rec["b_plain_ms"] = graph_ms(lambda: af.adain_apply_plain(
+            y, s1, s2, ys, yb, count=hw * hw))
+        rec["block_ms"] = rec["a_ms"] + 2 * rec["b_ms"]
+        rec["block_bound_ms"] = rec["bound_ms"][0] + 2 * rec["bound_ms"][1]
+        rec["eager_chain_ms"] = graph_ms(lambda: eager_chain(
+            torch, x, noise, nscale, bias, ys, yb))
+        log(f"adain passes {hw}^2 x {c} bf16 batch {n}: pass A "
+            f"{rec['a_ms']:.4f} ms (floor {rec['bound_ms'][0]:.4f}, share "
+            f"{rec['bound_ms'][0] / rec['a_ms']:.3f}; plain "
+            f"{rec['a_plain_ms']:.4f}), pass B {rec['b_ms']:.4f} ms (floor "
+            f"{rec['bound_ms'][1]:.4f}, share "
+            f"{rec['bound_ms'][1] / rec['b_ms']:.3f}; plain "
+            f"{rec['b_plain_ms']:.4f}); a block's A + 2 B "
+            f"{rec['block_ms']:.4f} ms against the eager chain's "
+            f"{rec['eager_chain_ms']:.4f} on {smi}")
+        recs.append(rec)
+    print(json.dumps({"adain_passes": recs, "smi": smi}), flush=True)
+    return recs
+
+
 def phase_split_sweep(torch, gcfg, scfg, g, inputs):
     """Every f32 path shape of kernels 1 and 2 whose mma.sync 3xTF32 plan
     splits K: device time (graph replay) on that body with the plan's split
@@ -7841,6 +7939,7 @@ def main():
     gcfg, scfg = gan_config("ffhq"), SolverConfig(max_res_log2=10)
     marks.append(("build", time.perf_counter()))
     rec = phase_kernels(torch, gcfg, scfg)
+    phase_adain(torch, smi)
     marks.append(("kernels", time.perf_counter()))
 
     # 4. generate

@@ -40,6 +40,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from ..kernels.adain_fused import adain_apply, noise_bias_lrelu_stats
 from ..kernels.bil_conv import conv3x3_bil
 from ..kernels.conv_in_stats import (conv3x3_noise_bias_lrelu_instats,
                                      conv3x3_noise_bias_lrelu_instats_rows,
@@ -50,12 +51,13 @@ from ..kernels.small_conv import (conv3x3_small, conv3x3_small_rows,
 from ..utils.profiling import span
 
 # the kernel wrappers whose launches a capture records (``deltas``): kernels
-# 1-3, int8 generation's s8 bodies and quantize pass, then the row-band
-# forms of kernels 1 and 2 (a spatial grid's)
+# 1-3, int8 generation's s8 bodies and quantize pass, the row-band forms of
+# kernels 1 and 2 (a spatial grid's), then the synthesis block's two
+# per-pixel passes
 COUNTED = (conv3x3_noise_bias_lrelu_instats, conv3x3_small, conv3x3_bil,
            conv3x3_noise_bias_lrelu_instats_s8, conv3x3_small_s8,
            quantize_s8, conv3x3_noise_bias_lrelu_instats_rows,
-           conv3x3_small_rows)
+           conv3x3_small_rows, noise_bias_lrelu_stats, adain_apply)
 
 # eager steps of a train step's ``GraphedCall`` before its capture: they
 # create the optimizer's state and cuDNN's plans (real steps)

@@ -33,11 +33,12 @@ uint8) need no halo.
 
 Cross-band statistics (``band_moments``).  AdaIN's instance norm needs the
 mean and variance of the whole image: each band gives its per-(image,
-channel) sums of v and v^2 (kernel 1's row-band form returns them; AdaIN
-1's are plain), they are added on the row's first card in band order
-(band 0 first) and the mean and variance (E[v^2] - mean^2, clamped at 0 by
-``ops/norm.py::instance_norm_apply`` where it is today) go back to every
-card, so every card normalizes with the same numbers.
+channel) sums of v and v^2 (kernel 1's row-band form returns them for
+AdaIN 2, the block's first pass, ``kernels/adain_fused.py::
+noise_bias_lrelu_stats``, for AdaIN 1), they are added on the row's first
+card in band order (band 0 first) and the mean and variance (E[v^2] -
+mean^2, clamped at 0 by the apply, ``adain_fused.adain_apply``) go back to
+every card, so every card normalizes with the same numbers.
 """
 
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -45,9 +46,9 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.adain_fused import noise_bias_lrelu_stats
 from ..kernels.conv_in_stats import conv3x3_noise_bias_lrelu_instats_rows
 from ..kernels.small_conv import conv3x3_small, conv3x3_small_rows
-from ..models.layers import leaky_relu
 from ..ops.blur import _cached_kernel
 from ..ops.resize import upsample_nearest_2x
 
@@ -160,7 +161,7 @@ def band_moments(sums: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     """(mean, var) per (image, channel) of the whole image, on every card,
     from each band's (sum of v, sum of v^2): added on the first card in
     band order, so every card gets the same numbers; var = E[v^2] - mean^2,
-    not clamped (``instance_norm_apply`` clamps)."""
+    not clamped (``adain_fused.adain_apply`` clamps)."""
     dev0 = devices[0]
     s1 = s2 = None
     for a, b in sums:
@@ -170,11 +171,6 @@ def band_moments(sums: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     mean = s1 / count
     var = s2 / count - mean * mean
     return [(mean.to(d), var.to(d)) for d in devices]
-
-
-def plain_sums(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    yf = y.float()
-    return yf.sum(dim=(1, 2)), (yf * yf).sum(dim=(1, 2))
 
 
 def conv_rows(x, w, b=None, groups: int = 1):
@@ -263,13 +259,14 @@ def banded_block(blocks, devices, x: Bands, w1, w2, noise1, noise2,
             up = Bands([up_rows(blk, t, k[0]) for blk, t, k in zip(
                 blocks, with_halo(x, coarse, devices), kernels)], bounds)
         y = [blur_rows(t) for t in with_halo(up, bounds, devices)]
-    y = [leaky_relu(blk.bias_1(blk.noise_1(t, n)))
-         for blk, t, n in zip(blocks, y, noise_rows(noise1, bounds,
-                                                    devices))]
+    outs = [noise_bias_lrelu_stats(
+        t.contiguous(), n[..., 0].contiguous(), blk.noise_1.scale_factors,
+        blk.bias_1.bias, leaky=0.2)
+        for blk, t, n in zip(blocks, y, noise_rows(noise1, bounds, devices))]
     h, w = noise1.shape[1:3]
-    stats = band_moments([plain_sums(t) for t in y], h * w, devices)
+    stats = band_moments([(s1, s2) for _, s1, s2 in outs], h * w, devices)
     y = [blk.adain_1.apply_stats(t, m, v, s)
-         for blk, t, (m, v), s in zip(blocks, y, stats, w1)]
+         for blk, (t, _, _), (m, v), s in zip(blocks, outs, stats, w1)]
     outs = [conv3x3_noise_bias_lrelu_instats_rows(
         t, k[1], n[..., 0].contiguous(), blk.noise_2.scale_factors,
         blk.bias_2.bias, leaky=0.2)

@@ -296,5 +296,13 @@ def library():
     # kernel 3 on the Hopper body: kernel 2's arguments (a workspace)
     lib.gst_conv3x3_bil_sm90.restype = i
     lib.gst_conv3x3_bil_sm90.argtypes = lib.gst_conv3x3_small.argtypes
+    # the synthesis block's per-pixel passes (adain_fused.py)
+    lib.gst_noise_bias_lrelu_stats.restype = i
+    lib.gst_noise_bias_lrelu_stats.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                               i, i, i, i, i, i, f, vp]
+    ll = ctypes.c_longlong
+    lib.gst_adain_apply.restype = i
+    lib.gst_adain_apply.argtypes = [vp, vp, vp, vp, vp, ll, ll, vp, i, i, i,
+                                    i, i, i, f, f, vp]
     _LIB = lib
     return lib

@@ -16,7 +16,7 @@ and keeps its contract: NHWC / HWIO, stride 1, pad 1, ``w`` the effective
 (wscaled) kernel, ``noise`` (N, H, W) f32, ``nscale`` and ``bias`` (Cout,) f32;
 ``y`` in x's dtype; ``mean`` and ``var`` (N, Cout) f32 taken from the f32
 epilogue values, with ``var = E[y^2] - mean^2`` NOT clamped — the consumer
-(`ops.norm.instance_norm_apply`) clamps.  Unlike Pallas, any H and W run.
+(`kernels/adain_fused.py::adain_apply`) clamps.  Unlike Pallas, any H and W run.
 
 ``conv3x3_noise_bias_lrelu_instats_s8`` is its s8 body (int8-full
 generation, ``torch.ops.gst.conv3x3_in_stats_s8``): x s8, w s8 laid out

@@ -6,7 +6,9 @@ pass as ``torch.library`` custom ops, so that a tracer (``torch.export``,
 ``torch.ops.gst.conv3x3_in_stats_s8``, ``torch.ops.gst.quantize_s8``, and
 the row-band forms of kernels 1 and 2 (``generate --spatial``)
 ``torch.ops.gst.conv3x3_small_rows`` and
-``torch.ops.gst.conv3x3_in_stats_rows``.
+``torch.ops.gst.conv3x3_in_stats_rows``; the synthesis block's two
+per-pixel passes around kernel 1, ``torch.ops.gst.noise_bias_lrelu_stats``
+and ``torch.ops.gst.adain_apply`` (``adain_fused.py``).
 
 - CPU: the plain PyTorch version (``*_plain`` beside each wrapper).
 - CUDA: the hand-written kernel through the ``ctypes`` library of
@@ -19,7 +21,8 @@ the row-band forms of kernels 1 and 2 (``generate --spatial``)
   to its wrapper's ``launches`` (``small_conv.conv3x3_small``,
   ``conv_in_stats.conv3x3_noise_bias_lrelu_instats``,
   ``bil_conv.conv3x3_bil``, the ``_s8`` and ``_rows`` twins,
-  ``quantize.quantize_s8``), the one counter a run reads whether the call
+  ``quantize.quantize_s8``, ``adain_fused.noise_bias_lrelu_stats`` and
+  ``adain_fused.adain_apply``), the one counter a run reads whether the call
   came through the wrapper or from an exported program.
 - Fake (``register_fake``): the output shapes and dtypes, from the inputs'
   alone; the library is not touched.
@@ -34,7 +37,8 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from . import _build, bil_conv, conv_in_stats, quantize, small_conv
+from . import (_build, adain_fused, bil_conv, conv_in_stats, quantize,
+               small_conv)
 
 
 @torch.library.custom_op("gst::conv3x3_small", mutates_args=(),
@@ -364,3 +368,74 @@ def _(x, w, deq, noise, nscale, bias, leaky, out_f32):
     mean = sums[:, 0] / (h * wd)
     var = sums[:, 1] / (h * wd) - mean * mean
     return y, mean, var
+
+
+@torch.library.custom_op("gst::noise_bias_lrelu_stats", mutates_args=(),
+                         device_types="cpu")
+def noise_bias_lrelu_stats_op(x: Tensor, noise: Tensor, nscale: Tensor,
+                              bias: Tensor, leaky: float
+                              ) -> Tuple[Tensor, Tensor, Tensor]:
+    """Pass A: y = leaky(x + noise * nscale + bias) in x's dtype, and the
+    (N, C) f32 sums of y and y^2 over H, W."""
+    return adain_fused.noise_bias_lrelu_stats_plain(x, noise, nscale, bias,
+                                                    leaky=leaky)
+
+
+@noise_bias_lrelu_stats_op.register_fake
+def _(x, noise, nscale, bias, leaky):
+    sums = (x.shape[0], x.shape[3])
+    return (x.new_empty(x.shape), x.new_empty(sums, dtype=torch.float32),
+            x.new_empty(sums, dtype=torch.float32))
+
+
+@noise_bias_lrelu_stats_op.register_kernel("cuda")
+def _(x, noise, nscale, bias, leaky):
+    n, h, wd, c = adain_fused.check_stats_args(x, noise, nscale, bias)
+    dev = x.device
+    tile_px, tiles = adain_fused.launch_tiles(x)
+    y = torch.empty_like(x)
+    partial = torch.empty((n, tiles, 2, c), dtype=torch.float32, device=dev)
+    s1, s2 = (torch.empty((n, c), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    with torch.cuda.device(dev):
+        rc = _build.library().gst_noise_bias_lrelu_stats(
+            x.data_ptr(), noise.data_ptr(), nscale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), n, h * wd, c, tile_px,
+            tiles, _build.DTYPE_CODES[x.dtype], float(leaky), _stream(dev))
+    _build.check_launch(rc, "noise_bias_lrelu_stats")
+    adain_fused.noise_bias_lrelu_stats.launches += 1
+    return y, s1, s2
+
+
+@torch.library.custom_op("gst::adain_apply", mutates_args=(),
+                         device_types="cpu")
+def adain_apply_op(x: Tensor, mean: Tensor, var: Tensor, ys: Tensor,
+                   yb: Tensor, eps: float, count: int) -> Tensor:
+    """Pass B: (x - mean) * rsqrt(max(var, 0) + eps) * (ys + 1) + yb in
+    x's dtype; ``count`` > 0: mean and var are sums over ``count``
+    pixels."""
+    return adain_fused.adain_apply_plain(x, mean, var, ys, yb, eps=eps,
+                                         count=count)
+
+
+@adain_apply_op.register_fake
+def _(x, mean, var, ys, yb, eps, count):
+    return x.new_empty(x.shape)
+
+
+@adain_apply_op.register_kernel("cuda")
+def _(x, mean, var, ys, yb, eps, count):
+    n, h, wd, c = adain_fused.check_apply_args(x, mean, var, ys, yb)
+    dev = x.device
+    tile_px, tiles = adain_fused.launch_tiles(x)
+    y = torch.empty_like(x)
+    with torch.cuda.device(dev):
+        rc = _build.library().gst_adain_apply(
+            x.data_ptr(), mean.data_ptr(), var.data_ptr(), ys.data_ptr(),
+            yb.data_ptr(), ys.stride(0), yb.stride(0), y.data_ptr(), n,
+            h * wd, c, tile_px, tiles, _build.DTYPE_CODES[x.dtype],
+            float(eps), float(count), _stream(dev))
+    _build.check_launch(rc, "adain_apply")
+    adain_fused.adain_apply.launches += 1
+    return y

@@ -25,11 +25,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.adain_fused import adain_apply
 from ..ops import quant
 from ..ops.blur import blur_3x3
 from ..ops.conv import (_UP2, compose_kernel_2d, conv2d, conv_transpose2d,
                         upsample2x_conv2d)
-from ..ops.norm import instance_norm, instance_norm_apply
 from ..ops.wscale import wscale_std
 
 SQRT2 = math.sqrt(2)
@@ -211,7 +211,8 @@ class AddNoise(nn.Module):
 class AdaIN(nn.Module):
     """Instance norm + per-style affine (`networks_stylegan.py:239-264`):
     ``instance_norm(x) * (ys + 1) + yb`` with ``(ys, yb) = affine(w)``; the
-    affine's gain is 1."""
+    affine's gain is 1.  The apply is one pass over x
+    (``kernels/adain_fused.py::adain_apply``)."""
 
     def __init__(self, channels: int, w_dim: int, use_wscale: bool = True,
                  compute_dtype: torch.dtype = torch.float32):
@@ -221,18 +222,20 @@ class AdaIN(nn.Module):
                              use_wscale=use_wscale,
                              compute_dtype=compute_dtype)
 
-    def _modulate(self, x_norm, w, dtype):
-        y = self.affine(w)
-        ys = y[:, : self.channels][:, None, None, :]
-        yb = y[:, self.channels:][:, None, None, :]
-        return (x_norm * (ys + 1.0) + yb).to(dtype)
-
     def forward(self, x, w):
-        return self._modulate(instance_norm(x), w, x.dtype)
+        xf = x.float()
+        return self.apply_stats(x.contiguous(), xf.sum(dim=(1, 2)),
+                                (xf * xf).sum(dim=(1, 2)), w,
+                                count=x.shape[1] * x.shape[2])
 
-    def apply_stats(self, x, mean, var, w):
-        """The same, from statistics computed by kernel 1."""
-        return self._modulate(instance_norm_apply(x, mean, var), w, x.dtype)
+    def apply_stats(self, x, mean, var, w, count: int = 0):
+        """The same, from statistics computed elsewhere: (mean, var) as
+        kernel 1 returns them, or with ``count`` > 0 the sums of v and v^2
+        over ``count`` pixels as pass A
+        (``adain_fused.noise_bias_lrelu_stats``) returns them."""
+        y = self.affine(w)
+        c = self.channels
+        return adain_apply(x, mean, var, y[:, :c], y[:, c:], count=count)
 
 
 class Blur(nn.Module):

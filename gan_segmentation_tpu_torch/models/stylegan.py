@@ -10,8 +10,9 @@ resolution 4^2 .. 2^max_res_log2 -> ``to_rgb`` 1x1 conv.  Each block:
 
 The second half (conv_2 .. lrelu plus the AdaIN statistics) is ONE launch
 of kernel 1 (`kernels/conv_in_stats.py`); AdaIN then applies those
-statistics.  The first half stays plain PyTorch, because the blur sits
-between conv_1 and noise_1.  Layout is NHWC.
+statistics.  The first half's noise .. lrelu and its statistics are one
+pass after the blur (`kernels/adain_fused.py`, pass A), and each AdaIN
+apply is one pass (pass B).  Layout is NHWC.
 
 Int8 (``generate --quant int8-full``, ``ops/quant.py``): ``forward(...,
 quant=state)`` runs every synthesis conv in s8 (conv_2 through kernel 1's
@@ -26,6 +27,7 @@ import torch
 from torch import nn
 
 from ..core.config import GanConfig
+from ..kernels.adain_fused import noise_bias_lrelu_stats
 from ..kernels.conv_in_stats import conv3x3_noise_bias_lrelu_instats
 from ..ops.norm import pixel_norm
 from ..ops.quant import qconv3x3_in_stats, record_absmax
@@ -101,9 +103,12 @@ class StyleBlock(nn.Module):
             record_absmax(absmax, site, y.to(cd))
             y = self.blur_1(getattr(self, self.up_name)(
                 y, None if quant is None else quant.get(site)))
-        y = self.noise_1(y, noise[0], generator)
-        y = leaky_relu(self.bias_1(y))
-        y = self.adain_1(y, w1)
+        n1 = noise[0] if noise[0] is not None else AddNoise.draw(y, generator)
+        y, s1, s2 = noise_bias_lrelu_stats(
+            y.contiguous(), n1[..., 0].contiguous(),
+            self.noise_1.scale_factors, self.bias_1.bias, leaky=0.2)
+        y = self.adain_1.apply_stats(y, s1, s2, w1,
+                                     count=y.shape[1] * y.shape[2])
 
         n2 = noise[1] if noise[1] is not None else AddNoise.draw(y, generator)
         args = (n2[..., 0].contiguous(), self.noise_2.scale_factors,

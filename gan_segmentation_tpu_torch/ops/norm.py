@@ -4,8 +4,10 @@
 - ``instance_norm``: per-(N, C) standardization over H, W with one-pass
   moments and the variance clamped at 0, eps 1e-5.
 - ``instance_norm_apply``: the same normalization from statistics computed
-  elsewhere — kernel 1 (`kernels/conv_in_stats.py`) returns an UNclamped
-  variance, so the clamp lives here.
+  elsewhere (kernel 1, `kernels/conv_in_stats.py`, returns an UNclamped
+  variance, so the clamp lives here).  The generator applies AdaIN in one
+  pass with the same arithmetic (`kernels/adain_fused.py::adain_apply`);
+  these two are the references its tests hold it to.
 - ``batch_norm_train`` / ``batch_norm``: the JAX package's ``BatchNorm``
   (momentum 0.9, i.e. PyTorch's 0.1), whose train mode folds the BIASED
   batch variance into the running variance; the first is the formula

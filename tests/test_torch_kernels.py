@@ -199,7 +199,8 @@ def test_build_failure_raises(monkeypatch, tmp_path):
 
 def test_build_cache_key_covers_every_source():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build._sources())
-    assert names == ["bil_conv.cu", "bil_conv_sm90.cu", "conv3x3_core.cuh",
+    assert names == ["adain_fused.cu", "bil_conv.cu", "bil_conv_sm90.cu",
+                     "conv3x3_core.cuh",
                      "conv3x3_sm90.cuh", "conv3x3_tc.cuh", "conv3x3_tf32.cuh",
                      "conv_in_stats.cu", "conv_in_stats_f32.cu",
                      "conv_in_stats_rows.cu",
