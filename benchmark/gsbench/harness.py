@@ -15,6 +15,19 @@ A cell is an entry of ``BENCHMARK.json``'s ``workloads``.  Its files:
 
 A later cell, configuration, traffic mix or metric is a new file and a new
 entry of ``BENCHMARK.json``; no file here names one.
+
+A cell whose ``chips`` is more than 1 runs as a world of one process per
+card (``world.py``), each calling the runner's ``run`` as a one-card cell
+does, on its own card, with the launcher's environment
+(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``)
+from which the program joins its own group.  Rank 0 is the measuring
+process: the end-to-end values, the set-up, the traced stretch and the
+breakdown are its own.  The ranks' outcomes merge (``world.merge``):
+``failed`` summed, each compared number at its worst, the largest peak
+memory; the forbidden modules of every rank count.  ``world.agree`` ends a
+window on the same step on every rank.  A rank that ends with another code
+than 0, or gives no outcome within ``world.GRACE_S`` seconds of rank 0's,
+ends the run with exit code 4 and no result.
 """
 
 import importlib.util

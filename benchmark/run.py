@@ -18,9 +18,22 @@ compared number with its limit, also the last lines on standard error.
 the program's place (the cell's traffic runner names the modes); it is for
 setting the limits and is not part of a benchmark run.
 
+A cell on more than one card runs as a world of one process per card
+(``gsbench/world.py``): this process is rank 0, which measures (its host
+clock, its set-up, its profiler, its end-to-end values and breakdown), and
+it starts ranks 1..N-1 on ``cuda:1``..``cuda:N-1`` with the launcher's
+environment the program reads; each runs the cell's runner untraced, and
+the program joins its own group.  The result merges the ranks: ``failed``
+summed, each compared number at its worst over the ranks, the largest
+peak memory (``device.memory_peak_bytes``, the fullest card), the
+forbidden modules of every rank.  A one-card cell starts no process.
+
 Exits 2 without a result when CUDA is missing or has fewer devices than
-the cell asks for, and 3 when a module of JAX or the JAX package was
-loaded.
+the cell asks for, 3 when a module of JAX or the JAX package was loaded
+(in any rank), and 4 when a rank other than 0 exits with another code
+than 0, or gives no outcome within ``world.GRACE_S`` seconds of rank 0's:
+every rank is killed and the rank's exit code and last lines are on
+standard error.
 """
 
 import time
@@ -60,6 +73,46 @@ def device_info(torch, chips, trace, outcome):
     return info
 
 
+def measure(cell, args, chips, device_type="cuda", root=harness.ROOT):
+    """(the run's outcome, the forbidden modules its processes loaded)."""
+    if chips == 1:
+        import torch
+        runner = harness.load_runner(cell.traffic["runner"], root)
+        outcome = runner.run(cell, seed=args.seed, seconds=args.seconds,
+                             trace=bool(args.trace),
+                             device=torch.device(device_type), t0=T0,
+                             control=args.control)
+        return outcome, harness.forbidden_modules()
+    from gsbench import world
+    outcome, found = world.run(cell, chips, seed=args.seed,
+                               seconds=args.seconds, trace=bool(args.trace),
+                               control=args.control, t0=T0,
+                               device_type=device_type, root=root)
+    return outcome, sorted(set(found) | set(harness.forbidden_modules()))
+
+
+def report(cell, args, outcome, found, device):
+    """Print the result line (last on standard output) and the checks (last
+    on standard error); -> the exit code."""
+    if found:
+        print(f"the measured processes loaded forbidden modules: {found}",
+              file=sys.stderr)
+        return 3
+    line, judged = harness.result_line(cell, outcome, args.trace, device,
+                                       control=args.control is not None)
+    st = outcome.record.stretch
+    if args.trace and st is not None and st.units:
+        print("device_ms_per_unit " + json.dumps(
+            {k: v / st.units for k, v in st.ms_by_family().items()}),
+            file=sys.stderr)
+    for name, value, limit, ok in judged:
+        print(f"check {name}: {value!r} limit {limit!r} "
+              f"{'ok' if ok else 'FAILED'}", file=sys.stderr)
+    sys.stdout.flush()
+    print(json.dumps(line))
+    return 0
+
+
 def main(argv=None):
     args = parse(argv)
     cell = harness.load_cell(args.workload)
@@ -72,33 +125,12 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     harness.cache_dirs()
-    # load from one process with few threads: the program's host work in
-    # the window is launches and small copies
+    # load from one process a card with few threads: the program's host
+    # work in the window is launches and small copies
     torch.set_num_threads(1)
-    runner = harness.load_runner(cell.traffic["runner"])
-    outcome = runner.run(cell, seed=args.seed, seconds=args.seconds,
-                         trace=bool(args.trace), device=torch.device("cuda"),
-                         t0=T0, control=args.control)
-    found = harness.forbidden_modules()
-    if found:
-        print(f"the measured process loaded forbidden modules: {found}",
-              file=sys.stderr)
-        return 3
-    line, judged = harness.result_line(
-        cell, outcome, args.trace,
-        device_info(torch, chips, args.trace, outcome),
-        control=args.control is not None)
-    st = outcome.record.stretch
-    if args.trace and st is not None and st.units:
-        print("device_ms_per_unit " + json.dumps(
-            {k: v / st.units for k, v in st.ms_by_family().items()}),
-            file=sys.stderr)
-    for name, value, limit, ok in judged:
-        print(f"check {name}: {value!r} limit {limit!r} "
-              f"{'ok' if ok else 'FAILED'}", file=sys.stderr)
-    sys.stdout.flush()
-    print(json.dumps(line))
-    return 0
+    outcome, found = measure(cell, args, chips)
+    return report(cell, args, outcome, found,
+                  device_info(torch, chips, args.trace, outcome))
 
 
 if __name__ == "__main__":
