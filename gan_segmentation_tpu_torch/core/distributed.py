@@ -21,6 +21,14 @@ over gloo).  gloo has no ``ReduceOp.AVG``: a mean is a sum, divided.
 - ``allreduce_mean_``: tensors averaged in place through one flat buffer
   (the gradients of a step: one collective).
 - ``broadcast_str``: the primary's string (the run dir) to every process.
+
+Every ``all_reduce`` of the port goes through ``all_reduce`` here, which
+counts it in ``counters`` where it is issued: ``distributed.allreduce.calls``
+and ``distributed.allreduce.bytes`` (the reduced tensor's).  An eager call
+counts, and so does the recording of one into a CUDA graph's capture
+(``core/graphs.py::GraphedCall.collectives`` keeps what a capture holds); a
+replay runs the recorded collectives without Python and moves no counter,
+as a kernel wrapper's ``launches`` behave.
 """
 
 import gc
@@ -31,6 +39,18 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# the all-reduces this process issued (``all_reduce``)
+counters = {"distributed.allreduce.calls": 0, "distributed.allreduce.bytes": 0}
+
+
+def all_reduce(t: torch.Tensor, grp) -> torch.Tensor:
+    """Sum ``t`` over ``grp`` in place, counted in ``counters``; -> ``t``."""
+    counters["distributed.allreduce.calls"] += 1
+    counters["distributed.allreduce.bytes"] += t.numel() * t.element_size()
+    dist.all_reduce(t, group=grp)
+    return t
+
 
 def free_port() -> int:
     """A port free on this host now, for a rendezvous on ``127.0.0.1``."""
@@ -124,8 +144,7 @@ def any_flag(flag: bool, grp=None) -> bool:
         return bool(flag)
     t = torch.tensor([int(bool(flag))], dtype=torch.int32,
                      device=comm_device(grp))
-    dist.all_reduce(t, group=grp)
-    return bool(t.item())
+    return bool(all_reduce(t, grp).item())
 
 
 def barrier(grp=None) -> None:
@@ -146,8 +165,7 @@ def allreduce_sum(tree, grp=None):
     arr = np.asarray(tree)
     t = torch.from_numpy(np.ascontiguousarray(arr).copy()).to(
         comm_device(grp))
-    dist.all_reduce(t, group=grp)
-    out = t.cpu().numpy().astype(arr.dtype, copy=False)
+    out = all_reduce(t, grp).cpu().numpy().astype(arr.dtype, copy=False)
     return out if isinstance(tree, np.ndarray) else out[()]
 
 
@@ -158,8 +176,7 @@ def allreduce_mean_(tensors: Sequence[torch.Tensor], grp) -> None:
     tensors = [t for t in tensors if t is not None]
     if grp is None or not tensors:
         return
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=grp)
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in tensors]), grp)
     flat.div_(size_of(grp))
     torch._foreach_copy_(tensors, [v.view_as(t) for v, t in zip(
         flat.split([t.numel() for t in tensors]), tensors)])

@@ -22,7 +22,9 @@ and returns its outputs (a tensor, or lists, tuples and dicts of them).
   calling a wrapper, so it moves no counter.  ``deltas`` keeps how many
   launches of each wrapper the capture recorded and ``replays`` how often
   the graph ran; what the card ran is read from a device trace
-  (``chip_smoke.py``).
+  (``chip_smoke.py``).  ``collectives`` keeps, the same way, the
+  all-reduces the capture recorded (``core/distributed.py::counters``:
+  calls and bytes), which every replay runs again.
 - Spans (``utils/profiling.py``): a call runs inside ``gst.graph.eager``
   (on a CPU device, and the warm-up calls), ``gst.graph.capture`` or
   ``gst.graph.replay``.
@@ -49,6 +51,7 @@ from ..kernels.quantize import quantize_s8
 from ..kernels.small_conv import (conv3x3_small, conv3x3_small_rows,
                                   conv3x3_small_s8)
 from ..utils.profiling import span
+from . import distributed
 
 # the kernel wrappers whose launches a capture records (``deltas``): kernels
 # 1-3, int8 generation's s8 bodies and quantize pass, the row-band forms of
@@ -106,6 +109,7 @@ class GraphedCall:
         self.graph = None
         self.outputs = None
         self.deltas: Dict[Callable, int] = {}
+        self.collectives: Dict[str, int] = {}
         self.spans = [d for d in dict.fromkeys(map(torch.device, spans))
                       if d != self.device]
         if any(d.type != self.device.type for d in self.spans):
@@ -123,9 +127,12 @@ class GraphedCall:
                 return self._warm()
         if self.graph is None:
             before = launch_counts()
+            held = dict(distributed.counters)
             with span("gst.graph.capture"):
                 self.outputs = self._capture()
             self.deltas = {fn: fn.launches - n for fn, n in before.items()}
+            self.collectives = {k: n - held[k]
+                                for k, n in distributed.counters.items()}
         with span("gst.graph.replay"):
             self._replay()
         self.calls += 1

@@ -29,6 +29,8 @@ the processes' means the global mean.
 import torch
 import torch.distributed as dist
 
+from ..core.distributed import all_reduce
+
 
 def _per_pixel_ce(logits, labels):
     """-log softmax(logits) picked at the clipped labels."""
@@ -50,9 +52,7 @@ def softmax_ce_with_ignore(logits, labels, ignore_label: int = -1):
 
 def _global_sum(value, group):
     """``value`` summed over ``group``'s processes, outside autograd."""
-    total = value.detach().clone()
-    dist.all_reduce(total, group=group)
-    return total
+    return all_reduce(value.detach().clone(), group)
 
 
 def softmax_ce_valid_norm(logits, labels, ignore_label: int = -1,

@@ -26,9 +26,10 @@
 """
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from ..core.distributed import all_reduce as _all_reduce
 
 
 def pixel_norm(x, eps: float = 1e-8, dim: int = -1):
@@ -50,11 +51,6 @@ def instance_norm(x, eps: float = 1e-5):
     mean = xf.mean(dim=(1, 2))
     var = (xf * xf).mean(dim=(1, 2)) - mean * mean
     return instance_norm_apply(x, mean, var, eps)
-
-
-def _all_reduce(t, group):
-    dist.all_reduce(t, group=group)
-    return t
 
 
 class GlobalBatchNorm(torch.autograd.Function):

@@ -94,6 +94,7 @@ from ..models.deeplab import HEAD_LR_MULT, head_param_groups
 from ..models.resnet import set_process_group
 from ..ops.losses import seg_loss_with_aux
 from ..ops.resize import bilinear_resize
+from ..utils.profiling import span
 from ..utils.viz import visualize_mask
 
 log = logging.getLogger(__name__)
@@ -276,7 +277,8 @@ class GraphedTrainStep:
                           dropout_u=list(rest[n_depth:]), **self.kw)
 
     def __call__(self, images, masks, depth=None):
-        uniforms = self.model.draw_dropout(images.shape, self.generator)
+        with span("gst.dl.draw"):
+            uniforms = self.model.draw_dropout(images.shape, self.generator)
         self.model.train()
         out = self.fn(images, masks, *([] if depth is None else [depth]),
                       *uniforms)
@@ -549,19 +551,25 @@ class SegmentationTrainer:
         """One train step on a host batch (``batch_iter``'s stacks) -> (loss,
         logits of the main head) on the device.  Graphed: the batch goes
         through pinned memory to the step's static inputs without a wait,
-        and the outputs are the graph's, which the next step overwrites."""
-        if not self.graphed:
-            images, depth = self._inputs(imgs)
-            labels = self._upload(self._feed(masks,
-                                             self.trainset.num_class))
-            return train_step(
-                self.model, self.optimizer, self.scheduler, images, labels,
-                self.generator, aux_weight=self.aux_weight,
-                dtype=self.compute_dtype, depth=depth,
-                criterion=self.criterion, group=self.group)
-        out = self._train_graph(*self._stage.put(self._host(imgs, masks)))
-        self._stage.release()
-        return out
+        and the outputs are the graph's, which the next step overwrites.
+        Spans: ``gst.dl.step`` holding ``gst.dl.stage`` (graphed: the
+        pinned staging, with its wait for a free slot) and the graphed
+        step's ``gst.dl.draw`` and ``gst.graph.*``."""
+        with span("gst.dl.step"):
+            if not self.graphed:
+                images, depth = self._inputs(imgs)
+                labels = self._upload(self._feed(masks,
+                                                 self.trainset.num_class))
+                return train_step(
+                    self.model, self.optimizer, self.scheduler, images,
+                    labels, self.generator, aux_weight=self.aux_weight,
+                    dtype=self.compute_dtype, depth=depth,
+                    criterion=self.criterion, group=self.group)
+            with span("gst.dl.stage"):
+                staged = self._stage.put(self._host(imgs, masks))
+            out = self._train_graph(*staged)
+            self._stage.release()
+            return out
 
     # -------------------------------------------------------------- training
     def training(self, epoch: int, log_interval: int = 25,
@@ -766,7 +774,7 @@ class SegmentationTrainer:
         rows = torch.zeros((self._pc, mine.numel()), dtype=torch.int64,
                            device=dist_.comm_device(self.group))
         rows[self._pi] = mine.to(rows.device, torch.int64)
-        torch.distributed.all_reduce(rows, group=self.group)
+        dist_.all_reduce(rows, self.group)
         return [r.to("cpu", torch.uint8) for r in rows]
 
     def save_resume_bundle(self, epoch: int, next_iter: int):

@@ -21,7 +21,10 @@ inside on the same thread:
   (``core/graphs.py::GraphedCall``);
 - ``gst.fit.epoch`` (``SegSolver._graphed_epochs``' epoch) holding
   ``gst.fit.stage`` (its order and indices) and one ``gst.fit.step`` a
-  step.
+  step;
+- ``gst.dl.step`` (``SegmentationTrainer.step``) holding ``gst.dl.stage``
+  (the host batch into pinned memory) and, graphed, ``gst.dl.draw``
+  (``GraphedTrainStep``'s dropout draws) before the graph's call.
 
 What each span answers for an operator, and which benchmark metric reads
 it, is listed in the README ("Tracing a run").

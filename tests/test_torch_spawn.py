@@ -300,3 +300,156 @@ def runner(rank, world, root, exp_path):
         "--workers", "1"], exp_path=exp_path)
     return {"run_path": str(trainer.args.run_path),
             "world": (trainer._pi, trainer._pc), "ngpus": trainer.args.ngpus}
+
+
+# ------------------------------------------------------ global batch norm
+SYNC_CROP = 32
+SYNC_SEED = 11
+
+
+def sync_ref():
+    """The benchmark's plain reference of the DeepLab cell
+    (``benchmark/configs/deeplab_sync_ref.py``: plain torch)."""
+    import importlib.util
+
+    path = (Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+            / "deeplab_sync_ref.py")
+    spec = importlib.util.spec_from_file_location("deeplab_sync_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sync_inputs(batch: int, crop: int = SYNC_CROP):
+    """Seeded uint8 crops, labels with an ignored band and the two dropout
+    draws (NHWC at output stride 8) of a global batch.  Each crop is a
+    4 x 4 grid of random colours, each colour a block, plus noise: crops
+    that differ in their global content, as photographs do (over crops of
+    noise alone the ASPP's pooled branch reads one value per channel, and
+    its batch norm's variance is round-off)."""
+    rng = np.random.RandomState(3)
+    grid = (rng.uniform(0, 255, (batch, 4, 4, 3))
+            * np.linspace(0.2, 1.0, batch)[:, None, None, None])
+    blocks = grid.repeat(crop // 4, axis=1).repeat(crop // 4, axis=2)
+    images = np.clip(blocks + rng.normal(0, 16, blocks.shape), 0,
+                     255).astype(np.uint8)
+    masks = rng.randint(0, 2, (batch, crop, crop)).astype(np.int8)
+    masks[:, -3:] = -1
+    s = crop // 8
+    uniforms = [rng.uniform(size=(batch, s, s, 256)).astype(np.float32)
+                for _ in range(2)]
+    return images, masks, uniforms
+
+
+def sync_model(crop: int = SYNC_CROP):
+    """DeepLabV3+ over resnet50 at every published width, seeded."""
+    import torch
+
+    from gan_segmentation_tpu_torch.models.deeplab import DeepLabV3Plus
+    return DeepLabV3Plus(2, "resnet50", aux=True, crop_size=crop,
+                         generator=torch.Generator().manual_seed(SYNC_SEED))
+
+
+def sync_gaps(ref, before, after, grads, losses, want, rows):
+    """The program's step against the reference's (``train_step``'s
+    result) on the whole batch: the loss of the samples ``rows`` (relative),
+    and for the gradients, the update and the running statistics the
+    worst leaf's norm of the difference over the larger of its and the
+    median leaf's reference norm, and the whole model's."""
+    per_sample, ref_grads, ref_after, _ = want
+    model = {"layers": [3, 4, 6, 3], "stem_width": 64, "in_channels": 3,
+             "atrous_rates": [12, 24, 36], "nclass": 2, "aux": True}
+    names = ref.trainable(model)
+    stats = [k for k in before if k.endswith(("running_mean",
+                                              "running_var"))]
+
+    def gaps(got, wanted, leaves):
+        norms = {k: float(wanted[k].norm()) for k in leaves}
+        med = float(np.median(list(norms.values())))
+        worst = max(float((got[k] - wanted[k]).norm()) / max(norms[k], med)
+                    for k in leaves)
+        whole = (sum(float((got[k] - wanted[k]).square().sum())
+                     for k in leaves)
+                 / sum(float(wanted[k].square().sum()) for k in leaves))
+        return worst, whole ** 0.5
+
+    ref_loss = float(per_sample[rows].mean())
+    return {"loss": abs(losses - ref_loss) / abs(ref_loss),
+            "grad": gaps(grads, ref_grads, names),
+            "update": gaps({k: after[k] - before[k] for k in names},
+                           {k: ref_after[k] - before[k] for k in names},
+                           names),
+            "stats": gaps({k: after[k] - before[k] for k in stats},
+                          {k: ref_after[k] - before[k] for k in stats},
+                          stats)}
+
+
+SYNC_HYPER = {"base_lr": 0.005, "power": 0.9, "wd": 2e-4, "momentum": 0.9,
+              "head_lr_mult": 10.0, "aux_weight": 0.5, "total_steps": 25000}
+
+
+def deeplab_sync(rank, world, images, masks, uniforms):
+    """One eager ``train_step`` of the seeded resnet50 DeepLabV3+ on this
+    rank's share of the global batch, batch norm over the world's gloo
+    group, the gradients averaged; its gaps to the reference's step on the
+    whole batch (every rank computes it), and the all-reduces it issued.
+    Then one more step under a stand-in of a card's ``GraphedCall``
+    (its capture runs the step, its replays run nothing, as a CUDA graph's
+    replay runs no Python) and two replays: what the capture holds and
+    what the replays moved."""
+    import torch
+
+    from gan_segmentation_tpu_torch.core import distributed as dist_
+    from gan_segmentation_tpu_torch.core import graphs
+    from gan_segmentation_tpu_torch.models.resnet import set_process_group
+    from gan_segmentation_tpu_torch.train import deeplab_trainer as T
+
+    grp = dist_.group()
+    model = sync_model()
+    set_process_group(model, grp)
+    per = len(images) // world
+    rows = slice(rank * per, (rank + 1) * per)
+    mine = (torch.from_numpy(images[rows]), torch.from_numpy(masks[rows]))
+    u = [torch.from_numpy(x[rows]) for x in uniforms]
+    opt, sch = T.make_optimizer(model, SYNC_HYPER["base_lr"],
+                                SYNC_HYPER["total_steps"], SYNC_HYPER["wd"],
+                                SYNC_HYPER["momentum"])
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    counted = dict(dist_.counters)
+    loss, _ = T.train_step(model, opt, sch, *mine, dropout_u=u, group=grp)
+    step_calls = {k: dist_.counters[k] - counted[k] for k in counted}
+    after = model.state_dict()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    ref = sync_ref()
+    want = ref.train_step(before, {
+        "layers": [3, 4, 6, 3], "stem_width": 64, "in_channels": 3,
+        "atrous_rates": [12, 24, 36], "nclass": 2, "aux": True},
+        SYNC_HYPER, torch.from_numpy(images), torch.from_numpy(masks),
+        [torch.from_numpy(x).permute(0, 3, 1, 2) for x in uniforms], 0)
+    out = {"gaps": sync_gaps(ref, before, after, grads, float(loss), want,
+                             rows),
+           "step_calls": step_calls,
+           "bn_channels": [m.num_features for m in model.modules()
+                           if isinstance(m, torch.nn.BatchNorm2d)],
+           "parameters": sum(p.numel() for p in model.parameters())}
+
+    class StandIn(graphs.GraphedCall):
+        def _capture(self):
+            self.graph = "captured"
+            return self.fn()
+
+        def _replay(self):
+            pass
+
+    call = StandIn(lambda: T.train_step(model, opt, None, *mine,
+                                        dropout_u=u, group=grp),
+                   "cuda", warmup=0)
+    counted = dict(dist_.counters)
+    call()
+    captured = {k: dist_.counters[k] - counted[k] for k in counted}
+    counted = dict(dist_.counters)
+    call()
+    call()
+    out.update(captured=captured, held=dict(call.collectives),
+               replayed={k: dist_.counters[k] - counted[k] for k in counted})
+    return out
